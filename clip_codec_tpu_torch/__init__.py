@@ -1,0 +1,20 @@
+"""clip_codec_tpu_torch — the PyTorch + CUDA port of ``clip_codec_tpu`` for NVIDIA Hopper.
+
+The JAX package stays the reference; this package mirrors its module names
+and holds its decompress path: ``.clp`` frames (``io``) -> dequantized,
+L2-normalized CLIP codes (``codecs``) -> DDIM (``diffusion``) over the
+FiLM U-Net (``models``), whose 3x3 convs run in a hand-written CUDA kernel
+(``ops.resblock_conv``, ``csrc/affine_conv3x3.cu``). It imports ``torch`` and
+never ``jax``.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy exports, so ``--help`` paths import nothing heavy."""
+    if name == "ClipCodec":
+        from .codec import ClipCodec
+
+        return ClipCodec
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
