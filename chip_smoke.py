@@ -21,6 +21,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    shape, and the kernels must have launched exactly 29 x 50 x batches
    times in those requests.
 
+The SD-1.5 latent path (``models/sd``, ``cli/reconstruct_sd_diffusion.py``):
+
+5. build flash attention (csrc/flash_attention.cu) and the fused
+   transformer MLP (csrc/transformer_mlp.cu); all three sources are
+   compiled at once, one nvcc each, when the run starts;
+6. each kernel against its plain version on the card in bf16 at the shapes
+   of SD-1.5 at 512px with CFG batched, for requests of one embedding (UNet
+   batch 2) and of four (batch 8): flash attention at (BH, N, D) =
+   (16|64, 4096, 40), (16|64, 1024, 80), (1|4, 4096, 512), normal and
+   extreme logits, out within rtol = atol = 2e-2 and lse within 1e-3; the
+   MLP at (R, C, F) = (8192|32768, 320, 1280), (2048|8192, 640, 2560),
+   (512|2048, 1280, 5120), (128|512, 1280, 5120) within rtol = atol = 2e-2,
+   with the kernel's split count, which must be 1 at some shape and more
+   at another; ms of kernel, of the kernel with one split, and of plain;
+7. one forward of the SD-1.5 UNet (random weights from --seed, bf16,
+   64x64 latents, batch 2, a (2, 8, 768) context) and one VAE decode at
+   512px, each through the kernels, through the plain versions and through
+   the plain versions in fp32: kernel vs plain relative difference < 2e-2,
+   the kernel path at most 1.1x as far from fp32 as the plain path, 10
+   flash + 16 MLP launches per UNet forward and 1 flash launch per decode;
+8. serving: the UNet, VAE and adapter are saved as diffusers-layout .pt
+   files, reloaded through the SD CLI's loader, and answer three requests
+   of one embedding and one of four at 512px, dpmpp-10, guidance 5, CFG
+   batched. Outputs must be finite and of the right shape, and the kernels
+   must have launched steps x (10, 16) per forward plus 1 flash per decode.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result. Nothing of JAX is imported.
@@ -34,16 +60,34 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SRC = "clip_codec_tpu_torch/csrc/affine_conv3x3.cu"
 REPLACES = "clip_codec_tpu/ops/pallas_resblock.py:72"
 # (H, W, Cin, Cout) of every fused conv of the full-width U-Net at 256px.
 RESBLOCK_SHAPES = [(256, 256, 128, 128), (128, 128, 128, 128), (64, 64, 256, 256), (32, 32, 512, 512)]
 HEAD_SHAPE = (256, 256, 128, 3)
 LAUNCHES_PER_FORWARD = 29  # 14 ResBlocks x 2 + the head
 SIZE, STEPS = 256, 50
+
+CSRC = "clip_codec_tpu_torch/csrc"
+KERNELS = {  # name -> (library, TPU kernel it replaces)
+    "affine_silu_conv3x3": ("affine_conv3x3", REPLACES),
+    "affine_conv3x3": ("affine_conv3x3", REPLACES),
+    "flash_attention": ("flash_attention", "clip_codec_tpu/ops/pallas_attention.py:63"),
+    "transformer_mlp": ("transformer_mlp", "clip_codec_tpu/ops/pallas_mlp.py:78"),
+}
+# SD-1.5 at 512px (64x64 latents), CFG batched: UNet batch 2 for a request of
+# one embedding (VAE batch 1), 8 for a request of four (VAE batch 4).
+FLASH_SHAPES = [(16, 4096, 40), (16, 1024, 80), (1, 4096, 512),
+                (64, 4096, 40), (64, 1024, 80), (4, 4096, 512)]  # (BH, N, D)
+MLP_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120),
+              (32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120)]  # (R, C, F)
+SD_FLASH_PER_FORWARD, SD_MLP_PER_FORWARD = 10, 16
+FP32_RATIO = 1.1  # kernel path's distance from fp32, at most this x the plain path's
+SD_SIZE, SD_STEPS, SD_GUIDANCE = 512, 10, 5.0
+SD_REQUESTS = (1, 1, 1, 4)  # embeddings per request
 
 
 class PhaseError(RuntimeError):
@@ -93,16 +137,33 @@ def reset_launches(rc) -> None:
     rc.affine_conv3x3.launches = 0
 
 
-def phase_build(torch):
+def start_builds():
+    """Compile every kernel library at once, one nvcc each; returns
+    name -> future of (library path, seconds from the start)."""
     from clip_codec_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("affine_conv3x3")
-    dt = time.perf_counter() - t0
-    print(f"build: {lib.name} in {dt:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+
+    def one(name):
+        return _build.build(name), time.perf_counter() - t0
+
+    names = sorted({lib for lib, _ in KERNELS.values()})
+    pool = ThreadPoolExecutor(max_workers=len(names))
+    futures = {name: pool.submit(one, name) for name in names}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_build(builds, names=("affine_conv3x3",)):
+    for name in names:
+        try:
+            lib, dt = builds[name].result()
+        except RuntimeError as e:
+            raise PhaseError(f"build of {name}.cu failed: {e}") from e
+        print(f"build: {lib.name} in {dt:.2f} s")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def _inputs(torch, gen, B, H, W, cin, cout, dev):
@@ -269,6 +330,246 @@ def phase_serve(torch, rc, net, seed, dev, card):
     return launches
 
 
+# ------------------------------------------------------------ the SD path
+
+
+def reset_sd_launches(attn, mlp) -> None:
+    attn.flash_attention_fwd.launches = 0
+    mlp.transformer_mlp.launches = 0
+
+
+@contextlib.contextmanager
+def plain_sd_kernels(attn, mlp):
+    """Route the SD blocks' two kernel entry points to their plain versions."""
+    saved = attn.flash_attention_fwd, mlp.transformer_mlp
+
+    def mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo, packed=None):
+        return mlp.mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo)
+
+    attn.flash_attention_fwd, mlp.transformer_mlp = attn.flash_attention_plain, mlp_plain
+    try:
+        yield
+    finally:
+        attn.flash_attention_fwd, mlp.transformer_mlp = saved
+
+
+def _randn(torch, gen, shape, dev, scale=1.0, dtype=None):
+    x = torch.randn(shape, generator=gen, device=dev) * scale
+    return x if dtype is None else x.to(dtype)
+
+
+def phase_sd_kernels(torch, attn, mlp, seed, dev):
+    """Flash attention and the fused MLP against their plain versions at the
+    SD-1.5 512px shapes, bf16; returns per-kernel records."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    bf = torch.bfloat16
+    rec = {"flash_attention": {"max_abs_err": 0.0}, "transformer_mlp": {"max_abs_err": 0.0}}
+    for BH, N, D in FLASH_SHAPES:
+        for q_scale in (1.0, 30.0):
+            q = _randn(torch, gen, (BH, N, D), dev, q_scale, bf)
+            k, v = (_randn(torch, gen, (BH, N, D), dev, 1.0, bf) for _ in range(2))
+            out, lse = attn.flash_attention_fwd(q, k, v)
+            ref, lse_ref = attn.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            ok = bool(((out.float() - ref.float()).abs() <= 2e-2 + 2e-2 * ref.float().abs()).all().item())
+            tag = f"flash_attention (BH, N, D)=({BH}, {N}, {D}) {'extreme' if q_scale > 1 else 'normal'} logits"
+            line = f"kernel-check: {tag} max_abs_err={err:.3e} lse_abs_err={lse_err:.3e}"
+            if q_scale == 1.0:
+                k_ms = cuda_ms(torch, lambda: attn.flash_attention_fwd(q, k, v))
+                p_ms = cuda_ms(torch, lambda: attn.flash_attention_plain(q, k, v), iters=5)
+                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+                tflops = 4 * BH * N * N * D / 1e9 / k_ms
+                line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} sdpa_library_not_plain_ms={lib_ms:.4f}"
+                         f" kernel_TFLOPs={tflops:.1f}")
+                if (BH, N, D) == FLASH_SHAPES[0]:
+                    rec["flash_attention"].update(ms=k_ms, plain_ms=p_ms, timed_at=tag)
+            print(line)
+            check(ok, f"{tag}: out outside rtol=atol=2e-2 (max abs err {err})")
+            check(lse_err <= 1e-3, f"{tag}: lse abs err {lse_err} > 1e-3")
+            rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
+    splits_seen = set()
+    for R, C, Fh in MLP_SHAPES:
+        x = _randn(torch, gen, (R, C), dev, 1.0, bf)
+        lns, lnb = 1 + _randn(torch, gen, (C,), dev, 0.1), _randn(torch, gen, (C,), dev, 0.1)
+        wh, wg = (_randn(torch, gen, (C, Fh), dev, C ** -0.5) for _ in range(2))
+        bh, bg = (_randn(torch, gen, (Fh,), dev, 0.1) for _ in range(2))
+        wo = _randn(torch, gen, (Fh, C), dev, Fh ** -0.5)
+        packed = mlp.pack_weights(wh, wg, wo)
+        args = (x, lns, lnb, wh, bh, wg, bg, wo)
+        splits = mlp.kernel_splits(R, C, Fh, dev)
+        splits_seen.add(splits)
+        y = mlp.transformer_mlp(*args, packed=packed)
+        ref = mlp.mlp_plain(*args)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        ok = bool(((y.float() - ref.float()).abs() <= 2e-2 + 2e-2 * ref.float().abs()).all().item())
+        k_ms = cuda_ms(torch, lambda: mlp.transformer_mlp(*args, packed=packed))
+        # the kernel with one split, whatever it chose: the evidence for its rule
+        one_ms = cuda_ms(torch, lambda: mlp._launch(x, lns, lnb, bh, bg, packed, splits=1))
+        p_ms = cuda_ms(torch, lambda: mlp.mlp_plain(*args), iters=5)
+        wgeglu = torch.cat([wh, wg], dim=1).t().to(bf).contiguous()
+        who, lnw, lnbb = wo.t().to(bf).contiguous(), lns.to(bf), lnb.to(bf)
+
+        def unfused():
+            a, g = F.linear(F.layer_norm(x, (C,), lnw, lnbb, 1e-6), wgeglu).chunk(2, dim=-1)
+            return F.linear(a * F.gelu(g), who)
+
+        lib_ms = cuda_ms(torch, unfused)
+        tflops = 6 * R * C * Fh / 1e9 / k_ms
+        tag = f"transformer_mlp (R, C, F)=({R}, {C}, {Fh}) splits={splits}"
+        print(f"kernel-check: {tag} max_abs_err={err:.3e} ms={k_ms:.4f} one_split_ms={one_ms:.4f} "
+              f"plain_ms={p_ms:.4f} cublas_unfused_library_not_plain_ms={lib_ms:.4f} "
+              f"kernel_TFLOPs={tflops:.1f}")
+        check(ok, f"{tag}: y outside rtol=atol=2e-2 (max abs err {err})")
+        rec["transformer_mlp"]["max_abs_err"] = max(rec["transformer_mlp"]["max_abs_err"], err)
+        if (R, C, Fh) == MLP_SHAPES[0]:
+            rec["transformer_mlp"].update(ms=k_ms, plain_ms=p_ms, timed_at=tag)
+    # both epilogues (bf16 from registers; fp32 partials + the sum kernel)
+    check(1 in splits_seen and max(splits_seen) > 1, f"MLP shapes ran splits {sorted(splits_seen)}: "
+          "the one-split and the split form must both be checked")
+    return rec
+
+
+def sd_models(torch, seed, dev):
+    from clip_codec_tpu_torch.models import init_params
+    from clip_codec_tpu_torch.models.sd import SD15_UNET, SD15_VAE, AutoencoderKL, SDClipAdapter, SDUNet
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    with torch.device(dev):
+        unet = SDUNet(SD15_UNET, dtype=torch.bfloat16)
+        vae = AutoencoderKL(SD15_VAE, dtype=torch.bfloat16)
+        adapter = SDClipAdapter(512, SD15_UNET.cross_dim, 1024, 8)
+    return [init_params(m, gen).eval() for m in (unet, vae, adapter)]
+
+
+def phase_sd_forward(torch, attn, mlp, unet, vae, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    lat = torch.randn((2, 64, 64, 4), generator=gen, device=dev)
+    t = torch.tensor([981, 401], dtype=torch.int32, device=dev)
+    ctx = torch.randn((2, 8, 768), generator=gen, device=dev)
+    z = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+    with torch.no_grad():
+        reset_sd_launches(attn, mlp)
+        eps_k = unet(lat, t, ctx).float()
+        n_fwd = (attn.flash_attention_fwd.launches, mlp.transformer_mlp.launches)
+        reset_sd_launches(attn, mlp)
+        img_k = vae.decode(z).float()
+        n_dec = (attn.flash_attention_fwd.launches, mlp.transformer_mlp.launches)
+        with plain_sd_kernels(attn, mlp):
+            eps_p = unet(lat, t, ctx).float()
+            img_p = vae.decode(z).float()
+            # The same weights in fp32 on the plain versions: how far each
+            # bf16 path is from it says how large bf16's own noise is here.
+            unet.compute_dtype = vae.compute_dtype = torch.float32
+            try:
+                eps_32, img_32 = unet(lat, t, ctx), vae.decode(z)
+            finally:
+                unet.compute_dtype = vae.compute_dtype = torch.bfloat16
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(torch, lambda: unet(lat, t, ctx), iters=5, warmup=1)
+        d_ms = cuda_ms(torch, lambda: vae.decode(z), iters=3, warmup=1)
+        with plain_sd_kernels(attn, mlp):
+            p_ms = cuda_ms(torch, lambda: unet(lat, t, ctx), iters=5, warmup=1)
+            dp_ms = cuda_ms(torch, lambda: vae.decode(z), iters=3, warmup=1)
+    def rel_to(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    rel, rel_d = rel_to(eps_k, eps_p), rel_to(img_k, img_p)
+    u32 = rel_to(eps_k, eps_32), rel_to(eps_p, eps_32)
+    v32 = rel_to(img_k, img_32), rel_to(img_p, img_32)
+    print(f"sd-unet-forward: SD-1.5 64x64 latents B=2 bf16 rel_err={rel:.3e} launches(flash, mlp)={n_fwd} "
+          f"kernel_path_ms={k_ms:.3f} plain_path_ms={p_ms:.3f} to_fp32(kernel, plain)="
+          f"({u32[0]:.3e}, {u32[1]:.3e}) ratio={u32[0] / u32[1]:.4f}")
+    print(f"sd-vae-decode: SD-1.5 512px B=1 bf16 rel_err={rel_d:.3e} launches(flash, mlp)={n_dec} "
+          f"kernel_path_ms={d_ms:.3f} plain_path_ms={dp_ms:.3f} to_fp32(kernel, plain)="
+          f"({v32[0]:.3e}, {v32[1]:.3e}) ratio={v32[0] / v32[1]:.4f}")
+    check(bool(torch.isfinite(eps_k).all().item()), "SD UNet eps not finite")
+    check(tuple(eps_k.shape) == (2, 64, 64, 4), f"SD UNet eps shape {tuple(eps_k.shape)}")
+    check(bool(torch.isfinite(img_k).all().item()), "VAE decode not finite")
+    check(tuple(img_k.shape) == (1, SD_SIZE, SD_SIZE, 3), f"VAE decode shape {tuple(img_k.shape)}")
+    check(n_fwd == (SD_FLASH_PER_FORWARD, SD_MLP_PER_FORWARD), f"UNet forward launches {n_fwd}")
+    check(n_dec == (1, 0), f"VAE decode launches {n_dec}")
+    check(rel < 2e-2, f"SD UNet kernel vs plain path rel err {rel} >= 2e-2")
+    check(rel_d < 2e-2, f"VAE decode kernel vs plain path rel err {rel_d} >= 2e-2")
+    # Both bf16 paths sit at bf16's noise floor from each other, so the
+    # discriminating check is against fp32: the kernel path may be at most
+    # 10% further from it than the plain path.
+    check(u32[0] <= FP32_RATIO * u32[1], f"SD UNet: kernel path {u32[0]} from fp32 > {FP32_RATIO} x plain's {u32[1]}")
+    check(v32[0] <= FP32_RATIO * v32[1], f"VAE decode: kernel path {v32[0]} from fp32 > {FP32_RATIO} x plain's {v32[1]}")
+
+
+def sd_embeddings(seed, n):
+    """(n, 512) L2-normalised embeddings as the CLI reads them: through .clp
+    frames where zstandard is installed, else from the codes directly."""
+    import numpy as np
+
+    from clip_codec_tpu_torch.codecs.quantizer import dequantize_l2norm_host
+
+    rng = np.random.default_rng(seed + 5)
+    codes = rng.integers(0, 256, (n, 512), dtype=np.uint8)
+    scale = np.full(512, 2.0 / 255.0, np.float32)
+    zero = np.full(512, -1.0, np.float32)
+    try:
+        from clip_codec_tpu_torch.cli.reconstruct_diffusion import decode_embedding
+        from clip_codec_tpu_torch.io.bitstream import write_bitstream
+
+        store = ROOT / "build" / "chip_smoke" / "sd"
+        np.savez(store / "codec_meta.npz", scale=scale, zero=zero)
+        z = []
+        for i, row in enumerate(codes):
+            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
+            z.append(decode_embedding(store / f"img{i}.clp", store))
+        return np.concatenate(z)
+    except ImportError:
+        print("sd frames: skipped (no zstandard)")
+        return dequantize_l2norm_host(codes, scale, zero).astype(np.float32)
+
+
+def phase_sd_serve(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
+
+    store = ROOT / "build" / "chip_smoke" / "sd"
+    store.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # diffusers' fp16 layout for the frozen towers, the reference fp32 adapter
+    for name, mod, dt in (("unet", unet, torch.float16), ("vae", vae, torch.float16),
+                          ("adapter", adapter, torch.float32)):
+        torch.save({k: v.detach().to("cpu", dt) for k, v in mod.state_dict().items()}, store / f"{name}.pt")
+    t1 = time.perf_counter()
+    dec = cli.load_decoder(store / "unet.pt", store / "vae.pt", store / "adapter.pt", dev, heads=8)
+    t2 = time.perf_counter()
+    print(f"sd-serve: saved weights in {t1 - t0:.2f} s, loaded through the CLI's loader in {t2 - t1:.2f} s")
+    z_all = sd_embeddings(seed, sum(SD_REQUESTS))
+
+    torch.cuda.synchronize()
+    reset_sd_launches(attn, mlp)
+    times, s = [], 0
+    for n in SD_REQUESTS:
+        z = z_all[s:s + n]
+        s += n
+        t0 = time.perf_counter()
+        img = cli.sample_images(dec, z, SD_SIZE, steps=SD_STEPS, sampler="dpmpp", guidance=SD_GUIDANCE,
+                                seed=seed).float().cpu()
+        times.append(time.perf_counter() - t0)
+        check(tuple(img.shape) == (n, SD_SIZE, SD_SIZE, 3), f"SD request of {n}: output shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all().item()), f"SD request of {n}: non-finite output")
+    launches = {"flash_attention": attn.flash_attention_fwd.launches,
+                "transformer_mlp": mlp.transformer_mlp.launches}
+    for n, dt in zip(SD_REQUESTS, times):
+        print(f"sd-serve: request of {n} embedding(s) (CFG batched, UNet batch {2 * n}, dpmpp-{SD_STEPS}, "
+              f"guidance {SD_GUIDANCE}, {SD_SIZE}px) {dt:.3f} s on {card}")
+    print(f"sd-serve: {sum(SD_REQUESTS)} images in {sum(times):.3f} s = {sum(SD_REQUESTS) / sum(times):.3f} img/s "
+          f"on {card}; launches={launches}")
+    want = {"flash_attention": len(SD_REQUESTS) * (SD_STEPS * SD_FLASH_PER_FORWARD + 1),
+            "transformer_mlp": len(SD_REQUESTS) * SD_STEPS * SD_MLP_PER_FORWARD}
+    check(launches == want, f"SD kernel launches {launches} != {want}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -279,6 +580,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from clip_codec_tpu_torch.ops import attention as attn
+    from clip_codec_tpu_torch.ops import mlp
     from clip_codec_tpu_torch.ops import resblock_conv as rc
 
     dev = torch.device("cuda", 0)
@@ -291,19 +594,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     try:
-        phase_build(torch)
+        builds = start_builds()
+        phase_build(builds)
         records = phase_kernels(torch, rc, args.seed, dev)
         net = full_unet(torch, args.seed, dev)
         phase_forward(torch, rc, net, args.seed, dev)
         launches = phase_serve(torch, rc, net, args.seed, dev, card)
+        del net
+        torch.cuda.empty_cache()
+
+        phase_build(builds, ("flash_attention", "transformer_mlp"))
+        records.update(phase_sd_kernels(torch, attn, mlp, args.seed, dev))
+        unet, vae, adapter = sd_models(torch, args.seed, dev)
+        phase_sd_forward(torch, attn, mlp, unet, vae, args.seed, dev)
+        launches.update(phase_sd_serve(torch, attn, mlp, unet, vae, adapter, args.seed, dev, card))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
-    for name in ("affine_silu_conv3x3", "affine_conv3x3"):
+    for name, (lib, replaces) in KERNELS.items():
         r = records[name]
-        kernels.append({"name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
+        kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "timed_at": r["timed_at"]})
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,126 @@
+"""Reconstruct an image from a ``.clp`` bitstream through the frozen SD-1.5
+UNet and VAE and a trained CLIP adapter, with classifier-free guidance.
+
+    CLIP_CODEC_SD_UNET_WEIGHTS=unet/diffusion_pytorch_model.bin \\
+    CLIP_CODEC_SD_VAE_WEIGHTS=vae/diffusion_pytorch_model.bin \\
+    python -m clip_codec_tpu_torch.cli.reconstruct_sd_diffusion --store_dir STORE \\
+        --bitstream img.clp --adapter adapter.pt --sampler dpmpp --steps 10 \\
+        --inv_weight 0 --device cuda
+
+Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_sd_diffusion.py``).
+The UNet and VAE are diffusers checkpoints (``.bin``/``.pt``, or
+``.safetensors`` where the safetensors package is installed) and the adapter
+a reference ``.pt``; all load as they are, with no conversion (the card
+machine has no jax). The architecture is read off the weight shapes except
+the head count (``--heads``). ``--device`` is ``cpu`` or ``cuda``; ``cuda``
+without a card is an error. Not ported yet (see ``ROADMAP.md``): feature-
+inversion guidance, so ``--inv_weight`` must be 0 (its default stays the
+JAX CLI's 1.0), and ``--int8``. The default output name is
+``<stem>-<steps>-<guidance>-<inv_weight>.png`` beside the bitstream.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..models.sd import AutoencoderKL, SDClipAdapter, SDUNet, StableDiffusionDecoder
+from ..weights import sd_checkpoint as ckpt
+
+PathLike = Union[str, Path]
+N_TOKENS = 8
+
+
+def load_decoder(unet_path: PathLike, vae_path: PathLike, adapter_path: PathLike,
+                 device: Union[str, torch.device], heads: int = 8) -> StableDiffusionDecoder:
+    """The SD decoder from diffusers UNet/VAE files and a reference adapter
+    file, every state dict loaded with ``strict=True``. The modules are
+    built on ``device`` with fp32 parameters; the UNet and VAE compute in
+    bf16, as the JAX CLI's decoder does."""
+    device = torch.device(device)
+    usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
+    vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
+    asd = ckpt.adapter_state_dict(ckpt.read_checkpoint(adapter_path))
+    ucfg = ckpt.unet_config(usd, heads=heads)
+    in_dim, hidden = ckpt.adapter_dims(asd)
+    with torch.device(device):
+        unet = SDUNet(ucfg, dtype=torch.bfloat16)
+        vae = AutoencoderKL(ckpt.vae_config(vsd), dtype=torch.bfloat16)
+        adapter = SDClipAdapter(in_dim, ucfg.cross_dim, hidden, N_TOKENS)
+    unet.load_state_dict(usd, strict=True)
+    vae.load_state_dict(vsd, strict=True)
+    adapter.load_state_dict(asd, strict=True)
+    return StableDiffusionDecoder(unet, vae, adapter)
+
+
+def sample_images(dec: StableDiffusionDecoder, z: np.ndarray, size: int, steps: int = 30,
+                  sampler: str = "ddim", eta: float = 0.0, guidance: float = 5.0,
+                  seed: int = 0) -> torch.Tensor:
+    """(B, D) embeddings -> (B, size, size, 3) images in [-1, 1] (the VAE's
+    dtype), the initial latents drawn from a generator seeded with ``seed``."""
+    vcfg = dec.vae.cfg
+    f = 2 ** (len(vcfg.block_out) - 1)
+    dev = next(dec.unet.parameters()).device
+    shape = (z.shape[0], size // f, size // f, vcfg.latent_ch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return dec.sample(torch.from_numpy(np.asarray(z, np.float32)).to(dev), shape, steps=steps, eta=eta,
+                      guidance_scale=guidance, generator=gen, sampler=sampler)
+
+
+def _fmt_num(x: float) -> str:
+    return f"{x:g}"
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description="Reconstruct an image from a .clp bitstream via SD-1.5 + CFG.")
+    ap.add_argument("--store_dir", type=Path, required=True)
+    ap.add_argument("--bitstream", type=Path, required=True)
+    ap.add_argument("--adapter", type=Path, required=True, help="trained adapter checkpoint (.pt)")
+    ap.add_argument("--model_name", type=str, default="runwayml/stable-diffusion-v1-5")
+    ap.add_argument("--out", type=Path, default=Path("recon.png"))
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--sampler", type=str, default="ddim", choices=("ddim", "dpmpp"))
+    ap.add_argument("--eta", type=float, default=0.0)
+    ap.add_argument("--guidance", type=float, default=5.0)
+    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
+    ap.add_argument("--inv_weight", type=float, default=1.0)
+    ap.add_argument("--inv_every", type=int, default=1)
+    ap.add_argument("--inv_clip_arch", type=str, default="ViT-B-32")
+    ap.add_argument("--inv_clip_ckpt", type=str, default="openai")
+    ap.add_argument("--inv_backend", type=str, default="auto", choices=["auto", "dino", "clip"])
+    ap.add_argument("--inv_dino_model", type=str, default="vit_base_patch14_dinov2.lvd142m")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--heads", type=int, default=8,
+                    help="UNet attention heads (not recoverable from the weight shapes)")
+    ap.add_argument("--int8", action="store_true", help="int8 serving mode (not ported)")
+    args = ap.parse_args(argv)
+    if args.int8:
+        raise SystemExit("--int8 is not ported to the PyTorch package yet (ROADMAP.md, Queue 1)")
+    if args.inv_weight > 0:
+        raise SystemExit("feature-inversion guidance (--inv_weight > 0) is not ported to the PyTorch "
+                         "package yet (ROADMAP.md, Queue 1); pass --inv_weight 0")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
+
+    from .reconstruct_diffusion import decode_embedding, to_pil
+
+    unet_path, vae_path = ckpt.require_sd_weight_paths(args.model_name)
+    z = decode_embedding(args.bitstream, args.store_dir)  # (1, dim), L2-normalized
+    dec = load_decoder(unet_path, vae_path, args.adapter, args.device, heads=args.heads)
+    img = sample_images(dec, z, args.size, args.steps, args.sampler, args.eta, args.guidance, args.seed)
+    if args.out == Path("recon.png"):  # the default is detected by value, as in the JAX CLI
+        out_path = args.bitstream.with_name(f"{args.bitstream.stem}-{args.steps}-{_fmt_num(args.guidance)}-"
+                                            f"{_fmt_num(args.inv_weight)}.png")
+    else:
+        out_path = args.out
+    to_pil(img[0].float().cpu().numpy()).save(out_path)
+    print("Saved to", out_path)
+
+
+if __name__ == "__main__":
+    main()

@@ -119,14 +119,17 @@ class CLIPCondUNet(nn.Module):
 def init_params(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
     """Fresh parameters drawn from ``generator`` as flax initialises them:
     LeCun-normal weights (std 1/sqrt(fan_in), fan_in = numel / shape[0]),
-    zero biases, GroupNorm scale 1 and shift 0."""
+    zero biases, GroupNorm and LayerNorm scale 1 and shift 0. The weights
+    are drawn on the parameters' device, so ``generator`` lives there."""
     for mod in model.modules():
-        if isinstance(mod, nn.GroupNorm):
+        if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.fill_(0.0)
         elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = mod.weight
             fan_in = w.numel() // w.shape[0]
-            w.copy_(torch.randn(w.shape, generator=generator, dtype=w.dtype) / math.sqrt(fan_in))
-            mod.bias.fill_(0.0)
+            w.copy_(torch.randn(w.shape, generator=generator, dtype=w.dtype, device=w.device)
+                    / math.sqrt(fan_in))
+            if mod.bias is not None:
+                mod.bias.fill_(0.0)
     return model

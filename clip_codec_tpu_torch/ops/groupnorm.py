@@ -1,8 +1,9 @@
 """Plain GroupNorm over NHWC with fp32 statistics (port of
 ``clip_codec_tpu/ops/groupnorm.py:group_norm``).
 
-The fused ResBlock does not call it (GroupNorm folds into the conv kernel's
-affine there); the plain tests and any unfused caller do."""
+The pixel ResBlock does not call it (GroupNorm folds into the conv kernel's
+affine there); the SD blocks (``models/sd/layers.py`` ``group_norm32``) and
+the plain tests do."""
 
 from __future__ import annotations
 

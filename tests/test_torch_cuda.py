@@ -1,11 +1,14 @@
-"""The port's hand-written CUDA kernel on a card (marker ``cuda``; every test
+"""The port's hand-written CUDA kernels on a card (marker ``cuda``; every test
 here skips without one).
 
-The kernel has no CPU mode, so it is held against its plain PyTorch version
-on the same card, bf16, within rtol = atol = 2e-2 (the JAX package's bf16
-bound for its own kernel, tests/test_pallas_resblock.py), moments within
-1e-3 of their largest magnitude. This file imports no jax, so it runs on a
-machine without it:
+The kernels have no CPU mode, so each is held against its plain PyTorch
+version on the same card in bf16: the conv kernel within rtol = atol = 2e-2
+(the JAX package's bf16 bound for its own kernel,
+tests/test_pallas_resblock.py), moments within 1e-3 of their largest
+magnitude; flash attention's out within rtol = atol = 2e-2 and its lse
+within 1e-3 absolute (fp32 statistics in both); the fused MLP within
+rtol = atol = 2e-2. This file imports no jax, so it runs on a machine
+without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -15,6 +18,8 @@ import pytest
 import torch
 
 from clip_codec_tpu_torch.models import CLIPCondUNet, init_params
+from clip_codec_tpu_torch.ops import attention as attn
+from clip_codec_tpu_torch.ops import mlp
 from clip_codec_tpu_torch.ops import resblock_conv as rc
 
 pytestmark = pytest.mark.cuda
@@ -114,3 +119,156 @@ def test_unet_kernel_path_matches_plain(rng, cuda):
     assert n == 2 * 10 + 1  # 10 ResBlocks at ch_mult=(1, 2), two calls each, + head
     assert torch.isfinite(ek).all()
     assert ((ek - ep).norm() / ep.norm()).item() < 2e-2
+
+
+def _bf16(rng, shape, scale=1.0, dev="cuda"):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev, torch.bfloat16)
+
+
+# (BH, N, Nk, D): the SD-1.5 shapes at 512px with CFG batched (UNet 64x64 and
+# 32x32 self-attention, the VAE's single head), then ragged query and key
+# tiles, a cross-attention length and a D = 72 that pads to 80.
+FLASH_CASES = [(16, 4096, 4096, 40), (16, 1024, 1024, 80), (1, 4096, 4096, 512),
+               (3, 200, 200, 40), (2, 130, 77, 80), (2, 96, 160, 72)]
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["normal", "extreme_logits"])
+@pytest.mark.parametrize("BH,N,Nk,D", FLASH_CASES)
+def test_flash_attention_matches_plain(rng, cuda, BH, N, Nk, D, extreme):
+    """Extreme logits: q scaled so that |logit| reaches ~1e2..1e3, where a
+    softmax without the running max would overflow."""
+    q = _bf16(rng, (BH, N, D), 30.0 if extreme else 1.0)
+    k = _bf16(rng, (BH, Nk, D))
+    v = _bf16(rng, (BH, Nk, D))
+    n0 = attn.flash_attention_fwd.launches
+    out, lse = attn.flash_attention_fwd(q, k, v)
+    ref, lse_ref = attn.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert attn.flash_attention_fwd.launches == n0 + 1
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_flash_attention_heads_layout(rng, cuda):
+    q, k, v = (_bf16(rng, (2, 3, 256, 40)) for _ in range(3))
+    out = attn.flash_attention_heads(q, k, v)
+    ref, _ = attn.flash_attention_plain(q.reshape(6, 256, 40), k.reshape(6, 256, 40), v.reshape(6, 256, 40))
+    torch.testing.assert_close(out.float(), ref.reshape(2, 3, 256, 40).float(), rtol=2e-2, atol=2e-2)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
+    q = _bf16(rng, (2, 128, 80))
+    n0 = attn.flash_attention_fwd.launches
+    with pytest.raises(TypeError, match="q must be torch.bfloat16"):
+        attn.flash_attention_fwd(q.float(), q, q)
+    for d in (36, 64):  # not a multiple of 8; a depth with no instantiation
+        with pytest.raises(ValueError, match="kernel takes D in"):
+            r = q[..., :d].contiguous()
+            attn.flash_attention_fwd(r, r, r)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_attention_fwd(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="is on cpu"):
+        attn.flash_attention_fwd(q, q.cpu(), q)
+    assert attn.flash_attention_fwd.launches == n0
+
+
+def _mlp_args(rng, R, C, F, dev="cuda"):
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    x = _bf16(rng, (R, C))
+    lns, lnb = f32(1 + 0.1 * rng.standard_normal(C)), f32(0.1 * rng.standard_normal(C))
+    wh, wg = (f32(rng.standard_normal((C, F)) / np.sqrt(C)) for _ in range(2))
+    bh, bg = (f32(0.1 * rng.standard_normal(F)) for _ in range(2))
+    wo = f32(rng.standard_normal((F, C)) / np.sqrt(F))
+    return x, lns, lnb, wh, bh, wg, bg, wo
+
+
+# (R, C, F): the four SD-1.5 MLP shapes at 512px, batch 2, the 320-wide one
+# at batch 8 (a request of four embeddings; enough row tiles for no split),
+# then ragged rows.
+MLP_CASES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120),
+             (32768, 320, 1280), (100, 320, 1280), (37, 640, 2560)]
+
+
+@pytest.mark.parametrize("R,C,F", MLP_CASES)
+def test_transformer_mlp_matches_plain(rng, cuda, R, C, F):
+    x, lns, lnb, wh, bh, wg, bg, wo = _mlp_args(rng, R, C, F)
+    n0 = mlp.transformer_mlp.launches
+    y = mlp.transformer_mlp(x, lns, lnb, wh, bh, wg, bg, wo)
+    ref = mlp.mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo)
+    torch.cuda.synchronize()
+    assert mlp.transformer_mlp.launches == n0 + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (R, C)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_transformer_mlp_cases_cover_both_epilogues(cuda):
+    """The cases above run the kernel with one split (bf16 stored from
+    registers) and with several (fp32 partials summed by a second kernel)."""
+    splits = {mlp.kernel_splits(R, C, F, cuda) for R, C, F in MLP_CASES}
+    assert 1 in splits and max(splits) > 1
+
+
+def test_transformer_mlp_packed_weights_and_token_view(rng, cuda):
+    """Pre-packed weights (the model's cached form) on (B, N, C) tokens give
+    the same output as packing on the call."""
+    x, lns, lnb, wh, bh, wg, bg, wo = _mlp_args(rng, 2 * 64, 320, 1280)
+    packed = mlp.pack_weights(wh, wg, wo)
+    y3 = mlp.transformer_mlp(x.reshape(2, 64, 320), lns, lnb, wh, bh, wg, bg, wo, packed=packed)
+    y2 = mlp.transformer_mlp(x, lns, lnb, wh, bh, wg, bg, wo)
+    torch.cuda.synchronize()
+    assert y3.shape == (2, 64, 320)
+    assert torch.equal(y3.reshape(128, 320), y2)
+
+
+def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
+    x, lns, lnb, wh, bh, wg, bg, wo = _mlp_args(rng, 64, 320, 1280)
+    n0 = mlp.transformer_mlp.launches
+    with pytest.raises(TypeError, match="x must be torch.bfloat16"):
+        mlp.transformer_mlp(x.float(), lns, lnb, wh, bh, wg, bg, wo)
+    with pytest.raises(TypeError, match="lns must be torch.float32"):
+        mlp.transformer_mlp(x, lns.bfloat16(), lnb, wh, bh, wg, bg, wo)
+    with pytest.raises(ValueError, match="C in"):
+        a = _mlp_args(rng, 64, 48, 192)
+        mlp.transformer_mlp(*a)
+    with pytest.raises(ValueError, match="is on cpu"):
+        mlp.transformer_mlp(x, lns.cpu(), lnb, wh, bh, wg, bg, wo)
+    assert mlp.transformer_mlp.launches == n0
+
+
+def test_sd_unet_and_vae_kernel_paths_match_plain(cuda):
+    """Shallow SD blocks at SD-1.5's first two widths and 8 heads (head dims
+    40 and 80; the VAE's last width is SD-1.5's 512, its mid-block head
+    dim), bf16, 32x32 latents so that N = 1024 takes flash attention: the
+    kernel path vs the same modules on the plain versions."""
+    from clip_codec_tpu_torch.models.sd import AutoencoderKL, SDUNet, SDUNetConfig, VAEConfig
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.device(cuda):
+        unet = init_params(SDUNet(SDUNetConfig(block_out=(320, 640), layers_per_block=1, cross_dim=32,
+                                               heads=8, freq_dim=32), dtype=torch.bfloat16), gen).eval()
+        vae = init_params(AutoencoderKL(VAEConfig(block_out=(128, 512), layers_per_block=1),
+                                        dtype=torch.bfloat16), gen).eval()
+    lat = torch.randn((2, 32, 32, 4), generator=gen, device=cuda)
+    ctx = torch.randn((2, 8, 32), generator=gen, device=cuda)
+    t = torch.tensor([981, 41], dtype=torch.int32, device=cuda)
+
+    def run():
+        return unet(lat, t, ctx).float(), vae.decode(lat).float()
+
+    with torch.no_grad():
+        n0 = attn.flash_attention_fwd.launches, mlp.transformer_mlp.launches
+        ek, yk = run()
+        n = attn.flash_attention_fwd.launches - n0[0], mlp.transformer_mlp.launches - n0[1]
+        saved = attn.flash_attention_fwd, mlp.transformer_mlp
+        attn.flash_attention_fwd = attn.flash_attention_plain
+        mlp.transformer_mlp = lambda *a, packed=None: mlp.mlp_plain(*a)
+        try:
+            ep, yp = run()
+        finally:
+            attn.flash_attention_fwd, mlp.transformer_mlp = saved
+    # flash: 3 self-attentions at 32x32 (320 wide) + the VAE mid-block; MLP: 4 blocks
+    assert n == (4, 4)
+    assert torch.isfinite(ek).all() and torch.isfinite(yk).all()
+    assert ((ek - ep).norm() / ep.norm()).item() < 2e-2
+    assert ((yk - yp).norm() / yp.norm()).item() < 2e-2

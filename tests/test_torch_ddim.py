@@ -1,8 +1,9 @@
-"""Port of the noise schedule and the DDIM sampler (clip_codec_tpu_torch/diffusion)
-against the JAX package.
+"""Port of the noise schedule and the DDIM and DPM-Solver++(2M) samplers
+(clip_codec_tpu_torch/diffusion) against the JAX package.
 
 The schedule tables are computed on the host in numpy in both packages and
-must be bit-equal. Trajectories use a closed-form eps model written in both
+must be bit-equal; the 2M coefficients, host numpy fp32 against jnp fp32,
+agree within 1e-6 relative. Trajectories use a closed-form eps model written in both
 frameworks and the same injected x_T (the two RNGs differ); fp32,
 tolerance 1e-4 as the repo's fp32 network-output policy.
 """
@@ -15,7 +16,9 @@ import torch
 
 from clip_codec_tpu.diffusion import NoiseSchedule as JaxSchedule
 from clip_codec_tpu.diffusion import ddim as jddim
-from clip_codec_tpu_torch.diffusion import DDIMSampler, NoiseSchedule, ddim_sample, ddim_timestep_grid, make_sampler
+from clip_codec_tpu.diffusion import dpm as jdpm
+from clip_codec_tpu_torch.diffusion import (DDIMSampler, DPMSolverPP, NoiseSchedule, ddim_sample, ddim_timestep_grid,
+                                            dpmpp_coefficients, dpmpp_sample, make_sampler)
 from clip_codec_tpu_torch.diffusion.ddim import _step_coefficients
 
 torch.set_num_threads(1)
@@ -144,8 +147,38 @@ def test_make_sampler():
     st = NoiseSchedule.create(100, "cosine")
     assert make_sampler("ddim", st, eta=0.2) == DDIMSampler(st, eta=0.2)
     assert make_sampler("ddim_std", st).standard
+    assert make_sampler("dpmpp", st) == DPMSolverPP(st)
+    with pytest.raises(ValueError, match="deterministic"):
+        make_sampler("dpmpp", st, eta=0.5)
     with pytest.raises(ValueError, match="unknown sampler"):
-        make_sampler("dpmpp", st)
+        make_sampler("euler", st)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 10, 50])
+def test_dpmpp_coefficients_match_jax(steps):
+    """Host numpy fp32 against the JAX jnp fp32 math, over the SD-style grid
+    with the final target alpha-bar 1 (c_skip 0, c0 alpha_t, c1 0 there)."""
+    ac = NoiseSchedule.create(1000, "linear").alphas_cumprod.numpy()
+    src = ac[ddim_timestep_grid(1000, steps)]
+    tgt = np.concatenate([src[1:], np.ones(1, np.float32)])
+    for a, b in zip(dpmpp_coefficients(src, tgt), jdpm.dpmpp_coefficients(jnp.asarray(src), jnp.asarray(tgt))):
+        assert a.dtype == np.float32
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("clip_x0", [True, False])
+def test_dpmpp_trajectory_matches_jax(rng, clip_x0):
+    shape = (2, 8, 8, 3)
+    z = rng.standard_normal((2, 4)).astype(np.float32)
+    x_T = rng.standard_normal(shape).astype(np.float32)
+    jax_fn, torch_fn = _models(_eps_np_params(rng))
+    sj, st = JaxSchedule.create(1000, "linear"), NoiseSchedule.create(1000, "linear")
+    xj = np.asarray(jdpm.dpmpp_sample(jax_fn, sj, jnp.asarray(z), shape, steps=6, x_T=jnp.asarray(x_T),
+                                      clip_x0=clip_x0))
+    xt = dpmpp_sample(torch_fn, st, torch.from_numpy(z), shape, steps=6, x_T=torch.from_numpy(x_T),
+                      clip_x0=clip_x0)
+    assert xt.dtype == torch.float32 and tuple(xt.shape) == shape
+    np.testing.assert_allclose(xt.numpy(), xj, rtol=1e-4, atol=1e-4)
 
 
 def test_sampler_ignores_cfg_scale(rng):

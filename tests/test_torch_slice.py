@@ -176,7 +176,9 @@ def test_load_errors_and_inferred_config(store, tmp_path):
         codec = ClipCodec.load(store["root"], weights=tmp_path / "w.pt", device="cpu")
     assert (codec.mc.base, codec.mc.ch_mult, codec.mc.z_dim, codec.mc.time_dim) == (8, (1, 2), 8, 256)
     with pytest.raises(ValueError, match="unknown sampler"):
-        codec.decompress(store["blobs"][:1], size=16, steps=1, sampler="dpmpp")
+        codec.decompress(store["blobs"][:1], size=16, steps=1, sampler="euler")
+    img = codec.decompress(store["blobs"][:1], size=16, steps=2, sampler="dpmpp")
+    assert img.shape == (1, 16, 16, 3) and np.isfinite(img).all()
 
 
 def test_reconstruct_cli_writes_an_image(store, tmp_path):

@@ -71,6 +71,8 @@ def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
     code = (
         "import pickle, sys\n"
         "import clip_codec_tpu_torch.codec, clip_codec_tpu_torch.cli.reconstruct_diffusion\n"
+        "import clip_codec_tpu_torch.models.sd, clip_codec_tpu_torch.cli.reconstruct_sd_diffusion\n"
+        "import clip_codec_tpu_torch.ops.attention, clip_codec_tpu_torch.ops.mlp\n"
         "from clip_codec_tpu_torch.models import CLIPCondUNet\n"
         "from clip_codec_tpu_torch.weights.from_jax import unet_state_dict_from_jax\n"
         f"tree = pickle.load(open({str(tmp_path / 'params.pkl')!r}, 'rb'))\n"
