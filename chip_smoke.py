@@ -47,9 +47,35 @@ The SD-1.5 latent path (``models/sd``, ``cli/reconstruct_sd_diffusion.py``):
    batched. Outputs must be finite and of the right shape, and the kernels
    must have launched steps x (10, 16) per forward plus 1 flash per decode.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-non-zero and prints no result. Nothing of JAX is imported.
+SD adapter training (``train/sd_diffusion_train.py``, ``cli/precompute_latents.py``):
+
+9. the flash-attention backward (csrc/flash_attention_bwd.cu: the dq kernel
+   and the dk/dv kernel) against the plain fp32 backward at the training
+   shapes of SD-1.5 at 512px, batch 4: (BH, N, D) = (32, 4096, 40),
+   (32, 1024, 80), (4, 4096, 512), and extreme logits at the first; dq, dk
+   and dv within rtol = 2e-2 and atol = 2e-2 of each gradient's largest
+   magnitude; ms of each kernel, of the plain versions and of SDPA's
+   backward (for scale, not a plain version);
+10. the adapter's gradient through SD-1.5 at full width (one 64x64 latent,
+   the same injected t and noise, the default loss with its VAE decodes) on
+   the kernel path, on the plain path and on the plain path in fp32, at
+   --seed and --seed + 1: the kernel path at most 1.1x as far from fp32 as
+   the plain path;
+11. training: the port's precompute path encodes 8 seeded 512px images,
+   then ``train_sd_diffusion`` runs 2 epochs at batch 4 on the kernel path.
+   The loss must be finite, the adapter must change, the final adapter must
+   load through the SD CLI's loader and sample a finite dpmpp-10 image, and
+   every step must launch 12 flash forwards (10 in the UNet, 1 in each VAE
+   decode), 10 of each backward kernel (the first UNet self-attention sees
+   no input that needs a gradient) and 16 fused MLPs. Seconds per step,
+   training img/s and peak device memory are printed.
+
+The line before the last is the kernels' JSON record (``bound_ms``: the
+larger of the bytes each kernel must move over 3.35 TB/s and its flops over
+989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, at the timed
+shape); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device the script exits non-zero and prints no result. Nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -77,7 +103,10 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "affine_conv3x3": ("affine_conv3x3", REPLACES),
     "flash_attention": ("flash_attention", "clip_codec_tpu/ops/pallas_attention.py:63"),
     "transformer_mlp": ("transformer_mlp", "clip_codec_tpu/ops/pallas_mlp.py:78"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:181"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:212"),
 }
+HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12  # H100 SXM: HBM3 rate, dense bf16 tensor-core peak
 # SD-1.5 at 512px (64x64 latents), CFG batched: UNet batch 2 for a request of
 # one embedding (VAE batch 1), 8 for a request of four (VAE batch 4).
 FLASH_SHAPES = [(16, 4096, 40), (16, 1024, 80), (1, 4096, 512),
@@ -88,6 +117,15 @@ SD_FLASH_PER_FORWARD, SD_MLP_PER_FORWARD = 10, 16
 FP32_RATIO = 1.1  # kernel path's distance from fp32, at most this x the plain path's
 SD_SIZE, SD_STEPS, SD_GUIDANCE = 512, 10, 5.0
 SD_REQUESTS = (1, 1, 1, 4)  # embeddings per request
+# SD-1.5 training at 512px, batch 4: 8 heads at 64x64 and 32x32, the VAE's one head.
+FLASH_BWD_SHAPES = [(32, 4096, 40), (32, 1024, 80), (4, 4096, 512)]  # (BH, N, D)
+TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 4, 2
+# Per training step: flash forward 10 in the UNet + 1 per VAE decode (of
+# lat0_hat and of lat0); each backward kernel at 9 UNet self-attentions (the
+# first sees no input that needs a gradient) + the lat0_hat decode; the MLP
+# at all 16 transformer blocks (its backward runs no kernel).
+TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention_bwd_dq": 10, "flash_attention_bwd_dkv": 10,
+                  "transformer_mlp": 16}
 
 
 class PhaseError(RuntimeError):
@@ -97,6 +135,12 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -219,7 +263,12 @@ def phase_kernels(torch, rc, seed, dev):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         big = (H, W, cin, cout) in (RESBLOCK_SHAPES[0], HEAD_SHAPE)
         if timed and big and (linear or mom):
-            rec.update(ms=k_ms, plain_ms=p_ms, timed_at=tag)
+            px = 2 * H * W  # B = 2
+            nbytes = (px * cin * 2 + 2 * 2 * cin * 4 + 9 * cin * cout * 2 + cout * 4 + px * cout * 2
+                      + (px * cout * 2 if use_add else 0) + (2 * 2 * cout * 4 if mom else 0))
+            b_ms, b_by = bound(nbytes, 2 * 9 * cin * cout * px)
+            # library: cuDNN's bf16 conv alone, for scale (no one call computes the fused function)
+            rec.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, timed_at=tag)
     return records
 
 
@@ -335,22 +384,33 @@ def phase_serve(torch, rc, net, seed, dev, card):
 
 def reset_sd_launches(attn, mlp) -> None:
     attn.flash_attention_fwd.launches = 0
+    attn.flash_attention_bwd_dq.launches = 0
+    attn.flash_attention_bwd_dkv.launches = 0
     mlp.transformer_mlp.launches = 0
+
+
+def sd_launches(attn, mlp) -> dict:
+    return {"flash_attention": attn.flash_attention_fwd.launches,
+            "flash_attention_bwd_dq": attn.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": attn.flash_attention_bwd_dkv.launches,
+            "transformer_mlp": mlp.transformer_mlp.launches}
 
 
 @contextlib.contextmanager
 def plain_sd_kernels(attn, mlp):
-    """Route the SD blocks' two kernel entry points to their plain versions."""
-    saved = attn.flash_attention_fwd, mlp.transformer_mlp
+    """Route the SD blocks' kernel entry points (flash forward and backward,
+    the fused MLP) to their plain versions."""
+    saved = attn.flash_attention_fwd, attn.flash_attention_bwd, mlp.transformer_mlp
 
     def mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo, packed=None):
         return mlp.mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo)
 
-    attn.flash_attention_fwd, mlp.transformer_mlp = attn.flash_attention_plain, mlp_plain
+    attn.flash_attention_fwd, attn.flash_attention_bwd = attn.flash_attention_plain, attn.flash_attention_bwd_plain
+    mlp.transformer_mlp = mlp_plain
     try:
         yield
     finally:
-        attn.flash_attention_fwd, mlp.transformer_mlp = saved
+        attn.flash_attention_fwd, attn.flash_attention_bwd, mlp.transformer_mlp = saved
 
 
 def _randn(torch, gen, shape, dev, scale=1.0, dtype=None):
@@ -386,7 +446,9 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
                 line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} sdpa_library_not_plain_ms={lib_ms:.4f}"
                          f" kernel_TFLOPs={tflops:.1f}")
                 if (BH, N, D) == FLASH_SHAPES[0]:
-                    rec["flash_attention"].update(ms=k_ms, plain_ms=p_ms, timed_at=tag)
+                    b_ms, b_by = bound(4 * BH * N * D * 2 + BH * N * 4, 4 * BH * N * N * D)
+                    rec["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                                  bound_by=b_by, timed_at=tag)
             print(line)
             check(ok, f"{tag}: out outside rtol=atol=2e-2 (max abs err {err})")
             check(lse_err <= 1e-3, f"{tag}: lse abs err {lse_err} > 1e-3")
@@ -427,7 +489,11 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
         check(ok, f"{tag}: y outside rtol=atol=2e-2 (max abs err {err})")
         rec["transformer_mlp"]["max_abs_err"] = max(rec["transformer_mlp"]["max_abs_err"], err)
         if (R, C, Fh) == MLP_SHAPES[0]:
-            rec["transformer_mlp"].update(ms=k_ms, plain_ms=p_ms, timed_at=tag)
+            nbytes = 2 * R * C * 2 + 2 * C * 4 + 3 * C * Fh * 2 + 2 * Fh * 4
+            b_ms, b_by = bound(nbytes, 6 * R * C * Fh)
+            # library: null, no one PyTorch call computes the fused MLP (cuBLAS unfused is printed for scale)
+            rec["transformer_mlp"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                                          timed_at=tag)
     # both epilogues (bf16 from registers; fp32 partials + the sum kernel)
     check(1 in splits_seen and max(splits_seen) > 1, f"MLP shapes ran splits {sorted(splits_seen)}: "
           "the one-split and the split form must both be checked")
@@ -557,8 +623,7 @@ def phase_sd_serve(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
         times.append(time.perf_counter() - t0)
         check(tuple(img.shape) == (n, SD_SIZE, SD_SIZE, 3), f"SD request of {n}: output shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all().item()), f"SD request of {n}: non-finite output")
-    launches = {"flash_attention": attn.flash_attention_fwd.launches,
-                "transformer_mlp": mlp.transformer_mlp.launches}
+    launches = {k: sd_launches(attn, mlp)[k] for k in ("flash_attention", "transformer_mlp")}
     for n, dt in zip(SD_REQUESTS, times):
         print(f"sd-serve: request of {n} embedding(s) (CFG batched, UNet batch {2 * n}, dpmpp-{SD_STEPS}, "
               f"guidance {SD_GUIDANCE}, {SD_SIZE}px) {dt:.3f} s on {card}")
@@ -567,6 +632,234 @@ def phase_sd_serve(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
     want = {"flash_attention": len(SD_REQUESTS) * (SD_STEPS * SD_FLASH_PER_FORWARD + 1),
             "transformer_mlp": len(SD_REQUESTS) * SD_STEPS * SD_MLP_PER_FORWARD}
     check(launches == want, f"SD kernel launches {launches} != {want}")
+    return launches
+
+
+# ------------------------------------------------------ SD adapter training
+
+
+def _sdpa_bwd_ms(torch, q, k, v, dout):
+    """SDPA's backward alone at the same shape: one library call computing
+    dq, dk and dv, the work of K5's pair (for scale, not a plain version)."""
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t[None].detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs)
+    return cuda_ms(torch, lambda: torch.autograd.grad(o, (qs, ks, vs), dout[None], retain_graph=True))
+
+
+def phase_flash_bwd(torch, attn, seed, dev):
+    """K5's two kernels against the plain backward at the training shapes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    bf = torch.bfloat16
+    rec = {"flash_attention_bwd_dq": {"max_abs_err": 0.0}, "flash_attention_bwd_dkv": {"max_abs_err": 0.0}}
+    cases = [(shape, 1.0) for shape in FLASH_BWD_SHAPES] + [(FLASH_BWD_SHAPES[0], 30.0)]
+    for (BH, N, D), q_scale in cases:
+        q = _randn(torch, gen, (BH, N, D), dev, q_scale, bf)
+        k, v, dout = (_randn(torch, gen, (BH, N, D), dev, 1.0, bf) for _ in range(3))
+        out, lse = attn.flash_attention_fwd(q, k, v)
+        lse2, dvec = attn._bwd_stats(out, lse, dout)
+        got = attn.flash_attention_bwd(q, k, v, out, lse, dout)
+        want = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        tag = f"flash_attention_bwd (BH, N, D)=({BH}, {N}, {D}) {'extreme' if q_scale > 1 else 'normal'} logits"
+        errs, rels = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g.float(), w.float()
+            scale = w.abs().max().item()
+            errs[name] = (g - w).abs().max().item()
+            rels[name] = errs[name] / scale
+            ok = bool(((g - w).abs() <= 2e-2 * (w.abs() + scale)).all().item())
+            check(ok, f"{tag}: {name} outside rtol = atol = 2e-2 of its scale {scale:.3e} "
+                      f"(max abs err {errs[name]:.3e})")
+        del got, want
+        line = (f"kernel-check: {tag} max_abs_err(dq, dk, dv)=({errs['dq']:.3e}, {errs['dk']:.3e}, "
+                f"{errs['dv']:.3e}) relative to each max |grad|=({rels['dq']:.3e}, {rels['dk']:.3e}, "
+                f"{rels['dv']:.3e})")
+        rec["flash_attention_bwd_dq"]["max_abs_err"] = max(rec["flash_attention_bwd_dq"]["max_abs_err"], errs["dq"])
+        rec["flash_attention_bwd_dkv"]["max_abs_err"] = max(rec["flash_attention_bwd_dkv"]["max_abs_err"],
+                                                            errs["dk"], errs["dv"])
+        if q_scale == 1.0:
+            args = (q, k, v, dout, lse2, dvec)
+            dq_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dq(*args))
+            dkv_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dkv(*args))
+            pdq_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dq_plain(*args), iters=3, warmup=1)
+            pdkv_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dkv_plain(*args), iters=3, warmup=1)
+            lib_ms = _sdpa_bwd_ms(torch, q, k, v, dout)
+            prod = 2 * BH * N * N * D  # flops of one (N, N, D) product
+            io = 4 * BH * N * D * 2 + 2 * BH * N * 4  # q, k, v, dout bf16 + lse, dvec fp32, read once
+            bq = bound(io + BH * N * D * 2, 3 * prod)  # dq: S, dP, dS K
+            bkv = bound(io + 2 * BH * N * D * 2, 4 * prod)  # dk, dv: S, dP, P^T dO, dS^T Q
+            bpair = bound(io + 3 * BH * N * D * 2, 5 * prod)  # the backward's own work, no recompute
+            line += (f" dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} plain_dq_ms={pdq_ms:.4f} plain_dkv_ms={pdkv_ms:.4f}"
+                     f" sdpa_bwd_library_not_plain_ms={lib_ms:.4f} dq_TFLOPs={3 * prod / 1e9 / dq_ms:.1f}"
+                     f" dkv_TFLOPs={4 * prod / 1e9 / dkv_ms:.1f} useful_TFLOPs={5 * prod / 1e9 / (dq_ms + dkv_ms):.1f}"
+                     f" bound_ms(dq, dkv)=({bq[0]:.4f}, {bkv[0]:.4f}) pair_bound_ms={bpair[0]:.4f}")
+            if (BH, N, D) == FLASH_BWD_SHAPES[0]:
+                # each row's bound counts its own products (the split recomputes
+                # S and dP in both); library_ms, pair_ms and pair_bound_ms are
+                # of the whole backward, which one SDPA backward call computes
+                pair = dict(library_ms=lib_ms, library_covers="dq, dk and dv", pair_ms=dq_ms + dkv_ms,
+                            pair_bound_ms=bpair[0], timed_at=tag)
+                rec["flash_attention_bwd_dq"].update(ms=dq_ms, plain_ms=pdq_ms, bound_ms=bq[0], bound_by=bq[1],
+                                                     **pair)
+                rec["flash_attention_bwd_dkv"].update(ms=dkv_ms, plain_ms=pdkv_ms, bound_ms=bkv[0],
+                                                      bound_by=bkv[1], **pair)
+        print(line)
+        del q, k, v, dout, out, lse, lse2, dvec
+        torch.cuda.empty_cache()
+    return rec
+
+
+def train_batch(torch, seed, dev, B):
+    """Seeded (z, lat0, weight, t, noise) of one SD-1.5 training batch: unit
+    (B, 512) embeddings, (B, 64, 64, 4) latents and noise, t in [0, 1000)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.nn.functional.normalize(torch.randn((B, 512), generator=gen, device=dev), dim=-1)
+    lat0, noise = (torch.randn((B, 64, 64, 4), generator=gen, device=dev) for _ in range(2))
+    t = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+    return z, lat0, torch.ones(B, device=dev), t, noise
+
+
+def _grad_vector(torch, adapter):
+    return torch.cat([p.grad.detach().float().flatten() for p in adapter.parameters()])
+
+
+def phase_train_grad(torch, attn, mlp, unet, vae, adapter, seed, dev):
+    """The adapter's gradient on the kernel, plain and fp32 plain paths."""
+    from clip_codec_tpu_torch.models.sd import StableDiffusionDecoder
+    from clip_codec_tpu_torch.train.sd_diffusion_train import SDTrainConfig, make_optimizer, make_sd_train_step
+
+    dec = StableDiffusionDecoder(unet, vae, adapter)
+    step = make_sd_train_step(dec, make_optimizer(adapter, 1e-4), SDTrainConfig())
+    for s in (seed, seed + 1):
+        z, lat0, w, t, noise = train_batch(torch, s + 7, dev, 1)
+
+        def grad():
+            adapter.zero_grad(set_to_none=True)
+            loss = step.loss_fn(z, lat0, w, t, noise)
+            loss.backward()
+            return loss.item(), _grad_vector(torch, adapter)
+
+        reset_sd_launches(attn, mlp)
+        loss_k, g_k = grad()
+        n = sd_launches(attn, mlp)
+        with plain_sd_kernels(attn, mlp):
+            loss_p, g_p = grad()
+            unet.compute_dtype = vae.compute_dtype = torch.float32
+            try:
+                loss_32, g_32 = grad()
+            finally:
+                unet.compute_dtype = vae.compute_dtype = torch.bfloat16
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+        rk, rp = rel(g_k, g_32), rel(g_p, g_32)
+        print(f"train-grad: seed {s} SD-1.5 64x64 latent B=1 t={int(t.item())} loss(kernel, plain, fp32)="
+              f"({loss_k:.6f}, {loss_p:.6f}, {loss_32:.6f}) rel(g_kernel, g_plain)={rel(g_k, g_p):.3e} "
+              f"to_fp32(kernel, plain)=({rk:.3e}, {rp:.3e}) ratio={rk / rp:.4f} launches={n}")
+        check(bool(torch.isfinite(g_k).all().item()) and g_k.norm().item() > 0, "adapter gradient not finite or zero")
+        check(rk <= FP32_RATIO * rp, f"adapter gradient: kernel path {rk} from fp32 > {FP32_RATIO} x plain's {rp}")
+        check(n == TRAIN_LAUNCHES, f"one loss and backward launched {n}, expected {TRAIN_LAUNCHES}")
+    adapter.zero_grad(set_to_none=True)
+
+
+def _train_store(seed, store: Path):
+    """8 seeded PNG images with .clp frames; returns their codes where
+    zstandard is missing (the store is then entered at the codes), else None."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 8)
+    images = rng.integers(0, 256, (TRAIN_IMAGES, 96, 128, 3), dtype=np.uint8)  # resized to 512 on load
+    codes = rng.integers(0, 256, (TRAIN_IMAGES, 512), dtype=np.uint8)
+    store.mkdir(parents=True, exist_ok=True)
+    np.savez(store / "codec_meta.npz", scale=np.full(512, 2.0 / 255.0, np.float32), zero=np.full(512, -1.0, np.float32))
+    for i, im in enumerate(images):
+        Image.fromarray(im).save(store / f"img{i}.png")
+    recs = [{"image": str(store / f"img{i}.png"), "bitstream": str(store / f"img{i}.clp")} for i in range(TRAIN_IMAGES)]
+    (store / "manifest.json").write_text(json.dumps(recs))
+    try:
+        from clip_codec_tpu_torch.io.bitstream import write_bitstream
+
+        for i, row in enumerate(codes):
+            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
+    except ImportError:
+        print("train frames: zstandard missing, entering at the codes")
+        return codes
+    return None
+
+
+def phase_train(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
+    """Precompute latents, train 2 epochs, load the adapter and sample."""
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
+    from clip_codec_tpu_torch.cli.precompute_latents import precompute_latents
+    from clip_codec_tpu_torch.io import store as store_mod
+    from clip_codec_tpu_torch.models.sd import StableDiffusionDecoder
+    from clip_codec_tpu_torch.train.sd_diffusion_train import (SDTrainConfig, make_optimizer, make_sd_train_step,
+                                                                train_sd_diffusion)
+
+    store = ROOT / "build" / "chip_smoke" / "train"
+    codes = _train_store(seed, store)
+    t0 = time.perf_counter()
+    reset_sd_launches(attn, mlp)
+    precompute_latents(store, vae, size=SD_SIZE, batch_size=TRAIN_BATCH,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+    n_pre = sd_launches(attn, mlp)["flash_attention"]
+    print(f"train-precompute: {TRAIN_IMAGES} images at {SD_SIZE}px through the VAE encoder in "
+          f"{time.perf_counter() - t0:.3f} s; flash launches {n_pre}")
+    check(n_pre == TRAIN_IMAGES // TRAIN_BATCH, f"precompute launched flash {n_pre} times")
+
+    before = {k: v.detach().clone() for k, v in adapter.state_dict().items()}
+    dec = StableDiffusionDecoder(unet, vae, adapter)
+    cfg = SDTrainConfig(epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, seed=seed, log_every=1)
+    saved_read = store_mod.Store.read_codes
+    if codes is not None:
+        store_mod.Store.read_codes = lambda self: codes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_sd_launches(attn, mlp)
+    t0 = time.perf_counter()
+    try:
+        final = train_sd_diffusion(store, dec, save_dir=store / "out", config=cfg)
+    finally:
+        store_mod.Store.read_codes = saved_read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sd_launches(attn, mlp)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    steps = TRAIN_EPOCHS * (TRAIN_IMAGES // TRAIN_BATCH)
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    changed = max((adapter.state_dict()[k] - v).abs().max().item() for k, v in before.items())
+    print(f"train: {TRAIN_EPOCHS} epochs x {TRAIN_IMAGES // TRAIN_BATCH} steps at batch {TRAIN_BATCH}, SD-1.5 "
+          f"{SD_SIZE}px, bf16 UNet/VAE, fp32 adapter and AdamW: {wall:.3f} s in all (checkpoints and first-step "
+          f"set-up included), peak device memory {peak:.2f} GiB on {card}; adapter max change {changed:.3e}; "
+          f"launches={launches}")
+    check(launches == want, f"training launches {launches} != {want}")
+    check(changed > 0, "the adapter did not change")
+    sd_dir = ROOT / "build" / "chip_smoke" / "sd"
+    ld = cli.load_decoder(sd_dir / "unet.pt", sd_dir / "vae.pt", final, dev, heads=8)
+    img = cli.sample_images(ld, torch.zeros((1, 512)).numpy() + 512 ** -0.5, SD_SIZE, steps=SD_STEPS,
+                            sampler="dpmpp", guidance=SD_GUIDANCE, seed=seed).float()
+    check(tuple(img.shape) == (1, SD_SIZE, SD_SIZE, 3) and bool(torch.isfinite(img).all().item()),
+          "sampling with the trained adapter failed")
+    del ld
+
+    # steady-state steps on one batch, for the step time
+    step = make_sd_train_step(dec, make_optimizer(adapter, cfg.lr), cfg)
+    batch = train_batch(torch, seed + 9, dev, TRAIN_BATCH)
+    losses = [step(*batch) for _ in range(2)]  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_timed = 5
+    for _ in range(n_timed):
+        losses.append(step(*batch))
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / n_timed
+    check(all(bool(torch.isfinite(l).item()) for l in losses), "training loss not finite")
+    print(f"train-step: batch {TRAIN_BATCH}, SD-1.5 {SD_SIZE}px: {s_step:.4f} s per step = "
+          f"{TRAIN_BATCH / s_step:.3f} img/s over {n_timed} synchronized steps on {card}; loss "
+          f"{losses[-1].item():.6f}")
     return launches
 
 
@@ -608,16 +901,20 @@ def main() -> int:
         unet, vae, adapter = sd_models(torch, args.seed, dev)
         phase_sd_forward(torch, attn, mlp, unet, vae, args.seed, dev)
         launches.update(phase_sd_serve(torch, attn, mlp, unet, vae, adapter, args.seed, dev, card))
+
+        phase_build(builds, ("flash_attention_bwd",))
+        records.update(phase_flash_bwd(torch, attn, args.seed, dev))
+        phase_train_grad(torch, attn, mlp, unet, vae, adapter, args.seed, dev)
+        train_launches = phase_train(torch, attn, mlp, unet, vae, adapter, args.seed, dev, card)
+        launches.update({k: train_launches[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     kernels = []
     for name, (lib, replaces) in KERNELS.items():
-        r = records[name]
         kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "timed_at": r["timed_at"]})
+                        "launches": launches[name], **records[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

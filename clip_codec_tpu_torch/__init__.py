@@ -1,10 +1,12 @@
 """clip_codec_tpu_torch — the PyTorch + CUDA port of ``clip_codec_tpu`` for NVIDIA Hopper.
 
 The JAX package stays the reference; this package mirrors its module names
-and holds its decompress path: ``.clp`` frames (``io``) -> dequantized,
+and holds its decompress paths: ``.clp`` frames (``io``) -> dequantized,
 L2-normalized CLIP codes (``codecs``) -> DDIM (``diffusion``) over the
-FiLM U-Net (``models``), whose 3x3 convs run in a hand-written CUDA kernel
-(``ops.resblock_conv``, ``csrc/affine_conv3x3.cu``). It imports ``torch`` and
+FiLM U-Net (``models``), or CFG sampling through the SD-1.5 UNet and VAE
+(``models.sd``); and the SD adapter's training (``train``,
+``cli.precompute_latents``, ``cli.train_sd``). Their hot paths run in
+hand-written CUDA kernels (``ops``, ``csrc/``). It imports ``torch`` and
 never ``jax``.
 """
 

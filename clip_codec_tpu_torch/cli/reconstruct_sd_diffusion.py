@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,24 +35,30 @@ PathLike = Union[str, Path]
 N_TOKENS = 8
 
 
+def load_frozen(unet_path: PathLike, vae_path: PathLike, device: Union[str, torch.device],
+                heads: int = 8) -> Tuple[SDUNet, AutoencoderKL]:
+    """The UNet and VAE from diffusers files, loaded with ``strict=True``
+    into modules built on ``device`` with fp32 parameters that compute in
+    bf16, as the JAX CLIs' decoder does."""
+    usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
+    vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
+    with torch.device(device):
+        unet = SDUNet(ckpt.unet_config(usd, heads=heads), dtype=torch.bfloat16)
+        vae = AutoencoderKL(ckpt.vae_config(vsd), dtype=torch.bfloat16)
+    unet.load_state_dict(usd, strict=True)
+    vae.load_state_dict(vsd, strict=True)
+    return unet, vae
+
+
 def load_decoder(unet_path: PathLike, vae_path: PathLike, adapter_path: PathLike,
                  device: Union[str, torch.device], heads: int = 8) -> StableDiffusionDecoder:
     """The SD decoder from diffusers UNet/VAE files and a reference adapter
-    file, every state dict loaded with ``strict=True``. The modules are
-    built on ``device`` with fp32 parameters; the UNet and VAE compute in
-    bf16, as the JAX CLI's decoder does."""
-    device = torch.device(device)
-    usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
-    vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
+    file (``load_frozen``; the adapter is fp32, ``strict=True``)."""
+    unet, vae = load_frozen(unet_path, vae_path, device, heads)
     asd = ckpt.adapter_state_dict(ckpt.read_checkpoint(adapter_path))
-    ucfg = ckpt.unet_config(usd, heads=heads)
     in_dim, hidden = ckpt.adapter_dims(asd)
     with torch.device(device):
-        unet = SDUNet(ucfg, dtype=torch.bfloat16)
-        vae = AutoencoderKL(ckpt.vae_config(vsd), dtype=torch.bfloat16)
-        adapter = SDClipAdapter(in_dim, ucfg.cross_dim, hidden, N_TOKENS)
-    unet.load_state_dict(usd, strict=True)
-    vae.load_state_dict(vsd, strict=True)
+        adapter = SDClipAdapter(in_dim, unet.cfg.cross_dim, hidden, N_TOKENS)
     adapter.load_state_dict(asd, strict=True)
     return StableDiffusionDecoder(unet, vae, adapter)
 

@@ -1,0 +1,107 @@
+"""Train the Stable-Diffusion CLIP adapter from the command line.
+
+    CLIP_CODEC_SD_UNET_WEIGHTS=unet/diffusion_pytorch_model.bin \\
+    CLIP_CODEC_SD_VAE_WEIGHTS=vae/diffusion_pytorch_model.bin \\
+    python -m clip_codec_tpu_torch.cli.train_sd --store_dir STORE --epochs 20 --device cuda
+
+The store needs ``manifest_latents.json`` (``cli/precompute_latents``).
+Flags and defaults as the JAX CLI (``clip_codec_tpu/cli/train_sd.py``);
+``--device`` is ``cpu`` or ``cuda`` (the default). The frozen UNet and VAE
+are diffusers checkpoints loaded as they are and compute in bf16; the
+adapter starts from fresh parameters drawn from ``--seed``. Writes
+``sd_adapter_ep{N}.pt``, ``sd_adapter_final.pt`` (and, with
+``--ema_decay``, ``sd_adapter_ema_final.pt``) to ``--save_dir`` (default
+the store), readable by ``cli/reconstruct_sd_diffusion --adapter``;
+``--resume`` continues from the last full-state checkpoint there.
+
+Not ported yet, and refused rather than silently dropped: the ``--clip_w``
+DINO term and the ``--perc_w`` LPIPS term, which the JAX CLI turns on when
+``$CLIP_CODEC_DINO_WEIGHTS`` / ``$CLIP_CODEC_LPIPS_WEIGHTS`` are set (unset,
+they are off in both packages), and ``--data_parallel`` / ``--distributed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+NOT_PORTED = {
+    "CLIP_CODEC_DINO_WEIGHTS": "the --clip_w DINO-alignment term is not ported to the PyTorch package yet "
+                               "(ROADMAP.md, Queue 1 item 13: encoders/dino.py)",
+    "CLIP_CODEC_LPIPS_WEIGHTS": "the --perc_w LPIPS term is not ported to the PyTorch package yet "
+                                "(ROADMAP.md, Queue 1 item 7: eval/lpips.py)",
+}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description="Train StableDiffusionDecoder's CLIP adapter on a store.")
+    ap.add_argument("--store_dir", type=str, required=True)
+    ap.add_argument("--model_name", type=str, default="runwayml/stable-diffusion-v1-5")
+    ap.add_argument("--out_size", type=int, default=256, help="GT size of the DINO/LPIPS terms (not ported)")
+    ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--batch_size", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--timesteps", type=int, default=1000)
+    ap.add_argument("--recon_w", type=float, default=0.05)
+    ap.add_argument("--clip_w", type=float, default=0.1, help="DINO-alignment weight (not ported)")
+    ap.add_argument("--tv_w", type=float, default=1e-4)
+    ap.add_argument("--perc_w", type=float, default=0.1, help="LPIPS weight (not ported)")
+    ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
+    ap.add_argument("--save_dir", type=str, default=None)
+    ap.add_argument("--perc_every", type=int, default=10, help="LPIPS cadence (not ported)")
+    ap.add_argument("--n_tokens", type=int, default=8)
+    ap.add_argument("--heads", type=int, default=8,
+                    help="UNet attention heads (not recoverable from the weight shapes)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log_every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true", help="continue from the latest full-state checkpoint")
+    ap.add_argument("--ema_decay", type=float, default=0.0,
+                    help="EMA of the adapter (0 = off); also writes sd_adapter_ema_final.pt")
+    ap.add_argument("--data_workers", type=int, default=0,
+                    help="accepted for the JAX CLI's flags; the latents load on one prefetch thread")
+    ap.add_argument("--data_parallel", action="store_true", help="not ported")
+    ap.add_argument("--distributed", action="store_true", help="not ported")
+    args = ap.parse_args(argv)
+
+    from ..train.sd_diffusion_train import NOT_PORTED_DP, SDTrainConfig, train_sd_diffusion
+
+    if args.data_parallel or args.distributed:
+        raise SystemExit(NOT_PORTED_DP)
+    weights = {"CLIP_CODEC_DINO_WEIGHTS": args.clip_w, "CLIP_CODEC_LPIPS_WEIGHTS": args.perc_w}
+    for env, w in weights.items():
+        if w > 0 and os.environ.get(env):
+            raise SystemExit(f"{NOT_PORTED[env]}; unset {env} or pass a weight of 0")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
+
+    from ..io.store import Store
+    from ..models import init_params
+    from ..models.sd import SDClipAdapter, StableDiffusionDecoder
+    from ..weights.sd_checkpoint import require_sd_weight_paths
+    from .reconstruct_sd_diffusion import load_frozen
+
+    unet_path, vae_path = require_sd_weight_paths(args.model_name)
+    unet, vae = load_frozen(unet_path, vae_path, args.device, heads=args.heads)
+    store = Store.open(args.store_dir, manifest_name="manifest_latents.json")
+    with torch.device(args.device):
+        adapter = SDClipAdapter(store.dim, unet.cfg.cross_dim, n_tokens=args.n_tokens)
+    init_params(adapter, torch.Generator(device=args.device).manual_seed(args.seed))
+    decoder = StableDiffusionDecoder(unet, vae, adapter)
+
+    cfg = SDTrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr, timesteps=args.timesteps,
+        recon_w=args.recon_w, tv_w=args.tv_w, seed=args.seed, log_every=args.log_every,
+        ema_decay=args.ema_decay, data_workers=args.data_workers,
+    )
+    final = train_sd_diffusion(Path(args.store_dir), decoder,
+                               save_dir=Path(args.save_dir) if args.save_dir else None,
+                               config=cfg, resume=args.resume)
+    print(f"Saved final adapter to {final}")
+
+
+if __name__ == "__main__":
+    main()

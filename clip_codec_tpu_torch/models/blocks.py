@@ -25,8 +25,8 @@ from ..ops import resblock_conv as rc
 def _converted(module: nn.Module, name: str, dtype: torch.dtype, convert) -> torch.Tensor:
     """``convert(module.<name>, dtype)``, computed once per load of the
     parameter: the cache is keyed on its storage and version, so
-    ``load_state_dict`` or ``.to(device)`` invalidates it. Inference only
-    (the result is detached)."""
+    ``load_state_dict`` or ``.to(device)`` invalidates it. The result is
+    detached: no gradient reaches the parameter (frozen weights only)."""
     p = getattr(module, name)
     key = (p.data_ptr(), p._version, dtype)
     cache = module.__dict__.setdefault("_converted", {})

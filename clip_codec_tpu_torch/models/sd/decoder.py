@@ -109,7 +109,10 @@ class StableDiffusionDecoder:
     """Frozen SD-1.5 UNet and VAE with the CLIP adapter, all on one device.
 
     ``unet`` and ``vae`` compute in their own dtype (bf16 on the card); the
-    adapter and the sampler's update are fp32."""
+    adapter and the sampler's update are fp32. ``decode``, ``forward`` and
+    ``sample`` serve under ``torch.no_grad``; the trainer
+    (``train/sd_diffusion_train.py``) calls ``unet``, ``vae.decode`` and
+    ``adapter`` with autograd on."""
 
     def __init__(self, unet: SDUNet, vae: AutoencoderKL, adapter: SDClipAdapter) -> None:
         self.unet = unet.eval()

@@ -15,8 +15,14 @@ Two hand-written kernels carry the blocks' hot paths:
 * every ``BasicTransformerBlock``'s LN -> GEGLU -> out-projection tail goes
   through the fused MLP (``ops/mlp.py``).
 
-On the CPU both run their plain versions. The JAX TPU layouts (the spatial
-fold, the phase-decomposed upsample) and int8 are not ported.
+On the CPU both run their plain versions. Both are autograd Functions, so
+the blocks are differentiable in their activations (adapter training
+backpropagates through them; flash attention's backward is a kernel too).
+The parameters are not: the compute-dtype copies that ``cast`` and
+``_converted`` cache are detached, so the UNet and VAE train nothing and
+their parameters are kept frozen (``requires_grad=False``) by the trainer.
+The JAX TPU layouts (the spatial fold, the phase-decomposed upsample) and
+int8 are not ported.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ widths, F a multiple of 160) or raises; on a CPU tensor it runs
 card. The kernel reads its weights
 pre-packed in mma fragment order: pass ``packed=pack_weights(wh, wg, wo)``
 (the model caches it per load) or let the wrapper pack them on each call.
+The wrapper is an autograd Function whose backward differentiates
+``mlp_plain`` (no kernel: JAX has none either).
 ``transformer_mlp.launches`` counts kernel launches.
 """
 
@@ -139,18 +141,41 @@ def _launch(x, lns, lnb, bh, bg, packed: Packed, splits: Optional[int] = None) -
     return y
 
 
+class _TransformerMLP(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU). Backward: autograd
+    of ``mlp_plain`` recomputed from the saved inputs, the JAX contract
+    (``pallas_mlp.py`` ``_mlp_vjp_bwd``, the VJP of ``mlp_reference``); JAX
+    has no backward kernel here."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, wh, bh, wg, bg, wo, packed):
+        ctx.save_for_backward(x, lns, lnb, wh, bh, wg, bg, wo)
+        if x.device.type == "cpu":
+            return mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo)
+        if packed is None:
+            packed = pack_weights(wh, wg, wo, x.dtype)
+        y = _launch(x, lns, lnb, bh, bg, packed)
+        transformer_mlp.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:8]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            y = mlp_plain(*args)
+            wanted = [a for a, n in zip(args, need) if n]
+            got = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(got) if n else None for n in need), None)
+
+
 def transformer_mlp(x: torch.Tensor, lns: torch.Tensor, lnb: torch.Tensor, wh: torch.Tensor,
                     bh: torch.Tensor, wg: torch.Tensor, bg: torch.Tensor, wo: torch.Tensor,
                     packed: Optional[Packed] = None) -> torch.Tensor:
     """``(LN(x) wh + bh) * gelu_erf(LN(x) wg + bg) . wo`` over (..., C) tokens,
-    without the residual or the out-projection bias."""
-    if x.device.type == "cpu":
-        return mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo)
-    if packed is None:
-        packed = pack_weights(wh, wg, wo, x.dtype)
-    y = _launch(x, lns, lnb, bh, bg, packed)
-    transformer_mlp.launches += 1
-    return y
+    without the residual or the out-projection bias; differentiable in every
+    tensor argument (``packed`` is only the kernel's copy of the weights)."""
+    return _TransformerMLP.apply(x, lns, lnb, wh, bh, wg, bg, wo, packed)
 
 
 transformer_mlp.launches = 0

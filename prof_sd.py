@@ -20,6 +20,11 @@ SD-1.5 at its published widths, random weights from --seed, bf16, 512px
    twice), device busy = device ms / unprofiled wall ms, top-level aten ops
    and device kernels per call, device time by kind and the largest
    kernels; peak device memory of each request.
+3. ``train``: the adapter training step at batch 4 (the default loss: eps-MSE
+   plus the two VAE decodes of recon_w and tv_w; AdamW), through the
+   kernels and through the plain versions, and the loss's forward alone
+   (autograd on) to split forward from backward; the same measurements,
+   and the peak device memory of each.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -27,6 +32,7 @@ Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -36,6 +42,7 @@ import chip_smoke as cs
 
 KINDS = (  # first match wins: copies before the generic elementwise kernels
     ("flash_attention(K4)", ("flash_fwd_kernel",)),
+    ("flash_attention_bwd(K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("transformer_mlp(K6)", ("mlp_kernel", "sum_splits_kernel")),
     ("conv(cuDNN)", ("fprop", "conv", "cudnn")),
     ("gemm(cuBLAS)", ("gemm", "cublas", "cutlass")),
@@ -174,7 +181,23 @@ def main() -> int:
                                           guidance=cs.SD_GUIDANCE, seed=args.seed).float().cpu(),
                 card, iters=3, prof_iters=1, warmup=1)
         print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    train_step(torch, attn, mlp, dec, args.seed, dev, card)
     return 0
+
+
+def train_step(torch, attn, mlp, dec, seed, dev, card, B=4) -> None:
+    from clip_codec_tpu_torch.train.sd_diffusion_train import SDTrainConfig, make_optimizer, make_sd_train_step
+
+    step = make_sd_train_step(dec, make_optimizer(dec.adapter, 1e-4), SDTrainConfig())
+    batch = cs.train_batch(torch, seed + 9, dev, B)
+    runs = [("train step (kernel path)", lambda: step(*batch), False),
+            ("loss forward only, autograd on (kernel path)", lambda: step.loss_fn(*batch), False),
+            ("train step (plain path)", lambda: step(*batch), True)]
+    for label, fn, plain in runs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with cs.plain_sd_kernels(attn, mlp) if plain else contextlib.nullcontext():
+            profile(torch, f"SD-1.5 adapter {label}, batch {B}, 512px", fn, card, iters=5, prof_iters=2, warmup=2)
+        print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
 
 
 if __name__ == "__main__":

@@ -150,11 +150,15 @@ def test_flash_attention_matches_plain(rng, cuda, BH, N, Nk, D, extreme):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
-def test_flash_attention_heads_layout(rng, cuda):
-    q, k, v = (_bf16(rng, (2, 3, 256, 40)) for _ in range(3))
+@pytest.mark.parametrize("B", [2, 1])
+def test_flash_attention_heads_layout(rng, cuda, B):
+    """(B, H, N, D) heads as the blocks pass them, a transpose of (B, N, H,
+    D); at B = 1 its (B*H, N, D) reshape is a strided view."""
+    q, k, v = (_bf16(rng, (B, 256, 3, 40)).transpose(1, 2) for _ in range(3))
     out = attn.flash_attention_heads(q, k, v)
-    ref, _ = attn.flash_attention_plain(q.reshape(6, 256, 40), k.reshape(6, 256, 40), v.reshape(6, 256, 40))
-    torch.testing.assert_close(out.float(), ref.reshape(2, 3, 256, 40).float(), rtol=2e-2, atol=2e-2)
+    r = lambda t: t.reshape(B * 3, 256, 40)
+    ref, _ = attn.flash_attention_plain(r(q), r(k), r(v))
+    torch.testing.assert_close(out.float(), ref.reshape(B, 3, 256, 40).float(), rtol=2e-2, atol=2e-2)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
@@ -171,6 +175,70 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
     with pytest.raises(ValueError, match="is on cpu"):
         attn.flash_attention_fwd(q, q.cpu(), q)
     assert attn.flash_attention_fwd.launches == n0
+
+
+# (BH, N, Nk, D): the SD-1.5 training shapes at 512px, batch 4 (64x64 and
+# 32x32 self-attention over 8 heads, the VAE's single head), then a ragged
+# query tile and ragged query and key tiles with N != Nk.
+FLASH_BWD_CASES = [(32, 4096, 4096, 40), (32, 1024, 1024, 80), (4, 4096, 4096, 512),
+                   (3, 200, 200, 40), (2, 130, 77, 80), (1, 130, 77, 512)]
+
+
+@pytest.mark.parametrize("extreme", [False, True], ids=["normal", "extreme_logits"])
+@pytest.mark.parametrize("BH,N,Nk,D", FLASH_BWD_CASES)
+def test_flash_attention_bwd_matches_plain(rng, cuda, BH, N, Nk, D, extreme):
+    """dq, dk, dv of the two backward kernels against the plain fp32
+    backward on the same bf16 inputs and the same saved (out, lse): within
+    rtol = 2e-2 and atol = 2e-2 of each gradient's largest magnitude."""
+    q = _bf16(rng, (BH, N, D), 30.0 if extreme else 1.0)
+    k, v = _bf16(rng, (BH, Nk, D)), _bf16(rng, (BH, Nk, D))
+    dout = _bf16(rng, (BH, N, D))
+    out, lse = attn.flash_attention_plain(q, k, v)
+    n0 = attn.flash_attention_bwd_dq.launches, attn.flash_attention_bwd_dkv.launches
+    got = attn.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert (attn.flash_attention_bwd_dq.launches, attn.flash_attention_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        g, w = g.float(), w.float()
+        bound = 2e-2 * (w.abs() + w.abs().max())
+        assert bool(((g - w).abs() <= bound).all()), (name, (g - w).abs().max().item(), w.abs().max().item())
+
+
+def test_flash_attention_autograd_launches_both_directions(rng, cuda):
+    """Backward through flash_attention_heads runs the forward kernel once
+    and each backward kernel once, and agrees with autograd through the
+    materializing version."""
+    q, k, v = (_bf16(rng, (2, 4, 256, 80)).requires_grad_(True) for _ in range(3))
+    g = _bf16(rng, (2, 4, 256, 80))
+    n0 = (attn.flash_attention_fwd.launches, attn.flash_attention_bwd_dq.launches,
+          attn.flash_attention_bwd_dkv.launches)
+    attn.flash_attention_heads(q, k, v).backward(g)
+    n = (attn.flash_attention_fwd.launches - n0[0], attn.flash_attention_bwd_dq.launches - n0[1],
+         attn.flash_attention_bwd_dkv.launches - n0[2])
+    got = [t.grad.float() for t in (q, k, v)]
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    r3 = lambda t: t.reshape(8, 256, 80)
+    attn.flash_attention_plain(r3(qf), r3(kf), r3(vf))[0].reshape(2, 4, 256, 80).backward(g.float())
+    assert n == (1, 1, 1)
+    for a, b in zip(got, (qf.grad, kf.grad, vf.grad)):
+        assert ((a - b).abs().max() <= 2e-2 * b.abs().max()).item()
+
+
+def test_flash_bwd_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
+    q = _bf16(rng, (2, 128, 80))
+    lse = torch.zeros((2, 128), device=cuda)
+    n0 = attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches
+    for d in (36, 64, 128):  # not a multiple of 8; depths with no instantiation
+        r = q[..., :d].contiguous() if d <= 80 else _bf16(rng, (2, 128, d))
+        with pytest.raises(ValueError, match="kernel takes D in"):
+            attn.flash_attention_bwd(r, r, r, r, lse, r)
+    with pytest.raises(TypeError, match="lse2 must be torch.float32"):
+        attn.flash_attention_bwd_dq(q, q, q, q, lse.bfloat16(), lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_attention_bwd_dkv(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2), lse, lse)
+    assert attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches == n0
 
 
 def _mlp_args(rng, R, C, F, dev="cuda"):
@@ -219,6 +287,25 @@ def test_transformer_mlp_packed_weights_and_token_view(rng, cuda):
     torch.cuda.synchronize()
     assert y3.shape == (2, 64, 320)
     assert torch.equal(y3.reshape(128, 320), y2)
+
+
+@pytest.mark.parametrize("R,C,F", [(2048, 640, 2560), (37, 320, 1280)])
+def test_transformer_mlp_backward_is_autograd_of_plain(rng, cuda, R, C, F):
+    """The MLP Function's backward on the card: the gradients of x and of the
+    LayerNorm scale equal autograd of mlp_plain on the same inputs, and the
+    frozen weights get none."""
+    x, lns, lnb, wh, bh, wg, bg, wo = _mlp_args(rng, R, C, F)
+    x.requires_grad_(True)
+    lns.requires_grad_(True)
+    g = _bf16(rng, (R, C))
+    n0 = mlp.transformer_mlp.launches
+    mlp.transformer_mlp(x, lns, lnb, wh, bh, wg, bg, wo).backward(g)
+    assert mlp.transformer_mlp.launches == n0 + 1 and wh.grad is None
+    got = x.grad.clone(), lns.grad.clone()
+    x.grad = lns.grad = None
+    mlp.mlp_plain(x, lns, lnb, wh, bh, wg, bg, wo).backward(g)
+    assert torch.equal(got[0], x.grad)
+    torch.testing.assert_close(got[1], lns.grad, rtol=0, atol=0)
 
 
 def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):

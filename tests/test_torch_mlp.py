@@ -13,6 +13,7 @@ against the m16n8k16 B-fragment definition. Inputs are made with numpy
 from a seed.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,6 +89,23 @@ def test_packed_layout_is_the_mma_b_fragment(rng):
     got = packed.numpy()[n16, k16, 4 * g + t, 4 * nh + 2 * kh + e]
     want = w.numpy()[16 * k16 + 8 * kh + 2 * t + e, 16 * n16 + 8 * nh + g]
     np.testing.assert_array_equal(got, want)
+
+
+def test_function_gradients_match_jax_vjp(rng):
+    """Every argument's gradient through the port's MLP Function against
+    ``jax.vjp`` of the JAX ``transformer_mlp`` (whose backward is the VJP of
+    ``mlp_reference``), fp32, within 1e-5."""
+    from clip_codec_tpu.ops.pallas_mlp import transformer_mlp as jax_mlp
+
+    p = _params(rng, 32, 128)
+    x3 = {**p, "x": p["x"].reshape(2, 16, 32)}
+    g = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    _, vjp = jax.vjp(jax_mlp, *_jax(x3))
+    want = vjp(jnp.asarray(g))
+    args = [a.requires_grad_(True) for a in _torch(x3)]
+    mlp.transformer_mlp(*args).backward(torch.from_numpy(g))
+    for name, a, b in zip(ORDER, args, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5, err_msg=name)
 
 
 def test_wrapper_runs_plain_on_cpu_without_counting(rng):
