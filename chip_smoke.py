@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's decompress path on one CUDA card.
+"""Smoke run of the PyTorch port's paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -70,12 +70,43 @@ SD adapter training (``train/sd_diffusion_train.py``, ``cli/precompute_latents.p
    no input that needs a gradient) and 16 fused MLPs. Seconds per step,
    training img/s and peak device memory are printed.
 
+Pixel-decoder training (``train/diffusion_train.py``, ``cli/train.py``):
+
+12. K1, the fused GroupNorm+SiLU (csrc/groupnorm_silu.cu: the stats kernel
+   and the norm kernel), against its plain versions at the four training
+   shapes of the full-width U-Net at 256px, batch 8, bf16 ((H, W, C) =
+   (256, 256, 128), (128, 128, 128), (64, 64, 256), (32, 32, 512), 8
+   groups), one fp32 case and a ragged shape (3, 37, 29, 64): the stats
+   partials within 1e-5 of their largest magnitude, y within rtol = atol =
+   2e-2 (bf16) or 1e-4 (fp32), each kernel against its own plain version
+   and the pair against ``group_norm_silu_plain``; the autograd Function's
+   dx, dscale, dbias at (8, 64, 64, 256) within 2e-2 of each gradient's
+   largest magnitude of plain autograd; ms of each kernel, of the pair, of
+   the plain versions and of ``F.group_norm`` + ``F.silu`` (for scale), each
+   as events around 20 calls from Python and as the device time of 20 calls
+   replayed from a CUDA graph (at the smaller shapes the wrappers' host work
+   outlasts the kernels);
+13. the full-width U-Net in its training form (``fused_pallas=False``) at
+   256px, batch 2: the loss and every parameter's gradient for the same
+   injected t and noise on the kernel path, on the plain path and on the
+   plain path in fp32, at --seed and --seed + 1: the kernel path at most
+   1.1x as far from fp32 as the plain path, every gradient finite and
+   nonzero, 28 launches of each K1 kernel per forward and none of K2/K3;
+14. training: 16 seeded PNG images, ``train_diffusion`` for 2 epochs at
+   batch 8 (``data_workers=2``) at full width, bf16, 256px: the loss finite,
+   the parameters changed, 28 x 4 launches of each K1 kernel; the final
+   checkpoint loads through ``ClipCodec.load`` and answers a request of 2
+   frames at DDIM-50 through K2/K3 (29 x 50 launches), finite and in
+   [-1, 1]; one ``remat=True`` step (56 launches of each K1 kernel); then
+   seconds per step, img/s and peak device memory over 5 synchronized steps
+   after 2 warm-ups.
+
 The line before the last is the kernels' JSON record (``bound_ms``: the
 larger of the bytes each kernel must move over 3.35 TB/s and its flops over
-989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, at the timed
-shape); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-device the script exits non-zero and prints no result. Nothing of JAX is
-imported.
+989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
+its fp32 rate outside the tensor cores, for K1, at the timed shape); the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits non-zero and prints no result. Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -105,8 +136,11 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "transformer_mlp": ("transformer_mlp", "clip_codec_tpu/ops/pallas_mlp.py:78"),
     "flash_attention_bwd_dq": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:181"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:212"),
+    "group_norm_silu_stats": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:53"),
+    "group_norm_silu_norm": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:69"),
 }
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12  # H100 SXM: HBM3 rate, dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # SD-1.5 at 512px (64x64 latents), CFG batched: UNet batch 2 for a request of
 # one embedding (VAE batch 1), 8 for a request of four (VAE batch 4).
 FLASH_SHAPES = [(16, 4096, 40), (16, 1024, 80), (1, 4096, 512),
@@ -126,6 +160,13 @@ TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 4, 2
 # at all 16 transformer blocks (its backward runs no kernel).
 TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention_bwd_dq": 10, "flash_attention_bwd_dkv": 10,
                   "transformer_mlp": 16}
+# Pixel training: (H, W, C) of every GroupNorm+SiLU of the full-width U-Net
+# at 256px (2, 4, 4 and 4 ResBlocks, two calls each: 28 per forward), batch 8.
+GN_SHAPES = [(256, 256, 128), (128, 128, 128), (64, 64, 256), (32, 32, 512)]
+GN_TAIL, GN_GROUPS, GN_BATCH = (3, 37, 29, 64), 8, 8
+GN_PER_FORWARD = 28
+PX_IMAGES, PX_BATCH, PX_EPOCHS = 16, 8, 2
+PX_MODEL = dict(base=128, ch_mult=(1, 2, 2))  # the reference's U-Net, as DiffusionTrainConfig's defaults
 
 
 class PhaseError(RuntimeError):
@@ -137,9 +178,9 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     """(bound_ms, bound_by): the least time the card could take."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -155,6 +196,32 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of ``fn`` per call with no host work between the calls:
+    ``iters`` calls captured in a CUDA graph and replayed (where the host's
+    enqueue of one call takes longer than the device's work, ``cuda_ms``
+    measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -863,6 +930,334 @@ def phase_train(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
     return launches
 
 
+# ------------------------------------------------------ pixel-decoder training
+
+
+def reset_gn_launches(gn) -> None:
+    gn.group_norm_silu_stats.launches = 0
+    gn.group_norm_silu_norm.launches = 0
+
+
+def gn_launches(gn, rc) -> tuple:
+    """(K1 stats, K1 norm, K2 + K3) launches since the last resets."""
+    return (gn.group_norm_silu_stats.launches, gn.group_norm_silu_norm.launches,
+            rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches)
+
+
+@contextlib.contextmanager
+def plain_k1(gn):
+    """Route the ResBlocks' GroupNorm+SiLU to its plain version."""
+    saved = gn.group_norm_silu
+    gn.group_norm_silu = gn.group_norm_silu_plain
+    try:
+        yield
+    finally:
+        gn.group_norm_silu = saved
+
+
+def _gn_inputs(torch, gen, shape, dev, dtype):
+    C = shape[-1]
+    x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    return x, 1 + 0.2 * torch.randn((C,), generator=gen, device=dev), 0.2 * torch.randn((C,), generator=gen, device=dev)
+
+
+def phase_groupnorm(torch, gn, seed, dev):
+    """K1's two kernels against their plain versions at the training shapes;
+    returns per-kernel records."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    G, bf = GN_GROUPS, torch.bfloat16
+    rec = {"group_norm_silu_stats": {"max_abs_err": 0.0}, "group_norm_silu_norm": {"max_abs_err": 0.0}}
+    cases = [((GN_BATCH, H, W, C), bf) for H, W, C in GN_SHAPES]
+    cases += [((GN_BATCH, 64, 64, 256), torch.float32), (GN_TAIL, bf), (GN_TAIL, torch.float32)]
+    for shape, dtype in cases:
+        x, scale, bias = _gn_inputs(torch, gen, shape, dev, dtype)
+        part = gn.group_norm_silu_stats(x)
+        part_ref = gn.group_norm_silu_stats_plain(x, part.shape[1])
+        y_norm = gn.group_norm_silu_norm(x, part, scale, bias, G)
+        y_norm_ref = gn.group_norm_silu_norm_plain(x, part, scale, bias, G)
+        y = gn.group_norm_silu(x, (scale, bias), G)
+        y_ref = gn.group_norm_silu_plain(x, (scale, bias), G)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        tag = f"group_norm_silu {tuple(shape)} G={G} {str(dtype).split('.')[-1]} chunks={part.shape[1]}"
+        part_err = max((part[:, :, k] - part_ref[:, :, k]).abs().max().item() / part_ref[:, :, k].abs().max().item()
+                       for k in range(2))
+        errs = {}
+        for name, a, b in (("norm", y_norm, y_norm_ref), ("pair", y, y_ref)):
+            a, b = a.float(), b.float()
+            errs[name] = (a - b).abs().max().item()
+            check(bool(((a - b).abs() <= tol + tol * b.abs()).all().item()),
+                  f"{tag}: {name} outside rtol=atol={tol} (max abs err {errs[name]})")
+        check(part_err <= 1e-5, f"{tag}: stats partials rel err {part_err} > 1e-5")
+        line = (f"kernel-check: {tag} stats_rel_err={part_err:.3e} norm_max_abs_err={errs['norm']:.3e} "
+                f"pair_vs_group_norm_silu_plain_max_abs_err={errs['pair']:.3e}")
+        rec["group_norm_silu_stats"]["max_abs_err"] = max(rec["group_norm_silu_stats"]["max_abs_err"],
+                                                          (part - part_ref).abs().max().item())
+        rec["group_norm_silu_norm"]["max_abs_err"] = max(rec["group_norm_silu_norm"]["max_abs_err"], errs["norm"])
+        if dtype == bf and shape != GN_TAIL:
+            B, H, W, C = shape
+            K = part.shape[1]
+            with torch.no_grad():
+                s_ms = cuda_ms(torch, lambda: gn.group_norm_silu_stats(x))
+                n_ms = cuda_ms(torch, lambda: gn.group_norm_silu_norm(x, part, scale, bias, G))
+                pair_ms = cuda_ms(torch, lambda: gn.group_norm_silu(x, (scale, bias), G))
+                ps_ms = cuda_ms(torch, lambda: gn.group_norm_silu_stats_plain(x, K), iters=5)
+                pn_ms = cuda_ms(torch, lambda: gn.group_norm_silu_norm_plain(x, part, scale, bias, G), iters=5)
+                pp_ms = cuda_ms(torch, lambda: gn.group_norm_silu_plain(x, (scale, bias), G), iters=5)
+                xc, sb, bb = x.permute(0, 3, 1, 2), scale.to(bf), bias.to(bf)  # NCHW view, channels_last
+                lib_ms = cuda_ms(torch, lambda: F.silu(F.group_norm(xc, G, sb, bb, 1e-5)))
+                dev_ms = [graph_ms(torch, f) for f in (
+                    lambda: gn.group_norm_silu_stats(x), lambda: gn.group_norm_silu_norm(x, part, scale, bias, G),
+                    lambda: gn.group_norm_silu(x, (scale, bias), G),
+                    lambda: gn.group_norm_silu_plain(x, (scale, bias), G),
+                    lambda: F.silu(F.group_norm(xc, G, sb, bb, 1e-5)))]
+            n = B * H * W * C
+            x_bytes, part_bytes = n * 2, B * K * 2 * C * 4
+            bs = bound(x_bytes + part_bytes, 3 * n, FP32_FLOPS_PER_S)  # x read; partials written
+            bn = bound(2 * x_bytes + part_bytes + 2 * C * 4, 8 * n, FP32_FLOPS_PER_S)  # + y written
+            bp = bound(2 * x_bytes, 11 * n, FP32_FLOPS_PER_S)  # the function itself: x once, y once
+            line += (f" stats_ms={s_ms:.4f} norm_ms={n_ms:.4f} pair_ms={pair_ms:.4f} plain_stats_ms={ps_ms:.4f}"
+                     f" plain_norm_ms={pn_ms:.4f} plain_group_norm_silu_ms={pp_ms:.4f}"
+                     f" group_norm_silu_library_not_plain_ms={lib_ms:.4f} bound_ms(stats, norm, pair)="
+                     f"({bs[0]:.4f}, {bn[0]:.4f}, {bp[0]:.4f}) pair_GBps={2 * x_bytes / pair_ms / 1e6:.0f}"
+                     f" graph_replayed_device_ms(stats, norm, pair, plain, library)=("
+                     + ", ".join(f"{t:.4f}" for t in dev_ms) + ")")
+            if (H, W, C) == GN_SHAPES[0]:
+                # library: F.group_norm + F.silu computes the pair's function (for scale; the port never calls it)
+                pair = dict(library_ms=lib_ms, library_covers="the pair", pair_ms=pair_ms, pair_bound_ms=bp[0],
+                            timed_at=tag)
+                rec["group_norm_silu_stats"].update(ms=s_ms, plain_ms=ps_ms, bound_ms=bs[0], bound_by=bs[1], **pair)
+                rec["group_norm_silu_norm"].update(ms=n_ms, plain_ms=pn_ms, bound_ms=bn[0], bound_by=bn[1], **pair)
+        print(line)
+        del x, part, part_ref, y_norm, y_norm_ref, y, y_ref
+
+    # the autograd Function's gradients: the backward recomputes the plain version
+    shape = (GN_BATCH, 64, 64, 256)
+    x, scale, bias = _gn_inputs(torch, gen, shape, dev, bf)
+    g = torch.randn(shape, generator=gen, device=dev).to(bf)
+    leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+    got = torch.autograd.grad(gn.group_norm_silu(leaves[0], tuple(leaves[1:]), G), leaves, g)
+    want = torch.autograd.grad(gn.group_norm_silu_plain(leaves[0], tuple(leaves[1:]), G), leaves, g)
+    rels = []
+    for name, a, b in zip(("dx", "dscale", "dbias"), got, want):
+        rels.append((a.float() - b.float()).abs().max().item() / b.float().abs().max().item())
+        check(rels[-1] <= 2e-2, f"group_norm_silu backward {name}: rel err {rels[-1]} > 2e-2")
+    print(f"kernel-check: group_norm_silu backward {shape} bf16 rel_err(dx, dscale, dbias)="
+          f"({rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e})")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def px_net(torch, seed, dev, remat=False):
+    from clip_codec_tpu_torch.models import CLIPCondUNet, init_params
+
+    with torch.device(dev):
+        net = CLIPCondUNet(z_dim=512, **PX_MODEL, time_dim=256, img_ch=3, dtype=torch.bfloat16,
+                           fused_pallas=False, remat=remat)
+    return init_params(net, torch.Generator(device=dev).manual_seed(seed))
+
+
+def px_batch(torch, seed, dev, B):
+    """Seeded (x0, z, weight, t, noise) of one 256px training batch."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.rand((B, SIZE, SIZE, 3), generator=gen, device=dev) * 2 - 1
+    z = torch.nn.functional.normalize(torch.randn((B, 512), generator=gen, device=dev), dim=-1)
+    t = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+    noise = torch.randn((B, SIZE, SIZE, 3), generator=gen, device=dev)
+    return x0, z, torch.ones(B, device=dev), t, noise
+
+
+def px_step(torch, net, dev, remat=False):
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule
+    from clip_codec_tpu_torch.train.diffusion_train import DiffusionTrainConfig, make_train_step
+    from clip_codec_tpu_torch.train.optim import make_optimizer
+
+    cfg = DiffusionTrainConfig(**PX_MODEL, remat=remat)
+    return make_train_step(net, NoiseSchedule.create(cfg.timesteps, cfg.schedule, device=dev),
+                           make_optimizer(net, cfg.lr), cfg)
+
+
+def phase_px_grad(torch, gn, rc, seed, dev):
+    """Every parameter's gradient on the kernel, plain and fp32 plain paths."""
+    net = px_net(torch, seed, dev)
+    step = px_step(torch, net, dev)
+    for s in (seed, seed + 1):
+        batch = px_batch(torch, s + 11, dev, 2)
+
+        def grad():
+            net.zero_grad(set_to_none=True)
+            loss = step.loss_fn(*batch)
+            loss.backward()
+            grads = [p.grad.detach().float().flatten() for p in net.parameters()]
+            return loss.item(), grads
+
+        rc.affine_silu_conv3x3.launches = rc.affine_conv3x3.launches = 0
+        reset_gn_launches(gn)
+        loss_k, gk = grad()
+        n = gn_launches(gn, rc)
+        with plain_k1(gn):
+            loss_p, gp = grad()
+            net.compute_dtype = torch.float32
+            try:
+                loss_32, g32 = grad()
+            finally:
+                net.compute_dtype = torch.bfloat16
+        bad = [name for (name, _), g in zip(net.named_parameters(), gk)
+               if not (bool(torch.isfinite(g).all().item()) and g.abs().max().item() > 0)]
+        g_k, g_p, g_32 = (torch.cat(g) for g in (gk, gp, g32))
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+        rk, rp = rel(g_k, g_32), rel(g_p, g_32)
+        print(f"px-train-grad: seed {s} {PX_MODEL} {SIZE}px B=2 t={batch[3].tolist()} "
+              f"loss(kernel, plain, fp32)=({loss_k:.6f}, {loss_p:.6f}, {loss_32:.6f}) rel(g_kernel, g_plain)="
+              f"{rel(g_k, g_p):.3e} to_fp32(kernel, plain)=({rk:.3e}, {rp:.3e}) ratio={rk / rp:.4f} "
+              f"launches(K1 stats, K1 norm, K2+K3)={n}")
+        check(not bad, f"parameters with a non-finite or zero gradient: {bad[:5]}")
+        check(rk <= FP32_RATIO * rp, f"U-Net gradient: kernel path {rk} from fp32 > {FP32_RATIO} x plain's {rp}")
+        check(n == (GN_PER_FORWARD, GN_PER_FORWARD, 0), f"one loss and backward launched {n}")
+    del net, step
+    torch.cuda.empty_cache()
+
+
+def _px_store(seed, store: Path):
+    """16 seeded PNG images with .clp frames; returns the codes, and whether
+    the frames were written (zstandard present)."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 12)
+    images = rng.integers(0, 256, (PX_IMAGES, 96, 128, 3), dtype=np.uint8)  # resized to 256 on load
+    codes = rng.integers(0, 256, (PX_IMAGES, 512), dtype=np.uint8)
+    store.mkdir(parents=True, exist_ok=True)
+    np.savez(store / "codec_meta.npz", scale=np.full(512, 2.0 / 255.0, np.float32), zero=np.full(512, -1.0, np.float32))
+    for i, im in enumerate(images):
+        Image.fromarray(im).save(store / f"img{i}.png")
+    recs = [{"image": str(store / f"img{i}.png"), "bitstream": str(store / f"img{i}.clp")} for i in range(PX_IMAGES)]
+    (store / "manifest.json").write_text(json.dumps(recs))
+    try:
+        from clip_codec_tpu_torch.io.bitstream import write_bitstream
+
+        for i, row in enumerate(codes):
+            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
+    except ImportError:
+        print("px-train frames: zstandard missing, entering at the codes")
+        return codes, False
+    return codes, True
+
+
+def phase_px_train(torch, gn, rc, seed, dev, card):
+    """train_diffusion for 2 epochs, decompress with the result, one remat
+    step, then the steady-state step time."""
+    import numpy as np
+
+    from clip_codec_tpu_torch.codec import ClipCodec
+    from clip_codec_tpu_torch.io import store as store_mod
+    from clip_codec_tpu_torch.train import diffusion_train as dtr
+
+    store = ROOT / "build" / "chip_smoke" / "train_px"
+    codes, frames = _px_store(seed, store)
+    init = {k: v.detach().clone() for k, v in px_net(torch, seed, dev).state_dict().items()}
+    cfg = dtr.DiffusionTrainConfig(out_size=SIZE, epochs=PX_EPOCHS, batch_size=PX_BATCH, **PX_MODEL,
+                                   data_workers=2, seed=seed, log_every=1)
+    losses = []
+    saved_step, saved_read = dtr.make_train_step, store_mod.Store.read_codes
+
+    def recording(*a, **k):
+        step = saved_step(*a, **k)
+
+        def rec(*args):
+            losses.append(step(*args))
+            return losses[-1]
+
+        return rec
+
+    dtr.make_train_step = recording
+    if not frames:
+        store_mod.Store.read_codes = lambda self: codes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rc.affine_silu_conv3x3.launches = rc.affine_conv3x3.launches = 0
+    reset_gn_launches(gn)
+    t0 = time.perf_counter()
+    try:
+        final = dtr.train_diffusion(store, save_dir=store / "out", config=cfg, device=dev)
+    finally:
+        dtr.make_train_step, store_mod.Store.read_codes = saved_step, saved_read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = gn_launches(gn, rc)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    steps = PX_EPOCHS * -(-PX_IMAGES // PX_BATCH)
+    trained = torch.load(final, map_location=dev, weights_only=True)
+    changed = max((trained[k] - v).abs().max().item() for k, v in init.items())
+    finite = all(bool(torch.isfinite(v).all().item()) for v in trained.values())
+    print(f"px-train: {PX_EPOCHS} epochs x {steps // PX_EPOCHS} steps at batch {PX_BATCH}, {PX_MODEL} "
+          f"{SIZE}px, bf16 activations, fp32 parameters and AdamW: {wall:.3f} s in all (PNG decode, checkpoints "
+          f"and first-step set-up included), peak device memory {peak:.2f} GiB on {card}; losses "
+          f"{[round(float(l), 6) for l in losses]}; parameters max change {changed:.3e}; "
+          f"launches(K1 stats, K1 norm, K2+K3)={n}")
+    check(len(losses) == steps and all(bool(torch.isfinite(l).item()) for l in losses), "training loss not finite")
+    check(finite and changed > 0, "the trained parameters are not finite or did not change")
+    check(n == (GN_PER_FORWARD * steps, GN_PER_FORWARD * steps, 0), f"training launches {n}")
+    launches = {"group_norm_silu_stats": n[0], "group_norm_silu_norm": n[1]}
+
+    # serve the trained decoder through ClipCodec and K2/K3
+    codec = ClipCodec.load(store, weights=final, device=dev)
+    rc.affine_silu_conv3x3.launches = rc.affine_conv3x3.launches = 0
+    reset_gn_launches(gn)
+    t0 = time.perf_counter()
+    if frames:
+        from clip_codec_tpu_torch.io.bitstream import compress_frame
+
+        out = codec.decompress([compress_frame(r.tobytes()) for r in codes[:2]], size=SIZE, steps=STEPS,
+                               batch_size=2, seed=seed)
+    else:
+        out = codec.decompress_codes(codes[:2], size=SIZE, steps=STEPS, batch_size=2, seed=seed)
+    dt = time.perf_counter() - t0
+    n = gn_launches(gn, rc)
+    print(f"px-train-serve: the trained decoder answers a request of 2 frames (DDIM-{STEPS}, {SIZE}px) in "
+          f"{dt:.3f} s on {card}; launches(K1 stats, K1 norm, K2+K3)={n}")
+    check(out.shape == (2, SIZE, SIZE, 3) and bool(np.isfinite(out).all()) and float(np.abs(out).max()) <= 1.0,
+          "the trained decoder's output is not finite, in [-1, 1] and (2, 256, 256, 3)")
+    check(n == (0, 0, LAUNCHES_PER_FORWARD * STEPS), f"decompress launches {n}")
+    del codec, trained, init
+
+    batch = px_batch(torch, seed + 13, dev, PX_BATCH)
+    net = px_net(torch, seed, dev, remat=True)
+    reset_gn_launches(gn)
+    loss = px_step(torch, net, dev, remat=True)(*batch)
+    n = gn_launches(gn, rc)
+    print(f"px-train-remat: one remat step at batch {PX_BATCH}: loss {loss.item():.6f} "
+          f"launches(K1 stats, K1 norm, K2+K3)={n}")
+    check(bool(torch.isfinite(loss).item()), "remat step loss not finite")
+    check(n[:2] == (2 * GN_PER_FORWARD, 2 * GN_PER_FORWARD), f"remat step launches {n}")
+    del net
+    torch.cuda.empty_cache()
+
+    net = px_net(torch, seed, dev)
+    step = px_step(torch, net, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [step(*batch) for _ in range(2)]  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_timed = 5
+    for _ in range(n_timed):
+        losses.append(step(*batch))
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / n_timed
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(bool(torch.isfinite(l).item()) for l in losses), "training loss not finite")
+    print(f"px-train-step: batch {PX_BATCH}, {PX_MODEL} {SIZE}px: {s_step:.4f} s per step = "
+          f"{PX_BATCH / s_step:.3f} img/s over {n_timed} synchronized steps, peak device memory {peak:.2f} GiB "
+          f"on {card}; loss {losses[-1].item():.6f}")
+    del net, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -874,6 +1269,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from clip_codec_tpu_torch.ops import attention as attn
+    from clip_codec_tpu_torch.ops import groupnorm as gn
     from clip_codec_tpu_torch.ops import mlp
     from clip_codec_tpu_torch.ops import resblock_conv as rc
 
@@ -907,6 +1303,13 @@ def main() -> int:
         phase_train_grad(torch, attn, mlp, unet, vae, adapter, args.seed, dev)
         train_launches = phase_train(torch, attn, mlp, unet, vae, adapter, args.seed, dev, card)
         launches.update({k: train_launches[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
+        del unet, vae, adapter
+        torch.cuda.empty_cache()
+
+        phase_build(builds, ("groupnorm_silu",))
+        records.update(phase_groupnorm(torch, gn, args.seed, dev))
+        phase_px_grad(torch, gn, rc, args.seed, dev)
+        launches.update(phase_px_train(torch, gn, rc, args.seed, dev, card))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

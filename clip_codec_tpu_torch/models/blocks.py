@@ -1,14 +1,21 @@
 """FiLM and the FiLM-conditioned ResBlock (port of ``clip_codec_tpu/models/blocks.py``),
 NHWC activations, fp32 parameters in the reference torch state-dict layout.
 
-The ResBlock is the two-kernel form of the JAX ``ResBlock._pallas_core``:
+The ResBlock has the JAX block's two forms on the same parameters:
 
-    A1, B1 = GN1 as a per-(batch, channel) affine of x
-    y, mom = affine_silu_conv3x3(x, A1, B1, conv1, want_moments=True)
-    A2, B2 = GN2 o FiLM as an affine, from y's fp32 moments
-    out    = affine_silu_conv3x3(y, A2, B2, conv2, add=x)
+* fused (serving): the two-kernel form of the JAX ``ResBlock._pallas_core``
 
-so the FiLM'd and normalised intermediates never reach device memory.
+      A1, B1 = GN1 as a per-(batch, channel) affine of x
+      y, mom = affine_silu_conv3x3(x, A1, B1, conv1, want_moments=True)
+      A2, B2 = GN2 o FiLM as an affine, from y's fp32 moments
+      out    = affine_silu_conv3x3(y, A2, B2, conv2, add=x)
+
+  so the FiLM'd and normalised intermediates never reach device memory. Its
+  conv weights are cached detached copies: it computes no gradient.
+* direct (training): the JAX block's plain path,
+  ``x + conv2(gn_silu2(film(conv1(gn_silu1(x)), h)))``, with GroupNorm+SiLU
+  through ``ops.groupnorm.group_norm_silu`` (K1 on the card) and the convs
+  as ``F.conv2d``; differentiable in every parameter.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import groupnorm as gn
 from ..ops import resblock_conv as rc
 
 
@@ -37,9 +45,15 @@ def _converted(module: nn.Module, name: str, dtype: torch.dtype, convert) -> tor
 
 
 def cast(module: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """The fp32 parameter ``module.<name>`` in the compute dtype."""
+    """The fp32 parameter ``module.<name>`` in the compute dtype: a cast that
+    autograd tracks when a gradient is wanted for it, else the cached copy
+    (serving, frozen weights)."""
     p = getattr(module, name)
-    return p if p.dtype == dtype else _converted(module, name, dtype, torch.Tensor.to)
+    if p.dtype == dtype:
+        return p
+    if p.requires_grad and torch.is_grad_enabled():
+        return p.to(dtype)
+    return _converted(module, name, dtype, torch.Tensor.to)
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -48,8 +62,14 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 
 def kernel_weight(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """``conv.weight`` as the kernel's (9, Cin, Cout) in ``dtype``."""
+    """``conv.weight`` as the kernel's (9, Cin, Cout) in ``dtype`` (detached)."""
     return _converted(conv, "weight", dtype, rc.conv_weight_to_w9)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, **kw) -> torch.Tensor:
+    """``conv(x)`` on NHWC ``x``, computed in ``dtype``; NHWC out."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), cast(conv, "weight", dtype), cast(conv, "bias", dtype), **kw)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class FiLM(nn.Module):
@@ -81,8 +101,10 @@ class ResBlock(nn.Module):
         self.norm2 = nn.GroupNorm(g, features)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, fused: bool = True) -> torch.Tensor:
         """x: (B, H, W, C) NHWC; h: (B, cond_dim) -> (B, H, W, C) in ``dtype``."""
+        if not fused:
+            return self.direct(x, h, dtype)
         g = self.norm1.num_groups
         xd = x.to(dtype).contiguous()
         A1, B1 = rc.gn_affine(x, self.norm1.weight, self.norm1.bias, g)
@@ -95,3 +117,14 @@ class ResBlock(nn.Module):
         out, _ = rc.affine_silu_conv3x3(
             y, A2, B2, kernel_weight(self.conv2, dtype), self.conv2.bias, add=xd)
         return out
+
+    def direct(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The JAX block's direct form (``blocks.py`` ``ResBlock.__call__``)."""
+        g = self.norm1.num_groups
+        x = x.to(dtype).contiguous()
+        y = gn.group_norm_silu(x, (self.norm1.weight, self.norm1.bias), g)
+        y = conv2d(self.conv1, y, dtype, padding=1)
+        fs, fb = self.film.coeffs(h, dtype)
+        y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
+        y = gn.group_norm_silu(y, (self.norm2.weight, self.norm2.bias), g)
+        return x + conv2d(self.conv2, y, dtype, padding=1)

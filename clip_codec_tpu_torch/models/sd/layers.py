@@ -18,8 +18,9 @@ Two hand-written kernels carry the blocks' hot paths:
 On the CPU both run their plain versions. Both are autograd Functions, so
 the blocks are differentiable in their activations (adapter training
 backpropagates through them; flash attention's backward is a kernel too).
-The parameters are not: the compute-dtype copies that ``cast`` and
-``_converted`` cache are detached, so the UNet and VAE train nothing and
+The parameters are not: the conv weights' compute-dtype copies that
+``_converted`` caches are detached (``cast`` tracks a cast only for a
+parameter that wants a gradient), so the UNet and VAE train nothing and
 their parameters are kept frozen (``requires_grad=False``) by the trainer.
 The JAX TPU layouts (the spatial fold, the phase-decomposed upsample) and
 int8 are not ported.

@@ -39,6 +39,7 @@ from ..utils.batching import padded_index_batches, prefetch_iter
 from ..utils.checkpoint import TrainCheckpointer, save_state_dict
 from ..utils.logging import TrainLogger
 from .losses import eps_mse, total_variation, weighted_mean
+from .optim import ema_update, make_optimizer
 
 PathLike = Union[str, Path]
 NOT_PORTED_DP = ("data parallelism (mesh, --data_parallel, --distributed) is not ported to the "
@@ -90,21 +91,6 @@ def freeze(decoder: StableDiffusionDecoder) -> None:
     frozen = [p for m in (decoder.unet, decoder.vae) for p in m.parameters()]
     assert not any(p.requires_grad for p in frozen), "UNet/VAE parameters must be frozen"
     assert all(p.requires_grad for p in decoder.adapter.parameters()), "the adapter must train"
-
-
-def make_optimizer(adapter: torch.nn.Module, lr: float) -> torch.optim.AdamW:
-    """AdamW with optax.adamw's defaults (b1 0.9, b2 0.999, eps 1e-8,
-    weight decay 1e-4; torch's own default decay is 1e-2)."""
-    return torch.optim.AdamW(adapter.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-
-
-def ema_update(ema: dict, params: dict, decay: float) -> None:
-    """``e <- e * d + p * (1 - d)`` in fp32, in place, as the JAX step."""
-    d = np.float32(decay)
-    one_minus = float(np.float32(1.0) - d)
-    with torch.no_grad():
-        for k, e in ema.items():
-            e.mul_(float(d)).add_(params[k].detach().float() * one_minus)
 
 
 def make_sd_train_step(decoder: StableDiffusionDecoder, optimizer: torch.optim.Optimizer,

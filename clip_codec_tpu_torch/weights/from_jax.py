@@ -1,8 +1,10 @@
 """JAX (flax) params -> this package's state dicts.
 
-* ``unet_state_dict_from_jax``: the pixel ``CLIPCondUNet``; the mapping is
-  ``clip_codec_tpu.weights.export.export_unet`` itself (numpy only, behind
-  an empty package ``__init__``), so importing this module loads no jax;
+* ``unet_state_dict_from_jax``: the pixel ``CLIPCondUNet`` in the reference
+  torch names and shapes, the port's own numpy copy of
+  ``clip_codec_tpu.weights.export.export_unet`` (the port imports nothing of
+  the JAX package); the 4x4 transposed conv's flax ``(kh, kw, out, in)``
+  becomes torch's ``(in, out, kh, kw)`` by the same transpose as a conv;
 * ``sd_unet_state_dict_from_jax``, ``sd_vae_state_dict_from_jax``,
   ``sd_adapter_state_dict_from_jax``: the SD-1.5 UNet, VAE and CLIP adapter
   in diffusers' (and the reference adapter's) names and shapes, written
@@ -22,14 +24,6 @@ import torch
 from .sd_checkpoint import _count
 
 StateDict = Dict[str, torch.Tensor]
-
-
-def unet_state_dict_from_jax(params: Mapping, ch_mult: Sequence[int] = (1, 2, 2)) -> StateDict:
-    """``load_state_dict(strict=True)``-ready tensors for ``CLIPCondUNet``."""
-    from clip_codec_tpu.weights.export import export_unet
-
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in export_unet(params, ch_mult).items()}
 
 
 def _put(sd: Dict[str, np.ndarray], key: str, a) -> None:
@@ -64,6 +58,33 @@ def _resnet(sd, prefix: str, p: Mapping) -> None:
         _linear(sd, f"{prefix}.time_emb_proj", p["time_emb_proj"])
     if "conv_shortcut" in p:
         _conv(sd, f"{prefix}.conv_shortcut", p["conv_shortcut"])
+
+
+def _film_resblock(sd, prefix: str, p: Mapping) -> None:
+    _resnet(sd, prefix, p)
+    _linear(sd, f"{prefix}.film.to_scale", p["film"]["to_scale"])
+    _linear(sd, f"{prefix}.film.to_shift", p["film"]["to_shift"])
+
+
+def unet_state_dict_from_jax(params: Mapping, ch_mult: Sequence[int] = (1, 2, 2)) -> StateDict:
+    """``load_state_dict(strict=True)``-ready tensors for ``CLIPCondUNet``."""
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "time_proj.0", params["time_proj_0"])
+    _linear(sd, "time_proj.2", params["time_proj_2"])
+    _linear(sd, "z_proj.0", params["z_proj_0"])
+    _conv(sd, "in_conv", params["in_conv"])
+    _film_resblock(sd, "mid1", params["mid1"])
+    _film_resblock(sd, "mid2", params["mid2"])
+    _norm(sd, "out_norm", params["out_norm_scale"], params["out_norm_bias"])
+    _conv(sd, "out", params["out"])
+    for i in range(len(ch_mult)):
+        _film_resblock(sd, f"down.{3 * i}", params[f"down_{i}_rb0"])
+        _film_resblock(sd, f"down.{3 * i + 1}", params[f"down_{i}_rb1"])
+        _conv(sd, f"down.{3 * i + 2}", params[f"down_{i}_ds"])
+        _film_resblock(sd, f"up.{3 * i}", params[f"up_{i}_rb0"])
+        _film_resblock(sd, f"up.{3 * i + 1}", params[f"up_{i}_rb1"])
+        _conv(sd, f"up.{3 * i + 2}", params[f"up_{i}_us"])
+    return _tensors(sd)
 
 
 def _transformer2d(sd, prefix: str, p: Mapping) -> None:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's SD-1.5 latent path goes, on one CUDA card.
+"""Where the time of the port's SD-1.5 latent path and of its pixel training
+step goes, on one CUDA card.
 
-    python3 prof_sd.py [--seed N]
+    python3 prof_sd.py [--seed N] [--parts 1,2,3,4]
 
-SD-1.5 at its published widths, random weights from --seed, bf16, 512px
-(64x64 latents), CFG batched (UNet batch 2 per embedding). Two parts:
+Parts 1-3: SD-1.5 at its published widths, random weights from --seed,
+bf16, 512px (64x64 latents), CFG batched (UNet batch 2 per embedding):
 
 1. ``mlp-splits``: the fused MLP kernel (csrc/transformer_mlp.cu) at every
    split count it can take, at the MLP shapes of UNet batches 2, 4 and 8
@@ -25,6 +26,12 @@ SD-1.5 at its published widths, random weights from --seed, bf16, 512px
    kernels and through the plain versions, and the loss's forward alone
    (autograd on) to split forward from backward; the same measurements,
    and the peak device memory of each.
+4. ``train_px``: the pixel decoder's training step at batch 8 (the
+   reference's U-Net, base=128, ch_mult=(1,2,2), 256px, bf16 activations,
+   the default loss, AdamW), through K1 and through the plain GroupNorm+SiLU,
+   and the loss's forward alone; the same measurements (K1's share is its
+   line in the time by kind), the host's self time by op, and the peak
+   device memory of each.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -41,6 +48,8 @@ from collections import defaultdict
 import chip_smoke as cs
 
 KINDS = (  # first match wins: copies before the generic elementwise kernels
+    ("group_norm_silu(K1)", ("gn_stats_kernel", "gn_norm_kernel")),
+    ("affine_conv3x3(K2/K3)", ("affine_conv3x3",)),
     ("flash_attention(K4)", ("flash_fwd_kernel",)),
     ("flash_attention_bwd(K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("transformer_mlp(K6)", ("mlp_kernel", "sum_splits_kernel")),
@@ -82,7 +91,7 @@ def mlp_splits(torch, mlp, seed, dev) -> None:
                   f"best={best} " + " ".join(f"s{s}={ms:.4f}" for s, ms in times.items()), flush=True)
 
 
-def profile(torch, label, fn, card, iters=10, prof_iters=3, warmup=2) -> None:
+def profile(torch, label, fn, card, iters=10, prof_iters=3, warmup=2, host_top=0) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -128,21 +137,27 @@ def profile(torch, label, fn, card, iters=10, prof_iters=3, warmup=2) -> None:
         print(f"   {kind:26s} {ms:8.3f} ms  {100 * ms / total:5.1f}%")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"   {ms:8.3f} ms x {n // prof_iters:4d}  {name[:110]}")
+    if host_top:  # host time by op (self CPU time under the profiler, which adds its own cost)
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_top]
+        host = sum(e.self_cpu_time_total for e in prof.key_averages()) / 1e3 / prof_iters
+        print(f"   host self time under the profiler {host:.3f} ms/call; largest:")
+        for e in ops:
+            print(f"   {e.self_cpu_time_total / 1e3 / prof_iters:8.3f} ms x {e.count // prof_iters:4d}  {e.key[:90]}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parts", type=str, default="1,2,3,4", help="which parts to run, e.g. 4")
     args = ap.parse_args()
+    parts = {int(p) for p in args.parts.split(",")}
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("prof_sd: no CUDA device available", file=sys.stderr)
         return 1
     from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
-    from clip_codec_tpu_torch.models.sd import StableDiffusionDecoder
     from clip_codec_tpu_torch.ops import attention as attn
     from clip_codec_tpu_torch.ops import mlp
 
@@ -154,12 +169,31 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    mlp_splits(torch, mlp, args.seed, dev)
+    if 1 in parts:
+        mlp_splits(torch, mlp, args.seed, dev)
+    if parts & {2, 3}:
+        sd_parts(torch, attn, mlp, cli, parts, args.seed, dev, card)
+    if 4 in parts:
+        train_px(torch, args.seed, dev, card)
+    return 0
 
-    unet, vae, adapter = cs.sd_models(torch, args.seed, dev)
+
+def sd_parts(torch, attn, mlp, cli, parts, seed, dev, card) -> None:
+    from clip_codec_tpu_torch.models.sd import StableDiffusionDecoder
+
+    unet, vae, adapter = cs.sd_models(torch, seed, dev)
     dec = StableDiffusionDecoder(unet, vae, adapter)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
-    rng = np.random.default_rng(args.seed + 5)
+    if 2 in parts:
+        sd_serving(torch, attn, mlp, cli, unet, vae, dec, seed, dev, card)
+    if 3 in parts:
+        train_step(torch, attn, mlp, dec, seed, dev, card)
+
+
+def sd_serving(torch, attn, mlp, cli, unet, vae, dec, seed, dev, card) -> None:
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    rng = np.random.default_rng(seed + 5)
     with torch.no_grad():
         for B in (2, 8):
             lat = torch.randn((B, 64, 64, 4), generator=gen, device=dev)
@@ -178,11 +212,9 @@ def main() -> int:
         profile(torch, f"SD request of {n} embedding(s), dpmpp-{cs.SD_STEPS}, guidance {cs.SD_GUIDANCE}, "
                 f"CFG batched (kernel path)",
                 lambda: cli.sample_images(dec, z, cs.SD_SIZE, steps=cs.SD_STEPS, sampler="dpmpp",
-                                          guidance=cs.SD_GUIDANCE, seed=args.seed).float().cpu(),
+                                          guidance=cs.SD_GUIDANCE, seed=seed).float().cpu(),
                 card, iters=3, prof_iters=1, warmup=1)
         print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    train_step(torch, attn, mlp, dec, args.seed, dev, card)
-    return 0
 
 
 def train_step(torch, attn, mlp, dec, seed, dev, card, B=4) -> None:
@@ -197,6 +229,23 @@ def train_step(torch, attn, mlp, dec, seed, dev, card, B=4) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
         with cs.plain_sd_kernels(attn, mlp) if plain else contextlib.nullcontext():
             profile(torch, f"SD-1.5 adapter {label}, batch {B}, 512px", fn, card, iters=5, prof_iters=2, warmup=2)
+        print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+
+def train_px(torch, seed, dev, card, B=cs.PX_BATCH) -> None:
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    net = cs.px_net(torch, seed, dev)
+    step = cs.px_step(torch, net, dev)
+    batch = cs.px_batch(torch, seed + 13, dev, B)
+    runs = [("train step (kernel path)", lambda: step(*batch), False),
+            ("loss forward only, autograd on (kernel path)", lambda: step.loss_fn(*batch), False),
+            ("train step (plain path)", lambda: step(*batch), True)]
+    for label, fn, plain in runs:
+        torch.cuda.reset_peak_memory_stats(dev)
+        with cs.plain_k1(gn) if plain else contextlib.nullcontext():
+            profile(torch, f"pixel U-Net {label}, batch {B}, {cs.SIZE}px", fn, card, iters=5, prof_iters=2, warmup=2,
+                    host_top=10)
         print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
 
 

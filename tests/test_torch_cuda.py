@@ -7,8 +7,10 @@ version on the same card in bf16: the conv kernel within rtol = atol = 2e-2
 tests/test_pallas_resblock.py), moments within 1e-3 of their largest
 magnitude; flash attention's out within rtol = atol = 2e-2 and its lse
 within 1e-3 absolute (fp32 statistics in both); the fused MLP within
-rtol = atol = 2e-2. This file imports no jax, so it runs on a machine
-without it:
+rtol = atol = 2e-2; the fused GroupNorm+SiLU's partials within 1e-5 of
+their largest magnitude and its output within rtol = atol = 2e-2 in bf16,
+1e-4 in fp32. This file imports no jax, so it runs on a machine without
+it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -359,3 +361,119 @@ def test_sd_unet_and_vae_kernel_paths_match_plain(cuda):
     assert torch.isfinite(ek).all() and torch.isfinite(yk).all()
     assert ((ek - ep).norm() / ep.norm()).item() < 2e-2
     assert ((yk - yp).norm() / yp.norm()).item() < 2e-2
+
+
+# (B, H, W, C, G): a ragged last row chunk (37 x 29 pixels), groups of fewer
+# than 8 channels (C/G = 4 and 3: one thread's 8-channel vector spans two or
+# three groups), one group, and a training shape.
+GN_CASES = [(3, 37, 29, 64, 8), (2, 9, 7, 32, 8), (2, 16, 16, 24, 8), (1, 5, 3, 16, 1), (8, 64, 64, 256, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,G", GN_CASES)
+def test_group_norm_silu_matches_plain(rng, cuda, B, H, W, C, G, dtype):
+    """K1's stats kernel against its plain version within 1e-5 of the
+    largest partial, the norm kernel on the same partials and the pair
+    against ``group_norm_silu_plain`` within 1e-4 (fp32) or rtol = atol =
+    2e-2 (bf16: the plain version rounds the normalised value once more)."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    x = torch.from_numpy((rng.standard_normal((B, H, W, C)) * 2 + 0.5).astype(np.float32)).to(cuda, dtype)
+    scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda)
+    n0 = gn.group_norm_silu_stats.launches, gn.group_norm_silu_norm.launches
+    part = gn.group_norm_silu_stats(x)
+    part_ref = gn.group_norm_silu_stats_plain(x, part.shape[1])
+    y_norm = gn.group_norm_silu_norm(x, part, scale, bias, G)
+    y_norm_ref = gn.group_norm_silu_norm_plain(x, part, scale, bias, G)
+    y = gn.group_norm_silu(x, (scale, bias), G)
+    y_ref = gn.group_norm_silu_plain(x, (scale, bias), G)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_silu_stats.launches - n0[0], gn.group_norm_silu_norm.launches - n0[1]) == (2, 2)
+    assert part.shape == (B, gn.n_chunks(B, H * W), 2, C)
+    for k in range(2):
+        assert (part[:, :, k] - part_ref[:, :, k]).abs().max() <= 1e-5 * part_ref[:, :, k].abs().max()
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y_norm.float(), y_norm_ref.float(), **tol)
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+
+
+def test_group_norm_silu_rejects_what_the_kernel_does_not_take(rng, cuda):
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 32)).astype(np.float32)).to(cuda)
+    sb = (torch.ones(32, device=cuda), torch.zeros(32, device=cuda))
+    n0 = gn.group_norm_silu_stats.launches + gn.group_norm_silu_norm.launches
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
+            gn.group_norm_silu(x.to(dt), sb, 8)
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        gn.group_norm_silu(x[..., :12].contiguous(), (sb[0][:12], sb[1][:12]), 4)
+    with pytest.raises(ValueError, match="C <= 2048"):
+        gn.group_norm_silu(torch.zeros((1, 2, 2, 4096), device=cuda), (torch.ones(4096, device=cuda),) * 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm_silu(x.transpose(1, 2), sb, 8)
+    with pytest.raises(TypeError, match="scale must be torch.float32"):
+        gn.group_norm_silu(x, (sb[0].bfloat16(), sb[1]), 8)
+    with pytest.raises(ValueError, match="not a multiple of groups"):
+        gn.group_norm_silu(x, sb, 3)
+    with pytest.raises(ValueError, match="is on cpu"):
+        gn.group_norm_silu(x, (sb[0].cpu(), sb[1]), 8)
+    assert gn.group_norm_silu_stats.launches + gn.group_norm_silu_norm.launches == n0
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 37, 29, 32)])
+def test_group_norm_silu_backward_is_autograd_of_plain(rng, cuda, shape):
+    """The autograd Function's dx, dscale and dbias on the card against
+    autograd of group_norm_silu_plain on the same bf16 inputs (the backward
+    recomputes the plain version, so it is exact up to the kernel's forward
+    having run)."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    x = _bf16(rng, shape, 2.0).requires_grad_(True)
+    C = shape[-1]
+    scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda).requires_grad_(True)
+    bias = torch.from_numpy((0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda).requires_grad_(True)
+    g = _bf16(rng, shape)
+    n0 = gn.group_norm_silu_norm.launches
+    gn.group_norm_silu(x, (scale, bias), 8).backward(g)
+    assert gn.group_norm_silu_norm.launches == n0 + 1
+    got = [t.grad.clone() for t in (x, scale, bias)]
+    for t in (x, scale, bias):
+        t.grad = None
+    gn.group_norm_silu_plain(x, (scale, bias), 8).backward(g)
+    for a, t in zip(got, (x, scale, bias)):
+        assert a.dtype == t.dtype
+        assert torch.equal(a, t.grad)
+
+
+def test_unet_training_form_runs_k1_and_trains(rng, cuda):
+    """The direct (training) form of a narrow U-Net on the card, bf16, 32px:
+    each forward launches each K1 kernel twice per ResBlock (10 at
+    ch_mult=(1, 2)) and no fused conv; every parameter gets a finite
+    gradient, and eps agrees with the same network on the plain GroupNorm+SiLU."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    net = init_params(CLIPCondUNet(z_dim=8, base=32, ch_mult=(1, 2), time_dim=32, dtype=torch.bfloat16,
+                                   fused_pallas=False), torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    z = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).to(cuda)
+    t = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+    n0 = (gn.group_norm_silu_stats.launches, gn.group_norm_silu_norm.launches,
+          rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches)
+    ek = net(x, z, t)
+    ek.float().square().mean().backward()
+    n = (gn.group_norm_silu_stats.launches - n0[0], gn.group_norm_silu_norm.launches - n0[1],
+         rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches - n0[2])
+    assert n == (20, 20, 0)
+    for name, p in net.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    saved = gn.group_norm_silu
+    gn.group_norm_silu = gn.group_norm_silu_plain
+    try:
+        with torch.no_grad():
+            ep = net(x, z, t).float()
+    finally:
+        gn.group_norm_silu = saved
+    assert ((ek.detach().float() - ep).norm() / ep.norm()).item() < 2e-2

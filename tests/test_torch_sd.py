@@ -280,7 +280,8 @@ def test_sd_modules_import_no_jax(tmp_path, port):
         f"d = cli.load_decoder(*[{str(tmp_path)!r} + f'/{{n}}.pt' for n in ('unet', 'vae', 'adapter')], 'cpu', heads=2)\n"
         "img = cli.sample_images(d, torch.zeros((1, 32)).numpy(), 16, steps=1)\n"
         "assert img.shape == (1, 16, 16, 3) and bool(torch.isfinite(img.float()).all())\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'clip_codec_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'clip_codec_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -64,21 +64,52 @@ def test_state_dict_from_jax_equals_export_and_loads_strict(jax_params):
     net.load_state_dict(sd, strict=True)
 
 
+@pytest.mark.parametrize("ch_mult", [(1, 2), (1, 2, 2)])
+def test_state_dict_from_jax_equals_export_unet(rng, ch_mult):
+    """The port's own copy of the mapping against the JAX package's
+    ``export_unet``, key for key and value for value, on a seeded tree of
+    the U-Net's structure (``jax.eval_shape`` of its init, no compile)."""
+    cfg = dict(CFG, ch_mult=ch_mult)
+    shapes = jax.eval_shape(JaxUNet(**cfg, fused_pallas=False).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 8)), jnp.zeros((1,), jnp.int32))["params"]
+    tree = jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+    sd = unet_state_dict_from_jax(tree, ch_mult)
+    ref = export_unet(tree, ch_mult)
+    assert list(sd) == list(ref)
+    for k, v in ref.items():
+        assert sd[k].dtype == torch.float32
+        np.testing.assert_array_equal(sd[k].numpy(), np.asarray(v), err_msg=k)
+    CLIPCondUNet(**cfg, time_dim=256).load_state_dict(sd, strict=True)
+
+
 def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
-    """The port (and its JAX weight bridge) runs in a process with no jax."""
+    """The port (its JAX weight bridge and its pixel trainer and CLI
+    included) runs in a process that loads nothing of jax, flax or the JAX
+    package."""
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     (tmp_path / "params.pkl").write_bytes(pickle.dumps(tree))
     code = (
         "import pickle, sys\n"
         "import clip_codec_tpu_torch.codec, clip_codec_tpu_torch.cli.reconstruct_diffusion\n"
         "import clip_codec_tpu_torch.models.sd, clip_codec_tpu_torch.cli.reconstruct_sd_diffusion\n"
-        "import clip_codec_tpu_torch.ops.attention, clip_codec_tpu_torch.ops.mlp\n"
+        "import clip_codec_tpu_torch.ops.attention, clip_codec_tpu_torch.ops.mlp, clip_codec_tpu_torch.cli.train\n"
+        "import clip_codec_tpu_torch.train.data, clip_codec_tpu_torch.train.losses\n"
+        "import torch\n"
+        "from clip_codec_tpu_torch.diffusion import NoiseSchedule\n"
         "from clip_codec_tpu_torch.models import CLIPCondUNet\n"
+        "from clip_codec_tpu_torch.train import diffusion_train as tr\n"
+        "from clip_codec_tpu_torch.train.optim import make_optimizer\n"
         "from clip_codec_tpu_torch.weights.from_jax import unet_state_dict_from_jax\n"
         f"tree = pickle.load(open({str(tmp_path / 'params.pkl')!r}, 'rb'))\n"
         "sd = unet_state_dict_from_jax(tree, (1, 2))\n"
-        "CLIPCondUNet(z_dim=8, base=8, ch_mult=(1, 2), time_dim=256).load_state_dict(sd, strict=True)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax')))\n"
+        "net = CLIPCondUNet(z_dim=8, base=8, ch_mult=(1, 2), time_dim=256, fused_pallas=False)\n"
+        "net.load_state_dict(sd, strict=True)\n"
+        "cfg = tr.DiffusionTrainConfig(base=8, ch_mult=(1, 2), bf16=False)\n"
+        "step = tr.make_train_step(net, NoiseSchedule.create(50), make_optimizer(net, 1e-4), cfg)\n"
+        "x = torch.zeros((2, 16, 16, 3))\n"
+        "assert bool(torch.isfinite(step(x, torch.ones((2, 8)), torch.ones(2), torch.tensor([3, 40]), x + 1)))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'clip_codec_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'clip_codec_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -175,6 +206,19 @@ def test_init_params_is_seeded_and_flax_like():
     assert torch.all(a.out_norm.weight == 1) and torch.all(a.in_conv.bias == 0)
     w = a.down[0].conv1.weight
     assert abs(w.std().item() * np.sqrt(w[0].numel()) - 1) < 0.1
+
+
+@pytest.mark.parametrize("layer", [torch.nn.Linear(1024, 1000), torch.nn.Conv2d(128, 128, 3),
+                                   torch.nn.ConvTranspose2d(256, 128, 4)], ids=["linear", "conv", "conv_transpose"])
+def test_init_params_draws_flax_truncated_normal(layer):
+    """flax's lecun_normal: a normal cut at +-2 sigma, rescaled to std
+    1/sqrt(fan_in) (sigma = that / 0.8796), fan_in = numel / shape[0]."""
+    init_params(layer, torch.Generator().manual_seed(0))
+    w = layer.weight.detach().double()
+    std = 1 / np.sqrt(w[0].numel())
+    assert abs(w.std().item() / std - 1) < 0.02
+    assert w.abs().max().item() <= 2 / 0.87962566103423978 * std * (1 + 1e-6)
+    assert w.abs().max().item() > 1.9 / 0.87962566103423978 * std  # the cut, not a narrower normal
 
 
 def test_bf16_forward_tracks_fp32(rng, jax_params):
