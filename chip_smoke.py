@@ -101,18 +101,38 @@ Pixel-decoder training (``train/diffusion_train.py``, ``cli/train.py``):
    seconds per step, img/s and peak device memory over 5 synchronized steps
    after 2 warm-ups.
 
+The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py):
+
+15. build csrc/flash_attention_probe.cu; hold each of its 21 kernels (P1's
+   six modes and tiles, P2's exp2 and row-sum forms, P3's two query tiles)
+   against its plain version at (8, 4096, 40) in bf16, at normal logits and
+   (all but ``nomax``) at extreme ones: softmax outputs within rtol = atol
+   = 2e-2 and within 2e-2 of their largest magnitude, ``noexp`` and
+   ``dotonly`` within 2e-2 of their largest magnitude, P2's row sums within
+   2e-2 relative; then run the probe at (64, 4096, 40), printing its lines:
+   every variant timed, four correctness lines within 2e-2 of an fp32
+   oracle, one counted launch per call the probe made outside CUDA-graph
+   capture (the graphs' replays reported beside); ms of each kernel, its
+   plain version and SDPA at that shape.
+
 The line before the last is the kernels' JSON record (``bound_ms``: the
-larger of the bytes each kernel must move over 3.35 TB/s and its flops over
+largest of the bytes each kernel must move over 3.35 TB/s, its flops over
 989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
-its fp32 rate outside the tensor cores, for K1, at the timed shape); the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero and prints no result. Nothing of JAX is imported.
+its fp32 rate outside the tensor cores, for K1, and, for the attention
+kernels, its exponentials over the exp unit's 16 per clock per SM (or a
+polynomial exp2's instructions over the FMA pipe's 128 lanes per clock per
+SM) at the card's SM count and maximum SM clock, at the timed shape,
+counting the work the function needs, not a kernel's recompute;
+``bound_unit`` names the largest); the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device the script exits non-zero and
+prints no result. Nothing of JAX is imported.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -138,9 +158,16 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "flash_attention_bwd_dkv": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:212"),
     "group_norm_silu_stats": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:53"),
     "group_norm_silu_norm": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:69"),
+    "flash_probe_variant": ("flash_attention_probe", "bench_attn_probe.py:103"),
+    "flash_probe_fast": ("flash_attention_probe", "bench_attn_probe.py:214"),
+    "flash_probe_single_pass": ("flash_attention_probe", "bench_attn_probe.py:281"),
 }
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12  # H100 SXM: HBM3 rate, dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# Per clock per SM: ex2 on the exp unit, fp32 lanes of the FMA pipe (CUDA
+# guide, compute capability 9.0); unit_rates scales them by the card's SM
+# count and maximum SM clock.
+EXP2_PER_CLOCK_SM, FMA_LANES_PER_CLOCK_SM = 16, 128
 # SD-1.5 at 512px (64x64 latents), CFG batched: UNet batch 2 for a request of
 # one embedding (VAE batch 1), 8 for a request of four (VAE batch 4).
 FLASH_SHAPES = [(16, 4096, 40), (16, 1024, 80), (1, 4096, 512),
@@ -167,6 +194,10 @@ GN_TAIL, GN_GROUPS, GN_BATCH = (3, 37, 29, 64), 8, 8
 GN_PER_FORWARD = 28
 PX_IMAGES, PX_BATCH, PX_EPOCHS = 16, 8, 2
 PX_MODEL = dict(base=128, ch_mult=(1, 2, 2))  # the reference's U-Net, as DiffusionTrainConfig's defaults
+# The attention probes: checked against plain at PROBE_CHECK_SHAPE, run and timed at
+# FLASH_SHAPES[3], SD-1.5's first-level self-attention at UNet batch 8.
+PROBE_CHECK_SHAPE, PROBE_SHAPE = (8, 4096, 40), FLASH_SHAPES[3]
+POLY_INSTRUCTIONS = 7  # + deg: floor, subtract, deg FMAs, max, convert, add, shift, multiply
 
 
 class PhaseError(RuntimeError):
@@ -178,10 +209,37 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
-    """(bound_ms, bound_by): the least time the card could take."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+@functools.cache
+def unit_rates() -> dict:
+    """Per second on card 0: ex2 on the exp unit and lanes of the FMA pipe,
+    from its SM count and its maximum SM clock."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    sm_per_s = torch.cuda.get_device_properties(0).multi_processor_count * float(smi.stdout.strip()) * 1e6
+    return {"exp unit": EXP2_PER_CLOCK_SM * sm_per_s, "FMA pipe": FMA_LANES_PER_CLOCK_SM * sm_per_s,
+            "max SM clock MHz": float(smi.stdout.strip())}
+
+
+def bound_terms(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S, exps: float = 0.0,
+                fma: float = 0.0) -> dict:
+    """ms of each limit: bytes over HBM, flops over the tensor cores (or the
+    fp32 rate), exponentials over the exp unit, FMA-pipe instructions."""
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": flops / flops_per_s * 1e3,
+            "exp unit": exps / unit_rates()["exp unit"] * 1e3 if exps else 0.0,
+            "FMA pipe": fma / unit_rates()["FMA pipe"] * 1e3 if fma else 0.0}
+
+
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S, exps: float = 0.0,
+          fma: float = 0.0):
+    """(bound_ms, bound_by, bound_unit): the least time the card could take,
+    the largest of ``bound_terms``. ``bound_unit`` names that term;
+    ``bound_by`` folds the exp unit and the FMA pipe into "operations",
+    the two values the kernels record's format allows."""
+    terms = bound_terms(nbytes, flops, flops_per_s, exps, fma)
+    unit = max(terms, key=terms.get)
+    return terms[unit], ("bytes" if unit == "bytes" else "operations"), unit
 
 
 def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -333,9 +391,10 @@ def phase_kernels(torch, rc, seed, dev):
             px = 2 * H * W  # B = 2
             nbytes = (px * cin * 2 + 2 * 2 * cin * 4 + 9 * cin * cout * 2 + cout * 4 + px * cout * 2
                       + (px * cout * 2 if use_add else 0) + (2 * 2 * cout * 4 if mom else 0))
-            b_ms, b_by = bound(nbytes, 2 * 9 * cin * cout * px)
+            b_ms, b_by, b_unit = bound(nbytes, 2 * 9 * cin * cout * px)
             # library: cuDNN's bf16 conv alone, for scale (no one call computes the fused function)
-            rec.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, timed_at=tag)
+            rec.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit,
+                       timed_at=tag)
     return records
 
 
@@ -513,9 +572,11 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
                 line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} sdpa_library_not_plain_ms={lib_ms:.4f}"
                          f" kernel_TFLOPs={tflops:.1f}")
                 if (BH, N, D) == FLASH_SHAPES[0]:
-                    b_ms, b_by = bound(4 * BH * N * D * 2 + BH * N * 4, 4 * BH * N * N * D)
+                    # exps: one exp2 per score, what softmax needs (the tiling's alphas are the kernel's own)
+                    b_ms, b_by, b_unit = bound(4 * BH * N * D * 2 + BH * N * 4, 4 * BH * N * N * D,
+                                               exps=BH * N * N)
                     rec["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                                                  bound_by=b_by, timed_at=tag)
+                                                  bound_by=b_by, bound_unit=b_unit, timed_at=tag)
             print(line)
             check(ok, f"{tag}: out outside rtol=atol=2e-2 (max abs err {err})")
             check(lse_err <= 1e-3, f"{tag}: lse abs err {lse_err} > 1e-3")
@@ -557,10 +618,10 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
         rec["transformer_mlp"]["max_abs_err"] = max(rec["transformer_mlp"]["max_abs_err"], err)
         if (R, C, Fh) == MLP_SHAPES[0]:
             nbytes = 2 * R * C * 2 + 2 * C * 4 + 3 * C * Fh * 2 + 2 * Fh * 4
-            b_ms, b_by = bound(nbytes, 6 * R * C * Fh)
+            b_ms, b_by, b_unit = bound(nbytes, 6 * R * C * Fh)
             # library: null, no one PyTorch call computes the fused MLP (cuBLAS unfused is printed for scale)
             rec["transformer_mlp"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                                          timed_at=tag)
+                                          bound_unit=b_unit, timed_at=tag)
     # both epilogues (bf16 from registers; fp32 partials + the sum kernel)
     check(1 in splits_seen and max(splits_seen) > 1, f"MLP shapes ran splits {sorted(splits_seen)}: "
           "the one-split and the split form must both be checked")
@@ -755,9 +816,10 @@ def phase_flash_bwd(torch, attn, seed, dev):
             lib_ms = _sdpa_bwd_ms(torch, q, k, v, dout)
             prod = 2 * BH * N * N * D  # flops of one (N, N, D) product
             io = 4 * BH * N * D * 2 + 2 * BH * N * 4  # q, k, v, dout bf16 + lse, dvec fp32, read once
-            bq = bound(io + BH * N * D * 2, 3 * prod)  # dq: S, dP, dS K
-            bkv = bound(io + 2 * BH * N * D * 2, 4 * prod)  # dk, dv: S, dP, P^T dO, dS^T Q
-            bpair = bound(io + 3 * BH * N * D * 2, 5 * prod)  # the backward's own work, no recompute
+            exps = BH * N * N  # p = exp2(s - lse2), recomputed in each kernel, once in the pair's own work
+            bq = bound(io + BH * N * D * 2, 3 * prod, exps=exps)  # dq: S, dP, dS K
+            bkv = bound(io + 2 * BH * N * D * 2, 4 * prod, exps=exps)  # dk, dv: S, dP, P^T dO, dS^T Q
+            bpair = bound(io + 3 * BH * N * D * 2, 5 * prod, exps=exps)  # the backward's own work, no recompute
             line += (f" dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} plain_dq_ms={pdq_ms:.4f} plain_dkv_ms={pdkv_ms:.4f}"
                      f" sdpa_bwd_library_not_plain_ms={lib_ms:.4f} dq_TFLOPs={3 * prod / 1e9 / dq_ms:.1f}"
                      f" dkv_TFLOPs={4 * prod / 1e9 / dkv_ms:.1f} useful_TFLOPs={5 * prod / 1e9 / (dq_ms + dkv_ms):.1f}"
@@ -769,9 +831,9 @@ def phase_flash_bwd(torch, attn, seed, dev):
                 pair = dict(library_ms=lib_ms, library_covers="dq, dk and dv", pair_ms=dq_ms + dkv_ms,
                             pair_bound_ms=bpair[0], timed_at=tag)
                 rec["flash_attention_bwd_dq"].update(ms=dq_ms, plain_ms=pdq_ms, bound_ms=bq[0], bound_by=bq[1],
-                                                     **pair)
+                                                     bound_unit=bq[2], **pair)
                 rec["flash_attention_bwd_dkv"].update(ms=dkv_ms, plain_ms=pdkv_ms, bound_ms=bkv[0],
-                                                      bound_by=bkv[1], **pair)
+                                                      bound_by=bkv[1], bound_unit=bkv[2], **pair)
         print(line)
         del q, k, v, dout, out, lse, lse2, dvec
         torch.cuda.empty_cache()
@@ -1028,8 +1090,10 @@ def phase_groupnorm(torch, gn, seed, dev):
                 # library: F.group_norm + F.silu computes the pair's function (for scale; the port never calls it)
                 pair = dict(library_ms=lib_ms, library_covers="the pair", pair_ms=pair_ms, pair_bound_ms=bp[0],
                             timed_at=tag)
-                rec["group_norm_silu_stats"].update(ms=s_ms, plain_ms=ps_ms, bound_ms=bs[0], bound_by=bs[1], **pair)
-                rec["group_norm_silu_norm"].update(ms=n_ms, plain_ms=pn_ms, bound_ms=bn[0], bound_by=bn[1], **pair)
+                rec["group_norm_silu_stats"].update(ms=s_ms, plain_ms=ps_ms, bound_ms=bs[0], bound_by=bs[1],
+                                                    bound_unit=bs[2], **pair)
+                rec["group_norm_silu_norm"].update(ms=n_ms, plain_ms=pn_ms, bound_ms=bn[0], bound_by=bn[1],
+                                                   bound_unit=bn[2], **pair)
         print(line)
         del x, part, part_ref, y_norm, y_norm_ref, y, y_ref
 
@@ -1258,6 +1322,147 @@ def phase_px_train(torch, gn, rc, seed, dev, card):
     return launches
 
 
+# ------------------------------------------------------ attention probes (P1-P3)
+
+
+def probe_launches(ap) -> dict:
+    return {"flash_probe_variant": ap.flash_variant.launches, "flash_probe_fast": ap.fast_flash_acc.launches,
+            "flash_probe_single_pass": ap.single_pass.launches}
+
+
+def reset_probe_launches(ap) -> None:
+    ap.flash_variant.launches = ap.fast_flash_acc.launches = ap.single_pass.launches = 0
+
+
+def _rel_to_max(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+def _softmax_ok(got, want, tol: float = 2e-2) -> bool:
+    """Within rtol = atol = ``tol`` elementwise and within ``tol`` of want's
+    largest magnitude: at normal logits the output's values are ~0.02, so
+    the elementwise atol alone would let a dropped key tile pass."""
+    got, want = got.float(), want.float()
+    return (bool(((got - want).abs() <= tol + tol * want.abs()).all().item())
+            and _rel_to_max(got, want) <= tol)
+
+
+def phase_probe_kernels(torch, ap, seed, dev):
+    """Every probe kernel against its plain version at PROBE_CHECK_SHAPE, bf16,
+    normal and (all but nomax) extreme logits; returns per-kernel records."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    BH, N, D = PROBE_CHECK_SHAPE
+    q = _randn(torch, gen, (BH, N, D), dev, 1.0, torch.bfloat16)
+    k, v = (_randn(torch, gen, (BH, N, D), dev, 1.0, torch.bfloat16) for _ in range(2))
+    inputs = {"normal": q, "extreme": (q.float() * 30).to(torch.bfloat16)}
+    rec = {name: {"max_abs_err": 0.0} for name in probe_launches(ap)}
+
+    def record(name, tag, results):
+        print(f"kernel-check: {tag} (BH, N, D)=({BH}, {N}, {D}) " + " ".join(
+            f"{logits}: max_abs_err={err:.3e} rel_to_max={rel:.3e}" for logits, (err, rel, _) in results.items()))
+        for logits, (err, _, ok) in results.items():
+            check(ok, f"{tag} {logits} logits: outside its tolerance (max abs err {err:.3e})")
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    for mode, tq, tk in ap.P1_TILES:
+        results = {}
+        for logits, qq in inputs.items():
+            if logits == "extreme" and mode == "nomax":
+                continue  # overflows by design
+            got, want = ap.flash_variant(qq, k, v, tq, tk, mode), ap.flash_variant_plain(qq, k, v, tk, mode)
+            rel = _rel_to_max(got, want)
+            ok = rel <= 2e-2 if mode in ("noexp", "dotonly") else _softmax_ok(got, want)
+            results[logits] = ((got.float() - want.float()).abs().max().item(), rel, ok)
+        record("flash_probe_variant", f"flash_probe_variant {mode} (tq, tk)=({tq}, {tk})", results)
+    for deg, mxu, tq, tk in ap.P2_TILES:
+        results = {}
+        for logits, qq in inputs.items():
+            acc, want = ap.fast_flash_acc(qq, k, v, tq, tk, deg, mxu), ap.fast_flash_plain(qq, k, v, tk, deg, mxu)
+            out, out_ref = (a[..., :D] / a[..., D:] for a in (acc, want))
+            ok = (_softmax_ok(out.to(torch.bfloat16), out_ref.to(torch.bfloat16))
+                  and bool(((acc[..., D] - want[..., D]).abs() <= 2e-2 * want[..., D].abs()).all().item()))
+            results[logits] = ((out - out_ref).abs().max().item(), _rel_to_max(acc, want), ok)
+        record("flash_probe_fast", f"flash_probe_fast deg={deg} {'mxu' if mxu else 'vpu'}-sum (tq, tk)=({tq}, {tk})",
+               results)
+    for tq in ap.P3_TILES:
+        results = {}
+        for logits, qq in inputs.items():
+            got, want = ap.single_pass(qq, k, v, tq), ap.single_pass_plain(qq, k, v)
+            results[logits] = ((got.float() - want.float()).abs().max().item(), _rel_to_max(got, want),
+                               _softmax_ok(got, want))
+        record("flash_probe_single_pass", f"flash_probe_single_pass tq={tq}", results)
+    del q, k, v, inputs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_probe(torch, ap, seed, dev, rec):
+    """The probe's entry point at PROBE_SHAPE (its lines printed), its launch
+    counts, then each kernel's, plain version's and SDPA's ms there."""
+    import torch.nn.functional as F
+
+    from clip_codec_tpu_torch.probes import attn_probe
+
+    BH, N, D = PROBE_SHAPE
+    reset_probe_launches(ap)
+    res = attn_probe.run(dev, BH, N, D, seed)
+    launches = probe_launches(ap)
+    wrappers = {"flash_probe_variant": "flash_variant", "flash_probe_fast": "fast_flash_acc",
+                "flash_probe_single_pass": "single_pass"}
+    want = {name: res["calls"][w]["eager"] for name, w in wrappers.items()}
+    replayed = {name: res["calls"][w]["replayed"] for name, w in wrappers.items()}
+    print(f"probe: launches={launches}, eager calls={want}, launched by CUDA-graph replays={replayed}")
+    check(launches == want, f"probe launches {launches} != one per eager wrapper call {want}")
+    for label, err in res["errors"].items():
+        check(err <= 2e-2, f"probe correctness: {label} max|delta|/max|oracle| = {err} > 2e-2")
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    q, k, v = (_randn(torch, gen, (BH, N, D), dev, 1.0, torch.bfloat16) for _ in range(3))
+    sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+    io = 4 * BH * N * D * 2  # q, k, v read and out written, bf16
+    prod = 2 * BH * N * N * D  # flops of one (N, N, D) product
+    # Each bound counts what the function needs: Q.K^T and P.V, one exponential
+    # per score. The online rescale's alphas and P3's second Q.K^T are the
+    # kernels' own choices, left out (P3's own work is reported beside it).
+    cases = {
+        # name: (timed at, kernel, plain, bound args, library ms)
+        "flash_probe_variant": ("full (tq, tk)=(64, 64)", lambda: ap.flash_variant(q, k, v, 64, 64, "full"),
+                                lambda: ap.flash_variant_plain(q, k, v, 64, "full"),
+                                dict(nbytes=io, flops=2 * prod, exps=BH * N * N), sdpa_ms),
+        "flash_probe_single_pass": ("tq=64", lambda: ap.single_pass(q, k, v, 64),
+                                    lambda: ap.single_pass_plain(q, k, v),
+                                    dict(nbytes=io, flops=2 * prod, exps=BH * N * N), sdpa_ms),
+        # q, k and the ones-column v (48 wide) read, the fp32 (D + 1)-wide accumulator written;
+        # poly2 on the FMA pipe; no PyTorch call computes it
+        "flash_probe_fast": ("poly2 + mxu-sum (tq, tk)=(64, 64), raw accumulator",
+                             lambda: ap.fast_flash_acc(q, k, v, 64, 64, 2, True),
+                             lambda: ap.fast_flash_plain(q, k, v, 64, 2, True),
+                             dict(nbytes=BH * N * (2 * D * 2 + 48 * 2 + (D + 1) * 4), flops=2 * prod,
+                                  fma=(POLY_INSTRUCTIONS + 2) * BH * N * N), None),
+    }
+    for name, (timed, kernel, plain, bargs, lib_ms) in cases.items():
+        k_ms = cuda_ms(torch, kernel)
+        p_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+        b_ms, b_by, b_unit = bound(**bargs)
+        terms = bound_terms(**bargs)
+        tag = f"{name} {timed} at (BH, N, D)=({BH}, {N}, {D})"
+        print(f"probe-kernel: {tag} ms={k_ms:.4f} plain_ms={p_ms:.4f} sdpa_library_ms={sdpa_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_unit}; " + ", ".join(f"{u} {t:.4f}" for u, t in terms.items()) + ")")
+        rec[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit,
+                         timed_at=tag)
+    rec["flash_probe_fast"]["sdpa_ms_for_scale"] = sdpa_ms
+    # P3's own work: Q.K^T in both sweeps and P.V
+    rec["flash_probe_single_pass"]["two_sweep_bound_ms"] = bound(io, 3 * prod, exps=BH * N * N)[0]
+    for name in wrappers:
+        rec[name]["graph_replay_launches"] = replayed[name]
+    for name, label in (("flash_probe_variant", attn_probe.P1_VARIANTS[0][0]),
+                        ("flash_probe_single_pass", attn_probe.P3_VARIANTS[0][0])):
+        rec[name]["probe_graph_ms"] = res["times"][label]["graph_ms"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1269,6 +1474,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from clip_codec_tpu_torch.ops import attention as attn
+    from clip_codec_tpu_torch.ops import attention_probe as ap
     from clip_codec_tpu_torch.ops import groupnorm as gn
     from clip_codec_tpu_torch.ops import mlp
     from clip_codec_tpu_torch.ops import resblock_conv as rc
@@ -1281,6 +1487,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"unit rates: {unit_rates()}")
 
     try:
         builds = start_builds()
@@ -1310,6 +1517,10 @@ def main() -> int:
         records.update(phase_groupnorm(torch, gn, args.seed, dev))
         phase_px_grad(torch, gn, rc, args.seed, dev)
         launches.update(phase_px_train(torch, gn, rc, args.seed, dev, card))
+
+        phase_build(builds, ("flash_attention_probe",))
+        records.update(phase_probe_kernels(torch, ap, args.seed, dev))
+        launches.update(phase_probe(torch, ap, args.seed, dev, records))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

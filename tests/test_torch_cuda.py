@@ -9,8 +9,11 @@ magnitude; flash attention's out within rtol = atol = 2e-2 and its lse
 within 1e-3 absolute (fp32 statistics in both); the fused MLP within
 rtol = atol = 2e-2; the fused GroupNorm+SiLU's partials within 1e-5 of
 their largest magnitude and its output within rtol = atol = 2e-2 in bf16,
-1e-4 in fp32. This file imports no jax, so it runs on a machine without
-it:
+1e-4 in fp32; the attention probes (P1-P3) within 2e-2 of the largest
+magnitude, and softmax outputs also within rtol = atol = 2e-2 (at normal
+logits their values are ~0.02, so the elementwise atol alone would let a
+dropped key tile pass), the P2 row sum within 2e-2 relative. This file imports no
+jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -21,6 +24,7 @@ import torch
 
 from clip_codec_tpu_torch.models import CLIPCondUNet, init_params
 from clip_codec_tpu_torch.ops import attention as attn
+from clip_codec_tpu_torch.ops import attention_probe as ap
 from clip_codec_tpu_torch.ops import mlp
 from clip_codec_tpu_torch.ops import resblock_conv as rc
 
@@ -477,3 +481,104 @@ def test_unet_training_form_runs_k1_and_trains(rng, cuda):
     finally:
         gn.group_norm_silu = saved
     assert ((ek.detach().float() - ep).norm() / ep.norm()).item() < 2e-2
+
+
+# ------------------------------------------------- attention probes (P1-P3)
+
+
+def _probe_qkv(rng, D):
+    return tuple(_bf16(rng, (2, 512, D)) for _ in range(3))
+
+
+def _within_of_max(got, want, tol=2e-2):
+    """max |got - want| within ``tol`` of want's largest magnitude."""
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("D", [40, 48])
+@pytest.mark.parametrize("mode,tq,tk", ap.P1_TILES)
+def test_probe_variant_matches_plain(rng, cuda, mode, tq, tk, D):
+    """Every instantiated P1 kernel; noexp against the plain version at tk =
+    the kernel's key tile (its output depends on the tile width)."""
+    q, k, v = _probe_qkv(rng, D)
+    n0 = ap.flash_variant.launches
+    out = ap.flash_variant(q, k, v, tq, tk, mode)
+    ref = ap.flash_variant_plain(q, k, v, tk, mode)
+    torch.cuda.synchronize()
+    assert ap.flash_variant.launches == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    _within_of_max(out, ref)
+    if mode not in ("noexp", "dotonly"):
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("D", [40, 48])
+@pytest.mark.parametrize("deg,mxu_sum,tq,tk", ap.P2_TILES)
+def test_probe_fast_matches_plain(rng, cuda, deg, mxu_sum, tq, tk, D):
+    """Every instantiated P2 kernel: the raw accumulator's last column (the
+    row sum) within 2e-2 relative, the divided output within 2e-2."""
+    q, k, v = _probe_qkv(rng, D)
+    n0 = ap.fast_flash_acc.launches
+    acc = ap.fast_flash_acc(q, k, v, tq, tk, deg, mxu_sum)
+    ref = ap.fast_flash_plain(q, k, v, tk, deg, mxu_sum)
+    torch.cuda.synchronize()
+    assert ap.fast_flash_acc.launches == n0 + 1
+    assert acc.dtype == torch.float32 and acc.shape == (2, 512, D + 1)
+    assert ((acc[..., D] - ref[..., D]).abs() <= 2e-2 * ref[..., D].abs()).all()
+    out, out_ref = ((a[..., :D] / a[..., D:]).to(torch.bfloat16).float() for a in (acc, ref))
+    _within_of_max(out, out_ref)
+    torch.testing.assert_close(out, out_ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("D", [40, 48])
+@pytest.mark.parametrize("tq", ap.P3_TILES)
+def test_probe_single_pass_matches_plain(rng, cuda, tq, D):
+    q, k, v = _probe_qkv(rng, D)
+    n0 = ap.single_pass.launches
+    out = ap.single_pass(q, k, v, tq)
+    ref = ap.single_pass_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert ap.single_pass.launches == n0 + 1
+    _within_of_max(out, ref)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
+    q = _bf16(rng, (2, 256, 40))
+    calls = (lambda t: ap.flash_variant(t, t, t, 64, 64, "full"),
+             lambda t: ap.fast_flash(t, t, t, 64, 64, 2),
+             lambda t: ap.single_pass(t, t, t, 64))
+    n0 = (ap.flash_variant.launches, ap.fast_flash_acc.launches, ap.single_pass.launches)
+    for call in calls:
+        with pytest.raises(ValueError, match="take D in"):
+            call(_bf16(rng, (2, 256, 80)))
+        with pytest.raises(ValueError, match="N % 128"):
+            call(q[:, :200].contiguous())
+        with pytest.raises(ValueError, match="must be torch.bfloat16"):
+            call(q.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            call(_bf16(rng, (2, 40, 256)).transpose(1, 2))
+    with pytest.raises(ValueError, match="no kernel is instantiated"):
+        ap.flash_variant(q, q, q, 64, 128, "noexp")
+    with pytest.raises(ValueError, match="is on cpu"):
+        ap.single_pass(q, q.cpu(), q, 64)
+    assert (ap.flash_variant.launches, ap.fast_flash_acc.launches, ap.single_pass.launches) == n0
+
+
+def test_probe_graph_capture_counts_no_launch(rng, cuda):
+    """A call recorded into a CUDA graph launches nothing and is not counted;
+    the graph's replay runs the kernel and gives the eager call's output."""
+    q, k, v = _probe_qkv(rng, 40)
+    want = ap.flash_variant(q, k, v, 64, 64, "full")
+    torch.cuda.synchronize()
+    n0 = ap.flash_variant.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ap.flash_variant(q, k, v, 64, 64, "full")
+    assert ap.flash_variant.launches == n0
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ap.flash_variant.launches == n0
+    assert torch.equal(out, want)
