@@ -35,6 +35,8 @@ The SD-1.5 latent path (``models/sd``, ``cli/reconstruct_sd_diffusion.py``):
    (512|2048, 1280, 5120), (128|512, 1280, 5120) within rtol = atol = 2e-2,
    with the kernel's split count, which must be 1 at some shape and more
    at another; ms of kernel, of the kernel with one split, and of plain;
+   flash attention recorded at every shape: events and CUDA-graph ms of
+   the kernel and of SDPA, plain ms and the bound;
 7. one forward of the SD-1.5 UNet (random weights from --seed, bf16,
    64x64 latents, batch 2, a (2, 8, 768) context) and one VAE decode at
    512px, each through the kernels, through the plain versions and through
@@ -54,8 +56,9 @@ SD adapter training (``train/sd_diffusion_train.py``, ``cli/precompute_latents.p
    shapes of SD-1.5 at 512px, batch 4: (BH, N, D) = (32, 4096, 40),
    (32, 1024, 80), (4, 4096, 512), and extreme logits at the first; dq, dk
    and dv within rtol = 2e-2 and atol = 2e-2 of each gradient's largest
-   magnitude; ms of each kernel, of the plain versions and of SDPA's
-   backward (for scale, not a plain version);
+   magnitude; ms of each kernel (events and CUDA-graph replay), of the
+   plain versions and of SDPA's backward (for scale, not a plain version),
+   recorded at every shape;
 10. the adapter's gradient through SD-1.5 at full width (one 64x64 latent,
    the same injected t and noise, the default loss with its VAE decodes) on
    the kernel path, on the plain path and on the plain path in fp32, at
@@ -566,15 +569,21 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
             line = f"kernel-check: {tag} max_abs_err={err:.3e} lse_abs_err={lse_err:.3e}"
             if q_scale == 1.0:
                 k_ms = cuda_ms(torch, lambda: attn.flash_attention_fwd(q, k, v))
+                kg_ms = graph_ms(torch, lambda: attn.flash_attention_fwd(q, k, v))
                 p_ms = cuda_ms(torch, lambda: attn.flash_attention_plain(q, k, v), iters=5)
-                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+                sdpa = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])
+                lib_ms, libg_ms = cuda_ms(torch, sdpa), graph_ms(torch, sdpa)
                 tflops = 4 * BH * N * N * D / 1e9 / k_ms
-                line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} sdpa_library_not_plain_ms={lib_ms:.4f}"
-                         f" kernel_TFLOPs={tflops:.1f}")
+                # exps: one exp2 per score, what softmax needs (the tiling's alphas are the kernel's own)
+                b_ms, b_by, b_unit = bound(4 * BH * N * D * 2 + BH * N * 4, 4 * BH * N * N * D, exps=BH * N * N)
+                line += (f" ms={k_ms:.4f} graph_ms={kg_ms:.4f} plain_ms={p_ms:.4f}"
+                         f" sdpa_library_not_plain_ms={lib_ms:.4f} sdpa_graph_ms={libg_ms:.4f}"
+                         f" bound_ms={b_ms:.4f} ({b_unit}) kernel_TFLOPs={tflops:.1f}")
+                # every path shape; the record's own keys are the first shape's
+                rec["flash_attention"].setdefault("shapes", []).append(
+                    dict(shape=[BH, N, D], ms=k_ms, graph_ms=kg_ms, plain_ms=p_ms, library_ms=lib_ms,
+                         library_graph_ms=libg_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit))
                 if (BH, N, D) == FLASH_SHAPES[0]:
-                    # exps: one exp2 per score, what softmax needs (the tiling's alphas are the kernel's own)
-                    b_ms, b_by, b_unit = bound(4 * BH * N * D * 2 + BH * N * 4, 4 * BH * N * N * D,
-                                               exps=BH * N * N)
                     rec["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
                                                   bound_by=b_by, bound_unit=b_unit, timed_at=tag)
             print(line)
@@ -811,6 +820,8 @@ def phase_flash_bwd(torch, attn, seed, dev):
             args = (q, k, v, dout, lse2, dvec)
             dq_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dq(*args))
             dkv_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dkv(*args))
+            dqg_ms = graph_ms(torch, lambda: attn.flash_attention_bwd_dq(*args))
+            dkvg_ms = graph_ms(torch, lambda: attn.flash_attention_bwd_dkv(*args))
             pdq_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dq_plain(*args), iters=3, warmup=1)
             pdkv_ms = cuda_ms(torch, lambda: attn.flash_attention_bwd_dkv_plain(*args), iters=3, warmup=1)
             lib_ms = _sdpa_bwd_ms(torch, q, k, v, dout)
@@ -823,7 +834,15 @@ def phase_flash_bwd(torch, attn, seed, dev):
             line += (f" dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} plain_dq_ms={pdq_ms:.4f} plain_dkv_ms={pdkv_ms:.4f}"
                      f" sdpa_bwd_library_not_plain_ms={lib_ms:.4f} dq_TFLOPs={3 * prod / 1e9 / dq_ms:.1f}"
                      f" dkv_TFLOPs={4 * prod / 1e9 / dkv_ms:.1f} useful_TFLOPs={5 * prod / 1e9 / (dq_ms + dkv_ms):.1f}"
-                     f" bound_ms(dq, dkv)=({bq[0]:.4f}, {bkv[0]:.4f}) pair_bound_ms={bpair[0]:.4f}")
+                     f" bound_ms(dq, dkv)=({bq[0]:.4f}, {bkv[0]:.4f}) pair_bound_ms={bpair[0]:.4f}"
+                     f" graph_ms(dq, dkv)=({dqg_ms:.4f}, {dkvg_ms:.4f})")
+            # every path shape, on both rows; the records' own keys are the first shape's
+            shape = dict(shape=[BH, N, D], dq_ms=dq_ms, dkv_ms=dkv_ms, pair_ms=dq_ms + dkv_ms, dq_graph_ms=dqg_ms,
+                         dkv_graph_ms=dkvg_ms, plain_dq_ms=pdq_ms, plain_dkv_ms=pdkv_ms, library_ms=lib_ms,
+                         dq_bound_ms=bq[0], dkv_bound_ms=bkv[0], pair_bound_ms=bpair[0], bound_by=bpair[1],
+                         bound_unit=bpair[2])
+            for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                rec[name].setdefault("shapes", []).append(shape)
             if (BH, N, D) == FLASH_BWD_SHAPES[0]:
                 # each row's bound counts its own products (the split recomputes
                 # S and dP in both); library_ms, pair_ms and pair_bound_ms are

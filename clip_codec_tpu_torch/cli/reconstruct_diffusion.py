@@ -4,8 +4,8 @@
         --bitstream img.clp --weights STORE/diffusion_unet_final.pt --out recon.png
 
 Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_diffusion.py``) except
-``--int8``; ``--device`` defaults to ``cuda``, ``--sampler`` is ``ddim`` or
-``ddim_std``. ``--weights`` is a ``.pt`` state dict; the ``model_config.json``
+``--int8``; ``--device`` defaults to ``cuda``, ``--sampler`` is ``ddim``,
+``ddim_std`` or ``dpmpp``. ``--weights`` is a ``.pt`` state dict; the ``model_config.json``
 beside it, if any, gives the architecture and schedule.
 """
 
@@ -55,8 +55,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "else inferred from the checkpoint)")
     ap.add_argument("--ch_mult", type=str, default=None, help="U-Net channel multipliers, e.g. 1,2,2")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sampler", type=str, default="ddim", choices=("ddim", "ddim_std"),
-                    help="ddim (reference parity) or ddim_std (textbook strided DDIM)")
+    ap.add_argument("--sampler", type=str, default="ddim", choices=("ddim", "ddim_std", "dpmpp"),
+                    help="ddim (reference parity), ddim_std (textbook strided DDIM) or dpmpp "
+                         "(DPM-Solver++(2M))")
     args = ap.parse_args(argv)
 
     import torch

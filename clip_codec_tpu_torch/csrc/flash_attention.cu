@@ -5,245 +5,269 @@
 //
 // Replaces the TPU kernel clip_codec_tpu/ops/pallas_attention.py:_flash_kernel
 // (entered there through _flash_forward and flash_attention_heads). Same
-// numerics: fp32 logits with scale * log2(e) folded in, an online softmax in
-// exp2 with fp32 running max and sum, P rounded to v's dtype (bf16) for the
-// P.V product with fp32 accumulation, out rounded to bf16 once at the end,
-// and lse = (m + log2 l) / log2(e). The lse is kept for the backward (K5).
+// numerics: fp32 logits with scale * log2(e) folded into one fp32 multiply
+// (fused with the max's subtraction), an online softmax in exp2 with fp32
+// running max and sum, P rounded to bf16 for the P.V product with fp32
+// accumulation, out rounded to bf16 once at the end, and
+// lse = (m + log2 l) / log2(e). The lse is kept for the backward (K5).
 //
 // What bounds it on an H100: at the SD shapes (N = 1024..4096, D = 40..80)
-// attention does 4*N*D FLOP per query row against ~4*D bytes of q and out, so
-// it is bound by the tensor cores and by the softmax's exp2 and rescale work
-// between the two products; the materialized form instead writes and reads an
-// (N, N) fp32 matrix per head (64 MB at N = 4096), which is what this kernel
-// keeps out of device memory.
+// one exponential per score on the exp unit (16 a clock per SM) takes longer
+// than the 4 N D flops per score on the tensor cores, and the softmax's other
+// per-score instructions (max, subtract, sum, bf16 pack) share the issue slots
+// with it; the materialized form instead writes and reads an (N, N) fp32
+// matrix per head, which this kernel keeps out of device memory.
 //
-// Design (mma.sync m16n8k16 tensor cores, FlashAttention-2 order; no TMA,
-// wgmma or warp specialisation yet):
-//   * a block owns 64 query rows of one (batch, head) and one slice of the
-//     output's head dim; 4 warps, 16 query rows each;
-//   * the q.k depth D is zero-padded in shared memory to DP, a multiple of
-//     16 (40 -> 48): the MMA's K step is 16 and the zeros add nothing;
-//   * keys and values stream through shared memory in tiles of BKT rows,
-//     two stages with cp.async, the next tile's loads in flight during the
-//     current tile's products;
-//   * S = Q K^T stays in registers; its accumulator fragments are exactly
-//     the A operand of P.V after the bf16 rounding, so P never leaves
-//     registers either;
+// Design (wgmma fed by TMA, warp-specialised; the layouts are sm90.cuh's):
+//   * a block owns BQ = 64 * NWG query rows of one (batch, head) and one
+//     slice of the output's head dim: NWG consumer warpgroups of 64 rows
+//     each and one producer warp, whose warpgroup gives its registers to the
+//     consumers with setmaxnreg. D = 40 runs three consumer warpgroups (192
+//     rows, 160 registers each): the softmax's dependent max and sum chains
+//     need more warps per scheduler to hide their latency than two give;
+//     D = 80 and 512 run two (240 registers);
+//   * the producer loads Q once and streams K and V tiles of BKT keys through
+//     a ring of STAGES shared-memory stages with TMA (3-D maps, so the rows
+//     past N or Nk of a head read as zero), each stage's arrival on a full
+//     mbarrier, its release by the consumers on an empty one;
+//   * S = Q K^T is one wgmma chain per warpgroup (A = Q, B = K, both
+//     K-major; the depth padded to a multiple of 16 by TMA's zero fill,
+//     40 -> 48); the softmax runs on S's fp32 accumulator, and P, rounded to
+//     bf16, is the register A operand of O += P V (B = V, MN-major), so P
+//     never touches shared memory;
+//   * each warpgroup issues S(t) and P(t-1) V(t-1) together and runs the
+//     softmax of tile t while P V is in flight; the warpgroups take turns to
+//     issue (named barriers, round robin), so one's softmax on the exp unit
+//     overlaps another's products on the tensor cores;
 //   * D = 512 (the VAE's single head) does not fit as one (64, 512) fp32
-//     accumulator per block, so the grid's third axis walks 128-wide slices
-//     of the output head dim (DV = 128) and each slice's block recomputes S
-//     over the full depth: 4x the Q.K^T work of one pass, paid once per VAE
-//     decode; at D = 40 and 80 there is one slice (DV = DP).
-//   * keys past N and query rows past N are masked (logit -inf, no store).
+//     accumulator per warpgroup, so the grid's third axis walks DV = 256-wide
+//     slices of the output head dim (wgmma's widest N) and each slice's block
+//     recomputes S over the full depth: 2x the Q.K^T work of one pass, paid
+//     once per VAE decode; at D = 40 and 80 there is one slice (DV = D);
+//   * keys past Nk are masked (logit -inf); query rows past N are not stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+using namespace sm90;
+
 constexpr float LOG2E = 1.4426950408889634f;
 
-// DP: q.k depth padded to a multiple of 16; DV: output slice width; BKT: keys per tile.
-template <int DP, int DV, int BKT>
+// DP: q.k depth padded to a multiple of 16; DV: output slice width; BKT: keys
+// per tile; NWG: consumer warpgroups (64 query rows each); STAGES: ring depth.
+template <int DP, int DV, int BKT, int NWG, int STAGES>
 struct Cfg {
-  static constexpr int LDQ = DP + 8;  // bf16 row strides: odd multiples of 16 bytes, ldmatrix conflict-free
-  static constexpr int LDV = DV + 8;
-  static constexpr int NS = BKT / 8;  // n-tiles of S per warp
-  static constexpr int NO = DV / 8;   // n-tiles of the output slice per warp
-  static constexpr int Q_ELEMS = BQ * LDQ;
-  static constexpr int K_ELEMS = BKT * LDQ;
-  static constexpr int V_ELEMS = BKT * LDV;
-  static constexpr int SMEM = 2 * (Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS);
-  static_assert(DP % 16 == 0 && DV % 16 == 0 && BKT % 16 == 0, "tile shapes");
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int NCB = (DP + 63) / 64;   // 64-column blocks of the q.k depth
+  static constexpr int NCBV = (DV + 63) / 64;  // of the output slice
+  static constexpr int Q_BYTES = NCB * BQ * 128;
+  static constexpr int K_BYTES = NCB * BKT * 128;
+  static constexpr int V_BYTES = NCBV * BKT * 128;
+  static constexpr int TILES = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  static constexpr int SMEM = 1024 + TILES + (2 * STAGES + 1) * 8;  // alignment slack, tiles, barriers
+  static constexpr int THREADS = (NWG + 1) * WARPGROUP;
+  static_assert(DP % 16 == 0 && DV % 8 == 0 && BKT % 16 == 0 && SMEM <= 232448, "tile shapes");
+  static_assert(NWG == 2 || NWG == 3, "warpgroups taking turns; registers split 24/240 or 32/160");
 };
 
-template <int DP, int DV, int BKT>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+template <int DP, int DV, int BKT, int NWG, int STAGES>
+__global__ void __launch_bounds__(Cfg<DP, DV, BKT, NWG, STAGES>::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                  float* __restrict__ lse, int N, int Nk, int D, float scale_log2) {
-  using C = Cfg<DP, DV, BKT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + C::Q_ELEMS;      // [2][BKT][LDQ]
-  __nv_bfloat16* sV = sK + 2 * C::K_ELEMS;  // [2][BKT][LDV]
+  using C = Cfg<DP, DV, BKT, NWG, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sK = sQ + C::Q_BYTES;               // [STAGES][NCB][BKT][64]
+  unsigned char* sV = sK + STAGES * C::K_BYTES;      // [STAGES][NCBV][BKT][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sQ + C::TILES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ, d0 = blockIdx.z * DV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* qb = q + (size_t)bh * N * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * Nk * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Nk * D;
-
-  // Q tile, zero past N and past D.
-  for (int e = tid; e < BQ * (DP / 8); e += THREADS) {
-    const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
-    const bool ok = q0 + r < N && c < D;
-    cp_async16(smem_u32(sQ + r * C::LDQ + c), ok ? qb + (size_t)(q0 + r) * D + c : q, ok);
-  }
-  auto load_kv = [&](int s, int j0) {
-    __nv_bfloat16* dk = sK + s * C::K_ELEMS;
-    __nv_bfloat16* dv = sV + s * C::V_ELEMS;
-    for (int e = tid; e < BKT * (DP / 8); e += THREADS) {
-      const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
-      const bool ok = j0 + r < Nk && c < D;
-      cp_async16(smem_u32(dk + r * C::LDQ + c), ok ? kb + (size_t)(j0 + r) * D + c : k, ok);
-    }
-    for (int e = tid; e < BKT * (DV / 8); e += THREADS) {
-      const int r = e / (DV / 8), c = (e % (DV / 8)) * 8;
-      const bool ok = j0 + r < Nk && d0 + c < D;
-      cp_async16(smem_u32(dv + r * C::LDV + c), ok ? vb + (size_t)(j0 + r) * D + d0 + c : v, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::BQ, d0 = blockIdx.z * DV;
   const int n_tiles = (Nk + BKT - 1) / BKT;
-  load_kv(0, 0);  // the first group also carries Q
-
-  float o[C::NO][4];
-#pragma unroll
-  for (int i = 0; i < C::NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};  // this thread's partial row sums (its 2 columns of each n-tile)
-
-  const int r0 = warp * 16;
-  const uint32_t q_addr = smem_u32(sQ + (r0 + (lane & 15)) * C::LDQ + (lane >> 4) * 8);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv((t + 1) & 1, (t + 1) * BKT);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  const int wg = threadIdx.x / WARPGROUP, tid = threadIdx.x % WARPGROUP;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);  // one arrival per consumer warp
     }
-    __syncthreads();
-    const __nv_bfloat16* cK = sK + (t & 1) * C::K_ELEMS;
-    const __nv_bfloat16* cV = sV + (t & 1) * C::V_ELEMS;
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T (fp32, 16 x BKT per warp)
-    float s[C::NS][4];
-#pragma unroll
-    for (int i = 0; i < C::NS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(q_addr + kk * 32, a);
-#pragma unroll
-      for (int np = 0; np < C::NS / 2; ++np) {
-        // matrices: (keys +0..7, d +0..7), (keys +0..7, d +8..15), (keys +8..15, d +0..7), (keys +8..15, d +8..15)
-        const int mi = lane >> 3;
-        const int key = np * 16 + (mi >> 1) * 8 + (lane & 7);
-        uint32_t b[4];
-        ldsm_x4(smem_u32(cK + key * C::LDQ + kk * 16 + (mi & 1) * 8), b);
-        mma_bf16(s[2 * np], a, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+  if (wg == NWG) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<NWG == 2 ? 24 : 32>();
+    if (tid == 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int cb = 0; cb < C::NCB; ++cb) tma_load_3d(sQ + cb * C::BQ * 128, &tq, qbar, cb * 64, q0, bh);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);  // the first round passes: the ring starts empty
+        mbar_expect_tx(&full[s], C::K_BYTES + C::V_BYTES);
+        unsigned char* k = sK + s * C::K_BYTES;
+        unsigned char* v = sV + s * C::V_BYTES;
+        for (int cb = 0; cb < C::NCB; ++cb) tma_load_3d(k + cb * BKT * 128, &tk, &full[s], cb * 64, i * BKT, bh);
+        for (int cb = 0; cb < C::NCBV; ++cb)
+          tma_load_3d(v + cb * BKT * 128, &tv, &full[s], d0 + cb * 64, i * BKT, bh);
       }
     }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<NWG == 2 ? 240 : 160>();
+    const int warp = tid / 32, lane = tid % 32, quad = lane & 3;
+    const unsigned char* myQ = sQ + wg * 64 * 128;  // this warpgroup's 64 rows of each column block
 
-    // Online softmax in the exp2 domain. Rows: g = lane / 4 (elements 0, 1) and g + 8 (2, 3).
-    const int j0 = t * BKT;
-    float mx[2] = {m_run[0], m_run[1]};
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < C::NS; ++i) {
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};  // l_run: this thread's partial row sums
+    float s[BKT / 2];
+    uint32_t p[BKT / 16][4];  // P of the tile whose P V is next, as bf16 A fragments
+
+    auto qk = [&](int stage) {
+      const unsigned char* k = sK + stage * C::K_BYTES;
+      const unsigned char* q = in_place(myQ);
+      Wgmma<BKT>::template ss0<0>(s, desc_k(q, C::BQ, 0), desc_k(k, BKT, 0));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j0 + i * 8 + 2 * (lane & 3) + (e & 1);
-        s[i][e] = col < Nk ? s[i][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+      for (int kk = 1; kk < DP / 16; ++kk) Wgmma<BKT>::template ss<0>(s, desc_k(q, C::BQ, kk), desc_k(k, BKT, kk));
+    };
+    auto pv = [&](int stage) {
+      const unsigned char* v = sV + stage * C::V_BYTES;
+#pragma unroll
+      for (int j = 0; j < BKT / 16; ++j) Wgmma<DV>::template rs<1>(o, p[j], desc_mn(v, BKT, 0, j));
+    };
+    // Online softmax of tile `t` in the exp2 domain, in place on s: returns
+    // each row's rescale of the earlier tiles' sums in alpha.
+    auto softmax = [&](int t, float (&alpha)[2]) {
+      const int j0 = t * BKT;
+      if (j0 + BKT > Nk) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i)
+          if (j0 + 8 * (i / 4) + 2 * quad + (i & 1) >= Nk) s[i] = -INFINITY;
       }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BKT / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = t == 0 ? mx[h] * scale_log2 : fmaxf(m_run[h], mx[h] * scale_log2);
+        alpha[h] = t == 0 ? 0.0f : ex2(m_run[h] - m_new);
+        m_run[h] = m_new;
+        l_run[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int i = 0; i < BKT / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        s[i] = ex2(fmaf(s[i], scale_log2, -m_run[h]));
+        l_run[h] += s[i];
+      }
+    };
+
+    // The warpgroups take turns, round robin, to issue their products (named
+    // barrier 1 + wg, passed on to the next warpgroup's), so that one's
+    // softmax runs while another's products hold the tensor cores. Each
+    // issues n_tiles + 1 times; the last warpgroup opens the first turn and
+    // passes none after its own last.
+    auto my_turn = [&]() { bar_sync(1 + wg, 2 * WARPGROUP); };
+    auto your_turn = [&](bool last) {
+      if (!(last && wg == NWG - 1)) bar_arrive(1 + (wg + 1) % NWG, 2 * WARPGROUP);
+    };
+    if (wg == NWG - 1) bar_arrive(1, 2 * WARPGROUP);
+
+    // Tile 0 alone; then S(t) and P(t-1) V(t-1) issued together, the
+    // softmax of tile t run while P V is in flight, and O rescaled and P
+    // rounded once P V has retired (no register of an in-flight product is
+    // written).
+    mbar_wait(qbar, 0);
+    mbar_wait(&full[0], 0);
+    my_turn();
+    wgmma_fence();
+    qk(0);
+    wgmma_commit();
+    your_turn(false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    {
+      float alpha[2];
+      softmax(0, alpha);
     }
-    float alpha[2];
+    to_a_frags<BKT>(s, p);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int st = t % STAGES;
+      mbar_wait(&full[st], (t / STAGES) & 1);
+      my_turn();
+      wgmma_fence();
+      qk(st);
+      wgmma_commit();
+      pv((t - 1) % STAGES);
+      wgmma_commit();
+      your_turn(false);
+      wgmma_wait<1>();  // S(t) is in; P(t-1) V(t-1) may still run
+      fence_regs(s);
+      float alpha[2];
+      softmax(t, alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      to_a_frags<BKT>(s, p);
+    }
+    my_turn();
+    wgmma_fence();
+    pv((n_tiles - 1) % STAGES);
+    wgmma_commit();
+    your_turn(true);
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    // Epilogue: full row sums, normalise, store bf16; slice 0 stores the lse.
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m_run[h] - mx[h]);  // 0 on the first tile (m_run = -inf)
-      m_run[h] = mx[h];
-      l_run[h] *= alpha[h];
+      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
     }
 #pragma unroll
-    for (int i = 0; i < C::NS; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      if (row >= N) continue;
+      const float inv = 1.0f / l_run[h];
+      __nv_bfloat16* orow = out + ((size_t)bh * N + row) * D;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[i][e] = exp2f(s[i][e] - mx[e >> 1]);
-        l_run[e >> 1] += s[i][e];
+      for (int c = 0; c < DV / 8; ++c) {
+        const int col = d0 + 8 * c + 2 * quad;
+        if (col < D)  // D % 8 == 0: both columns of the pair are in range
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[4 * c + 2 * h] * inv, o[4 * c + 2 * h + 1] * inv);
       }
+      if (blockIdx.z == 0 && quad == 0) lse[(size_t)bh * N + row] = (m_run[h] + log2f(l_run[h])) * (1.0f / LOG2E);
     }
-#pragma unroll
-    for (int i = 0; i < C::NO; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to bf16 (the S fragments of two n-tiles are one A fragment)
-#pragma unroll
-    for (int j = 0; j < BKT / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int np = 0; np < C::NO / 2; ++np) {
-        // matrices: (keys +0..7, d +0..7), (keys +8..15, d +0..7), (keys +0..7, d +8..15), (keys +8..15, d +8..15)
-        const int mi = lane >> 3;
-        const int key = j * 16 + (mi & 1) * 8 + (lane & 7);
-        uint32_t b[4];
-        ldsm_x4_trans(smem_u32(cV + key * C::LDV + np * 16 + (mi >> 1) * 8), b);
-        mma_bf16(o[2 * np], a, b[0], b[1]);
-        mma_bf16(o[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's loads
-  }
-
-  // Epilogue: full row sums, normalise, store bf16; slice 0 stores the lse.
-  const int g = lane >> 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= N) continue;
-    const float inv = 1.0f / l_run[h];
-    __nv_bfloat16* orow = out + ((size_t)bh * N + row) * D;
-#pragma unroll
-    for (int i = 0; i < C::NO; ++i) {
-      const int col = d0 + i * 8 + 2 * (lane & 3);
-      if (col < D)  // D % 8 == 0: both columns of the pair are in range
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[i][2 * h] * inv, o[i][2 * h + 1] * inv);
-    }
-    if (blockIdx.z == 0 && (lane & 3) == 0)
-      lse[(size_t)bh * N + row] = (m_run[h] + log2f(l_run[h])) * (1.0f / LOG2E);
   }
 }
 
-typedef void (*KernelFn)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                         __nv_bfloat16*, float*, int, int, int, float);
-
-template <int DP, int DV, int BKT>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int N,
-           int Nk, int D, float scale_log2, cudaStream_t stream) {
-  const KernelFn fn = flash_fwd_kernel<DP, DV, BKT>;
-  const int smem = Cfg<DP, DV, BKT>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int DP, int DV, int BKT, int NWG, int STAGES>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int N, int Nk, int D,
+           float scale_log2, cudaStream_t stream) {
+  using C = Cfg<DP, DV, BKT, NWG, STAGES>;
+  CUtensorMap tq, tk, tv;
+  if (int e = tmap_rows_bf16(&tq, q, BH, N, D, C::BQ)) return e;
+  if (int e = tmap_rows_bf16(&tk, k, BH, Nk, D, BKT)) return e;
+  if (int e = tmap_rows_bf16(&tv, v, BH, Nk, D, BKT)) return e;
+  const auto fn = flash_fwd_kernel<DP, DV, BKT, NWG, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + BQ - 1) / BQ, BH, (D + DV - 1) / DV);
-  fn<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), N, Nk, D, scale_log2);
+  const dim3 grid((N + C::BQ - 1) / C::BQ, BH, (D + DV - 1) / DV);
+  fn<<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
+                                            static_cast<float*>(lse), N, Nk, D, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -260,19 +284,19 @@ extern "C" int flash_attention_depth(int D) {
   return 0;
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// q: (BH, N, D), k and v: (BH, Nk, D), out: (BH, N, D), all bf16 and
-// contiguous; lse: (BH, N) fp32. D must be one that flash_attention_depth
-// takes. scale_log2 = log2(e) / sqrt(D), rounded to fp32 by the caller.
-extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                                        void* lse, int BH, int N, int Nk, int D,
-                                        float scale_log2, void* stream_) {
+// Launches on `stream` and returns 0, a CUDA error, or one of sm90.cuh's
+// tensor-map codes (>= 9000). q: (BH, N, D), k and v: (BH, Nk, D), out:
+// (BH, N, D), all bf16, contiguous and 16-byte aligned; lse: (BH, N) fp32. D
+// must be one that flash_attention_depth takes. scale_log2 = log2(e) /
+// sqrt(D), rounded to fp32 by the caller.
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
+                                        int BH, int N, int Nk, int D, float scale_log2, void* stream_) {
   if (BH <= 0 || N <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   switch (flash_attention_depth(D)) {
-    case 48: return launch<48, 48, 64>(q, k, v, out, lse, BH, N, Nk, D, scale_log2, s);
-    case 80: return launch<80, 80, 64>(q, k, v, out, lse, BH, N, Nk, D, scale_log2, s);
-    case 512: return launch<512, 128, 32>(q, k, v, out, lse, BH, N, Nk, D, scale_log2, s);
+    case 48: return launch<48, 48, 128, 3, 4>(q, k, v, out, lse, BH, N, Nk, D, scale_log2, s);
+    case 80: return launch<80, 80, 64, 2, 3>(q, k, v, out, lse, BH, N, Nk, D, scale_log2, s);
+    case 512: return launch<512, 256, 32, 2, 2>(q, k, v, out, lse, BH, N, Nk, D, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

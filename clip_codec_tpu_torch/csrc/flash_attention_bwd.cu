@@ -15,327 +15,400 @@
 // split and numerics: two kernels, dq accumulated over key tiles and dk, dv
 // over query tiles; P recomputed in exp2 with log2(e) folded into the fp32
 // scale; P and dS rounded to bf16 for the products that accumulate them, fp32
-// everywhere else; the outputs rounded to bf16 once at the end. Each block
-// owns its output rows, so there are no atomics.
+// everywhere else; the outputs rounded to bf16 once at the end.
+//
+// Why two kernels: each block owns its output rows, so every sum is taken in
+// one fixed order and the gradients are the same from run to run. The fused
+// single kernel of FlashAttention-2 and -3 (dk, dv per key block, dq added
+// into fp32 with atomics from every key block) does 5 products where this
+// split does 7 (the dk/dv kernel recomputes S and dP), but its dq sums in the
+// order the blocks happen to finish, which changes from run to run.
 //
 // What bounds it on an H100: the backward does 5 products of 2*N*Nk*D flops
-// per head (QK^T recomputed, dO V^T, P^T dO, dS K, dS^T Q) against ~10*D bytes
-// per row, so it is bound by the tensor cores. The two-kernel split redoes
-// QK^T and dO V^T in the second kernel (7 products in all) and in exchange
-// needs no atomics and no (N, Nk) intermediate in device memory.
+// per head (QK^T recomputed, dO V^T, P^T dO, dS K, dS^T Q) against ~10*D
+// bytes per row, so it is bound by the tensor cores, and at D = 40 nearly as
+// much by the exp unit (one exp2 per score in each kernel).
 //
-// Design (mma.sync m16n8k16, cp.async double buffering; no TMA or wgmma yet):
-//   * a block owns 64 rows (queries in dq, keys in dk/dv) of one (batch,
-//     head) and one slice of the output head dim; 4 warps, 16 rows each;
-//   * the q.k depth is zero-padded in shared memory to DP, a multiple of 16
-//     (40 -> 48); the padded columns are never stored;
-//   * the streamed operand (keys and values in dq, queries and dO in dk/dv)
-//     goes through shared memory in tiles of BT rows, two cp.async stages;
-//   * dq computes S and dP with query rows as the MMA's rows; dk/dv computes
-//     them transposed (S^T = K Q^T, dP^T = V dO^T), keys as rows. Either way
-//     the fp32 accumulators of S and dP are the A fragments of the next
-//     product after the bf16 rounding, so P and dS never leave registers and
-//     no transpose is needed;
-//   * D = 512 (the VAE's single head) does not fit as (64, 512) fp32
-//     accumulators, so, as in the forward, the grid's third axis walks
-//     128-wide slices of the output head dim (DV = 128) and each slice's block
-//     recomputes S and dP over the full depth: 4x the S and dP work;
-//   * rows past N or Nk are zero-filled on load and masked: P = 0 for keys
-//     past Nk (dq) and for queries past N (lse2 = +inf, dk/dv); rows past the
-//     end are not stored.
+// Design (wgmma fed by TMA, warp-specialised; the layouts are sm90.cuh's):
+//   * a block owns BR = 64 * NWG rows (queries in dq, keys in dk/dv) of one
+//     (batch, head) and one slice of the output head dim: NWG consumer
+//     warpgroups of 64 rows each and one producer warp;
+//   * the producer loads the owned operands once (Q and dO in dq, K and V in
+//     dk/dv) and streams the other two (K and V; Q and dO, with lse2 and dvec
+//     by 1-D maps) in tiles of BT rows through a ring of STAGES stages with
+//     TMA, on full and empty mbarriers;
+//   * dq: S = Q K^T and dP = dO V^T take K-major B; dQ += bf16(dS) K takes
+//     K's tile as an MN-major B. dk/dv works transposed, keys as rows:
+//     S^T = K Q^T and dP^T = V dO^T take K-major B, dV += bf16(P^T) dO and
+//     dK += bf16(dS^T) Q take MN-major B. In both the fp32 accumulators of S
+//     and dP become register A operands after the bf16 rounding, so P and dS
+//     never touch shared memory;
+//   * each warpgroup issues S and dP of tile t + 1 before the products that
+//     accumulate tile t, and computes P and dS of tile t + 1 while those
+//     run; a tile's stage is held for two steps, so the ring has 4 stages
+//     (3 at D = 512) to keep a load in flight;
+//   * the depth is padded to a multiple of 16 by TMA's zero fill (40 -> 48);
+//   * D = 512 (the VAE's single head): one consumer warpgroup (two would need
+//     256 KB for the owned operands alone) and 16-row tiles; the output head
+//     dim in slices of DV = 256 in dq (wgmma's widest N: S and dP recomputed
+//     2x) and 128 in dk/dv, whose two (64, DV) fp32 accumulators must fit
+//     one thread's 255 registers (4x);
+//   * TMA's zero fill would give P = exp2(0 - lse2) != 0 on rows past the
+//     end, so the kernels mask by index: keys past Nk get P = 0 in dq,
+//     queries past N get P = 0 in dk/dv; rows past the end are not stored.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BR = 64;        // rows a block owns: queries (dq) or keys (dk, dv)
-constexpr int THREADS = 128;  // 4 warps x 16 rows
+using namespace sm90;
 
-// DP: q.k depth padded to a multiple of 16; DV: output slice width; BT: rows per streamed tile.
-template <int DP, int DV, int BT>
+// DP: q.k depth padded to a multiple of 16; DV: output slice width; BT: rows
+// per streamed tile; NWG: consumer warpgroups; STAGES: ring depth.
+template <int DP, int DV, int BT, int NWG, int STAGES>
 struct Cfg {
-  static constexpr int LD = DP + 8;  // bf16 row stride: an odd multiple of 16 bytes, ldmatrix conflict-free
-  static constexpr int NS = BT / 8;  // n-tiles of S per warp
-  static constexpr int NO = DV / 8;  // n-tiles of the output slice per warp
-  static constexpr int OWN = BR * LD;
-  static constexpr int TILE = BT * LD;
-  // bytes: two owned tiles, two streamed tiles x two stages; then lse2 and dvec x two stages
-  static constexpr int SMEM_BF16 = 2 * (2 * OWN + 2 * 2 * TILE);
-  static constexpr int SMEM = SMEM_BF16 + 2 * 2 * BT * (int)sizeof(float);
-  static_assert(DP % 16 == 0 && DV % 16 == 0 && BT % 16 == 0 && DP % DV == 0, "tile shapes");
+  static constexpr int BR = 64 * NWG;
+  static constexpr int NCB = (DP + 63) / 64;
+  static constexpr int OWN = NCB * BR * 128;   // bytes of one owned operand
+  static constexpr int TILE = NCB * BT * 128;  // of one streamed operand
+  // One streamed lse2 or dvec tile: TMA starts a box at a 16-byte aligned
+  // value, so a tile of BT values is loaded as BT + 4 from the aligned-down start.
+  static constexpr int VBOX = BT + 4;
+  static constexpr int VEC = (VBOX * 4 + 127) / 128 * 128;
+  static constexpr int STAGE_DQ = 2 * TILE;
+  static constexpr int STAGE_DKV = 2 * TILE;  // + 2 VEC of lse2 and dvec in a region of their own
+  static constexpr int TILES_DQ = 2 * OWN + STAGES * STAGE_DQ;
+  static constexpr int TILES_DKV = 2 * OWN + STAGES * (STAGE_DKV + 2 * VEC);
+  static constexpr int BARS = (2 * STAGES + 1) * 8;
+  static constexpr int SMEM_DQ = 1024 + TILES_DQ + BARS;
+  static constexpr int SMEM_DKV = 1024 + TILES_DKV + BARS;
+  static constexpr int THREADS = (NWG + 1) * WARPGROUP;
+  static_assert(DP % 16 == 0 && (DV % 64 == 0 || DV == DP), "output slices are whole column blocks");
+  static_assert(BT % 16 == 0 && SMEM_DKV <= 232448 && SMEM_DQ <= 232448, "tile shapes");
 };
 
-// Rows [r0, r0 + ROWS) of a (n_rows, D) row-major bf16 matrix into shared
-// memory at row stride LD, zero past n_rows and past D (cp.async, uncommitted).
-template <int ROWS, int DP, int LD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
-                                          int n_rows, int D, int tid) {
-  for (int e = tid; e < ROWS * (DP / 8); e += THREADS) {
-    const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
-    const bool ok = r0 + r < n_rows && c < D;
-    cp_async16(smem_u32(dst + r * LD + c), ok ? src + (size_t)(r0 + r) * D + c : src, ok);
-  }
-}
-
-// acc (16 x BT per warp) = A[r0 .. r0+16, :DP] . B[0 .. BT, :DP]^T, both row-major in
-// shared memory at stride LD.
-template <int DP, int BT, int LD>
-__device__ __forceinline__ void mma_abt(float (&acc)[BT / 8][4], const __nv_bfloat16* sA, int r0,
-                                        const __nv_bfloat16* sB, int lane) {
-#pragma unroll
-  for (int i = 0; i < BT / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  const uint32_t a_addr = smem_u32(sA + (r0 + (lane & 15)) * LD + (lane >> 4) * 8);
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a_addr + kk * 32, a);
-#pragma unroll
-    for (int np = 0; np < BT / 16; ++np) {
-      // matrices: (rows +0..7, k +0..7), (rows +0..7, k +8..15), (rows +8..15, k +0..7), (rows +8..15, k +8..15)
-      const int row = np * 16 + (mi >> 1) * 8 + (lane & 7);
-      uint32_t b[4];
-      ldsm_x4(smem_u32(sB + row * LD + kk * 16 + (mi & 1) * 8), b);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+// Barriers [full x STAGES][empty x STAGES][own] after the tiles; thread 0 inits.
+template <int STAGES, int NWG>
+__device__ __forceinline__ uint64_t* init_barriers(unsigned char* at) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(at);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[STAGES + s], NWG * 4);  // one arrival per consumer warp
     }
+    mbar_init(&bars[2 * STAGES], 1);
+    mbar_init_fence();
   }
+  __syncthreads();
+  return bars;
 }
 
-// acc (16 x DV per warp) += bf16(p) (16 x BT, registers) . B[0 .. BT, col0 .. col0+DV],
-// B row-major in shared memory at stride LD.
-template <int BT, int DV, int LD>
-__device__ __forceinline__ void mma_pb(float (&acc)[DV / 8][4], const float (&p)[BT / 8][4],
-                                       const __nv_bfloat16* sB, int col0, int lane) {
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * j][0], p[2 * j][1]);
-    a[1] = pack_bf16(p[2 * j][2], p[2 * j][3]);
-    a[2] = pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]);
-    a[3] = pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3]);
-#pragma unroll
-    for (int np = 0; np < DV / 16; ++np) {
-      // matrices: (k +0..7, n +0..7), (k +8..15, n +0..7), (k +0..7, n +8..15), (k +8..15, n +8..15)
-      const int row = j * 16 + (mi & 1) * 8 + (lane & 7);
-      uint32_t b[4];
-      ldsm_x4_trans(smem_u32(sB + row * LD + col0 + np * 16 + (mi >> 1) * 8), b);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Stores this warp's 16 rows of acc * mul as bf16: rows past n_rows and
-// columns past D (the zero padding of the depth) are not written.
-template <int NO>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[NO][4], float mul,
-                                           int row0, int n_rows, int d0, int D, int lane) {
+// This thread's rows of a (64, DV) fp32 accumulator times mul, as bf16: rows
+// past n_rows and columns past D (the depth's zero padding) are not written.
+template <int DV>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[DV / 2], float mul, int row0,
+                                           int n_rows, int d0, int D, int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + (lane >> 2) + 8 * h;
     if (row >= n_rows) continue;
     __nv_bfloat16* out = dst + (size_t)row * D;
 #pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int col = d0 + i * 8 + 2 * (lane & 3);
+    for (int c = 0; c < DV / 8; ++c) {
+      const int col = d0 + 8 * c + 2 * (lane & 3);
       if (col < D)  // D % 8 == 0: both columns of the pair are in range
         *reinterpret_cast<__nv_bfloat162*>(out + col) =
-            __floats2bfloat162_rn(acc[i][2 * h] * mul, acc[i][2 * h + 1] * mul);
+            __floats2bfloat162_rn(acc[4 * c + 2 * h] * mul, acc[4 * c + 2 * h + 1] * mul);
     }
   }
 }
 
-template <int DP, int DV, int BT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse2, const float* __restrict__ dvec,
-                    __nv_bfloat16* __restrict__ dq, int N, int Nk, int D, float scale_log2,
-                    float scale) {
-  using C = Cfg<DP, DV, BT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + C::OWN;       // dO rows of the block
-  __nv_bfloat16* sK = sO + C::OWN;       // [2][BT][LD]
-  __nv_bfloat16* sV = sK + 2 * C::TILE;  // [2][BT][LD]
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BR, d0 = blockIdx.z * DV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t qoff = (size_t)bh * N * D, koff = (size_t)bh * Nk * D;
-
-  load_rows<BR, DP, C::LD>(sQ, q + qoff, q0, N, D, tid);
-  load_rows<BR, DP, C::LD>(sO, dout + qoff, q0, N, D, tid);
-  auto load_kv = [&](int s, int j0) {
-    load_rows<BT, DP, C::LD>(sK + s * C::TILE, k + koff, j0, Nk, D, tid);
-    load_rows<BT, DP, C::LD>(sV + s * C::TILE, v + koff, j0, Nk, D, tid);
-    cp_async_commit();
-  };
-
-  const int r0 = warp * 16;
-  float l2[2], dv[2];  // rows g and g + 8 of this warp; past N, P = exp2(-inf) = 0
+// acc (m64 x BT) = A (64 rows of an owned tile) . B^T (a streamed tile), both K-major.
+template <int DP, int BT>
+__device__ __forceinline__ void product_abt(float (&acc)[BT / 2], const unsigned char* a, int a_rows,
+                                            const unsigned char* b) {
+  a = in_place(a);
+  Wgmma<BT>::template ss0<0>(acc, desc_k(a, a_rows, 0), desc_k(b, BT, 0));
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + (lane >> 2) + 8 * h;
-    l2[h] = row < N ? lse2[(size_t)bh * N + row] : INFINITY;
-    dv[h] = row < N ? dvec[(size_t)bh * N + row] : 0.0f;
-  }
-  float acc[C::NO][4];
-#pragma unroll
-  for (int i = 0; i < C::NO; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int kk = 1; kk < DP / 16; ++kk) Wgmma<BT>::template ss<0>(acc, desc_k(a, a_rows, kk), desc_k(b, BT, kk));
+}
 
+// acc (m64 x DV) += bf16 frags (m64 x BT) . B[:, slice], B a streamed tile read MN-major.
+template <int DV, int BT>
+__device__ __forceinline__ void product_pb(float (&acc)[DV / 2], const uint32_t (&a)[BT / 16][4],
+                                           const unsigned char* b, int cb0) {
+#pragma unroll
+  for (int j = 0; j < BT / 16; ++j) Wgmma<DV>::template rs<1>(acc, a[j], desc_mn(b, BT, cb0, j));
+}
+
+template <int DP, int DV, int BT, int NWG, int STAGES>
+__global__ void __launch_bounds__(Cfg<DP, DV, BT, NWG, STAGES>::THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const float* __restrict__ lse2, const float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq,
+                    int N, int Nk, int D, float scale_log2, float scale) {
+  using C = Cfg<DP, DV, BT, NWG, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sO = sQ + C::OWN;        // dO rows of the block
+  unsigned char* sS = sO + C::OWN;        // [STAGES][K tile, V tile]
+  uint64_t* bars = init_barriers<STAGES, NWG>(sQ + C::TILES_DQ);
+  uint64_t *full = bars, *empty = bars + STAGES, *own = bars + 2 * STAGES;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::BR, d0 = blockIdx.z * DV;
   const int n_tiles = (Nk + BT - 1) / BT;
-  load_kv(0, 0);  // the first group also carries Q and dO
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv((t + 1) & 1, (t + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* cK = sK + (t & 1) * C::TILE;
-    const __nv_bfloat16* cV = sV + (t & 1) * C::TILE;
+  const int wg = threadIdx.x / WARPGROUP, tid = threadIdx.x % WARPGROUP;
 
-    float s[C::NS][4], dp[C::NS][4];
-    mma_abt<DP, BT, C::LD>(s, sQ, r0, cK, lane);   // S = Q K^T
-    mma_abt<DP, BT, C::LD>(dp, sO, r0, cV, lane);  // dP = dO V^T
-    const int j0 = t * BT;
-#pragma unroll
-    for (int i = 0; i < C::NS; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j0 + i * 8 + 2 * (lane & 3) + (e & 1);
-        const float p = col < Nk ? exp2f(s[i][e] * scale_log2 - l2[e >> 1]) : 0.0f;
-        s[i][e] = p * (dp[i][e] - dv[e >> 1]);  // dS
+  if (wg == NWG) {
+    if constexpr (NWG > 1) reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(own, 2 * C::OWN);
+      for (int cb = 0; cb < C::NCB; ++cb) {
+        tma_load_3d(sQ + cb * C::BR * 128, &tq, own, cb * 64, q0, bh);
+        tma_load_3d(sO + cb * C::BR * 128, &tdo, own, cb * 64, q0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::STAGE_DQ);
+        unsigned char* st = sS + s * C::STAGE_DQ;
+        for (int cb = 0; cb < C::NCB; ++cb) {
+          tma_load_3d(st + cb * BT * 128, &tk, &full[s], cb * 64, i * BT, bh);
+          tma_load_3d(st + C::TILE + cb * BT * 128, &tv, &full[s], cb * 64, i * BT, bh);
+        }
       }
     }
-    mma_pb<BT, DV, C::LD>(acc, s, cK, d0, lane);  // dq += bf16(dS) K[:, slice]
-    __syncthreads();  // this stage is refilled by the next iteration's loads
+  } else {
+    if constexpr (NWG > 1) reg_alloc<240>();
+    const int warp = tid / 32, lane = tid % 32, quad = lane & 3;
+    const int row0 = q0 + wg * 64 + warp * 16;
+    float l2[2], dv[2];  // rows g and g + 8; past N, P = exp2(-inf) = 0
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + (lane >> 2) + 8 * h;
+      l2[h] = row < N ? lse2[(size_t)bh * N + row] : INFINITY;
+      dv[h] = row < N ? dvec[(size_t)bh * N + row] : 0.0f;
+    }
+    float acc[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
+    const unsigned char* myQ = sQ + wg * 64 * 128;
+    const unsigned char* myO = sO + wg * 64 * 128;
+
+    float sc[BT / 2], dp[BT / 2];
+    uint32_t a[BT / 16][4];
+    auto stage = [&](int t) { return sS + (t % STAGES) * C::STAGE_DQ; };  // K tile, then V tile
+    auto s_dp = [&](int t) {
+      mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+      product_abt<DP, BT>(sc, myQ, C::BR, stage(t));            // S = Q K^T
+      product_abt<DP, BT>(dp, myO, C::BR, stage(t) + C::TILE);  // dP = dO V^T
+    };
+    auto ds = [&](int t) {  // dS of tile t, in place in sc
+      fence_regs(sc);
+      fence_regs(dp);
+      const int j0 = t * BT;
+      const bool ragged = j0 + BT > Nk;
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        float p = ex2(fmaf(sc[i], scale_log2, -l2[h]));
+        if (ragged && j0 + 8 * (i / 4) + 2 * quad + (i & 1) >= Nk) p = 0.0f;
+        sc[i] = p * (dp[i] - dv[h]);
+      }
+    };
+
+    // Tile 0 alone; then S, dP of tile t + 1 issued before dq += bf16(dS) K
+    // of tile t, and dS(t + 1) computed while that product runs.
+    mbar_wait(own, 0);
+    wgmma_fence();
+    s_dp(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    ds(0);
+    to_a_frags<BT>(sc, a);
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      wgmma_fence();
+      s_dp(t + 1);
+      wgmma_commit();
+      product_pb<DV, BT>(acc, a, stage(t), d0 / 64);  // dq += bf16(dS) K[:, slice]
+      wgmma_commit();
+      wgmma_wait<1>();
+      ds(t + 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[t % STAGES]);
+      to_a_frags<BT>(sc, a);
+    }
+    wgmma_fence();
+    product_pb<DV, BT>(acc, a, stage(n_tiles - 1), d0 / 64);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_rows<DV>(dq + (size_t)bh * N * D, acc, scale, row0, N, d0, D, lane);
   }
-  store_rows<C::NO>(dq + qoff, acc, scale, q0 + r0, N, d0, D, lane);
 }
 
-template <int DP, int DV, int BT>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse2, const float* __restrict__ dvec,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N, int Nk,
-                     int D, float scale_log2, float scale) {
-  using C = Cfg<DP, DV, BT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + C::OWN;
-  __nv_bfloat16* sQ = sV + C::OWN;       // [2][BT][LD]
-  __nv_bfloat16* sO = sQ + 2 * C::TILE;  // [2][BT][LD] dO
-  float* sL = reinterpret_cast<float*>(smem + C::SMEM_BF16);  // [2][BT] lse2
-  float* sD = sL + 2 * BT;                                     // [2][BT] dvec
+template <int DP, int DV, int BT, int NWG, int STAGES>
+__global__ void __launch_bounds__(Cfg<DP, DV, BT, NWG, STAGES>::THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap tdv,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N, int Nk, int D,
+                     float scale_log2, float scale) {
+  using C = Cfg<DP, DV, BT, NWG, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align1024(smem_raw);
+  unsigned char* sV = sK + C::OWN;
+  unsigned char* sS = sV + C::OWN;                    // [STAGES][Q tile, dO tile]
+  unsigned char* sVec = sS + STAGES * C::STAGE_DKV;   // [STAGES][lse2, dvec]
+  uint64_t* bars = init_barriers<STAGES, NWG>(sK + C::TILES_DKV);
+  uint64_t *full = bars, *empty = bars + STAGES, *own = bars + 2 * STAGES;
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * BR, d0 = blockIdx.z * DV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t qoff = (size_t)bh * N * D, koff = (size_t)bh * Nk * D;
-
-  load_rows<BR, DP, C::LD>(sK, k + koff, k0, Nk, D, tid);
-  load_rows<BR, DP, C::LD>(sV, v + koff, k0, Nk, D, tid);
-  auto load_q = [&](int s, int i0) {
-    load_rows<BT, DP, C::LD>(sQ + s * C::TILE, q + qoff, i0, N, D, tid);
-    load_rows<BT, DP, C::LD>(sO + s * C::TILE, dout + qoff, i0, N, D, tid);
-    cp_async_commit();
-    // Plain stores: this stage was released by the previous iteration's
-    // closing barrier, and the next opening barrier publishes them.
-    for (int r = tid; r < BT; r += THREADS) {
-      const bool ok = i0 + r < N;  // past N, P = exp2(-inf) = 0
-      sL[s * BT + r] = ok ? lse2[(size_t)bh * N + i0 + r] : INFINITY;
-      sD[s * BT + r] = ok ? dvec[(size_t)bh * N + i0 + r] : 0.0f;
-    }
-  };
-
-  const int r0 = warp * 16;
-  float dka[C::NO][4], dva[C::NO][4];
-#pragma unroll
-  for (int i = 0; i < C::NO; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.0f;
-  }
-
+  const int bh = blockIdx.y, k0 = blockIdx.x * C::BR, d0 = blockIdx.z * DV;
   const int n_tiles = (N + BT - 1) / BT;
-  load_q(0, 0);  // the first group also carries K and V
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_q((t + 1) & 1, (t + 1) * BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* cQ = sQ + (t & 1) * C::TILE;
-    const __nv_bfloat16* cO = sO + (t & 1) * C::TILE;
-    const float* cL = sL + (t & 1) * BT;
-    const float* cD = sD + (t & 1) * BT;
+  const int wg = threadIdx.x / WARPGROUP, tid = threadIdx.x % WARPGROUP;
 
-    float s[C::NS][4], dp[C::NS][4];
-    mma_abt<DP, BT, C::LD>(s, sK, r0, cQ, lane);  // S^T = K Q^T: keys x queries
-#pragma unroll
-    for (int i = 0; i < C::NS; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[i][e] = exp2f(s[i][e] * scale_log2 - cL[i * 8 + 2 * (lane & 3) + (e & 1)]);  // P^T
+  if (wg == NWG) {
+    if constexpr (NWG > 1) reg_dealloc<24>();
+    if (tid == 0) {
+      mbar_expect_tx(own, 2 * C::OWN);
+      for (int cb = 0; cb < C::NCB; ++cb) {
+        tma_load_3d(sK + cb * C::BR * 128, &tk, own, cb * 64, k0, bh);
+        tma_load_3d(sV + cb * C::BR * 128, &tv, own, cb * 64, k0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::STAGE_DKV + 2 * C::VBOX * 4);
+        unsigned char* st = sS + s * C::STAGE_DKV;
+        for (int cb = 0; cb < C::NCB; ++cb) {
+          tma_load_3d(st + cb * BT * 128, &tq, &full[s], cb * 64, i * BT, bh);
+          tma_load_3d(st + C::TILE + cb * BT * 128, &tdo, &full[s], cb * 64, i * BT, bh);
+        }
+        // lse2 and dvec as flat (BH * N) vectors: the values past this head's
+        // N are the next head's (or zero), and the consumers mask them
+        const int v0 = (bh * N + i * BT) & ~3;
+        tma_load_1d(sVec + s * 2 * C::VEC, &tl, &full[s], v0);
+        tma_load_1d(sVec + s * 2 * C::VEC + C::VEC, &tdv, &full[s], v0);
+      }
     }
-    mma_pb<BT, DV, C::LD>(dva, s, cO, d0, lane);  // dv += bf16(P^T) dO[:, slice]
-    mma_abt<DP, BT, C::LD>(dp, sV, r0, cO, lane);  // dP^T = V dO^T
+  } else {
+    if constexpr (NWG > 1) reg_alloc<240>();
+    const int warp = tid / 32, lane = tid % 32, quad = lane & 3;
+    const int row0 = k0 + wg * 64 + warp * 16;
+    float dka[DV / 2], dva[DV / 2];
 #pragma unroll
-    for (int i = 0; i < C::NS; ++i) {
+    for (int i = 0; i < DV / 2; ++i) dka[i] = dva[i] = 0.0f;
+    const unsigned char* myK = sK + wg * 64 * 128;
+    const unsigned char* myV = sV + wg * 64 * 128;
+
+    float sc[BT / 2], dp[BT / 2];
+    uint32_t pa[BT / 16][4], da[BT / 16][4];
+    auto stage = [&](int t) { return sS + (t % STAGES) * C::STAGE_DKV; };  // Q tile, then dO tile
+    auto s_dp = [&](int t) {
+      mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+      product_abt<DP, BT>(sc, myK, C::BR, stage(t));            // S^T = K Q^T: keys x queries
+      product_abt<DP, BT>(dp, myV, C::BR, stage(t) + C::TILE);  // dP^T = V dO^T
+    };
+    auto p_ds = [&](int t) {  // P^T in place in sc, dS^T in dp
+      fence_regs(sc);
+      fence_regs(dp);
+      const int i0 = t * BT, skip = (bh * N + i0) & 3;  // values before the tile in the aligned box
+      const float* cL = reinterpret_cast<const float*>(sVec + (t % STAGES) * 2 * C::VEC) + skip;
+      const float* cD = reinterpret_cast<const float*>(sVec + (t % STAGES) * 2 * C::VEC + C::VEC) + skip;
+      const bool ragged = i0 + BT > N;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] *= dp[i][e] - cD[i * 8 + 2 * (lane & 3) + (e & 1)];  // dS^T
+      for (int i = 0; i < BT / 2; ++i) {
+        const int col = 8 * (i / 4) + 2 * quad + (i & 1);
+        float p = ex2(fmaf(sc[i], scale_log2, -cL[col]));
+        if (ragged && i0 + col >= N) p = 0.0f;
+        sc[i] = p;
+        dp[i] = p * (dp[i] - cD[col]);
+      }
+    };
+    auto dkv_products = [&](int t) {
+      product_pb<DV, BT>(dva, pa, stage(t) + C::TILE, d0 / 64);  // dv += bf16(P^T) dO[:, slice]
+      product_pb<DV, BT>(dka, da, stage(t), d0 / 64);            // dk += bf16(dS^T) Q[:, slice]
+    };
+
+    // Tile 0 alone; then S^T, dP^T of tile t + 1 issued before the dv and dk
+    // products of tile t, and P^T, dS^T(t + 1) computed while those run.
+    mbar_wait(own, 0);
+    wgmma_fence();
+    s_dp(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    p_ds(0);
+    to_a_frags<BT>(sc, pa);
+    to_a_frags<BT>(dp, da);
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      wgmma_fence();
+      s_dp(t + 1);
+      wgmma_commit();
+      dkv_products(t);
+      wgmma_commit();
+      wgmma_wait<1>();
+      p_ds(t + 1);
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[t % STAGES]);
+      to_a_frags<BT>(sc, pa);
+      to_a_frags<BT>(dp, da);
     }
-    mma_pb<BT, DV, C::LD>(dka, s, cQ, d0, lane);  // dk += bf16(dS^T) Q[:, slice]
-    __syncthreads();  // this stage is refilled by the next iteration's loads
+    wgmma_fence();
+    dkv_products(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    const size_t koff = (size_t)bh * Nk * D;
+    store_rows<DV>(dk + koff, dka, scale, row0, Nk, d0, D, lane);
+    store_rows<DV>(dv + koff, dva, 1.0f, row0, Nk, d0, D, lane);
   }
-  store_rows<C::NO>(dk + koff, dka, scale, k0 + r0, Nk, d0, D, lane);
-  store_rows<C::NO>(dv + koff, dva, 1.0f, k0 + r0, Nk, d0, D, lane);
 }
 
-template <typename Fn>
-int prepare(Fn fn, int smem) {
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <int DP, int DV, int BT>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse2,
-              const void* dvec, void* dq, int BH, int N, int Nk, int D, float scale_log2, float scale,
-              cudaStream_t stream) {
-  const auto fn = flash_bwd_dq_kernel<DP, DV, BT>;
-  const int smem = Cfg<DP, DV, BT>::SMEM_BF16;
-  if (int e = prepare(fn, smem)) return e;
-  const dim3 grid((N + BR - 1) / BR, BH, (D + DV - 1) / DV);
-  fn<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse2), static_cast<const float*>(dvec),
-      static_cast<__nv_bfloat16*>(dq), N, Nk, D, scale_log2, scale);
+template <int DP, int DV, int BT, int NWG, int STAGES>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse2, const void* dvec,
+              void* dq, int BH, int N, int Nk, int D, float scale_log2, float scale, cudaStream_t stream) {
+  using C = Cfg<DP, DV, BT, NWG, STAGES>;
+  CUtensorMap tq, tdo, tk, tv;
+  if (int e = tmap_rows_bf16(&tq, q, BH, N, D, C::BR)) return e;
+  if (int e = tmap_rows_bf16(&tdo, dout, BH, N, D, C::BR)) return e;
+  if (int e = tmap_rows_bf16(&tk, k, BH, Nk, D, BT)) return e;
+  if (int e = tmap_rows_bf16(&tv, v, BH, Nk, D, BT)) return e;
+  const auto fn = flash_bwd_dq_kernel<DP, DV, BT, NWG, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_DQ);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + C::BR - 1) / C::BR, BH, (D + DV - 1) / DV);
+  fn<<<grid, C::THREADS, C::SMEM_DQ, stream>>>(tq, tdo, tk, tv, static_cast<const float*>(lse2),
+                                               static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dq),
+                                               N, Nk, D, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DP, int DV, int BT>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse2,
-               const void* dvec, void* dk, void* dv, int BH, int N, int Nk, int D, float scale_log2,
-               float scale, cudaStream_t stream) {
-  const auto fn = flash_bwd_dkv_kernel<DP, DV, BT>;
-  const int smem = Cfg<DP, DV, BT>::SMEM;
-  if (int e = prepare(fn, smem)) return e;
-  const dim3 grid((Nk + BR - 1) / BR, BH, (D + DV - 1) / DV);
-  fn<<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse2), static_cast<const float*>(dvec),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), N, Nk, D, scale_log2, scale);
+template <int DP, int DV, int BT, int NWG, int STAGES>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse2, const void* dvec,
+               void* dk, void* dv, int BH, int N, int Nk, int D, float scale_log2, float scale,
+               cudaStream_t stream) {
+  using C = Cfg<DP, DV, BT, NWG, STAGES>;
+  CUtensorMap tk, tv, tq, tdo, tl, tdv;
+  if (int e = tmap_rows_bf16(&tk, k, BH, Nk, D, C::BR)) return e;
+  if (int e = tmap_rows_bf16(&tv, v, BH, Nk, D, C::BR)) return e;
+  if (int e = tmap_rows_bf16(&tq, q, BH, N, D, BT)) return e;
+  if (int e = tmap_rows_bf16(&tdo, dout, BH, N, D, BT)) return e;
+  if (int e = tmap_vec_f32(&tl, lse2, (long long)BH * N, C::VBOX)) return e;
+  if (int e = tmap_vec_f32(&tdv, dvec, (long long)BH * N, C::VBOX)) return e;
+  const auto fn = flash_bwd_dkv_kernel<DP, DV, BT, NWG, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_DKV);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Nk + C::BR - 1) / C::BR, BH, (D + DV - 1) / DV);
+  fn<<<grid, C::THREADS, C::SMEM_DKV, stream>>>(tk, tv, tq, tdo, tl, tdv, static_cast<__nv_bfloat16*>(dk),
+                                                static_cast<__nv_bfloat16*>(dv), N, Nk, D, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -352,38 +425,38 @@ extern "C" int flash_attention_bwd_depth(int D) {
   return 0;
 }
 
-// Both launch on `stream` and return cudaGetLastError() (0 on success).
-// q, dout: (BH, N, D); k, v: (BH, Nk, D); all bf16 and contiguous. lse2 and
-// dvec: (BH, N) fp32, lse2 = lse * log2(e) and dvec = rowsum(dO * O).
-// scale = 1/sqrt(D) and scale_log2 = scale * log2(e), rounded to fp32 by the
-// caller. dq: (BH, N, D); dk, dv: (BH, Nk, D), bf16.
-extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* lse2, const void* dvec,
-                                           void* dq, int BH, int N, int Nk, int D,
-                                           float scale_log2, float scale, void* stream_) {
+// Both launch on `stream` and return 0, a CUDA error, or one of sm90.cuh's
+// tensor-map codes (>= 9000). q, dout: (BH, N, D); k, v: (BH, Nk, D); all
+// bf16, contiguous and 16-byte aligned. lse2 and dvec: (BH, N) fp32,
+// lse2 = lse * log2(e) and dvec = rowsum(dO * O). scale = 1/sqrt(D) and
+// scale_log2 = scale * log2(e), rounded to fp32 by the caller. dq: (BH, N,
+// D); dk, dv: (BH, Nk, D), bf16.
+extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                           const void* lse2, const void* dvec, void* dq, int BH, int N, int Nk,
+                                           int D, float scale_log2, float scale, void* stream_) {
   if (BH <= 0 || N <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   switch (flash_attention_bwd_depth(D)) {
-    case 48: return launch_dq<48, 48, 64>(q, k, v, dout, lse2, dvec, dq, BH, N, Nk, D, scale_log2, scale, s);
-    case 80: return launch_dq<80, 80, 64>(q, k, v, dout, lse2, dvec, dq, BH, N, Nk, D, scale_log2, scale, s);
-    case 512: return launch_dq<512, 128, 16>(q, k, v, dout, lse2, dvec, dq, BH, N, Nk, D, scale_log2, scale, s);
+    case 48: return launch_dq<48, 48, 64, 2, 4>(q, k, v, dout, lse2, dvec, dq, BH, N, Nk, D, scale_log2, scale, s);
+    case 80: return launch_dq<80, 80, 64, 2, 4>(q, k, v, dout, lse2, dvec, dq, BH, N, Nk, D, scale_log2, scale, s);
+    case 512:
+      return launch_dq<512, 256, 16, 1, 3>(q, k, v, dout, lse2, dvec, dq, BH, N, Nk, D, scale_log2, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                            const void* dout, const void* lse2, const void* dvec,
-                                            void* dk, void* dv, int BH, int N, int Nk, int D,
-                                            float scale_log2, float scale, void* stream_) {
+extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                            const void* lse2, const void* dvec, void* dk, void* dv, int BH, int N,
+                                            int Nk, int D, float scale_log2, float scale, void* stream_) {
   if (BH <= 0 || N <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   switch (flash_attention_bwd_depth(D)) {
     case 48:
-      return launch_dkv<48, 48, 64>(q, k, v, dout, lse2, dvec, dk, dv, BH, N, Nk, D, scale_log2, scale, s);
+      return launch_dkv<48, 48, 64, 2, 4>(q, k, v, dout, lse2, dvec, dk, dv, BH, N, Nk, D, scale_log2, scale, s);
     case 80:
-      return launch_dkv<80, 80, 32>(q, k, v, dout, lse2, dvec, dk, dv, BH, N, Nk, D, scale_log2, scale, s);
+      return launch_dkv<80, 80, 64, 2, 4>(q, k, v, dout, lse2, dvec, dk, dv, BH, N, Nk, D, scale_log2, scale, s);
     case 512:
-      return launch_dkv<512, 128, 16>(q, k, v, dout, lse2, dvec, dk, dv, BH, N, Nk, D, scale_log2, scale, s);
+      return launch_dkv<512, 128, 16, 1, 3>(q, k, v, dout, lse2, dvec, dk, dv, BH, N, Nk, D, scale_log2, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,15 +9,17 @@ natural-log row logsumexp of the scaled logits, which the backward reads.
 
 On a CUDA tensor the wrappers launch the hand-written Hopper kernels
 (``csrc/flash_attention.cu`` forward, ``csrc/flash_attention_bwd.cu`` the
-dq and the dk/dv kernels; bf16; D in 40, 48, 72, 80 or 512, SD-1.5's head
-dims and the widths that pad to the same depth) or raise; on a CPU tensor
+dq and the dk/dv kernels: wgmma fed by TMA through ``csrc/sm90.cuh``; bf16;
+D in 40, 48, 72, 80 or 512, SD-1.5's head dims and the widths that pad to
+the same depth) or raise; on a CPU tensor
 they run ``flash_attention_plain`` and ``flash_attention_bwd_plain``, the
 materializing fp32 versions, which are also what the kernels are checked
 against on the card. ``flash_attention_heads`` is an autograd Function: the
 forward kernel saves ``(q, k, v, out, lse)`` and the backward kernels
 consume them. ``flash_attention_fwd.launches``,
 ``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``
-count kernel launches.
+count kernel launches (a call recorded into a CUDA graph launches nothing
+and is not counted; the graph's replays pass no wrapper).
 """
 
 from __future__ import annotations
@@ -59,6 +61,25 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_depth.restype = I
         lib._typed = True
     return lib
+
+
+def _launch_error(name: str, rc: int) -> RuntimeError:
+    """The C entry points return a CUDA error, or 9000 (libcuda's
+    cuTensorMapEncodeTiled not found) or 10000 + its CUresult (a tensor map
+    refused), from ``csrc/sm90.cuh``."""
+    if rc == 9000:
+        why = "cuTensorMapEncodeTiled not found in libcuda"
+    elif rc >= 10000:
+        why = f"cuTensorMapEncodeTiled refused a tensor map: CUresult {rc - 10000}"
+    else:
+        why = f"CUDA error {rc}"
+    return RuntimeError(f"{name} launch failed: {why}")
+
+
+def _count(wrapper) -> None:
+    """One launch on ``wrapper.launches``, unless the call was recorded into a CUDA graph."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
 
 
 def _scale(D: int) -> float:
@@ -108,7 +129,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Te
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             BH, N, Nk, D, _scale(D) * LOG2E, stream)  # c_float rounds it to fp32
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise _launch_error("flash_attention kernel", rc)
     return out, lse
 
 
@@ -118,7 +139,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     out = _launch(q, k, v)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd)
     return out
 
 
@@ -184,7 +205,7 @@ def _bwd_launch(fn_name: str, q, k, v, dout, lse2, dvec, outs) -> None:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
             *(t.data_ptr() for t in outs), BH, N, Nk, D, _scale(D) * LOG2E, _scale(D), stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+        raise _launch_error(fn_name, rc)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse2, dvec) -> torch.Tensor:
@@ -194,7 +215,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse2, dvec) -> torch.Tensor:
         return flash_attention_bwd_dq_plain(q, k, v, dout, lse2, dvec)
     dq = torch.empty_like(q)
     _bwd_launch("flash_attention_bwd_dq_bf16", q, k, v, dout, lse2, dvec, (dq,))
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq)
     return dq
 
 
@@ -204,7 +225,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse2, dvec) -> Tuple[torch.Tensor, to
         return flash_attention_bwd_dkv_plain(q, k, v, dout, lse2, dvec)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_attention_bwd_dkv_bf16", q, k, v, dout, lse2, dvec, (dk, dv))
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv)
     return dk, dv
 
 

@@ -45,6 +45,8 @@ import math
 
 import torch
 
+from .attention import _count
+
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 MODES = ("full", "exp2", "noscale", "nomax", "noexp", "dotonly")
@@ -241,12 +243,6 @@ def _launch(fn_name: str, q: torch.Tensor, *args) -> None:
         rc = getattr(_kernel_lib(), fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
-
-
-def _count(wrapper) -> None:
-    """One launch on ``wrapper.launches``, unless the call was recorded into a CUDA graph."""
-    if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
 
 
 def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tq: int, tk: int, mode: str) -> torch.Tensor:

@@ -247,6 +247,74 @@ def test_flash_bwd_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
     assert attn.flash_attention_bwd_dq.launches + attn.flash_attention_bwd_dkv.launches == n0
 
 
+# (BH, N, Nk, D) at the edges of the kernels' TMA rings. Forward: 192 query
+# rows per block and key tiles of 128 at D = 40, 128 rows and 64-key tiles at
+# D = 80, 128 rows and 32-key tiles at D = 512. Backward: 128 rows per block
+# and 64-row tiles (D = 40, 80), 64 and 16 at D = 512. Cases: Nk equal to one
+# key tile; Nk one row over a tile; N below 64; N not a multiple of the
+# block's rows; more blocks than the card's SMs; D = 72 and D = 512 with
+# ragged N and Nk.
+FLASH_EDGE_CASES = [(2, 256, 128, 40), (2, 256, 64, 80), (1, 128, 32, 512),
+                    (2, 256, 129, 40), (2, 256, 65, 80), (1, 130, 33, 512),
+                    (3, 17, 300, 40), (2, 300, 200, 40), (2, 200, 256, 80), (300, 128, 128, 40),
+                    (2, 77, 150, 72), (2, 100, 70, 512)]
+FLASH_BWD_EDGE_CASES = [(2, 128, 64, 40), (1, 64, 16, 512),
+                        (2, 128, 65, 40), (1, 64, 17, 512),
+                        (2, 20, 100, 80), (2, 200, 128, 40), (300, 128, 128, 80),
+                        (2, 77, 150, 72), (1, 90, 70, 512)]
+
+
+@pytest.mark.parametrize("BH,N,Nk,D", FLASH_EDGE_CASES)
+def test_flash_attention_ring_edges_match_plain(rng, cuda, BH, N, Nk, D):
+    q, k, v = _bf16(rng, (BH, N, D)), _bf16(rng, (BH, Nk, D)), _bf16(rng, (BH, Nk, D))
+    out, lse = attn.flash_attention_fwd(q, k, v)
+    ref, lse_ref = attn.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("BH,N,Nk,D", FLASH_BWD_EDGE_CASES)
+def test_flash_attention_bwd_ring_edges_match_plain(rng, cuda, BH, N, Nk, D):
+    q, k, v = _bf16(rng, (BH, N, D)), _bf16(rng, (BH, Nk, D)), _bf16(rng, (BH, Nk, D))
+    dout = _bf16(rng, (BH, N, D))
+    out, lse = attn.flash_attention_plain(q, k, v)
+    got = attn.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = attn.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        bound = 2e-2 * (w.abs() + w.abs().max())
+        assert bool(((g - w).abs() <= bound).all()), (name, (g - w).abs().max().item(), w.abs().max().item())
+
+
+def test_flash_attention_graph_replay_matches_eager(rng, cuda):
+    """K4 and the K5 pair recorded into one CUDA graph: the tensor maps go in
+    by value, so capture copies nothing from the host; the replay gives the
+    eager calls' outputs bit for bit, and no launch counter moves in capture
+    or replay."""
+    q, k, v, dout = (_bf16(rng, (4, 300, 40)) for _ in range(4))
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd_dq, attn.flash_attention_bwd_dkv)
+
+    def run():
+        out, lse = attn.flash_attention_fwd(q, k, v)
+        return (out, lse, *attn.flash_attention_bwd(q, k, v, out, lse, dout))
+
+    want = run()
+    torch.cuda.synchronize()
+    n0 = [c.launches for c in counters]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    assert [c.launches for c in counters] == n0
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == n0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def _mlp_args(rng, R, C, F, dev="cuda"):
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
     x = _bf16(rng, (R, C))

@@ -194,3 +194,22 @@ def test_reconstruct_cli_writes_an_image(store, tmp_path):
           "--steps", "2", "--size", "16", "--device", "cpu", "--sampler", "ddim_std"])
     img = Image.open(out)
     assert img.size == (16, 16) and img.mode == "RGB"
+
+
+def test_reconstruct_cli_dpmpp_matches_the_codec(store, tmp_path):
+    """``--sampler dpmpp`` is accepted, and the CLI's image is the codec's
+    dpmpp decompress of the same frame at the same seed."""
+    from PIL import Image
+
+    from clip_codec_tpu_torch.cli.reconstruct_diffusion import main, to_pil
+
+    bit = tmp_path / "img.clp"
+    bit.write_bytes(store["blobs"][0])
+    out = tmp_path / "recon.png"
+    main(["--store_dir", str(store["root"]), "--bitstream", str(bit),
+          "--weights", str(store["root"] / "diffusion_unet_final.pt"), "--out", str(out),
+          "--steps", "3", "--size", "16", "--device", "cpu", "--sampler", "dpmpp", "--seed", "5"])
+    codec = ClipCodec.load(store["root"], device="cpu")  # bf16, as the CLI
+    want = codec.decompress(store["blobs"][:1], size=16, steps=3, batch_size=1, sampler="dpmpp", seed=5)
+    assert codec.mc.base == 8
+    np.testing.assert_array_equal(np.asarray(Image.open(out)), np.asarray(to_pil(want[0])))
