@@ -5,21 +5,28 @@
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
-1. build the hand-written CUDA kernel (csrc/affine_conv3x3.cu) from this
-   checkout with nvcc and print the build time and the compiler's report;
-2. run the kernel and its plain PyTorch version on the card at every conv
-   shape of the full-width U-Net at 256px (B=2, bf16), with and without the
-   residual and the moments, and the linear 128->3 head; y must agree within
-   rtol = atol = 2e-2 and the moments within 1e-3 of their largest magnitude;
+1. build the hand-written CUDA kernels (csrc/affine_conv3x3.cu: K2, the
+   ResBlock conv, and K3, the head) from this checkout with nvcc and print
+   the build time and the compiler's report;
+2. run the kernels and their plain PyTorch version on the card at every
+   fused conv shape of the full-width U-Net at 256px
+   (``probes.conv_times.path_conv_shapes``: four ResBlock shapes and the
+   linear 128->3 head), bf16, at B=2 with and without the residual and the
+   moments and at B=4 (the serving batch) in the two forms the U-Net runs;
+   y must agree within rtol = atol = 2e-2 and the moments within 1e-3 of
+   their largest magnitude; at B=4 each call is timed (CUDA-graph replay
+   and events) beside its plain version, cuDNN's conv alone and its bound;
 3. one forward of the full-width U-Net (base=128, ch_mult=(1,2,2),
    z_dim=512, 256px, B=2, bf16) through the kernels and through the plain
-   versions: ||eps_kernel - eps_plain|| / ||eps_plain|| < 2e-2;
+   versions: ||eps_kernel - eps_plain|| / ||eps_plain|| < 2e-2; then the
+   kernel path's forward device time (CUDA-graph replay) at B=4 and B=16;
 4. serving: a ClipCodec is saved as a .pt store (random weights from
    --seed; no trained weights exist offline), reloaded, and answers three
    decompress requests of 1, 3 and 6 frames at 256px, DDIM-50,
    batch_size=4. Outputs must be finite, in [-1, 1] and of the right
    shape, and the kernels must have launched exactly 29 x 50 x batches
-   times in those requests.
+   times in those requests, at each conv shape its calls per forward x 50
+   x batches.
 
 The SD-1.5 latent path (``models/sd``, ``cli/reconstruct_sd_diffusion.py``):
 
@@ -118,7 +125,8 @@ The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py)
    capture (the graphs' replays reported beside); ms of each kernel, its
    plain version and SDPA at that shape.
 
-The line before the last is the kernels' JSON record (``bound_ms``: the
+The line before the last is the kernels' JSON record (K2 and K3: one
+record per path shape at B=4 with its launches in phase 4; ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
 989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
 its fp32 rate outside the tensor cores, for K1, and, for the attention
@@ -134,6 +142,7 @@ prints no result. Nothing of JAX is imported.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import json
@@ -145,9 +154,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REPLACES = "clip_codec_tpu/ops/pallas_resblock.py:72"
-# (H, W, Cin, Cout) of every fused conv of the full-width U-Net at 256px.
-RESBLOCK_SHAPES = [(256, 256, 128, 128), (128, 128, 128, 128), (64, 64, 256, 256), (32, 32, 512, 512)]
-HEAD_SHAPE = (256, 256, 128, 3)
+# The full-width U-Net at 256px (its fused convs: probes.conv_times.path_conv_shapes).
+PX_BASE, PX_CH_MULT, SERVE_BATCH, WIDE_BATCH = 128, (1, 2, 2), 4, 16
 LAUNCHES_PER_FORWARD = 29  # 14 ResBlocks x 2 + the head
 SIZE, STEPS = 256, 50
 
@@ -348,56 +356,87 @@ def _inputs(torch, gen, B, H, W, cin, cout, dev):
     return x, A, Bv, w9, bias, add
 
 
+def _conv_bound(B, H, W, cin, cout, use_add, mom):
+    """(bound_ms, bound_by, bound_unit) of one conv call: x read, y written,
+    weights, the affine, bias, the residual and the moments once each."""
+    px = B * H * W
+    nbytes = (px * cin * 2 + 2 * B * cin * 4 + 9 * cin * cout * 2 + cout * 4 + px * cout * 2
+              + (px * cout * 2 if use_add else 0) + (B * 2 * cout * 4 if mom else 0))
+    return bound(nbytes, 2 * 9 * cin * cout * px)
+
+
 def phase_kernels(torch, rc, seed, dev):
-    """Kernel vs plain at the slice shapes; returns per-kernel records."""
+    """Kernel vs plain at every fused conv shape of the full-width U-Net at
+    256px, B=2 (every combination of residual and moments) and B=4 (the
+    serving batch: the two forms the U-Net runs, each timed); returns
+    per-kernel records, K2's as one record per path shape."""
     import torch.nn.functional as F
 
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+
     gen = torch.Generator(device=dev).manual_seed(seed)
-    records = {}
-    cases = [(s, False, add, mom) for s in RESBLOCK_SHAPES for add in (False, True) for mom in (False, True)]
-    cases.append((HEAD_SHAPE, True, False, False))
-    for (H, W, cin, cout), linear, use_add, mom in cases:
-        x, A, Bv, w9, bias, add = _inputs(torch, gen, 2, H, W, cin, cout, dev)
-        add = add if use_add else None
-        fn = rc.affine_conv3x3 if linear else rc.affine_silu_conv3x3
-        y, m = fn(x, A, Bv, w9, bias, add, mom)
-        y_ref, m_ref = rc.affine_conv3x3_plain(x, A, Bv, w9, bias, add, mom, linear=linear)
-        torch.cuda.synchronize()
-        yf, rf = y.float(), y_ref.float()
-        err = (yf - rf).abs().max().item()
-        ok = bool(((yf - rf).abs() <= 2e-2 + 2e-2 * rf.abs()).all().item())
-        mom_rel = 0.0
-        if mom:
-            for k in range(2):
-                scale = m_ref[:, k].abs().max().item()
-                mom_rel = max(mom_rel, (m[:, k] - m_ref[:, k]).abs().max().item() / max(scale, 1e-30))
-        name = "affine_conv3x3" if linear else "affine_silu_conv3x3"
-        tag = f"{name} B=2 {H}x{W} {cin}->{cout} add={int(use_add)} moments={int(mom)}"
-        line = f"kernel-check: {tag} max_abs_err={err:.3e} moments_rel_err={mom_rel:.3e}"
-        timed = linear or use_add != mom  # the two forms the U-Net runs
-        if timed:
-            k_ms = cuda_ms(torch, lambda: fn(x, A, Bv, w9, bias, add, mom))
-            p_ms = cuda_ms(torch, lambda: rc.affine_conv3x3_plain(x, A, Bv, w9, bias, add, mom, linear=linear))
-            act = x.permute(0, 3, 1, 2)
-            wt = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
-            lib_ms = cuda_ms(torch, lambda: F.conv2d(act, wt, padding=1))
-            gflop = 2 * 9 * cin * cout * H * W * 2 / 1e9
-            line += (f" ms={k_ms:.4f} plain_ms={p_ms:.4f} cudnn_bf16_conv_only_ms={lib_ms:.4f}"
-                     f" kernel_TFLOPs={gflop / k_ms:.1f}")
-        print(line)
-        check(ok, f"{tag}: y outside rtol=atol=2e-2 (max abs err {err})")
-        check(mom_rel <= 1e-3, f"{tag}: moments rel err {mom_rel} > 1e-3")
-        rec = records.setdefault(name, {"max_abs_err": 0.0})
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        big = (H, W, cin, cout) in (RESBLOCK_SHAPES[0], HEAD_SHAPE)
-        if timed and big and (linear or mom):
-            px = 2 * H * W  # B = 2
-            nbytes = (px * cin * 2 + 2 * 2 * cin * 4 + 9 * cin * cout * 2 + cout * 4 + px * cout * 2
-                      + (px * cout * 2 if use_add else 0) + (2 * 2 * cout * 4 if mom else 0))
-            b_ms, b_by, b_unit = bound(nbytes, 2 * 9 * cin * cout * px)
-            # library: cuDNN's bf16 conv alone, for scale (no one call computes the fused function)
-            rec.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit,
-                       timed_at=tag)
+    records = {"affine_silu_conv3x3": [], "affine_conv3x3": []}
+    errs = {"affine_silu_conv3x3": 0.0, "affine_conv3x3": 0.0}
+    for batch in (2, SERVE_BATCH):
+        shapes = path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, batch)
+        for (B, H, W, cin, cout), calls in shapes:
+            linear = (B, H, W, cin, cout) == shapes[-1][0]  # the head: K3
+            name = "affine_conv3x3" if linear else "affine_silu_conv3x3"
+            fn = rc.affine_conv3x3 if linear else rc.affine_silu_conv3x3
+            if linear:
+                forms = [(False, False)]
+            elif B == 2:
+                forms = [(a, m) for a in (False, True) for m in (False, True)]
+            else:
+                forms = [(False, True), (True, False)]  # a ResBlock's conv1 and conv2
+            timed = {}
+            for use_add, mom in forms:
+                x, A, Bv, w9, bias, add = _inputs(torch, gen, B, H, W, cin, cout, dev)
+                add = add if use_add else None
+                y, m = fn(x, A, Bv, w9, bias, add, mom)
+                y_ref, m_ref = rc.affine_conv3x3_plain(x, A, Bv, w9, bias, add, mom, linear=linear)
+                torch.cuda.synchronize()
+                yf, rf = y.float(), y_ref.float()
+                err = (yf - rf).abs().max().item()
+                ok = bool(((yf - rf).abs() <= 2e-2 + 2e-2 * rf.abs()).all().item())
+                mom_rel = 0.0
+                if mom:
+                    for k in range(2):
+                        scale = m_ref[:, k].abs().max().item()
+                        mom_rel = max(mom_rel, (m[:, k] - m_ref[:, k]).abs().max().item() / max(scale, 1e-30))
+                tag = f"{name} B={B} {H}x{W} {cin}->{cout} add={int(use_add)} moments={int(mom)}"
+                line = f"kernel-check: {tag} max_abs_err={err:.3e} moments_rel_err={mom_rel:.3e}"
+                if B == SERVE_BATCH:
+                    call = lambda: fn(x, A, Bv, w9, bias, add, mom)
+                    act = x.permute(0, 3, 1, 2)
+                    wt = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+                    b_ms, b_by, b_unit = _conv_bound(B, H, W, cin, cout, use_add, mom)
+                    t = dict(ms=graph_ms(torch, call), events_ms=cuda_ms(torch, call),
+                             plain_ms=cuda_ms(torch, lambda: rc.affine_conv3x3_plain(
+                                 x, A, Bv, w9, bias, add, mom, linear=linear), iters=3, warmup=1),
+                             library_ms=graph_ms(torch, lambda: F.conv2d(act, wt, padding=1)),
+                             bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit)
+                    timed["moments" if mom else "add" if use_add else "linear"] = t
+                    line += (f" ms={t['ms']:.4f} (graph) events_ms={t['events_ms']:.4f} plain_ms={t['plain_ms']:.4f}"
+                             f" cudnn_bf16_conv_only_ms={t['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_unit})"
+                             f" kernel_TFLOPs={2 * 9 * cin * cout * B * H * W / 1e9 / t['ms']:.1f}")
+                print(line)
+                check(ok, f"{tag}: y outside rtol=atol=2e-2 (max abs err {err})")
+                check(mom_rel <= 1e-3, f"{tag}: moments rel err {mom_rel} > 1e-3")
+                errs[name] = max(errs[name], err)
+            if timed:
+                # One record per path shape; K2's two forms run equally often, so its
+                # numbers are their means (each form's own beside them).
+                rec = {k: sum(t[k] for t in timed.values()) / len(timed)
+                       for k in ("ms", "events_ms", "plain_ms", "library_ms", "bound_ms")}
+                first = next(iter(timed.values()))
+                rec.update(bound_by=first["bound_by"], bound_unit=first["bound_unit"], shape=[B, H, W, cin, cout],
+                           calls_per_forward=calls, forms=timed,
+                           library="cuDNN bf16 conv alone, for scale (no one call computes the fused function)")
+                records[name].append(rec)
+    for name, recs in records.items():
+        for rec in recs:
+            rec["max_abs_err"] = errs[name]
     return records
 
 
@@ -432,6 +471,18 @@ def phase_forward(torch, rc, net, seed, dev):
     check(tuple(eps_k.shape) == (2, SIZE, SIZE, 3), f"U-Net eps shape {tuple(eps_k.shape)}")
     check(n == LAUNCHES_PER_FORWARD, f"U-Net forward launched {n} kernels, expected {LAUNCHES_PER_FORWARD}")
     check(rel < 2e-2, f"U-Net kernel vs plain path rel err {rel} >= 2e-2")
+    # Device time of a forward on the kernel path, with no host time between
+    # its kernels: forwards replayed from a CUDA graph, at the serving batch
+    # and at the wide one.
+    for B in (SERVE_BATCH, WIDE_BATCH):
+        xb = torch.randn((B, SIZE, SIZE, 3), generator=gen, device=dev)
+        zb = torch.nn.functional.normalize(torch.randn((B, 512), generator=gen, device=dev), dim=-1)
+        tb = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+        with torch.no_grad():
+            g_ms = graph_ms(torch, lambda: net(xb, zb, tb), iters=5)
+            e_ms = cuda_ms(torch, lambda: net(xb, zb, tb), iters=5, warmup=1)
+        print(f"unet-forward: B={B} {SIZE}px kernel path device_ms={g_ms:.4f} (CUDA-graph replay) "
+              f"events_ms={e_ms:.4f}")
 
 
 def make_store(torch, net, seed, store: Path):
@@ -482,17 +533,28 @@ def phase_serve(torch, rc, net, seed, dev, card):
 
     torch.cuda.synchronize()
     reset_launches(rc)
+    shapes = collections.Counter()  # launches by (H, W, Cin, Cout), through the wrappers' one launcher
+    launch = rc._launch
+
+    def tally(x, A, B, w9, bias, add, want_moments, linear):
+        shapes[(*x.shape[1:], w9.shape[2])] += 1
+        return launch(x, A, B, w9, bias, add, want_moments, linear)
+
+    rc._launch = tally
     times = []
-    for n, req in zip(sizes, requests):
-        t0 = time.perf_counter()
-        if frames:
-            out = codec.decompress(req, size=SIZE, steps=steps, batch_size=batch_size, seed=seed)
-        else:
-            out = codec.decompress_codes(req, size=SIZE, steps=steps, batch_size=batch_size, seed=seed)
-        times.append(time.perf_counter() - t0)
-        check(out.shape == (n, SIZE, SIZE, 3), f"request of {n}: output shape {out.shape}")
-        check(bool(np.isfinite(out).all()), f"request of {n}: non-finite output")
-        check(float(np.abs(out).max()) <= 1.0, f"request of {n}: output outside [-1, 1]")
+    try:
+        for n, req in zip(sizes, requests):
+            t0 = time.perf_counter()
+            if frames:
+                out = codec.decompress(req, size=SIZE, steps=steps, batch_size=batch_size, seed=seed)
+            else:
+                out = codec.decompress_codes(req, size=SIZE, steps=steps, batch_size=batch_size, seed=seed)
+            times.append(time.perf_counter() - t0)
+            check(out.shape == (n, SIZE, SIZE, 3), f"request of {n}: output shape {out.shape}")
+            check(bool(np.isfinite(out).all()), f"request of {n}: non-finite output")
+            check(float(np.abs(out).max()) <= 1.0, f"request of {n}: output outside [-1, 1]")
+    finally:
+        rc._launch = launch
     launches = {"affine_silu_conv3x3": rc.affine_silu_conv3x3.launches,
                 "affine_conv3x3": rc.affine_conv3x3.launches}
     total = sum(launches.values())
@@ -505,6 +567,13 @@ def phase_serve(torch, rc, net, seed, dev, card):
     check(total == LAUNCHES_PER_FORWARD * steps * batches,
           f"kernel launches {total} != 29 x {steps} x {batches}")
     check(launches["affine_conv3x3"] == steps * batches, "head kernel launch count")
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+
+    want = {shape[1:]: calls * steps * batches for shape, calls in
+            path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, batch_size)}
+    print(f"serve: launches by (H, W, Cin, Cout): {dict(shapes)}")
+    check(dict(shapes) == want, f"launches by shape {dict(shapes)} != {want}")
+    launches["by_shape"] = dict(shapes)
     return launches
 
 
@@ -1546,8 +1615,12 @@ def main() -> int:
 
     kernels = []
     for name, (lib, replaces) in KERNELS.items():
-        kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces,
-                        "launches": launches[name], **records[name]})
+        head = {"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces}
+        if isinstance(records[name], list):  # the pixel path's convs: one record per path shape
+            for rec in records[name]:
+                kernels.append({**head, "launches": launches["by_shape"][tuple(rec["shape"][1:])], **rec})
+        else:
+            kernels.append({**head, "launches": launches[name], **records[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu):
+// (flash_attention.cu, flash_attention_bwd.cu) and the ResBlock conv
+// (affine_conv3x3.cu):
 //   * host: a TMA tensor map from libcuda's cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint (the libraries link no -lcuda);
-//   * cp.async.bulk.tensor loads into shared memory that complete on an
-//     mbarrier with expect_tx, and the mbarrier wait and arrive of an N-stage
-//     ring (full and empty barriers per stage);
+//   * cp.async.bulk.tensor loads (1-D to 4-D) into shared memory that
+//     complete on an mbarrier with expect_tx, and the mbarrier wait and
+//     arrive of an N-stage ring (full and empty barriers per stage), with
+//     the proxy fence a stage needs when threads wrote it before TMA refills
+//     it;
 //   * wgmma shared-memory descriptors for 128-byte-swizzled tiles, K-major
 //     (the operand's depth contiguous) and MN-major (its rows contiguous: a
 //     transposed B);
@@ -76,22 +79,31 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A bf16 tensor of `rank` (<= 5) dimensions, innermost first (dims[0]
+// contiguous), with the byte strides of dimensions 1.. (each a multiple of
+// 16) and the given box and swizzle. Elements outside the tensor, at negative
+// coordinates too, read as zero. Returns 0 or an error code.
+inline int tmap_tiled_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return TMAP_NO_ENTRY_POINT;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ENCODE_FAILED + (int)r;
+}
+
 // A (BH, rows, D) row-major bf16 tensor as a 3-D map (D, rows, BH) with a
 // (64, box_rows, 1) box and 128-byte swizzle: rows past `rows` and columns
 // past D are zero-filled per head, so a ragged tile never reads the next
 // head. D * 2 bytes must be a multiple of 16 (D % 8 == 0), `base` 16-byte
 // aligned. Returns 0 or an error code.
 inline int tmap_rows_bf16(CUtensorMap* map, const void* base, int BH, int rows, int D, int box_rows) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return TMAP_NO_ENTRY_POINT;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TMAP_ENCODE_FAILED + (int)r;
+  return tmap_tiled_bf16(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A flat fp32 vector of n values as a 1-D map with a `box`-value box (box * 4
@@ -163,6 +175,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+
+// One box of a 4-D map at (c0, c1, c2, c3), innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses (the generic proxy)
+// before later TMA accesses (the async proxy) to the same bytes: a stage
+// that threads wrote in place is released with it before TMA refills it.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
   asm volatile(

@@ -28,6 +28,7 @@ torch state-dict names, so exported JAX params load with ``strict=True``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -42,6 +43,15 @@ from ..ops.groupnorm import group_norm
 from .blocks import ResBlock, cast, conv2d, kernel_weight, linear
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(half: int, max_period: int, device: torch.device) -> torch.Tensor:
+    """The embedding's fp32 frequency table on ``device``, copied there once:
+    a forward then copies nothing from the host and can be captured in a
+    CUDA graph."""
+    x = np.float32(-math.log(max_period)) * np.arange(half, dtype=np.float32) / np.float32(half)
+    return torch.from_numpy(np.exp(x.astype(np.float64)).astype(np.float32)).to(device)
+
+
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
     """Sinusoidal embedding of integer timesteps, fp32, cos||sin order, odd
     ``dim`` zero-padded.
@@ -51,9 +61,7 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     ``exp`` implementations differ in the last bit, and one bit of a
     frequency moves ``cos(t * f)`` by up to ~1e-4 at t = 999)."""
     half = dim // 2
-    x = np.float32(-math.log(max_period)) * np.arange(half, dtype=np.float32) / np.float32(half)
-    freqs = torch.from_numpy(np.exp(x.astype(np.float64)).astype(np.float32)).to(t.device)
-    args = t.float()[:, None] * freqs[None, :]
+    args = t.float()[:, None] * _frequencies(half, max_period, t.device)[None, :]
     emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))

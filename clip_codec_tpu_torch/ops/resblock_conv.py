@@ -11,10 +11,13 @@ x is NHWC, A and B are per-(batch, channel) fp32, w9 is the conv kernel as
 (9, Cin, Cout) in the compute dtype, bias is fp32 (Cout,). The moments are
 ``(B, 2, Cout)`` = [sum, sum of squares] over H*W of the fp32 output.
 
-On a CUDA tensor the wrappers launch the hand-written Hopper kernel in
-``csrc/affine_conv3x3.cu`` (bf16 only) or raise; on a CPU tensor they run the
-plain PyTorch version below, which is also what the kernel is checked
-against on the card. Each wrapper counts its launches in ``.launches``.
+On a CUDA tensor the wrappers launch a hand-written Hopper kernel in
+``csrc/affine_conv3x3.cu`` (bf16 only) or raise: K3 for the head's
+function (linear, no residual or moments, Cout <= 8, Cin <= 512), K2
+otherwise. On a CPU tensor they run the plain PyTorch version below, which
+is also what the kernels are checked against on the card. Each wrapper
+counts its launches in ``.launches`` (calls recorded into a CUDA graph
+launch nothing and are not counted).
 
 The block-level glue ``gn_affine`` / ``gn_affine_from_moments`` folds
 GroupNorm (and GroupNorm after FiLM) into the per-(batch, channel) affine,
@@ -29,9 +32,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .attention import _count, _launch_error
+
 GN_EPS = 1e-5
 _LIB = "affine_conv3x3"
-_CIN_STEP = 32  # the kernel walks Cin in 32-channel steps
+_CIN_STEP = 32  # the kernels take Cin % 32 == 0
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -44,8 +49,24 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.affine_conv3x3_bf16.restype = ctypes.c_int
         lib.affine_conv3x3_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.affine_conv3x3_tiles.restype = ctypes.c_int
+        lib.affine_conv3x3_is_head.argtypes = [ctypes.c_int] * 5
+        lib.affine_conv3x3_is_head.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def pad_cout(w9: torch.Tensor, bias: torch.Tensor, add: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """``w9`` (9, Cin, Cout), ``bias`` (Cout,) and ``add`` (B, H, W, Cout)
+    zero-padded along Cout to a multiple of 8, as K2 needs (its tensor maps
+    take 16-byte strides); the same tensors when Cout is one already (every
+    U-Net conv: no copy on the main path). The padded columns of y and of the
+    moments are zero-weight columns the caller drops."""
+    extra = -w9.shape[2] % 8
+    if extra == 0:
+        return w9, bias, add
+    return (F.pad(w9, (0, extra)).contiguous(), F.pad(bias, (0, extra)).contiguous(),
+            None if add is None else F.pad(add, (0, extra)).contiguous())
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -80,9 +101,12 @@ def _launch(x, A, B, w9, bias, add, want_moments, linear):
         _check("add", add, (Bn, H, W, cout), torch.bfloat16, dev)
 
     lib = _kernel_lib()
-    y = torch.empty((Bn, H, W, cout), dtype=x.dtype, device=dev)
+    if not lib.affine_conv3x3_is_head(cin, cout, int(linear), add is not None, int(want_moments)):
+        w9, bias, add = pad_cout(w9, bias, add)  # K2's weight map needs Cout % 8 == 0
+    cout_k = w9.shape[2]
+    y = torch.empty((Bn, H, W, cout_k), dtype=x.dtype, device=dev)
     n_tiles = lib.affine_conv3x3_tiles(H, W)
-    part = (torch.empty((Bn, n_tiles, 2, cout), dtype=torch.float32, device=dev)
+    part = (torch.empty((Bn, n_tiles, 2, cout_k), dtype=torch.float32, device=dev)
             if want_moments else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -90,10 +114,13 @@ def _launch(x, A, B, w9, bias, add, want_moments, linear):
             x.data_ptr(), A.data_ptr(), B.data_ptr(), w9.data_ptr(), bias.data_ptr(),
             None if add is None else add.data_ptr(), y.data_ptr(),
             None if part is None else part.data_ptr(),
-            Bn, H, W, cin, cout, int(linear), stream,
+            Bn, H, W, cin, cout_k, int(linear), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"affine_conv3x3 kernel launch failed: CUDA error {rc}")
+        raise _launch_error("affine_conv3x3 kernel", rc)
+    if cout_k != cout:
+        y = y[..., :cout].contiguous()
+        part = None if part is None else part[..., :cout]
     return y, (part.sum(dim=1) if want_moments else None)
 
 
@@ -125,7 +152,7 @@ def affine_silu_conv3x3(
     if x.device.type == "cpu":
         return affine_conv3x3_plain(x, A, B, w9, bias, add, want_moments)
     out = _launch(x, A, B, w9, bias, add, want_moments, linear=False)
-    affine_silu_conv3x3.launches += 1
+    _count(affine_silu_conv3x3)
     return out
 
 
@@ -138,7 +165,7 @@ def affine_conv3x3(
     if x.device.type == "cpu":
         return affine_conv3x3_plain(x, A, B, w9, bias, add, want_moments, linear=True)
     out = _launch(x, A, B, w9, bias, add, want_moments, linear=True)
-    affine_conv3x3.launches += 1
+    _count(affine_conv3x3)
     return out
 
 

@@ -181,7 +181,7 @@ def test_probe_modules_import_no_jax():
     code = (
         "import sys\n"
         "import clip_codec_tpu_torch.ops.attention_probe, clip_codec_tpu_torch.probes.attn_probe\n"
-        "import clip_codec_tpu_torch.probes.flash_times\n"
+        "import clip_codec_tpu_torch.probes.flash_times, clip_codec_tpu_torch.probes.conv_times\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'clip_codec_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'optax', 'clip_codec_tpu.')))\n"
         "assert not bad, bad\n"
@@ -199,4 +199,14 @@ def test_flash_times_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         flash_times.main([])
+    assert e.value.code == 2
+
+
+def test_conv_times_needs_a_card(monkeypatch):
+    """The conv kernel timer has no CPU mode: without a card it exits with a usage error."""
+    from clip_codec_tpu_torch.probes import conv_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        conv_times.main([])
     assert e.value.code == 2

@@ -27,6 +27,7 @@ from clip_codec_tpu_torch.ops import attention as attn
 from clip_codec_tpu_torch.ops import attention_probe as ap
 from clip_codec_tpu_torch.ops import mlp
 from clip_codec_tpu_torch.ops import resblock_conv as rc
+from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
 
 pytestmark = pytest.mark.cuda
 
@@ -125,6 +126,111 @@ def test_unet_kernel_path_matches_plain(rng, cuda):
     assert n == 2 * 10 + 1  # 10 ResBlocks at ch_mult=(1, 2), two calls each, + head
     assert torch.isfinite(ek).all()
     assert ((ek - ep).norm() / ep.norm()).item() < 2e-2
+
+
+def _check_conv(args, linear, want_moments):
+    fn = rc.affine_conv3x3 if linear else rc.affine_silu_conv3x3
+    n0 = fn.launches
+    y, m = fn(*args, want_moments=want_moments)
+    y_ref, m_ref = rc.affine_conv3x3_plain(*args, want_moments=want_moments, linear=linear)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert y.dtype == torch.bfloat16 and y.shape == y_ref.shape and y.is_contiguous()
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+    if want_moments:
+        assert m.shape == m_ref.shape
+        for k in range(2):
+            assert (m[:, k] - m_ref[:, k]).abs().max() <= 1e-3 * m_ref[:, k].abs().max()
+    return y, m
+
+
+# (B, H, W, Cin, Cout, linear, with_add, want_moments): the wgmma kernel (K2)
+# and the head kernel (K3: linear, no residual or moments, Cout <= 8) at
+# their edges: Cin of one 32-channel half chunk and of eight chunks, Cout
+# narrower than a 64-column tile and not a multiple of 8 (70, 8 and 3 with
+# the residual or the moments: K2 on weights the wrapper pads), ragged
+# images, one and sixteen images.
+TRAP_CASES = [
+    (3, 20, 12, 32, 96, False, True, True), (1, 37, 29, 32, 128, False, False, True),
+    (2, 37, 29, 512, 256, False, True, False), (1, 20, 12, 512, 512, False, True, True),
+    (2, 24, 24, 64, 70, True, True, True), (2, 37, 29, 64, 70, False, False, True),
+    (16, 16, 16, 128, 128, False, True, True), (16, 20, 12, 32, 8, False, True, True),
+    (3, 37, 29, 128, 3, True, False, True), (1, 20, 12, 512, 3, True, True, False),
+    (2, 16, 16, 32, 8, False, False, False), (3, 40, 24, 96, 3, True, True, True),
+    (3, 37, 29, 128, 3, True, False, False), (1, 20, 12, 512, 8, True, False, False),
+    (16, 40, 24, 96, 3, True, False, False),
+]
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout,linear,with_add,want_moments", TRAP_CASES)
+def test_conv_kernels_match_plain_at_their_edges(rng, cuda, B, H, W, cin, cout, linear, with_add, want_moments):
+    """With shifts |B| ~ 3: TMA zero-fills x outside the image, but
+    act(0 A + B) = act(B) is not zero, so a halo pixel left unpadded after
+    the prologue moves y by far more than the tolerance."""
+    x, A, _, w9, bias, add = _args(rng, B, H, W, cin, cout, with_add, cuda)
+    shift = torch.from_numpy((3.0 * np.sign(rng.standard_normal((B, cin)))
+                              + 0.3 * rng.standard_normal((B, cin))).astype(np.float32)).to(cuda)
+    _check_conv((x, A, shift, w9, bias, add), linear, want_moments)
+
+
+@pytest.mark.parametrize("shape,calls", path_conv_shapes(128, (1, 2, 2), 256, 1))
+def test_conv_kernels_match_plain_at_the_path_shapes(rng, cuda, shape, calls):
+    """Every fused conv shape of the full-width U-Net at 256px, one image:
+    the ResBlock convs in both forms the U-Net runs, the head linear."""
+    B, H, W, cin, cout = shape
+    if cout == 3:  # the head
+        _check_conv(_args(rng, B, H, W, cin, cout, False, cuda), True, False)
+        return
+    for with_add, want_moments in ((False, True), (True, False)):
+        _check_conv(_args(rng, B, H, W, cin, cout, with_add, cuda), False, want_moments)
+
+
+@pytest.mark.parametrize("cin,cout", [(128, 128), (512, 512), (128, 70)])
+def test_conv_moments_are_bit_equal_across_calls(rng, cuda, cin, cout):
+    """Per-tile partials reduced in a fixed order, no atomics: two calls on
+    the same inputs give the same bits, y and moments."""
+    args = _args(rng, 2, 37, 29, cin, cout, False, cuda)
+    y1, m1 = rc.affine_silu_conv3x3(*args, want_moments=True)
+    y2, m2 = rc.affine_silu_conv3x3(*args, want_moments=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(m1, m2)
+
+
+def test_conv_graph_replay_matches_eager(rng, cuda):
+    """A ResBlock's two convs and the head recorded into one CUDA graph: the
+    tensor maps go in by value, so capture copies nothing from the host; the
+    replay gives the eager calls' outputs bit for bit, and no launch counter
+    moves in capture or replay."""
+    x, A, Bv, w9, bias, add = _args(rng, 2, 40, 24, 128, 128, True, cuda)
+    w3, b3 = w9[..., :3].contiguous(), bias[:3].contiguous()
+
+    def run():
+        y, m = rc.affine_silu_conv3x3(x, A, Bv, w9, bias, want_moments=True)
+        out, _ = rc.affine_silu_conv3x3(y, A, Bv, w9, bias, add=add)
+        head, _ = rc.affine_conv3x3(out, A, Bv, w3, b3)
+        return y, m, out, head
+
+    want = run()
+    torch.cuda.synchronize()
+    n0 = (rc.affine_silu_conv3x3.launches, rc.affine_conv3x3.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert (rc.affine_silu_conv3x3.launches, rc.affine_conv3x3.launches) == n0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout", [(1, 16, 16, 128, 128), (1, 32, 32, 512, 512), (1, 16, 16, 128, 3),
+                                            (2, 12, 20, 256, 64)])
+def test_conv_kernels_with_fewer_work_units_than_sms(rng, cuda, B, H, W, cin, cout):
+    """Persistent grids of a few blocks (one 16x16 tile; four tiles x eight
+    64-column Cout tiles), each walking one unit or none of the others."""
+    head = cout <= 8  # K3 takes the head's function: no residual, no moments
+    _check_conv(_args(rng, B, H, W, cin, cout, not head, cuda), head, not head)
 
 
 def _bf16(rng, shape, scale=1.0, dev="cuda"):

@@ -136,3 +136,30 @@ def test_gn_affine_from_moments_clamps_negative_variance():
     A, B = rc.gn_affine_from_moments(mom, 1, torch.ones(1), torch.zeros(1), 1)
     assert torch.isfinite(A).all() and torch.isfinite(B).all()
     np.testing.assert_allclose(A.item(), 1 / np.sqrt(1e-5), rtol=1e-4)
+
+
+@pytest.mark.parametrize("cout", [3, 8, 64, 70, 96, 129])
+def test_pad_cout_pads_with_zero_columns_only_where_needed(rng, cout):
+    """K2 takes Cout % 8 == 0: the wrapper pads w9, bias and the residual
+    with zero columns (none when Cout is already a multiple of 8, the U-Net's
+    case, so the main path copies nothing), and the padded conv's first Cout
+    columns are the conv's."""
+    w9 = torch.from_numpy(rng.standard_normal((9, 32, cout)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    add = torch.from_numpy(rng.standard_normal((2, 5, 6, cout)).astype(np.float32))
+    w9p, bp, ap = rc.pad_cout(w9, bias, add)
+    n = -(-cout // 8) * 8
+    assert w9p.shape == (9, 32, n) and bp.shape == (n,) and ap.shape == (2, 5, 6, n)
+    if n == cout:
+        assert w9p is w9 and bp is bias and ap is add
+    assert torch.equal(w9p[..., :cout], w9) and not w9p[..., cout:].any()
+    assert torch.equal(bp[:cout], bias) and not bp[cout:].any()
+    assert torch.equal(ap[..., :cout], add) and not ap[..., cout:].any()
+    assert rc.pad_cout(w9, bias)[2] is None
+    x = torch.from_numpy(rng.standard_normal((2, 5, 6, 32)).astype(np.float32))
+    A = torch.from_numpy(0.5 + rng.random((2, 32)).astype(np.float32))
+    B = torch.from_numpy(rng.standard_normal((2, 32)).astype(np.float32))
+    y, m = rc.affine_conv3x3_plain(x, A, B, w9, bias, add, True)
+    yp, mp = rc.affine_conv3x3_plain(x, A, B, w9p, bp, ap, True)
+    torch.testing.assert_close(yp[..., :cout], y, rtol=0, atol=1e-6)
+    torch.testing.assert_close(mp[..., :cout], m, rtol=1e-6, atol=1e-6)

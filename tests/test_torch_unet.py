@@ -235,3 +235,43 @@ def test_bf16_forward_tracks_fp32(rng, jax_params):
         e16 = bf16(x, z, t)
     assert e16.dtype == torch.bfloat16
     assert ((e16.float() - e32).norm() / e32.norm()).item() < 2e-2
+
+
+@pytest.mark.parametrize("ch_mult,size,batch", [((1, 2, 2), 16, 2), ((1, 2), 16, 1), ((2, 1, 2), 32, 3)])
+def test_path_conv_shapes_are_the_fused_calls(rng, monkeypatch, ch_mult, size, batch):
+    """``probes.conv_times.path_conv_shapes`` (the shape list of the conv
+    probe and of chip_smoke) against the fused convs a serving forward of a
+    tiny U-Net really calls, recorded on the CPU: shapes, counts, and the
+    head as the one linear call."""
+    from collections import Counter
+
+    from clip_codec_tpu_torch.ops import resblock_conv as rc
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+
+    seen = Counter()
+
+    def recording(linear):
+        def call(x, A, B, w9, bias, add=None, want_moments=False):
+            seen[(tuple(x.shape) + (w9.shape[2],), linear)] += 1
+            return rc.affine_conv3x3_plain(x, A, B, w9, bias, add, want_moments, linear=linear)
+        return call
+
+    monkeypatch.setattr(rc, "affine_silu_conv3x3", recording(False))
+    monkeypatch.setattr(rc, "affine_conv3x3", recording(True))
+    net = init_params(CLIPCondUNet(z_dim=8, base=8, ch_mult=ch_mult, time_dim=16), torch.Generator().manual_seed(0))
+    x = torch.from_numpy(rng.standard_normal((batch, size, size, 3)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((batch, 8)).astype(np.float32))
+    with torch.no_grad():
+        net.eval()(x, z, torch.arange(batch, dtype=torch.int32))
+    shapes = path_conv_shapes(8, ch_mult, size, batch)
+    want = Counter({(shape, i == len(shapes) - 1): calls for i, (shape, calls) in enumerate(shapes)})
+    assert seen == want
+
+
+def test_path_conv_shapes_of_the_reference_unet():
+    """The pixel path's table: the reference U-Net at 256px, serving batch 4."""
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+
+    assert path_conv_shapes(128, (1, 2, 2), 256, 4) == [
+        ((4, 256, 256, 128, 128), 4), ((4, 128, 128, 128, 128), 8), ((4, 64, 64, 256, 256), 8),
+        ((4, 32, 32, 512, 512), 8), ((4, 256, 256, 128, 3), 1)]
