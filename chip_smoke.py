@@ -37,13 +37,17 @@ The SD-1.5 latent path (``models/sd``, ``cli/reconstruct_sd_diffusion.py``):
    of SD-1.5 at 512px with CFG batched, for requests of one embedding (UNet
    batch 2) and of four (batch 8): flash attention at (BH, N, D) =
    (16|64, 4096, 40), (16|64, 1024, 80), (1|4, 4096, 512), normal and
-   extreme logits, out within rtol = atol = 2e-2 and lse within 1e-3; the
-   MLP at (R, C, F) = (8192|32768, 320, 1280), (2048|8192, 640, 2560),
-   (512|2048, 1280, 5120), (128|512, 1280, 5120) within rtol = atol = 2e-2,
-   with the kernel's split count, which must be 1 at some shape and more
-   at another; ms of kernel, of the kernel with one split, and of plain;
+   extreme logits, out within rtol = atol = 2e-2 and lse within 1e-3;
    flash attention recorded at every shape: events and CUDA-graph ms of
-   the kernel and of SDPA, plain ms and the bound;
+   the kernel and of SDPA, plain ms and the bound. The MLP (K6) at (R, C,
+   F) = (8192|32768, 320, 1280), (2048|8192, 640, 2560), (512|2048, 1280,
+   5120), (128, 1280, 5120) and the ragged (200, 1280, 5120): mlp_up
+   against mlp_up_plain, mlp_down against mlp_down_plain on the same h,
+   and the pair against mlp_plain, each within rtol = atol = 2e-2;
+   mlp_down must run unsplit at some shape and split at another. Recorded
+   at each of the seven: each kernel's ms (CUDA-graph replay and events),
+   plain ms and bound, F.linear alone beside mlp_down, and the pair's ms,
+   plain ms and bound beside cuBLAS's unfused bf16 MLP (for scale);
 7. one forward of the SD-1.5 UNet (random weights from --seed, bf16,
    64x64 latents, batch 2, a (2, 8, 768) context) and one VAE decode at
    512px, each through the kernels, through the plain versions and through
@@ -54,7 +58,8 @@ The SD-1.5 latent path (``models/sd``, ``cli/reconstruct_sd_diffusion.py``):
    files, reloaded through the SD CLI's loader, and answer three requests
    of one embedding and one of four at 512px, dpmpp-10, guidance 5, CFG
    batched. Outputs must be finite and of the right shape, and the kernels
-   must have launched steps x (10, 16) per forward plus 1 flash per decode.
+   must have launched steps x (10, 16) per forward plus 1 flash per decode,
+   each K6 kernel once per MLP, at each (R, C, F) its calls per forward.
 
 SD adapter training (``train/sd_diffusion_train.py``, ``cli/precompute_latents.py``):
 
@@ -126,7 +131,8 @@ The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py)
    plain version and SDPA at that shape.
 
 The line before the last is the kernels' JSON record (K2 and K3: one
-record per path shape at B=4 with its launches in phase 4; ``bound_ms``: the
+record per path shape at B=4 with its launches in phase 4; mlp_up and
+mlp_down: one record per MLP shape with its launches in phase 8; ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
 989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
 its fp32 rate outside the tensor cores, for K1, and, for the attention
@@ -164,7 +170,8 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "affine_silu_conv3x3": ("affine_conv3x3", REPLACES),
     "affine_conv3x3": ("affine_conv3x3", REPLACES),
     "flash_attention": ("flash_attention", "clip_codec_tpu/ops/pallas_attention.py:63"),
-    "transformer_mlp": ("transformer_mlp", "clip_codec_tpu/ops/pallas_mlp.py:78"),
+    "mlp_up": ("transformer_mlp", "clip_codec_tpu/ops/pallas_mlp.py:78"),
+    "mlp_down": ("transformer_mlp", "clip_codec_tpu/ops/pallas_mlp.py:78"),
     "flash_attention_bwd_dq": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:181"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:212"),
     "group_norm_silu_stats": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:53"),
@@ -185,6 +192,7 @@ FLASH_SHAPES = [(16, 4096, 40), (16, 1024, 80), (1, 4096, 512),
                 (64, 4096, 40), (64, 1024, 80), (4, 4096, 512)]  # (BH, N, D)
 MLP_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120),
               (32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120)]  # (R, C, F)
+MLP_RAGGED = (200, 1280, 5120)  # rows that fill no 128-row tile, with a split mlp_down
 SD_FLASH_PER_FORWARD, SD_MLP_PER_FORWARD = 10, 16
 FP32_RATIO = 1.1  # kernel path's distance from fp32, at most this x the plain path's
 SD_SIZE, SD_STEPS, SD_GUIDANCE = 512, 10, 5.0
@@ -197,7 +205,7 @@ TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 4, 2
 # first sees no input that needs a gradient) + the lat0_hat decode; the MLP
 # at all 16 transformer blocks (its backward runs no kernel).
 TRAIN_LAUNCHES = {"flash_attention": 12, "flash_attention_bwd_dq": 10, "flash_attention_bwd_dkv": 10,
-                  "transformer_mlp": 16}
+                  "transformer_mlp": 16, "mlp_up": 16, "mlp_down": 16}
 # Pixel training: (H, W, C) of every GroupNorm+SiLU of the full-width U-Net
 # at 256px (2, 4, 4 and 4 ResBlocks, two calls each: 28 per forward), batch 8.
 GN_SHAPES = [(256, 256, 128), (128, 128, 128), (64, 64, 256), (32, 32, 512)]
@@ -585,13 +593,16 @@ def reset_sd_launches(attn, mlp) -> None:
     attn.flash_attention_bwd_dq.launches = 0
     attn.flash_attention_bwd_dkv.launches = 0
     mlp.transformer_mlp.launches = 0
+    mlp.mlp_up.launches = 0
+    mlp.mlp_down.launches = 0
 
 
 def sd_launches(attn, mlp) -> dict:
     return {"flash_attention": attn.flash_attention_fwd.launches,
             "flash_attention_bwd_dq": attn.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": attn.flash_attention_bwd_dkv.launches,
-            "transformer_mlp": mlp.transformer_mlp.launches}
+            "transformer_mlp": mlp.transformer_mlp.launches, "mlp_up": mlp.mlp_up.launches,
+            "mlp_down": mlp.mlp_down.launches}
 
 
 @contextlib.contextmanager
@@ -623,7 +634,7 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
 
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     bf = torch.bfloat16
-    rec = {"flash_attention": {"max_abs_err": 0.0}, "transformer_mlp": {"max_abs_err": 0.0}}
+    rec = {"flash_attention": {"max_abs_err": 0.0}}
     for BH, N, D in FLASH_SHAPES:
         for q_scale in (1.0, 30.0):
             q = _randn(torch, gen, (BH, N, D), dev, q_scale, bf)
@@ -659,8 +670,37 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
             check(ok, f"{tag}: out outside rtol=atol=2e-2 (max abs err {err})")
             check(lse_err <= 1e-3, f"{tag}: lse abs err {lse_err} > 1e-3")
             rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
+    rec.update(phase_mlp_kernels(torch, mlp, gen, dev))
+    return rec
+
+
+def _mlp_bounds(R, C, Fh):
+    """(bound_ms, bound_by, bound_unit) of mlp_up (x, the LayerNorm vectors,
+    wh and wg, the biases read, h written; 4 R C F FLOP), of mlp_down (h and
+    wo read, y written; 2 R C F) and of the pair (the function: x, every
+    weight and vector read, y written; 6 R C F). h's round trip is the
+    design's own cost, not the function's."""
+    vec = 2 * C * 4 + 2 * Fh * 4
+    return (bound(R * C * 2 + vec + 2 * C * Fh * 2 + R * Fh * 2, 4 * R * C * Fh),
+            bound(R * Fh * 2 + C * Fh * 2 + R * C * 2, 2 * R * C * Fh),
+            bound(2 * R * C * 2 + vec + 3 * C * Fh * 2, 6 * R * C * Fh))
+
+
+def phase_mlp_kernels(torch, mlp, gen, dev):
+    """K6's two kernels (mlp_up: the LayerNorm pre-pass and the GEGLU
+    product; mlp_down: the out-projection, with its split sum where it
+    splits), each against its plain piece on the same input, and the pair
+    against mlp_plain, at every MLP_SHAPES entry and a ragged one; timed at
+    MLP_SHAPES. Returns one record per kernel and shape."""
+    import torch.nn.functional as F
+
+    from clip_codec_tpu_torch.probes.mlp_times import cublas_unfused
+
+    recs = {"mlp_up": [], "mlp_down": []}
+    errs = {"mlp_up": 0.0, "mlp_down": 0.0}
     splits_seen = set()
-    for R, C, Fh in MLP_SHAPES:
+    bf = torch.bfloat16
+    for R, C, Fh in MLP_SHAPES + [MLP_RAGGED]:
         x = _randn(torch, gen, (R, C), dev, 1.0, bf)
         lns, lnb = 1 + _randn(torch, gen, (C,), dev, 0.1), _randn(torch, gen, (C,), dev, 0.1)
         wh, wg = (_randn(torch, gen, (C, Fh), dev, C ** -0.5) for _ in range(2))
@@ -669,41 +709,62 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
         packed = mlp.pack_weights(wh, wg, wo)
         args = (x, lns, lnb, wh, bh, wg, bg, wo)
         splits = mlp.kernel_splits(R, C, Fh, dev)
-        splits_seen.add(splits)
-        y = mlp.transformer_mlp(*args, packed=packed)
+        splits_seen.add(splits > 1)
+        h = mlp.mlp_up(*args[:7], packed=packed)
+        h_ref = mlp.mlp_up_plain(*args[:7])
+        y = mlp.mlp_down(h_ref, wo, packed)
+        y_ref = mlp.mlp_down_plain(h_ref, wo)
+        y2 = mlp.transformer_mlp(*args, packed=packed)
         ref = mlp.mlp_plain(*args)
         torch.cuda.synchronize()
-        err = (y.float() - ref.float()).abs().max().item()
-        ok = bool(((y.float() - ref.float()).abs() <= 2e-2 + 2e-2 * ref.float().abs()).all().item())
-        k_ms = cuda_ms(torch, lambda: mlp.transformer_mlp(*args, packed=packed))
-        # the kernel with one split, whatever it chose: the evidence for its rule
-        one_ms = cuda_ms(torch, lambda: mlp._launch(x, lns, lnb, bh, bg, packed, splits=1))
-        p_ms = cuda_ms(torch, lambda: mlp.mlp_plain(*args), iters=5)
-        wgeglu = torch.cat([wh, wg], dim=1).t().to(bf).contiguous()
-        who, lnw, lnbb = wo.t().to(bf).contiguous(), lns.to(bf), lnb.to(bf)
-
-        def unfused():
-            a, g = F.linear(F.layer_norm(x, (C,), lnw, lnbb, 1e-6), wgeglu).chunk(2, dim=-1)
-            return F.linear(a * F.gelu(g), who)
-
-        lib_ms = cuda_ms(torch, unfused)
-        tflops = 6 * R * C * Fh / 1e9 / k_ms
-        tag = f"transformer_mlp (R, C, F)=({R}, {C}, {Fh}) splits={splits}"
-        print(f"kernel-check: {tag} max_abs_err={err:.3e} ms={k_ms:.4f} one_split_ms={one_ms:.4f} "
-              f"plain_ms={p_ms:.4f} cublas_unfused_library_not_plain_ms={lib_ms:.4f} "
-              f"kernel_TFLOPs={tflops:.1f}")
-        check(ok, f"{tag}: y outside rtol=atol=2e-2 (max abs err {err})")
-        rec["transformer_mlp"]["max_abs_err"] = max(rec["transformer_mlp"]["max_abs_err"], err)
-        if (R, C, Fh) == MLP_SHAPES[0]:
-            nbytes = 2 * R * C * 2 + 2 * C * 4 + 3 * C * Fh * 2 + 2 * Fh * 4
-            b_ms, b_by, b_unit = bound(nbytes, 6 * R * C * Fh)
-            # library: null, no one PyTorch call computes the fused MLP (cuBLAS unfused is printed for scale)
-            rec["transformer_mlp"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                                          bound_unit=b_unit, timed_at=tag)
-    # both epilogues (bf16 from registers; fp32 partials + the sum kernel)
-    check(1 in splits_seen and max(splits_seen) > 1, f"MLP shapes ran splits {sorted(splits_seen)}: "
-          "the one-split and the split form must both be checked")
-    return rec
+        tag = f"(R, C, F)=({R}, {C}, {Fh}) splits={splits}"
+        line = f"kernel-check: mlp {tag}"
+        for name, got, want in (("mlp_up", h, h_ref), ("mlp_down", y, y_ref), ("pair", y2, ref)):
+            d = (got.float() - want.float()).abs()
+            err = d.max().item()
+            line += f" {name}_max_abs_err={err:.3e}"
+            check(bool((d <= 2e-2 + 2e-2 * want.float().abs()).all().item()),
+                  f"{name} {tag}: outside rtol=atol=2e-2 of its plain version (max abs err {err})")
+            if name in errs:
+                errs[name] = max(errs[name], err)
+        if (R, C, Fh) == MLP_RAGGED:
+            print(line)
+            continue
+        pair = lambda: mlp.transformer_mlp(*args, packed=packed)
+        up = lambda: mlp.mlp_up(*args[:7], packed=packed)
+        down = lambda: mlp.mlp_down(h_ref, wo, packed)
+        unfused = cublas_unfused(*args)
+        t = dict(pair_ms=cuda_ms(torch, pair), pair_graph_ms=graph_ms(torch, pair),
+                 pair_plain_ms=cuda_ms(torch, lambda: mlp.mlp_plain(*args), iters=3, warmup=1),
+                 cublas_unfused_ms=cuda_ms(torch, unfused), cublas_unfused_graph_ms=graph_ms(torch, unfused))
+        (ub, uby, uu), (db, dby, du), (pb, pby, pu) = _mlp_bounds(R, C, Fh)
+        t.update(pair_bound_ms=pb, pair_bound_by=pby)
+        for name, fn, plain, lib, (b_ms, b_by, b_unit) in (
+                ("mlp_up", up, lambda: mlp.mlp_up_plain(*args[:7]), None, (ub, uby, uu)),
+                ("mlp_down", down, lambda: mlp.mlp_down_plain(h_ref, wo), lambda: F.linear(h_ref, packed[1]),
+                 (db, dby, du))):
+            r = dict(shape=[R, C, Fh], ms=graph_ms(torch, fn), events_ms=cuda_ms(torch, fn),
+                     plain_ms=cuda_ms(torch, plain, iters=3, warmup=1),
+                     library_ms=None if lib is None else graph_ms(torch, lib),
+                     bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit, **t)
+            if name == "mlp_down":
+                r["splits"] = splits
+            recs[name].append(r)
+            line += (f" {name}_ms={r['ms']:.4f} (graph) events_ms={r['events_ms']:.4f} plain_ms={r['plain_ms']:.4f}"
+                     f" bound_ms={b_ms:.4f} ({b_unit})")
+            if lib is not None:
+                line += f" F.linear_library_ms={r['library_ms']:.4f}"
+        line += (f" pair_ms={t['pair_ms']:.4f} pair_graph_ms={t['pair_graph_ms']:.4f}"
+                 f" pair_plain_ms={t['pair_plain_ms']:.4f} pair_bound_ms={pb:.4f} ({pu})"
+                 f" cublas_unfused_library_not_plain_ms={t['cublas_unfused_ms']:.4f}"
+                 f" (graph {t['cublas_unfused_graph_ms']:.4f}) kernel_TFLOPs={6 * R * C * Fh / 1e9 / t['pair_graph_ms']:.1f}")
+        print(line)
+    # mlp_down's two epilogues: bf16 from registers, and fp32 partials + the sum kernel
+    check(splits_seen == {False, True}, "MLP shapes must run mlp_down both with and without a split")
+    for name, rs in recs.items():
+        for r in rs:
+            r["max_abs_err"] = errs[name]
+    return recs
 
 
 def sd_models(torch, seed, dev):
@@ -819,25 +880,46 @@ def phase_sd_serve(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
 
     torch.cuda.synchronize()
     reset_sd_launches(attn, mlp)
+    shapes = collections.Counter()  # mlp_up launches by (R, C, F), through its one launcher
+    launch_up = mlp._launch_up
+
+    def tally(x, *rest):
+        shapes[(x.numel() // x.shape[-1], x.shape[-1], rest[2].shape[0])] += 1
+        return launch_up(x, *rest)
+
+    mlp._launch_up = tally
     times, s = [], 0
-    for n in SD_REQUESTS:
-        z = z_all[s:s + n]
-        s += n
-        t0 = time.perf_counter()
-        img = cli.sample_images(dec, z, SD_SIZE, steps=SD_STEPS, sampler="dpmpp", guidance=SD_GUIDANCE,
-                                seed=seed).float().cpu()
-        times.append(time.perf_counter() - t0)
-        check(tuple(img.shape) == (n, SD_SIZE, SD_SIZE, 3), f"SD request of {n}: output shape {tuple(img.shape)}")
-        check(bool(torch.isfinite(img).all().item()), f"SD request of {n}: non-finite output")
-    launches = {k: sd_launches(attn, mlp)[k] for k in ("flash_attention", "transformer_mlp")}
+    try:
+        for n in SD_REQUESTS:
+            z = z_all[s:s + n]
+            s += n
+            t0 = time.perf_counter()
+            img = cli.sample_images(dec, z, SD_SIZE, steps=SD_STEPS, sampler="dpmpp", guidance=SD_GUIDANCE,
+                                    seed=seed).float().cpu()
+            times.append(time.perf_counter() - t0)
+            check(tuple(img.shape) == (n, SD_SIZE, SD_SIZE, 3), f"SD request of {n}: output shape {tuple(img.shape)}")
+            check(bool(torch.isfinite(img).all().item()), f"SD request of {n}: non-finite output")
+    finally:
+        mlp._launch_up = launch_up
+    launches = {k: sd_launches(attn, mlp)[k] for k in ("flash_attention", "transformer_mlp", "mlp_up", "mlp_down")}
     for n, dt in zip(SD_REQUESTS, times):
         print(f"sd-serve: request of {n} embedding(s) (CFG batched, UNet batch {2 * n}, dpmpp-{SD_STEPS}, "
               f"guidance {SD_GUIDANCE}, {SD_SIZE}px) {dt:.3f} s on {card}")
     print(f"sd-serve: {sum(SD_REQUESTS)} images in {sum(times):.3f} s = {sum(SD_REQUESTS) / sum(times):.3f} img/s "
           f"on {card}; launches={launches}")
+    n_mlp = len(SD_REQUESTS) * SD_STEPS * SD_MLP_PER_FORWARD
     want = {"flash_attention": len(SD_REQUESTS) * (SD_STEPS * SD_FLASH_PER_FORWARD + 1),
-            "transformer_mlp": len(SD_REQUESTS) * SD_STEPS * SD_MLP_PER_FORWARD}
+            "transformer_mlp": n_mlp, "mlp_up": n_mlp, "mlp_down": n_mlp}
     check(launches == want, f"SD kernel launches {launches} != {want}")
+    from clip_codec_tpu_torch.probes.mlp_times import unet_mlp_shapes
+
+    want_shapes = collections.Counter()
+    for n in SD_REQUESTS:  # CFG batched: UNet batch 2n
+        for shape, calls in unet_mlp_shapes(2 * n):
+            want_shapes[shape] += calls * SD_STEPS
+    print(f"sd-serve: mlp launches by (R, C, F): {dict(shapes)}")
+    check(shapes == want_shapes, f"MLP launches by shape {dict(shapes)} != {dict(want_shapes)}")
+    launches["mlp_by_shape"] = dict(shapes)
     return launches
 
 
@@ -1616,9 +1698,11 @@ def main() -> int:
     kernels = []
     for name, (lib, replaces) in KERNELS.items():
         head = {"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces}
-        if isinstance(records[name], list):  # the pixel path's convs: one record per path shape
+        if isinstance(records[name], list):  # the convs and K6: one record per path shape
             for rec in records[name]:
-                kernels.append({**head, "launches": launches["by_shape"][tuple(rec["shape"][1:])], **rec})
+                by_shape = (launches["mlp_by_shape"].get(tuple(rec["shape"]), 0) if name in ("mlp_up", "mlp_down")
+                            else launches["by_shape"][tuple(rec["shape"][1:])])
+                kernels.append({**head, "launches": by_shape, **rec})
         else:
             kernels.append({**head, "launches": launches[name], **records[name]})
     print(json.dumps({"kernels": kernels}))

@@ -7,10 +7,14 @@ step goes, on one CUDA card.
 Parts 1-3: SD-1.5 at its published widths, random weights from --seed,
 bf16, 512px (64x64 latents), CFG batched (UNet batch 2 per embedding):
 
-1. ``mlp-splits``: the fused MLP kernel (csrc/transformer_mlp.cu) at every
-   split count it can take, at the MLP shapes of UNet batches 2, 4 and 8
-   (requests of 1, 2 and 4 embeddings), beside the count its rule picks:
-   ms per call from CUDA events over 30 calls after 5 warm-ups.
+1. ``mlp-splits``: K6's out-projection (``mlp_down`` in
+   csrc/transformer_mlp.cu) at every split count of its depth with no empty
+   split, at the MLP shapes of UNet batches 2, 4 and 8 (requests of 1, 2
+   and 4 embeddings), beside the count ``ops.mlp.down_splits`` picks: the
+   device ms per call of 20 calls replayed from a CUDA graph (``best`` is
+   the fastest by it), and, after the slash, CUDA events over 30 calls from
+   Python after 5 warm-ups (where the host's enqueue of a call outlasts its
+   kernels, this measures the host).
 2. ``profile``: UNet forwards (B=2 and 8, through the kernels and through
    the plain versions), VAE decodes (B=1 and 4) and whole requests of 1
    and 4 embeddings (dpmpp-10, guidance 5). For each: wall ms per call on
@@ -52,7 +56,7 @@ KINDS = (  # first match wins: copies before the generic elementwise kernels
     ("affine_conv3x3(K2/K3)", ("affine_conv3x3",)),
     ("flash_attention(K4)", ("flash_fwd_kernel",)),
     ("flash_attention_bwd(K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
-    ("transformer_mlp(K6)", ("mlp_kernel", "sum_splits_kernel")),
+    ("transformer_mlp(K6)", ("mlp_ln_kernel", "mlp_up_kernel", "mlp_down_kernel", "sum_splits_kernel")),
     ("conv(cuDNN)", ("fprop", "conv", "cudnn")),
     ("gemm(cuBLAS)", ("gemm", "cublas", "cutlass")),
     ("cat/copy", ("copy", "cat", "memcpy", "memset")),
@@ -71,24 +75,23 @@ def kind_of(name: str) -> str:
 
 
 def mlp_splits(torch, mlp, seed, dev) -> None:
+    from clip_codec_tpu_torch.probes.mlp_times import mlp_inputs, unet_mlp_shapes
+
     gen = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
     for B in (2, 4, 8):
-        for R, C, F in ((B * 4096, 320, 1280), (B * 1024, 640, 2560), (B * 256, 1280, 5120),
-                        (B * 64, 1280, 5120)):
-            x = cs._randn(torch, gen, (R, C), dev, 1.0, bf)
-            lns, lnb = 1 + cs._randn(torch, gen, (C,), dev, 0.1), cs._randn(torch, gen, (C,), dev, 0.1)
-            wh, wg = (cs._randn(torch, gen, (C, F), dev, C ** -0.5) for _ in range(2))
-            bh, bg = (cs._randn(torch, gen, (F,), dev, 0.1) for _ in range(2))
-            wo = cs._randn(torch, gen, (F, C), dev, F ** -0.5)
-            packed = mlp.pack_weights(wh, wg, wo)
-            chunks = F // 160
-            counts = sorted({-(-chunks // per) for per in range(1, chunks + 1)})  # no empty split
-            times = {s: cs.cuda_ms(torch, lambda: mlp._launch(x, lns, lnb, bh, bg, packed, splits=s),
-                                   iters=30, warmup=5) for s in counts}
-            best = min(times, key=times.get)
+        for (R, C, F), _ in unet_mlp_shapes(B):
+            args = mlp_inputs(gen, R, C, F, dev)
+            packed = mlp.pack_weights(args[3], args[5], args[7])
+            h = mlp.mlp_up(*args[:7], packed=packed)
+            depth = F // mlp.DEPTH
+            counts = sorted({-(-depth // per) for per in range(1, depth + 1)})  # no empty split
+            times = {}
+            for s in counts:
+                call = lambda: mlp.mlp_down(h, args[7], packed, splits=s)
+                times[s] = (cs.graph_ms(torch, call), cs.cuda_ms(torch, call, iters=30, warmup=5))
+            best = min(times, key=lambda s: times[s][0])
             print(f"mlp-splits: UNet batch {B} (R, C, F)=({R}, {C}, {F}) rule={mlp.kernel_splits(R, C, F, dev)} "
-                  f"best={best} " + " ".join(f"s{s}={ms:.4f}" for s, ms in times.items()), flush=True)
+                  f"best={best} " + " ".join(f"s{s}={g:.4f}/{e:.4f}" for s, (g, e) in times.items()), flush=True)
 
 
 def profile(torch, label, fn, card, iters=10, prof_iters=3, warmup=2, host_top=0) -> None:

@@ -450,11 +450,44 @@ def test_transformer_mlp_matches_plain(rng, cuda, R, C, F):
     torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("R,C,F", MLP_CASES)
+def test_mlp_stages_match_their_plain_pieces(rng, cuda, R, C, F):
+    """mlp_up (LayerNorm pre-pass + GEGLU product) against mlp_up_plain, and
+    mlp_down against mlp_down_plain on the same h, each on its own launch
+    counter."""
+    x, lns, lnb, wh, bh, wg, bg, wo = _mlp_args(rng, R, C, F)
+    packed = mlp.pack_weights(wh, wg, wo)
+    n0 = mlp.mlp_up.launches, mlp.mlp_down.launches, mlp.transformer_mlp.launches
+    h = mlp.mlp_up(x, lns, lnb, wh, bh, wg, bg, packed)
+    h_ref = mlp.mlp_up_plain(x, lns, lnb, wh, bh, wg, bg)
+    y = mlp.mlp_down(h_ref, wo, packed)
+    y_ref = mlp.mlp_down_plain(h_ref, wo)
+    torch.cuda.synchronize()
+    assert (mlp.mlp_up.launches, mlp.mlp_down.launches, mlp.transformer_mlp.launches) == (n0[0] + 1, n0[1] + 1, n0[2])
+    assert h.dtype == torch.bfloat16 and h.shape == (R, F) and y.shape == (R, C)
+    torch.testing.assert_close(h.float(), h_ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_transformer_mlp_cases_cover_both_epilogues(cuda):
-    """The cases above run the kernel with one split (bf16 stored from
-    registers) and with several (fp32 partials summed by a second kernel)."""
+    """The cases above run the out-projection with one split (bf16 stored
+    from registers) and with several (fp32 partials summed by a second
+    kernel), as ``down_splits`` picks for the card's SM count."""
     splits = {mlp.kernel_splits(R, C, F, cuda) for R, C, F in MLP_CASES}
     assert 1 in splits and max(splits) > 1
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 40])
+def test_mlp_down_any_split_count_matches_one(rng, cuda, splits):
+    """Every split count without an empty split gives the same y within
+    bf16 rounding of the fp32 partials' sum; one split is bit-equal to a
+    second run (deterministic)."""
+    _, _, _, _, _, _, _, wo = _mlp_args(rng, 300, 640, 2560)
+    h = _bf16(rng, (300, 2560))
+    y1 = mlp.mlp_down(h, wo, splits=1)
+    y = mlp.mlp_down(h, wo, splits=splits)
+    torch.testing.assert_close(y.float(), y1.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(y, mlp.mlp_down(h, wo, splits=splits))
 
 
 def test_transformer_mlp_packed_weights_and_token_view(rng, cuda):

@@ -8,8 +8,10 @@ interpret mode, over one and several hidden tiles, and against
 output's magnitude against the Pallas kernel, which rounds where
 ``mlp_plain`` does, and within two against ``mlp_reference``, which also
 rounds each product to bf16 before adding its fp32 bias (a second rounding
-of ``a`` and ``g``, measured at up to 1.25 ulp at the output). The kernel's packed weight layout is checked
-against the m16n8k16 B-fragment definition. Inputs are made with numpy
+of ``a`` and ``g``, measured at up to 1.25 ulp at the output). The two
+stages' plain pieces compose to ``mlp_plain`` bit for bit; the kernels'
+packed weight layout is pinned element by element, and the out-projection's
+split rule is checked at every SD-1.5 shape. Inputs are made with numpy
 from a seed.
 """
 
@@ -76,19 +78,64 @@ def test_plain_matches_pallas_kernel_and_reference_bf16(rng, C, F):
     assert np.abs(yt - yr).max() <= 2 * _bf16_ulp(scale)
 
 
-def test_packed_layout_is_the_mma_b_fragment(rng):
-    """packed[n16, k16, lane = 4g + t, 4 nh + 2 kh + e] holds
-    w[16 k16 + 8 kh + 2 t + e, 16 n16 + 8 nh + g]: lane (g, t)'s b0/b1
-    registers of the two 8-column n-tiles of a 16x16 tile."""
-    K, N = 48, 32
-    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
-    packed, _, _ = mlp.pack_weights(w, w, w.t(), torch.float32)
-    assert packed.shape == (N // 16, K // 16, 32, 8)
-    n16, k16, g, t, nh, kh, e = np.meshgrid(*(np.arange(s) for s in (N // 16, K // 16, 8, 4, 2, 2, 2)),
-                                            indexing="ij")
-    got = packed.numpy()[n16, k16, 4 * g + t, 4 * nh + 2 * kh + e]
-    want = w.numpy()[16 * k16 + 8 * kh + 2 * t + e, 16 * n16 + 8 * nh + g]
-    np.testing.assert_array_equal(got, want)
+def test_packed_layout_is_tma_ready(rng):
+    """wup[128 t + j, k] = wh[k, 64 t + j] and wup[128 t + 64 + j, k] =
+    wg[k, 64 t + j] (j < 64): one mlp_up tile holds a and g of the same 64
+    hidden columns, depth contiguous; wdown[n, k] = wo[k, n]."""
+    C, F = 48, 192
+    wh, wg = (torch.from_numpy(rng.standard_normal((C, F)).astype(np.float32)) for _ in range(2))
+    wo = torch.from_numpy(rng.standard_normal((F, C)).astype(np.float32))
+    wup, wdown = mlp.pack_weights(wh, wg, wo, torch.float32)
+    assert wup.shape == (2 * F, C) and wup.is_contiguous()
+    assert wdown.shape == (C, F) and wdown.is_contiguous()
+    t, j, k = np.meshgrid(np.arange(F // 64), np.arange(64), np.arange(C), indexing="ij")
+    np.testing.assert_array_equal(wup.numpy()[128 * t + j, k], wh.numpy()[k, 64 * t + j])
+    np.testing.assert_array_equal(wup.numpy()[128 * t + 64 + j, k], wg.numpy()[k, 64 * t + j])
+    n, k = np.meshgrid(np.arange(C), np.arange(F), indexing="ij")
+    np.testing.assert_array_equal(wdown.numpy()[n, k], wo.numpy()[k, n])
+    assert mlp.pack_weights(wh, wg, wo)[0].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="F % 64"):
+        mlp.pack_weights(wh[:, :160], wg[:, :160], wo[:160])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_up_and_down_pieces_compose_to_plain(rng, dtype):
+    args = _torch(_params(rng, 64, 256), dtype)
+    h = mlp.mlp_up_plain(*args[:7])
+    assert h.dtype == dtype and h.shape == (32, 256)
+    assert torch.equal(mlp.mlp_down_plain(h, args[7]), mlp.mlp_plain(*args))
+
+
+# (R, C, F) of every SD-1.5 MLP at 512px: serving (UNet batches 2 and 8),
+# training (batch 4), and ragged rows.
+SD15_MLP_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120),
+                   (32768, 320, 1280), (8192, 640, 2560), (2048, 1280, 5120),
+                   (16384, 320, 1280), (4096, 640, 2560), (1024, 1280, 5120), (256, 1280, 5120),
+                   (100, 320, 1280), (37, 640, 2560)]
+
+
+@pytest.mark.parametrize("R,C,F", SD15_MLP_SHAPES)
+def test_down_split_rule_has_no_empty_split(R, C, F):
+    """The rule's count covers the F / 64 depth stages in equal runs with
+    none empty, fills at most one wave of 132 SMs, and splits only where
+    the 128 x 160 tiles leave at least half of them idle."""
+    tiles = -(-R // 128) * (C // 160)
+    depth = F // 64
+    s = mlp.down_splits(R, C, F, 132)
+    per = -(-depth // s)
+    assert 1 <= s <= depth and (s - 1) * per < depth
+    assert s * tiles <= max(132, tiles)
+    assert (s > 1) == (2 * tiles <= 132)
+
+
+def test_stage_wrappers_run_plain_on_cpu_without_counting(rng):
+    args = _torch(_params(rng, 32, 128), torch.bfloat16)
+    n0 = mlp.mlp_up.launches, mlp.mlp_down.launches
+    h = mlp.mlp_up(*args[:7])
+    y = mlp.mlp_down(h, args[7])
+    assert (mlp.mlp_up.launches, mlp.mlp_down.launches) == n0
+    assert torch.equal(h, mlp.mlp_up_plain(*args[:7]))
+    assert torch.equal(y, mlp.mlp_plain(*args))
 
 
 def test_function_gradients_match_jax_vjp(rng):
