@@ -119,7 +119,8 @@ Pixel-decoder training (``train/diffusion_train.py``, ``cli/train.py``):
 The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py):
 
 15. build csrc/flash_attention_probe.cu; hold each of its 21 kernels (P1's
-   six modes and tiles, P2's exp2 and row-sum forms, P3's two query tiles)
+   six modes and tiles, P2's exp2 and row-sum forms, P3's two query tiles;
+   4096 rows leave the tq = 192 kernels a partial last query tile)
    against its plain version at (8, 4096, 40) in bf16, at normal logits and
    (all but ``nomax``) at extreme ones: softmax outputs within rtol = atol
    = 2e-2 and within 2e-2 of their largest magnitude, ``noexp`` and
@@ -127,8 +128,9 @@ The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py)
    2e-2 relative; then run the probe at (64, 4096, 40), printing its lines:
    every variant timed, four correctness lines within 2e-2 of an fp32
    oracle, one counted launch per call the probe made outside CUDA-graph
-   capture (the graphs' replays reported beside); ms of each kernel, its
-   plain version and SDPA at that shape.
+   capture (the graphs' replays reported beside); ms of each kernel (P1
+   ``full`` at K4's tile (192, 128), P3 at tq = 192, P2 poly2), its plain
+   version, SDPA and K4 at that shape.
 
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4; mlp_up and
@@ -1571,6 +1573,7 @@ def phase_probe(torch, ap, seed, dev, rec):
     counts, then each kernel's, plain version's and SDPA's ms there."""
     import torch.nn.functional as F
 
+    from clip_codec_tpu_torch.ops import attention as attn
     from clip_codec_tpu_torch.probes import attn_probe
 
     BH, N, D = PROBE_SHAPE
@@ -1589,6 +1592,7 @@ def phase_probe(torch, ap, seed, dev, rec):
     gen = torch.Generator(device=dev).manual_seed(seed + 15)
     q, k, v = (_randn(torch, gen, (BH, N, D), dev, 1.0, torch.bfloat16) for _ in range(3))
     sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+    k4_ms = cuda_ms(torch, lambda: attn.flash_attention_fwd(q, k, v))  # the production forward the probe ablates
     io = 4 * BH * N * D * 2  # q, k, v read and out written, bf16
     prod = 2 * BH * N * N * D  # flops of one (N, N, D) product
     # Each bound counts what the function needs: Q.K^T and P.V, one exponential
@@ -1596,10 +1600,10 @@ def phase_probe(torch, ap, seed, dev, rec):
     # kernels' own choices, left out (P3's own work is reported beside it).
     cases = {
         # name: (timed at, kernel, plain, bound args, library ms)
-        "flash_probe_variant": ("full (tq, tk)=(64, 64)", lambda: ap.flash_variant(q, k, v, 64, 64, "full"),
-                                lambda: ap.flash_variant_plain(q, k, v, 64, "full"),
+        "flash_probe_variant": ("full (tq, tk)=(192, 128)", lambda: ap.flash_variant(q, k, v, 192, 128, "full"),
+                                lambda: ap.flash_variant_plain(q, k, v, 128, "full"),
                                 dict(nbytes=io, flops=2 * prod, exps=BH * N * N), sdpa_ms),
-        "flash_probe_single_pass": ("tq=64", lambda: ap.single_pass(q, k, v, 64),
+        "flash_probe_single_pass": ("tq=192", lambda: ap.single_pass(q, k, v, 192),
                                     lambda: ap.single_pass_plain(q, k, v),
                                     dict(nbytes=io, flops=2 * prod, exps=BH * N * N), sdpa_ms),
         # q, k and the ones-column v (48 wide) read, the fp32 (D + 1)-wide accumulator written;
@@ -1617,16 +1621,19 @@ def phase_probe(torch, ap, seed, dev, rec):
         terms = bound_terms(**bargs)
         tag = f"{name} {timed} at (BH, N, D)=({BH}, {N}, {D})"
         print(f"probe-kernel: {tag} ms={k_ms:.4f} plain_ms={p_ms:.4f} sdpa_library_ms={sdpa_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_unit}; " + ", ".join(f"{u} {t:.4f}" for u, t in terms.items()) + ")")
+              f"k4_ms={k4_ms:.4f} bound_ms={b_ms:.4f} ({b_unit}; "
+              + ", ".join(f"{u} {t:.4f}" for u, t in terms.items()) + ")")
         rec[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit,
-                         timed_at=tag)
+                         timed_at=tag, k4_ms=k4_ms)
     rec["flash_probe_fast"]["sdpa_ms_for_scale"] = sdpa_ms
     # P3's own work: Q.K^T in both sweeps and P.V
     rec["flash_probe_single_pass"]["two_sweep_bound_ms"] = bound(io, 3 * prod, exps=BH * N * N)[0]
     for name in wrappers:
         rec[name]["graph_replay_launches"] = replayed[name]
-    for name, label in (("flash_probe_variant", attn_probe.P1_VARIANTS[0][0]),
-                        ("flash_probe_single_pass", attn_probe.P3_VARIANTS[0][0])):
+    labels = {"flash_probe_variant": next(lb for lb, tq, tk, mode in attn_probe.P1_VARIANTS
+                                          if (mode, tq, tk) == ("full", 192, 128)),
+              "flash_probe_single_pass": next(lb for lb, tq in attn_probe.P3_VARIANTS if tq == 192)}
+    for name, label in labels.items():
         rec[name]["probe_graph_ms"] = res["times"][label]["graph_ms"]
     del q, k, v
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 // Attention probe kernels for Hopper (sm_90a), bf16, no mask: variants of
-// the flash-attention forward (csrc/flash_attention.cu) that take one piece
-// of its work away at a time, so that timing them says where its time goes.
+// the flash-attention forward (csrc/flash_attention.cu, K4) that take one
+// piece of its work away at a time, so that timing them says where its time
+// goes.
 //
 // Replaces the three TPU kernels of bench_attn_probe.py:
 //   P1  _kernel (:103, entered through flash_variant :161): the online
@@ -25,34 +26,57 @@
 //       exact row max over all N keys and no online rescale.
 // In every form p is rounded to bf16 for the P.V product, the accumulator
 // is fp32, and the running max starts at the finite -1e30, as in the TPU
-// kernels. expf and exp2f are the accurate library forms (no fast-math):
-// the probe measures what each form costs.
+// kernels. expf and exp2f are the accurate library forms (no fast-math, not
+// sm90.cuh's ex2.approx): the probe measures what each form costs, so P1
+// `full` against K4 is "expf and a separate scale multiply" against
+// "ex2.approx on one fused multiply-add".
 //
 // What bounds them on an H100: at SD-1.5's head dim 40 one score costs
 // 4*D = 160 FLOP on the tensor cores (~6.2e12 scores/s at 989 TFLOP/s) and
 // one exponential on the exp unit, which issues 16 ex2 per clock per SM
 // (~4.2e12/s over 132 SMs at 1.98 GHz): the exp unit is the tighter limit,
-// the tensor cores next; q, k, v and out are ~4*D bytes per query row, far
-// below either. The variants exist to measure how far each piece of the
-// softmax (scale, max, exp, rescale) sits above those limits.
+// the tensor cores next; the softmax's other instructions per score (max,
+// subtract, sum, bf16 pack, and expf's range reduction) share the SM's 128
+// issue lanes a clock. q, k, v and out are ~4*D bytes per query row, far
+// below either.
 //
-// Design: K4's (mma.sync m16n8k16, FlashAttention-2 order; no TMA or wgmma):
+// Design of P1 and P3: K4's (wgmma fed by TMA, warp-specialised, on
+// sm90.cuh; see flash_attention.cu), with the mode's softmax in place of
+// K4's:
+//   * a block owns BQ = 64 * NWG query rows of one (batch, head): NWG = 2 or
+//     3 consumer warpgroups of 64 rows each and one producer warp, whose
+//     warpgroup gives its registers to the consumers with setmaxnreg;
+//   * the producer loads Q once and streams tiles of BKT keys through a ring
+//     of STAGES shared-memory stages with TMA (3-D maps: the q.k depth and
+//     the P.V width are padded from 40 to 48 by TMA's zero fill, and query
+//     rows past N read as zero and are not stored, so the last query tile
+//     may be partial; N % 128 == 0 keeps every key tile full). The ring holds
+//     128 KB: STAGES = 4 at BKT = 128, 8 at BKT = 64;
+//   * S = Q K^T is one wgmma chain per warpgroup; the mode's softmax runs on
+//     S's fp32 accumulator; P, rounded to bf16, is the register A operand of
+//     O += P V (N = 48), so P never touches shared memory;
+//   * each warpgroup issues S(t) and P(t-1) V(t-1) together and runs the
+//     softmax of tile t while P V is in flight, touching O (alpha's rescale)
+//     only after it has retired; the warpgroups take turns to issue (named
+//     barriers, round robin), so one's softmax overlaps another's products;
+//   * P3 cannot hold a head's 4096 x 4096 scores on chip, so it computes the
+//     same function in two sweeps within the kernel, on one ring: sweep 1
+//     streams K alone (half the bytes) for S and each thread's running max
+//     (fmaxf, no exp; the quad's max and the scale once at the end, which
+//     is the max of the scaled logits: the scale is positive and rounding
+//     monotonic); sweep 2 streams K and V for S again and p = expf(s*scale -
+//     m), l += p, O += bf16(p) V: K4's loop without a rescale. The ring's
+//     stage index and parity run on across the sweeps (2 N / BKT loads).
+//
+// Design of P2 (the first port's: mma.sync m16n8k16 from csrc/mma_bf16.cuh,
+// FlashAttention-2 order; no TMA or wgmma):
 //   * a block owns BQ = 64 or 128 query rows of one (batch, head), one warp
 //     per 16 rows; keys and values stream through shared memory in tiles of
-//     BKT = 64 or 128 rows, two cp.async stages; BQ and BKT are the probe's
-//     tile knobs (the TPU kernels' tq and tk);
-//   * the q.k depth is zero-padded in shared memory to 48 (D = 40 or 48);
-//     the P.V product runs only the 8-column n-tiles the output needs
-//     (5 at D = 40, 6 with P2's ones column), so the ones column's cost is
-//     one n-tile;
-//   * S stays in registers and its fragments, rounded to bf16, are P.V's A
-//     operand, as in K4;
-//   * P3 cannot hold a head's K and V (786 KB at N = 4096) or its 64 x 4096
-//     fp32 scores (1 MB) on chip, so it computes the same function in two
-//     sweeps over the key tiles: S and the exact row max, then S again,
-//     p = expf(s - m), l += p and acc += bf16(p) v. The extra Q.K^T is the
-//     price of dropping the rescale, which is what it measures;
-//   * N % 128 == 0 (so every tile is full: no masks), D in (40, 48).
+//     BKT = 64 or 128 rows, two cp.async stages;
+//   * the q.k depth is zero-padded in shared memory to 48; the P.V product
+//     runs only the 8-column n-tiles the output needs (6 with the ones
+//     column), so the ones column's cost is one n-tile;
+//   * N % BQ == 0 and N % BKT == 0 (no masks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,30 +84,35 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int DP = 48;        // q.k depth, zero-padded to the MMA's k step
-constexpr int LDQ = DP + 8;   // bf16 row stride: an odd multiple of 16 bytes (ldmatrix conflict-free)
 constexpr float NEG_INF = -1e30f;
 
-enum Kind { P1 = 0, P2 = 1, P3 = 2 };
-// P1 modes, in the order of MODES in ops/attention_probe.py.
-enum Mode { FULL = 0, EXP2 = 1, NOSCALE = 2, NOMAX = 3, NOEXP = 4, DOTONLY = 5 };
+// P1 modes, in the order of MODES in ops/attention_probe.py, and P3's
+// softmax as a seventh.
+enum Mode { FULL = 0, EXP2 = 1, NOSCALE = 2, NOMAX = 3, NOEXP = 4, DOTONLY = 5, SINGLE_PASS = 6 };
 
-// DVS: V tile columns in shared memory (48 for D <= 48; 64 for P2, whose
-// ones column makes the output D + 1 wide).
-template <int BQ, int BKT, int DVS>
+// ------------------------------------------------ P2: mma.sync, cp.async
+
+namespace p2 {
+
+constexpr int DP = 48;        // q.k depth, zero-padded to the MMA's k step
+constexpr int LDQ = DP + 8;   // bf16 row stride: an odd multiple of 16 bytes (ldmatrix conflict-free)
+constexpr int DVS = 64;       // V tile columns in shared memory: D + 1 (the ones column) rounded up
+constexpr int LDV = DVS + 8;
+
+template <int BQ, int BKT>
 struct Tiles {
   static constexpr int THREADS = BQ / 16 * 32;
-  static constexpr int LDV = DVS + 8;
   static constexpr int NS = BKT / 8;  // n-tiles of S per warp
   static constexpr int NO = DVS / 8;  // n-tiles of the output, at most
   static constexpr int Q_ELEMS = BQ * LDQ;
   static constexpr int K_ELEMS = BKT * LDQ;
   static constexpr int V_ELEMS = BKT * LDV;
   static constexpr int SMEM = 2 * (Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS);
-  static_assert(BQ % 16 == 0 && BKT % 16 == 0 && DVS % 16 == 0, "tile shapes");
+  static_assert(BQ % 16 == 0 && BKT % 16 == 0, "tile shapes");
 };
 
 // 2^x from the exponent bits of floor(x) and a polynomial of the fraction
@@ -122,18 +151,15 @@ __device__ __forceinline__ void row_max(const float (&s)[NS][4], float (&mx)[2])
   }
 }
 
-// q: (BH, N, D); k: (BH, N, D); v: (BH, N, ldv), of which the P.V product
-// uses the first nv columns; out: (BH, N, D) bf16, or for P2 the (BH, N,
-// D + 1) fp32 accumulator. scale: 1/sqrt(D), or P2's 1/sqrt(D) * log2(e).
-template <int KIND, int MODE, int DEG, bool MXU, int BQ, int BKT>
+// q, k: (BH, N, D); v: (BH, N, ldv), of which the P.V product uses the first
+// nv columns; out: the (BH, N, D + 1) fp32 accumulator. scale: 1/sqrt(D) *
+// log2(e). DEG: 0 (exp2f), 2 or 3; MXU: the row sum from v's ones column.
+template <int DEG, bool MXU, int BQ, int BKT>
 __global__ void __launch_bounds__(BQ / 16 * 32)
-probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, void* __restrict__ out, int N, int D, int ldv, int nv,
-             float scale) {
-  constexpr int DVS = KIND == P2 ? 64 : 48;
-  using T = Tiles<BQ, BKT, DVS>;
-  constexpr bool SOFTMAX_P1 = KIND == P1 && MODE != NOMAX && MODE != DOTONLY;
-  constexpr bool ROW_SUM = (KIND == P1 && MODE != DOTONLY) || (KIND == P2 && !MXU) || KIND == P3;
+fast_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int N, int D, int ldv, int nv,
+            float scale) {
+  using T = Tiles<BQ, BKT>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = sQ + T::Q_ELEMS;      // [2][BKT][LDQ]
@@ -151,42 +177,38 @@ probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     const bool ok = c < D;
     cp_async16(smem_u32(sQ + r * LDQ + c), ok ? qb + (size_t)(q0 + r) * D + c : q, ok);
   }
-  auto load_tile = [&](int stage, int j0, bool with_v) {
+  auto load_tile = [&](int stage, int j0) {
     __nv_bfloat16* dk = sK + stage * T::K_ELEMS;
     for (int e = tid; e < BKT * (DP / 8); e += T::THREADS) {
       const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
       const bool ok = c < D;
       cp_async16(smem_u32(dk + r * LDQ + c), ok ? kb + (size_t)(j0 + r) * D + c : k, ok);
     }
-    if (with_v) {
-      __nv_bfloat16* dv = sV + stage * T::V_ELEMS;
-      for (int e = tid; e < BKT * (DVS / 8); e += T::THREADS) {
-        const int r = e / (DVS / 8), c = (e % (DVS / 8)) * 8;
-        const bool ok = c < ldv;
-        cp_async16(smem_u32(dv + r * T::LDV + c), ok ? vb + (size_t)(j0 + r) * ldv + c : v, ok);
-      }
+    __nv_bfloat16* dv = sV + stage * T::V_ELEMS;
+    for (int e = tid; e < BKT * (DVS / 8); e += T::THREADS) {
+      const int r = e / (DVS / 8), c = (e % (DVS / 8)) * 8;
+      const bool ok = c < ldv;
+      cp_async16(smem_u32(dv + r * LDV + c), ok ? vb + (size_t)(j0 + r) * ldv + c : v, ok);
     }
     cp_async_commit();
   };
 
-  // P3 walks the keys twice: the first sweep (S and the row max) loads no V.
   const int n_tiles = N / BKT;
-  const int total = KIND == P3 ? 2 * n_tiles : n_tiles;
-  load_tile(0, 0, KIND != P3);  // the first group also carries Q
+  load_tile(0, 0);  // the first group also carries Q
 
   const int no = (nv + 7) / 8;  // output n-tiles this call needs
   float o[T::NO][4];
 #pragma unroll
   for (int i = 0; i < T::NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
   float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.0f, 0.0f};  // this thread's partial row sums
+  float l_run[2] = {0.0f, 0.0f};  // this thread's partial row sums (vpu-sum)
 
   const int r0 = warp * 16;
   const uint32_t q_addr = smem_u32(sQ + (r0 + (lane & 15)) * LDQ + (lane >> 4) * 8);
 
-  for (int t = 0; t < total; ++t) {
-    if (t + 1 < total) {
-      load_tile((t + 1) & 1, ((t + 1) % n_tiles) * BKT, KIND != P3 || t + 1 >= n_tiles);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_tile((t + 1) & 1, (t + 1) * BKT);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -215,93 +237,60 @@ probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     }
 
     // s becomes p, the A operand of P.V; alpha rescales the accumulator.
-    const bool pv = KIND != P3 || t >= n_tiles;
-    float alpha[2] = {1.0f, 1.0f};
-    const bool scaled = KIND != P1 || (MODE != NOSCALE && MODE != EXP2);
-    if (scaled) {
 #pragma unroll
-      for (int i = 0; i < T::NS; ++i)
+    for (int i = 0; i < T::NS; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] *= scale;
+      for (int e = 0; e < 4; ++e) s[i][e] *= scale;
+    float mx[2] = {m_run[0], m_run[1]};
+    row_max(s, mx);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      alpha[h] = exp2f(m_run[h] - mx[h]);
+      m_run[h] = mx[h];
+      l_run[h] *= alpha[h];
     }
-    if (KIND == P3 && !pv) {
-      row_max(s, m_run);  // first sweep: the exact row max, nothing else
-    } else if (KIND == P3) {
 #pragma unroll
-      for (int i = 0; i < T::NS; ++i)
+    for (int i = 0; i < T::NS; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[i][e] = expf(s[i][e] - m_run[e >> 1]);
-          l_run[e >> 1] += s[i][e];
-        }
-    } else if (KIND == P1 && MODE == NOMAX) {
-#pragma unroll
-      for (int i = 0; i < T::NS; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[i][e] = expf(s[i][e]);
-          l_run[e >> 1] += s[i][e];
-        }
-    } else if (SOFTMAX_P1 || KIND == P2) {
-      float mx[2] = {m_run[0], m_run[1]};
-      row_max(s, mx);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float d = m_run[h] - mx[h];
-        alpha[h] = (KIND == P1 && MODE == NOEXP) ? d
-                   : (KIND == P2 || MODE == EXP2) ? exp2f(d) : expf(d);
-        m_run[h] = mx[h];
-        l_run[h] *= alpha[h];
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[i][e] - mx[e >> 1];
+        const float p = DEG ? poly_exp2<DEG == 3 ? 3 : 2>(x) : exp2f(x);
+        s[i][e] = p;
+        if (!MXU) l_run[e >> 1] += p;
       }
 #pragma unroll
-      for (int i = 0; i < T::NS; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[i][e] - mx[e >> 1];
-          float p;
-          if (KIND == P2)
-            p = DEG ? poly_exp2<DEG == 3 ? 3 : 2>(x) : exp2f(x);
-          else
-            p = MODE == NOEXP ? x : MODE == EXP2 ? exp2f(x) : expf(x);
-          s[i][e] = p;
-          if (ROW_SUM) l_run[e >> 1] += p;
-        }
-#pragma unroll
-      for (int i = 0; i < T::NO; ++i) {
-        o[i][0] *= alpha[0];
-        o[i][1] *= alpha[0];
-        o[i][2] *= alpha[1];
-        o[i][3] *= alpha[1];
-      }
-    }  // DOTONLY: p = s * scale
+    for (int i = 0; i < T::NO; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
 
     // O += P V over the n-tiles the output needs, P rounded to bf16
-    if (pv) {
 #pragma unroll
-      for (int j = 0; j < BKT / 16; ++j) {
-        uint32_t a[4];
-        a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-        a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-        a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-        a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+    for (int j = 0; j < BKT / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
 #pragma unroll
-        for (int np = 0; np < T::NO / 2; ++np) {
-          if (2 * np >= no) break;
-          const int mi = lane >> 3;
-          const int key = j * 16 + (mi & 1) * 8 + (lane & 7);
-          uint32_t b[4];
-          ldsm_x4_trans(smem_u32(cV + key * T::LDV + np * 16 + (mi >> 1) * 8), b);
-          mma_bf16(o[2 * np], a, b[0], b[1]);
-          if (2 * np + 1 < no) mma_bf16(o[2 * np + 1], a, b[2], b[3]);
-        }
+      for (int np = 0; np < T::NO / 2; ++np) {
+        if (2 * np >= no) break;
+        const int mi = lane >> 3;
+        const int key = j * 16 + (mi & 1) * 8 + (lane & 7);
+        uint32_t b[4];
+        ldsm_x4_trans(smem_u32(cV + key * LDV + np * 16 + (mi >> 1) * 8), b);
+        mma_bf16(o[2 * np], a, b[0], b[1]);
+        if (2 * np + 1 < no) mma_bf16(o[2 * np + 1], a, b[2], b[3]);
       }
     }
     __syncthreads();  // this stage is refilled by the next iteration's loads
   }
 
-  // Epilogue: full row sums; P2 stores the raw accumulator, the others out = acc / l in bf16.
-  const int g = lane >> 2;
-  if (ROW_SUM) {
+  // Epilogue: the raw accumulator; vpu-sum stores the full row sums in column D.
+  if (!MXU) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
@@ -310,42 +299,310 @@ probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const size_t row = (size_t)bh * N + q0 + r0 + g + 8 * h;
-    if (KIND == P2) {
-      float* orow = static_cast<float*>(out) + row * (D + 1);  // 4-byte aligned rows: element-wise stores
+    const size_t row = (size_t)bh * N + q0 + r0 + (lane >> 2) + 8 * h;
+    float* orow = out + row * (D + 1);  // 4-byte aligned rows: element-wise stores
 #pragma unroll
-      for (int i = 0; i < T::NO; ++i) {
-        const int col = i * 8 + 2 * (lane & 3);
-        if (col < nv) orow[col] = o[i][2 * h];
-        if (col + 1 < nv) orow[col + 1] = o[i][2 * h + 1];
+    for (int i = 0; i < T::NO; ++i) {
+      const int col = i * 8 + 2 * (lane & 3);
+      if (col < nv) orow[col] = o[i][2 * h];
+      if (col + 1 < nv) orow[col + 1] = o[i][2 * h + 1];
+    }
+    if (!MXU && (lane & 3) == 0) orow[D] = l_run[h];
+  }
+}
+
+template <int DEG, bool MXU, int BQ, int BKT>
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, int ldv, int nv,
+           float scale, cudaStream_t stream) {
+  using T = Tiles<BQ, BKT>;
+  const auto fn = fast_kernel<DEG, MXU, BQ, BKT>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<dim3(N / BQ, BH), T::THREADS, T::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), N, D, ldv, nv, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace p2
+
+// ------------------------------------------- P1 and P3: wgmma fed by TMA
+
+namespace hopper {
+
+using namespace sm90;
+
+constexpr int DP = 48;  // q.k depth and P.V width, TMA's zero fill past D = 40
+
+// BKT: keys per tile; NWG: consumer warpgroups (64 query rows each); STAGES: ring depth.
+template <int BKT, int NWG, int STAGES>
+struct Cfg {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int Q_BYTES = BQ * 128;  // one 64-column block: DP <= 64
+  static constexpr int K_BYTES = BKT * 128;
+  static constexpr int V_BYTES = BKT * 128;
+  static constexpr int TILES = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  static constexpr int SMEM = 1024 + TILES + (2 * STAGES + 1) * 8;  // alignment slack, tiles, barriers
+  static constexpr int THREADS = (NWG + 1) * WARPGROUP;
+  static_assert(BKT % 16 == 0 && SMEM <= 232448, "tile shapes");
+  static_assert(NWG == 2 || NWG == 3, "warpgroups taking turns; registers split 24/240 or 32/160");
+};
+
+// q, k, v: (BH, N, D) through the maps tq, tk, tv; out: (BH, N, D) bf16.
+// scale: 1/sqrt(D) (unused by noscale and exp2).
+template <int MODE, int BKT, int NWG, int STAGES>
+__global__ void __launch_bounds__(Cfg<BKT, NWG, STAGES>::THREADS, 1)
+probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int N, int D,
+             float scale) {
+  using C = Cfg<BKT, NWG, STAGES>;
+  constexpr bool P3 = MODE == SINGLE_PASS;
+  constexpr bool SCALED = MODE != NOSCALE && MODE != EXP2;
+  constexpr bool RESCALE = MODE == FULL || MODE == EXP2 || MODE == NOSCALE || MODE == NOEXP;  // online max, alpha
+  constexpr bool ROW_SUM = MODE != DOTONLY;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sK = sQ + C::Q_BYTES;           // [STAGES][BKT][64]
+  unsigned char* sV = sK + STAGES * C::K_BYTES;  // [STAGES][BKT][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sQ + C::TILES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * C::BQ;
+  const int n_tiles = N / BKT;
+  const int wg = threadIdx.x / WARPGROUP, tid = threadIdx.x % WARPGROUP;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<NWG == 2 ? 24 : 32>();
+    if (tid == 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      tma_load_3d(sQ, &tq, qbar, 0, q0, bh);
+      // P3: n_tiles loads of K alone (sweep 1), then n_tiles of K and V.
+      const int loads = P3 ? 2 * n_tiles : n_tiles;
+      for (int i = 0; i < loads; ++i) {
+        const int s = i % STAGES, key0 = (i % n_tiles) * BKT;
+        const bool with_v = !P3 || i >= n_tiles;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);  // the first round passes: the ring starts empty
+        mbar_expect_tx(&full[s], with_v ? C::K_BYTES + C::V_BYTES : C::K_BYTES);
+        tma_load_3d(sK + s * C::K_BYTES, &tk, &full[s], 0, key0, bh);
+        if (with_v) tma_load_3d(sV + s * C::V_BYTES, &tv, &full[s], 0, key0, bh);
       }
-      if (!MXU && (lane & 3) == 0) orow[D] = l_run[h];
-    } else {
-      const float l = ROW_SUM ? l_run[h] : 1.0f;
-      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(out) + row * D;
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<NWG == 2 ? 240 : 160>();
+    const int warp = tid / 32, lane = tid % 32;
+    const unsigned char* myQ = sQ + wg * 64 * 128;  // this warpgroup's 64 rows
+
+    float o[DP / 2];
 #pragma unroll
-      for (int i = 0; i < T::NO; ++i) {
-        const int col = i * 8 + 2 * (lane & 3);
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+    float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.0f, 0.0f};  // l_run: this thread's partial row sums
+    float s[BKT / 2];
+    uint32_t p[BKT / 16][4];  // P of the tile whose P V is next, as bf16 A fragments
+
+    auto qk = [&](int stage) {
+      const unsigned char* k = sK + stage * C::K_BYTES;
+      const unsigned char* q = in_place(myQ);
+      Wgmma<BKT>::template ss0<0>(s, desc_k(q, C::BQ, 0), desc_k(k, BKT, 0));
+#pragma unroll
+      for (int kk = 1; kk < DP / 16; ++kk) Wgmma<BKT>::template ss<0>(s, desc_k(q, C::BQ, kk), desc_k(k, BKT, kk));
+    };
+    auto pv = [&](int stage) {
+      const unsigned char* v = sV + stage * C::V_BYTES;
+#pragma unroll
+      for (int j = 0; j < BKT / 16; ++j) Wgmma<DP>::template rs<1>(o, p[j], desc_mn(v, BKT, 0, j));
+    };
+    // The mode's softmax of one tile, in place on s (s[i] holds row
+    // (i >> 1) & 1 of this thread's two); alpha: the rescale of the earlier
+    // tiles' sums (RESCALE modes). Touches neither o nor p.
+    auto softmax = [&](float (&alpha)[2]) {
+      if (SCALED) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) s[i] *= scale;
+      }
+      if (P3) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          s[i] = expf(s[i] - m_run[h]);
+          l_run[h] += s[i];
+        }
+      } else if (MODE == NOMAX) {
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) {
+          s[i] = expf(s[i]);
+          l_run[(i >> 1) & 1] += s[i];
+        }
+      } else if (RESCALE) {
+        float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float d = m_run[h] - mx[h];
+          alpha[h] = MODE == NOEXP ? d : MODE == EXP2 ? exp2f(d) : expf(d);
+          m_run[h] = mx[h];
+          l_run[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          const float x = s[i] - m_run[h];
+          s[i] = MODE == NOEXP ? x : MODE == EXP2 ? exp2f(x) : expf(x);
+          l_run[h] += s[i];
+        }
+      }  // DOTONLY: p = s * scale
+    };
+
+    // The warpgroups take turns, round robin, to issue their products (named
+    // barrier 1 + wg, passed on to the next warpgroup's), so that one's
+    // softmax runs while another's products hold the tensor cores. Each
+    // issues as often as the others (n_tiles + 1 times, P3 2 n_tiles + 1);
+    // the last warpgroup opens the first turn and passes none after its own
+    // last.
+    auto my_turn = [&]() { bar_sync(1 + wg, 2 * WARPGROUP); };
+    auto your_turn = [&](bool last) {
+      if (!(last && wg == NWG - 1)) bar_arrive(1 + (wg + 1) % NWG, 2 * WARPGROUP);
+    };
+    if (wg == NWG - 1) bar_arrive(1, 2 * WARPGROUP);
+    mbar_wait(qbar, 0);
+
+    int j0 = 0;  // the ring's load index of the first tile of the loop below
+    if (P3) {
+      // Sweep 1: S and this thread's running max of its two rows; a stage
+      // is released as soon as its S is in.
+      float mx[2] = {-INFINITY, -INFINITY};
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        mbar_wait(&full[st], (t / STAGES) & 1);
+        my_turn();
+        wgmma_fence();
+        qk(st);
+        wgmma_commit();
+        your_turn(false);
+        wgmma_wait<0>();
+        fence_regs(s);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int i = 0; i < BKT / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        m_run[h] = fmaxf(m_run[h], mx[h] * scale);
+      }
+      j0 = n_tiles;
+    }
+
+    // P1, and P3's sweep 2: tile 0 alone; then S(t) and P(t-1) V(t-1)
+    // issued together, the softmax of tile t run while P V is in flight,
+    // and O rescaled and P rounded once P V has retired (no register of an
+    // in-flight product is written).
+    mbar_wait(&full[j0 % STAGES], (j0 / STAGES) & 1);
+    my_turn();
+    wgmma_fence();
+    qk(j0 % STAGES);
+    wgmma_commit();
+    your_turn(false);
+    wgmma_wait<0>();
+    fence_regs(s);
+    {
+      float alpha[2];  // o is still zero: no rescale
+      softmax(alpha);
+    }
+    to_a_frags<BKT>(s, p);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int j = j0 + t, st = j % STAGES, prev = (j - 1) % STAGES;
+      mbar_wait(&full[st], (j / STAGES) & 1);
+      my_turn();
+      wgmma_fence();
+      qk(st);
+      wgmma_commit();
+      pv(prev);
+      wgmma_commit();
+      your_turn(false);
+      wgmma_wait<1>();  // S(t) is in; P(t-1) V(t-1) may still run
+      fence_regs(s);
+      float alpha[2];
+      softmax(alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if (RESCALE) {
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      }
+      to_a_frags<BKT>(s, p);
+    }
+    my_turn();
+    wgmma_fence();
+    pv((j0 + n_tiles - 1) % STAGES);
+    wgmma_commit();
+    your_turn(true);
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    // Epilogue: full row sums, out = acc / l in bf16; rows past N are not stored.
+    if (ROW_SUM) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+        l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+      }
+    }
+    const int quad = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      if (row >= N) continue;
+      const float l = ROW_SUM ? l_run[h] : 1.0f;
+      __nv_bfloat16* orow = out + ((size_t)bh * N + row) * D;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) {
+        const int col = 8 * c + 2 * quad;
         if (col < D)  // D % 8 == 0: both columns of the pair are in range
           *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(o[i][2 * h] / l, o[i][2 * h + 1] / l);
+              __floats2bfloat162_rn(o[4 * c + 2 * h] / l, o[4 * c + 2 * h + 1] / l);
       }
     }
   }
 }
 
-template <int KIND, int MODE, int DEG, bool MXU, int BQ, int BKT>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, int ldv, int nv,
-           float scale, cudaStream_t stream) {
-  using T = Tiles<BQ, BKT, KIND == P2 ? 64 : 48>;
-  const auto fn = probe_kernel<KIND, MODE, DEG, MXU, BQ, BKT>;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+template <int MODE, int BQ, int BKT>
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, float scale,
+           cudaStream_t stream) {
+  constexpr int NWG = BQ / 64, STAGES = BKT == 128 ? 4 : 8;
+  using C = Cfg<BKT, NWG, STAGES>;
+  static_assert(C::BQ == BQ, "64 query rows per consumer warpgroup");
+  CUtensorMap mq, mk, mv;
+  if (int e = tmap_rows_bf16(&mq, q, BH, N, D, BQ)) return e;
+  if (int e = tmap_rows_bf16(&mk, k, BH, N, D, BKT)) return e;
+  if (int e = tmap_rows_bf16(&mv, v, BH, N, D, BKT)) return e;
+  const auto fn = probe_kernel<MODE, BKT, NWG, STAGES>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  fn<<<dim3(N / BQ, BH), T::THREADS, T::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, N, D, ldv, nv, scale);
+  fn<<<dim3((N + BQ - 1) / BQ, BH), C::THREADS, C::SMEM, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out),
+                                                                    N, D, scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace hopper
 
 bool shape_ok(int BH, int N, int D) {
   return BH > 0 && BH <= 65535 && N > 0 && N % 128 == 0 && (D == 40 || D == 48);
@@ -353,31 +610,34 @@ bool shape_ok(int BH, int N, int D) {
 
 }  // namespace
 
-// Each entry point launches on `stream` and returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a shape or variant with no kernel.
-// q, k, v: (BH, N, D) bf16, contiguous; N % 128 == 0, D in (40, 48).
+// Each entry point launches on `stream` and returns 0, a CUDA error, one of
+// sm90.cuh's tensor-map codes (>= 9000), or cudaErrorInvalidValue for a
+// shape or variant with no kernel. q, k, v: (BH, N, D) bf16, contiguous,
+// 16-byte aligned; N % 128 == 0, D in (40, 48).
 
 // P1: out (BH, N, D) bf16. mode: 0 full, 1 exp2 (q already holds q * scale *
 // log2(e)), 2 noscale, 3 nomax, 4 noexp, 5 dotonly; scale = 1/sqrt(D).
+// (bq, bkt): the six modes at (192, 128), K4's own tile; full and exp2 also
+// at (128, 128), (192, 64) and (128, 64).
 extern "C" int attn_probe_variant_bf16(const void* q, const void* k, const void* v, void* out, int BH,
                                        int N, int D, int bq, int bkt, int mode, float scale,
                                        void* stream_) {
   if (!shape_ok(BH, N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
 #define P1_CASE(M, BQ_, BKT_) \
-  if (mode == M && bq == BQ_ && bkt == BKT_) return launch<P1, M, 0, false, BQ_, BKT_>(q, k, v, out, BH, N, D, D, D, scale, s)
-  P1_CASE(FULL, 64, 64);
-  P1_CASE(EXP2, 64, 64);
-  P1_CASE(NOSCALE, 64, 64);
-  P1_CASE(NOMAX, 64, 64);
-  P1_CASE(NOEXP, 64, 64);
-  P1_CASE(DOTONLY, 64, 64);
-  P1_CASE(FULL, 64, 128);
-  P1_CASE(EXP2, 64, 128);
-  P1_CASE(FULL, 128, 64);
-  P1_CASE(EXP2, 128, 64);
+  if (mode == M && bq == BQ_ && bkt == BKT_) return hopper::launch<M, BQ_, BKT_>(q, k, v, out, BH, N, D, scale, s)
+  P1_CASE(FULL, 192, 128);
+  P1_CASE(EXP2, 192, 128);
+  P1_CASE(NOSCALE, 192, 128);
+  P1_CASE(NOMAX, 192, 128);
+  P1_CASE(NOEXP, 192, 128);
+  P1_CASE(DOTONLY, 192, 128);
   P1_CASE(FULL, 128, 128);
   P1_CASE(EXP2, 128, 128);
+  P1_CASE(FULL, 192, 64);
+  P1_CASE(EXP2, 192, 64);
+  P1_CASE(FULL, 128, 64);
+  P1_CASE(EXP2, 128, 64);
 #undef P1_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -392,9 +652,9 @@ extern "C" int attn_probe_fast_bf16(const void* q, const void* k, const void* v,
   const int nv = mxu ? D + 1 : D;
   if (ldv % 8 != 0 || ldv < nv || ldv > 64 || (!mxu && ldv != D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
-#define P2_CASE(DEG_, MXU_, BQ_, BKT_)                                                 \
-  if (deg == DEG_ && mxu == MXU_ && bq == BQ_ && bkt == BKT_)                          \
-  return launch<P2, 0, DEG_, (MXU_ == 1), BQ_, BKT_>(q, k, v, out, BH, N, D, ldv, nv, scale, s)
+#define P2_CASE(DEG_, MXU_, BQ_, BKT_)                        \
+  if (deg == DEG_ && mxu == MXU_ && bq == BQ_ && bkt == BKT_) \
+  return p2::launch<DEG_, (MXU_ == 1), BQ_, BKT_>(q, k, v, out, BH, N, D, ldv, nv, scale, s)
   P2_CASE(0, 1, 64, 64);
   P2_CASE(2, 0, 64, 64);
   P2_CASE(2, 1, 64, 64);
@@ -406,12 +666,13 @@ extern "C" int attn_probe_fast_bf16(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// P3: out (BH, N, D) bf16; scale = 1/sqrt(D).
+// P3: out (BH, N, D) bf16; scale = 1/sqrt(D). bq: 128 or 192 query rows a
+// block, over key tiles of 128.
 extern "C" int attn_probe_single_pass_bf16(const void* q, const void* k, const void* v, void* out, int BH,
                                            int N, int D, int bq, float scale, void* stream_) {
   if (!shape_ok(BH, N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
-  if (bq == 64) return launch<P3, 0, 0, false, 64, 64>(q, k, v, out, BH, N, D, D, D, scale, s);
-  if (bq == 128) return launch<P3, 0, 0, false, 128, 64>(q, k, v, out, BH, N, D, D, D, scale, s);
+  if (bq == 128) return hopper::launch<SINGLE_PASS, 128, 128>(q, k, v, out, BH, N, D, scale, s);
+  if (bq == 192) return hopper::launch<SINGLE_PASS, 192, 128>(q, k, v, out, BH, N, D, scale, s);
   return (int)cudaErrorInvalidValue;
 }

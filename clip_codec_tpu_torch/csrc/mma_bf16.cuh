@@ -1,7 +1,7 @@
-// bf16 tensor-core building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): cp.async copies into shared
-// memory, ldmatrix fragment loads and the m16n8k16 mma.sync, all sm_80+
-// instructions that Hopper keeps.
+// bf16 tensor-core building blocks of the attention probe's P2 kernel
+// (flash_attention_probe.cu): cp.async copies into shared memory, ldmatrix
+// fragment loads and the m16n8k16 mma.sync, all sm_80+ instructions that
+// Hopper keeps.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane / 4, t = lane % 4):
 //   A (16 x 16): a0 (row g, k 2t..2t+1), a1 (row g+8, same k), a2 (row g, k 2t+8..),

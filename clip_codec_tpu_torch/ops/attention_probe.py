@@ -29,7 +29,12 @@ On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
 ``csrc/flash_attention_probe.cu`` or raise: bf16 q, k, v of one (BH, N, D)
 shape, contiguous, D in (40, 48), N % 128 == 0, and (tq, tk) one of the
 instantiated tiles (``P1_TILES``, ``P2_TILES``, ``P3_TILES``; tq is the
-block's query rows, tk the keys per shared-memory tile). On a CPU tensor
+block's query rows, tk the keys per shared-memory tile). P1 and P3 run on
+the production forward's (K4's) loop: ``wgmma`` fed by TMA, 64 query rows
+per consumer warpgroup, two or three warpgroups taking turns (tq = 128 or
+192, the last query tile of a head may be partial), tk = 64 or 128, the six
+P1 modes at K4's own tile (192, 128); P3 over key tiles of 128. P2 runs
+on ``mma.sync`` with tq and tk dividing N. On a CPU tensor
 they run the plain versions (``flash_variant_plain``, ``fast_flash_plain``,
 ``single_pass_plain``), which are also what the kernels are held against on
 the card. ``flash_variant.launches``, ``fast_flash_acc.launches`` and
@@ -54,11 +59,11 @@ MODES = ("full", "exp2", "noscale", "nomax", "noexp", "dotonly")
 EXP2_COEFFS = {2: (1.0, 0.65617384, 0.34382616), 3: (1.0, 0.69583354, 0.22610143, 0.07806503)}
 
 # The instantiated kernels: (mode, tq, tk) for P1, (deg, mxu_sum, tq, tk) for P2, tq for P3.
-P1_TILES = ([(m, 64, 64) for m in MODES]
-            + [(m, tq, tk) for tq, tk in ((64, 128), (128, 64), (128, 128)) for m in ("full", "exp2")])
+P1_TILES = ([(m, 192, 128) for m in MODES]
+            + [(m, tq, tk) for tq, tk in ((128, 128), (192, 64), (128, 64)) for m in ("full", "exp2")])
 P2_TILES = ([(0, True, 64, 64), (2, False, 64, 64), (2, True, 64, 64), (3, True, 64, 64)]
             + [(2, True, tq, tk) for tq, tk in ((64, 128), (128, 64), (128, 128))])
-P3_TILES = (64, 128)
+P3_TILES = (128, 192)
 KERNEL_DEPTHS = (40, 48)
 
 

@@ -9,12 +9,14 @@ self-attention at UNet batch 8: a CFG-batched request of four embeddings,
 1. eleven batched bf16 matrix products of the shapes of Q.K^T (contraction
    K = 40..256) and P.V (output width 40..256) at (BH, min(N, 1024)), and
    one with three heads packed into K = 120: plain ``torch.matmul``;
-2. the production forward (K4, ``ops.attention.flash_attention_fwd``), then
-   the P1 variants (``ops.attention_probe.flash_variant``: the scale
-   multiply, the running max, the exp or the whole softmax taken away, and
-   ``full`` and ``exp2`` at the other tiles), the P3 variants (the exact
-   row max first, no rescale) and the P2 variants (polynomial or hardware
-   exp2, the row sum on the P.V product or summed from fp32 p);
+2. the production forward (K4, ``ops.attention.flash_attention_fwd``) and
+   SDPA (``F.scaled_dot_product_attention``, for scale), then the P1
+   variants (``ops.attention_probe.flash_variant``, on K4's own loop: the
+   scale multiply, the running max, the exp or the whole softmax taken
+   away at K4's tile (192, 128), and ``full`` and ``exp2`` at the other
+   tiles), the P3 variants (the exact row max first, no rescale) and the
+   P2 variants (polynomial or hardware exp2, the row sum on the P.V product
+   or summed from fp32 p);
 3. each form's ``max|delta| / max|oracle|`` against an fp32 oracle computed
    one head at a time: production, exp2-fold, poly2 and poly3 with the
    row sum on the P.V product.
@@ -25,6 +27,10 @@ device time per call of 20 calls captured in a CUDA graph and replayed
 from Python. TF/s counts attention's 4 * BH * N^2 * D FLOP (a product's
 own FLOP for the dot probes). A variant that fails to build or launch ends
 the run with its error.
+
+Run from another checkout's root (``cd <checkout> && python -m
+clip_codec_tpu_torch.probes.attn_probe``), it times that checkout's
+kernels: the package is imported by relative name.
 
 ``--device cpu`` runs the plain versions once each at the shape given
 (``N % 128 == 0``): a check of the probe itself; its host times are no
@@ -40,22 +46,18 @@ import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import attention as attn
 from ..ops import attention_probe as ap
 
 REPS = 20  # calls per timing, in the graph and from Python
 WARMUP = 3
-# (label, tq, tk, mode): the six modes at K4's tiles, then full and exp2 at the others.
-P1_VARIANTS = (
-    [("full (64,64) [= production form]", 64, 64, "full"),
-     ("exp2 + scale folded into q (64,64)", 64, 64, "exp2"),
-     ("no scale mul (64,64)", 64, 64, "noscale"),
-     ("no max tracking (unsafe) (64,64)", 64, 64, "nomax"),
-     ("no exp (identity) (64,64)", 64, 64, "noexp"),
-     ("dots only (no softmax) (64,64)", 64, 64, "dotonly")]
-    + [(f"{mode} ({tq},{tk})", tq, tk, mode) for mode in ("full", "exp2")
-       for tq, tk in ((64, 128), (128, 64), (128, 128))])
+P1_NAMES = {"full": "full", "exp2": "exp2 + scale folded into q", "noscale": "no scale mul",
+            "nomax": "no max tracking (unsafe)", "noexp": "no exp (identity)", "dotonly": "dots only (no softmax)"}
+# (label, tq, tk, mode): the six modes at K4's own tile (192, 128), then full and exp2 at the others.
+P1_VARIANTS = [(f"{P1_NAMES[mode]} ({tq},{tk})" + (" [= production form]" if (mode, tq, tk) == ("full", 192, 128)
+                                                   else ""), tq, tk, mode) for mode, tq, tk in ap.P1_TILES]
 P3_VARIANTS = [(f"single-pass (exact max, no rescale) tq={tq}", tq) for tq in ap.P3_TILES]
 # (label, tq, tk, deg, mxu_sum)
 P2_VARIANTS = [(f"{'hw' if deg == 0 else f'poly{deg}'}-exp2 + {'mxu' if mxu else 'vpu'}-sum ({tq},{tk})",
@@ -184,6 +186,8 @@ def run(dev: torch.device, bh: int = 64, n: int = 4096, d: int = 40, seed: int =
     print(f"-- flash ablations at (BH={bh}, N={n}, D={d}) --", flush=True)
     times["production"] = time_call("production flash_attention_fwd (K4)",
                                     lambda: attn.flash_attention_fwd(q, k, v), fl, dev)
+    times["sdpa"] = time_call("SDPA (library, for scale)",
+                              lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]), fl, dev)
     for label, tq, tk, mode in P1_VARIANTS:
         times[label] = time_call(label, lambda: ap.flash_variant(q, k, v, tq, tk, mode), fl, dev)
         tally("flash_variant", times[label])
@@ -200,7 +204,7 @@ def run(dev: torch.device, bh: int = 64, n: int = 4096, d: int = 40, seed: int =
     scale = want.abs().max().item()
     errors = {}
     for label, fn in zip(CHECKS, (lambda: attn.flash_attention_fwd(q, k, v)[0],
-                                  lambda: ap.flash_variant(q, k, v, 64, 64, "exp2"),
+                                  lambda: ap.flash_variant(q, k, v, 192, 128, "exp2"),
                                   lambda: ap.fast_flash(q, k, v, 64, 64, 2, True),
                                   lambda: ap.fast_flash(q, k, v, 64, 64, 3, True))):
         errors[label] = (fn().float() - want).abs().max().item() / scale

@@ -156,17 +156,45 @@ def test_mxu_sum_adds_the_bf16_rounded_p(bap):
 
 def test_probe_main_on_the_cpu(capsys):
     """``--device cpu`` runs every variant's plain version once at a tiny
-    shape: one line per dot probe, the production kernel and each P1, P3
-    and P2 variant, then the four correctness lines."""
+    shape: one line per dot probe, the production kernel, SDPA and each P1,
+    P3 and P2 variant, then the four correctness lines."""
     assert attn_probe.main(["--device", "cpu", "--bh", "2", "--n", "256", "--d", "40"]) == 0
     lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[attn-probe]")]
-    timed = 11 + 1 + len(ap.P1_TILES) + len(ap.P3_TILES) + len(ap.P2_TILES)
+    timed = 11 + 2 + len(ap.P1_TILES) + len(ap.P3_TILES) + len(ap.P2_TILES)
     assert len(lines) == timed + 4
     assert all(" ms" in line for line in lines[:timed])
     checks = lines[timed:]
     assert [line.split()[1] for line in checks] == ["production", "exp2-fold", "poly2+mxu-sum", "poly3+mxu-sum"]
     for line in checks:
         assert float(line.split("=")[-1]) <= 2e-2
+
+
+def test_p1_p3_tiles_are_ones_the_wgmma_design_takes():
+    """P1 and P3 run on K4's loop: 64 query rows per consumer warpgroup, two
+    or three warpgroups taking turns (tq = 128 or 192), key tiles of 64 or
+    128; the six P1 modes at K4's own tile (192, 128), so that the
+    ablations remove one piece each from one loop."""
+    assert len(set(ap.P1_TILES)) == len(ap.P1_TILES) == 12
+    for mode, tq, tk in ap.P1_TILES:
+        assert mode in ap.MODES and tq in (128, 192) and tk in (64, 128)
+    assert [m for m, tq, tk in ap.P1_TILES if (tq, tk) == (192, 128)] == list(ap.MODES)
+    assert {(m, tq, tk) for m, tq, tk in ap.P1_TILES if (tq, tk) != (192, 128)} == {
+        (m, tq, tk) for m in ("full", "exp2") for tq, tk in ((128, 128), (192, 64), (128, 64))}
+    assert sorted(ap.P3_TILES) == [128, 192]
+    assert [label for label, tq, tk, mode in attn_probe.P1_VARIANTS if "production form" in label] == [
+        "full (192,128) [= production form]"]
+
+
+def test_check_refuses_the_old_tiles_before_any_launch():
+    """(64, 64), the mma.sync design's tile, has no P1 or P3 kernel: ``_check``
+    refuses it on CPU bf16 tensors of a shape the kernels take."""
+    q = torch.zeros((2, 256, 40), dtype=torch.bfloat16)
+    ap._check(q, q, q, ("full", 192, 128), ap.P1_TILES)
+    ap._check(q, q, q, 192, ap.P3_TILES)
+    for tile, tiles in ((("full", 64, 64), ap.P1_TILES), (("noexp", 128, 128), ap.P1_TILES), (64, ap.P3_TILES)):
+        with pytest.raises(ValueError, match="no kernel is instantiated"):
+            ap._check(q, q, q, tile, tiles)
+    assert ap.flash_variant.launches == 0 and ap.single_pass.launches == 0
 
 
 def test_wrappers_refuse_other_devices():

@@ -752,11 +752,72 @@ def test_probe_single_pass_matches_plain(rng, cuda, tq, D):
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("mode", ["full", "exp2"])
+def test_probe_variant_at_k4s_tile_matches_k4(rng, cuda, mode):
+    """P1 full and exp2 at (192, 128) compute K4's function on K4's loop
+    (with expf or exp2f and the scale in q or a separate multiply): out
+    within rtol = atol = 2e-2 and 2e-2 of the largest magnitude of K4's."""
+    q, k, v = _probe_qkv(rng, 40)
+    out = ap.flash_variant(q, k, v, 192, 128, mode)
+    ref = attn.flash_attention_fwd(q, k, v)[0]
+    torch.cuda.synchronize()
+    _within_of_max(out, ref)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+def _in_poisoned(a, fill):
+    """``a`` copied to the front of a flat buffer whose tail (192 rows) holds
+    ``fill``; returns the view and the buffer."""
+    BH, N, D = a.shape
+    buf = torch.full((BH * N * D + 192 * D,), fill, dtype=a.dtype, device=a.device)
+    buf[:BH * N * D] = a.flatten()
+    return buf[:BH * N * D].view(BH, N, D), buf
+
+
+@pytest.mark.parametrize("kind", ["full", "single_pass"])
+def test_probe_partial_last_query_tile(rng, cuda, kind):
+    """N = 4096 at tq = 192: the last query tile of each head holds 64 rows.
+    Every row matches plain; q, k and v lie at the front of buffers whose
+    tail is NaN (a key row read past N of the last head would show in the
+    output), and out at the front of one whose tail is a sentinel that no
+    row written past N may overwrite. The C entry points are called
+    directly, into the poisoned out."""
+    BH, N, D = 2, 4096, 40
+    q, k, v = (_in_poisoned(_bf16(rng, (BH, N, D)), float("nan"))[0] for _ in range(3))
+    out, out_buf = _in_poisoned(torch.zeros_like(q), 7.0)
+    if kind == "full":
+        ap._launch("attn_probe_variant_bf16", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   BH, N, D, 192, 128, ap.MODES.index("full"), ap._scale(D))
+        ref = ap.flash_variant_plain(q, k, v, 128, "full")
+    else:
+        ap._launch("attn_probe_single_pass_bf16", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   BH, N, D, 192, ap._scale(D))
+        ref = ap.single_pass_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert bool((out_buf[BH * N * D:] == 7.0).all())
+    _within_of_max(out, ref)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    tail = out[:, N - 64:]  # the partial tile's rows, held on their own
+    _within_of_max(tail, ref[:, N - 64:])
+
+
+@pytest.mark.parametrize("tq", ap.P3_TILES)
+def test_probe_single_pass_extreme_logits(rng, cuda, tq):
+    """q x 30: logits up to ~1e3, where a wrong max would overflow expf."""
+    q, k, v = _probe_qkv(rng, 40)
+    q = (q.float() * 30).to(torch.bfloat16)
+    out = ap.single_pass(q, k, v, tq)
+    ref = ap.single_pass_plain(q, k, v)
+    torch.cuda.synchronize()
+    _within_of_max(out, ref)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_probe_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
     q = _bf16(rng, (2, 256, 40))
-    calls = (lambda t: ap.flash_variant(t, t, t, 64, 64, "full"),
+    calls = (lambda t: ap.flash_variant(t, t, t, 192, 128, "full"),
              lambda t: ap.fast_flash(t, t, t, 64, 64, 2),
-             lambda t: ap.single_pass(t, t, t, 64))
+             lambda t: ap.single_pass(t, t, t, 192))
     n0 = (ap.flash_variant.launches, ap.fast_flash_acc.launches, ap.single_pass.launches)
     for call in calls:
         with pytest.raises(ValueError, match="take D in"):
@@ -767,10 +828,12 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
             call(q.float())
         with pytest.raises(ValueError, match="contiguous"):
             call(_bf16(rng, (2, 40, 256)).transpose(1, 2))
-    with pytest.raises(ValueError, match="no kernel is instantiated"):
-        ap.flash_variant(q, q, q, 64, 128, "noexp")
+    for call in (lambda: ap.flash_variant(q, q, q, 64, 64, "full"), lambda: ap.flash_variant(q, q, q, 128, 128, "noexp"),
+                 lambda: ap.single_pass(q, q, q, 64)):
+        with pytest.raises(ValueError, match="no kernel is instantiated"):
+            call()
     with pytest.raises(ValueError, match="is on cpu"):
-        ap.single_pass(q, q.cpu(), q, 64)
+        ap.single_pass(q, q.cpu(), q, 192)
     assert (ap.flash_variant.launches, ap.fast_flash_acc.launches, ap.single_pass.launches) == n0
 
 
@@ -778,12 +841,12 @@ def test_probe_graph_capture_counts_no_launch(rng, cuda):
     """A call recorded into a CUDA graph launches nothing and is not counted;
     the graph's replay runs the kernel and gives the eager call's output."""
     q, k, v = _probe_qkv(rng, 40)
-    want = ap.flash_variant(q, k, v, 64, 64, "full")
+    want = ap.flash_variant(q, k, v, 192, 128, "full")
     torch.cuda.synchronize()
     n0 = ap.flash_variant.launches
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = ap.flash_variant(q, k, v, 64, 64, "full")
+        out = ap.flash_variant(q, k, v, 192, 128, "full")
     assert ap.flash_variant.launches == n0
     graph.replay()
     torch.cuda.synchronize()
