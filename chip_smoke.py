@@ -118,9 +118,9 @@ Pixel-decoder training (``train/diffusion_train.py``, ``cli/train.py``):
 
 The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py):
 
-15. build csrc/flash_attention_probe.cu; hold each of its 21 kernels (P1's
-   six modes and tiles, P2's exp2 and row-sum forms, P3's two query tiles;
-   4096 rows leave the tq = 192 kernels a partial last query tile)
+15. build csrc/flash_attention_probe.cu; hold each of its 21 kernels at D =
+   40 (P1's six modes and tiles, P2's exp2 and row-sum forms, P3's two
+   query tiles; 4096 rows leave the tq = 192 kernels a partial last query tile)
    against its plain version at (8, 4096, 40) in bf16, at normal logits and
    (all but ``nomax``) at extreme ones: softmax outputs within rtol = atol
    = 2e-2 and within 2e-2 of their largest magnitude, ``noexp`` and
@@ -129,8 +129,10 @@ The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py)
    every variant timed, four correctness lines within 2e-2 of an fp32
    oracle, one counted launch per call the probe made outside CUDA-graph
    capture (the graphs' replays reported beside); ms of each kernel (P1
-   ``full`` at K4's tile (192, 128), P3 at tq = 192, P2 poly2), its plain
-   version, SDPA and K4 at that shape.
+   ``full`` at K4's tile (192, 128), P3 at tq = 192, P2 poly2 + mxu-sum at
+   (192, 128) alone on a v that has its ones column, and its wrapper
+   ``fast_flash_acc``, which builds that column), its plain version, SDPA,
+   K4 and P1 ``exp2`` at that shape.
 
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4; mlp_up and
@@ -218,7 +220,7 @@ PX_MODEL = dict(base=128, ch_mult=(1, 2, 2))  # the reference's U-Net, as Diffus
 # The attention probes: checked against plain at PROBE_CHECK_SHAPE, run and timed at
 # FLASH_SHAPES[3], SD-1.5's first-level self-attention at UNet batch 8.
 PROBE_CHECK_SHAPE, PROBE_SHAPE = (8, 4096, 40), FLASH_SHAPES[3]
-POLY_INSTRUCTIONS = 7  # + deg: floor, subtract, deg FMAs, max, convert, add, shift, multiply
+POLY_INSTRUCTIONS = 5  # + deg: round-down add, 2 subtracts, deg FMAs, max, shift-add into the exponent
 
 
 class PhaseError(RuntimeError):
@@ -1593,6 +1595,8 @@ def phase_probe(torch, ap, seed, dev, rec):
     q, k, v = (_randn(torch, gen, (BH, N, D), dev, 1.0, torch.bfloat16) for _ in range(3))
     sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
     k4_ms = cuda_ms(torch, lambda: attn.flash_attention_fwd(q, k, v))  # the production forward the probe ablates
+    exp2_ms = cuda_ms(torch, lambda: ap.flash_variant(q, k, v, 192, 128, "exp2"))  # P1 exp2, beside P2
+    vk = ap.fast_v(v, True)  # P2's kernel alone reads v with its ones column
     io = 4 * BH * N * D * 2  # q, k, v read and out written, bf16
     prod = 2 * BH * N * N * D  # flops of one (N, N, D) product
     # Each bound counts what the function needs: Q.K^T and P.V, one exponential
@@ -1608,11 +1612,11 @@ def phase_probe(torch, ap, seed, dev, rec):
                                     dict(nbytes=io, flops=2 * prod, exps=BH * N * N), sdpa_ms),
         # q, k and the ones-column v (48 wide) read, the fp32 (D + 1)-wide accumulator written;
         # poly2 on the FMA pipe; no PyTorch call computes it
-        "flash_probe_fast": ("poly2 + mxu-sum (tq, tk)=(64, 64), raw accumulator",
-                             lambda: ap.fast_flash_acc(q, k, v, 64, 64, 2, True),
-                             lambda: ap.fast_flash_plain(q, k, v, 64, 2, True),
-                             dict(nbytes=BH * N * (2 * D * 2 + 48 * 2 + (D + 1) * 4), flops=2 * prod,
-                                  fma=(POLY_INSTRUCTIONS + 2) * BH * N * N), None),
+        "flash_probe_fast": ("poly2 + mxu-sum (tq, tk)=(192, 128), raw accumulator, kernel alone",
+                             lambda: ap.fast_flash_kernel(q, k, vk, 192, 128, 2, True),
+                             lambda: ap.fast_flash_plain(q, k, v, 128, 2, True),
+                             dict(nbytes=BH * N * (2 * D * 2 + ap.fast_v_width(D, True) * 2 + (D + 1) * 4),
+                                  flops=2 * prod, fma=(POLY_INSTRUCTIONS + 2) * BH * N * N), None),
     }
     for name, (timed, kernel, plain, bargs, lib_ms) in cases.items():
         k_ms = cuda_ms(torch, kernel)
@@ -1625,17 +1629,23 @@ def phase_probe(torch, ap, seed, dev, rec):
               + ", ".join(f"{u} {t:.4f}" for u, t in terms.items()) + ")")
         rec[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit,
                          timed_at=tag, k4_ms=k4_ms)
-    rec["flash_probe_fast"]["sdpa_ms_for_scale"] = sdpa_ms
+    wrapper_ms = cuda_ms(torch, lambda: ap.fast_flash_acc(q, k, v, 192, 128, 2, True))  # the ones column included
+    print(f"probe-kernel: flash_probe_fast wrapper (fast_flash_acc, builds the ones column) ms={wrapper_ms:.4f}; "
+          f"beside it K4 {k4_ms:.4f}, P1 exp2 (192, 128) {exp2_ms:.4f}, SDPA {sdpa_ms:.4f}")
+    rec["flash_probe_fast"].update(wrapper_ms=wrapper_ms, p1_exp2_ms=exp2_ms, sdpa_ms_for_scale=sdpa_ms)
     # P3's own work: Q.K^T in both sweeps and P.V
     rec["flash_probe_single_pass"]["two_sweep_bound_ms"] = bound(io, 3 * prod, exps=BH * N * N)[0]
     for name in wrappers:
         rec[name]["graph_replay_launches"] = replayed[name]
     labels = {"flash_probe_variant": next(lb for lb, tq, tk, mode in attn_probe.P1_VARIANTS
                                           if (mode, tq, tk) == ("full", 192, 128)),
+              "flash_probe_fast": next(lb for lb, tq, tk, deg, mxu in attn_probe.P2_VARIANTS
+                                       if (deg, mxu, tq, tk) == (2, True, 192, 128)),
               "flash_probe_single_pass": next(lb for lb, tq in attn_probe.P3_VARIANTS if tq == 192)}
     for name, label in labels.items():
         rec[name]["probe_graph_ms"] = res["times"][label]["graph_ms"]
-    del q, k, v
+    rec["flash_probe_fast"]["probe_graph_wrapper_ms"] = res["times"][f"{labels['flash_probe_fast']} wrapper"]["graph_ms"]
+    del q, k, v, vk
     torch.cuda.empty_cache()
     return launches
 

@@ -38,11 +38,13 @@
 // the tensor cores next; the softmax's other instructions per score (max,
 // subtract, sum, bf16 pack, and expf's range reduction) share the SM's 128
 // issue lanes a clock. q, k, v and out are ~4*D bytes per query row, far
-// below either.
+// below either. P2's polynomial moves the exponential off the exp unit:
+// poly_exp2 is 5 + DEG FP32 and integer instructions a score, none of them
+// a conversion, so P2 is bound by the issue of its softmax's instructions.
 //
-// Design of P1 and P3: K4's (wgmma fed by TMA, warp-specialised, on
-// sm90.cuh; see flash_attention.cu), with the mode's softmax in place of
-// K4's:
+// Design: K4's (wgmma fed by TMA, warp-specialised, on sm90.cuh; see
+// flash_attention.cu), one kernel template for P1, P2 and P3 with the
+// form's softmax in place of K4's:
 //   * a block owns BQ = 64 * NWG query rows of one (batch, head): NWG = 2 or
 //     3 consumer warpgroups of 64 rows each and one producer warp, whose
 //     warpgroup gives its registers to the consumers with setmaxnreg;
@@ -54,7 +56,7 @@
 //     128 KB: STAGES = 4 at BKT = 128, 8 at BKT = 64;
 //   * S = Q K^T is one wgmma chain per warpgroup; the mode's softmax runs on
 //     S's fp32 accumulator; P, rounded to bf16, is the register A operand of
-//     O += P V (N = 48), so P never touches shared memory;
+//     O += P V (N = PVN = 48), so P never touches shared memory;
 //   * each warpgroup issues S(t) and P(t-1) V(t-1) together and runs the
 //     softmax of tile t while P V is in flight, touching O (alpha's rescale)
 //     only after it has retired; the warpgroups take turns to issue (named
@@ -66,61 +68,55 @@
 //     is the max of the scaled logits: the scale is positive and rounding
 //     monotonic); sweep 2 streams K and V for S again and p = expf(s*scale -
 //     m), l += p, O += bf16(p) V: K4's loop without a rescale. The ring's
-//     stage index and parity run on across the sweeps (2 N / BKT loads).
-//
-// Design of P2 (the first port's: mma.sync m16n8k16 from csrc/mma_bf16.cuh,
-// FlashAttention-2 order; no TMA or wgmma):
-//   * a block owns BQ = 64 or 128 query rows of one (batch, head), one warp
-//     per 16 rows; keys and values stream through shared memory in tiles of
-//     BKT = 64 or 128 rows, two cp.async stages;
-//   * the q.k depth is zero-padded in shared memory to 48; the P.V product
-//     runs only the 8-column n-tiles the output needs (6 with the ones
-//     column), so the ones column's cost is one n-tile;
-//   * N % BQ == 0 and N % BKT == 0 (no masks).
+//     stage index and parity run on across the sweeps (2 N / BKT loads);
+//   * P2 (FAST) maps v at its own width ldv, so the caller's ones column
+//     (column D of ldv = D + 1 rounded up to 8) lands in the P.V product's
+//     zero padding: at D = 40 column 40 of 48, for no extra tensor-core
+//     work; at D = 48 the product widens to PVN = 64. The ones column is
+//     rescaled with the rest of O, so the mxu-sum's row sum costs no
+//     instruction; the vpu-sum keeps fp32 partial sums as P1 does. The
+//     polynomial exp2 (poly_exp2) issues no conversion instruction. The
+//     epilogue writes the raw fp32 accumulator row by row, element-wise:
+//     its (D + 1) * 4-byte rows are only 4-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 
-// P1 modes, in the order of MODES in ops/attention_probe.py, and P3's
-// softmax as a seventh.
-enum Mode { FULL = 0, EXP2 = 1, NOSCALE = 2, NOMAX = 3, NOEXP = 4, DOTONLY = 5, SINGLE_PASS = 6 };
+// P1 modes, in the order of MODES in ops/attention_probe.py, P3's softmax
+// as a seventh and P2's as an eighth.
+enum Mode { FULL = 0, EXP2 = 1, NOSCALE = 2, NOMAX = 3, NOEXP = 4, DOTONLY = 5, SINGLE_PASS = 6, FAST = 7 };
 
-// ------------------------------------------------ P2: mma.sync, cp.async
+namespace hopper {
 
-namespace p2 {
+using namespace sm90;
 
-constexpr int DP = 48;        // q.k depth, zero-padded to the MMA's k step
-constexpr int LDQ = DP + 8;   // bf16 row stride: an odd multiple of 16 bytes (ldmatrix conflict-free)
-constexpr int DVS = 64;       // V tile columns in shared memory: D + 1 (the ones column) rounded up
-constexpr int LDV = DVS + 8;
+constexpr int DP = 48;  // q.k depth and P.V width, TMA's zero fill past D = 40
 
-template <int BQ, int BKT>
-struct Tiles {
-  static constexpr int THREADS = BQ / 16 * 32;
-  static constexpr int NS = BKT / 8;  // n-tiles of S per warp
-  static constexpr int NO = DVS / 8;  // n-tiles of the output, at most
-  static constexpr int Q_ELEMS = BQ * LDQ;
-  static constexpr int K_ELEMS = BKT * LDQ;
-  static constexpr int V_ELEMS = BKT * LDV;
-  static constexpr int SMEM = 2 * (Q_ELEMS + 2 * K_ELEMS + 2 * V_ELEMS);
-  static_assert(BQ % 16 == 0 && BKT % 16 == 0, "tile shapes");
-};
-
-// 2^x from the exponent bits of floor(x) and a polynomial of the fraction
-// (bench_attn_probe.py:200-211); the exponent is clamped at -126.
+// 2^x as bench_attn_probe.py's fast_exp2 (:200-211): the exponent bits of
+// floor(x), clamped at -126, times a degree-DEG polynomial of x - floor(x)
+// (so x < -126 gives 2^-126 p(frac x), not 0). floorf and an int
+// conversion would issue FRND and F2I, 16 a clock per SM like the exp unit
+// the polynomial is there to spare; here every instruction is an FP32 or
+// integer add, FMA or max. t = x + 1.5 * 2^23 rounded down is
+// 1.5 * 2^23 + floor(x) exactly for |x| <= 2^22, so its bits are
+// MAGIC's plus floor(x), and MAGIC's bits shifted by 23 are 0: t's bits
+// << 23 are floor(x) << 23, added to p's exponent (p in [1, 2]; the clamp
+// keeps the sum a normal float). Unsigned, so the shift out of the top bit
+// and the wrapping add are defined. Below -2^22 (no logit gets there) the
+// fraction may be off, and the result stays in [2^-126, 2^-125].
 template <int DEG>
 __device__ __forceinline__ float poly_exp2(float x) {
-  const float xi = floorf(x);
-  const float f = x - xi;
+  constexpr float MAGIC = 12582912.0f;  // 1.5 * 2^23
+  const float t = __fadd_rd(x, MAGIC);
+  const float f = x - (t - MAGIC);  // exact: x's own fraction bits
   float p;
   if (DEG == 2) {
     p = 0.34382616f;
@@ -132,207 +128,9 @@ __device__ __forceinline__ float poly_exp2(float x) {
     p = p * f + 0.69583354f;
     p = p * f + 1.0f;
   }
-  const int e = ((int)fmaxf(xi, -126.0f) + 127) << 23;
-  return __int_as_float(e) * p;
+  const float tc = fmaxf(t, MAGIC - 126.0f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(tc) << 23));
 }
-
-// Row max over this thread's two rows (g = lane / 4: elements 0, 1; g + 8:
-// 2, 3), reduced over the quad that shares them.
-template <int NS>
-__device__ __forceinline__ void row_max(const float (&s)[NS][4], float (&mx)[2]) {
-#pragma unroll
-  for (int i = 0; i < NS; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-  }
-}
-
-// q, k: (BH, N, D); v: (BH, N, ldv), of which the P.V product uses the first
-// nv columns; out: the (BH, N, D + 1) fp32 accumulator. scale: 1/sqrt(D) *
-// log2(e). DEG: 0 (exp2f), 2 or 3; MXU: the row sum from v's ones column.
-template <int DEG, bool MXU, int BQ, int BKT>
-__global__ void __launch_bounds__(BQ / 16 * 32)
-fast_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int N, int D, int ldv, int nv,
-            float scale) {
-  using T = Tiles<BQ, BKT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + T::Q_ELEMS;      // [2][BKT][LDQ]
-  __nv_bfloat16* sV = sK + 2 * T::K_ELEMS;  // [2][BKT][LDV]
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* qb = q + (size_t)bh * N * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * N * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * N * ldv;
-
-  // Q tile, zero past D.
-  for (int e = tid; e < BQ * (DP / 8); e += T::THREADS) {
-    const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
-    const bool ok = c < D;
-    cp_async16(smem_u32(sQ + r * LDQ + c), ok ? qb + (size_t)(q0 + r) * D + c : q, ok);
-  }
-  auto load_tile = [&](int stage, int j0) {
-    __nv_bfloat16* dk = sK + stage * T::K_ELEMS;
-    for (int e = tid; e < BKT * (DP / 8); e += T::THREADS) {
-      const int r = e / (DP / 8), c = (e % (DP / 8)) * 8;
-      const bool ok = c < D;
-      cp_async16(smem_u32(dk + r * LDQ + c), ok ? kb + (size_t)(j0 + r) * D + c : k, ok);
-    }
-    __nv_bfloat16* dv = sV + stage * T::V_ELEMS;
-    for (int e = tid; e < BKT * (DVS / 8); e += T::THREADS) {
-      const int r = e / (DVS / 8), c = (e % (DVS / 8)) * 8;
-      const bool ok = c < ldv;
-      cp_async16(smem_u32(dv + r * LDV + c), ok ? vb + (size_t)(j0 + r) * ldv + c : v, ok);
-    }
-    cp_async_commit();
-  };
-
-  const int n_tiles = N / BKT;
-  load_tile(0, 0);  // the first group also carries Q
-
-  const int no = (nv + 7) / 8;  // output n-tiles this call needs
-  float o[T::NO][4];
-#pragma unroll
-  for (int i = 0; i < T::NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.0f, 0.0f};  // this thread's partial row sums (vpu-sum)
-
-  const int r0 = warp * 16;
-  const uint32_t q_addr = smem_u32(sQ + (r0 + (lane & 15)) * LDQ + (lane >> 4) * 8);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_tile((t + 1) & 1, (t + 1) * BKT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* cK = sK + (t & 1) * T::K_ELEMS;
-    const __nv_bfloat16* cV = sV + (t & 1) * T::V_ELEMS;
-
-    // S = Q K^T (fp32, 16 x BKT per warp)
-    float s[T::NS][4];
-#pragma unroll
-    for (int i = 0; i < T::NS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(q_addr + kk * 32, a);
-#pragma unroll
-      for (int np = 0; np < T::NS / 2; ++np) {
-        const int mi = lane >> 3;
-        const int key = np * 16 + (mi >> 1) * 8 + (lane & 7);
-        uint32_t b[4];
-        ldsm_x4(smem_u32(cK + key * LDQ + kk * 16 + (mi & 1) * 8), b);
-        mma_bf16(s[2 * np], a, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-
-    // s becomes p, the A operand of P.V; alpha rescales the accumulator.
-#pragma unroll
-    for (int i = 0; i < T::NS; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] *= scale;
-    float mx[2] = {m_run[0], m_run[1]};
-    row_max(s, mx);
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      alpha[h] = exp2f(m_run[h] - mx[h]);
-      m_run[h] = mx[h];
-      l_run[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int i = 0; i < T::NS; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[i][e] - mx[e >> 1];
-        const float p = DEG ? poly_exp2<DEG == 3 ? 3 : 2>(x) : exp2f(x);
-        s[i][e] = p;
-        if (!MXU) l_run[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < T::NO; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    // O += P V over the n-tiles the output needs, P rounded to bf16
-#pragma unroll
-    for (int j = 0; j < BKT / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int np = 0; np < T::NO / 2; ++np) {
-        if (2 * np >= no) break;
-        const int mi = lane >> 3;
-        const int key = j * 16 + (mi & 1) * 8 + (lane & 7);
-        uint32_t b[4];
-        ldsm_x4_trans(smem_u32(cV + key * LDV + np * 16 + (mi >> 1) * 8), b);
-        mma_bf16(o[2 * np], a, b[0], b[1]);
-        if (2 * np + 1 < no) mma_bf16(o[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's loads
-  }
-
-  // Epilogue: the raw accumulator; vpu-sum stores the full row sums in column D.
-  if (!MXU) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
-      l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row = (size_t)bh * N + q0 + r0 + (lane >> 2) + 8 * h;
-    float* orow = out + row * (D + 1);  // 4-byte aligned rows: element-wise stores
-#pragma unroll
-    for (int i = 0; i < T::NO; ++i) {
-      const int col = i * 8 + 2 * (lane & 3);
-      if (col < nv) orow[col] = o[i][2 * h];
-      if (col + 1 < nv) orow[col + 1] = o[i][2 * h + 1];
-    }
-    if (!MXU && (lane & 3) == 0) orow[D] = l_run[h];
-  }
-}
-
-template <int DEG, bool MXU, int BQ, int BKT>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, int ldv, int nv,
-           float scale, cudaStream_t stream) {
-  using T = Tiles<BQ, BKT>;
-  const auto fn = fast_kernel<DEG, MXU, BQ, BKT>;
-  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  fn<<<dim3(N / BQ, BH), T::THREADS, T::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), N, D, ldv, nv, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace p2
-
-// ------------------------------------------- P1 and P3: wgmma fed by TMA
-
-namespace hopper {
-
-using namespace sm90;
-
-constexpr int DP = 48;  // q.k depth and P.V width, TMA's zero fill past D = 40
 
 // BKT: keys per tile; NWG: consumer warpgroups (64 query rows each); STAGES: ring depth.
 template <int BKT, int NWG, int STAGES>
@@ -348,18 +146,23 @@ struct Cfg {
   static_assert(NWG == 2 || NWG == 3, "warpgroups taking turns; registers split 24/240 or 32/160");
 };
 
-// q, k, v: (BH, N, D) through the maps tq, tk, tv; out: (BH, N, D) bf16.
-// scale: 1/sqrt(D) (unused by noscale and exp2).
-template <int MODE, int BKT, int NWG, int STAGES>
+// q, k: (BH, N, D) through the maps tq, tk; v through tv: (BH, N, D), or
+// for P2 (BH, N, ldv) with, under MXU, ones in column D. out: P1 and P3
+// (BH, N, D) bf16; P2 the raw (BH, N, D + 1) fp32 accumulator, whose
+// column D is the row sum (from v's ones column under MXU, else from the
+// fp32 p). scale: 1/sqrt(D) (unused by noscale and exp2), P2 log2(e)/sqrt(D).
+// PVN: the P.V width (48; P2 64 when D + 1 > 48). DEG: P2's exp2, 0 (exp2f),
+// 2 or 3 (poly_exp2).
+template <int MODE, int BKT, int NWG, int STAGES, int PVN, int DEG, bool MXU>
 __global__ void __launch_bounds__(Cfg<BKT, NWG, STAGES>::THREADS, 1)
 probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int N, int D,
-             float scale) {
+             const __grid_constant__ CUtensorMap tv, void* __restrict__ out, int N, int D, float scale) {
   using C = Cfg<BKT, NWG, STAGES>;
-  constexpr bool P3 = MODE == SINGLE_PASS;
+  constexpr bool P3 = MODE == SINGLE_PASS, P2 = MODE == FAST;
   constexpr bool SCALED = MODE != NOSCALE && MODE != EXP2;
-  constexpr bool RESCALE = MODE == FULL || MODE == EXP2 || MODE == NOSCALE || MODE == NOEXP;  // online max, alpha
-  constexpr bool ROW_SUM = MODE != DOTONLY;
+  constexpr bool RESCALE = MODE == FULL || MODE == EXP2 || MODE == NOSCALE || MODE == NOEXP || P2;  // online max, alpha
+  constexpr bool ROW_SUM = MODE != DOTONLY && !(P2 && MXU);  // l summed from p in registers
+  static_assert(PVN == DP || (P2 && MXU && PVN == 64), "P.V width");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = align1024(smem_raw);
   unsigned char* sK = sQ + C::Q_BYTES;           // [STAGES][BKT][64]
@@ -404,9 +207,9 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     const int warp = tid / 32, lane = tid % 32;
     const unsigned char* myQ = sQ + wg * 64 * 128;  // this warpgroup's 64 rows
 
-    float o[DP / 2];
+    float o[PVN / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < PVN / 2; ++i) o[i] = 0.0f;
     float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.0f, 0.0f};  // l_run: this thread's partial row sums
     float s[BKT / 2];
     uint32_t p[BKT / 16][4];  // P of the tile whose P V is next, as bf16 A fragments
@@ -421,7 +224,7 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     auto pv = [&](int stage) {
       const unsigned char* v = sV + stage * C::V_BYTES;
 #pragma unroll
-      for (int j = 0; j < BKT / 16; ++j) Wgmma<DP>::template rs<1>(o, p[j], desc_mn(v, BKT, 0, j));
+      for (int j = 0; j < BKT / 16; ++j) Wgmma<PVN>::template rs<1>(o, p[j], desc_mn(v, BKT, 0, j));
     };
     // The mode's softmax of one tile, in place on s (s[i] holds row
     // (i >> 1) & 1 of this thread's two); alpha: the rescale of the earlier
@@ -453,7 +256,7 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
           mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
           mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
           const float d = m_run[h] - mx[h];
-          alpha[h] = MODE == NOEXP ? d : MODE == EXP2 ? exp2f(d) : expf(d);
+          alpha[h] = MODE == NOEXP ? d : MODE == EXP2 || P2 ? exp2f(d) : expf(d);
           m_run[h] = mx[h];
           l_run[h] *= alpha[h];
         }
@@ -461,8 +264,8 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
         for (int i = 0; i < BKT / 2; ++i) {
           const int h = (i >> 1) & 1;
           const float x = s[i] - m_run[h];
-          s[i] = MODE == NOEXP ? x : MODE == EXP2 ? exp2f(x) : expf(x);
-          l_run[h] += s[i];
+          s[i] = MODE == NOEXP ? x : P2 && DEG ? poly_exp2<DEG == 3 ? 3 : 2>(x) : MODE == EXP2 || P2 ? exp2f(x) : expf(x);
+          if (ROW_SUM) l_run[h] += s[i];
         }
       }  // DOTONLY: p = s * scale
     };
@@ -546,7 +349,7 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       if (lane == 0) mbar_arrive(&empty[prev]);
       if (RESCALE) {
 #pragma unroll
-        for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < PVN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       }
       to_a_frags<BKT>(s, p);
     }
@@ -558,7 +361,8 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     wgmma_wait<0>();
     fence_regs(o);
 
-    // Epilogue: full row sums, out = acc / l in bf16; rows past N are not stored.
+    // Epilogue: full row sums; P1 and P3 out = acc / l in bf16, P2 the raw
+    // accumulator and (vpu-sum) l in column D. Rows past N are not stored.
     if (ROW_SUM) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -571,8 +375,20 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     for (int h = 0; h < 2; ++h) {
       const int row = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
       if (row >= N) continue;
+      if (P2) {
+        const int nv = MXU ? D + 1 : D;
+        float* orow = static_cast<float*>(out) + ((size_t)bh * N + row) * (D + 1);  // 4-byte aligned rows
+#pragma unroll
+        for (int c = 0; c < PVN / 8; ++c) {
+          const int col = 8 * c + 2 * quad;
+          if (col < nv) orow[col] = o[4 * c + 2 * h];
+          if (col + 1 < nv) orow[col + 1] = o[4 * c + 2 * h + 1];
+        }
+        if (!MXU && quad == 0) orow[D] = l_run[h];
+        continue;
+      }
       const float l = ROW_SUM ? l_run[h] : 1.0f;
-      __nv_bfloat16* orow = out + ((size_t)bh * N + row) * D;
+      __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(out) + ((size_t)bh * N + row) * D;
 #pragma unroll
       for (int c = 0; c < DP / 8; ++c) {
         const int col = 8 * c + 2 * quad;
@@ -584,8 +400,9 @@ probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   }
 }
 
-template <int MODE, int BQ, int BKT>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, float scale,
+// v: (BH, N, ldv); the box of 64 columns zero-fills past ldv.
+template <int MODE, int BQ, int BKT, int PVN = DP, int DEG = 0, bool MXU = false>
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, int ldv, float scale,
            cudaStream_t stream) {
   constexpr int NWG = BQ / 64, STAGES = BKT == 128 ? 4 : 8;
   using C = Cfg<BKT, NWG, STAGES>;
@@ -593,13 +410,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH, int N
   CUtensorMap mq, mk, mv;
   if (int e = tmap_rows_bf16(&mq, q, BH, N, D, BQ)) return e;
   if (int e = tmap_rows_bf16(&mk, k, BH, N, D, BKT)) return e;
-  if (int e = tmap_rows_bf16(&mv, v, BH, N, D, BKT)) return e;
-  const auto fn = probe_kernel<MODE, BKT, NWG, STAGES>;
+  if (int e = tmap_rows_bf16(&mv, v, BH, N, ldv, BKT)) return e;
+  const auto fn = probe_kernel<MODE, BKT, NWG, STAGES, PVN, DEG, MXU>;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  fn<<<dim3((N + BQ - 1) / BQ, BH), C::THREADS, C::SMEM, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out),
-                                                                    N, D, scale);
+  fn<<<dim3((N + BQ - 1) / BQ, BH), C::THREADS, C::SMEM, stream>>>(mq, mk, mv, out, N, D, scale);
   return (int)cudaGetLastError();
+}
+
+// P2 at the P.V width its nv = D + 1 (MXU) or D columns need.
+template <int DEG, bool MXU, int BQ, int BKT>
+int launch_fast(const void* q, const void* k, const void* v, void* out, int BH, int N, int D, int ldv, float scale,
+                cudaStream_t stream) {
+  if ((MXU ? D + 1 : D) <= DP) return launch<FAST, BQ, BKT, DP, DEG, MXU>(q, k, v, out, BH, N, D, ldv, scale, stream);
+  if constexpr (MXU) return launch<FAST, BQ, BKT, 64, DEG, MXU>(q, k, v, out, BH, N, D, ldv, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper
@@ -625,7 +450,7 @@ extern "C" int attn_probe_variant_bf16(const void* q, const void* k, const void*
   if (!shape_ok(BH, N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
 #define P1_CASE(M, BQ_, BKT_) \
-  if (mode == M && bq == BQ_ && bkt == BKT_) return hopper::launch<M, BQ_, BKT_>(q, k, v, out, BH, N, D, scale, s)
+  if (mode == M && bq == BQ_ && bkt == BKT_) return hopper::launch<M, BQ_, BKT_>(q, k, v, out, BH, N, D, D, scale, s)
   P1_CASE(FULL, 192, 128);
   P1_CASE(EXP2, 192, 128);
   P1_CASE(NOSCALE, 192, 128);
@@ -645,23 +470,24 @@ extern "C" int attn_probe_variant_bf16(const void* q, const void* k, const void*
 // P2: out (BH, N, D + 1) fp32, the raw accumulator. v: (BH, N, ldv); with
 // mxu = 1 its column D is ones (ldv = D + 1 rounded up to 8, the padding
 // zero), else ldv = D. deg: 0 (exp2f), 2 or 3; scale = log2(e)/sqrt(D).
+// (bq, bkt): the four forms (deg, mxu) = (0, 1), (2, 0), (2, 1), (3, 1) at
+// (192, 128); (2, 1) also at (128, 128), (192, 64) and (128, 64).
 extern "C" int attn_probe_fast_bf16(const void* q, const void* k, const void* v, void* out, int BH, int N,
                                     int D, int ldv, int bq, int bkt, int deg, int mxu, float scale,
                                     void* stream_) {
   if (!shape_ok(BH, N, D)) return (int)cudaErrorInvalidValue;
-  const int nv = mxu ? D + 1 : D;
-  if (ldv % 8 != 0 || ldv < nv || ldv > 64 || (!mxu && ldv != D)) return (int)cudaErrorInvalidValue;
+  if (ldv % 8 != 0 || ldv > 64 || ldv != (mxu ? (D + 8) / 8 * 8 : D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
 #define P2_CASE(DEG_, MXU_, BQ_, BKT_)                        \
   if (deg == DEG_ && mxu == MXU_ && bq == BQ_ && bkt == BKT_) \
-  return p2::launch<DEG_, (MXU_ == 1), BQ_, BKT_>(q, k, v, out, BH, N, D, ldv, nv, scale, s)
-  P2_CASE(0, 1, 64, 64);
-  P2_CASE(2, 0, 64, 64);
-  P2_CASE(2, 1, 64, 64);
-  P2_CASE(3, 1, 64, 64);
-  P2_CASE(2, 1, 64, 128);
-  P2_CASE(2, 1, 128, 64);
+  return hopper::launch_fast<DEG_, (MXU_ == 1), BQ_, BKT_>(q, k, v, out, BH, N, D, ldv, scale, s)
+  P2_CASE(0, 1, 192, 128);
+  P2_CASE(2, 0, 192, 128);
+  P2_CASE(2, 1, 192, 128);
+  P2_CASE(3, 1, 192, 128);
   P2_CASE(2, 1, 128, 128);
+  P2_CASE(2, 1, 192, 64);
+  P2_CASE(2, 1, 128, 64);
 #undef P2_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -672,7 +498,7 @@ extern "C" int attn_probe_single_pass_bf16(const void* q, const void* k, const v
                                            int N, int D, int bq, float scale, void* stream_) {
   if (!shape_ok(BH, N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
-  if (bq == 128) return hopper::launch<SINGLE_PASS, 128, 128>(q, k, v, out, BH, N, D, scale, s);
-  if (bq == 192) return hopper::launch<SINGLE_PASS, 192, 128>(q, k, v, out, BH, N, D, scale, s);
+  if (bq == 128) return hopper::launch<SINGLE_PASS, 128, 128>(q, k, v, out, BH, N, D, D, scale, s);
+  if (bq == 192) return hopper::launch<SINGLE_PASS, 192, 128>(q, k, v, out, BH, N, D, D, scale, s);
   return (int)cudaErrorInvalidValue;
 }

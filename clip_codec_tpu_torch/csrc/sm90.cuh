@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu), the attention probe's P1 and
-// P3 (flash_attention_probe.cu), the ResBlock conv (affine_conv3x3.cu) and
+// (flash_attention.cu, flash_attention_bwd.cu), the attention probes
+// (flash_attention_probe.cu), the ResBlock conv (affine_conv3x3.cu) and
 // the transformer MLP (transformer_mlp.cu):
 //   * host: a TMA tensor map from libcuda's cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint (the libraries link no -lcuda);

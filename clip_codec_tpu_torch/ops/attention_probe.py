@@ -2,6 +2,7 @@
 
     flash_variant(q, k, v, tq, tk, mode)              -> out (BH, N, D)        P1
     fast_flash_acc(q, k, v, tq, tk, deg, mxu_sum)     -> acc (BH, N, D+1) fp32 P2
+    fast_flash_kernel(q, k, fast_v(v, mxu_sum), ...)  -> acc, the kernel alone P2
     fast_flash(q, k, v, tq, tk, deg, mxu_sum=True)    -> out (BH, N, D)        P2, divided
     single_pass(q, k, v, tq)                          -> out (BH, N, D)        P3
 
@@ -29,16 +30,19 @@ On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
 ``csrc/flash_attention_probe.cu`` or raise: bf16 q, k, v of one (BH, N, D)
 shape, contiguous, D in (40, 48), N % 128 == 0, and (tq, tk) one of the
 instantiated tiles (``P1_TILES``, ``P2_TILES``, ``P3_TILES``; tq is the
-block's query rows, tk the keys per shared-memory tile). P1 and P3 run on
+block's query rows, tk the keys per shared-memory tile). All three run on
 the production forward's (K4's) loop: ``wgmma`` fed by TMA, 64 query rows
 per consumer warpgroup, two or three warpgroups taking turns (tq = 128 or
 192, the last query tile of a head may be partial), tk = 64 or 128, the six
-P1 modes at K4's own tile (192, 128); P3 over key tiles of 128. P2 runs
-on ``mma.sync`` with tq and tk dividing N. On a CPU tensor
+P1 modes and the four P2 forms at K4's own tile (192, 128); P3 over key
+tiles of 128. P2's kernel maps v as ``fast_v`` lays it out: with
+``mxu_sum`` the ones column sits in the P.V product's zero padding (column
+D of 48 at D = 40, of 56 at D = 48). On a CPU tensor
 they run the plain versions (``flash_variant_plain``, ``fast_flash_plain``,
 ``single_pass_plain``), which are also what the kernels are held against on
 the card. ``flash_variant.launches``, ``fast_flash_acc.launches`` and
-``single_pass.launches`` count the kernels each wrapper launches; a call
+``single_pass.launches`` count the kernels each wrapper launches (P2's
+through ``fast_flash_acc`` or ``fast_flash_kernel``); a call
 recorded into a CUDA graph launches nothing and is not counted (the graph's
 replays run the kernel without the wrapper).
 """
@@ -61,8 +65,8 @@ EXP2_COEFFS = {2: (1.0, 0.65617384, 0.34382616), 3: (1.0, 0.69583354, 0.22610143
 # The instantiated kernels: (mode, tq, tk) for P1, (deg, mxu_sum, tq, tk) for P2, tq for P3.
 P1_TILES = ([(m, 192, 128) for m in MODES]
             + [(m, tq, tk) for tq, tk in ((128, 128), (192, 64), (128, 64)) for m in ("full", "exp2")])
-P2_TILES = ([(0, True, 64, 64), (2, False, 64, 64), (2, True, 64, 64), (3, True, 64, 64)]
-            + [(2, True, tq, tk) for tq, tk in ((64, 128), (128, 64), (128, 128))])
+P2_TILES = ([(0, True, 192, 128), (2, False, 192, 128), (2, True, 192, 128), (3, True, 192, 128)]
+            + [(2, True, tq, tk) for tq, tk in ((128, 128), (192, 64), (128, 64))])
 P3_TILES = (128, 192)
 KERNEL_DEPTHS = (40, 48)
 
@@ -152,12 +156,24 @@ def fast_exp2(x: torch.Tensor, deg: int = 2) -> torch.Tensor:
 
 def _ones_column(v: torch.Tensor, width: int) -> torch.Tensor:
     """v with a ones column appended at index D, zero-padded to ``width``
-    columns (the padding keeps the kernel's rows 16-byte aligned)."""
+    columns."""
     BH, N, D = v.shape
     out = torch.zeros((BH, N, width), dtype=v.dtype, device=v.device)
     out[..., :D] = v
     out[..., D] = 1
     return out
+
+
+def fast_v_width(D: int, mxu_sum: bool) -> int:
+    """Columns of the v that P2's kernel maps: D + 1 rounded up to 8 with
+    ``mxu_sum`` (a TMA row stride is a multiple of 16 bytes), else D."""
+    return -(-(D + 1) // 8) * 8 if mxu_sum else D
+
+
+def fast_v(v: torch.Tensor, mxu_sum: bool) -> torch.Tensor:
+    """v as P2's kernel maps it: with ``mxu_sum``, ones in column D and
+    zeros after it, ``fast_v_width`` columns; else v itself."""
+    return _ones_column(v, fast_v_width(v.shape[-1], True)) if mxu_sum else v
 
 
 def fast_flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tk: int, deg: int,
@@ -220,18 +236,19 @@ def _on_cpu(q: torch.Tensor) -> bool:
     return False
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tile, tiles) -> None:
-    """Raise ValueError on what the kernels do not take."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tile, tiles, v_width=None) -> None:
+    """Raise ValueError on what the kernels do not take; v has ``v_width``
+    columns (default D)."""
     if q.dim() != 3:
         raise ValueError(f"q, k, v must be (BH, N, D), got {tuple(q.shape)}")
     BH, N, D = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t, width in (("q", q, D), ("k", k, D), ("v", v, D if v_width is None else v_width)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q is on {q.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be torch.bfloat16, got {t.dtype}")
-        if tuple(t.shape) != (BH, N, D):
-            raise ValueError(f"{name} must have shape {(BH, N, D)}, got {tuple(t.shape)}")
+        if tuple(t.shape) != (BH, N, width):
+            raise ValueError(f"{name} must have shape {(BH, N, width)}, got {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if D not in KERNEL_DEPTHS:
@@ -267,17 +284,27 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tq: int, tk
 
 def fast_flash_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tq: int, tk: int, deg: int,
                    mxu_sum: bool = True) -> torch.Tensor:
-    """P2's raw fp32 (BH, N, D+1) accumulator; the kernel on CUDA."""
+    """P2's raw fp32 (BH, N, D+1) accumulator; on CUDA ``fast_v`` then the kernel."""
     if _on_cpu(q):
         return fast_flash_plain(q, k, v, tk, deg, mxu_sum)
     _check(q, k, v, (deg, bool(mxu_sum), tq, tk), P2_TILES)
+    return fast_flash_kernel(q, k, fast_v(v, mxu_sum), tq, tk, deg, mxu_sum)
+
+
+def fast_flash_kernel(q: torch.Tensor, k: torch.Tensor, vk: torch.Tensor, tq: int, tk: int, deg: int,
+                      mxu_sum: bool = True) -> torch.Tensor:
+    """P2's accumulator from ``vk = fast_v(v, mxu_sum)``, made once by the
+    caller: on CUDA the kernel alone (what the probe times as P2's ms), on
+    a CPU tensor the plain version of v = vk's first D columns. Its
+    launches count on ``fast_flash_acc.launches``."""
+    D = q.shape[-1]
+    if _on_cpu(q):
+        return fast_flash_plain(q, k, vk[..., :D], tk, deg, mxu_sum)
+    _check(q, k, vk, (deg, bool(mxu_sum), tq, tk), P2_TILES, fast_v_width(D, mxu_sum))
     BH, N, D = q.shape
-    nv = D + 1 if mxu_sum else D  # columns of the P.V product
-    if mxu_sum:
-        v = _ones_column(v, -(-nv // 8) * 8)
     out = torch.empty((BH, N, D + 1), dtype=torch.float32, device=q.device)
-    _launch("attn_probe_fast_bf16", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, N, D, v.shape[-1], tq, tk, deg, int(mxu_sum), _scale(D) * LOG2E)
+    _launch("attn_probe_fast_bf16", q, q.data_ptr(), k.data_ptr(), vk.data_ptr(), out.data_ptr(),
+            BH, N, D, vk.shape[-1], tq, tk, deg, int(mxu_sum), _scale(D) * LOG2E)
     _count(fast_flash_acc)
     return out
 

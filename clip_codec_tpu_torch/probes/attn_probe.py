@@ -16,10 +16,14 @@ self-attention at UNet batch 8: a CFG-batched request of four embeddings,
    away at K4's tile (192, 128), and ``full`` and ``exp2`` at the other
    tiles), the P3 variants (the exact row max first, no rescale) and the
    P2 variants (polynomial or hardware exp2, the row sum on the P.V product
-   or summed from fp32 p);
+   or summed from fp32 p; the four forms at K4's tile, poly2 with the row
+   sum on P.V at the others), each as its kernel alone
+   (``fast_flash_kernel`` on a v that already has its ones column) and as
+   the ``fast_flash_acc`` wrapper, which builds that column (``wrapper``);
 3. each form's ``max|delta| / max|oracle|`` against an fp32 oracle computed
    one head at a time: production, exp2-fold, poly2 and poly3 with the
-   row sum on the P.V product.
+   row sum on the P.V product (P2 at (192, 128), divided outside the
+   kernel).
 
 Each timed line reads ``[attn-probe] <label> <ms> ms <TF/s> TF/s``: the
 device time per call of 20 calls captured in a CUDA graph and replayed
@@ -194,10 +198,14 @@ def run(dev: torch.device, bh: int = 64, n: int = 4096, d: int = 40, seed: int =
     for label, tq in P3_VARIANTS:
         times[label] = time_call(label, lambda: ap.single_pass(q, k, v, tq), fl, dev)
         tally("single_pass", times[label])
-    print("-- fast-exp2 / row-sum variants --", flush=True)
+    print("-- fast-exp2 / row-sum variants: the kernel alone, then its wrapper --", flush=True)
     for label, tq, tk, deg, mxu in P2_VARIANTS:
-        times[label] = time_call(label, lambda: ap.fast_flash(q, k, v, tq, tk, deg, mxu), fl, dev)
+        vk = ap.fast_v(v, mxu)
+        times[label] = time_call(label, lambda: ap.fast_flash_kernel(q, k, vk, tq, tk, deg, mxu), fl, dev)
         tally("fast_flash_acc", times[label])
+        wrapped = f"{label} wrapper"
+        times[wrapped] = time_call(wrapped, lambda: ap.fast_flash_acc(q, k, v, tq, tk, deg, mxu), fl, dev)
+        tally("fast_flash_acc", times[wrapped])
 
     print("-- correctness against an fp32 oracle --", flush=True)
     want = oracle(q, k, v)
@@ -205,8 +213,8 @@ def run(dev: torch.device, bh: int = 64, n: int = 4096, d: int = 40, seed: int =
     errors = {}
     for label, fn in zip(CHECKS, (lambda: attn.flash_attention_fwd(q, k, v)[0],
                                   lambda: ap.flash_variant(q, k, v, 192, 128, "exp2"),
-                                  lambda: ap.fast_flash(q, k, v, 64, 64, 2, True),
-                                  lambda: ap.fast_flash(q, k, v, 64, 64, 3, True))):
+                                  lambda: ap.fast_flash(q, k, v, 192, 128, 2, True),
+                                  lambda: ap.fast_flash(q, k, v, 192, 128, 3, True))):
         errors[label] = (fn().float() - want).abs().max().item() / scale
         print(f"[attn-probe] {label:<16} max|delta|/max|oracle| = {errors[label]:.3e}", flush=True)
     calls["flash_variant"]["eager"] += 1

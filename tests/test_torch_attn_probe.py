@@ -105,14 +105,43 @@ def test_flash_variant_plain_matches_pallas(bap, mode, tk):
         assert np.abs(other - want).max() > 1e-2 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("deg,mxu_sum", [(0, True), (2, False), (2, True), (3, True)])
-def test_fast_flash_plain_matches_pallas(bap, deg, mxu_sum):
+# (deg, mxu_sum, tk): the four forms at tk = 128, and poly2 + mxu-sum at
+# tk = 64, the key width of the kernels' narrower tiles.
+@pytest.mark.parametrize("deg,mxu_sum,tk", [pytest.param(0, True, T, id="0-True"),
+                                            pytest.param(2, False, T, id="2-False"),
+                                            pytest.param(2, True, T, id="2-True"),
+                                            pytest.param(3, True, T, id="3-True"),
+                                            pytest.param(2, True, 64, id="2-True-tk64")])
+def test_fast_flash_plain_matches_pallas(bap, deg, mxu_sum, tk):
     """The raw accumulator and the divided output."""
     q, k, v = _qkv(1)
-    acc = ap.fast_flash_plain(*_t(q, k, v), T, deg, mxu_sum)
+    acc = ap.fast_flash_plain(*_t(q, k, v), tk, deg, mxu_sum)
     assert acc.shape == (BH, N, D + 1) and acc.dtype == torch.float32
-    _close(acc.numpy(), _jax_fast_acc(bap, q, k, v, T, T, deg, mxu_sum))
-    _close(ap.fast_flash(*_t(q, k, v), T, T, deg, mxu_sum).numpy(), _jax(bap.fast_flash, q, k, v, T, T, deg, mxu_sum))
+    _close(acc.numpy(), _jax_fast_acc(bap, q, k, v, T, tk, deg, mxu_sum))
+    _close(ap.fast_flash(*_t(q, k, v), T, tk, deg, mxu_sum).numpy(),
+           _jax(bap.fast_flash, q, k, v, T, tk, deg, mxu_sum))
+
+
+@pytest.mark.parametrize("D_", ap.KERNEL_DEPTHS)
+def test_fast_v_is_the_v_the_kernel_maps(D_):
+    """With the row sum on P.V, the v that ``fast_flash_acc`` hands the
+    kernel is D + 1 rounded up to 8 wide (48 at D = 40, 56 at D = 48: a TMA
+    row stride of a multiple of 16 bytes), v in its first D columns, ones
+    in column D and zeros after; without it, v itself. On the CPU the
+    kernel-alone entry gives the wrapper's accumulator from that v."""
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy(rng.standard_normal((2, 128, D_)).astype(np.float32)).to(torch.bfloat16)
+    vk = ap.fast_v(v, True)
+    assert vk.shape == (2, 128, {40: 48, 48: 56}[D_]) == (2, 128, ap.fast_v_width(D_, True))
+    assert vk.dtype == v.dtype and vk.is_contiguous()
+    assert torch.equal(vk[..., :D_], v)
+    assert bool((vk[..., D_] == 1).all()) and bool((vk[..., D_ + 1:] == 0).all())
+    assert ap.fast_v(v, False) is v and ap.fast_v_width(D_, False) == D_
+    q, k = (torch.from_numpy(rng.standard_normal((2, 128, D_)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    for mxu_sum in (True, False):
+        got = ap.fast_flash_kernel(q, k, ap.fast_v(v, mxu_sum), 192, 128, 2, mxu_sum)
+        assert torch.equal(got, ap.fast_flash_acc(q, k, v, 192, 128, 2, mxu_sum))
 
 
 @pytest.mark.parametrize("deg", [2, 3])
@@ -160,7 +189,7 @@ def test_probe_main_on_the_cpu(capsys):
     P3 and P2 variant, then the four correctness lines."""
     assert attn_probe.main(["--device", "cpu", "--bh", "2", "--n", "256", "--d", "40"]) == 0
     lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[attn-probe]")]
-    timed = 11 + 2 + len(ap.P1_TILES) + len(ap.P3_TILES) + len(ap.P2_TILES)
+    timed = 11 + 2 + len(ap.P1_TILES) + len(ap.P3_TILES) + 2 * len(ap.P2_TILES)  # P2: kernel alone, wrapper
     assert len(lines) == timed + 4
     assert all(" ms" in line for line in lines[:timed])
     checks = lines[timed:]
@@ -170,10 +199,11 @@ def test_probe_main_on_the_cpu(capsys):
 
 
 def test_p1_p3_tiles_are_ones_the_wgmma_design_takes():
-    """P1 and P3 run on K4's loop: 64 query rows per consumer warpgroup, two
-    or three warpgroups taking turns (tq = 128 or 192), key tiles of 64 or
-    128; the six P1 modes at K4's own tile (192, 128), so that the
-    ablations remove one piece each from one loop."""
+    """P1, P2 and P3 run on K4's loop: 64 query rows per consumer
+    warpgroup, two or three warpgroups taking turns (tq = 128 or 192), key
+    tiles of 64 or 128; the six P1 modes and the four P2 forms at K4's own
+    tile (192, 128), so that the ablations remove one piece each from one
+    loop, and P2's poly2 + mxu-sum at the three other tiles."""
     assert len(set(ap.P1_TILES)) == len(ap.P1_TILES) == 12
     for mode, tq, tk in ap.P1_TILES:
         assert mode in ap.MODES and tq in (128, 192) and tk in (64, 128)
@@ -183,18 +213,59 @@ def test_p1_p3_tiles_are_ones_the_wgmma_design_takes():
     assert sorted(ap.P3_TILES) == [128, 192]
     assert [label for label, tq, tk, mode in attn_probe.P1_VARIANTS if "production form" in label] == [
         "full (192,128) [= production form]"]
+    assert len(set(ap.P2_TILES)) == len(ap.P2_TILES) == 7
+    for deg, mxu_sum, tq, tk in ap.P2_TILES:
+        assert deg in (0, 2, 3) and tq in (128, 192) and tk in (64, 128)
+    assert [(deg, mxu) for deg, mxu, tq, tk in ap.P2_TILES if (tq, tk) == (192, 128)] == [
+        (0, True), (2, False), (2, True), (3, True)]
+    assert {t for t in ap.P2_TILES if t[2:] != (192, 128)} == {
+        (2, True, tq, tk) for tq, tk in ((128, 128), (192, 64), (128, 64))}
 
 
 def test_check_refuses_the_old_tiles_before_any_launch():
-    """(64, 64), the mma.sync design's tile, has no P1 or P3 kernel: ``_check``
-    refuses it on CPU bf16 tensors of a shape the kernels take."""
+    """(64, 64), the mma.sync design's tile, has no P1, P2 or P3 kernel:
+    ``_check`` refuses it on CPU bf16 tensors of a shape the kernels take."""
     q = torch.zeros((2, 256, 40), dtype=torch.bfloat16)
     ap._check(q, q, q, ("full", 192, 128), ap.P1_TILES)
     ap._check(q, q, q, 192, ap.P3_TILES)
-    for tile, tiles in ((("full", 64, 64), ap.P1_TILES), (("noexp", 128, 128), ap.P1_TILES), (64, ap.P3_TILES)):
+    ap._check(q, q, q, (2, True, 192, 128), ap.P2_TILES)
+    for tile, tiles in ((("full", 64, 64), ap.P1_TILES), (("noexp", 128, 128), ap.P1_TILES), (64, ap.P3_TILES),
+                        ((2, True, 64, 64), ap.P2_TILES), ((2, False, 128, 128), ap.P2_TILES)):
         with pytest.raises(ValueError, match="no kernel is instantiated"):
             ap._check(q, q, q, tile, tiles)
-    assert ap.flash_variant.launches == 0 and ap.single_pass.launches == 0
+    with pytest.raises(ValueError, match=r"v must have shape \(2, 256, 48\)"):
+        ap._check(q, q, q, (2, True, 192, 128), ap.P2_TILES, ap.fast_v_width(40, True))
+    assert ap.flash_variant.launches == 0 and ap.single_pass.launches == 0 and ap.fast_flash_acc.launches == 0
+
+
+def test_sass_counts_reads_cuobjdump_and_ptxas():
+    """The SASS counter on a made-up disassembly and build log of one P2
+    kernel (poly2 + mxu-sum, (192, 128)) and one kernel it ignores."""
+    from clip_codec_tpu_torch.probes import sass_counts
+
+    name = "_ZN12_GLOBAL__N_16hopper12probe_kernelILi7ELi128ELi3ELi4ELi48ELi2ELb1EEEv14CUtensorMap_stS2_S2_Pviif"
+    sass = "\n".join([
+        "\t\tFunction : _Z5otherv", "        /*0000*/                   MUFU.EX2 R1, R2 ;",
+        f"\t\tFunction : {name}", "\t.headerflags\t@\"EF_CUDA_SM90\"",
+        "        /*0000*/                   FADD.RM R3, R2, 1.2582912e+07 ;",
+        "        /*0010*/              @!P0 MUFU.EX2 R4, R5 ;",
+        "        /*0020*/                   F2FP.BF16.F32.PACK_AB R6, R7, R8 ;",
+        "        /*0030*/                   F2FP.BF16.F32.PACK_AB R6, R7, R9 ;",
+        "        /*0040*/              @UPT LEA R3, R3, R10, 0x17 ;"])
+    log = "\n".join([f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                     f"ptxas info    : Function properties for {name}",
+                     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                     "ptxas info    : Used 168 registers, used 1 barriers"])
+    counts = sass_counts.opcode_counts(sass)
+    assert counts[name] == {"FADD": 1, "MUFU": 1, "F2FP": 2, "LEA": 1} and counts["_Z5otherv"] == {"MUFU": 1}
+    assert sass_counts.kernel_args(name) == (7, 128, 3, 4, 48, 2, 1) and sass_counts.kernel_args("_Z5otherv") is None
+    lines = sass_counts.report(sass, log, ["MUFU", "F2I", "F2FP"])
+    assert len(lines) == 2
+    assert [" ".join(line.split()) for line in lines] == [
+        "[sass] P2 poly2-exp2 + mxu-sum, P.V 48 (192,128) 5 instructions; MUFU 1 F2I 0 F2FP 2; "
+        "per S element (4 a thread): MUFU 0.2500 F2I 0.0000 F2FP 0.5000",
+        "[ptxas] P2 poly2-exp2 + mxu-sum, P.V 48 (192,128) "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; Used 168 registers, used 1 barriers"]
 
 
 def test_wrappers_refuse_other_devices():
@@ -210,6 +281,7 @@ def test_probe_modules_import_no_jax():
         "import sys\n"
         "import clip_codec_tpu_torch.ops.attention_probe, clip_codec_tpu_torch.probes.attn_probe\n"
         "import clip_codec_tpu_torch.probes.flash_times, clip_codec_tpu_torch.probes.conv_times\n"
+        "import clip_codec_tpu_torch.probes.sass_counts\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'clip_codec_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'optax', 'clip_codec_tpu.')))\n"
         "assert not bad, bad\n"

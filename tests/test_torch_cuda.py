@@ -721,22 +721,46 @@ def test_probe_variant_matches_plain(rng, cuda, mode, tq, tk, D):
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
+def _check_fast(acc, ref, D):
+    """P2's raw accumulator: the last column (the row sum) within 2e-2
+    relative, the divided output within 2e-2."""
+    assert acc.dtype == torch.float32 and acc.shape == ref.shape and acc.shape[-1] == D + 1
+    assert bool(((acc[..., D] - ref[..., D]).abs() <= 2e-2 * ref[..., D].abs()).all())
+    out, out_ref = ((a[..., :D] / a[..., D:]).to(torch.bfloat16).float() for a in (acc, ref))
+    _within_of_max(out, out_ref)
+    torch.testing.assert_close(out, out_ref, rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("D", [40, 48])
 @pytest.mark.parametrize("deg,mxu_sum,tq,tk", ap.P2_TILES)
 def test_probe_fast_matches_plain(rng, cuda, deg, mxu_sum, tq, tk, D):
-    """Every instantiated P2 kernel: the raw accumulator's last column (the
-    row sum) within 2e-2 relative, the divided output within 2e-2."""
+    """Every instantiated P2 kernel at both depths (at D = 48 the mxu-sum's
+    ones column widens P.V to 64): its raw accumulator against plain."""
     q, k, v = _probe_qkv(rng, D)
     n0 = ap.fast_flash_acc.launches
     acc = ap.fast_flash_acc(q, k, v, tq, tk, deg, mxu_sum)
     ref = ap.fast_flash_plain(q, k, v, tk, deg, mxu_sum)
     torch.cuda.synchronize()
     assert ap.fast_flash_acc.launches == n0 + 1
-    assert acc.dtype == torch.float32 and acc.shape == (2, 512, D + 1)
-    assert ((acc[..., D] - ref[..., D]).abs() <= 2e-2 * ref[..., D].abs()).all()
-    out, out_ref = ((a[..., :D] / a[..., D:]).to(torch.bfloat16).float() for a in (acc, ref))
-    _within_of_max(out, out_ref)
-    torch.testing.assert_close(out, out_ref, rtol=2e-2, atol=2e-2)
+    assert acc.shape == (2, 512, D + 1)
+    _check_fast(acc, ref, D)
+
+
+@pytest.mark.parametrize("deg,mxu_sum,tq,tk", ap.P2_TILES)
+def test_probe_fast_extreme_logits(rng, cuda, deg, mxu_sum, tq, tk):
+    """q x 30: logits up to ~1e3, so about half of s - m fall below -126, where
+    ``fast_exp2`` gives 2^-126 p(frac x), not 0; the kernel alone on
+    ``fast_v``'s v gives the wrapper's accumulator."""
+    q, k, v = _probe_qkv(rng, 40)
+    q = (q.float() * 30).to(torch.bfloat16)
+    acc = ap.fast_flash_acc(q, k, v, tq, tk, deg, mxu_sum)
+    ref = ap.fast_flash_plain(q, k, v, tk, deg, mxu_sum)
+    alone = ap.fast_flash_kernel(q, k, ap.fast_v(v, mxu_sum), tq, tk, deg, mxu_sum)
+    torch.cuda.synchronize()
+    s = (q.float() @ k.float().transpose(1, 2)) * (ap._scale(40) * ap.LOG2E)
+    assert bool(((s - s.amax(-1, keepdim=True)) < -126).float().mean() > 0.25)
+    _check_fast(acc, ref, 40)
+    assert torch.equal(alone, acc)
 
 
 @pytest.mark.parametrize("D", [40, 48])
@@ -774,17 +798,29 @@ def _in_poisoned(a, fill):
     return buf[:BH * N * D].view(BH, N, D), buf
 
 
-@pytest.mark.parametrize("kind", ["full", "single_pass"])
+@pytest.mark.parametrize("kind", ["full", "single_pass", "fast"])
 def test_probe_partial_last_query_tile(rng, cuda, kind):
     """N = 4096 at tq = 192: the last query tile of each head holds 64 rows.
     Every row matches plain; q, k and v lie at the front of buffers whose
     tail is NaN (a key row read past N of the last head would show in the
     output), and out at the front of one whose tail is a sentinel that no
     row written past N may overwrite. The C entry points are called
-    directly, into the poisoned out."""
+    directly, into the poisoned out (P2: poly2 + mxu-sum at (192, 128), its
+    fp32 (D + 1)-wide accumulator, from a poisoned ``fast_v``)."""
     BH, N, D = 2, 4096, 40
     q, k, v = (_in_poisoned(_bf16(rng, (BH, N, D)), float("nan"))[0] for _ in range(3))
     out, out_buf = _in_poisoned(torch.zeros_like(q), 7.0)
+    if kind == "fast":
+        vk = _in_poisoned(ap.fast_v(v, True), float("nan"))[0]
+        acc, acc_buf = _in_poisoned(torch.zeros((BH, N, D + 1), dtype=torch.float32, device=q.device), 7.0)
+        ap._launch("attn_probe_fast_bf16", q, q.data_ptr(), k.data_ptr(), vk.data_ptr(), acc.data_ptr(),
+                   BH, N, D, vk.shape[-1], 192, 128, 2, 1, ap._scale(D) * ap.LOG2E)
+        ref = ap.fast_flash_plain(q, k, v, 128, 2, True)
+        torch.cuda.synchronize()
+        assert bool((acc_buf[BH * N * (D + 1):] == 7.0).all())
+        _check_fast(acc, ref, D)
+        _check_fast(acc[:, N - 64:], ref[:, N - 64:], D)  # the partial tile's rows, held on their own
+        return
     if kind == "full":
         ap._launch("attn_probe_variant_bf16", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    BH, N, D, 192, 128, ap.MODES.index("full"), ap._scale(D))
@@ -816,7 +852,7 @@ def test_probe_single_pass_extreme_logits(rng, cuda, tq):
 def test_probe_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
     q = _bf16(rng, (2, 256, 40))
     calls = (lambda t: ap.flash_variant(t, t, t, 192, 128, "full"),
-             lambda t: ap.fast_flash(t, t, t, 64, 64, 2),
+             lambda t: ap.fast_flash(t, t, t, 192, 128, 2),
              lambda t: ap.single_pass(t, t, t, 192))
     n0 = (ap.flash_variant.launches, ap.fast_flash_acc.launches, ap.single_pass.launches)
     for call in calls:
@@ -829,9 +865,12 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
         with pytest.raises(ValueError, match="contiguous"):
             call(_bf16(rng, (2, 40, 256)).transpose(1, 2))
     for call in (lambda: ap.flash_variant(q, q, q, 64, 64, "full"), lambda: ap.flash_variant(q, q, q, 128, 128, "noexp"),
-                 lambda: ap.single_pass(q, q, q, 64)):
+                 lambda: ap.single_pass(q, q, q, 64), lambda: ap.fast_flash_acc(q, q, q, 64, 64, 2),
+                 lambda: ap.fast_flash_acc(q, q, q, 128, 128, 3)):
         with pytest.raises(ValueError, match="no kernel is instantiated"):
             call()
+    with pytest.raises(ValueError, match="v must have shape"):  # the kernel alone takes fast_v's v only
+        ap.fast_flash_kernel(q, q, q, 192, 128, 2, True)
     with pytest.raises(ValueError, match="is on cpu"):
         ap.single_pass(q, q.cpu(), q, 192)
     assert (ap.flash_variant.launches, ap.fast_flash_acc.launches, ap.single_pass.launches) == n0
