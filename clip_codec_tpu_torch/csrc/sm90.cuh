@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu), the attention probes
-// (flash_attention_probe.cu), the ResBlock conv (affine_conv3x3.cu) and
-// the transformer MLP (transformer_mlp.cu):
+// (flash_attention_probe.cu), the ResBlock conv (affine_conv3x3.cu), the
+// transformer MLP (transformer_mlp.cu) and GroupNorm+SiLU (groupnorm_silu.cu):
 //   * host: a TMA tensor map from libcuda's cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint (the libraries link no -lcuda);
 //   * cp.async.bulk.tensor loads (1-D to 4-D) into shared memory that
 //     complete on an mbarrier with expect_tx, and the mbarrier wait and
 //     arrive of an N-stage ring (full and empty barriers per stage), with
 //     the proxy fence a stage needs when threads wrote it before TMA refills
-//     it;
+//     or stores it; bulk copies of contiguous bytes both ways (no tensor
+//     map);
 //   * wgmma shared-memory descriptors for 128-byte-swizzled tiles, K-major
 //     (the operand's depth contiguous) and MN-major (its rows contiguous: a
 //     transposed B);
@@ -198,6 +199,32 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// Bulk copies of a contiguous byte range (no tensor map): `bytes` and both
+// addresses multiples of 16. A load completes on `bar` (after the caller's
+// expect_tx of its bytes); stores are tracked as bulk groups of this thread:
+// commit, then wait until the groups' reads of shared memory are done (the
+// stage may be refilled) or until they have completed.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Descriptor of a 128-byte-swizzled tile starting at `p` (see the layout note above).

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -41,20 +41,22 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra: Tuple[str, ...] = ()) -> Path:
     """Where ``csrc/<name>.cu`` is built: named by a hash of source, the
-    shared headers (``csrc/*.cuh``) and flags."""
+    shared headers (``csrc/*.cuh``) and flags (``extra``: more nvcc flags,
+    such as a development build's ``-D`` defines)."""
     src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
+def build(name: str, extra: Tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with the nvcc flags ``extra`` too) unless
+    its library is already built.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory, spills
     per kernel) is kept beside the library as ``<lib>.log``."""
-    out = library_path(name)
+    out = library_path(name, extra)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -62,7 +64,7 @@ def build(name: str) -> Path:
     # half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

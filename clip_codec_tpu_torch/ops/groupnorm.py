@@ -6,36 +6,91 @@
   its direct form call it.
 * ``group_norm_silu(x, (scale, bias), groups, eps)``: the JAX fusion point,
   which the direct-form pixel ResBlock calls twice (``models/blocks.py``).
-  On a CUDA tensor it launches K1, the hand-written Hopper kernel pair in
-  ``csrc/groupnorm_silu.cu``, or raises; on a CPU tensor it runs
+  On a CUDA tensor it launches K1, the hand-written Hopper kernel in
+  ``csrc/groupnorm_silu.cu`` (one persistent cooperative launch that reads x
+  from device memory once), or raises; on a CPU tensor it runs
   ``group_norm_silu_plain``. Its backward is autograd of
   ``group_norm_silu_plain`` recomputed from the saved inputs, the JAX
   contract (``pallas_groupnorm.py`` ``_bwd``): the TPU kernel has no
   backward kernel, and neither has the port.
 
-K1's two kernels have a wrapper each, ``group_norm_silu_stats`` (per-chunk
-fp32 sums and sums of squares, ``(B, K, 2, C)``) and ``group_norm_silu_norm``
-(group statistics from those partials, then the affine and SiLU), each
-counting its launches in ``.launches``, and a plain version each with the
-kernel's arithmetic (raw moments ``var = SS/n - mean^2``, one rounding to x's
-dtype). ``group_norm_silu_plain`` is JAX's jnp ``group_norm_silu`` instead:
-two-pass statistics, the normalised value rounded to x's dtype before the
-SiLU. In bf16 the kernel and it differ by an ulp or two.
+The kernel cuts each sample's H*W rows into slabs (``slab_cut``: a function
+of the shape alone), plans its rounds and grid itself (``plan``), sums each
+slab per group in fp32, and normalises from the slab partials summed in a
+fixed order. Its plain version is the pair
+``group_norm_silu_stats_plain`` (the (B, S, 2, G) slab partials: channel
+sums, then group sums) and ``group_norm_silu_norm_plain`` (raw moments
+``var = SS/n - mean^2`` from the partials, the affine and SiLU in fp32, one
+rounding to x's dtype). ``group_norm_silu_plain`` is JAX's jnp
+``group_norm_silu`` instead: two-pass statistics, the normalised value
+rounded to x's dtype before the SiLU. In bf16 the kernel and it differ by
+an ulp or two.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 GN_EPS = 1e-5
 _LIB = "groupnorm_silu"
-_VEC, _MAX_C = 8, 2048  # channels per thread; one vector per thread of a 256-thread block
-_TARGET_BLOCKS = 528  # 4 blocks on each of the H100's 132 SMs
+# csrc/groupnorm_silu.cu's argument checks: channels per thread, most
+# channels, a chunk's most bytes, most chunks a slab
+_VEC, _MAX_C, _CHUNK_BYTES, _MAX_CHUNKS = 8, 2048, 32768, 4
+_SLABS_A_SAMPLE = 128  # a sample of more chunks than this gets slabs of several chunks
+
+
+def slab_cut(hw: int, C: int, itemsize: int) -> Tuple[int, int]:
+    """Rows a chunk and chunks a slab for samples of ``hw`` rows of ``C``
+    channels: chunks of as many rows as 32 KB holds (at most the sample's),
+    one a slab, or up to 4 where a sample has more than 128 chunks (fewer
+    partials for every block to read after the barrier). A function of the
+    shape alone, so the statistics are the same on every card and in every
+    run; the kernel takes it from here, and plans its rounds, grid and ring
+    buffers itself (``plan``)."""
+    rows = max(1, min(hw, _CHUNK_BYTES // (C * itemsize)))
+    return rows, min(_MAX_CHUNKS, max(1, -(-hw // rows) // _SLABS_A_SAMPLE))
+
+
+def slab_rows(hw: int, C: int, itemsize: int) -> int:
+    """Rows per slab (the last of a sample ragged): the unit of the
+    statistics."""
+    rows, chunks = slab_cut(hw, C, itemsize)
+    return rows * chunks
+
+
+class Plan(NamedTuple):
+    """K1's launch for a (B, H, W, C) call: ``slab_rows`` rows a slab,
+    ``slabs`` a sample, each ``chunks`` chunks of ``chunk_rows`` rows (the
+    unit of a copy and of a buffer); ``per_round`` whole samples a round
+    over ``rounds`` rounds, ``grid`` blocks, each with a ring of ``ring``
+    chunk buffers in ``smem`` bytes of shared memory."""
+    slab_rows: int
+    slabs: int
+    chunk_rows: int
+    chunks: int
+    ring: int
+    per_round: int
+    rounds: int
+    grid: int
+    smem: int
+
+
+def plan(B: int, H: int, W: int, C: int, groups: int, itemsize: int, sms: int = 0) -> Plan:
+    """The kernel's own plan for a call on ``sms`` SMs of the current
+    device (0: all of them), from ``csrc/groupnorm_silu.cu`` (builds it at
+    the first call; needs a card). Raises for a shape the kernel does not
+    take."""
+    hw = H * W
+    rows, chunks = slab_cut(hw, C, itemsize)
+    out = (ctypes.c_int * 5)()
+    rc = _kernel_lib().groupnorm_silu_plan(B, hw, C, groups, rows, chunks, int(itemsize == 2), sms, out)
+    if rc != 0:
+        raise RuntimeError(f"groupnorm_silu_plan{(B, H, W, C, groups, itemsize, sms)} failed: CUDA error {rc}")
+    return Plan(rows * chunks, -(-hw // (rows * chunks)), rows, chunks, *out)
 
 
 def group_norm(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tensor],
@@ -61,26 +116,22 @@ def group_norm_silu_plain(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch
     return y * torch.sigmoid(y.to(torch.promote_types(y.dtype, torch.float32))).to(y.dtype)
 
 
-def n_chunks(B: int, HW: int) -> int:
-    """Row chunks per sample for K1 (the grid is (chunks, B)): enough blocks
-    to fill the card, but no more than ~sqrt(HW/8), since every norm block
-    re-reads all its sample's ``chunks x 2 x C`` partials. A function of the
-    shape alone, so the statistics are the same in every run."""
-    return max(1, min(-(-_TARGET_BLOCKS // B), math.isqrt(HW // 8)))
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point's arguments on a loaded library."""
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.groupnorm_silu.argtypes = [P] * 6 + [I] * 7 + [ctypes.c_float, I, P]
+        lib.groupnorm_silu.restype = I
+        lib.groupnorm_silu_plan.argtypes = [I] * 8 + [P]
+        lib.groupnorm_silu_plan.restype = I
+        lib._typed = True
+    return lib
 
 
 def _kernel_lib() -> ctypes.CDLL:
     from . import _build
 
-    lib = _build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.groupnorm_silu_stats.argtypes = [P, P, I, I, I, I, I, P]
-        lib.groupnorm_silu_stats.restype = I
-        lib.groupnorm_silu_norm.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, P]
-        lib.groupnorm_silu_norm.restype = I
-        lib._typed = True
-    return lib
+    return bind(_build.load(_LIB))
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -94,7 +145,7 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_x(x: torch.Tensor) -> None:
+def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"GroupNorm+SiLU kernel needs a CUDA or CPU tensor, got {x.device}")
     if x.dim() != 4:
@@ -105,58 +156,35 @@ def _check_x(x: torch.Tensor) -> None:
     if C % _VEC or C > _MAX_C:
         raise ValueError(f"the kernel needs C % {_VEC} == 0 and C <= {_MAX_C}, got C={C}")
     _check("x", x, x.shape, x.dtype, x.device)
-
-
-def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int) -> None:
-    _check_x(x)
-    C = x.shape[3]
     if groups <= 0 or C % groups:
         raise ValueError(f"C={C} is not a multiple of groups={groups}")
     _check("scale", scale, (C,), torch.float32, x.device)
     _check("bias", bias, (C,), torch.float32, x.device)
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def group_norm_silu_stats_plain(x: torch.Tensor, chunks: int) -> torch.Tensor:
-    """The stats kernel's result: (B, chunks, 2, C) fp32 sums and sums of
-    squares over each chunk of ceil(H*W / chunks) pixels (the last ragged)."""
+def group_norm_silu_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The kernel's slab partials, (B, S, 2, G) fp32: over each slab of
+    ``slab_rows`` pixels (the last of a sample ragged) every channel's sum
+    and sum of squares, then each group's sums of its channels in order."""
     B, H, W, C = x.shape
     hw = H * W
-    chunk = -(-hw // chunks)
-    xf = F.pad(x.to(torch.promote_types(x.dtype, torch.float32)).reshape(B, hw, C),
-               (0, 0, 0, chunk * chunks - hw))
-    xc = xf.reshape(B, chunks, chunk, C)
-    return torch.stack([xc.sum(dim=2), xc.square().sum(dim=2)], dim=2)
-
-
-def group_norm_silu_stats(x: torch.Tensor) -> torch.Tensor:
-    """Per-chunk statistics of NHWC ``x`` (the stats kernel on CUDA)."""
-    B, H, W, C = x.shape
-    chunks = n_chunks(B, H * W)
-    if x.device.type == "cpu":
-        return group_norm_silu_stats_plain(x, chunks)
-    _check_x(x)
-    part = torch.empty((B, chunks, 2, C), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _kernel_lib().groupnorm_silu_stats(x.data_ptr(), part.data_ptr(), B, H * W, C, chunks,
-                                                int(x.dtype == torch.bfloat16), _stream(x.device))
-    if rc != 0:
-        raise RuntimeError(f"groupnorm_silu stats kernel launch failed: CUDA error {rc}")
-    group_norm_silu_stats.launches += 1
-    return part
+    rows = slab_rows(hw, C, x.element_size())
+    S = -(-hw // rows)
+    xs = F.pad(x.to(torch.promote_types(x.dtype, torch.float32)).reshape(B, hw, C),
+               (0, 0, 0, rows * S - hw)).reshape(B, S, rows, C)
+    part = torch.stack([xs.sum(dim=2), xs.square().sum(dim=2)], dim=2)
+    return part.reshape(B, S, 2, groups, C // groups).sum(dim=4)
 
 
 def group_norm_silu_norm_plain(x: torch.Tensor, part: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                groups: int, eps: float = GN_EPS) -> torch.Tensor:
-    """The norm kernel's result: group statistics from the partials in raw
-    moments, then ``silu((x - mean) * rstd * scale + bias)`` in fp32, stored
-    once in x's dtype."""
+    """The kernel's result from its slab partials: the partials summed over
+    the slabs in a fixed order, group statistics in raw moments, then
+    ``silu((x - mean) * rstd * scale + bias)`` in fp32, stored once in x's
+    dtype."""
     B, H, W, C = x.shape
     cg = C // groups
-    tot = part.sum(dim=1).reshape(B, 2, groups, cg).sum(dim=3)  # (B, 2, G)
+    tot = part.sum(dim=1)  # (B, 2, G)
     n = float(H * W * cg)
     mean = tot[:, 0] / n
     rstd = torch.rsqrt(tot[:, 1] / n - mean * mean + eps)
@@ -166,40 +194,55 @@ def group_norm_silu_norm_plain(x: torch.Tensor, part: torch.Tensor, scale: torch
     return (t * torch.sigmoid(t)).to(x.dtype)
 
 
-def group_norm_silu_norm(x: torch.Tensor, part: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                         groups: int, eps: float = GN_EPS) -> torch.Tensor:
-    """``silu(GroupNorm(x))`` from the stats kernel's partials (the norm
-    kernel on CUDA); scale and bias are fp32 (C,)."""
-    if x.device.type == "cpu":
-        return group_norm_silu_norm_plain(x, part, scale, bias, groups, eps)
-    _check_args(x, scale, bias, groups)
+_barriers: Dict[int, torch.Tensor] = {}
+
+
+def _barrier(dev: torch.device) -> torch.Tensor:
+    """The grid barrier's words on ``dev`` (two arrival counts and a
+    sense): zeroed at the first call on the device, then reset by every
+    launch itself (no memset per call, so a replayed CUDA graph stays
+    right)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    bar = _barriers.get(idx)
+    if bar is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("group_norm_silu: call it once on this device before capturing a CUDA graph "
+                               "(its grid barrier's state is allocated at the first call)")
+        bar = _barriers[idx] = torch.zeros(4, dtype=torch.int32, device=dev)
+    return bar
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
+            sms: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K1 on checked arguments, on ``sms`` SMs (0: all of
+    the device's); returns y and the (B, S, 2, G) slab partials."""
     B, H, W, C = x.shape
     dev = x.device
-    _check("part", part, (B, n_chunks(B, H * W), 2, C), torch.float32, dev)
+    rows, chunks = slab_cut(H * W, C, x.element_size())
+    part = torch.empty((B, -(-H * W // (rows * chunks)), 2, groups), dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
-        rc = _kernel_lib().groupnorm_silu_norm(
-            x.data_ptr(), part.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, H * W, C, groups, part.shape[1], eps, int(x.dtype == torch.bfloat16), _stream(dev))
+        rc = _kernel_lib().groupnorm_silu(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), part.data_ptr(), _barrier(dev).data_ptr(),
+            B, H * W, C, groups, rows, chunks, sms, eps, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"groupnorm_silu norm kernel launch failed: CUDA error {rc}")
-    group_norm_silu_norm.launches += 1
-    return y
-
-
-group_norm_silu_stats.launches = 0
-group_norm_silu_norm.launches = 0
+        raise RuntimeError(f"groupnorm_silu kernel launch failed: CUDA error {rc}")
+    group_norm_silu.launches += 1
+    return y, part
 
 
 class _GroupNormSiLU(torch.autograd.Function):
-    """Forward: K1's two kernels. Backward: autograd of
+    """Forward: K1 (its plain version on a CPU tensor). Backward: autograd of
     ``group_norm_silu_plain`` recomputed from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps):
         ctx.save_for_backward(x, scale, bias)
         ctx.groups, ctx.eps = groups, eps
-        return group_norm_silu_norm(x, group_norm_silu_stats(x), scale, bias, groups, eps)
+        if x.device.type == "cpu":  # the kernel's plain version
+            return group_norm_silu_norm_plain(x, group_norm_silu_stats_plain(x, groups), scale, bias, groups, eps)
+        return _launch(x, scale, bias, groups, eps)[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -217,5 +260,8 @@ def group_norm_silu(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tenso
     the plain version on a CPU tensor; differentiable in x, scale and bias."""
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, scale_bias, groups, eps)
-    _check_args(x, scale_bias[0], scale_bias[1], groups)  # before the stats kernel launches
+    _check_args(x, scale_bias[0], scale_bias[1], groups)
     return _GroupNormSiLU.apply(x, scale_bias[0], scale_bias[1], groups, eps)
+
+
+group_norm_silu.launches = 0

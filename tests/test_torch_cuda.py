@@ -9,7 +9,8 @@ magnitude; flash attention's out within rtol = atol = 2e-2 and its lse
 within 1e-3 absolute (fp32 statistics in both); the fused MLP within
 rtol = atol = 2e-2; the fused GroupNorm+SiLU's partials within 1e-5 of
 their largest magnitude and its output within rtol = atol = 2e-2 in bf16,
-1e-4 in fp32; the attention probes (P1-P3) within 2e-2 of the largest
+1e-4 in fp32, and bit-equal across calls, graph replays and SM counts;
+the attention probes (P1-P3) within 2e-2 of the largest
 magnitude, and softmax outputs also within rtol = atol = 2e-2 (at normal
 logits their values are ~0.02, so the elementwise atol alone would let a
 dropped key tile pass), the P2 row sum within 2e-2 relative. This file imports no
@@ -574,40 +575,150 @@ def test_sd_unet_and_vae_kernel_paths_match_plain(cuda):
     assert ((yk - yp).norm() / yp.norm()).item() < 2e-2
 
 
-# (B, H, W, C, G): a ragged last row chunk (37 x 29 pixels), groups of fewer
+# (B, H, W, C, G): a ragged last slab (37 x 29 pixels), groups of fewer
 # than 8 channels (C/G = 4 and 3: one thread's 8-channel vector spans two or
 # three groups), one group, and a training shape.
 GN_CASES = [(3, 37, 29, 64, 8), (2, 9, 7, 32, 8), (2, 16, 16, 24, 8), (1, 5, 3, 16, 1), (8, 64, 64, 256, 8)]
+# Shapes of several rounds (8 and 2 on a 132-SM card), and a sample larger
+# than a round (its slabs past the blocks' buffers are read from device memory).
+GN_ROUND_CASES = [((8, 256, 256, 128, 8), torch.bfloat16), ((8, 128, 128, 128, 8), torch.float32),
+                  ((1, 512, 512, 128, 8), torch.bfloat16)]
+
+
+def _gn_args(rng, B, H, W, C, dtype, dev):
+    x = torch.from_numpy((rng.standard_normal((B, H, W, C)) * 2 + 0.5).astype(np.float32)).to(dev, dtype)
+    scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((0.2 * rng.standard_normal(C)).astype(np.float32)).to(dev)
+    return x, scale, bias
+
+
+def _check_gn(x, scale, bias, G):
+    """Two launches of K1, bit-equal, against its plain version: the slab
+    partials within 1e-5 of their largest magnitude, y against the
+    normalisation from the plain partials and against
+    ``group_norm_silu_plain`` within 1e-4 (fp32) or rtol = atol = 2e-2
+    (bf16: the plain version rounds the normalised value once more)."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    n0 = gn.group_norm_silu.launches
+    y = gn.group_norm_silu(x, (scale, bias), G)
+    y_again, part = gn._launch(x, scale, bias, G, gn.GN_EPS)  # the wrapper's launch, with its partials
+    torch.cuda.synchronize()
+    assert gn.group_norm_silu.launches == n0 + 2
+    assert torch.equal(y, y_again)
+    part_ref = gn.group_norm_silu_stats_plain(x, G)
+    assert part.shape == part_ref.shape
+    for k in range(2):
+        assert (part[:, :, k] - part_ref[:, :, k]).abs().max() <= 1e-5 * part_ref[:, :, k].abs().max()
+    y_pieces = gn.group_norm_silu_norm_plain(x, part_ref, scale, bias, G)
+    y_ref = gn.group_norm_silu_plain(x, (scale, bias), G)
+    tol = dict(rtol=1e-4, atol=1e-4) if x.dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), y_pieces.float(), **tol)
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,H,W,C,G", GN_CASES)
 def test_group_norm_silu_matches_plain(rng, cuda, B, H, W, C, G, dtype):
-    """K1's stats kernel against its plain version within 1e-5 of the
-    largest partial, the norm kernel on the same partials and the pair
-    against ``group_norm_silu_plain`` within 1e-4 (fp32) or rtol = atol =
-    2e-2 (bf16: the plain version rounds the normalised value once more)."""
+    """K1 against its plain version and ``group_norm_silu_plain``, one
+    launch per call."""
+    _check_gn(*_gn_args(rng, B, H, W, C, dtype, cuda), G)
+
+
+@pytest.mark.parametrize("shape,dtype", GN_ROUND_CASES, ids=["8x256^2x128-bf16", "8x128^2x128-fp32",
+                                                               "1x512^2x128-bf16"])
+def test_group_norm_silu_rounds_and_large_samples_match_plain(rng, cuda, shape, dtype):
+    B, H, W, C, G = shape
+    _check_gn(*_gn_args(rng, B, H, W, C, dtype, cuda), G)
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 37, 29, 64, 8), torch.float32)] + GN_ROUND_CASES[:2],
+                         ids=["3x37x29x64-fp32", "8x256^2x128-bf16", "8x128^2x128-fp32"])
+def test_group_norm_silu_is_bit_equal_across_calls_and_graph_replays(rng, cuda, shape, dtype):
+    """Two eager calls give bit-equal y, and so do two replays of the call
+    captured in a CUDA graph (the grid barrier resets itself)."""
     from clip_codec_tpu_torch.ops import groupnorm as gn
 
-    x = torch.from_numpy((rng.standard_normal((B, H, W, C)) * 2 + 0.5).astype(np.float32)).to(cuda, dtype)
-    scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda)
-    bias = torch.from_numpy((0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda)
-    n0 = gn.group_norm_silu_stats.launches, gn.group_norm_silu_norm.launches
-    part = gn.group_norm_silu_stats(x)
-    part_ref = gn.group_norm_silu_stats_plain(x, part.shape[1])
-    y_norm = gn.group_norm_silu_norm(x, part, scale, bias, G)
-    y_norm_ref = gn.group_norm_silu_norm_plain(x, part, scale, bias, G)
-    y = gn.group_norm_silu(x, (scale, bias), G)
-    y_ref = gn.group_norm_silu_plain(x, (scale, bias), G)
-    torch.cuda.synchronize()
-    assert (gn.group_norm_silu_stats.launches - n0[0], gn.group_norm_silu_norm.launches - n0[1]) == (2, 2)
-    assert part.shape == (B, gn.n_chunks(B, H * W), 2, C)
-    for k in range(2):
-        assert (part[:, :, k] - part_ref[:, :, k]).abs().max() <= 1e-5 * part_ref[:, :, k].abs().max()
-    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
-    assert y.dtype == dtype and y.shape == x.shape
-    torch.testing.assert_close(y_norm.float(), y_norm_ref.float(), **tol)
-    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    B, H, W, C, G = shape
+    x, scale, bias = _gn_args(rng, B, H, W, C, dtype, cuda)
+    y1 = gn.group_norm_silu(x, (scale, bias), G)
+    y2 = gn.group_norm_silu(x, (scale, bias), G)
+    assert torch.equal(y1, y2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        yg = gn.group_norm_silu(x, (scale, bias), G)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        yg.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(yg, y1)
+
+
+@pytest.mark.parametrize("shape,dtype", [((8, 128, 128, 128, 8), torch.bfloat16), ((3, 37, 29, 64, 8), torch.float32)],
+                         ids=["8x128^2x128-bf16", "3x37x29x64-fp32"])
+def test_group_norm_silu_is_bit_equal_on_any_sm_count(rng, cuda, shape, dtype):
+    """The statistics come from a slab cut fixed by the shape and are summed
+    in an order fixed by it: on 114 or 7 SMs (other rounds and grids, and on
+    7 most slabs read from device memory) y and the partials are bit-equal
+    to the whole card's."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    B, H, W, C, G = shape
+    x, scale, bias = _gn_args(rng, B, H, W, C, dtype, cuda)
+    y, part = gn._launch(x, scale, bias, G, gn.GN_EPS)
+    for sms in (114, 7):
+        assert gn.plan(B, H, W, C, G, x.element_size(), sms).grid <= sms
+        y_s, part_s = gn._launch(x, scale, bias, G, gn.GN_EPS, sms)
+        assert torch.equal(part_s, part) and torch.equal(y_s, y), sms
+
+
+def test_group_norm_silu_plan_at_the_path_shapes(cuda):
+    """The kernel's plan on a 132-SM card at the four batch-8 training
+    shapes in bf16 (8 groups): one sample a round at 256^2 (8 rounds), 4 at
+    128^2 (2 rounds), the two smaller shapes in one round, 6 chunk buffers a
+    block; a 512^2 sample is larger than a round. On 114 SMs the slabs stay
+    the same and only the rounds and the grid follow."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    if torch.cuda.get_device_properties(cuda).multi_processor_count < 132:
+        pytest.skip("the expected plan is a 132-SM card's")
+    want = {(256, 128): (512, 128, 1, 8, 128), (128, 128): (128, 128, 4, 2, 132), (64, 256): (64, 64, 8, 1, 132),
+            (32, 512): (32, 32, 8, 1, 132)}
+    for (s, C), (rows, S, per_round, rounds, grid) in want.items():
+        p = gn.plan(8, s, s, C, 8, 2, 132)
+        assert (p.slab_rows, p.slabs, p.per_round, p.rounds, p.grid, p.ring) == (rows, S, per_round, rounds, grid, 6)
+        q = gn.plan(8, s, s, C, 8, 2, 114)
+        assert q[:5] == p[:5] and q.grid <= 114 and q.per_round * q.rounds >= 8 > (q.rounds - 1) * q.per_round
+    big = gn.plan(1, 512, 512, 128, 8, 2, 132)
+    assert (big.slabs, big.chunks, big.rounds, big.grid) == (512, 4, 1, 132)
+    assert big.slabs > 132 * ((big.ring - 1) // big.chunks)
+    assert gn.plan(8, 128, 128, 128, 8, 4, 132)[:8] == (128, 128, 64, 2, 6, 2, 4, 132)  # fp32: 2 chunks a slab
+
+
+def test_group_norm_silu_plan_fits_every_shape(cuda):
+    """Every shape ``group_norm_silu`` takes (C a multiple of 8 up to 2048,
+    every G that divides C, one pixel to 1024^2 a sample, batch 1 and 8,
+    bf16 and fp32) gets a plan from the kernel that fits a block's shared
+    memory, no more blocks than SMs, and rounds that cover the batch."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    props = torch.cuda.get_device_properties(cuda)
+    optin = props.shared_memory_per_block_optin
+    hws = [(1, 1), (1, 3), (37, 29), (64, 64), (128, 128), (257, 255), (512, 512), (1024, 1024)]
+    for C in range(8, 2049, 8):
+        for G in (g for g in range(1, C + 1) if C % g == 0):
+            for H, W in hws:
+                for B in (1, 8):
+                    for itemsize in (2, 4):
+                        p = gn.plan(B, H, W, C, G, itemsize)
+                        assert p.smem <= optin and 1 <= p.grid <= props.multi_processor_count
+                        assert p.ring > p.chunks and p.per_round * p.rounds >= B > (p.rounds - 1) * p.per_round
+                        slots = (p.ring - 1) // p.chunks
+                        assert p.per_round == 1 or -(-p.per_round * p.slabs // p.grid) <= slots
 
 
 def test_group_norm_silu_rejects_what_the_kernel_does_not_take(rng, cuda):
@@ -615,7 +726,7 @@ def test_group_norm_silu_rejects_what_the_kernel_does_not_take(rng, cuda):
 
     x = torch.from_numpy(rng.standard_normal((2, 8, 8, 32)).astype(np.float32)).to(cuda)
     sb = (torch.ones(32, device=cuda), torch.zeros(32, device=cuda))
-    n0 = gn.group_norm_silu_stats.launches + gn.group_norm_silu_norm.launches
+    n0 = gn.group_norm_silu.launches
     for dt in (torch.float16, torch.float64):
         with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
             gn.group_norm_silu(x.to(dt), sb, 8)
@@ -631,7 +742,7 @@ def test_group_norm_silu_rejects_what_the_kernel_does_not_take(rng, cuda):
         gn.group_norm_silu(x, sb, 3)
     with pytest.raises(ValueError, match="is on cpu"):
         gn.group_norm_silu(x, (sb[0].cpu(), sb[1]), 8)
-    assert gn.group_norm_silu_stats.launches + gn.group_norm_silu_norm.launches == n0
+    assert gn.group_norm_silu.launches == n0
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 37, 29, 32)])
@@ -647,9 +758,9 @@ def test_group_norm_silu_backward_is_autograd_of_plain(rng, cuda, shape):
     scale = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda).requires_grad_(True)
     bias = torch.from_numpy((0.2 * rng.standard_normal(C)).astype(np.float32)).to(cuda).requires_grad_(True)
     g = _bf16(rng, shape)
-    n0 = gn.group_norm_silu_norm.launches
+    n0 = gn.group_norm_silu.launches
     gn.group_norm_silu(x, (scale, bias), 8).backward(g)
-    assert gn.group_norm_silu_norm.launches == n0 + 1
+    assert gn.group_norm_silu.launches == n0 + 1
     got = [t.grad.clone() for t in (x, scale, bias)]
     for t in (x, scale, bias):
         t.grad = None
@@ -661,7 +772,7 @@ def test_group_norm_silu_backward_is_autograd_of_plain(rng, cuda, shape):
 
 def test_unet_training_form_runs_k1_and_trains(rng, cuda):
     """The direct (training) form of a narrow U-Net on the card, bf16, 32px:
-    each forward launches each K1 kernel twice per ResBlock (10 at
+    each forward launches K1 twice per ResBlock (20 times: 10 ResBlocks at
     ch_mult=(1, 2)) and no fused conv; every parameter gets a finite
     gradient, and eps agrees with the same network on the plain GroupNorm+SiLU."""
     from clip_codec_tpu_torch.ops import groupnorm as gn
@@ -671,13 +782,11 @@ def test_unet_training_form_runs_k1_and_trains(rng, cuda):
     x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)).to(cuda)
     z = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).to(cuda)
     t = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
-    n0 = (gn.group_norm_silu_stats.launches, gn.group_norm_silu_norm.launches,
-          rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches)
+    n0 = (gn.group_norm_silu.launches, rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches)
     ek = net(x, z, t)
     ek.float().square().mean().backward()
-    n = (gn.group_norm_silu_stats.launches - n0[0], gn.group_norm_silu_norm.launches - n0[1],
-         rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches - n0[2])
-    assert n == (20, 20, 0)
+    n = (gn.group_norm_silu.launches - n0[0], rc.affine_silu_conv3x3.launches + rc.affine_conv3x3.launches - n0[1])
+    assert n == (20, 0)
     for name, p in net.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     saved = gn.group_norm_silu

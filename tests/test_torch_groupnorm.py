@@ -3,8 +3,8 @@
 Seeded numpy inputs go through JAX's jnp ``group_norm_silu``, its Pallas
 kernel ``pallas_groupnorm._forward`` in TPU interpret mode, and the port's
 plain versions: the two-pass ``group_norm_silu_plain`` (JAX's jnp function)
-and the per-kernel plain pieces (the stats partials and the norm pass, the
-kernel's raw-moment arithmetic). fp32 within 1e-5, as the JAX package holds
+and the kernel's plain pieces (its slab partials and the normalisation from
+them, the kernel's raw-moment arithmetic). fp32 within 1e-5, as the JAX package holds
 its own kernel to its jnp version (tests/test_pallas_ops.py); bf16 within
 rtol = atol = 2e-2 (the jnp version rounds the normalised value to bf16
 once more). The autograd Function, whose backward recomputes the plain
@@ -46,10 +46,12 @@ def _pallas(x, scale, bias, groups):
 
 
 def _kernel_pieces(x, scale, bias, groups):
-    """The port's plain versions of the stats and norm kernels, chained."""
-    part = gn.group_norm_silu_stats(x)
-    assert part.shape == (x.shape[0], gn.n_chunks(x.shape[0], x.shape[1] * x.shape[2]), 2, x.shape[3])
-    return gn.group_norm_silu_norm(x, part, scale, bias, groups)
+    """The port's plain version of the kernel: slab partials, then the
+    normalisation from them."""
+    part = gn.group_norm_silu_stats_plain(x, groups)
+    B, H, W, C = x.shape
+    assert part.shape == (B, -(-H * W // gn.slab_rows(H * W, C, x.element_size())), 2, groups)
+    return gn.group_norm_silu_norm_plain(x, part, scale, bias, groups)
 
 
 @pytest.mark.parametrize("shape,groups", SHAPES)
@@ -85,26 +87,63 @@ def test_plain_versions_match_jax_bf16(rng, shape, groups):
 
 
 def test_stats_partials_are_the_chunk_sums(rng):
-    """The stats kernel's plain version: per-chunk sums and sums of squares
-    of ceil(HW / K) pixels, the last chunk ragged, in fp32."""
+    """The kernel's slab partials: over each slab of ``slab_rows`` pixels,
+    the last of a sample ragged, every group's sum and sum of squares in
+    fp32 (C/G = 4 here)."""
     x = torch.from_numpy(rng.standard_normal((2, 37, 29, 16)).astype(np.float32))
-    K = gn.n_chunks(2, 37 * 29)
-    part = gn.group_norm_silu_stats(x).numpy().astype(np.float64)
-    flat = x.numpy().astype(np.float64).reshape(2, -1, 16)
-    chunk = -(-flat.shape[1] // K)
-    assert 1 < K and flat.shape[1] % chunk
-    for k in range(K):
-        sl = flat[:, k * chunk:(k + 1) * chunk]
-        np.testing.assert_allclose(part[:, k, 0], sl.sum(1), rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(part[:, k, 1], (sl * sl).sum(1), rtol=1e-5, atol=1e-4)
+    rows = gn.slab_rows(37 * 29, 16, 4)
+    part = gn.group_norm_silu_stats_plain(x, 4).numpy().astype(np.float64)
+    flat = x.numpy().astype(np.float64).reshape(2, -1, 4, 4)
+    S = -(-flat.shape[1] // rows)
+    assert part.shape == (2, S, 2, 4)
+    # 512 rows of 64 bytes a slab: two full slabs and a ragged one
+    assert rows == 512 and S == 3 and flat.shape[1] % rows
+    for k in range(S):
+        sl = flat[:, k * rows:(k + 1) * rows]
+        np.testing.assert_allclose(part[:, k, 0], sl.sum((1, 3)), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(part[:, k, 1], (sl * sl).sum((1, 3)), rtol=1e-5, atol=1e-4)
 
 
 def test_chunk_rule():
-    """One block per (chunk, sample); at the training shapes (B = 8) the
-    grid stays within ~4 blocks per SM, and no chunk count exceeds
-    sqrt(HW / 8)."""
-    assert [gn.n_chunks(8, s * s) for s in (256, 128, 64, 32)] == [66, 45, 22, 11]
-    assert gn.n_chunks(1, 3) == 1 and gn.n_chunks(2, 1) == 1
+    """The slab cut is a function of the shape alone: chunks of 32 KB (one
+    copy, one buffer), one a slab, or up to 4 where a sample has more than
+    128 chunks. At the four batch-8 training shapes in bf16: 128 slabs of 4
+    chunks at 256^2, 128, 64 and 32 slabs of one chunk below; 2 chunks a
+    slab at 128^2 in fp32; a 512^2 sample (67 MB in bf16) is 512 slabs. The
+    rounds and the grid that follow from the cut and the SM count are the
+    kernel's own plan (tests/test_torch_cuda.py checks them on the card)."""
+    want = {(256, 128): (128, 4, 128), (128, 128): (128, 1, 128), (64, 256): (64, 1, 64), (32, 512): (32, 1, 32)}
+    for (s, C), (chunk_rows, chunks, S) in want.items():
+        assert gn.slab_cut(s * s, C, 2) == (chunk_rows, chunks) and chunk_rows * C * 2 == 32768
+        assert -(-s * s // gn.slab_rows(s * s, C, 2)) == S
+    assert gn.slab_cut(128 * 128, 128, 4) == (64, 2)
+    assert gn.slab_cut(512 * 512, 128, 2) == (128, 4) and 512 * 512 // gn.slab_rows(512 * 512, 128, 2) == 512
+    assert gn.slab_cut(3, 8, 2) == (3, 1)
+    assert gn.slab_cut(37 * 29, 64, 2) == (256, 1)  # 5 slabs, the last of 49 rows
+    # the cut does not depend on the batch or the groups
+    x = torch.zeros((2, 37, 29, 64), dtype=torch.bfloat16)
+    assert gn.group_norm_silu_stats_plain(x, 8).shape == (2, 5, 2, 8)
+    assert gn.group_norm_silu_stats_plain(x[:1], 64).shape == (1, 5, 2, 64)
+
+
+HWS = [1, 3, 7 * 9, 37 * 29, 64 * 64, 100 * 100, 128 * 128, 256 * 256, 257 * 255, 512 * 512, 1024 * 1024]
+
+
+@pytest.mark.parametrize("C", [8, 24, 64, 128, 200, 256, 512, 1000, 1024, 2040, 2048])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+def test_slab_cut_passes_the_kernels_checks(C, itemsize):
+    """Every slab cut ``group_norm_silu`` may hand the kernel passes the
+    argument checks of ``csrc/groupnorm_silu.cu`` (a chunk of at least one
+    row and at most 32 KB, 1 to 4 chunks a slab), at every C the kernel
+    takes and sample sizes from one pixel to 1024^2, and no slab is empty.
+    That every such cut has a launch plan that fits a block's shared memory
+    is checked against the kernel's own plan on the card."""
+    for hw in HWS:
+        rows, chunks = gn.slab_cut(hw, C, itemsize)
+        assert 1 <= rows <= hw and rows <= 32768 // (C * itemsize) and 1 <= chunks <= 4
+        slab = gn.slab_rows(hw, C, itemsize)
+        S = -(-hw // slab)
+        assert slab == rows * chunks and 0 < hw - (S - 1) * slab <= slab
 
 
 @pytest.mark.parametrize("shape,groups", [((2, 8, 8, 16), 8), ((3, 7, 9, 24), 8)])
