@@ -138,6 +138,30 @@ The attention probes (``probes/attn_probe.py``, the port of bench_attn_probe.py)
    ``fast_flash_acc``, which builds that column), its plain version, SDPA,
    K4 and P1 ``exp2`` at that shape.
 
+The compress side (``encoders/``, ``codecs/``, ``io/store.py``, ``codec.py``,
+``cli/encode_images.py``; no TPU kernel is on it, so it adds no kernel):
+
+16. a random CLIP ViT-B/32 (``encoders.clip.init_params`` from --seed:
+   matrices normal(0, 0.02), LayerNorm 1 and 0) saved as an openai-layout
+   .pt; 130 seeded PNGs of mixed sizes (two whose scaled long side leaves
+   (dim - 224) % 4 == 3) and a corrupt file go through
+   ``cli.encode_images.main`` at batch 64, bf16, on the card (three batches,
+   the last padded), then 8 more through ``--append``. Checks: 130 kept, the
+   corrupt file skipped, every embedding finite with |norm - 1| < 1e-3;
+   the codebook bit-equal to numpy's fp32 recomputation and every code to
+   numpy's IEEE round-half-even((x - zero) / scale); the append grows the
+   manifest by 8 and leaves every old frame byte-identical; the u8 LUT
+   input bit-equal to host-normalized input, with the tower in fp32; the
+   bf16 embeddings within 2e-2 (row ||delta|| / ||fp32||) of the fp32
+   tower's; ``ClipCodec.compress`` of 8 images decodes back
+   (``decode_embeddings_host``) to cosine >= 0.99; the text tower on seeded
+   ids (B = 64, EOT at varied positions) finite and unit. Without
+   zstandard (the card machine has none) frames carry the raw codes and
+   the run says so. Printed: PIL preprocess ms per image, encode img/s from
+   uint8 arrays at batch 64, the tower's forward device ms at B = 64 (CUDA
+   graph replay) beside its FLOPs (``encoders.clip.vision_flops``) over
+   989 TFLOP/s.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
@@ -161,6 +185,7 @@ import collections
 import contextlib
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -227,6 +252,9 @@ PX_MODEL = dict(base=128, ch_mult=(1, 2, 2))  # the reference's U-Net, as Diffus
 # FLASH_SHAPES[3], SD-1.5's first-level self-attention at UNet batch 8.
 PROBE_CHECK_SHAPE, PROBE_SHAPE = (8, 4096, 40), FLASH_SHAPES[3]
 POLY_INSTRUCTIONS = 5  # + deg: round-down add, 2 subtracts, deg FMAs, max, shift-add into the exponent
+# The compress side: cli.encode_images at its default batch over 130 images (3
+# batches, the last padded), then 8 more appended.
+CLIP_IMAGES, CLIP_APPEND, CLIP_BATCH = 130, 8, 64
 
 
 class PhaseError(RuntimeError):
@@ -1686,6 +1714,221 @@ def phase_probe(torch, ap, seed, dev, rec):
     torch.cuda.empty_cache()
     return launches
 
+# ------------------------------------------------------- the compress side (CLIP ViT-B/32)
+
+
+@contextlib.contextmanager
+def raw_frames(have_zstd: bool):
+    """Without zstandard, frames carry the raw codes: the store writer, the
+    manifest and ``ClipCodec`` run as they are and only the zstd payload is
+    left out (the codes are what the phase holds)."""
+    from clip_codec_tpu_torch import codec as codec_mod
+    from clip_codec_tpu_torch.io import bitstream
+
+    if have_zstd:
+        yield
+        return
+    import numpy as np
+
+    saved = bitstream.compress_frame, bitstream.decompress_frame
+    bitstream.compress_frame = codec_mod.compress_frame = bytes
+    bitstream.decompress_frame = codec_mod.decompress_frame = lambda b: np.frombuffer(b, dtype=np.uint8)
+    try:
+        yield
+    finally:
+        bitstream.compress_frame, bitstream.decompress_frame = saved
+        codec_mod.compress_frame, codec_mod.decompress_frame = saved
+
+
+def _clip_images(seed, d: Path, n: int, corrupt: bool) -> list:
+    """``n`` seeded PNGs of mixed sizes and aspect ratios; the first two
+    scale to a long side with (dim - 224) % 4 == 3, where the center crop's
+    round-half-even differs from floor division; plus one corrupt file."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    d.mkdir(parents=True, exist_ok=True)
+    sizes = [(224, 227), (231, 224)] + [tuple(int(v) for v in rng.integers(160, 400, 2)) for _ in range(n - 2)]
+    paths = []
+    for i, (w, h) in enumerate(sizes):
+        base = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3), dtype=np.uint8)  # smooth-ish content
+        img = Image.fromarray(base).resize((w, h), Image.BILINEAR)
+        paths.append(d / f"img{i:03d}.png")
+        img.save(paths[-1])
+    if corrupt:
+        (d / "corrupt.png").write_bytes(b"\x89PNG\r\n\x1a\n not a png")
+    return [str(p) for p in paths]
+
+
+def phase_compress(torch, seed, dev, card):
+    """CLIP ViT-B/32 at full width, bf16, batch 64, through cli.encode_images
+    (write, then --append), ClipCodec.compress and the text tower; its
+    numbers beside the card's bound."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch import encoders
+    from clip_codec_tpu_torch.cli import encode_images
+    from clip_codec_tpu_torch.codec import ClipCodec
+    from clip_codec_tpu_torch.encoders.clip import (VIT_B_32, CLIPModel, init_params, normalize_u8, preprocess_pil,
+                                                    preprocess_pil_u8, vision_flops)
+    from clip_codec_tpu_torch.io import store as store_mod
+
+    root = ROOT / "build" / "chip_smoke" / "compress"
+    store, weights = root / "store", root / "clip_vit_b32.pt"
+    t0 = time.perf_counter()
+    model = init_params(CLIPModel(VIT_B_32), torch.Generator().manual_seed(seed + 16))
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save(model.state_dict(), weights)
+    del model
+    _clip_images(seed + 16, root / "images", CLIP_IMAGES, corrupt=True)
+    extra = _clip_images(seed + 17, root / "more", CLIP_APPEND, corrupt=False)
+    print(f"compress: random ViT-B/32 (openai layout, seed {seed + 16}) saved and {CLIP_IMAGES} + {CLIP_APPEND} "
+          f"PNGs + 1 corrupt written in {time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(store, ignore_errors=True)
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    if not have_zstd:
+        print("compress frames: zstandard missing: frames carry the raw codes (no zstd payload); the codebook, "
+              "codes, manifest and append are held as they are")
+
+    made, written, appended = [], [], []
+    real_encoder, real_write, real_append = encoders.ClipEncoder, store_mod.write_store, store_mod.append_store
+
+    def encoder(**kw):
+        made.append(real_encoder(**kw))
+        return made[-1]
+
+    def write(*a, **kw):
+        written.append(a)
+        return real_write(*a, **kw)
+
+    def append(store_dir, feats, image_paths):
+        appended.append((feats.cpu().numpy(), list(image_paths)))
+        return real_append(store_dir, feats, image_paths)
+
+    encoders.ClipEncoder, store_mod.write_store, store_mod.append_store = encoder, write, append
+    try:
+        with raw_frames(have_zstd):
+            t0 = time.perf_counter()
+            encode_images.main(["--img_dir", str(root / "images"), "--out_dir", str(store), "--weights",
+                                str(weights), "--batch_size", str(CLIP_BATCH)])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            frames0 = {p.name: p.read_bytes() for p in store.glob("*.clp")}
+            n0 = len(json.loads((store / "manifest.json").read_text()))
+            encode_images.main(["--img_dir", str(root / "more"), "--out_dir", str(store), "--weights",
+                                str(weights), "--append"])
+            st = store_mod.Store.open(store)
+            old_same = all((store / name).read_bytes() == blob for name, blob in frames0.items())
+            codes = st.read_codes()
+    finally:
+        encoders.ClipEncoder, store_mod.write_store, store_mod.append_store = real_encoder, real_write, real_append
+    enc = made[0]
+    check(enc.model.dtype == torch.bfloat16 and enc.device.type == "cuda", "the CLI's encoder is not bf16 on the card")
+    _, feats, kept, scale, zero, q = written[0][:6]
+    norms = np.linalg.norm(feats, axis=1)
+    print(f"compress-cli: {len(kept)} of {CLIP_IMAGES + 1} files encoded (batch {CLIP_BATCH}, bf16, ViT-B/32 at "
+          f"224px: {-(-len(kept) // CLIP_BATCH)} batches, the last padded) and stored in {cli_s:.3f} s (weights "
+          f"load included); |norm - 1| max {np.abs(norms - 1).max():.3e}; append: {n0} -> {len(st)} records, old "
+          f"frames byte-identical: {old_same}")
+    check(len(kept) == CLIP_IMAGES and all("corrupt" not in p for p in kept), "the corrupt file was not skipped")
+    check(bool(np.isfinite(feats).all()) and float(np.abs(norms - 1).max()) < 1e-3, "embeddings not finite and unit")
+    rng_ = np.maximum(feats.max(0) - feats.min(0), np.float32(1e-8))
+    check(np.array_equal(np.asarray(scale).view(np.uint32), (rng_ / np.float32(255)).view(np.uint32))
+          and np.array_equal(np.asarray(zero).view(np.uint32), feats.min(0).view(np.uint32)),
+          "fit_affine's scale and zero are not bit-equal to numpy's")
+    want_q = np.clip(np.round((feats - zero) / scale), 0, 255).astype(np.uint8)
+    y = (feats - zero) / scale
+    near = int((np.abs(np.abs(y - np.floor(y)) - 0.5) < 1e-3).sum())
+    check(np.array_equal(q, want_q), f"codes differ from numpy's in {int((q != want_q).sum())} places")
+    (xa, pa), = appended
+    want_a = np.clip(np.round((xa - st.zero) / st.scale), 0, 255).astype(np.uint8)
+    check(len(st) == n0 + CLIP_APPEND and old_same and sorted(pa) == sorted(extra), "the append did not grow the store by 8 "
+          "and keep every old frame")
+    check(np.array_equal(codes[:n0], q) and np.array_equal(codes[n0:], want_a), "stored codes differ from numpy's")
+    print(f"compress-codes: codebook and {q.size + want_a.size} codes bit-equal to numpy (IEEE divide, round half "
+          f"to even); {near} quotients within 1e-3 of a .5 tie")
+
+    # the u8 LUT path and bf16 against fp32, on the card
+    u8 = np.stack([preprocess_pil_u8(Image.open(p)) for p in kept[:CLIP_BATCH]])
+    host = np.stack([preprocess_pil(Image.open(p)) for p in kept[:CLIP_BATCH]])
+    f32 = real_encoder(weights_path=str(weights), dtype=torch.float32, device=dev)
+    stds = []
+    hooks = [blk.register_forward_hook(lambda m, a, out: stds.append(float(out.float().std())))
+             for blk in f32.model.visual.transformer.resblocks]
+    lut = normalize_u8(torch.from_numpy(u8).to(dev), f32._table).cpu().numpy()
+    z_u8 = f32.encode_image_array(u8)
+    for h in hooks:
+        h.remove()
+    z_host = f32.encode_image_array(host)
+    z_bf = enc.encode_image_array(u8)
+    print(f"compress-weights: std of the vision stream after each of the 12 blocks (fp32): "
+          f"{[round(v, 3) for v in stds]}")
+    check(all(0.05 < v < 20 for v in stds), "the random tower's activations are not O(1)")
+    rel = float((np.linalg.norm(z_bf - z_u8, axis=1) / np.linalg.norm(z_u8, axis=1)).max())
+    print(f"compress-dtypes: u8 LUT input bit-equal to host-normalized input: pixels {np.array_equal(lut, host)}, "
+          f"fp32 embeddings {np.array_equal(z_u8, z_host)}; bf16 vs fp32 tower max row ||delta||/||fp32|| {rel:.4e}; "
+          f"bf16 CLI rows vs bf16 re-encode max |delta| {float(np.abs(feats[:CLIP_BATCH] - z_bf).max()):.3e}")
+    check(np.array_equal(lut, host) and np.array_equal(z_u8, z_host), "the u8 LUT path is not bit-equal to host input")
+    check(rel < 2e-2, f"bf16 embeddings {rel} from fp32 (limit 2e-2)")
+    del f32
+
+    # ClipCodec.compress of 8 images, decoded back on the host
+    imgs = [Image.open(p) for p in extra]
+    codec = ClipCodec(st.scale, st.zero, device=dev, encoder=enc)
+    with raw_frames(have_zstd):
+        blobs = codec.compress(imgs)
+        back = codec.decode_embeddings_host(blobs)
+    z8 = enc.encode_image_array(np.stack([preprocess_pil_u8(im) for im in imgs]))
+    cos = np.sum(back * z8, axis=1)
+    print(f"compress-codec: ClipCodec.compress of {len(imgs)} images -> {len(blobs)} frames of "
+          f"{sorted({len(b) for b in blobs})} bytes; decoded cosine to the embeddings min {cos.min():.6f}")
+    check(len(blobs) == len(imgs) and float(cos.min()) >= 0.99, f"compress round trip cosine {cos.min()}")
+
+    # the text tower on seeded token ids, EOT at varied positions
+    rng = np.random.default_rng(seed + 18)
+    tok = rng.integers(1, VIT_B_32.eos_token_id - 1, (CLIP_BATCH, VIT_B_32.context_length))
+    tok[:, 0] = VIT_B_32.eos_token_id - 1  # <|startoftext|>
+    for i, e in enumerate(rng.integers(2, VIT_B_32.context_length, CLIP_BATCH)):
+        tok[i, e], tok[i, e + 1:] = VIT_B_32.eos_token_id, 0
+    zt = enc.embed_tokens(torch.from_numpy(tok)).cpu().numpy()
+    tn = np.linalg.norm(zt, axis=1)
+    print(f"compress-text: text tower at B={CLIP_BATCH}, L={VIT_B_32.context_length}: finite "
+          f"{bool(np.isfinite(zt).all())}, |norm - 1| max {np.abs(tn - 1).max():.3e}")
+    check(bool(np.isfinite(zt).all()) and float(np.abs(tn - 1).max()) < 1e-3, "text embeddings not finite and unit")
+
+    # time: host preprocess per image; u8 arrays -> embeddings on the host; the tower's device time
+    t0 = time.perf_counter()
+    u8_all = [preprocess_pil_u8(Image.open(p)) for p in kept]
+    pre_ms = (time.perf_counter() - t0) / len(kept) * 1e3
+    from clip_codec_tpu_torch.encoders import _batched_encode
+
+    embed = lambda x: enc.embed_images(torch.from_numpy(x)).cpu().numpy()
+    _batched_encode(u8_all, lambda a: a, embed, CLIP_BATCH, VIT_B_32.embed_dim)  # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _batched_encode(u8_all, lambda a: a, embed, CLIP_BATCH, VIT_B_32.embed_dim)
+        walls.append(time.perf_counter() - t0)
+    x = normalize_u8(torch.from_numpy(u8).to(dev), enc._table)
+    with torch.no_grad():
+        fwd = lambda: enc.model.encode_image(x)
+        g_ms = graph_ms(torch, fwd)
+        e_ms = cuda_ms(torch, fwd)
+    flops = vision_flops(VIT_B_32, CLIP_BATCH)
+    b_ms = flops / BF16_FLOPS_PER_S * 1e3
+    print(f"compress-time: PIL open + decode + resize + crop {pre_ms:.3f} ms per image (host); u8 arrays -> "
+          f"embeddings on the host, {len(kept)} images in {-(-len(kept) // CLIP_BATCH)} batches of {CLIP_BATCH}: "
+          f"{[round(w, 5) for w in walls]} s = {len(kept) / min(walls):.1f} img/s; the tower's forward at "
+          f"B={CLIP_BATCH}: {g_ms:.4f} ms device (CUDA-graph replay), {e_ms:.4f} ms (events); {flops / 1e9:.1f} "
+          f"GFLOP (vision_flops) over 989 TFLOP/s = {b_ms:.4f} ms bound, {flops / g_ms / 1e9:.1f} TFLOP/s "
+          f"achieved, on {card}")
+    del enc, codec, made
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1745,6 +1988,8 @@ def main() -> int:
         phase_build(builds, ("flash_attention_probe",))
         records.update(phase_probe_kernels(torch, ap, args.seed, dev))
         launches.update(phase_probe(torch, ap, args.seed, dev, records))
+
+        phase_compress(torch, args.seed, dev, card)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,20 +13,17 @@ which ``ClipCodec.load`` and ``cli/reconstruct_diffusion --weights`` read;
 ``--resume`` continues from the last full-state checkpoint under
 ``<save_dir>/state/``.
 
-Not ported yet, and refused rather than silently dropped: ``--clip_weights``
-(the CLIP-alignment term needs the CLIP image tower) and
-``--data_parallel`` / ``--distributed`` / ``--spatial_shard > 1``.
+``--clip_weights`` (a CLIP checkpoint) turns on the CLIP-alignment term:
+the image tower in bf16 on ``--device``, fed the clamped x0-prediction
+resized to 224 with no mean/std, on even epochs, without a gradient (the
+reference's quirk). Not ported yet, and refused rather than silently
+dropped: ``--data_parallel`` / ``--distributed`` / ``--spatial_shard > 1``.
 """
 
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
-
-NOT_PORTED_CLIP = ("--clip_weights: the CLIP-alignment term needs the CLIP image tower, which is not ported "
-                   "to the PyTorch package yet (ROADMAP.md, Queue 1 item 5); without it the term is off, "
-                   "as in the JAX trainer without CLIP weights")
-
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Train the CLIP-conditioned diffusion decoder on a store.")
@@ -51,7 +48,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
-    ap.add_argument("--clip_weights", type=str, default=None, help="not ported (the CLIP image tower)")
+    ap.add_argument("--clip_weights", type=str, default=None,
+                    help="CLIP checkpoint for the CLIP-alignment term (off without it)")
     ap.add_argument("--data_workers", type=int, default=0,
                     help="host threads decoding each batch's images (0 = synchronous)")
     ap.add_argument("--cache_images", action="store_true",
@@ -68,14 +66,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..train.diffusion_train import NOT_PORTED_SPATIAL, DiffusionTrainConfig, train_diffusion
     from ..train.sd_diffusion_train import NOT_PORTED_DP
 
-    if args.clip_weights:
-        raise SystemExit(NOT_PORTED_CLIP)
     if args.data_parallel or args.distributed:
         raise SystemExit(NOT_PORTED_DP)
     if args.spatial_shard > 1:
         raise SystemExit(NOT_PORTED_SPATIAL)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
+
+    clip_embed_fn = None
+    if args.clip_weights:
+        from ..encoders import ClipEncoder
+        from ..encoders.clip import embed_m11_images
+
+        enc = ClipEncoder(weights_path=args.clip_weights, dtype=torch.bfloat16, device=args.device)
+        clip_embed_fn = lambda _params, imgs: embed_m11_images(enc.model, imgs)
 
     cfg = DiffusionTrainConfig(
         out_size=args.out_size, epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
@@ -87,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         data_workers=args.data_workers, cache_images=args.cache_images,
     )
     ckpt = train_diffusion(args.store_dir, config=cfg, save_dir=args.save_dir, resume=args.resume,
-                           device=args.device)
+                           clip_embed_fn=clip_embed_fn, device=args.device)
     print(f"Final checkpoint: {ckpt}")
 
 

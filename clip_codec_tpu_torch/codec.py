@@ -1,25 +1,30 @@
-"""The decompress half of the codec facade (port of ``clip_codec_tpu/codec.py``):
+"""The codec facade, the one-object compress/decompress API (port of
+``clip_codec_tpu/codec.py``):
 
     codec = ClipCodec.load("store_dir", device="cuda")     # codebook + decoder
+    blobs = codec.compress(pil_images)                      # .clp frame bytes
     images = codec.decompress(blobs, size=256)              # batched DDIM
 
-``.clp`` frames are parsed on the host, their uint8 codes dequantized and
-L2-normalized on the device, and each batch is sampled by DDIM through the
-U-Net. Compression (the CLIP encoder) belongs to the compress side.
+``compress`` resizes and crops on the host, sends uint8 pixels, and runs the
+CLIP image tower (``encoders.ClipEncoder``, CLIP weights needed), the
+quantizer against the store's codebook on the device, then frames each row.
+``decompress`` parses frames on the host, dequantizes and L2-normalizes the
+codes on the device, and samples each batch by DDIM through the U-Net.
 """
 
 from __future__ import annotations
 
 import warnings
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from PIL import Image
 
-from .codecs.quantizer import dequantize_l2norm, dequantize_l2norm_host
+from .codecs.quantizer import dequantize_l2norm, dequantize_l2norm_host, quantize
 from .diffusion import DDIMSampler, NoiseSchedule, make_sampler
-from .io.bitstream import decompress_frame
+from .io.bitstream import compress_frame, decompress_frame
 from .models import CLIPCondUNet
 from .utils.checkpoint import load_state_dict
 from .utils.config import ModelConfig
@@ -29,7 +34,9 @@ DEFAULT_WEIGHTS = "diffusion_unet_final.pt"
 
 
 class ClipCodec:
-    """Reconstruct images from ``.clp`` frames via DDIM on ``device``."""
+    """Compress images to ``.clp`` frames and reconstruct them via DDIM on
+    ``device``; ``encoder`` is a ``ClipEncoder`` (made on first compress
+    from ``CLIP_CODEC_CLIP_WEIGHTS`` when not given)."""
 
     def __init__(
         self,
@@ -40,11 +47,13 @@ class ClipCodec:
         device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.bfloat16,
         rng_seed: int = 0,
+        encoder=None,
     ) -> None:
         self.device = torch.device(device)
         self.scale = np.asarray(scale, np.float32)
         self.zero = np.asarray(zero, np.float32)
         self.dim = int(self.scale.shape[0])
+        self.encoder = encoder
         self.mc = model_config
         self.net: Optional[CLIPCondUNet] = None
         self.sched: Optional[NoiseSchedule] = None
@@ -60,7 +69,7 @@ class ClipCodec:
     @classmethod
     def load(cls, store_dir: PathLike, weights: Optional[PathLike] = None,
              device: Union[str, torch.device] = "cuda",
-             dtype: torch.dtype = torch.bfloat16) -> "ClipCodec":
+             dtype: torch.dtype = torch.bfloat16, encoder=None) -> "ClipCodec":
         """From a store directory: ``codec_meta.npz`` plus a ``.pt`` decoder
         checkpoint (default ``diffusion_unet_final.pt`` in the store, when
         present) and the ``model_config.json`` beside it."""
@@ -79,7 +88,28 @@ class ClipCodec:
                 warnings.warn(
                     f"no model_config.json next to {weights}: inferred base={mc.base}, "
                     f"ch_mult={mc.ch_mult}; assuming timesteps={mc.timesteps}/{mc.schedule}")
-        return cls(meta["scale"], meta["zero"], sd, mc, device=device, dtype=dtype)
+        return cls(meta["scale"], meta["zero"], sd, mc, device=device, dtype=dtype, encoder=encoder)
+
+    # ------------------------------------------------------------ compress
+
+    def compress(self, images: Sequence[Image.Image], batch_size: int = 64) -> List[bytes]:
+        """PIL images -> ``.clp`` frame bytes: CLIP encode in batches padded
+        to ``batch_size``, quantize on the device, frame on the host."""
+        if self.encoder is None:
+            from .encoders import ClipEncoder
+
+            self.encoder = ClipEncoder(device=self.device)
+        from .encoders.clip import preprocess_pil_u8
+        from .utils.batching import pad_rows
+
+        if len(images) == 0:
+            return []
+        feats = []
+        for s in range(0, len(images), batch_size):
+            x = np.stack([preprocess_pil_u8(im, self.encoder.cfg.image_size) for im in images[s : s + batch_size]])
+            feats.append(self.encoder.embed_images(torch.from_numpy(pad_rows(x, batch_size)))[: x.shape[0]])
+        q = quantize(torch.cat(feats), self.scale, self.zero).cpu().numpy()
+        return [compress_frame(row.tobytes()) for row in q]
 
     # ---------------------------------------------------------- embeddings
 

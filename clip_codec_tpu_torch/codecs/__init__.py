@@ -1,3 +1,11 @@
-from .quantizer import dequantize_l2norm, dequantize_l2norm_host
+from .quantizer import (
+    PerChannelAffineQuantizer,
+    dequantize,
+    dequantize_l2norm,
+    dequantize_l2norm_host,
+    fit_affine,
+    quantize,
+)
 
-__all__ = ["dequantize_l2norm", "dequantize_l2norm_host"]
+__all__ = ["PerChannelAffineQuantizer", "fit_affine", "quantize", "dequantize", "dequantize_l2norm",
+           "dequantize_l2norm_host"]

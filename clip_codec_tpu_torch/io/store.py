@@ -1,23 +1,28 @@
-"""Read side of the on-disk store — the port of ``clip_codec_tpu/io/store.py``.
+"""The on-disk store — the port of ``clip_codec_tpu/io/store.py``.
 
 A store directory holds ``manifest.json`` (``{"image", "bitstream"}``
 records), ``codec_meta.npz`` (``scale``, ``zero``, ``dim``) and one ``.clp``
 frame per image; the SD latent path adds ``latents/<stem>.npz`` (key
 ``lat``, fp16 CHW) and ``manifest_latents.json`` (records with a
-``latent`` field). ``read_codes`` reads frames one by one in Python, the
-path the JAX package falls back to without its native batch codec.
+``latent`` field). ``write_store`` and ``append_store`` write it;
+``read_codes`` reads it. Frames are built and read one by one in Python,
+the path the JAX package takes without its native batch codec (whose bytes
+it holds equal to this path's).
 """
 
 from __future__ import annotations
 
 import json
+import os
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
-from .bitstream import read_bitstream
+from .bitstream import read_bitstream, write_bitstream
 
 PathLike = Union[str, Path]
 
@@ -90,3 +95,80 @@ def dedupe_stems(paths: List[str], used: Optional[set] = None) -> List[str]:
         used.add(cand)
         stems.append(cand)
     return stems
+
+
+def write_store(
+    out_dir: PathLike,
+    feats: np.ndarray,
+    image_paths: List[str],
+    scale: np.ndarray,
+    zero: np.ndarray,
+    quantized: np.ndarray,
+) -> List[Dict[str, str]]:
+    """Write a whole store: ``codec_meta.npz`` (``dim`` an int32, as the
+    reference's CLIP writer stores it), one ``.clp`` per image and the
+    manifest."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    np.savez(out / "codec_meta.npz", scale=np.asarray(scale, dtype="float32"),
+             zero=np.asarray(zero, dtype="float32"), dim=np.int32(feats.shape[1]))
+    manifest = _write_frames(out, image_paths, quantized, dedupe_stems(image_paths))
+    _dump_manifest(out, manifest)
+    return manifest
+
+
+def _dump_manifest(out: Path, manifest: List[Dict[str, str]]) -> None:
+    """Write the manifest to a temporary file and rename it over the old
+    one: the manifest is the only image -> frame mapping, so a crash while
+    writing must not leave it truncated."""
+    tmp = out / "manifest.json.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(manifest, f, ensure_ascii=False, indent=2)
+    os.replace(tmp, out / "manifest.json")
+
+
+def _write_frames(out: Path, image_paths: List[str], quantized: np.ndarray,
+                  stems: List[str]) -> List[Dict[str, str]]:
+    q_mat = np.ascontiguousarray(np.asarray(quantized, dtype=np.uint8))
+    D = int(q_mat.shape[1])
+    manifest: List[Dict[str, str]] = []
+    for i, p in enumerate(image_paths):
+        out_path = out / (stems[i] + ".clp")
+        write_bitstream(q_mat[i].tobytes(), D, out_path)
+        manifest.append({"image": str(p), "bitstream": str(out_path)})
+    return manifest
+
+
+def append_store(
+    store_dir: PathLike,
+    feats: Union[np.ndarray, torch.Tensor],
+    image_paths: List[str],
+) -> List[Dict[str, str]]:
+    """Add vectors to an existing store, quantized (on feats' device)
+    against its ``codec_meta.npz``: every old frame stays byte-identical and
+    a component outside the fitted range clamps to 0 or 255. New stems
+    dedupe against the manifest's, so no frame is overwritten. A
+    ``decoded.npy`` cache is deleted before the manifest grows, so a crash
+    cannot leave a shorter cache beside a longer store. SD latent files are
+    not touched (a warning says to rerun ``cli.precompute_latents`` when
+    ``manifest_latents.json`` exists). Returns the new records."""
+    from ..codecs.quantizer import quantize
+
+    st = Store.open(store_dir)
+    feats = torch.as_tensor(feats, dtype=torch.float32)
+    if feats.dim() != 2 or feats.shape[1] != st.dim:
+        raise ValueError(f"appending {tuple(feats.shape)}-shaped features to a {st.dim}-d store")
+    if feats.shape[0] != len(image_paths):
+        raise ValueError(f"{feats.shape[0]} feature rows but {len(image_paths)} image paths")
+    q = quantize(feats, st.scale, st.zero).cpu().numpy()
+    stems = dedupe_stems(image_paths, used={Path(rec["bitstream"]).stem for rec in st.manifest})
+    out = Path(store_dir)
+    cache = out / "decoded.npy"
+    if cache.exists():
+        cache.unlink()
+    new_records = _write_frames(out, image_paths, q, stems)
+    _dump_manifest(out, st.manifest + new_records)
+    if (out / "manifest_latents.json").exists():
+        print(f"[append_store] {out / 'manifest_latents.json'} does not cover the appended rows — "
+              f"re-run cli.precompute_latents", file=sys.stderr)
+    return new_records

@@ -16,8 +16,9 @@ builds it): every ResBlock's two GroupNorm+SiLU go through K1 on the card,
 convs are ``F.conv2d``. Activations are bf16 (``cfg.bf16``); parameters,
 AdamW and the loss arithmetic fp32.
 
-The CLIP-alignment term needs the CLIP image tower, which is not ported; it
-is skipped without a ``clip_embed_fn``, as in JAX without CLIP weights. Data
+The CLIP-alignment term runs when a ``clip_embed_fn`` is given (the CLI
+builds it from ``encoders.ClipEncoder`` and ``encoders.clip.embed_m11_images``)
+and is skipped without one, as in JAX without CLIP weights. Data
 parallelism and spatial sharding (``mesh``, ``spatial``) are not ported.
 """
 
@@ -43,7 +44,7 @@ from .sd_diffusion_train import NOT_PORTED_DP
 
 PathLike = Union[str, Path]
 NOT_PORTED_SPATIAL = ("spatial sharding (spatial=True, --spatial_shard > 1) is not ported to the PyTorch "
-                      "package yet (ROADMAP.md, Queue 1 item 12)")
+                      "package yet (ROADMAP.md Queue 1, parallel/)")
 
 
 @dataclass

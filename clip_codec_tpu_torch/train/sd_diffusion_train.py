@@ -43,7 +43,7 @@ from .optim import ema_update, make_optimizer
 
 PathLike = Union[str, Path]
 NOT_PORTED_DP = ("data parallelism (mesh, --data_parallel, --distributed) is not ported to the "
-                 "PyTorch package yet (ROADMAP.md, Queue 1 item 12)")
+                 "PyTorch package yet (ROADMAP.md Queue 1, parallel/)")
 
 
 @dataclass

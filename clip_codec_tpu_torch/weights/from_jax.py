@@ -11,7 +11,11 @@
   here in numpy as the exact inverses of ``convert_sd_unet``,
   ``convert_sd_vae`` and ``convert_sd_adapter``
   (``clip_codec_tpu/weights/convert_sd.py``). The GEGLU ``proj`` is the
-  concatenation [proj_h | proj_g].
+  concatenation [proj_h | proj_g];
+* ``clip_state_dict_from_jax``: the CLIP towers in the openai layout, the
+  inverse of ``convert_clip_openai`` (``clip_codec_tpu/weights/convert_clip.py``):
+  q/k/v fused into ``in_proj_weight`` (3D, D), the patch conv's flax HWIO
+  kernel as torch's OIHW, the projections kept as ``x @ proj``.
 """
 
 from __future__ import annotations
@@ -183,4 +187,41 @@ def sd_adapter_state_dict_from_jax(params: Mapping) -> StateDict:
     _norm(sd, "proj.0", params["ln"]["scale"], params["ln"]["bias"])
     _linear(sd, "proj.1", params["fc1"])
     _linear(sd, "proj.3", params["fc2"])
+    return _tensors(sd)
+
+
+def _clip_tower(sd, prefix: str, blocks: Mapping) -> None:
+    """A JAX CLIP ``Transformer`` (block_i: ln1, attn.{q,k,v,out}_proj, ln2,
+    fc1, fc2) -> ``{prefix}transformer.resblocks.i.*``, q/k/v fused."""
+    for i in range(_count(blocks, "block_{}")):
+        b, p = f"{prefix}transformer.resblocks.{i}", blocks[f"block_{i}"]
+        a = p["attn"]
+        _norm(sd, f"{b}.ln_1", p["ln1"]["scale"], p["ln1"]["bias"])
+        _put(sd, f"{b}.attn.in_proj_weight",
+             np.concatenate([np.asarray(a[f"{n}_proj"]["kernel"]).T for n in "qkv"]))
+        _put(sd, f"{b}.attn.in_proj_bias", np.concatenate([np.asarray(a[f"{n}_proj"]["bias"]) for n in "qkv"]))
+        _linear(sd, f"{b}.attn.out_proj", a["out_proj"])
+        _norm(sd, f"{b}.ln_2", p["ln2"]["scale"], p["ln2"]["bias"])
+        _linear(sd, f"{b}.mlp.c_fc", p["fc1"])
+        _linear(sd, f"{b}.mlp.c_proj", p["fc2"])
+
+
+def clip_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``CLIPModel`` params ({"visual", "text"}, or under "params") ->
+    the port's openai-layout ``CLIPModel`` state dict."""
+    params = params.get("params", params)
+    v, t = params["visual"], params["text"]
+    sd: Dict[str, np.ndarray] = {}
+    _put(sd, "visual.conv1.weight", np.asarray(v["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
+    _put(sd, "visual.class_embedding", v["class_embedding"])
+    _put(sd, "visual.positional_embedding", v["position_embedding"])
+    _norm(sd, "visual.ln_pre", v["pre_ln"]["scale"], v["pre_ln"]["bias"])
+    _clip_tower(sd, "visual.", v["encoder"])
+    _norm(sd, "visual.ln_post", v["post_ln"]["scale"], v["post_ln"]["bias"])
+    _put(sd, "visual.proj", v["visual_projection"])
+    _put(sd, "token_embedding.weight", t["token_embedding"]["embedding"])
+    _put(sd, "positional_embedding", t["position_embedding"])
+    _clip_tower(sd, "", t["encoder"])
+    _norm(sd, "ln_final", t["final_ln"]["scale"], t["final_ln"]["bias"])
+    _put(sd, "text_projection", t["text_projection"])
     return _tensors(sd)

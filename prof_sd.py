@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the port's SD-1.5 latent path and of its pixel training
-step goes, on one CUDA card.
+"""Where the time of the port's SD-1.5 latent path, of its pixel training
+step and of its compress side goes, on one CUDA card.
 
-    python3 prof_sd.py [--seed N] [--parts 1,2,3,4]
+    python3 prof_sd.py [--seed N] [--parts 1,2,3,4,5]
 
 Parts 1-3: SD-1.5 at its published widths, random weights from --seed,
 bf16, 512px (64x64 latents), CFG batched (UNet batch 2 per embedding):
@@ -36,6 +36,12 @@ bf16, 512px (64x64 latents), CFG batched (UNet batch 2 per embedding):
    and the loss's forward alone; the same measurements (K1's share is its
    line in the time by kind), the host's self time by op, and the peak
    device memory of each.
+5. ``compress``: CLIP ViT-B/32 (random weights from --seed, as chip_smoke
+   phase 16 draws them), bf16: the image tower's forward at batch 64 from
+   uint8 pixels already on the card, then ``ClipEncoder.encode_images``
+   over chip_smoke's 130 seeded PNGs at batch 64 (PIL decode, resize and
+   crop on the host, one padded tail batch); the same measurements, so the
+   second's device busy share is the card's share of the encode pass.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -58,7 +64,7 @@ KINDS = (  # first match wins: copies before the generic elementwise kernels
     ("flash_attention_bwd(K5)", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("transformer_mlp(K6)", ("mlp_ln_kernel", "mlp_up_kernel", "mlp_down_kernel", "sum_splits_kernel")),
     ("conv(cuDNN)", ("fprop", "conv", "cudnn")),
-    ("gemm(cuBLAS)", ("gemm", "cublas", "cutlass")),
+    ("gemm(cuBLAS)", ("gemm", "cublas", "cutlass", "nvjet")),
     ("cat/copy", ("copy", "cat", "memcpy", "memset")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce_kernel",)),
@@ -151,7 +157,7 @@ def profile(torch, label, fn, card, iters=10, prof_iters=3, warmup=2, host_top=0
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", type=str, default="1,2,3,4", help="which parts to run, e.g. 4")
+    ap.add_argument("--parts", type=str, default="1,2,3,4,5", help="which parts to run, e.g. 4")
     args = ap.parse_args()
     parts = {int(p) for p in args.parts.split(",")}
 
@@ -178,6 +184,8 @@ def main() -> int:
         sd_parts(torch, attn, mlp, cli, parts, args.seed, dev, card)
     if 4 in parts:
         train_px(torch, args.seed, dev, card)
+    if 5 in parts:
+        compress(torch, args.seed, dev, card)
     return 0
 
 
@@ -250,6 +258,28 @@ def train_px(torch, seed, dev, card, B=cs.PX_BATCH) -> None:
             profile(torch, f"pixel U-Net {label}, batch {B}, {cs.SIZE}px", fn, card, iters=5, prof_iters=2, warmup=2,
                     host_top=10)
         print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+
+
+def compress(torch, seed, dev, card) -> None:
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch.encoders import ClipEncoder
+    from clip_codec_tpu_torch.encoders.clip import VIT_B_32, CLIPModel, init_params, preprocess_pil_u8
+
+    root = cs.ROOT / "build" / "prof_sd" / "compress"
+    root.mkdir(parents=True, exist_ok=True)
+    weights = root / "clip_vit_b32.pt"
+    torch.save(init_params(CLIPModel(VIT_B_32), torch.Generator().manual_seed(seed + 16)).state_dict(), weights)
+    paths = cs._clip_images(seed + 16, root / "images", cs.CLIP_IMAGES, corrupt=False)
+    enc = ClipEncoder(weights_path=str(weights), device=dev)
+    x = torch.from_numpy(np.stack([preprocess_pil_u8(Image.open(p)) for p in paths[:cs.CLIP_BATCH]])).to(dev)
+    profile(torch, f"ViT-B/32 image tower from uint8 on the card, batch {cs.CLIP_BATCH}, bf16",
+            lambda: enc.embed_images(x), card, iters=20, prof_iters=5, host_top=8)
+    profile(torch, f"encode_images over {len(paths)} PNGs at batch {cs.CLIP_BATCH} (host preprocess included)",
+            lambda: enc.encode_images(paths, batch_size=cs.CLIP_BATCH), card, iters=2, prof_iters=1, warmup=1,
+            host_top=8)
 
 
 if __name__ == "__main__":

@@ -1000,3 +1000,57 @@ def test_probe_graph_capture_counts_no_launch(rng, cuda):
     torch.cuda.synchronize()
     assert ap.flash_variant.launches == n0
     assert torch.equal(out, want)
+
+
+# ------------------------------------------------------------------ compress side
+
+
+def test_quantizer_on_the_card_is_integer_exact(rng, cuda):
+    """fit_affine's min/max on the card and its host scale, and quantize's
+    codes, bit-equal to numpy's IEEE fp32 math (round half to even), ties
+    included: a device division that is not IEEE, or a multiply by a
+    reciprocal, would flip some."""
+    from pathlib import Path
+
+    from clip_codec_tpu_torch.codecs import quantizer as tq
+
+    Z = np.load(Path(__file__).parent / "fixtures" / "clip_embeddings_fp32.npz")["Z"]
+    scale, zero = tq.fit_affine(torch.from_numpy(Z).to(cuda))
+    rng_ = np.maximum(Z.max(0) - Z.min(0), np.float32(1e-8))
+    np.testing.assert_array_equal(scale.view(np.uint32), (rng_ / np.float32(255)).view(np.uint32))
+    np.testing.assert_array_equal(zero.view(np.uint32), Z.min(0).view(np.uint32))
+    want = np.clip(np.round((Z - zero) / scale), 0, 255).astype(np.uint8)
+    got = tq.quantize(torch.from_numpy(Z).to(cuda), scale, zero)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    x = rng.uniform(-0.2, 0.2, (4096, 512)).astype(np.float32)  # many draws, past the fitted range too
+    np.testing.assert_array_equal(tq.quantize(torch.from_numpy(x).to(cuda), scale, zero).cpu().numpy(),
+                                  np.clip(np.round((x - zero) / scale), 0, 255).astype(np.uint8))
+    half = np.full(4, 0.5, np.float32)
+    ties = np.arange(-2, 518, dtype=np.float32)[:, None] * 0.25 + np.zeros(4, np.float32)
+    np.testing.assert_array_equal(tq.quantize(torch.from_numpy(ties).to(cuda), half, half * 0).cpu().numpy(),
+                                  np.clip(np.round(ties / half), 0, 255).astype(np.uint8))
+
+
+def test_u8_lut_on_the_card_equals_host_normalize(rng, cuda, tmp_path):
+    """The device gather from clip_normalize_table gives host preprocess_pil's
+    fp32 pixels bit for bit, and a tower in fp32 the same embeddings from
+    either input."""
+    from PIL import Image
+
+    from clip_codec_tpu_torch.encoders import ClipEncoder
+    from clip_codec_tpu_torch.encoders.clip import (CLIPConfig, CLIPModel, clip_normalize_table, init_params,
+                                                    normalize_u8, preprocess_pil, preprocess_pil_u8)
+
+    table = torch.from_numpy(clip_normalize_table()).to(cuda)
+    every = torch.arange(256, dtype=torch.uint8, device=cuda)[:, None].expand(256, 3).contiguous()
+    np.testing.assert_array_equal(normalize_u8(every, table).cpu().numpy(), clip_normalize_table())
+    cfg = CLIPConfig(vision_dim=64, vision_depth=2, vision_heads=2, vision_mlp=128, text_dim=64, text_depth=1,
+                     text_heads=2, text_mlp=128, vocab_size=1000, embed_dim=32)
+    torch.save(init_params(CLIPModel(cfg), torch.Generator().manual_seed(0)).state_dict(), tmp_path / "w.pt")
+    enc = ClipEncoder(weights_path=str(tmp_path / "w.pt"), cfg=cfg, dtype=torch.float32, device=cuda)
+    imgs = [Image.fromarray(rng.integers(0, 256, (230 + i, 300 - i, 3), dtype=np.uint8)) for i in range(6)]
+    u8 = np.stack([preprocess_pil_u8(im) for im in imgs])
+    host = np.stack([preprocess_pil(im) for im in imgs])
+    np.testing.assert_array_equal(normalize_u8(torch.from_numpy(u8).to(cuda), table).cpu().numpy(), host)
+    np.testing.assert_array_equal(enc.encode_image_array(u8), enc.encode_image_array(host))

@@ -83,7 +83,8 @@ def test_state_dict_from_jax_equals_export_unet(rng, ch_mult):
 
 
 def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
-    """The port (its JAX weight bridge and its pixel trainer and CLI
+    """The port (its JAX weight bridge, its pixel trainer and CLI, and the
+    compress side's encoders, quantizer, store writer and encode CLI
     included) runs in a process that loads nothing of jax, flax or the JAX
     package."""
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
@@ -94,7 +95,16 @@ def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
         "import clip_codec_tpu_torch.models.sd, clip_codec_tpu_torch.cli.reconstruct_sd_diffusion\n"
         "import clip_codec_tpu_torch.ops.attention, clip_codec_tpu_torch.ops.mlp, clip_codec_tpu_torch.cli.train\n"
         "import clip_codec_tpu_torch.train.data, clip_codec_tpu_torch.train.losses\n"
+        "import clip_codec_tpu_torch.encoders, clip_codec_tpu_torch.cli.encode_images, clip_codec_tpu_torch.codecs\n"
+        "import clip_codec_tpu_torch.weights.convert_clip, clip_codec_tpu_torch.io.store\n"
+        "from clip_codec_tpu_torch.encoders.clip import CLIPConfig, CLIPModel, init_params\n"
+        "from clip_codec_tpu_torch.weights.from_jax import clip_state_dict_from_jax\n"
+        "assert 'regex' not in sys.modules  # the tokenizer imports it at first use\n"
         "import torch\n"
+        "m = init_params(CLIPModel(CLIPConfig(image_size=32, patch_size=8, vision_dim=32, vision_depth=1,\n"
+        "    vision_heads=2, vision_mlp=64, text_dim=32, text_depth=1, text_heads=2, text_mlp=64,\n"
+        "    vocab_size=100, context_length=12, embed_dim=16)))\n"
+        "assert m.encode_image(torch.zeros((1, 32, 32, 3))).shape == (1, 16)\n"
         "from clip_codec_tpu_torch.diffusion import NoiseSchedule\n"
         "from clip_codec_tpu_torch.models import CLIPCondUNet\n"
         "from clip_codec_tpu_torch.train import diffusion_train as tr\n"
