@@ -12,10 +12,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    fused conv shape of the full-width U-Net at 256px
    (``probes.conv_times.path_conv_shapes``: four ResBlock shapes and the
    linear 128->3 head), bf16, at B=2 with and without the residual and the
-   moments and at B=4 (the serving batch) in the two forms the U-Net runs;
-   y must agree within rtol = atol = 2e-2 and the moments within 1e-3 of
-   their largest magnitude; at B=4 each call is timed (CUDA-graph replay
-   and events) beside its plain version, cuDNN's conv alone and its bound;
+   moments and at B=4 (the serving batch) and B=8 (the eval CLI's) in the
+   two forms the U-Net runs; y must agree within rtol = atol = 2e-2 and the
+   moments within 1e-3 of their largest magnitude; at B=4 and B=8 each call
+   is timed (CUDA-graph replay and events) beside its plain version, cuDNN's
+   conv alone and its bound;
 3. one forward of the full-width U-Net (base=128, ch_mult=(1,2,2),
    z_dim=512, 256px, B=2, bf16) through the kernels and through the plain
    versions: ||eps_kernel - eps_plain|| / ||eps_plain|| < 2e-2; then the
@@ -162,8 +163,43 @@ The compress side (``encoders/``, ``codecs/``, ``io/store.py``, ``codec.py``,
    graph replay) beside its FLOPs (``encoders.clip.vision_flops``) over
    989 TFLOP/s.
 
+Inversion guidance and evaluation (``StableDiffusionDecoder.sample_with_inversion``,
+the SD CLI's inversion branch, ``eval/``, ``cli/eval.py``):
+
+17. the flash-attention backward at the shape a guided step runs it, the
+   SD-1.5 VAE decode's mid-block at batch 1, (BH, N, D) = (1, 4096, 512),
+   normal and extreme logits, at phase 9's tolerances, timed as phase 9
+   times; the latent gradient of one guided step (VAE decode of the
+   x0-prediction, then phase 16's random ViT-B/32 in bf16 through the CLI's
+   ``clip_embed_fn``) on the kernel path, on the plain path and on the
+   plain path in fp32 (VAE and tower), at --seed and --seed + 1: the kernel
+   path at most 1.1x as far from fp32 as the plain path, one flash forward
+   and one of each backward kernel per gradient; then the SD CLI's ``main``
+   with its default flags (ddim-30, guidance 5, inv_weight 1 every step,
+   backend auto -> clip at dim 512, 512px) and only the required paths and
+   the weights' variables set (phase 8's files, phase 16's tower), entered
+   at a frame that carries the raw codes where zstandard is missing: it
+   writes a 512x512 PNG and launches per request 30 x (10 + 1) + 1 flash
+   forwards, 30 of each backward kernel and 30 x 16 of each MLP kernel;
+   then s/request with inv_weight 1 and 0 in turns (1, 0, 0, 1), the
+   device busy share (profiled kernel time over the fastest unprofiled
+   wall) and peak device memory;
+18. ``cli.eval.main`` over phase 14's 16 images and its trained full-width
+   decoder at its defaults (256px, DDIM-50, batch 8), with a seeded random
+   LPIPS-VGG16 in the ``lpips`` layout and phase 16's tower, so all four
+   metrics are on: every record's metrics finite, the printed means the
+   records' means, 28 x 50 x 2 launches of K2 and 50 x 2 of K3, at each
+   conv shape its calls per forward x 50 x 2; for the same
+   reconstructions the uint8 images bit-equal on the card and the CPU,
+   PSNR and SSIM within 1e-5 of the CPU's, LPIPS of two images within 1e-4
+   relative of the CPU's fp32; printed: eval img/s and the time in
+   sampling, in each metric and in the rest.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
-record per path shape at B=4 with its launches in phase 4; mlp_up and
+record per path shape at B=4 with its launches in phase 4 and at B=8 with
+its launches in phase 18; K5: the training shapes' records with their
+launches in phase 11, then one per kernel at (1, 4096, 512) with its
+launches in phase 17's default request; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
 record per training shape with its launches in phase 14; ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
@@ -185,17 +221,21 @@ import collections
 import contextlib
 import functools
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 REPLACES = "clip_codec_tpu/ops/pallas_resblock.py:72"
 # The full-width U-Net at 256px (its fused convs: probes.conv_times.path_conv_shapes).
 PX_BASE, PX_CH_MULT, SERVE_BATCH, WIDE_BATCH = 128, (1, 2, 2), 4, 16
+EVAL_BATCH = 8  # cli.eval's default --batch_size (phase 18)
 LAUNCHES_PER_FORWARD = 29  # 14 ResBlocks x 2 + the head
 SIZE, STEPS = 256, 50
 
@@ -232,7 +272,9 @@ FP32_RATIO = 1.1  # kernel path's distance from fp32, at most this x the plain p
 SD_SIZE, SD_STEPS, SD_GUIDANCE = 512, 10, 5.0
 SD_REQUESTS = (1, 1, 1, 4)  # embeddings per request
 # SD-1.5 training at 512px, batch 4: 8 heads at 64x64 and 32x32, the VAE's one head.
-FLASH_BWD_SHAPES = [(32, 4096, 40), (32, 1024, 80), (4, 4096, 512)]  # (BH, N, D)
+# Then the VAE decode's mid-block at batch 1, which every guided step of
+# inversion backpropagates through.
+FLASH_BWD_SHAPES = [(32, 4096, 40), (32, 1024, 80), (4, 4096, 512), (1, 4096, 512)]  # (BH, N, D)
 TRAIN_IMAGES, TRAIN_BATCH, TRAIN_EPOCHS = 8, 4, 2
 # Per training step: flash forward 10 in the UNet + 1 per VAE decode (of
 # lat0_hat and of lat0); each backward kernel at 9 UNet self-attentions (the
@@ -255,6 +297,14 @@ POLY_INSTRUCTIONS = 5  # + deg: round-down add, 2 subtracts, deg FMAs, max, shif
 # The compress side: cli.encode_images at its default batch over 130 images (3
 # batches, the last padded), then 8 more appended.
 CLIP_IMAGES, CLIP_APPEND, CLIP_BATCH = 130, 8, 64
+# Inversion (phase 17): the SD CLI at its default flags, ddim-30 with every
+# step guided, CFG batched, 512px, one embedding. A request runs 30 UNet
+# forwards (10 flash, 16 MLP each), 30 guided VAE decodes (one K4 and one K5
+# pair each, at FLASH_BWD_SHAPES[3]) and the final decode (one K4).
+INV_STEPS = 30
+INV_LAUNCHES = {"flash_attention": INV_STEPS * (SD_FLASH_PER_FORWARD + 1) + 1, "flash_attention_bwd_dq": INV_STEPS,
+                "flash_attention_bwd_dkv": INV_STEPS, "transformer_mlp": INV_STEPS * SD_MLP_PER_FORWARD,
+                "mlp_up": INV_STEPS * SD_MLP_PER_FORWARD, "mlp_down": INV_STEPS * SD_MLP_PER_FORWARD}
 
 
 class PhaseError(RuntimeError):
@@ -416,9 +466,9 @@ def _conv_bound(B, H, W, cin, cout, use_add, mom):
 
 def phase_kernels(torch, rc, seed, dev):
     """Kernel vs plain at every fused conv shape of the full-width U-Net at
-    256px, B=2 (every combination of residual and moments) and B=4 (the
-    serving batch: the two forms the U-Net runs, each timed); returns
-    per-kernel records, K2's as one record per path shape."""
+    256px, B=2 (every combination of residual and moments), B=4 (the
+    serving batch) and B=8 (the eval CLI's): the two forms the U-Net runs,
+    each timed; returns per-kernel records, one per path shape and batch."""
     import torch.nn.functional as F
 
     from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
@@ -426,7 +476,7 @@ def phase_kernels(torch, rc, seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     records = {"affine_silu_conv3x3": [], "affine_conv3x3": []}
     errs = {"affine_silu_conv3x3": 0.0, "affine_conv3x3": 0.0}
-    for batch in (2, SERVE_BATCH):
+    for batch in (2, SERVE_BATCH, EVAL_BATCH):
         shapes = path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, batch)
         for (B, H, W, cin, cout), calls in shapes:
             linear = (B, H, W, cin, cout) == shapes[-1][0]  # the head: K3
@@ -455,7 +505,7 @@ def phase_kernels(torch, rc, seed, dev):
                         mom_rel = max(mom_rel, (m[:, k] - m_ref[:, k]).abs().max().item() / max(scale, 1e-30))
                 tag = f"{name} B={B} {H}x{W} {cin}->{cout} add={int(use_add)} moments={int(mom)}"
                 line = f"kernel-check: {tag} max_abs_err={err:.3e} moments_rel_err={mom_rel:.3e}"
-                if B == SERVE_BATCH:
+                if B != 2:
                     call = lambda: fn(x, A, Bv, w9, bias, add, mom)
                     act = x.permute(0, 3, 1, 2)
                     wt = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
@@ -977,12 +1027,16 @@ def _sdpa_bwd_ms(torch, q, k, v, dout):
     return cuda_ms(torch, lambda: torch.autograd.grad(o, (qs, ks, vs), dout[None], retain_graph=True))
 
 
-def phase_flash_bwd(torch, attn, seed, dev):
-    """K5's two kernels against the plain backward at the training shapes."""
-    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+def flash_bwd_records() -> dict:
+    return {"flash_attention_bwd_dq": {"max_abs_err": 0.0}, "flash_attention_bwd_dkv": {"max_abs_err": 0.0}}
+
+
+def flash_bwd_cases(torch, attn, gen, dev, cases, rec) -> list:
+    """K5's two kernels against the plain backward for each ((BH, N, D),
+    q_scale) case, timed at normal logits; raises each record's max_abs_err
+    and returns the timed shapes' dicts."""
     bf = torch.bfloat16
-    rec = {"flash_attention_bwd_dq": {"max_abs_err": 0.0}, "flash_attention_bwd_dkv": {"max_abs_err": 0.0}}
-    cases = [(shape, 1.0) for shape in FLASH_BWD_SHAPES] + [(FLASH_BWD_SHAPES[0], 30.0)]
+    timed = []
     for (BH, N, D), q_scale in cases:
         q = _randn(torch, gen, (BH, N, D), dev, q_scale, bf)
         k, v, dout = (_randn(torch, gen, (BH, N, D), dev, 1.0, bf) for _ in range(3))
@@ -1028,26 +1082,44 @@ def phase_flash_bwd(torch, attn, seed, dev):
                      f" dkv_TFLOPs={4 * prod / 1e9 / dkv_ms:.1f} useful_TFLOPs={5 * prod / 1e9 / (dq_ms + dkv_ms):.1f}"
                      f" bound_ms(dq, dkv)=({bq[0]:.4f}, {bkv[0]:.4f}) pair_bound_ms={bpair[0]:.4f}"
                      f" graph_ms(dq, dkv)=({dqg_ms:.4f}, {dkvg_ms:.4f})")
-            # every path shape, on both rows; the records' own keys are the first shape's
             shape = dict(shape=[BH, N, D], dq_ms=dq_ms, dkv_ms=dkv_ms, pair_ms=dq_ms + dkv_ms, dq_graph_ms=dqg_ms,
                          dkv_graph_ms=dkvg_ms, plain_dq_ms=pdq_ms, plain_dkv_ms=pdkv_ms, library_ms=lib_ms,
-                         dq_bound_ms=bq[0], dkv_bound_ms=bkv[0], pair_bound_ms=bpair[0], bound_by=bpair[1],
-                         bound_unit=bpair[2])
+                         dq_bound=bq, dkv_bound=bkv, dq_bound_ms=bq[0], dkv_bound_ms=bkv[0], pair_bound_ms=bpair[0],
+                         bound_by=bpair[1], bound_unit=bpair[2], timed_at=tag)
             for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
                 rec[name].setdefault("shapes", []).append(shape)
-            if (BH, N, D) == FLASH_BWD_SHAPES[0]:
-                # each row's bound counts its own products (the split recomputes
-                # S and dP in both); library_ms, pair_ms and pair_bound_ms are
-                # of the whole backward, which one SDPA backward call computes
-                pair = dict(library_ms=lib_ms, library_covers="dq, dk and dv", pair_ms=dq_ms + dkv_ms,
-                            pair_bound_ms=bpair[0], timed_at=tag)
-                rec["flash_attention_bwd_dq"].update(ms=dq_ms, plain_ms=pdq_ms, bound_ms=bq[0], bound_by=bq[1],
-                                                     bound_unit=bq[2], **pair)
-                rec["flash_attention_bwd_dkv"].update(ms=dkv_ms, plain_ms=pdkv_ms, bound_ms=bkv[0],
-                                                      bound_by=bkv[1], bound_unit=bkv[2], **pair)
+            timed.append(shape)
         print(line)
         del q, k, v, dout, out, lse, lse2, dvec
         torch.cuda.empty_cache()
+    return timed
+
+
+def bwd_kernel_records(shape: dict, rec: dict) -> dict:
+    """The dq and the dk/dv kernel's records at one timed shape: each row's
+    bound counts its own products (the split recomputes S and dP in both);
+    library_ms, pair_ms and pair_bound_ms are of the whole backward, which
+    one SDPA backward call computes."""
+    pair = dict(library_ms=shape["library_ms"], library_covers="dq, dk and dv", pair_ms=shape["pair_ms"],
+                pair_bound_ms=shape["pair_bound_ms"], timed_at=shape["timed_at"])
+    out = {}
+    for name, key in (("flash_attention_bwd_dq", "dq"), ("flash_attention_bwd_dkv", "dkv")):
+        b_ms, b_by, b_unit = shape[f"{key}_bound"]
+        out[name] = dict(shape=shape["shape"], ms=shape[f"{key}_ms"], plain_ms=shape[f"plain_{key}_ms"],
+                         bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit, max_abs_err=rec[name]["max_abs_err"],
+                         **pair)
+    return out
+
+
+def phase_flash_bwd(torch, attn, seed, dev):
+    """K5's two kernels against the plain backward at the training shapes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    rec = flash_bwd_records()
+    cases = [(shape, 1.0) for shape in FLASH_BWD_SHAPES[:3]] + [(FLASH_BWD_SHAPES[0], 30.0)]
+    first = flash_bwd_cases(torch, attn, gen, dev, cases, rec)[0]
+    # every training shape on both rows; the records' own keys are the first shape's
+    for name, r in bwd_kernel_records(first, rec).items():
+        rec[name].update(r)
     return rec
 
 
@@ -1930,6 +2002,253 @@ def phase_compress(torch, seed, dev, card):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ inversion guidance (SD CLI)
+
+
+def device_ms(torch, fn) -> float:
+    """The sum of the card's kernel times in one call of ``fn`` (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_inversion(torch, attn, mlp, seed, dev, card):
+    """K5 at the guided decode's shape; one guided step's latent gradient on
+    the kernel, plain and fp32 plain paths; the SD CLI at its default flags
+    with its launches; s/request with and without inversion. Returns the
+    K5 records at that shape and the CLI request's launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
+    from clip_codec_tpu_torch.cli.reconstruct_diffusion import decode_embedding
+    from clip_codec_tpu_torch.encoders import ClipEncoder
+    from clip_codec_tpu_torch.io.bitstream import write_bitstream
+    from clip_codec_tpu_torch.models.sd.decoder import sd_step_coefficients
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    rec = flash_bwd_records()
+    shape = flash_bwd_cases(torch, attn, gen, dev, [(FLASH_BWD_SHAPES[3], 1.0), (FLASH_BWD_SHAPES[3], 30.0)],
+                            rec)[0]
+    records = bwd_kernel_records(shape, rec)
+
+    sd_dir, clip_w = ROOT / "build" / "chip_smoke" / "sd", ROOT / "build" / "chip_smoke" / "compress" / "clip_vit_b32.pt"
+    dec = cli.load_decoder(sd_dir / "unet.pt", sd_dir / "vae.pt", sd_dir / "adapter.pt", dev, heads=8)
+    enc = ClipEncoder(weights_path=str(clip_w), device=dev)
+    embed = cli.clip_embed_fn(enc.model)
+    _, co = sd_step_coefficients(INV_STEPS)
+    i = INV_STEPS // 2
+    for s in (seed, seed + 1):
+        g = torch.Generator(device=dev).manual_seed(s + 21)
+        lat, eps = (torch.randn((1, 64, 64, 4), generator=g, device=dev) for _ in range(2))
+        z = torch.nn.functional.normalize(torch.randn((1, 512), generator=g, device=dev), dim=-1)
+
+        def grad():
+            return dec.inversion_grad(lat, eps, float(co["c_noise"][i]), float(co["c_x0"][i]), embed, z).flatten()
+
+        reset_sd_launches(attn, mlp)
+        g_k = grad()
+        n = sd_launches(attn, mlp)
+        with plain_sd_kernels(attn, mlp):
+            g_p = grad()
+            dec.vae.compute_dtype = enc.model.visual.dtype = torch.float32
+            try:
+                g_32 = grad()
+            finally:
+                dec.vae.compute_dtype = enc.model.visual.dtype = torch.bfloat16
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+        rk, rp = rel(g_k, g_32), rel(g_p, g_32)
+        print(f"inv-grad: seed {s} SD-1.5 VAE + ViT-B/32, 64x64 latent B=1, step {i} of ddim-{INV_STEPS}: "
+              f"rel(g_kernel, g_plain)={rel(g_k, g_p):.3e} to_fp32(kernel, plain)=({rk:.3e}, {rp:.3e}) "
+              f"ratio={rk / rp:.4f} launches={n}")
+        check(bool(torch.isfinite(g_k).all().item()) and g_k.norm().item() > 0, "latent gradient not finite or zero")
+        check(rk <= FP32_RATIO * rp, f"latent gradient: kernel path {rk} from fp32 > {FP32_RATIO} x plain's {rp}")
+        check((n["flash_attention"], n["flash_attention_bwd_dq"], n["flash_attention_bwd_dkv"]) == (1, 1, 1),
+              f"one guided step's gradient launched {n}")
+
+    # the CLI at its default flags: only the required paths and the weights' variables
+    inv_dir = ROOT / "build" / "chip_smoke" / "inversion"
+    inv_dir.mkdir(parents=True, exist_ok=True)
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    codes = np.random.default_rng(seed + 22).integers(0, 256, 512, dtype=np.uint8)
+    weights = dict(CLIP_CODEC_SD_UNET_WEIGHTS=sd_dir / "unet.pt", CLIP_CODEC_SD_VAE_WEIGHTS=sd_dir / "vae.pt",
+                   CLIP_CODEC_CLIP_WEIGHTS=clip_w)
+    np.savez(inv_dir / "codec_meta.npz", scale=np.full(512, 2.0 / 255.0, np.float32),
+             zero=np.full(512, -1.0, np.float32))
+    out = inv_dir / f"img0-{INV_STEPS}-5-1.png"
+    out.unlink(missing_ok=True)
+    with raw_frames(have_zstd), mock.patch.dict(os.environ, {k: str(v) for k, v in weights.items()}):
+        write_bitstream(codes.tobytes(), 512, inv_dir / "img0.clp")
+        z = decode_embedding(inv_dir / "img0.clp", inv_dir)
+        torch.cuda.synchronize()
+        reset_sd_launches(attn, mlp)
+        t0 = time.perf_counter()
+        cli.main(["--store_dir", str(inv_dir), "--bitstream", str(inv_dir / "img0.clp"), "--adapter",
+                  str(sd_dir / "adapter.pt")])
+        cli_s = time.perf_counter() - t0
+    launches = sd_launches(attn, mlp)
+    from PIL import Image
+
+    png = np.asarray(Image.open(out))
+    print(f"inv-cli: reconstruct_sd_diffusion.main at its default flags (ddim-{INV_STEPS}, guidance 5, inv_weight 1 "
+          f"every step, backend auto -> clip, 512px){'' if have_zstd else ' from a raw-code frame (no zstandard)'}: "
+          f"{out.name} {png.shape} in {cli_s:.3f} s (weights load included) on {card}; launches={launches}")
+    check(png.shape == (SD_SIZE, SD_SIZE, 3) and int(png.max()) > int(png.min()), f"{out.name}: {png.shape}")
+    check(launches == INV_LAUNCHES, f"inversion request launches {launches} != {INV_LAUNCHES}")
+
+    # s/request with and without the guidance, in turns; busy share and peak memory
+    run = lambda w: cli.sample_images(dec, z, SD_SIZE, steps=INV_STEPS, guidance=SD_GUIDANCE, seed=seed,
+                                      inv_weight=w, embed_fn=embed)
+    times = {1.0: [], 0.0: []}
+    peak = {}
+    for w in (1.0, 0.0, 0.0, 1.0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        img = run(w)
+        torch.cuda.synchronize()
+        times[w].append(time.perf_counter() - t0)
+        peak[w] = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(bool(torch.isfinite(img.float()).all().item()), f"inv_weight {w}: non-finite image")
+    busy = {w: device_ms(torch, lambda: run(w)) / 1e3 / min(times[w]) for w in times}
+    print(f"inv-time: request of 1 embedding, ddim-{INV_STEPS}, 512px, CFG batched: inv_weight 1 "
+          f"{[round(t, 4) for t in times[1.0]]} s, inv_weight 0 {[round(t, 4) for t in times[0.0]]} s; device busy "
+          f"(profiled kernel time / fastest unprofiled wall) {100 * busy[1.0]:.1f}% and {100 * busy[0.0]:.1f}%; "
+          f"peak device memory {peak[1.0]:.2f} and {peak[0.0]:.2f} GiB on {card}")
+    del dec, enc, embed
+    torch.cuda.empty_cache()
+    return records, launches
+
+
+# ------------------------------------------------------------ evaluation
+
+
+def phase_eval(torch, rc, seed, dev, card):
+    """cli.eval over phase 14's store with its trained decoder, all four
+    metrics on; launches by shape, the card's metrics against the CPU's,
+    the records against the printed means. Returns K2/K3 launches by shape."""
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from clip_codec_tpu_torch import diffusion
+    from clip_codec_tpu_torch.cli import eval as cli_eval
+    from clip_codec_tpu_torch.eval import lpips as lpips_mod
+    from clip_codec_tpu_torch.eval import metrics as tm
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+
+    root = ROOT / "build" / "chip_smoke" / "eval"
+    root.mkdir(parents=True, exist_ok=True)
+    lp_file = root / "lpips_vgg.pt"
+    torch.save(lpips_mod.init_params(lpips_mod.LPIPS(), torch.Generator().manual_seed(seed + 23)).state_dict(), lp_file)
+    store = ROOT / "build" / "chip_smoke" / "train_px"
+    weights = store / "out" / "diffusion_unet_final.pt"
+    clip_w = ROOT / "build" / "chip_smoke" / "compress" / "clip_vit_b32.pt"
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+
+    seen, spent = [], collections.Counter()
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            if name == "psnr":
+                seen.append((a[0].clone(), a[1].clone(), out.cpu()))
+            return out
+        return wrapper
+
+    saved = {n: getattr(cli_eval, n) for n in ("psnr_batch", "ssim_batch", "lpips_batch", "clip_similarity_batch")}
+    make_sampler = diffusion.make_sampler
+
+    def sampler(*a, **k):
+        smp = make_sampler(*a, **k)
+        smp.sample = timed("sampling", smp.sample)
+        return smp
+
+    shapes = collections.Counter()
+    launch = rc._launch
+
+    def tally(x, A, B, w9, bias, add, want_moments, linear):
+        shapes[(*x.shape[1:], w9.shape[2])] += 1
+        return launch(x, A, B, w9, bias, add, want_moments, linear)
+
+    text = io.StringIO()
+    for n, fn in saved.items():
+        setattr(cli_eval, n, timed(n.split("_")[0], fn))
+    diffusion.make_sampler, rc._launch = sampler, tally
+    try:
+        with raw_frames(have_zstd), mock.patch.dict(os.environ, {"CLIP_CODEC_LPIPS_WEIGHTS": str(lp_file),
+                                                               "CLIP_CODEC_CLIP_WEIGHTS": str(clip_w)}):
+            _px_store(seed, store)  # phase 14's images and codes, framed here
+            torch.cuda.synchronize()
+            reset_launches(rc)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                cli_eval.main(["--store_dir", str(store), "--weights", str(weights), "--out_json",
+                               str(root / "metrics.json")])
+            wall = time.perf_counter() - t0
+    finally:
+        for n, fn in saved.items():
+            setattr(cli_eval, n, fn)
+        diffusion.make_sampler, rc._launch = make_sampler, launch
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(f"eval-cli: {line}")
+    recs = json.loads((root / "metrics.json").read_text())
+    n_img = len(recs)
+    batches = -(-PX_IMAGES // EVAL_BATCH)
+    n = (rc.affine_silu_conv3x3.launches, rc.affine_conv3x3.launches)
+    metrics_s = sum(v for k, v in spent.items() if k != "sampling")
+    print(f"eval-time: {n_img} images, {batches} batches of {EVAL_BATCH}, DDIM-{STEPS}, {SIZE}px, all four metrics: "
+          f"{wall:.3f} s = {n_img / wall:.3f} img/s (scorers' load included); sampling {spent['sampling']:.3f} s, "
+          f"metrics {metrics_s:.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in spent.items() if k != 'sampling')}), "
+          f"the rest (weights, scorers, images) {wall - spent['sampling'] - metrics_s:.3f} s on {card}; "
+          f"launches(K2, K3)={n}")
+    check(n_img == PX_IMAGES and len(lines) == 4, f"{n_img} records, {len(lines)} lines")
+    for key in ("psnr", "ssim", "lpips", "clip_sim"):
+        vals = [r[key] for r in recs]
+        check(all(np.isfinite(vals)), f"{key}: not finite in every record")
+    means = [float(re.search(r": (\S+)", line).group(1)) for line in lines]
+    for key, fmt, m in zip(("psnr", "ssim", "lpips", "clip_sim"), ("{:.2f}", "{:.4f}", "{:.4f}", "{:.4f}"), means):
+        check(fmt.format(np.mean([r[key] for r in recs])) == fmt.format(m), f"{key}: the records' mean is not {m}")
+    check(n == ((LAUNCHES_PER_FORWARD - 1) * STEPS * batches, STEPS * batches), f"eval launches {n}")
+    want = {shape[1:]: calls * STEPS * batches for shape, calls in
+            path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, EVAL_BATCH)}
+    check(dict(shapes) == want, f"eval launches by shape {dict(shapes)} != {want}")
+
+    # the card's metrics against the CPU's on the same reconstructions
+    lp_cpu = lpips_mod.LPIPSModel.from_checkpoint(lp_file, device="cpu")
+    worst = {"u8": True, "psnr": 0.0, "ssim": 0.0, "lpips": 0.0}
+    for bi, (orig, recon, ps) in enumerate(seen):
+        oc, rcpu = orig.cpu(), recon.cpu()
+        worst["u8"] &= all(torch.equal(tm._u8_float(t).cpu(), tm._u8_float(t.cpu())) for t in (orig, recon))
+        worst["psnr"] = max(worst["psnr"], (ps - tm.psnr_batch(oc, rcpu)).abs().max().item())
+        ss = tm.ssim_batch(orig, recon).cpu()
+        worst["ssim"] = max(worst["ssim"], (ss - tm.ssim_batch(oc, rcpu)).abs().max().item())
+        if bi == 0:  # LPIPS in fp32 on the host's CPU: two images of the first batch
+            lc = lp_cpu.distance(oc[:2], rcpu[:2])
+            lg = torch.tensor([recs[j]["lpips"] for j in range(2)])
+            worst["lpips"] = ((lg - lc).abs() / lc.abs()).max().item()
+    print(f"eval-cpu: the same reconstructions on the host's CPU: uint8 images bit-equal {worst['u8']}; max |delta| "
+          f"PSNR {worst['psnr']:.3e} dB, SSIM {worst['ssim']:.3e}; LPIPS (2 images, fp32) max relative "
+          f"{worst['lpips']:.3e}")
+    check(worst["u8"], "uint8 images differ between the card and the CPU")
+    check(worst["psnr"] <= 1e-5 and worst["ssim"] <= 1e-5, f"PSNR/SSIM on the card vs the CPU: {worst}")
+    check(worst["lpips"] <= 1e-4, f"LPIPS on the card vs the CPU: {worst['lpips']}")
+    torch.cuda.empty_cache()
+    return {"eval_by_shape": dict(shapes)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1990,6 +2309,9 @@ def main() -> int:
         launches.update(phase_probe(torch, ap, args.seed, dev, records))
 
         phase_compress(torch, args.seed, dev, card)
+
+        inv_records, inv_launches = phase_inversion(torch, attn, mlp, args.seed, dev, card)
+        launches.update(phase_eval(torch, rc, args.seed, dev, card))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2003,11 +2325,14 @@ def main() -> int:
                     by_shape = launches["mlp_by_shape"].get(tuple(rec["shape"]), 0)
                 elif name == "group_norm_silu":
                     by_shape = launches["gn_by_shape"][tuple(rec["shape"])]
-                else:
-                    by_shape = launches["by_shape"][tuple(rec["shape"][1:])]
+                else:  # phase 4 serves at B = 4, phase 18 evaluates at B = 8
+                    tally = launches["by_shape" if rec["shape"][0] == SERVE_BATCH else "eval_by_shape"]
+                    by_shape = tally[tuple(rec["shape"][1:])]
                 kernels.append({**head, "launches": by_shape, **rec})
         else:
             kernels.append({**head, "launches": launches[name], **records[name]})
+        if name in inv_records:  # K5 at the guided decode's shape, launches per default inversion request
+            kernels.append({**head, "launches": inv_launches[name], **inv_records[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

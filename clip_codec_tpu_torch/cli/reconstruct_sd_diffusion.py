@@ -1,11 +1,12 @@
 """Reconstruct an image from a ``.clp`` bitstream through the frozen SD-1.5
-UNet and VAE and a trained CLIP adapter, with classifier-free guidance.
+UNet and VAE and a trained CLIP adapter, with classifier-free guidance and
+feature-inversion guidance.
 
     CLIP_CODEC_SD_UNET_WEIGHTS=unet/diffusion_pytorch_model.bin \\
     CLIP_CODEC_SD_VAE_WEIGHTS=vae/diffusion_pytorch_model.bin \\
+    CLIP_CODEC_CLIP_WEIGHTS=ViT-B-32.pt \\
     python -m clip_codec_tpu_torch.cli.reconstruct_sd_diffusion --store_dir STORE \\
-        --bitstream img.clp --adapter adapter.pt --sampler dpmpp --steps 10 \\
-        --inv_weight 0 --device cuda
+        --bitstream img.clp --adapter adapter.pt --device cuda
 
 Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_sd_diffusion.py``).
 The UNet and VAE are diffusers checkpoints (``.bin``/``.pt``, or
@@ -13,9 +14,15 @@ The UNet and VAE are diffusers checkpoints (``.bin``/``.pt``, or
 a reference ``.pt``; all load as they are, with no conversion (the card
 machine has no jax). The architecture is read off the weight shapes except
 the head count (``--heads``). ``--device`` is ``cpu`` or ``cuda``; ``cuda``
-without a card is an error. Not ported yet (see ``ROADMAP.md``): feature-
-inversion guidance, so ``--inv_weight`` must be 0 (its default stays the
-JAX CLI's 1.0), and ``--int8``. The default output name is
+without a card is an error.
+
+Inversion (``--inv_weight`` > 0, 1.0 by default) steers every
+``--inv_every``-th step towards the bitstream's own embedding through the
+CLIP ViT-B/32 image tower (``$CLIP_CODEC_CLIP_WEIGHTS``): ``--inv_backend
+auto`` picks it at dim 512. The DINOv2 backend (``dino``, or ``auto`` at
+another dim) is not ported (``encoders/dino.py``), nor is ``--int8``;
+``--inv_clip_arch`` and ``--inv_clip_ckpt`` are accepted and unused, as in
+the JAX CLI. The default output name is
 ``<stem>-<steps>-<guidance>-<inv_weight>.png`` beside the bitstream.
 """
 
@@ -27,8 +34,11 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..encoders.clip import CLIP_MEAN, CLIP_STD, CLIPModel
 from ..models.sd import AutoencoderKL, SDClipAdapter, SDUNet, StableDiffusionDecoder
+from ..models.sd.decoder import EmbedFn, clip_m11
 from ..weights import sd_checkpoint as ckpt
 
 PathLike = Union[str, Path]
@@ -65,16 +75,52 @@ def load_decoder(unet_path: PathLike, vae_path: PathLike, adapter_path: PathLike
 
 def sample_images(dec: StableDiffusionDecoder, z: np.ndarray, size: int, steps: int = 30,
                   sampler: str = "ddim", eta: float = 0.0, guidance: float = 5.0,
-                  seed: int = 0) -> torch.Tensor:
+                  seed: int = 0, inv_weight: float = 0.0, inv_every: int = 1,
+                  embed_fn: Optional[EmbedFn] = None) -> torch.Tensor:
     """(B, D) embeddings -> (B, size, size, 3) images in [-1, 1] (the VAE's
-    dtype), the initial latents drawn from a generator seeded with ``seed``."""
+    dtype), the initial latents drawn from a generator seeded with ``seed``;
+    with ``inv_weight > 0``, guided towards ``z`` itself through ``embed_fn``."""
     vcfg = dec.vae.cfg
     f = 2 ** (len(vcfg.block_out) - 1)
     dev = next(dec.unet.parameters()).device
     shape = (z.shape[0], size // f, size // f, vcfg.latent_ch)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return dec.sample(torch.from_numpy(np.asarray(z, np.float32)).to(dev), shape, steps=steps, eta=eta,
-                      guidance_scale=guidance, generator=gen, sampler=sampler)
+    zt = torch.from_numpy(np.asarray(z, np.float32)).to(dev)
+    return dec.sample_with_inversion(zt, zt, embed_fn, shape, steps=steps, eta=eta, guidance_scale=guidance,
+                                     inv_weight=inv_weight, inv_every=inv_every, generator=gen,
+                                     sampler=sampler)
+
+
+def clip_embed_fn(model: CLIPModel) -> EmbedFn:
+    """The inversion encoder on a CLIP tower, as the JAX CLI builds it:
+    [-1, 1] NHWC images clipped, mapped to [0, 1], resized bilinear (no
+    antialias) to 224, CLIP mean/std normalized in fp32, then the image
+    tower's unnormalized features in fp32. Differentiable in the images."""
+    mean, std = (torch.from_numpy(a) for a in (CLIP_MEAN, CLIP_STD))
+
+    def embed(x_m11: torch.Tensor) -> torch.Tensor:
+        x = (clip_m11(x_m11) + 1.0) / 2.0
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(224, 224), mode="bilinear", align_corners=False,
+                          antialias=False).permute(0, 2, 3, 1)
+        x = (x - mean.to(x.device)) / std.to(x.device)
+        return model.encode_image(x).float()
+
+    return embed
+
+
+def require_clip_backend(backend: str, dim: int) -> None:
+    """``--inv_backend`` resolved against the bitstream's dim must be
+    ``clip``: ``auto`` is ``clip`` at 512, else ``dino``, which is not
+    ported (an exit, never a fall back to clip); ``clip`` at another dim
+    raises, as in JAX."""
+    if backend == "auto":
+        backend = "clip" if dim == 512 else "dino"
+    if backend == "dino":
+        raise SystemExit("the DINOv2 inversion backend is not ported to the PyTorch package yet "
+                         f"(encoders/dino.py; bitstream dim {dim}); pass --inv_backend clip at dim 512 "
+                         "or --inv_weight 0")
+    if dim != 512:
+        raise ValueError(f"inv_backend=clip but bitstream dim is {dim}; use --inv_backend dino (or auto)")
 
 
 def _fmt_num(x: float) -> str:
@@ -105,11 +151,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="UNet attention heads (not recoverable from the weight shapes)")
     ap.add_argument("--int8", action="store_true", help="int8 serving mode (not ported)")
     args = ap.parse_args(argv)
+    inv_use = args.inv_weight > 0
+    if args.int8 and inv_use:
+        raise SystemExit(
+            "--int8 is incompatible with inversion guidance (round() has zero "
+            "gradient, so the latent gradient through int8 convs vanishes); "
+            "pass --inv_weight 0"
+        )
     if args.int8:
-        raise SystemExit("--int8 is not ported to the PyTorch package yet (ROADMAP.md, Queue 1)")
-    if args.inv_weight > 0:
-        raise SystemExit("feature-inversion guidance (--inv_weight > 0) is not ported to the PyTorch "
-                         "package yet (ROADMAP.md, Queue 1); pass --inv_weight 0")
+        raise SystemExit("--int8 is not ported to the PyTorch package yet (ops/int8.py; ROADMAP.md, Queue 1)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
 
@@ -117,8 +167,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     unet_path, vae_path = ckpt.require_sd_weight_paths(args.model_name)
     z = decode_embedding(args.bitstream, args.store_dir)  # (1, dim), L2-normalized
+    if inv_use:
+        require_clip_backend(args.inv_backend, z.shape[1])
     dec = load_decoder(unet_path, vae_path, args.adapter, args.device, heads=args.heads)
-    img = sample_images(dec, z, args.size, args.steps, args.sampler, args.eta, args.guidance, args.seed)
+    embed_fn = None
+    if inv_use:
+        from ..encoders import ClipEncoder
+
+        embed_fn = clip_embed_fn(ClipEncoder(device=args.device).model)
+    img = sample_images(dec, z, args.size, args.steps, args.sampler, args.eta, args.guidance, args.seed,
+                        inv_weight=args.inv_weight, inv_every=args.inv_every, embed_fn=embed_fn)
     if args.out == Path("recon.png"):  # the default is detected by value, as in the JAX CLI
         out_path = args.bitstream.with_name(f"{args.bitstream.stem}-{args.steps}-{_fmt_num(args.guidance)}-"
                                             f"{_fmt_num(args.inv_weight)}.png")

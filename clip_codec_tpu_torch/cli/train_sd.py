@@ -32,8 +32,9 @@ import torch
 NOT_PORTED = {
     "CLIP_CODEC_DINO_WEIGHTS": "the --clip_w DINO-alignment term is not ported to the PyTorch package yet "
                                "(ROADMAP.md Queue 1, encoders/dino.py)",
-    "CLIP_CODEC_LPIPS_WEIGHTS": "the --perc_w LPIPS term is not ported to the PyTorch package yet "
-                                "(ROADMAP.md Queue 1, eval/lpips.py)",
+    "CLIP_CODEC_LPIPS_WEIGHTS": "the --perc_w LPIPS term is not ported to the PyTorch package yet: like "
+                                "--clip_w it needs the ground-truth images in the training batch "
+                                "(ROADMAP.md Queue 1, encoders/dino.py)",
 }
 
 

@@ -9,18 +9,21 @@
 * :class:`StableDiffusionDecoder`: the frozen UNet and VAE with the
   adapter; ``decode``, ``forward`` and ``sample`` with classifier-free
   guidance, ``adapter(0)`` as the null embedding, ``sampler="ddim"`` or
-  ``"dpmpp"`` (whose final target is alpha-bar 1).
+  ``"dpmpp"`` (whose final target is alpha-bar 1), and
+  ``sample_with_inversion``, the same loop with test-time feature-inversion
+  guidance, of which ``sample`` is the ``inv_weight=0`` case.
 
 Sampling is a Python loop over fp32 per-step coefficients precomputed on the
 host; the update runs in fp32 on the device while the UNet computes in its
-own dtype. Feature-inversion guidance (the JAX ``sample_with_inversion``
-with ``inv_weight > 0``) and int8 are not ported; see ``ROADMAP.md``.
+own dtype. A guided step backpropagates an embedding loss through the VAE
+decode, so on the card it runs flash attention's backward kernels. int8 is
+not ported; see ``ROADMAP.md``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,18 +108,40 @@ def sd_step_coefficients(steps: int, timesteps: int = 1000, sampler: str = "ddim
     return ts, {k: np.asarray(v, np.float32) for k, v in co.items()}
 
 
+def clip_m11(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clipped to [-1, 1] as ``jnp.clip`` computes it,
+    ``minimum(maximum(x, -1), 1)``: at an exact tie the gradient is split
+    between the two arguments (0.5 to ``x``), where ``torch.clamp`` passes
+    all of it."""
+    lo = torch.full((), -1.0, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), -lo)
+
+
+EmbedFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def inversion_loss(img: torch.Tensor, embed_fn: EmbedFn, z_tgt: torch.Tensor) -> torch.Tensor:
+    """``1 - mean(cos(embed_fn(clip(img)), z_tgt))`` for fp32 [-1, 1] NHWC
+    images and unit targets (B, D): the embedding divided by ``norm + 1e-9``."""
+    y = embed_fn(clip_m11(img))
+    y = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + 1e-9)
+    return 1.0 - (y * z_tgt).sum(dim=-1).mean()
+
+
 class StableDiffusionDecoder:
     """Frozen SD-1.5 UNet and VAE with the CLIP adapter, all on one device.
 
-    ``unet`` and ``vae`` compute in their own dtype (bf16 on the card); the
-    adapter and the sampler's update are fp32. ``decode``, ``forward`` and
-    ``sample`` serve under ``torch.no_grad``; the trainer
+    ``unet`` and ``vae`` compute in their own dtype (bf16 on the card) and
+    take no gradient (``requires_grad`` off, so their compute-dtype weights
+    are cached); the adapter and the sampler's update are fp32. ``decode``,
+    ``forward`` and ``sample`` serve under ``torch.no_grad``; the trainer
     (``train/sd_diffusion_train.py``) calls ``unet``, ``vae.decode`` and
-    ``adapter`` with autograd on."""
+    ``adapter`` with autograd on, and ``sample_with_inversion`` takes the
+    gradient of its loss in the latent alone."""
 
     def __init__(self, unet: SDUNet, vae: AutoencoderKL, adapter: SDClipAdapter) -> None:
-        self.unet = unet.eval()
-        self.vae = vae.eval()
+        self.unet = unet.eval().requires_grad_(False)
+        self.vae = vae.eval().requires_grad_(False)
         self.adapter = adapter.eval()
 
     @torch.no_grad()
@@ -129,7 +154,6 @@ class StableDiffusionDecoder:
         """eps for scaled latents ``latents_t`` (B, h, w, 4), conditioned on ``z_clip``."""
         return self.unet(latents_t, t, self.adapter(z_clip))
 
-    @torch.no_grad()
     def sample(
         self,
         z_clip: torch.Tensor,
@@ -145,6 +169,39 @@ class StableDiffusionDecoder:
     ) -> torch.Tensor:
         """CFG sampling of latents of ``shape`` (B, h, w, C); returns decoded
         [-1, 1] images or, with ``decode_pixels=False``, the fp32 latents.
+        The ``inv_weight=0`` case of :meth:`sample_with_inversion`: one step
+        implementation for both."""
+        return self.sample_with_inversion(
+            z_clip, z_clip, None, shape, steps=steps, eta=eta, guidance_scale=guidance_scale,
+            inv_weight=0.0, generator=generator, decode_pixels=decode_pixels, cfg_batched=cfg_batched,
+            sampler=sampler, x_T=x_T)
+
+    @torch.no_grad()
+    def sample_with_inversion(
+        self,
+        z_clip: torch.Tensor,
+        z_target: torch.Tensor,
+        embed_fn: Optional[EmbedFn],
+        shape: Tuple[int, int, int, int],
+        steps: int = 30,
+        eta: float = 0.0,
+        guidance_scale: float = 5.0,
+        inv_weight: float = 1.0,
+        inv_every: int = 1,
+        generator: Optional[torch.Generator] = None,
+        decode_pixels: bool = True,
+        cfg_batched: Optional[bool] = None,
+        sampler: str = "ddim",
+        x_T: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """CFG sampling with feature-inversion guidance: every ``inv_every``
+        steps, after eps and before the update, the latent moves against
+        the gradient of ``1 - mean(cos(embed_fn(x0_img), z_target))``, where
+        ``x0_img`` is the VAE decode of the x0-prediction (eps held
+        constant) in fp32, clipped to [-1, 1]; the step is
+        ``lat - inv_weight * g / (||g|| + 1e-8)``, ``||g||`` over the whole
+        batch. ``embed_fn`` maps [-1, 1] NHWC images to (B, D) embeddings
+        and must be differentiable; ``inv_weight=0`` is plain sampling.
 
         ``cfg_batched`` runs the (uncond, cond) pair as one UNet forward at
         batch 2B in the order [uncond, cond]; None picks it for B <= 4.
@@ -168,6 +225,7 @@ class StableDiffusionDecoder:
         cond = self.adapter(z_clip)
         uncond = self.adapter(torch.zeros_like(z_clip))
         ctx2 = torch.cat([uncond, cond], dim=0) if cfg_batched else None
+        z_tgt = z_target / torch.linalg.vector_norm(z_target, dim=-1, keepdim=True).clamp_min(1e-9)
         g = float(np.float32(guidance_scale))
         m_prev = torch.zeros_like(lat)
         for i, t in enumerate(ts.tolist()):
@@ -180,6 +238,9 @@ class StableDiffusionDecoder:
                 eps_u = self.unet(lat, t_b, uncond).float()
                 eps_c = self.unet(lat, t_b, cond).float()
             eps = eps_u + g * (eps_c - eps_u)
+            if inv_weight > 0 and i % max(1, inv_every) == 0:
+                grad = self.inversion_grad(lat, eps, co["c_noise"][i], co["c_x0"][i], embed_fn, z_tgt)
+                lat = lat - inv_weight * grad / (torch.linalg.vector_norm(grad) + 1e-8)
             x0 = (lat - co["c_noise"][i] * eps) / co["c_x0"][i]
             if sampler == "dpmpp":
                 lat = co["c_skip"][i] * lat + co["c0"][i] * x0 + co["c1"][i] * (x0 - m_prev)
@@ -190,3 +251,13 @@ class StableDiffusionDecoder:
                     noise = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
                     lat = lat + co["sigma"][i] * noise
         return self.decode(lat) if decode_pixels else lat
+
+    def inversion_grad(self, lat: torch.Tensor, eps: torch.Tensor, c_noise: float, c_x0: float,
+                       embed_fn: EmbedFn, z_tgt: torch.Tensor) -> torch.Tensor:
+        """d inversion_loss(decode(x0)) / d(lat), with the x0-prediction
+        ``(lat - c_noise eps) / c_x0`` and eps constant."""
+        with torch.enable_grad():
+            x = lat.detach().requires_grad_(True)
+            img = self.vae.decode((x - c_noise * eps) / c_x0 / SD_SCALING_FACTOR).float()
+            (grad,) = torch.autograd.grad(inversion_loss(img, embed_fn, z_tgt), x)
+        return grad

@@ -7,8 +7,9 @@ Times K4 (``ops.attention.flash_attention_fwd``) at the six (BH, N, D)
 shapes of SD-1.5 serving at 512px with CFG batched (``chip_smoke.py``'s
 FLASH_SHAPES) and SDPA's forward at each; then the K5 pair
 (``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``) at the three
-shapes of SD adapter training at batch 4 (FLASH_BWD_SHAPES) and SDPA's
-backward at each. Each line is ``probes.attn_probe.time_call``'s: the device
+shapes of SD adapter training at batch 4 and the VAE decode's mid-block at
+batch 1 that a guided inversion step backpropagates through
+(FLASH_BWD_SHAPES), and SDPA's backward at each. Each line is ``probes.attn_probe.time_call``'s: the device
 time per call of 20 calls replayed from a CUDA graph, then CUDA events around
 20 calls from Python (at the small shapes, the host's issue time); SDPA's
 backward, an autograd call, by events only. TF/s counts the function's own
@@ -34,7 +35,7 @@ from clip_codec_tpu_torch.probes.attn_probe import _events_ms, time_call
 
 FLASH_SHAPES = [(16, 4096, 40), (16, 1024, 80), (1, 4096, 512),
                 (64, 4096, 40), (64, 1024, 80), (4, 4096, 512)]  # (BH, N, D)
-FLASH_BWD_SHAPES = [(32, 4096, 40), (32, 1024, 80), (4, 4096, 512)]
+FLASH_BWD_SHAPES = [(32, 4096, 40), (32, 1024, 80), (4, 4096, 512), (1, 4096, 512)]
 
 
 def run(dev: torch.device, seed: int = 0) -> None:

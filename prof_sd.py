@@ -2,7 +2,7 @@
 """Where the time of the port's SD-1.5 latent path, of its pixel training
 step and of its compress side goes, on one CUDA card.
 
-    python3 prof_sd.py [--seed N] [--parts 1,2,3,4,5]
+    python3 prof_sd.py [--seed N] [--parts 1,2,3,4,5,6]
 
 Parts 1-3: SD-1.5 at its published widths, random weights from --seed,
 bf16, 512px (64x64 latents), CFG batched (UNet batch 2 per embedding):
@@ -42,6 +42,12 @@ bf16, 512px (64x64 latents), CFG batched (UNet batch 2 per embedding):
    over chip_smoke's 130 seeded PNGs at batch 64 (PIL decode, resize and
    crop on the host, one padded tail batch); the same measurements, so the
    second's device busy share is the card's share of the encode pass.
+6. ``inversion``: the SD-1.5 models of parts 2-3 and the ViT-B/32 of part 5
+   through the SD CLI's ``clip_embed_fn``: one guided step's latent
+   gradient (the VAE decode of the x0-prediction and the tower, forward and
+   backward), then whole requests of one embedding at the CLI's defaults
+   (ddim-30, guidance 5, CFG batched) with inv_weight 1 every step and
+   with inv_weight 0; the same measurements and the peak device memory.
 
 Needs a CUDA device; imports nothing of JAX.
 """
@@ -157,7 +163,7 @@ def profile(torch, label, fn, card, iters=10, prof_iters=3, warmup=2, host_top=0
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parts", type=str, default="1,2,3,4,5", help="which parts to run, e.g. 4")
+    ap.add_argument("--parts", type=str, default="1,2,3,4,5,6", help="which parts to run, e.g. 4")
     args = ap.parse_args()
     parts = {int(p) for p in args.parts.split(",")}
 
@@ -180,7 +186,7 @@ def main() -> int:
 
     if 1 in parts:
         mlp_splits(torch, mlp, args.seed, dev)
-    if parts & {2, 3}:
+    if parts & {2, 3, 6}:
         sd_parts(torch, attn, mlp, cli, parts, args.seed, dev, card)
     if 4 in parts:
         train_px(torch, args.seed, dev, card)
@@ -198,6 +204,46 @@ def sd_parts(torch, attn, mlp, cli, parts, seed, dev, card) -> None:
         sd_serving(torch, attn, mlp, cli, unet, vae, dec, seed, dev, card)
     if 3 in parts:
         train_step(torch, attn, mlp, dec, seed, dev, card)
+    if 6 in parts:
+        inversion(torch, cli, dec, seed, dev, card)
+
+
+def inversion(torch, cli, dec, seed, dev, card) -> None:
+    from clip_codec_tpu_torch.encoders import ClipEncoder
+    from clip_codec_tpu_torch.models.sd.decoder import sd_step_coefficients
+
+    enc = ClipEncoder(weights_path=str(clip_weights(torch, seed)), device=dev)
+    embed = cli.clip_embed_fn(enc.model)
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    lat, eps = (torch.randn((1, 64, 64, 4), generator=gen, device=dev) for _ in range(2))
+    zt = torch.nn.functional.normalize(torch.randn((1, 512), generator=gen, device=dev), dim=-1)
+    _, co = sd_step_coefficients(cs.INV_STEPS)
+    i = cs.INV_STEPS // 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    profile(torch, "one guided step's latent gradient: VAE decode 512px + ViT-B/32, forward and backward",
+            lambda: dec.inversion_grad(lat, eps, float(co["c_noise"][i]), float(co["c_x0"][i]), embed, zt),
+            card, iters=5, prof_iters=2, warmup=2)
+    print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    z = zt.cpu().numpy()
+    for w in (1.0, 0.0):
+        torch.cuda.reset_peak_memory_stats(dev)
+        profile(torch, f"SD request of 1 embedding, ddim-{cs.INV_STEPS}, guidance {cs.SD_GUIDANCE}, CFG batched, "
+                f"inv_weight {w:g} (kernel path)",
+                lambda: cli.sample_images(dec, z, cs.SD_SIZE, steps=cs.INV_STEPS, guidance=cs.SD_GUIDANCE, seed=seed,
+                                          inv_weight=w, embed_fn=embed).float().cpu(),
+                card, iters=2, prof_iters=1, warmup=1)
+        print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+
+def clip_weights(torch, seed):
+    """A random ViT-B/32 (chip_smoke phase 16's draw for ``seed``), saved once per seed."""
+    from clip_codec_tpu_torch.encoders.clip import VIT_B_32, CLIPModel, init_params
+
+    weights = cs.ROOT / "build" / "prof_sd" / "compress" / f"clip_vit_b32_s{seed + 16}.pt"
+    if not weights.exists():
+        weights.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(init_params(CLIPModel(VIT_B_32), torch.Generator().manual_seed(seed + 16)).state_dict(), weights)
+    return weights
 
 
 def sd_serving(torch, attn, mlp, cli, unet, vae, dec, seed, dev, card) -> None:
@@ -266,13 +312,10 @@ def compress(torch, seed, dev, card) -> None:
     from PIL import Image
 
     from clip_codec_tpu_torch.encoders import ClipEncoder
-    from clip_codec_tpu_torch.encoders.clip import VIT_B_32, CLIPModel, init_params, preprocess_pil_u8
+    from clip_codec_tpu_torch.encoders.clip import preprocess_pil_u8
 
-    root = cs.ROOT / "build" / "prof_sd" / "compress"
-    root.mkdir(parents=True, exist_ok=True)
-    weights = root / "clip_vit_b32.pt"
-    torch.save(init_params(CLIPModel(VIT_B_32), torch.Generator().manual_seed(seed + 16)).state_dict(), weights)
-    paths = cs._clip_images(seed + 16, root / "images", cs.CLIP_IMAGES, corrupt=False)
+    weights = clip_weights(torch, seed)
+    paths = cs._clip_images(seed + 16, weights.parent / "images", cs.CLIP_IMAGES, corrupt=False)
     enc = ClipEncoder(weights_path=str(weights), device=dev)
     x = torch.from_numpy(np.stack([preprocess_pil_u8(Image.open(p)) for p in paths[:cs.CLIP_BATCH]])).to(dev)
     profile(torch, f"ViT-B/32 image tower from uint8 on the card, batch {cs.CLIP_BATCH}, bf16",

@@ -13,8 +13,10 @@ their largest magnitude and its output within rtol = atol = 2e-2 in bf16,
 the attention probes (P1-P3) within 2e-2 of the largest
 magnitude, and softmax outputs also within rtol = atol = 2e-2 (at normal
 logits their values are ~0.02, so the elementwise atol alone would let a
-dropped key tile pass), the P2 row sum within 2e-2 relative. This file imports no
-jax, so it runs on a machine without it:
+dropped key tile pass), the P2 row sum within 2e-2 relative; a guided
+inversion step's latent gradient within 2e-2 (relative norm) of the plain
+path's; PSNR and SSIM within 1e-5 of the CPU's and LPIPS within 1e-4
+relative. This file imports no jax, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -293,7 +295,7 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(rng, cuda):
 # (BH, N, Nk, D): the SD-1.5 training shapes at 512px, batch 4 (64x64 and
 # 32x32 self-attention over 8 heads, the VAE's single head), then a ragged
 # query tile and ragged query and key tiles with N != Nk.
-FLASH_BWD_CASES = [(32, 4096, 4096, 40), (32, 1024, 1024, 80), (4, 4096, 4096, 512),
+FLASH_BWD_CASES = [(32, 4096, 4096, 40), (32, 1024, 1024, 80), (4, 4096, 4096, 512), (1, 4096, 4096, 512),
                    (3, 200, 200, 40), (2, 130, 77, 80), (1, 130, 77, 512)]
 
 
@@ -1054,3 +1056,60 @@ def test_u8_lut_on_the_card_equals_host_normalize(rng, cuda, tmp_path):
     host = np.stack([preprocess_pil(im) for im in imgs])
     np.testing.assert_array_equal(normalize_u8(torch.from_numpy(u8).to(cuda), table).cpu().numpy(), host)
     np.testing.assert_array_equal(enc.encode_image_array(u8), enc.encode_image_array(host))
+
+
+def test_inversion_gradient_kernel_path_matches_plain(cuda):
+    """One guided step's latent gradient through a bf16 VAE at SD-1.5's
+    mid-block width (512, one head) over 32x32 latents, so the decode runs
+    flash attention forward and backward at (1, 1024, 512): the kernel path
+    vs the plain versions, ||delta|| / ||plain|| < 2e-2, one launch of each."""
+    from clip_codec_tpu_torch.models.sd import AutoencoderKL, SDClipAdapter, SDUNet, SDUNetConfig, VAEConfig
+    from clip_codec_tpu_torch.models.sd.decoder import StableDiffusionDecoder
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.device(cuda):
+        unet = SDUNet(SDUNetConfig(block_out=(8, 16), layers_per_block=1, cross_dim=32, heads=2, freq_dim=8))
+        vae = init_params(AutoencoderKL(VAEConfig(block_out=(128, 512), layers_per_block=1),
+                                        dtype=torch.bfloat16), gen)
+        dec = StableDiffusionDecoder(unet, vae, SDClipAdapter(32, 32, 64, 8))
+    lat, eps = (torch.randn((1, 32, 32, 4), generator=gen, device=cuda) for _ in range(2))
+    z = torch.nn.functional.normalize(torch.randn((1, 32), generator=gen, device=cuda), dim=-1)
+    embed = lambda x: x.mean(dim=(1, 2)).tile(1, 11)[:, :32] + x[:, ::4, ::4].reshape(1, -1)[:, :32]
+    n0 = (attn.flash_attention_fwd.launches, attn.flash_attention_bwd_dq.launches,
+          attn.flash_attention_bwd_dkv.launches)
+    gk = dec.inversion_grad(lat, eps, 0.8, 0.6, embed, z)
+    n = (attn.flash_attention_fwd.launches - n0[0], attn.flash_attention_bwd_dq.launches - n0[1],
+         attn.flash_attention_bwd_dkv.launches - n0[2])
+    saved = attn.flash_attention_fwd, attn.flash_attention_bwd
+    attn.flash_attention_fwd, attn.flash_attention_bwd = attn.flash_attention_plain, attn.flash_attention_bwd_plain
+    try:
+        gp = dec.inversion_grad(lat, eps, 0.8, 0.6, embed, z)
+    finally:
+        attn.flash_attention_fwd, attn.flash_attention_bwd = saved
+    assert n == (1, 1, 1)
+    assert torch.isfinite(gk).all() and gk.norm() > 0
+    assert ((gk - gp).norm() / gp.norm()).item() < 2e-2
+
+
+def test_metrics_on_the_card_equal_the_cpu(rng, cuda, tmp_path):
+    """PSNR and SSIM of the same [-1, 1] images on the card and on the CPU
+    (uint8 quantization bit-equal, metrics within 1e-5), and LPIPS-VGG16 at
+    full widths in fp32 within 1e-4 relative (cuDNN's convs with TF32 off)."""
+    from clip_codec_tpu_torch.eval import lpips as lp
+    from clip_codec_tpu_torch.eval import metrics as tm
+
+    a = rng.uniform(-1.05, 1.05, (4, 64, 48, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.2, a.shape), -1.1, 1.1).astype(np.float32)
+    ac, bc = torch.from_numpy(a), torch.from_numpy(b)
+    ag, bg = ac.to(cuda), bc.to(cuda)
+    assert torch.equal(tm._u8_float(ag).cpu(), tm._u8_float(ac))
+    assert (tm.psnr_batch(ag, bg).cpu() - tm.psnr_batch(ac, bc)).abs().max().item() <= 1e-5
+    assert (tm.ssim_batch(ag, bg).cpu() - tm.ssim_batch(ac, bc)).abs().max().item() <= 1e-5
+    torch.save(lp.init_params(lp.LPIPS(), torch.Generator().manual_seed(1)).state_dict(), tmp_path / "lpips.pt")
+    torch.backends.cudnn.allow_tf32 = True  # the scorer turns TF32 off itself
+    try:
+        got = tm.lpips_batch(a, b, lpips_model=lp.LPIPSModel.from_checkpoint(tmp_path / "lpips.pt", device=cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = tm.lpips_batch(a, b, lpips_model=lp.LPIPSModel.from_checkpoint(tmp_path / "lpips.pt", device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)

@@ -256,12 +256,12 @@ def test_cli_writes_a_png_from_a_pt_store(tmp_path, port, monkeypatch):
     argv = ["--store_dir", str(tmp_path), "--bitstream", str(tmp_path / "img.clp"), "--adapter",
             str(tmp_path / "adapter.pt"), "--steps", "2", "--sampler", "dpmpp", "--size", "16",
             "--heads", "2", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main(argv)  # the JAX CLI's default --inv_weight 1.0 asks for inversion
     with pytest.raises(RuntimeError, match="CLIP_CODEC_SD_UNET_WEIGHTS"):
         cli.main(argv + ["--inv_weight", "0"])
     monkeypatch.setenv("CLIP_CODEC_SD_UNET_WEIGHTS", str(tmp_path / "unet.bin"))
     monkeypatch.setenv("CLIP_CODEC_SD_VAE_WEIGHTS", str(tmp_path / "vae.bin"))
+    with pytest.raises(SystemExit, match="encoders/dino.py"):
+        cli.main(argv)  # the default --inv_weight 1.0 at dim 32 asks for the DINOv2 backend
     cli.main(argv + ["--inv_weight", "0"])
     img = Image.open(tmp_path / "img-2-5-0.png")
     assert img.size == (16, 16) and img.mode == "RGB"
@@ -270,16 +270,24 @@ def test_cli_writes_a_png_from_a_pt_store(tmp_path, port, monkeypatch):
 
 
 def test_sd_modules_import_no_jax(tmp_path, port):
-    """The SD path loads and runs a tiny decoder in a process with no jax."""
+    """The SD path loads and runs a tiny decoder, with and without
+    inversion, and the evaluation modules import and score, in a process
+    with no jax."""
     for name, sd in port["sd"].items():
         torch.save(sd, tmp_path / f"{name}.pt")
     code = (
         "import sys, torch\n"
         "import clip_codec_tpu_torch.models.sd, clip_codec_tpu_torch.cli.reconstruct_sd_diffusion as cli\n"
         "import clip_codec_tpu_torch.ops.attention, clip_codec_tpu_torch.ops.mlp\n"
+        "import clip_codec_tpu_torch.eval, clip_codec_tpu_torch.eval.lpips, clip_codec_tpu_torch.cli.eval\n"
+        "from clip_codec_tpu_torch.eval import psnr_batch, ssim_batch\n"
         f"d = cli.load_decoder(*[{str(tmp_path)!r} + f'/{{n}}.pt' for n in ('unet', 'vae', 'adapter')], 'cpu', heads=2)\n"
         "img = cli.sample_images(d, torch.zeros((1, 32)).numpy(), 16, steps=1)\n"
         "assert img.shape == (1, 16, 16, 3) and bool(torch.isfinite(img.float()).all())\n"
+        "toy = lambda x: x.mean(dim=(1, 2)).tile(1, 11)[:, :32]\n"
+        "inv = cli.sample_images(d, torch.ones((1, 32)).numpy(), 16, steps=2, inv_weight=1.0, embed_fn=toy)\n"
+        "assert bool(torch.isfinite(inv.float()).all())\n"
+        "assert bool(torch.isfinite(psnr_batch(img.float(), inv.float())).all()) and ssim_batch(img.float(), inv.float()).shape == (1,)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'clip_codec_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'clip_codec_tpu.')))\n"
         "assert not bad, bad\n"
