@@ -195,19 +195,59 @@ the SD CLI's inversion branch, ``eval/``, ``cli/eval.py``):
    relative of the CPU's fp32; printed: eval img/s and the time in
    sampling, in each metric and in the rest.
 
+Retrieval (``index/``, ``cli/search_text.py``; csrc/u8_ip_scan.cu, whose two
+entry points stand in for XLA programs, not Pallas kernels: the JAX package
+lets XLA fuse the u8 -> f32 convert into the dot of ``_u8_search_jit``,
+``index/search.py:97``, and ``_ivf_u8_search``, ``index/ivf.py:117``):
+
+19. 1M unit rows at D = 512 from a seeded generator on the card, fitted and
+   quantized by ``codecs/quantizer.py`` (row 0 copied to 64 rows of the
+   first 100,000, another row to 11 rows). 19a: ``u8_ip_scores`` at (Q, N)
+   = (1, 1M), (64, 1M) and (3, 1000) at D = 100, ``u8_ip_probe`` on the
+   IVF index of 19c at Q = 1 and 64 probing 8 lists and all 316: within
+   1e-5 of the plain version, the copies of one row bit-identical; ms by
+   CUDA-graph replay and events, plain ms, ``torch.matmul`` (or the fp32
+   IVF's einsum) of the fp32 dequantized matrix for scale, and the bound
+   (codes and inv read once, scores written once, over 3.35 TB/s; 2 Q N D
+   over 67 TFLOP/s fp32). 19b: ``U8FlatIPIndex`` against ``FlatIPIndex``
+   over the dequantized, renormalized matrix at N = 1M, k = 10, Q = 1 and
+   64: sorted scores within 1e-5, ids equal wherever neighbouring scores
+   differ by more than 1e-5 (near-tie places counted), one kernel launch a
+   search; the row held 11 times returns its ten lowest ids in order. 19c:
+   ``build_ivf_index`` and ``build_ivf_index_u8`` over the first 100,000
+   rows at the CLI's defaults (nlist 316, nprobe 8: the u8 builder's
+   subsampled train path), each built twice and bit-equal, build seconds;
+   recall@10 at nprobe 8 printed; at nprobe = nlist the flat index's hits
+   under the near-tie rule; one probe launch a u8 search. 19d:
+   ``cli.search_text.main`` over phase 16's store (138 frames, its random
+   ViT-B/32 in bf16, a synthetic merges file) for ``--query``,
+   ``--query_image`` and ``--query_clp``, each exact, ``--u8``, ``--ivf``
+   and ``--u8 --ivf`` (IVF probing all 12 lists, so all four forms are
+   exact): 10 lines each, the four forms' paths equal at every place the
+   printed scores decide, ``--query_clp`` of a store frame first at
+   ``1.0000``; launches exactly 6 ``u8_ip_scores`` and 7 ``u8_ip_probe`` in
+   19b-19d, counted by shape. 19e: device ms a search (CUDA-graph replay,
+   events) of the four indexes at Q = 1 and 64, resident bytes, the host
+   wall of one CLI query after the build, the phase's peak device memory.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4 and at B=8 with
 its launches in phase 18; K5: the training shapes' records with their
 launches in phase 11, then one per kernel at (1, 4096, 512) with its
 launches in phase 17's default request; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
-record per training shape with its launches in phase 14; ``bound_ms``: the
+record per training shape with its launches in phase 14; u8_ip_scores and
+u8_ip_probe: one record per timed shape with its launches in phase 19b-19d
+(0 at the check-only D = 100 shape), ``library_ms`` null (no one PyTorch
+call takes uint8 codes and fp32 queries) and ``matmul_ms`` beside it for
+scale; ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
 989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
-its fp32 rate outside the tensor cores, for K1, and, for the attention
-kernels, its exponentials over the exp unit's 16 per clock per SM (or a
-polynomial exp2's instructions over the FMA pipe's 128 lanes per clock per
-SM) at the card's SM count and maximum SM clock, at the timed shape,
+its fp32 rate outside the tensor cores, for K1 and the u8 kernels, and,
+for the attention kernels, its exponentials over the exp unit's 16 per
+clock per SM (or a polynomial exp2's instructions over the FMA pipe's 128
+lanes per clock per SM) at the card's SM count and maximum SM clock, at
+the timed shape,
 counting the work the function needs, not a kernel's recompute;
 ``bound_unit`` names the largest); the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device the script exits non-zero and
@@ -253,6 +293,9 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "flash_probe_variant": ("flash_attention_probe", "bench_attn_probe.py:103"),
     "flash_probe_fast": ("flash_attention_probe", "bench_attn_probe.py:214"),
     "flash_probe_single_pass": ("flash_attention_probe", "bench_attn_probe.py:281"),
+    # XLA programs, not Pallas kernels: XLA fuses the u8 -> f32 convert into the dot
+    "u8_ip_scores": ("u8_ip_scan", "clip_codec_tpu/index/search.py:97"),
+    "u8_ip_probe": ("u8_ip_scan", "clip_codec_tpu/index/ivf.py:117"),
 }
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12  # H100 SXM: HBM3 rate, dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -305,6 +348,11 @@ INV_STEPS = 30
 INV_LAUNCHES = {"flash_attention": INV_STEPS * (SD_FLASH_PER_FORWARD + 1) + 1, "flash_attention_bwd_dq": INV_STEPS,
                 "flash_attention_bwd_dkv": INV_STEPS, "transformer_mlp": INV_STEPS * SD_MLP_PER_FORWARD,
                 "mlp_up": INV_STEPS * SD_MLP_PER_FORWARD, "mlp_down": INV_STEPS * SD_MLP_PER_FORWARD}
+# Retrieval (phase 19), D = 512 as bench_index.py: exact search over RET_N rows,
+# IVF at the search CLI's defaults over the first RET_IVF_N; k = 10; Q = 1 and 64.
+RET_N, RET_IVF_N, RET_K, RET_Q = 1_000_000, 100_000, 10, (1, 64)
+RET_SMALL = (3, 1000, 100)  # (Q, N, D): a D that is no multiple of 16
+RET_NEAR = 1e-5  # score tolerance, and the gap under which two places are a near tie
 
 
 class PhaseError(RuntimeError):
@@ -2249,6 +2297,330 @@ def phase_eval(torch, rc, seed, dev, card):
     return {"eval_by_shape": dict(shapes)}
 
 
+# ------------------------------------------------------------ retrieval (phase 19)
+
+
+def _distinct(ref, k: int, tol: float = RET_NEAR):
+    """(Q, k) mask of the places whose score, in a descending (Q, k + 1)
+    reference, differs from both neighbours by more than ``tol``: the places
+    where two searches must return the same id (the near-tie rule)."""
+    import numpy as np
+
+    gap = ref[:, :-1] - ref[:, 1:]  # (Q, k): gap to the next place
+    before = np.concatenate([np.full((ref.shape[0], 1), np.inf, np.float32), gap[:, :k - 1]], axis=1)
+    return (gap[:, :k] > tol) & (before > tol)
+
+
+def _same_hits(tag, got, ref, k, tol=RET_NEAR):
+    """``got`` (scores, ids) of k against ``ref`` of k + 1: sorted scores
+    within ``tol``, ids equal at every place the near-tie rule decides;
+    returns the count of near-tie places."""
+    import numpy as np
+
+    (s, i), (rs, ri) = got, ref
+    err = float(np.abs(s - rs[:, :k]).max())
+    mask = _distinct(rs, k, tol)
+    check(err <= tol, f"{tag}: sorted scores {err:.3e} from the reference (limit {tol})")
+    check(bool((i == ri[:, :k])[mask].all()), f"{tag}: ids differ at a place the near-tie rule decides")
+    return int((~mask).sum()), err
+
+
+def _u8_bound(Q, N, D):
+    """The u8 score's least time: codes and inv read once, scores written
+    once (qs, qz beside them); 2 Q N D fp32 operations."""
+    return bound(N * D + 4 * N + 4 * Q * N + 4 * Q * (D + 1), 2.0 * Q * N * D, FP32_FLOPS_PER_S)
+
+
+def _probe_bound(lists_used, cap, Q, nprobe, D):
+    """The probe's least time: each probed list (codes and list_inv) read
+    once however many queries probe it, the probe ids, the scores written."""
+    nbytes = lists_used * cap * (D + 4) + 4 * Q * nprobe * (1 + cap) + 4 * Q * (D + 1)
+    return bound(nbytes, 2.0 * Q * nprobe * cap * D, FP32_FLOPS_PER_S)
+
+
+def phase_retrieval(torch, seed, dev, card):
+    """Retrieval at D = 512: the u8 kernels against plain (19a), exact search
+    over 1M rows (19b), IVF at the CLI's defaults over 100k (19c), the search
+    CLI over phase 16's store (19d), times (19e). Returns the kernel records
+    (one per shape) and the path's launches (19b-19d)."""
+    import gzip
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from clip_codec_tpu_torch.cli import search_text
+    from clip_codec_tpu_torch.codecs.quantizer import dequantize_l2norm_host
+    from clip_codec_tpu_torch.index import build_index, build_index_u8, build_ivf_index, build_ivf_index_u8
+    from clip_codec_tpu_torch.index.search import _rank, search_index
+    from clip_codec_tpu_torch.io import store as store_mod
+    from clip_codec_tpu_torch.ops import u8_scan as u8
+    from clip_codec_tpu_torch.probes import index_times as it
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    rng = np.random.default_rng(seed + 19)
+    t0 = time.perf_counter()
+    codes, scale, zero = it.make_store(RET_N, gen, dev)
+    # 64 copies of one row spread over the IVF's rows, 11 of another over the whole store
+    dup = torch.from_numpy(np.sort(rng.choice(np.arange(1, RET_IVF_N), 64, replace=False))).to(dev)
+    codes[dup] = codes[0].clone()
+    dup = torch.cat([torch.zeros(1, dtype=dup.dtype, device=dev), dup])
+    eleven = np.sort(rng.choice(np.arange(RET_IVF_N, RET_N), 11, replace=False))
+    codes[torch.from_numpy(eleven).to(dev)] = codes[int(eleven[0])].clone()
+    flat = build_index(it.dequantized(codes, scale, zero), device=dev)
+    flat_u8 = build_index_u8(codes, scale, zero, device=dev)
+    torch.cuda.synchronize()
+    print(f"retrieval-data: N={RET_N} unit rows at D={it.D} (seed {seed + 19}) fitted and quantized on the card, "
+          f"row 0 copied to 64 rows of the first {RET_IVF_N}, row {eleven[0]} to 11 rows; exact fp32 and u8 indexes "
+          f"built in {time.perf_counter() - t0:.3f} s")
+    queries = {nq: it.unit_rows(nq, it.D, gen, dev) for nq in RET_Q}
+
+    # IVF over the first 100k at the CLI's defaults, each form built twice
+    sub_codes, sub_feats = codes[:RET_IVF_N], flat.feats[:RET_IVF_N]
+    ivfs = {}
+    for name, build in (("ivf", lambda: build_ivf_index(sub_feats, device=dev)),
+                        ("ivf-u8", lambda: build_ivf_index_u8(sub_codes, scale, zero, device=dev))):
+        made, secs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            made.append(build())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        a, b = made
+        same = all((getattr(a, f) is None and getattr(b, f) is None) or torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("centroids", "lists", "list_ids", "list_inv"))
+        print(f"retrieval-ivf-build: {name} over {RET_IVF_N} rows: nlist {a.nlist}, nprobe {a.nprobe}, cap "
+              f"{a.lists.shape[1]} (pad {a.nlist * a.lists.shape[1] / RET_IVF_N:.3f}x); build s {secs[0]:.3f}, "
+              f"{secs[1]:.3f} on {card}; second build bit-equal: {same}"
+              + (f"; subsampled train path: {RET_IVF_N > 256 * a.nlist}" if name == "ivf-u8" else ""))
+        check(a.nlist == round(RET_IVF_N ** 0.5) and a.nprobe == 8, f"{name}: not at the CLI's defaults")
+        check(same, f"{name}: two builds of one store differ")
+        ivfs[name] = a
+        del made, b
+    check(RET_IVF_N > 256 * ivfs["ivf-u8"].nlist, "build_ivf_index_u8 did not take its subsampled train path")
+    flat_sub = build_index(sub_feats, device=dev)
+
+    # 19a: the kernels against plain at the path's shapes
+    records = {"u8_ip_scores": [], "u8_ip_probe": []}
+
+    def record(name, shape, call, plain, b, matmul, ties_of=lambda got: (True, 0)):
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ties, n_copies = ties_of(got)
+        rec = dict(shape=list(shape), max_abs_err=err, ms=graph_ms(torch, call), events_ms=cuda_ms(torch, call),
+                   plain_ms=cuda_ms(torch, plain, iters=3, warmup=1), library_ms=None,
+                   matmul_ms=graph_ms(torch, matmul), bound_ms=b[0], bound_by=b[1], bound_unit=b[2],
+                   library="none: no one PyTorch call takes uint8 codes and fp32 queries; matmul_ms is torch.matmul "
+                           "of the fp32 dequantized matrix (what the fp32 index runs), for scale")
+        print(f"kernel-check: {name} {tuple(shape)} max_abs_err={err:.3e} {n_copies} scores of copies of one row "
+              f"bit-identical={ties} "
+              f"ms={rec['ms']:.4f} (graph) events_ms={rec['events_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"fp32 matmul_ms={rec['matmul_ms']:.4f} bound_ms={b[0]:.4f} ({b[2]})")
+        check(err <= RET_NEAR, f"{name} {shape}: {err:.3e} from plain (limit {RET_NEAR})")
+        check(ties, f"{name} {shape}: duplicated rows score differently")
+        records[name].append(rec)
+        return rec
+
+    def same_cols(cols):
+        def ties_of(got):
+            d = got[:, cols]
+            return bool(torch.equal(d, d[:, :1].expand_as(d))), d.numel()
+        return ties_of
+
+    dup_cols = dup.cpu().numpy()
+    for nq in RET_Q:
+        q = queries[nq]
+        qs, qz = u8.fold_query(q, flat_u8.scale, flat_u8.zero)
+        args = (flat_u8.codes, qs, qz, flat_u8.inv_norms)
+        record("u8_ip_scores", (nq, RET_N, it.D), lambda: u8.u8_ip_scores(*args), lambda: u8.u8_ip_scores_plain(*args),
+               _u8_bound(nq, RET_N, it.D), it.score_call(flat, q), same_cols(dup_cols))
+    sq, sn, sd = RET_SMALL
+    small = torch.from_numpy(rng.integers(0, 256, (sn, sd), dtype=np.uint8)).to(dev)
+    small[100:164] = small[7]
+    s_scale = torch.from_numpy((0.5 + rng.random(sd)).astype(np.float32) / 255).to(dev)
+    s_zero = torch.full((sd,), -0.4, device=dev)
+    s_idx = build_index_u8(small, s_scale, s_zero, device=dev)
+    s_q = it.unit_rows(sq, sd, gen, dev)
+    s_args = (small, *u8.fold_query(s_q, s_scale, s_zero), s_idx.inv_norms)
+    s_feats = (small.float() * s_scale + s_zero) * s_idx.inv_norms[:, None]
+    record("u8_ip_scores", RET_SMALL, lambda: u8.u8_ip_scores(*s_args), lambda: u8.u8_ip_scores_plain(*s_args),
+           _u8_bound(sq, sn, sd), lambda: s_q @ s_feats.T, same_cols(np.r_[7, 100:164]))
+
+    iu8 = ivfs["ivf-u8"]
+    dup32 = dup.to(torch.int32)
+    # the u8 lists dequantized and renormalized: the fp32 IVF's product at the same shape, for scale
+    lists32 = (iu8.lists.float() * iu8.scale + iu8.zero) * iu8.list_inv[..., None]
+    for nq in RET_Q:
+        for nprobe in (iu8.nprobe, iu8.nlist):
+            q = queries[nq]
+            probe = _rank(q @ iu8.centroids.T, nprobe)[1].to(torch.int32).contiguous()
+            qs, qz = u8.fold_query(q, iu8.scale, iu8.zero)
+            args = (iu8.lists, iu8.list_inv, probe, qs, qz)
+            copies = torch.isin(iu8.list_ids[probe.long()], dup32).reshape(nq, -1)  # pool places of row 0's copies
+
+            def ties_of(got, copies=copies):
+                vals = [got[j].flatten()[copies[j]] for j in range(got.shape[0])]
+                return all(bool((v == v[0]).all()) for v in vals if v.numel()), int(copies.sum())
+
+            # every list probed: the flat product over the same rows (a gather would be Q x 316 lists)
+            scale_call = ((lambda: torch.einsum("qd,qpcd->qpc", q, lists32[probe.long()])) if nprobe < iu8.nlist
+                          else it.score_call(flat_sub, q))
+            record("u8_ip_probe", (nq, nprobe, iu8.lists.shape[1], it.D), lambda: u8.u8_ip_probe(*args),
+                   lambda: u8.u8_ip_probe_plain(*args),
+                   _probe_bound(int(torch.unique(probe).numel()), iu8.lists.shape[1], nq, nprobe, it.D),
+                   scale_call, ties_of)
+    del lists32
+
+    # 19b-19d, the path: every launch counted by shape
+    tally = collections.Counter()
+    saved = u8._launch_scores, u8._launch_probe
+
+    def scores_tallied(codes_, qs_, qz_, inv_):
+        tally[("u8_ip_scores", qs_.shape[0], *codes_.shape)] += 1
+        return saved[0](codes_, qs_, qz_, inv_)
+
+    def probe_tallied(lists_, inv_, probe_, qs_, qz_):
+        tally[("u8_ip_probe", *probe_.shape, *lists_.shape[1:])] += 1
+        return saved[1](lists_, inv_, probe_, qs_, qz_)
+
+    u8._launch_scores, u8._launch_probe = scores_tallied, probe_tallied
+    u8.u8_ip_scores.launches = u8.u8_ip_probe.launches = 0
+    try:
+        # 19b: exact search over 1M
+        for nq in RET_Q:
+            q = queries[nq]
+            n0 = u8.u8_ip_scores.launches
+            got = flat_u8.search(q, RET_K)
+            check(u8.u8_ip_scores.launches == n0 + 1, f"exact-u8 Q={nq}: {u8.u8_ip_scores.launches - n0} launches")
+            near, err = _same_hits(f"exact-u8 Q={nq}", got, flat.search(q, RET_K + 1), RET_K)
+            print(f"retrieval-exact: N={RET_N} Q={nq} k={RET_K}: u8 vs fp32 index sorted scores max |delta| "
+                  f"{err:.3e}, ids equal at every decided place, {near} near-tie places of {nq * RET_K}; one "
+                  f"u8_ip_scores launch")
+        x = dequantize_l2norm_host(codes[int(eleven[0])].cpu().numpy()[None], scale, zero)
+        ids = flat_u8.search(x, RET_K)[1][0]
+        print(f"retrieval-ties: a row held 11 times at {eleven.tolist()}: u8 k={RET_K} ids {ids.tolist()}; fp32 "
+              f"index {flat.search(x, RET_K)[1][0].tolist()}")
+        check(ids.tolist() == eleven[:RET_K].tolist(), "the eleven copies do not rank lowest id first")
+
+        # 19c: IVF at the CLI's defaults over 100k
+        for nq in RET_Q:
+            q = queries[nq]
+            ref = flat_sub.search(q, RET_K + 1)
+            for name, idx in ivfs.items():
+                n0 = u8.u8_ip_probe.launches
+                s, i = idx.search(q, RET_K)
+                recall = np.mean([len(set(a.tolist()) & set(b.tolist())) / RET_K for a, b in zip(i, ref[1][:, :RET_K])])
+                full = idx.search(q, RET_K, nprobe=idx.nlist)
+                launched = u8.u8_ip_probe.launches - n0
+                near, err = _same_hits(f"{name} Q={nq} full probe", full, ref, RET_K)
+                print(f"retrieval-ivf: {name} N={RET_IVF_N} Q={nq}: recall@{RET_K} at nprobe {idx.nprobe} "
+                      f"{recall:.4f} (isotropic random rows: the ANN worst case); nprobe = nlist = {idx.nlist}: "
+                      f"the flat index's hits, sorted scores max |delta| {err:.3e}, {near} near-tie places; "
+                      f"u8_ip_probe launches {launched}")
+                check(launched == (2 if name == "ivf-u8" else 0), f"{name}: {launched} probe launches in 2 searches")
+
+        # 19d: the CLI over phase 16's store, every query kind x index form
+        store = ROOT / "build" / "chip_smoke" / "compress" / "store"
+        weights = store.parent / "clip_vit_b32.pt"
+        bpe = ROOT / "build" / "chip_smoke" / "retrieval" / "bpe.txt.gz"
+        bpe.parent.mkdir(parents=True, exist_ok=True)
+        with gzip.open(bpe, "wt", encoding="utf-8") as f:  # a synthetic merges file, as the tokenizer tests use
+            f.write("#version: 0.2\n" + "\n".join(["t h", "th e</w>", "h e", "c a", "ca t</w>", "d o", "do g</w>"])
+                    + "\n")
+        have_zstd = importlib.util.find_spec("zstandard") is not None
+        manifest = json.loads((store / "manifest.json").read_text())
+        n_store = len(manifest)
+        nlist = max(1, round(n_store ** 0.5))
+        kinds = {"--query": "a photo of a cat", "--query_image": manifest[3]["image"],
+                 "--query_clp": manifest[5]["bitstream"]}
+        forms = {"exact": [], "u8": ["--u8"], "ivf": ["--ivf", "--nprobe", str(nlist)],
+                 "ivf-u8": ["--u8", "--ivf", "--nprobe", str(nlist)]}
+        printed, walls = {}, {}
+        with raw_frames(have_zstd):
+            for kind, value in kinds.items():
+                for form, extra in forms.items():
+                    out = io.StringIO()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(out):
+                        search_text.main(["--store_dir", str(store), "--weights", str(weights), "--bpe", str(bpe),
+                                          kind, value] + extra)
+                    walls[(kind, form)] = time.perf_counter() - t0
+                    printed[(kind, form)] = [line.split("\t") for line in out.getvalue().splitlines()]
+            st = store_mod.Store.open(store)
+            cli_codes = st.read_codes()
+    finally:
+        u8._launch_scores, u8._launch_probe = saved
+    launches = {"u8_ip_scores": u8.u8_ip_scores.launches, "u8_ip_probe": u8.u8_ip_probe.launches}
+    for kind in kinds:
+        exact = printed[(kind, "exact")]
+        ref = np.array([[float(s) for s, _ in exact] + [-np.inf]], np.float32)
+        mask = _distinct(ref, len(exact), 1.5e-4)[0]  # printed to 4 decimals
+        for form in forms:
+            lines = printed[(kind, form)]
+            same = len(lines) == RET_K and all(a[1] == b[1] for a, b, m in zip(lines, exact, mask) if m)
+            print(f"retrieval-cli: {kind} {form}: {len(lines)} lines, first {lines[0] if lines else None}, paths "
+                  f"equal to exact's at the {int(mask.sum())} decided places: {same}; wall {walls[(kind, form)]:.3f} "
+                  f"s (index build and tower load included) on {card}")
+            check(same, f"cli {kind} {form}: not {RET_K} lines with exact's paths")
+            if kind == "--query_clp":
+                check(lines[0] == ["1.0000", manifest[5]["image"]], f"cli --query_clp {form}: first line {lines[0]}")
+    want = {("u8_ip_scores", 1, RET_N, it.D): 2, ("u8_ip_scores", 64, RET_N, it.D): 1,
+            ("u8_ip_scores", 1, n_store, it.D): 3}
+    print(f"retrieval-launches: {dict(tally)}; totals {launches}")
+    check(launches["u8_ip_scores"] == 2 + 1 + 3 and launches["u8_ip_probe"] == 4 + 3,
+          f"retrieval launches {launches}: want 6 u8_ip_scores (19b 2 + 1, the CLI 3) and 7 u8_ip_probe "
+          f"(19c 4, the CLI 3)")
+    check(all(tally[k] == v for k, v in want.items()), f"u8_ip_scores launches by shape {dict(tally)}")
+
+    # the CLI's own shapes, timed as 19a times the others
+    cli_u8 = build_index_u8(cli_codes, st.scale, st.zero, device=dev)
+    cli_ivf = build_ivf_index_u8(cli_codes, st.scale, st.zero, nprobe=nlist, device=dev)
+    cli_feats = torch.from_numpy(dequantize_l2norm_host(cli_codes, st.scale, st.zero)).to(dev)
+    q = it.unit_rows(1, it.D, gen, dev)
+    args = (cli_u8.codes, *u8.fold_query(q, cli_u8.scale, cli_u8.zero), cli_u8.inv_norms)
+    record("u8_ip_scores", (1, n_store, it.D), lambda: u8.u8_ip_scores(*args), lambda: u8.u8_ip_scores_plain(*args),
+           _u8_bound(1, n_store, it.D), lambda: q @ cli_feats.T)
+    probe = torch.arange(cli_ivf.nlist, device=dev, dtype=torch.int32)[None]
+    p_args = (cli_ivf.lists, cli_ivf.list_inv, probe, *u8.fold_query(q, cli_ivf.scale, cli_ivf.zero))
+    cli_fp = build_ivf_index(cli_feats, nprobe=nlist, device=dev)
+    record("u8_ip_probe", (1, cli_ivf.nlist, cli_ivf.lists.shape[1], it.D), lambda: u8.u8_ip_probe(*p_args),
+           lambda: u8.u8_ip_probe_plain(*p_args), _probe_bound(cli_ivf.nlist, cli_ivf.lists.shape[1], 1,
+                                                                cli_ivf.nlist, it.D),
+           lambda: torch.einsum("qd,qpcd->qpc", q, cli_fp.lists[probe.long()]))
+    for name, recs in records.items():
+        for rec in recs:
+            rec["launches"] = tally.get((name, *rec["shape"]), 0)
+
+    # 19e: times
+    tables = {"exact": flat, "exact-u8": flat_u8, "ivf": ivfs["ivf"], "ivf-u8": ivfs["ivf-u8"]}
+    for name, idx in tables.items():
+        n = idx.ntotal
+        for nq in RET_Q:
+            call = it.search_call(idx, queries[nq])
+            print(f"retrieval-time: {name} N={n} Q={nq} k={RET_K}: {graph_ms(torch, call):.4f} ms a search (CUDA-graph "
+                  f"replay), {cuda_ms(torch, call):.4f} ms (events); resident {it.resident_bytes(idx)} bytes; "
+                  f"on {card}")
+        qv = queries[1][0].cpu().numpy()
+        paths = [f"img{i}" for i in range(n)]
+        walls_ = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            search_index(qv, idx, paths, k=RET_K)
+            walls_.append(time.perf_counter() - t0)
+        print(f"retrieval-host: {name} N={n}: one CLI query after the build (search_index, host wall) "
+              f"{[round(w * 1e3, 4) for w in walls_]} ms on {card}")
+    print(f"retrieval-memory: peak device memory of the phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"on {card}")
+    del flat, flat_u8, ivfs, codes
+    torch.cuda.empty_cache()
+    return records, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2312,6 +2684,11 @@ def main() -> int:
 
         inv_records, inv_launches = phase_inversion(torch, attn, mlp, args.seed, dev, card)
         launches.update(phase_eval(torch, rc, args.seed, dev, card))
+
+        phase_build(builds, ("u8_ip_scan",))
+        ret_records, ret_launches = phase_retrieval(torch, args.seed, dev, card)
+        records.update(ret_records)
+        launches.update(ret_launches)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2325,6 +2702,8 @@ def main() -> int:
                     by_shape = launches["mlp_by_shape"].get(tuple(rec["shape"]), 0)
                 elif name == "group_norm_silu":
                     by_shape = launches["gn_by_shape"][tuple(rec["shape"])]
+                elif name in ("u8_ip_scores", "u8_ip_probe"):
+                    by_shape = rec["launches"]  # counted by shape in phase 19b-19d
                 else:  # phase 4 serves at B = 4, phase 18 evaluates at B = 8
                     tally = launches["by_shape" if rec["shape"][0] == SERVE_BATCH else "eval_by_shape"]
                     by_shape = tally[tuple(rec["shape"][1:])]

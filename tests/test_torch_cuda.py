@@ -1113,3 +1113,97 @@ def test_metrics_on_the_card_equal_the_cpu(rng, cuda, tmp_path):
         torch.backends.cudnn.allow_tf32 = False
     want = tm.lpips_batch(a, b, lpips_model=lp.LPIPSModel.from_checkpoint(tmp_path / "lpips.pt", device="cpu"))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
+
+
+# ------------------------------------------------------- retrieval (u8 scan)
+
+
+def _u8_inputs(rng, n, d, nq, dev):
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    codes = torch.from_numpy(rng.integers(0, 256, (n, d), dtype=np.uint8)).to(dev)
+    scale = torch.from_numpy((0.5 + rng.random(d)).astype(np.float32) / 255).to(dev)
+    zero = torch.from_numpy(-0.5 * np.ones(d, np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32)).to(dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    qs, qz = u8_scan.fold_query(q, scale, zero)
+    inv = torch.from_numpy(rng.random(n).astype(np.float32) + 0.5).to(dev)
+    return codes, qs, qz, inv
+
+
+@pytest.mark.parametrize("n,d,nq", [(1000, 16, 1), (3000, 100, 3), (5000, 512, 64), (777, 512, 9), (300, 768, 2)])
+def test_u8_ip_scores_matches_plain(rng, cuda, n, d, nq):
+    """Both kernel forms (Q < 8 and Q >= 8), any D, ragged last tiles:
+    within 1e-5 of the plain version (fp32 FMA, another summation order)."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    args = _u8_inputs(rng, n, d, nq, cuda)
+    n0 = u8_scan.u8_ip_scores.launches
+    got = u8_scan.u8_ip_scores(*args)
+    want = u8_scan.u8_ip_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert u8_scan.u8_ip_scores.launches == n0 + 1 and got.shape == (nq, n)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("d", [16, 100, 512])
+def test_u8_ip_probe_matches_plain_and_scores(rng, cuda, d):
+    """The probe kernel against its plain version within 1e-5, and
+    bit-equal to u8_ip_scores over the same rows (one summation order)."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    lists, qs, qz, inv = _u8_inputs(rng, 13 * 300, d, 5, cuda)
+    lists, inv = lists.view(13, 300, d), inv.view(13, 300)
+    probe = torch.from_numpy(rng.integers(0, 13, (5, 4)).astype(np.int32)).to(cuda)
+    n0 = u8_scan.u8_ip_probe.launches
+    got = u8_scan.u8_ip_probe(lists, inv, probe, qs, qz)
+    want = u8_scan.u8_ip_probe_plain(lists, inv, probe, qs, qz)
+    torch.cuda.synchronize()
+    assert u8_scan.u8_ip_probe.launches == n0 + 1 and got.shape == (5, 4, 300)
+    assert (got - want).abs().max().item() <= 1e-5
+    for q in range(5):
+        sel = probe[q].long()
+        flat = u8_scan.u8_ip_scores(lists[sel].reshape(-1, d).contiguous(), qs[q:q + 1].contiguous(),
+                                    qz[q:q + 1].contiguous(), inv[sel].reshape(-1).contiguous())
+        assert torch.equal(got[q].reshape(1, -1), flat)
+
+
+def test_u8_duplicated_rows_score_bit_identically(rng, cuda):
+    """A block of 64 copies of one row spread over the matrix (different
+    tiles, slabs and lanes) scores bit-identically in both kernel forms, and
+    the exact u8 index returns the ten lowest of their ids, in order."""
+    from clip_codec_tpu_torch.index import build_index_u8
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    codes, qs, qz, inv = _u8_inputs(rng, 20000, 512, 64, cuda)
+    rows = torch.from_numpy(np.sort(rng.choice(20000, 64, replace=False))).to(cuda)
+    codes[rows] = codes[7].clone()
+    inv[rows] = inv[7].clone()
+    for nq in (1, 64):
+        s = u8_scan.u8_ip_scores(codes, qs[:nq].contiguous(), qz[:nq].contiguous(), inv)
+        dup = s[:, rows]
+        assert torch.equal(dup, dup[:, :1].expand_as(dup))
+    scale = torch.full((512,), 1 / 255, device=cuda)
+    idx = build_index_u8(codes, scale, torch.zeros(512, device=cuda), device=cuda)
+    x = codes[7].float() / 255
+    _, ids = idx.search(x / x.norm(), 10)
+    assert ids[0].tolist() == sorted(set([7] + rows.tolist()))[:10]
+
+
+def test_ivf_builds_are_bit_equal_on_the_card(rng, cuda):
+    """Two builds of one store (both u8 train paths and fp32) give bit-equal
+    centroids, lists, ids and list_inv: the k-means update has no atomics."""
+    from clip_codec_tpu_torch.codecs import quantizer as tq
+    from clip_codec_tpu_torch.index import build_ivf_index, build_ivf_index_u8
+
+    x = torch.from_numpy(rng.standard_normal((6000, 64)).astype(np.float32)).to(cuda)
+    x = x / x.norm(dim=1, keepdim=True)
+    scale, zero = tq.fit_affine(x)
+    codes = tq.quantize(x, scale, zero)
+    for build in (lambda: build_ivf_index_u8(codes, scale, zero, nlist=16, device=cuda),   # subsample path
+                  lambda: build_ivf_index_u8(codes, scale, zero, nlist=40, device=cuda),   # small store
+                  lambda: build_ivf_index(x, nlist=40, device=cuda)):
+        a, b = build(), build()
+        for name in ("centroids", "lists", "list_ids", "list_inv"):
+            ta, tb = getattr(a, name), getattr(b, name)
+            assert (ta is None and tb is None) or torch.equal(ta, tb), name

@@ -84,9 +84,9 @@ def test_state_dict_from_jax_equals_export_unet(rng, ch_mult):
 
 def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
     """The port (its JAX weight bridge, its pixel trainer and CLI, and the
-    compress side's encoders, quantizer, store writer and encode CLI
-    included) runs in a process that loads nothing of jax, flax or the JAX
-    package."""
+    compress side's encoders, quantizer, store writer and encode CLI, and
+    the retrieval indexes and search CLI included) runs in a process that
+    loads nothing of jax, flax or the JAX package."""
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     (tmp_path / "params.pkl").write_bytes(pickle.dumps(tree))
     code = (
@@ -97,6 +97,7 @@ def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
         "import clip_codec_tpu_torch.train.data, clip_codec_tpu_torch.train.losses\n"
         "import clip_codec_tpu_torch.encoders, clip_codec_tpu_torch.cli.encode_images, clip_codec_tpu_torch.codecs\n"
         "import clip_codec_tpu_torch.weights.convert_clip, clip_codec_tpu_torch.io.store\n"
+        "import clip_codec_tpu_torch.index, clip_codec_tpu_torch.cli.search_text, clip_codec_tpu_torch.ops.u8_scan\n"
         "from clip_codec_tpu_torch.encoders.clip import CLIPConfig, CLIPModel, init_params\n"
         "from clip_codec_tpu_torch.weights.from_jax import clip_state_dict_from_jax\n"
         "assert 'regex' not in sys.modules  # the tokenizer imports it at first use\n"
