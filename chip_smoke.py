@@ -230,9 +230,37 @@ lets XLA fuse the u8 -> f32 convert into the dot of ``_u8_search_jit``,
    events) of the four indexes at Q = 1 and 64, resident bytes, the host
    wall of one CLI query after the build, the phase's peak device memory.
 
+Serving and export (``deploy.py``, ``serve.py``, ``cli/export_decoder.py``;
+no new kernel: the artifacts replay K2/K3 and K4/K6 from CUDA graphs):
+
+20. 20a: ``cli.export_decoder.main`` writes the pixel artifact from phase 4's
+   checkpoint at its defaults with ``--output uint8`` (256px, DDIM-50,
+   batch 16) and the SD artifact from phase 8's files at its defaults
+   (ddim-30, 512px, batch 1, CFG batched). 20b: each loaded, its first
+   call capturing the whole sampler in one CUDA graph; two replays of a
+   seed bit-equal, another seed differs; a replay launches exactly 28 x 50
+   K2 and 50 K3 (by shape: its calls per forward x 50) or 30 x 10 + 1 K4
+   and 30 x 16 of each K6 kernel (by shape, phase 8's tally); the pixel
+   uint8 images within one level of the eager sampler from the same x_T
+   and equal in >= 99.9% of pixels; the SD images, at guidance 5 and 2
+   from one capture, within 2e-2 (||delta|| / ||eager||) of the eager
+   sampler; a call's device ms (events) beside the eager wall. 20c:
+   ``serve.serve`` on 127.0.0.1 at a free port, both artifacts behind it,
+   phase 16's store and tower, phase 19's merges file: /healthz; 64
+   /decompress from 32 clients (gather 20 ms): img/s, p50/p95, the
+   micro-batcher's fill rate; lone requests, their wall beside the replay's
+   device ms (the busy share); 3 /decompress_sd (seeds 0, 1, 0: the first
+   and last PNGs equal); /embed within 1e-6 of the host dequantization;
+   /search, /search_image with a store frame (its own image first, score
+   > 0.999) and with a PNG; 400 (a seed in micro-batched mode, a bad
+   frame, a bad format), 404, 412 (both artifacts), 413. Launches of the
+   whole HTTP run exact: each program's eager warm-up and its replays.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
-record per path shape at B=4 with its launches in phase 4 and at B=8 with
-its launches in phase 18; K5: the training shapes' records with their
+record per path shape at B=4 with its launches in phase 4, at B=8 with
+its launches in phase 18 and at B=16 with its launches in phase 20c
+(``"phase": 20``); K4 and K6 also once more with phase 20c's launches,
+by shape; K5: the training shapes' records with their
 launches in phase 11, then one per kernel at (1, 4096, 512) with its
 launches in phase 17's default request; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
@@ -266,6 +294,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -353,6 +382,10 @@ INV_LAUNCHES = {"flash_attention": INV_STEPS * (SD_FLASH_PER_FORWARD + 1) + 1, "
 RET_N, RET_IVF_N, RET_K, RET_Q = 1_000_000, 100_000, 10, (1, 64)
 RET_SMALL = (3, 1000, 100)  # (Q, N, D): a D that is no multiple of 16
 RET_NEAR = 1e-5  # score tolerance, and the gap under which two places are a near tie
+# Serving (phase 20): bench_serve.py's defaults, the pixel artifact at WIDE_BATCH
+# (the export CLI's default batch); the SD artifact at the export CLI's
+# defaults (ddim-30, 512px, batch 1).
+ART_REQUESTS, ART_CLIENTS, ART_WAIT_MS = 64, 32, 20.0
 
 
 class PhaseError(RuntimeError):
@@ -515,8 +548,9 @@ def _conv_bound(B, H, W, cin, cout, use_add, mom):
 def phase_kernels(torch, rc, seed, dev):
     """Kernel vs plain at every fused conv shape of the full-width U-Net at
     256px, B=2 (every combination of residual and moments), B=4 (the
-    serving batch) and B=8 (the eval CLI's): the two forms the U-Net runs,
-    each timed; returns per-kernel records, one per path shape and batch."""
+    serving batch), B=8 (the eval CLI's) and B=16 (the exported artifact's,
+    phase 20): the two forms the U-Net runs, each timed; returns per-kernel
+    records, one per path shape and batch."""
     import torch.nn.functional as F
 
     from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
@@ -524,7 +558,7 @@ def phase_kernels(torch, rc, seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     records = {"affine_silu_conv3x3": [], "affine_conv3x3": []}
     errs = {"affine_silu_conv3x3": 0.0, "affine_conv3x3": 0.0}
-    for batch in (2, SERVE_BATCH, EVAL_BATCH):
+    for batch in (2, SERVE_BATCH, EVAL_BATCH, WIDE_BATCH):
         shapes = path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, batch)
         for (B, H, W, cin, cout), calls in shapes:
             linear = (B, H, W, cin, cout) == shapes[-1][0]  # the head: K3
@@ -1837,27 +1871,14 @@ def phase_probe(torch, ap, seed, dev, rec):
 # ------------------------------------------------------- the compress side (CLIP ViT-B/32)
 
 
-@contextlib.contextmanager
 def raw_frames(have_zstd: bool):
-    """Without zstandard, frames carry the raw codes: the store writer, the
-    manifest and ``ClipCodec`` run as they are and only the zstd payload is
-    left out (the codes are what the phase holds)."""
-    from clip_codec_tpu_torch import codec as codec_mod
-    from clip_codec_tpu_torch.io import bitstream
+    """Without zstandard a frame carries the raw codes behind its magic and
+    length: the store writer, the manifest, ``ClipCodec`` and the server run
+    as they are and only the zstd payload is left out (the codes are what
+    the phases hold)."""
+    from clip_codec_tpu_torch.probes.serve_times import raw_frames as framed
 
-    if have_zstd:
-        yield
-        return
-    import numpy as np
-
-    saved = bitstream.compress_frame, bitstream.decompress_frame
-    bitstream.compress_frame = codec_mod.compress_frame = bytes
-    bitstream.decompress_frame = codec_mod.decompress_frame = lambda b: np.frombuffer(b, dtype=np.uint8)
-    try:
-        yield
-    finally:
-        bitstream.compress_frame, bitstream.decompress_frame = saved
-        codec_mod.compress_frame, codec_mod.decompress_frame = saved
+    return framed(have_zstd)
 
 
 def _clip_images(seed, d: Path, n: int, corrupt: bool) -> list:
@@ -2621,6 +2642,285 @@ def phase_retrieval(torch, seed, dev, card):
     return records, launches
 
 
+# ------------------------------------------------------------ serving and export (phase 20)
+
+
+def _tally_captured(torch, counter, key):
+    """A launcher wrapped to count, by ``key(*args)``, the calls a CUDA-graph
+    capture records (each is launched once by every replay)."""
+    def wrap(fn):
+        def tallied(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                counter[key(*args, **kw)] += 1
+            return fn(*args, **kw)
+        return tallied
+    return wrap
+
+
+def phase_artifacts(torch, attn, mlp, rc, seed, dev, card):
+    """Export both artifacts through the CLI (20a), replay them against the
+    eager samplers (20b), then serve every endpoint over HTTP (20c). Returns
+    the launches of 20c, the main path's run, per kernel and shape."""
+    import importlib.util
+
+    from clip_codec_tpu_torch import deploy, serve
+    from clip_codec_tpu_torch.cli import export_decoder
+    from clip_codec_tpu_torch.cli.search_text import load_features
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+    from clip_codec_tpu_torch.utils.checkpoint import load_state_dict
+    from clip_codec_tpu_torch.weights import sd_checkpoint as ckpt
+
+    build = ROOT / "build" / "chip_smoke"
+    px_weights, sd_dir, store = build / "store" / "diffusion_unet_final.pt", build / "sd", build / "compress" / "store"
+    out = build / "serve"
+    out.mkdir(parents=True, exist_ok=True)
+    env = {ckpt.UNET_ENV: str(sd_dir / "unet.pt"), ckpt.VAE_ENV: str(sd_dir / "vae.pt"),
+           "CLIP_CODEC_CLIP_WEIGHTS": str(build / "compress" / "clip_vit_b32.pt"),
+           "CLIP_BPE_PATH": str(build / "retrieval" / "bpe.txt.gz")}
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    captured = collections.Counter()  # (kernel, shape) -> calls a capture recorded
+    saved = rc._launch, attn._launch, mlp._launch_up
+    rc._launch = _tally_captured(torch, captured, lambda x, A, B, w9, bias, add, want_moments, linear: (
+        "affine_conv3x3" if linear else "affine_silu_conv3x3", (*x.shape[1:], w9.shape[2])))(rc._launch)
+    attn._launch = _tally_captured(torch, captured, lambda q, k, v: ("flash_attention", tuple(q.shape)))(attn._launch)
+    mlp._launch_up = _tally_captured(torch, captured, lambda x, *r: (
+        "mlp_up", (x.numel() // x.shape[-1], x.shape[-1], r[2].shape[0])))(mlp._launch_up)
+    try:
+        with mock.patch.dict(os.environ, env), raw_frames(have_zstd):
+            # 20a: both artifacts through the export CLI at its defaults (pixel: 256px, DDIM-50, batch 16)
+            t0 = time.perf_counter()
+            export_decoder.main(["--weights", str(px_weights), "--out", str(out / "decoder.torchprog"),
+                                 "--output", "uint8"])
+            export_decoder.main(["--sd", "--adapter", str(sd_dir / "adapter.pt"), "--out", str(out / "sd.torchprog")])
+            px_meta, sd_meta = (deploy.read_artifact_meta(out / n) for n in ("decoder.torchprog", "sd.torchprog"))
+            print(f"serve-export: both artifacts in {time.perf_counter() - t0:.2f} s on {card}; pixel {px_meta}; "
+                  f"sd {sd_meta}")
+            check((px_meta["size"], px_meta["steps"], px_meta["batch_size"], px_meta["output"], px_meta["base"]) ==
+                  (SIZE, STEPS, WIDE_BATCH, "uint8", PX_BASE), f"pixel artifact header {px_meta}")
+            check((sd_meta["size"], sd_meta["steps"], sd_meta["batch_size"], sd_meta["cfg_batched"]) ==
+                  (SD_SIZE, INV_STEPS, 1, True), f"SD artifact header {sd_meta}")
+
+            # 20b: replays against the eager samplers
+            feats, _ = load_features(store)
+            z = torch.from_numpy(feats[:WIDE_BATCH]).to(dev)
+            px = deploy.load_decompressor(out / "decoder.torchprog")
+            params = load_state_dict(px_weights)
+            t0 = time.perf_counter()
+            a = px(params, z, seed=seed)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            check(px.graph is not None, "the pixel artifact did not capture a graph")
+            reset_launches(rc)
+            b = px(params, z, seed=seed)
+            n = {"affine_silu_conv3x3": rc.affine_silu_conv3x3.launches, "affine_conv3x3": rc.affine_conv3x3.launches}
+            want_shapes = {("affine_conv3x3" if i == len(shapes) - 1 else "affine_silu_conv3x3", shape[1:]): c * STEPS
+                           for shapes in [path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, WIDE_BATCH)]
+                           for i, (shape, c) in enumerate(shapes)}
+            px_shapes = {k: v for k, v in captured.items() if k[0] in n}
+            print(f"serve-replay: pixel capture + first replay {first:.3f} s on {card}; a replay launched {n}; "
+                  f"recorded by shape {px_shapes}")
+            check(n == {"affine_silu_conv3x3": 28 * STEPS, "affine_conv3x3": STEPS}, f"launches a replay {n}")
+            check(px_shapes == want_shapes, f"recorded by shape {px_shapes} != {want_shapes}")
+            check(torch.equal(a, b), "two replays of one seed differ")
+            check(not torch.equal(a, px(params, z, seed=seed + 1)), "another seed replays the same images")
+            x_T = torch.randn((WIDE_BATCH, SIZE, SIZE, 3), generator=torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)
+            t0 = time.perf_counter()
+            e = px.sample(px.net, z, x_T)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            d = (a.int() - e.int()).abs()
+            same = (d == 0).float().mean().item()
+            px_ms = cuda_ms(torch, lambda: px(params, z, seed=seed), iters=1, warmup=0)
+            print(f"serve-replay: pixel uint8 vs eager from the same x_T: max |delta| {d.max().item()} levels, "
+                  f"{same:.6f} of pixels equal; a call (copies in, replay, copy out) {px_ms:.3f} ms device, eager "
+                  f"{eager_s:.3f} s wall, batch {WIDE_BATCH} on {card}")
+            check(d.max().item() <= 1 and same >= 0.999, f"pixel replay vs eager: {d.max().item()} levels, {same}")
+            del px, a, b, e
+            torch.cuda.empty_cache()
+
+            sd = deploy.load_sd_decompressor(out / "sd.torchprog")
+            sd_params = (ckpt.unet_state_dict(ckpt.read_checkpoint(sd_dir / "unet.pt")),
+                         ckpt.vae_state_dict(ckpt.read_checkpoint(sd_dir / "vae.pt")),
+                         ckpt.adapter_state_dict(ckpt.read_checkpoint(sd_dir / "adapter.pt")))
+            zs = z[:1]
+            t0 = time.perf_counter()
+            g5 = sd(*sd_params, zs, seed=seed, guidance_scale=SD_GUIDANCE)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            graph = sd.graph
+            reset_sd_launches(attn, mlp)
+            g5b = sd(*sd_params, zs, seed=seed, guidance_scale=SD_GUIDANCE)
+            n_sd = {k: sd_launches(attn, mlp)[k] for k in ("flash_attention", "transformer_mlp", "mlp_up", "mlp_down")}
+            g2 = sd(*sd_params, zs, seed=seed, guidance_scale=2.0)
+            n_mlp = INV_STEPS * SD_MLP_PER_FORWARD
+            want_sd = {"flash_attention": INV_STEPS * SD_FLASH_PER_FORWARD + 1, "transformer_mlp": n_mlp,
+                       "mlp_up": n_mlp, "mlp_down": n_mlp}
+            from clip_codec_tpu_torch.probes.mlp_times import unet_mlp_shapes
+
+            want_mlp = {("mlp_up", shape): c * INV_STEPS for shape, c in unet_mlp_shapes(2)}
+            sd_shapes = {k: v for k, v in captured.items() if k[0] in ("mlp_up", "flash_attention")}
+            print(f"serve-replay: SD capture + first replay {first:.3f} s on {card}; a replay launched {n_sd}; "
+                  f"recorded by shape {sd_shapes}")
+            check(n_sd == want_sd, f"SD launches a replay {n_sd} != {want_sd}")
+            check({k: v for k, v in sd_shapes.items() if k[0] == "mlp_up"} == want_mlp, f"MLP by shape {sd_shapes}")
+            check(sd.graph is graph, "a guidance value recaptured the SD graph")
+            check(torch.equal(g5, g5b), "two SD replays of one seed differ")
+            check(not torch.equal(g5, g2), "guidance 2 replays guidance 5's image")
+            x_T = torch.randn(sd.latent_shape(), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+            sd_rel = {}
+            for g, got in ((SD_GUIDANCE, g5), (2.0, g2)):
+                t0 = time.perf_counter()
+                e = sd.sample(sd.decoder, zs, x_T, g)
+                torch.cuda.synchronize()
+                sd_eager_s = time.perf_counter() - t0
+                sd_rel[g] = ((got - e).norm() / e.norm()).item()
+            sd_ms = cuda_ms(torch, lambda: sd(*sd_params, zs, seed=seed, guidance_scale=SD_GUIDANCE), iters=1, warmup=0)
+            print(f"serve-replay: SD vs eager from the same latent ||delta||/||eager|| {sd_rel}; a call {sd_ms:.3f} "
+                  f"ms device, eager {sd_eager_s:.3f} s wall (ddim-{INV_STEPS}, CFG batched, {SD_SIZE}px) on {card}")
+            check(all(r < 2e-2 for r in sd_rel.values()), f"SD replay vs eager {sd_rel}")
+            check(bool(torch.isfinite(g5).all().item()) and tuple(g5.shape) == (1, SD_SIZE, SD_SIZE, 3),
+                  f"SD image {tuple(g5.shape)}")
+            del sd, g5, g5b, g2, e
+            torch.cuda.empty_cache()
+
+            # 20c: the server on 127.0.0.1, every endpoint (counts from 0 just before it starts)
+            reset_launches(rc)
+            reset_sd_launches(attn, mlp)
+            captured.clear()
+            t0 = time.perf_counter()
+            srv = serve.serve(str(store), weights=str(px_weights), port=0, artifact=str(out / "decoder.torchprog"),
+                              batch_wait_ms=ART_WAIT_MS, sd_artifact=str(out / "sd.torchprog"),
+                              adapter=str(sd_dir / "adapter.pt"))
+            print(f"serve-http: started (both artifacts loaded and captured) in {time.perf_counter() - t0:.2f} s "
+                  f"on {card}")
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                launches = _serve_http(torch, srv.server_address, store, card, px_ms, sd_ms, rc, attn, mlp)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join()
+    finally:
+        rc._launch, attn._launch, mlp._launch_up = saved
+    by_shape = collections.Counter()
+    replays = launches.pop("replays")
+    for (name, shape), c in captured.items():
+        by_shape[(name, shape)] = c * replays["sd" if name in ("flash_attention", "mlp_up") else "pixel"]
+    launches["artifact_by_shape"] = by_shape
+    del srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serve_http(torch, addr, store, card, px_ms, sd_ms, rc, attn, mlp):
+    """20c's requests, each status and shape checked; returns the launches
+    and the sampler runs of each program."""
+    import io as _io
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch.codecs.quantizer import dequantize_l2norm_host
+    from clip_codec_tpu_torch.io.store import Store
+    from clip_codec_tpu_torch.probes.serve_times import drive, percentiles, request
+
+    def http(addr, method, path, body=None, headers=None):
+        return request(addr, path, body, method, headers)[:3]
+
+    view = Store.open(store)
+    manifest = json.loads((store / "manifest.json").read_text())
+    frames = [Path(r["bitstream"]).read_bytes() for r in manifest]
+    status, _, data = http(addr, "GET", "/healthz")
+    check((status, json.loads(data)) == (200, {"status": "ok", "dim": 512}), f"/healthz {status} {data[:200]!r}")
+
+    # 64 concurrent /decompress from 32 clients
+    dt, lat, res = drive(addr, "/decompress", [frames[i % len(frames)] for i in range(ART_REQUESTS)], ART_CLIENTS)
+    for status, _, body, _ in res:
+        check(status == 200 and Image.open(_io.BytesIO(body)).size == (SIZE, SIZE), f"/decompress {status}")
+    stats = json.loads(http(addr, "GET", "/stats")[2])
+    mb = stats["micro_batch"]
+    p50, p95 = percentiles(lat)
+    print(f"serve-http: {ART_REQUESTS} /decompress from {ART_CLIENTS} clients (DDIM-{STEPS}, {SIZE}px, micro-batch "
+          f"{WIDE_BATCH}, gather {ART_WAIT_MS} ms) in {dt:.3f} s = {ART_REQUESTS / dt:.3f} img/s; latency p50 "
+          f"{p50:.3f} s p95 {p95:.3f} s; {mb['calls']} replays, fill rate {mb['fill_rate']} on {card}")
+    check(mb["batch_size"] == WIDE_BATCH and 0 < mb["fill_rate"] <= 1 and mb["calls"] >= ART_REQUESTS // WIDE_BATCH,
+          f"micro-batch stats {mb}")
+    lone = [http(addr, "POST", "/decompress", frames[0]) for _ in range(2)]
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lone.append(http(addr, "POST", "/decompress", frames[1]))
+        walls.append(time.perf_counter() - t0)
+    check(all(r[0] == 200 for r in lone), "lone /decompress")
+    print(f"serve-http: a lone /decompress {min(walls):.3f} s wall; the replay's call {px_ms / 1e3:.3f} s device: "
+          f"busy {px_ms / 1e3 / min(walls):.3f} of the request on {card}")
+
+    # 3 /decompress_sd: seeds 0, 1, 0
+    sd_out, sd_walls = [], []
+    for s in (0, 1, 0):
+        t0 = time.perf_counter()
+        sd_out.append(http(addr, "POST", f"/decompress_sd?seed={s}&guidance={SD_GUIDANCE}", frames[2]))
+        sd_walls.append(time.perf_counter() - t0)
+    for status, ctype, body in sd_out:
+        check(status == 200 and ctype == "image/png" and Image.open(_io.BytesIO(body)).size == (SD_SIZE, SD_SIZE),
+              f"/decompress_sd {status} {body[:200]!r}")
+    check(sd_out[0][2] == sd_out[2][2] and sd_out[0][2] != sd_out[1][2], "/decompress_sd seeds")
+    print(f"serve-http: 3 /decompress_sd (ddim-{INV_STEPS}, CFG batched, guidance {SD_GUIDANCE}, {SD_SIZE}px) "
+          f"{[round(w, 4) for w in sd_walls]} s; the replay's call {sd_ms / 1e3:.3f} s device: busy "
+          f"{sd_ms / 1e3 / min(sd_walls):.3f} of the fastest request on {card}")
+
+    # /embed, /search, /search_image on the store
+    status, _, data = http(addr, "POST", "/embed", frames[5])
+    emb = np.array(json.loads(data)["embedding"], np.float32) if status == 200 else None
+    ref = dequantize_l2norm_host(view.read_codes()[5:6], view.scale, view.zero)[0]
+    check(status == 200 and emb.shape == (512,) and float(np.abs(emb - ref).max()) <= 1e-6,
+          f"/embed {status} {data[:200]!r}")
+    status, _, data = http(addr, "GET", "/search?q=a%20photo%20of%20a%20cat&k=10")
+    hits = json.loads(data).get("results", [])
+    images = {r["image"] for r in manifest}
+    check(status == 200 and len(hits) == 10 and all(h["path"] in images for h in hits), f"/search {status} {data[:300]!r}")
+    status, _, data = http(addr, "POST", "/search_image?k=5", frames[5])
+    hits = json.loads(data).get("results", [])
+    check(status == 200 and len(hits) == 5 and hits[0]["path"] == manifest[5]["image"] and hits[0]["score"] > 0.999,
+          f"/search_image .clp {status} {data[:300]!r}")
+    status, _, data = http(addr, "POST", "/search_image?k=10", Path(manifest[3]["image"]).read_bytes())
+    check(status == 200 and len(json.loads(data)["results"]) == 10, f"/search_image png {status} {data[:300]!r}")
+
+    # the error paths
+    errors = {
+        "seed in micro-batched mode": (http(addr, "POST", "/decompress?seed=1", frames[0]), 400, "seed is per-program"),
+        "bad frame": (http(addr, "POST", "/embed", b"garbage"), 400, "Bad magic"),
+        "bad format": (http(addr, "POST", "/decompress?format=gif", frames[0]), 400, "unknown format"),
+        "unknown endpoint": (http(addr, "GET", "/nope"), 404, "unknown endpoint"),
+        "pixel statics": (http(addr, "POST", "/decompress?steps=10", frames[0]), 412, "statics mismatch"),
+        "sd statics": (http(addr, "POST", "/decompress_sd?sampler=dpmpp", frames[0]), 412, "statics mismatch"),
+        "body too large": (http(addr, "POST", "/embed", headers={"Content-Length": str(1 << 31)}), 413, "limit"),
+    }
+    for what, ((status, _, data), want, text) in errors.items():
+        err = json.loads(data).get("error", "")
+        check(status == want and text in err, f"{what}: {status} {err!r}, want {want} with {text!r}")
+    body = json.loads(errors["pixel statics"][0][2])
+    check(body["requested"] == {"steps": "10"} and body["artifact"] == {"steps": STEPS}, f"412 body {body}")
+    print(f"serve-http: /healthz, /embed, /search, /search_image (.clp and png), 400 x3, 404, 412 x2, 413 all as "
+          f"expected; /stats {json.loads(http(addr, 'GET', '/stats')[2])}")
+
+    stats = json.loads(http(addr, "GET", "/stats")[2])
+    replays = {"pixel": 1 + stats["micro_batch"]["calls"], "sd": 1 + len(sd_out)}  # + the start-up call
+    launches = {"affine_silu_conv3x3": rc.affine_silu_conv3x3.launches, "affine_conv3x3": rc.affine_conv3x3.launches,
+                **sd_launches(attn, mlp)}
+    # each program ran its sampler once eagerly (the warm-up before its capture), then replayed
+    want = {"affine_silu_conv3x3": 28 * STEPS * (1 + replays["pixel"]), "affine_conv3x3": STEPS * (1 + replays["pixel"]),
+            "flash_attention": (INV_STEPS * SD_FLASH_PER_FORWARD + 1) * (1 + replays["sd"])}
+    want.update({k: INV_STEPS * SD_MLP_PER_FORWARD * (1 + replays["sd"])
+                 for k in ("transformer_mlp", "mlp_up", "mlp_down")})
+    got = {k: launches[k] for k in want}
+    print(f"serve-http: launches {got} ({replays} replays after one eager warm-up each) on {card}")
+    check(got == want, f"HTTP run launches {got} != {want}")
+    return {**got, "replays": {k: 1 + v for k, v in replays.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2689,6 +2989,8 @@ def main() -> int:
         ret_records, ret_launches = phase_retrieval(torch, args.seed, dev, card)
         records.update(ret_records)
         launches.update(ret_launches)
+
+        art = phase_artifacts(torch, attn, mlp, rc, args.seed, dev, card)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2704,12 +3006,22 @@ def main() -> int:
                     by_shape = launches["gn_by_shape"][tuple(rec["shape"])]
                 elif name in ("u8_ip_scores", "u8_ip_probe"):
                     by_shape = rec["launches"]  # counted by shape in phase 19b-19d
+                elif rec["shape"][0] == WIDE_BATCH:  # phase 20's pixel artifact replays B = 16
+                    by_shape = art["artifact_by_shape"][(name, tuple(rec["shape"][1:]))]
+                    rec = {**rec, "phase": 20}
                 else:  # phase 4 serves at B = 4, phase 18 evaluates at B = 8
                     tally = launches["by_shape" if rec["shape"][0] == SERVE_BATCH else "eval_by_shape"]
                     by_shape = tally[tuple(rec["shape"][1:])]
                 kernels.append({**head, "launches": by_shape, **rec})
+                if name in ("mlp_up", "mlp_down") and ("mlp_up", tuple(rec["shape"])) in art["artifact_by_shape"]:
+                    # the same shape in phase 20's SD artifact (mlp_down runs once per mlp_up)
+                    kernels.append({**head, **rec, "phase": 20,
+                                    "launches": art["artifact_by_shape"][("mlp_up", tuple(rec["shape"]))]})
         else:
             kernels.append({**head, "launches": launches[name], **records[name]})
+            if name == "flash_attention":  # phase 20's SD artifact, by shape beside the total
+                kernels.append({**head, **records[name], "launches": art[name], "phase": 20, "launches_by_shape": {
+                    str(list(shape)): c for (k, shape), c in art["artifact_by_shape"].items() if k == name}})
         if name in inv_records:  # K5 at the guided decode's shape, launches per default inversion request
             kernels.append({**head, "launches": inv_launches[name], **inv_records[name]})
     print(json.dumps({"kernels": kernels}))

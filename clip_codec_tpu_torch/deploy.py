@@ -1,0 +1,485 @@
+"""Serving artifacts: the port of ``clip_codec_tpu/deploy.py``.
+
+The JAX package serves from an AOT ``jax.export`` program: the whole
+trajectory (the sampler's scan and the final clip) is one compiled program
+with no host sync, its shapes fixed at export, its parameters call-time
+arguments. Here the artifact is a small file of the same statics, and the
+program is rebuilt from it at load: on a CUDA device the whole sampler is
+captured once into one ``torch.cuda.CUDAGraph`` and every later call replays
+it.
+
+    # build box (has the checkpoint):
+    from clip_codec_tpu_torch.deploy import export_decompressor
+    export_decompressor(state_dict, mc, "decoder.torchprog", size=256, steps=50)
+
+    # serving box:
+    from clip_codec_tpu_torch.deploy import load_decompressor
+    dec = load_decompressor("decoder.torchprog")          # device="cuda"
+    images = dec(state_dict, z, seed=7)                   # (B, size, size, 3) in [-1, 1]
+
+The file is a magic line (``CLPTORCHPROG1``, not the JAX package's
+``CLPJAXPROG1``: each package's loader refuses the other's file) and one
+JSON header line. The header holds the JAX header's keys (``kind``,
+``size``, ``steps``, ``sampler``, ``eta``, ``batch_size``, ``z_dim``, ...)
+and the architecture the JAX program bakes in and this one rebuilds from
+(``base``, ``ch_mult``, ``time_dim``, ``timesteps``, ``schedule``; the SD
+UNet, VAE and adapter geometry), the compute ``dtype`` and the device kinds
+it may load on (``platforms``). Weights are never in the file: parameters
+are call-time arguments (state dicts), as in JAX.
+
+A call with a given parameters object builds the network from the header
+and loads the state dict once. On ``cuda`` it then runs the sampler once
+eagerly on a side stream (lazy state: kernel libraries, packed weights,
+tables) and captures it into one graph: the initial noise read from a
+static buffer, every step, the clip to [-1, 1], and the ``output="uint8"``
+conversion. A later call copies z and the initial noise into the static
+buffers and replays. The initial noise is drawn outside the graph from the
+program's generator seeded with ``seed`` (what ``ClipCodec._generator(seed,
+0)`` and the SD CLI draw), or passed as ``x_T``; at ``eta > 0`` the per-step
+draws run inside the graph from that same generator, registered with the
+graph, so a replay continues where the eager sampler would and repeats its
+draws for a seed. The SD program reads ``guidance_scale`` from a 0-d device
+tensor written before each replay, so one capture serves every guidance. A
+capture that fails raises; nothing falls back to the eager loop on the
+card. On ``cpu`` (the tests) the call runs the eager loop.
+
+Kernel calls recorded during the capture are tallied per wrapper
+(``ops.attention.RECORDED``); each replay adds them to the wrappers'
+``launches``, so a replayed request counts its kernels as an eager one does.
+
+Not ported: int8 artifacts (``ops/int8.py``) and the sharded ones
+(``parallel/``); both are refused with a message that names the module.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+from pathlib import Path
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .diffusion import NoiseSchedule, make_sampler
+from .models import CLIPCondUNet
+from .models.sd import SDClipAdapter, SDUNet, SDUNetConfig, StableDiffusionDecoder, VAEConfig
+from .models.sd.decoder import SAMPLERS as SD_SAMPLERS
+from .models.sd.decoder import clip_m11
+from .models.sd.unet import SD15_UNET
+from .models.sd.vae import SD15_VAE, AutoencoderKL
+from .ops import attention as _attention
+from .utils.config import ModelConfig
+
+PathLike = Union[str, Path]
+StateDict = Mapping[str, torch.Tensor]
+
+_MAGIC = b"CLPTORCHPROG1\n"
+_KINDS = ("pixel", "sd")
+PLATFORMS = ("cuda", "cpu")
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+NOT_PORTED_INT8 = "int8 artifacts are not ported to the PyTorch package yet (ops/int8.py)"
+NOT_PORTED_SHARDED = "sharded artifacts are not ported to the PyTorch package yet (parallel/)"
+
+
+# ---------------------------------------------------------------- the file
+
+
+def _write_artifact(path: PathLike, kind: str, meta: dict) -> Path:
+    path = Path(path)
+    header = json.dumps({"kind": kind, **meta}, sort_keys=True).encode()
+    path.write_bytes(_MAGIC + header + b"\n")
+    return path
+
+
+def read_artifact_meta(path: PathLike) -> dict:
+    """The metadata header of an artifact."""
+    with open(path, "rb") as f:
+        magic, header = f.read(len(_MAGIC)), f.readline()
+    if magic != _MAGIC:
+        raise ValueError(f"{path}: not a clip_codec_tpu_torch exported program")
+    try:
+        meta = json.loads(header)
+    except ValueError as e:
+        raise ValueError(f"{path}: corrupt artifact header: {e}") from None
+    if not isinstance(meta, dict) or meta.get("kind") not in _KINDS:
+        raise ValueError(f"{path}: unknown artifact kind {meta.get('kind') if isinstance(meta, dict) else meta!r}")
+    return meta
+
+
+def _read_artifact(path: PathLike, expect_kind: str) -> dict:
+    meta = read_artifact_meta(path)
+    if meta["kind"] != expect_kind:
+        raise ValueError(
+            f"{path}: this is a {meta['kind']!r} artifact — load it with "
+            f"load_{'sd_' if meta['kind'] == 'sd' else ''}decompressor")
+    if meta.get("sharded"):
+        raise ValueError(f"{path}: {NOT_PORTED_SHARDED}")
+    if meta.get("int8"):
+        raise ValueError(f"{path}: {NOT_PORTED_INT8}")
+    return meta
+
+
+def _platforms(platforms: Optional[Sequence[str]]) -> list:
+    """The device kinds an artifact may load on; default: this box's."""
+    if platforms is None:
+        return ["cuda" if torch.cuda.is_available() else "cpu"]
+    bad = [p for p in platforms if p not in PLATFORMS]
+    if bad or not platforms:
+        raise ValueError(f"platforms must be drawn from {PLATFORMS}, got {list(platforms)}")
+    return list(platforms)
+
+
+def _dtype_name(dtype: Union[str, torch.dtype]) -> str:
+    name = dtype if isinstance(dtype, str) else str(dtype).removeprefix("torch.")
+    if name not in _DTYPES:
+        raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got {dtype!r}")
+    return name
+
+
+def _check_shapes(module: torch.nn.Module, state: StateDict, what: str) -> None:
+    """``state`` fits ``module`` key for key and shape for shape (``module``
+    may live on the meta device: only shapes are read)."""
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    if want != got:
+        missing, extra = sorted(want.keys() - got.keys()), sorted(got.keys() - want.keys())
+        shapes = sorted(k for k in want.keys() & got.keys() if want[k] != got[k])
+        raise ValueError(f"{what} parameters do not fit the architecture: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}, other shapes {shapes[:5]}")
+
+
+def _load(module: torch.nn.Module, state: StateDict, what: str) -> torch.nn.Module:
+    if not isinstance(state, Mapping) or not all(torch.is_tensor(v) for v in state.values()):
+        raise TypeError(f"{what} parameters must be a state dict of tensors, got {type(state).__name__}")
+    _check_shapes(module, state, what)
+    if next(module.parameters()).device.type != "meta":
+        module.load_state_dict(state, strict=True)
+    return module
+
+
+# ------------------------------------------------------------ the capture
+
+
+class _Graph:
+    """``run()`` (reading only static buffers) warmed up once on a side
+    stream, then captured into one CUDA graph. ``replay()`` returns the
+    captured output buffer (overwritten by the next replay) and adds the
+    kernel calls the capture recorded to each wrapper's ``launches``."""
+
+    def __init__(self, run: Callable[[], torch.Tensor], generator: Optional[torch.Generator] = None) -> None:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        before = collections.Counter(_attention.RECORDED)
+        with torch.cuda.graph(self.graph):
+            self.out = run()
+        self.launches: Dict[Callable, int] = dict(_attention.RECORDED - before)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+        return self.out
+
+
+class _Program:
+    """A loaded artifact: ``meta`` (the header), ``platforms``, the device,
+    and the networks built from the last parameters it was called with."""
+
+    def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
+        self.meta = meta
+        self.platforms = tuple(meta["platforms"])
+        self.device = torch.device(device)
+        if self.device.type not in self.platforms:
+            raise ValueError(f"artifact exported for platforms {list(self.platforms)}, not "
+                             f"{self.device.type!r}; re-export with --platforms {self.device.type}")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available (load with device='cpu')")
+        self.generator = torch.Generator(device=self.device)
+        self.graph: Optional[_Graph] = None
+        self._params: Optional[tuple] = None
+        self._static: Dict[str, torch.Tensor] = {}
+
+    def _bind(self, params: tuple) -> None:
+        if self._params is not None and all(a is b for a, b in zip(self._params, params)):
+            return
+        self.graph, self._params = None, None
+        self._build(*params)
+        self._params = params
+
+    def _build(self, *params) -> None:
+        raise NotImplementedError
+
+    def _tensor(self, a, shape: Tuple[int, ...], what: str) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(a, np.float32) if not torch.is_tensor(a) else a)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what} must have shape {tuple(shape)} (the artifact's statics), "
+                             f"got {tuple(t.shape)}")
+        return t.to(device=self.device, dtype=torch.float32)
+
+    def _noise(self, seed: int, x_T, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Seed the generator, then the initial noise: ``x_T``, or drawn from it."""
+        self.generator.manual_seed(int(seed))
+        if x_T is not None:
+            return self._tensor(x_T, shape, "x_T")
+        return torch.randn(shape, generator=self.generator, device=self.device, dtype=torch.float32)
+
+    def _run(self, inputs: Dict[str, torch.Tensor], eager: Callable[..., torch.Tensor],
+             seed: int, x_T, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Eager on the CPU; on the card: capture on the first call with these
+        parameters, then copy the inputs and the noise in and replay."""
+        gen = self.generator if self.meta["eta"] > 0 else None
+        if self.device.type == "cpu":
+            return eager(x_T=self._noise(seed, x_T, shape), generator=gen, **inputs)
+        if self.graph is None:
+            self._static = {k: torch.zeros_like(v) for k, v in inputs.items()}
+            self._static["x_T"] = torch.zeros(shape, device=self.device, dtype=torch.float32)
+            self.graph = _Graph(lambda: eager(generator=gen, **self._static), gen)
+        noise = self._noise(seed, x_T, shape)
+        for k, v in inputs.items():
+            self._static[k].copy_(v)
+        self._static["x_T"].copy_(noise)
+        return self.graph.replay().clone()
+
+
+# ---------------------------------------------------------------- pixel
+
+
+def make_decompress_fn(mc: ModelConfig, size: int = 256, steps: int = 50, sampler: str = "ddim",
+                       eta: float = 0.0, output: str = "float32",
+                       ) -> Callable[..., torch.Tensor]:
+    """The serving function ``(net, z, x_T, generator) -> images``: the
+    sampler from ``x_T`` (B, size, size, img_ch) conditioned on ``z`` (B,
+    z_dim), clipped to [-1, 1], and with ``output="uint8"`` converted as
+    the host prepares a PNG, ``((x + 1) * 127.5)`` truncated to uint8.
+    ``generator`` draws the per-step noise at ``eta > 0``."""
+    if output not in ("float32", "uint8"):
+        raise ValueError(f"output must be 'float32' or 'uint8', got {output!r}")
+    sched = NoiseSchedule.create(mc.timesteps, mc.schedule)
+    smp = make_sampler(sampler, sched, eta=eta)
+
+    def run(net: CLIPCondUNet, z: torch.Tensor, x_T: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = smp.sample(net, z, tuple(x_T.shape), steps=steps, x_T=x_T, generator=generator)
+        x = torch.clamp(x, -1.0, 1.0)
+        if output == "uint8":
+            x = ((x + 1.0) * 127.5).to(torch.uint8)
+        return x
+
+    return run
+
+
+def _pixel_net(meta: dict, device: Union[str, torch.device] = "meta") -> CLIPCondUNet:
+    with torch.device(device):
+        return CLIPCondUNet(z_dim=meta["z_dim"], base=meta["base"], ch_mult=tuple(meta["ch_mult"]),
+                            time_dim=meta["time_dim"], img_ch=meta["img_ch"], dtype=_DTYPES[meta["dtype"]])
+
+
+def export_decompressor(
+    params: StateDict,
+    mc: ModelConfig,
+    path: PathLike,
+    *,
+    size: int = 256,
+    steps: int = 50,
+    sampler: str = "ddim",
+    eta: float = 0.0,
+    batch_size: int = 16,
+    quant=None,
+    output: str = "float32",
+    platforms: Optional[Sequence[str]] = None,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+) -> Path:
+    """Write a pixel artifact for ``mc``'s architecture. ``params`` (a
+    ``CLIPCondUNet`` state dict) is checked against it, shapes only: the
+    artifact carries no weights. ``dtype`` is the U-Net's compute dtype
+    (bf16, as the JAX program; fp32 for parity runs)."""
+    if quant is not None:
+        raise ValueError(NOT_PORTED_INT8)
+    make_decompress_fn(mc, size, steps, sampler, eta, output)  # rejects a bad sampler, eta or output
+    meta = dict(size=int(size), steps=int(steps), sampler=sampler, eta=float(eta), batch_size=int(batch_size),
+                z_dim=int(mc.z_dim), img_ch=int(mc.img_ch), int8=False, output=output,
+                base=int(mc.base), ch_mult=[int(c) for c in mc.ch_mult], time_dim=int(mc.time_dim),
+                timesteps=int(mc.timesteps), schedule=mc.schedule, dtype=_dtype_name(dtype),
+                platforms=_platforms(platforms))
+    _load(_pixel_net(meta), params, "U-Net")
+    return _write_artifact(path, "pixel", meta)
+
+
+class PixelDecompressor(_Program):
+    """``call(params, z, seed=0, x_T=None) -> images``, (B, size, size,
+    img_ch) float32 in [-1, 1] or uint8, on the program's device."""
+
+    def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
+        super().__init__(meta, device)
+        self.mc = ModelConfig(z_dim=meta["z_dim"], base=meta["base"], ch_mult=tuple(meta["ch_mult"]),
+                              time_dim=meta["time_dim"], img_ch=meta["img_ch"], timesteps=meta["timesteps"],
+                              schedule=meta["schedule"], out_size=meta["size"])
+        self.sample = make_decompress_fn(self.mc, meta["size"], meta["steps"], meta["sampler"], meta["eta"],
+                                         meta["output"])
+        self.net: Optional[CLIPCondUNet] = None
+
+    def _build(self, params: StateDict) -> None:
+        self.net = _load(_pixel_net(self.meta, self.device), params, "U-Net").eval()
+
+    def __call__(self, params: StateDict, z, seed: int = 0, x_T=None) -> torch.Tensor:
+        m = self.meta
+        B = m["batch_size"]
+        self._bind((params,))
+        z = self._tensor(z, (B, m["z_dim"]), "z")
+        return self._run({"z": z}, lambda z, x_T, generator: self.sample(self.net, z, x_T, generator),
+                         seed, x_T, (B, m["size"], m["size"], m["img_ch"]))
+
+
+def load_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> PixelDecompressor:
+    """Load a pixel artifact written by :func:`export_decompressor` for
+    ``device``; the export-time statics ride on ``call.meta``."""
+    return PixelDecompressor(_read_artifact(path, "pixel"), device)
+
+
+# ------------------------------------------------------------------- SD
+
+
+def make_sd_decompress_fn(size: int = 512, steps: int = 30, sampler: str = "ddim", eta: float = 0.0,
+                          cfg_batched: Optional[bool] = None, batch_size: int = 1
+                          ) -> Callable[..., torch.Tensor]:
+    """The SD serving function ``(decoder, z, x_T, guidance, generator) ->
+    images``: CFG sampling from the latent ``x_T`` and the VAE decode
+    (``StableDiffusionDecoder.sample``), clipped to [-1, 1] in fp32.
+    ``guidance`` is a number or a 0-d fp32 device tensor; ``cfg_batched``
+    None picks the batched pair at ``batch_size`` <= 4, as the JAX
+    program."""
+    if sampler not in SD_SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}; choose 'ddim' or 'dpmpp'")
+    if sampler == "dpmpp" and eta != 0.0:
+        raise ValueError("DPM-Solver++ is deterministic: eta must be 0.0")
+    batched = batch_size <= 4 if cfg_batched is None else bool(cfg_batched)
+
+    def run(dec: StableDiffusionDecoder, z: torch.Tensor, x_T: torch.Tensor, guidance,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        img = dec.sample(z, tuple(x_T.shape), steps=steps, eta=eta, guidance_scale=guidance,
+                         generator=generator, cfg_batched=batched, sampler=sampler, x_T=x_T)
+        return clip_m11(img.float())
+
+    return run
+
+
+def _sd_modules(meta: dict, device: Union[str, torch.device] = "meta"):
+    ucfg = SDUNetConfig(**{**meta["unet"], "block_out": tuple(meta["unet"]["block_out"])})
+    vcfg = VAEConfig(**{**meta["vae"], "block_out": tuple(meta["vae"]["block_out"])})
+    dt = _DTYPES[meta["dtype"]]
+    with torch.device(device):
+        return (SDUNet(ucfg, dtype=dt), AutoencoderKL(vcfg, dtype=dt),
+                SDClipAdapter(meta["z_dim"], ucfg.cross_dim, meta["adapter_hidden"], meta["n_tokens"]))
+
+
+def export_sd_decompressor(
+    unet_params: StateDict,
+    vae_params: StateDict,
+    adapter_params: StateDict,
+    path: PathLike,
+    *,
+    unet_cfg: Optional[SDUNetConfig] = None,
+    vae_cfg: Optional[VAEConfig] = None,
+    clip_dim: Optional[int] = None,
+    n_tokens: Optional[int] = None,
+    size: int = 512,
+    steps: int = 30,
+    sampler: str = "ddim",
+    eta: float = 0.0,
+    cfg_batched: Optional[bool] = None,
+    batch_size: int = 1,
+    quant=None,
+    platforms: Optional[Sequence[str]] = None,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+) -> Path:
+    """Write an SD artifact. The three state dicts are checked against the
+    architecture, shapes only (``unet_cfg``/``vae_cfg`` default to SD-1.5's);
+    the adapter geometry (clip_dim, hidden, n_tokens) is read off the
+    adapter's weights unless overridden."""
+    if quant is not None:
+        raise ValueError(NOT_PORTED_INT8)
+    ucfg = unet_cfg if unet_cfg is not None else SD15_UNET
+    vcfg = vae_cfg if vae_cfg is not None else SD15_VAE
+    fc1, fc2 = adapter_params["proj.1.weight"], adapter_params["proj.3.weight"]
+    hidden = int(fc1.shape[0])
+    clip_dim = int(fc1.shape[1]) if clip_dim is None else int(clip_dim)
+    n_tokens = int(fc2.shape[0]) // ucfg.cross_dim if n_tokens is None else int(n_tokens)
+    make_sd_decompress_fn(size, steps, sampler, eta, cfg_batched, batch_size)
+    down = 2 ** (len(vcfg.block_out) - 1)
+    if size % down:
+        raise ValueError(f"size {size} not divisible by the VAE factor {down}")
+    meta = dict(size=int(size), steps=int(steps), sampler=sampler, eta=float(eta), batch_size=int(batch_size),
+                z_dim=clip_dim, n_tokens=n_tokens, int8=False,
+                cfg_batched=batch_size <= 4 if cfg_batched is None else bool(cfg_batched),
+                unet=dataclasses.asdict(ucfg), vae=dataclasses.asdict(vcfg), adapter_hidden=hidden,
+                dtype=_dtype_name(dtype), platforms=_platforms(platforms))
+    for mod, state, what in zip(_sd_modules(meta), (unet_params, vae_params, adapter_params),
+                                ("UNet", "VAE", "adapter")):
+        _load(mod, state, what)
+    return _write_artifact(path, "sd", meta)
+
+
+class SDDecompressor(_Program):
+    """``call(unet_params, vae_params, adapter_params, z, seed=0,
+    guidance_scale=5.0, x_T=None) -> images``, (B, size, size, 3) float32
+    in [-1, 1] on the program's device; ``x_T`` is the initial latent."""
+
+    def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
+        super().__init__(meta, device)
+        self.sample = make_sd_decompress_fn(meta["size"], meta["steps"], meta["sampler"], meta["eta"],
+                                            meta["cfg_batched"], meta["batch_size"])
+        self.decoder: Optional[StableDiffusionDecoder] = None
+
+    def _build(self, unet_params: StateDict, vae_params: StateDict, adapter_params: StateDict) -> None:
+        mods = [_load(mod, state, what).eval() for mod, state, what in
+                zip(_sd_modules(self.meta, self.device), (unet_params, vae_params, adapter_params),
+                    ("UNet", "VAE", "adapter"))]
+        self.decoder = StableDiffusionDecoder(*mods)
+
+    def latent_shape(self) -> Tuple[int, int, int, int]:
+        m = self.meta
+        f = 2 ** (len(m["vae"]["block_out"]) - 1)
+        return (m["batch_size"], m["size"] // f, m["size"] // f, m["vae"]["latent_ch"])
+
+    def __call__(self, unet_params: StateDict, vae_params: StateDict, adapter_params: StateDict, z,
+                 seed: int = 0, guidance_scale: float = 5.0, x_T=None) -> torch.Tensor:
+        m = self.meta
+        self._bind((unet_params, vae_params, adapter_params))
+        z = self._tensor(z, (m["batch_size"], m["z_dim"]), "z")
+        g = torch.full((), float(np.float32(guidance_scale)), dtype=torch.float32, device=self.device)
+
+        def eager(z, x_T, guidance, generator):
+            return self.sample(self.decoder, z, x_T, guidance, generator)
+
+        return self._run({"z": z, "guidance": g}, eager, seed, x_T, self.latent_shape())
+
+
+def load_sd_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> SDDecompressor:
+    """Load an SD artifact written by :func:`export_sd_decompressor` for
+    ``device``; the export-time statics ride on ``call.meta``."""
+    return SDDecompressor(_read_artifact(path, "sd"), device)
+
+
+def export_sharded_decompressor(*args, **kwargs):
+    raise NotImplementedError(NOT_PORTED_SHARDED)
+
+
+load_sharded_decompressor = export_sharded_sd_decompressor = load_sharded_sd_decompressor = \
+    export_sharded_decompressor
+
+
+__all__ = [
+    "make_decompress_fn", "export_decompressor", "load_decompressor", "PixelDecompressor",
+    "make_sd_decompress_fn", "export_sd_decompressor", "load_sd_decompressor", "SDDecompressor",
+    "export_sharded_decompressor", "load_sharded_decompressor",
+    "export_sharded_sd_decompressor", "load_sharded_sd_decompressor",
+    "read_artifact_meta",
+]

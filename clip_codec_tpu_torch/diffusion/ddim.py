@@ -16,8 +16,10 @@ textbook strided DDIM kept exactly:
 direction ``sqrt(1 - al_bar_s - sigma^2) * eps``, terminal target 1.
 
 The loop is a Python loop over per-step coefficients precomputed on the host
-in numpy fp32 (the same fp32 operations as the JAX scan); the update math
-runs in fp32 on the device while the model may compute in bf16.
+in numpy fp32 (the same fp32 operations as the JAX scan) from the schedule's
+host tables; the update math runs in fp32 on the device while the model may
+compute in bf16. Nothing in the loop waits on the device, so ``deploy.py``
+captures the whole trajectory in one CUDA graph.
 """
 
 from __future__ import annotations
@@ -43,11 +45,11 @@ def _step_coefficients(sched: NoiseSchedule, steps: int, standard: bool = False
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-step ``(t, al_bar_t, al_bar_s)`` on the host, fp32 (see (a), (b))."""
     ts = ddim_timestep_grid(sched.timesteps, steps)
-    al_bar_t = sched.alphas_cumprod.cpu().numpy()[ts]
+    al_bar_t = sched.numpy("alphas_cumprod")[ts]
     if standard:
         al_bar_s = np.concatenate([al_bar_t[1:], np.ones(1, np.float32)])
     else:
-        al_bar_s = sched.alphas_cumprod_prev.cpu().numpy()[ts].copy()
+        al_bar_s = sched.numpy("alphas_cumprod_prev")[ts].copy()
         al_bar_s[-1] = 1.0
     return ts.astype(np.int32), al_bar_t.astype(np.float32), al_bar_s.astype(np.float32)
 

@@ -68,7 +68,7 @@ def dpmpp_sample(
     ``clip_x0`` clips each x0-prediction to [-1, 1] (pixel-space models)."""
     device = z.device
     ts = ddim_timestep_grid(sched.timesteps, steps)
-    ab_src = sched.alphas_cumprod.cpu().numpy()[ts]
+    ab_src = sched.numpy("alphas_cumprod")[ts]
     ab_tgt = np.concatenate([ab_src[1:], np.ones(1, np.float32)])
     c_skip, c0, c1 = dpmpp_coefficients(ab_src, ab_tgt)
     sa, sb = np.sqrt(ab_src), np.sqrt(np.float32(1.0) - ab_src)

@@ -1,6 +1,9 @@
 """DDPM noise schedule: fp32 tables computed on the host in numpy in the
 operation order of ``clip_codec_tpu/diffusion/schedule.py`` (so every table
-is bit-equal to the JAX one), then moved to the device.
+is bit-equal to the JAX one), then moved to the device. The host copies stay
+beside them (``NoiseSchedule.host``): the samplers read their per-step
+coefficients there, with no device-to-host copy, so a sampler can be
+captured in a CUDA graph.
 
 Schedules: ``linear`` (betas = linspace(1e-4, 0.02, T)) and ``cosine``
 (Nichol-Dhariwal, s = 0.008, betas clamped to [1e-4, 0.9999]).
@@ -9,7 +12,8 @@ Schedules: ``linear`` (betas = linspace(1e-4, 0.02, T)) and ``cosine``
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict
 
 import numpy as np
 import torch
@@ -46,7 +50,8 @@ def _tables(timesteps: int, schedule: str) -> dict:
 
 @dataclass(frozen=True)
 class NoiseSchedule:
-    """Precomputed DDPM schedule tables, each a ``(T,)`` float32 tensor."""
+    """Precomputed DDPM schedule tables, each a ``(T,)`` float32 tensor;
+    ``host`` holds the same tables as numpy arrays."""
 
     betas: torch.Tensor
     alphas: torch.Tensor
@@ -55,6 +60,7 @@ class NoiseSchedule:
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     posterior_variance: torch.Tensor
+    host: Dict[str, np.ndarray] = field(repr=False, compare=False)
 
     @property
     def timesteps(self) -> int:
@@ -63,7 +69,12 @@ class NoiseSchedule:
     @classmethod
     def create(cls, timesteps: int = 1000, schedule: str = "cosine",
                device: torch.device | str = "cpu") -> "NoiseSchedule":
-        return cls(**{k: torch.from_numpy(v).to(device) for k, v in _tables(timesteps, schedule).items()})
+        tables = _tables(timesteps, schedule)
+        return cls(**{k: torch.from_numpy(v).to(device) for k, v in tables.items()}, host=tables)
+
+    def numpy(self, name: str) -> np.ndarray:
+        """The fp32 table ``name`` on the host, with no device copy."""
+        return self.host[name]
 
     def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """Diffuse ``x0`` to ``x_t``."""

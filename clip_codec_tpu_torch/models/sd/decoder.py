@@ -23,7 +23,7 @@ not ported; see ``ROADMAP.md``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -108,6 +108,19 @@ def sd_step_coefficients(steps: int, timesteps: int = 1000, sampler: str = "ddim
     return ts, {k: np.asarray(v, np.float32) for k, v in co.items()}
 
 
+Guidance = Union[float, torch.Tensor]
+
+
+def cfg_combine(eps_u: torch.Tensor, eps_c: torch.Tensor, guidance_scale: Guidance) -> torch.Tensor:
+    """``eps_u + g (eps_c - eps_u)`` with ``g`` the guidance rounded to fp32:
+    a Python number, or a 0-d fp32 tensor on the eps' device, which a CUDA
+    graph reads at each replay (one captured sampler serves every guidance).
+    The two forms give the same bits: each is one fp32 multiply, then one
+    add."""
+    g = guidance_scale if torch.is_tensor(guidance_scale) else float(np.float32(guidance_scale))
+    return eps_u + g * (eps_c - eps_u)
+
+
 def clip_m11(x: torch.Tensor) -> torch.Tensor:
     """``x`` clipped to [-1, 1] as ``jnp.clip`` computes it,
     ``minimum(maximum(x, -1), 1)``: at an exact tie the gradient is split
@@ -160,7 +173,7 @@ class StableDiffusionDecoder:
         shape: Tuple[int, int, int, int],
         steps: int = 30,
         eta: float = 0.0,
-        guidance_scale: float = 5.0,
+        guidance_scale: Guidance = 5.0,
         generator: Optional[torch.Generator] = None,
         decode_pixels: bool = True,
         cfg_batched: Optional[bool] = None,
@@ -185,7 +198,7 @@ class StableDiffusionDecoder:
         shape: Tuple[int, int, int, int],
         steps: int = 30,
         eta: float = 0.0,
-        guidance_scale: float = 5.0,
+        guidance_scale: Guidance = 5.0,
         inv_weight: float = 1.0,
         inv_every: int = 1,
         generator: Optional[torch.Generator] = None,
@@ -207,7 +220,8 @@ class StableDiffusionDecoder:
         batch 2B in the order [uncond, cond]; None picks it for B <= 4.
         The initial latent is ``x_T`` if given, else drawn from
         ``generator``, which also draws the per-step noise of ddim at
-        ``eta > 0``."""
+        ``eta > 0``. ``guidance_scale`` is a number or a 0-d fp32 device
+        tensor (``cfg_combine``)."""
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}; choose 'ddim' or 'dpmpp'")
         if sampler == "dpmpp" and eta != 0.0:
@@ -226,7 +240,6 @@ class StableDiffusionDecoder:
         uncond = self.adapter(torch.zeros_like(z_clip))
         ctx2 = torch.cat([uncond, cond], dim=0) if cfg_batched else None
         z_tgt = z_target / torch.linalg.vector_norm(z_target, dim=-1, keepdim=True).clamp_min(1e-9)
-        g = float(np.float32(guidance_scale))
         m_prev = torch.zeros_like(lat)
         for i, t in enumerate(ts.tolist()):
             if cfg_batched:
@@ -237,7 +250,7 @@ class StableDiffusionDecoder:
                 t_b = torch.full((B,), t, dtype=torch.int32, device=dev)
                 eps_u = self.unet(lat, t_b, uncond).float()
                 eps_c = self.unet(lat, t_b, cond).float()
-            eps = eps_u + g * (eps_c - eps_u)
+            eps = cfg_combine(eps_u, eps_c, guidance_scale)
             if inv_weight > 0 and i % max(1, inv_every) == 0:
                 grad = self.inversion_grad(lat, eps, co["c_noise"][i], co["c_x0"][i], embed_fn, z_tgt)
                 lat = lat - inv_weight * grad / (torch.linalg.vector_norm(grad) + 1e-8)

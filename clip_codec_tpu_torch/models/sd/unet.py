@@ -14,6 +14,7 @@ times (the 5 self-attentions at 64x64, D=40, and the 5 at 32x32, D=80; the
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -45,15 +46,20 @@ class SDUNetConfig:
 SD15_UNET = SDUNetConfig()
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(half: int, max_period: float, device: torch.device) -> torch.Tensor:
+    """The frequency table on ``device``, copied there once: a forward then
+    copies nothing from the host and can be captured in a CUDA graph."""
+    x = np.float32(-math.log(max_period)) * np.arange(half, dtype=np.float32) / np.float32(half)
+    return torch.from_numpy(np.exp(x.astype(np.float64)).astype(np.float32)).to(device)
+
+
 def sd_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
     """diffusers ``get_timestep_embedding`` with flip_sin_to_cos=True and
     downscale_freq_shift=0: [cos, sin] order, fp32. The frequency table is
     the correctly rounded fp32 ``exp`` of the fp32 exponents, made on the
     host, so it is the same on every device."""
-    half = dim // 2
-    x = np.float32(-math.log(max_period)) * np.arange(half, dtype=np.float32) / np.float32(half)
-    freqs = torch.from_numpy(np.exp(x.astype(np.float64)).astype(np.float32)).to(t.device)
-    args = t.float()[:, None] * freqs[None, :]
+    args = t.float()[:, None] * _frequencies(dim // 2, max_period, t.device)[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 

@@ -19,11 +19,13 @@ forward kernel saves ``(q, k, v, out, lse)`` and the backward kernels
 consume them. ``flash_attention_fwd.launches``,
 ``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``
 count kernel launches (a call recorded into a CUDA graph launches nothing
-and is not counted; the graph's replays pass no wrapper).
+and is not counted there; it is tallied in ``RECORDED``, and a replay of
+the graph through ``deploy.py`` adds its tally to each wrapper's count).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Tuple
@@ -76,9 +78,17 @@ def _launch_error(name: str, rc: int) -> RuntimeError:
     return RuntimeError(f"{name} launch failed: {why}")
 
 
+# Kernel calls recorded into CUDA graphs, by wrapper: whoever replays a graph
+# reads what its capture added here and counts it as launches per replay.
+RECORDED: collections.Counter = collections.Counter()
+
+
 def _count(wrapper) -> None:
-    """One launch on ``wrapper.launches``, unless the call was recorded into a CUDA graph."""
-    if not torch.cuda.is_current_stream_capturing():
+    """One launch on ``wrapper.launches``, or, for a call recorded into a
+    CUDA graph, one recorded call on ``RECORDED[wrapper]``."""
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED[wrapper] += 1
+    else:
         wrapper.launches += 1
 
 

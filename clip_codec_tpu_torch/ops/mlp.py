@@ -21,7 +21,8 @@ The kernels read the weights in a TMA-ready layout: pass
 the wrapper pack them on each call. ``transformer_mlp`` is an autograd
 Function whose backward differentiates ``mlp_plain`` (no kernel: JAX has
 none either). ``transformer_mlp.launches`` counts fused calls on the card,
-``mlp_up.launches`` and ``mlp_down.launches`` each stage's.
+``mlp_up.launches`` and ``mlp_down.launches`` each stage's (calls recorded
+into a CUDA graph are tallied as ``ops/attention.py``'s ``_count`` says).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from .attention import _count
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, what BasicTransformerBlock uses
 WIDTHS = (320, 640, 1280)  # the kernels' C: SD-1.5's transformer widths
@@ -203,7 +206,7 @@ def mlp_up(x: torch.Tensor, lns: torch.Tensor, lnb: torch.Tensor, wh: torch.Tens
         return mlp_up_plain(x, lns, lnb, wh, bh, wg, bg)
     wup = _pack_up(wh, wg, x.dtype) if packed is None else packed[0]
     h = _launch_up(x, lns, lnb, bh, bg, wup)
-    mlp_up.launches += 1
+    _count(mlp_up)
     return h
 
 
@@ -216,7 +219,7 @@ def mlp_down(h: torch.Tensor, wo: torch.Tensor, packed: Optional[Packed] = None,
         return mlp_down_plain(h, wo)
     wdown = _pack_down(wo, h.dtype) if packed is None else packed[1]
     y = _launch_down(h, wdown, splits)
-    mlp_down.launches += 1
+    _count(mlp_down)
     return y
 
 
@@ -234,7 +237,7 @@ class _TransformerMLP(torch.autograd.Function):
         if packed is None:
             packed = pack_weights(wh, wg, wo, x.dtype)
         y = mlp_down(mlp_up(x, lns, lnb, wh, bh, wg, bg, packed), wo, packed)
-        transformer_mlp.launches += 1
+        _count(transformer_mlp)
         return y
 
     @staticmethod

@@ -1207,3 +1207,86 @@ def test_ivf_builds_are_bit_equal_on_the_card(rng, cuda):
         for name in ("centroids", "lists", "list_ids", "list_inv"):
             ta, tb = getattr(a, name), getattr(b, name)
             assert (ta is None and tb is None) or torch.equal(ta, tb), name
+
+
+def _px_artifact(tmp_path, **kw):
+    """A base-32 U-Net (the conv kernels take Cin % 32 == 0) and a 32px
+    artifact of it at batch 2, bf16, for the card."""
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.utils.config import ModelConfig
+
+    net = init_params(CLIPCondUNet(z_dim=16, base=32, ch_mult=(1, 2)), torch.Generator().manual_seed(0))
+    sd = {k: v.cuda() for k, v in net.state_dict().items()}
+    path = deploy.export_decompressor(sd, ModelConfig(z_dim=16, base=32, ch_mult=(1, 2), timesteps=100), tmp_path / "a",
+                                      **{"size": 32, "steps": 4, "batch_size": 2, "platforms": ["cuda"], **kw})
+    return deploy.load_decompressor(path), sd
+
+
+@pytest.mark.parametrize("output", ["float32", "uint8"])
+def test_pixel_artifact_replay_matches_the_eager_sampler(rng, cuda, tmp_path, output):
+    """The whole sampler captured in one CUDA graph: two replays of a seed
+    bit-equal, another seed differs, the eager sampler from the same x_T
+    within 1e-3 (uint8: one level), the launches a replay's kernel calls."""
+    call, sd = _px_artifact(tmp_path, output=output)
+    z = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32))
+    a = call(sd, z, seed=3)
+    assert call.graph is not None and a.shape == (2, 32, 32, 3)
+    n0 = rc.affine_silu_conv3x3.launches, rc.affine_conv3x3.launches
+    b = call(sd, z, seed=3)
+    assert (rc.affine_silu_conv3x3.launches - n0[0], rc.affine_conv3x3.launches - n0[1]) == (4 * 20, 4)
+    assert call.graph.launches == {rc.affine_silu_conv3x3: 4 * 20, rc.affine_conv3x3: 4}
+    assert torch.equal(a, b) and not torch.equal(a, call(sd, z, seed=4))
+    x_T = torch.randn((2, 32, 32, 3), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    e = call.sample(call.net, z.to(cuda), x_T)
+    if output == "uint8":
+        assert (a.int() - e.int()).abs().max().item() <= 1
+    else:
+        assert (a - e).abs().max().item() < 1e-3
+
+
+def test_artifact_replays_repeat_their_per_step_draws(rng, cuda, tmp_path):
+    """At eta > 0 the per-step noise is drawn inside the graph from the
+    program's generator, registered with it: a replay with seed s repeats
+    its draws, and continues where the eager sampler from the same seed
+    does (x_T, then each step's noise)."""
+    call, sd = _px_artifact(tmp_path, sampler="ddim_std", eta=0.5)
+    z = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32))
+    a = call(sd, z, seed=5)
+    assert torch.equal(a, call(sd, z, seed=5)) and not torch.equal(a, call(sd, z, seed=6))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x_T = torch.randn((2, 32, 32, 3), generator=gen, device=cuda)
+    e = call.sample(call.net, z.to(cuda), x_T, gen)
+    assert torch.isfinite(a).all() and (a - e).abs().max().item() < 1e-3
+
+
+def test_sd_artifact_replay_serves_every_guidance(rng, cuda, tmp_path):
+    """SD at the MLP kernel's width (320, 640) over 16x16 latents: one
+    capture, guidance written before each replay; each replay within 2e-2
+    (||delta|| / ||eager||) of the eager sampler at its guidance."""
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.models.sd import AutoencoderKL, SDClipAdapter, SDUNet, SDUNetConfig, VAEConfig
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.device(cuda):
+        mods = [init_params(m, gen) for m in (
+            SDUNet(SDUNetConfig(block_out=(320, 640), layers_per_block=1, cross_dim=64, heads=8, freq_dim=32)),
+            AutoencoderKL(VAEConfig(block_out=(32, 64), layers_per_block=1)), SDClipAdapter(16, 64, 64, 2))]
+    sds = [m.state_dict() for m in mods]
+    path = deploy.export_sd_decompressor(*sds, tmp_path / "sd", unet_cfg=mods[0].cfg, vae_cfg=mods[1].cfg,
+                                         size=32, steps=3, platforms=["cuda"])
+    call = deploy.load_sd_decompressor(path)
+    z = torch.from_numpy(rng.standard_normal((1, 16)).astype(np.float32))
+    outs = {g: call(*sds, z, seed=2, guidance_scale=g) for g in (5.0, 1.5)}
+    graph = call.graph
+    assert call(*sds, z, seed=2, guidance_scale=5.0).equal(outs[5.0]) and call.graph is graph
+    n0 = mlp.mlp_up.launches
+    with torch.no_grad():  # the artifact's own bf16 UNet, eager, at the CFG pair's batch
+        call.decoder.unet(torch.zeros((2, 16, 16, 4), device=cuda), torch.zeros((2,), dtype=torch.int32, device=cuda),
+                          torch.zeros((2, 2, 64), device=cuda))
+    per_forward = mlp.mlp_up.launches - n0
+    assert per_forward > 0 and graph.launches[mlp.mlp_up] == 3 * per_forward
+    assert not outs[5.0].equal(outs[1.5])
+    x_T = torch.randn(call.latent_shape(), generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    for g, out in outs.items():
+        e = call.sample(call.decoder, z.to(cuda), x_T, g)
+        assert ((out - e).norm() / e.norm()).item() < 2e-2, g
