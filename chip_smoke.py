@@ -256,6 +256,38 @@ no new kernel: the artifacts replay K2/K3 and K4/K6 from CUDA graphs):
    frame, a bad format), 404, 412 (both artifacts), 413. Launches of the
    whole HTTP run exact: each program's eager warm-up and its replays.
 
+The DINOv2 front end (``encoders/dino.py``, ``cli/encode_images_dino.py``, the
+SD CLIs' DINO paths; the JAX DINO tower reaches no Pallas kernel, so it adds
+no kernel, and its path runs K4, K5 and K6 through the SD UNet and VAE):
+
+21. a random DINOv2 ViT-B/14 (``encoders.dino.init_params`` from --seed:
+   matrices normal(0, 0.02), LayerNorm and LayerScale 1) saved under HF
+   ``Dinov2Model`` names and read through ``$CLIP_CODEC_DINO_WEIGHTS`` or
+   ``--weights``. 21a: ``cli.encode_images_dino.main`` over phase 16's 130
+   PNGs and its corrupt file (bf16, batch 16, on the card): 130 kept, the
+   rows unit, the codebook (eps 1e-6) bit-equal to numpy's fp32
+   recomputation, every code numpy's round-half-even, ``codec_meta.npz``'s
+   ``dim`` an int64 768; the bf16 tower within 2e-2 (row ||delta|| /
+   ||fp32||) of the fp32 tower on the same 518px inputs; printed: host
+   preprocess ms an image, img/s from preprocessed arrays, the forward's
+   device ms at B = 16 (CUDA-graph replay) beside ``dino_flops`` over 989
+   TFLOP/s. 21b: phase 11's 8 images through the DINO CLI and
+   ``cli.precompute_latents``; the adapter's gradient with both terms on
+   (clip_w 0.1, LPIPS on that step; phase 18's LPIPS file) on the kernel
+   path, the plain path and the plain path in fp32 (UNet, VAE and DINO
+   tower) at --seed and --seed + 1, at most 1.1x as far from fp32 as the
+   plain path, phase 11's tally a loss and backward; s/step at batch 4 with
+   the DINO term, and with LPIPS too, beside phase 11's; ``cli.train_sd.main``
+   for 2 epochs at batch 4 with ``--perc_every 2`` and both variables set:
+   every step gets the bf16 tower, LPIPS and 256px images, LPIPS on steps 0
+   and 2, losses finite, the adapter changed, 4 x phase 11's tally, peak
+   memory. 21c: the trained adapter through the SD CLI's loader; one guided
+   step's latent gradient through ``dino_embed_fn`` (kernel, plain, fp32
+   VAE and tower) at two seeds, <= 1.1x, one K4 and one K5 pair each; the
+   SD CLI's ``main`` at its default flags on a frame of 21b's dim-768 store
+   (backend auto -> dino): a 512x512 PNG and phase 17's launches a request;
+   s/request, busy share and peak memory beside phase 17's CLIP backend.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4, at B=8 with
 its launches in phase 18 and at B=16 with its launches in phase 20c
@@ -266,7 +298,10 @@ launches in phase 17's default request; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
 record per training shape with its launches in phase 14; u8_ip_scores and
 u8_ip_probe: one record per timed shape with its launches in phase 19b-19d
-(0 at the check-only D = 100 shape), ``library_ms`` null (no one PyTorch
+(0 at the check-only D = 100 shape); K4, the K5 pair and K6 once more with
+phase 21's launches (21b's CLI training plus 21c's CLI request, ``"phase":
+21``, beside the timed record's numbers: K4's and K6's first shape, K5's
+(1, 4096, 512)), ``library_ms`` null (no one PyTorch
 call takes uint8 codes and fp32 queries) and ``matmul_ms`` beside it for
 scale; ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
@@ -386,6 +421,9 @@ RET_NEAR = 1e-5  # score tolerance, and the gap under which two places are a nea
 # (the export CLI's default batch); the SD artifact at the export CLI's
 # defaults (ddim-30, 512px, batch 1).
 ART_REQUESTS, ART_CLIENTS, ART_WAIT_MS = 64, 32, 20.0
+# The DINOv2 front end (phase 21): ViT-B/14 at 518px, cli.encode_images_dino's
+# batch of 16 over phase 16's images; SD training and inversion on a dim-768 store.
+DINO_BATCH = 16
 
 
 class PhaseError(RuntimeError):
@@ -1285,7 +1323,8 @@ def _train_store(seed, store: Path):
 
 
 def phase_train(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
-    """Precompute latents, train 2 epochs, load the adapter and sample."""
+    """Precompute latents, train 2 epochs, load the adapter and sample.
+    Returns the training's launches and the steady-state s/step."""
     from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
     from clip_codec_tpu_torch.cli.precompute_latents import precompute_latents
     from clip_codec_tpu_torch.io import store as store_mod
@@ -1354,7 +1393,7 @@ def phase_train(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
     print(f"train-step: batch {TRAIN_BATCH}, SD-1.5 {SD_SIZE}px: {s_step:.4f} s per step = "
           f"{TRAIN_BATCH / s_step:.3f} img/s over {n_timed} synchronized steps on {card}; loss "
           f"{losses[-1].item():.6f}")
-    return launches
+    return launches, s_step
 
 
 # ------------------------------------------------------ pixel-decoder training
@@ -2075,11 +2114,13 @@ def phase_compress(torch, seed, dev, card):
 
 
 def device_ms(torch, fn) -> float:
-    """The sum of the card's kernel times in one call of ``fn`` (profiler)."""
+    """The sum of the card's kernel times in one call of ``fn`` (profiler).
+    Only the device's activity is recorded: a request's tens of thousands of
+    host ops would take a minute to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
@@ -2090,7 +2131,8 @@ def phase_inversion(torch, attn, mlp, seed, dev, card):
     """K5 at the guided decode's shape; one guided step's latent gradient on
     the kernel, plain and fp32 plain paths; the SD CLI at its default flags
     with its launches; s/request with and without inversion. Returns the
-    K5 records at that shape and the CLI request's launches."""
+    K5 records at that shape, the CLI request's launches and, with inversion
+    on, its s/request, busy share and peak memory."""
     import importlib.util
 
     import numpy as np
@@ -2192,7 +2234,7 @@ def phase_inversion(torch, attn, mlp, seed, dev, card):
           f"peak device memory {peak[1.0]:.2f} and {peak[0.0]:.2f} GiB on {card}")
     del dec, enc, embed
     torch.cuda.empty_cache()
-    return records, launches
+    return records, launches, {"s": times[1.0], "busy": busy[1.0], "peak": peak[1.0]}
 
 
 # ------------------------------------------------------------ evaluation
@@ -2921,6 +2963,387 @@ def _serve_http(torch, addr, store, card, px_ms, sd_ms, rc, attn, mlp):
     return {**got, "replays": {k: 1 + v for k, v in replays.items()}}
 
 
+# ------------------------------------------------------------ the DINOv2 front end (phase 21)
+
+
+def _dino_tower_file(torch, seed, path: Path) -> None:
+    """A random DINOv2 ViT-B/14 (``encoders.dino.init_params`` from ``seed``)
+    saved under HuggingFace ``Dinov2Model`` names, as a released file is read."""
+    from clip_codec_tpu_torch.encoders.dino import DINOV2_BASE, DinoV2, init_params
+    from clip_codec_tpu_torch.weights.convert_dino import dino_state_dict_to_hf
+
+    model = init_params(DinoV2(DINOV2_BASE), torch.Generator().manual_seed(seed))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(dino_state_dict_to_hf(model.state_dict()), path)
+
+
+def phase_dino_encode(torch, seed, dev, card):
+    """21a: the tower in bf16 against fp32; cli.encode_images_dino over phase
+    16's images (bf16, batch 16) with its store's checks; the encode's times.
+    Returns the tower file."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch import encoders
+    from clip_codec_tpu_torch.cli import encode_images_dino
+    from clip_codec_tpu_torch.encoders import _batched_encode
+    from clip_codec_tpu_torch.encoders.dino import DINOV2_BASE, dino_flops, preprocess_dino
+    from clip_codec_tpu_torch.io import store as store_mod
+
+    root = ROOT / "build" / "chip_smoke" / "dino"
+    weights, store, images = root / "dinov2_vitb14_hf.pt", root / "store", ROOT / "build" / "chip_smoke" / "compress" / "images"
+    t0 = time.perf_counter()
+    _dino_tower_file(torch, seed + 24, weights)
+    print(f"dino: random DINOv2 ViT-B/14 (encoders.dino.init_params, seed {seed + 24}) saved under HF Dinov2Model "
+          f"names in {time.perf_counter() - t0:.3f} s")
+    shutil.rmtree(store, ignore_errors=True)
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    made, written = [], []
+    real_encoder, real_write = encoders.DinoEncoder, store_mod.write_store
+
+    def encoder(**kw):
+        made.append(real_encoder(**kw))
+        return made[-1]
+
+    def write(*a, **kw):
+        written.append((a, kw))
+        return real_write(*a, **kw)
+
+    encoders.DinoEncoder, store_mod.write_store = encoder, write
+    try:
+        with raw_frames(have_zstd):
+            t0 = time.perf_counter()
+            encode_images_dino.main(["--img_dir", str(images), "--out_dir", str(store), "--weights", str(weights)])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            codes = store_mod.Store.open(store).read_codes()
+    finally:
+        encoders.DinoEncoder, store_mod.write_store = real_encoder, real_write
+    enc = made[0]
+    check(enc.model.dtype == torch.bfloat16 and enc.device.type == "cuda", "the DINO CLI's tower is not bf16 on the card")
+    (_, feats, kept, scale, zero, q), kw = written[0][0][:6], written[0][1]
+    norms = np.linalg.norm(feats, axis=1)
+    print(f"dino-cli: {len(kept)} of {CLIP_IMAGES + 1} files encoded (batch {DINO_BATCH}, bf16, ViT-B/14 at 518px: "
+          f"{-(-len(kept) // DINO_BATCH)} batches, the last padded) and stored in {cli_s:.3f} s (weights load "
+          f"included); |norm - 1| max {np.abs(norms - 1).max():.3e}")
+    check(len(kept) == CLIP_IMAGES and all("corrupt" not in p for p in kept), "the corrupt file was not skipped")
+    check(bool(np.isfinite(feats).all()) and float(np.abs(norms - 1).max()) < 1e-3, "embeddings not finite and unit")
+    rng_ = np.maximum(feats.max(0) - feats.min(0), np.float32(1e-6))  # the DINO writer's eps
+    check(np.array_equal(np.asarray(scale).view(np.uint32), (rng_ / np.float32(255)).view(np.uint32))
+          and np.array_equal(np.asarray(zero).view(np.uint32), feats.min(0).view(np.uint32)),
+          "fit_affine(eps=1e-6)'s scale and zero are not bit-equal to numpy's")
+    want_q = np.clip(np.round((feats - zero) / scale), 0, 255).astype(np.uint8)
+    check(np.array_equal(q, want_q) and np.array_equal(codes, q),
+          f"codes differ from numpy's in {int((q != want_q).sum())} places")
+    dim = np.load(store / "codec_meta.npz")["dim"]
+    check(kw == {"dim_dtype": "int64"} and dim.dtype == np.int64 and dim.shape == () and int(dim) == 768,
+          f"codec_meta.npz dim {dim!r} ({dim.dtype}), not an int64 768")
+    print(f"dino-codes: codebook (eps 1e-6) and {q.size} codes bit-equal to numpy (IEEE divide, round half to "
+          f"even); codec_meta.npz dim {int(dim)} as {dim.dtype} shape {dim.shape}")
+
+    # bf16 against fp32 on the same 518px inputs
+    pix = np.stack([preprocess_dino(np.asarray(Image.open(p).convert("RGB"), np.float32) / 255.0)
+                    for p in kept[:DINO_BATCH]])
+    f32 = real_encoder(weights_path=str(weights), dtype=torch.float32, device=dev)
+    stds = []
+    hooks = [blk.register_forward_hook(lambda m, a, out: stds.append(float(out.float().std())))
+             for blk in f32.model.encoder.resblocks]
+    z32 = f32.embed_images(torch.from_numpy(pix)).cpu().numpy()
+    for h in hooks:
+        h.remove()
+    zbf = enc.embed_images(torch.from_numpy(pix)).cpu().numpy()
+    rel = float((np.linalg.norm(zbf - z32, axis=1) / np.linalg.norm(z32, axis=1)).max())
+    print(f"dino-dtypes: std of the residual stream after each of the 12 blocks (fp32): "
+          f"{[round(v, 3) for v in stds]}; bf16 vs fp32 tower max row ||delta||/||fp32|| {rel:.4e}; CLI rows vs "
+          f"bf16 re-encode max |delta| {float(np.abs(feats[:DINO_BATCH] - zbf).max()):.3e}")
+    check(all(0.05 < v < 20 for v in stds), "the random tower's activations are not O(1)")
+    check(rel < 2e-2, f"bf16 embeddings {rel} from fp32 (limit 2e-2)")
+    del f32
+
+    # time: host preprocess per image; preprocessed arrays -> embeddings; the tower's device time
+    t0 = time.perf_counter()
+    pre = [preprocess_dino(np.asarray(Image.open(p).convert("RGB"), np.float32) / 255.0) for p in kept]
+    pre_ms = (time.perf_counter() - t0) / len(kept) * 1e3
+    embed = lambda x: enc.embed_images(torch.from_numpy(x)).cpu().numpy()
+    _batched_encode(pre, lambda a: a, embed, DINO_BATCH, 768)  # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _batched_encode(pre, lambda a: a, embed, DINO_BATCH, 768)
+        walls.append(time.perf_counter() - t0)
+    x = torch.from_numpy(pix).to(dev)
+    with torch.no_grad():
+        fwd = lambda: enc.model(x)
+        g_ms = graph_ms(torch, fwd)
+        e_ms = cuda_ms(torch, fwd)
+    flops = dino_flops(DINOV2_BASE, DINO_BATCH)
+    print(f"dino-time: PIL open + decode + bilinear resize to 518 + normalize {pre_ms:.3f} ms per image (host); "
+          f"preprocessed arrays -> embeddings, {len(kept)} images in {-(-len(kept) // DINO_BATCH)} batches of "
+          f"{DINO_BATCH}: {[round(w, 5) for w in walls]} s = {len(kept) / min(walls):.1f} img/s; the tower's forward "
+          f"at B={DINO_BATCH}: {g_ms:.4f} ms device (CUDA-graph replay), {e_ms:.4f} ms (events); "
+          f"{flops / 1e9:.1f} GFLOP (dino_flops) over 989 TFLOP/s = {flops / BF16_FLOPS_PER_S * 1e3:.4f} ms bound, "
+          f"{flops / g_ms / 1e9:.1f} TFLOP/s achieved, on {card}")
+    del enc, made, pre
+    torch.cuda.empty_cache()
+    return weights
+
+
+def phase_dino_train(torch, attn, mlp, seed, dev, card, weights, s_step_clip):
+    """21b: phase 11's images through the DINO CLI and cli.precompute_latents;
+    the adapter's gradient with both terms on (kernel, plain, fp32 plain) at
+    two seeds; s/step with the terms on; cli.train_sd for 2 epochs with both
+    variables set. Returns the store, the final adapter and the CLI's launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from clip_codec_tpu_torch.cli import encode_images_dino, precompute_latents, train_sd
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
+    from clip_codec_tpu_torch.encoders import DinoEncoder
+    from clip_codec_tpu_torch.encoders.dino import DinoV2
+    from clip_codec_tpu_torch.eval.lpips import LPIPS, LPIPSModel
+    from clip_codec_tpu_torch.models import init_params
+    from clip_codec_tpu_torch.models.sd import SDClipAdapter, StableDiffusionDecoder
+    from clip_codec_tpu_torch.train import sd_diffusion_train as tr
+
+    build = ROOT / "build" / "chip_smoke"
+    sd_dir, store, lp_file = build / "sd", build / "dino" / "train", build / "eval" / "lpips_vgg.pt"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    for i in range(TRAIN_IMAGES):  # phase 11's images
+        shutil.copy(build / "train" / f"img{i}.png", store / f"img{i}.png")
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    env = {"CLIP_CODEC_SD_UNET_WEIGHTS": str(sd_dir / "unet.pt"), "CLIP_CODEC_SD_VAE_WEIGHTS": str(sd_dir / "vae.pt"),
+           "CLIP_CODEC_DINO_WEIGHTS": str(weights), "CLIP_CODEC_LPIPS_WEIGHTS": str(lp_file)}
+    with raw_frames(have_zstd), mock.patch.dict(os.environ, env):
+        encode_images_dino.main(["--img_dir", str(store), "--out_dir", str(store)])
+        reset_sd_launches(attn, mlp)
+        precompute_latents.main(["--store_dir", str(store), "--size", str(SD_SIZE)])
+        n_pre = sd_launches(attn, mlp)["flash_attention"]
+    print(f"dino-train-store: {TRAIN_IMAGES} images through cli.encode_images_dino (dim 768) and "
+          f"cli.precompute_latents at {SD_SIZE}px; flash launches {n_pre}")
+    check(n_pre == TRAIN_IMAGES // TRAIN_BATCH, f"precompute launched flash {n_pre} times")
+
+    unet, vae = cli.load_frozen(sd_dir / "unet.pt", sd_dir / "vae.pt", dev, heads=8)
+    with torch.device(dev):
+        adapter = SDClipAdapter(768, unet.cfg.cross_dim, 1024, 8)
+    init_params(adapter, torch.Generator(device=dev).manual_seed(seed + 25))
+    dec = StableDiffusionDecoder(unet, vae, adapter)
+    dino = DinoEncoder(weights_path=str(weights), device=dev).model
+    lp = LPIPSModel.from_checkpoint(lp_file, dev).model
+    step = tr.make_sd_train_step(dec, tr.make_optimizer(adapter, 1e-4), tr.SDTrainConfig(), dino=dino, lpips=lp)
+
+    def batch(s, B):
+        gen = torch.Generator(device=dev).manual_seed(s)
+        z = torch.nn.functional.normalize(torch.randn((B, 768), generator=gen, device=dev), dim=-1)
+        lat0, noise = (torch.randn((B, 64, 64, 4), generator=gen, device=dev) for _ in range(2))
+        t = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
+        gt = torch.rand((B, 256, 256, 3), generator=gen, device=dev) * 2 - 1  # the default out_size
+        return z, lat0, torch.ones(B, device=dev), t, noise, gt
+
+    for s in (seed, seed + 1):
+        z, lat0, w, t, noise, gt = batch(s + 26, 1)
+
+        def grad():
+            adapter.zero_grad(set_to_none=True)
+            loss = step.loss_fn(z, lat0, w, t, noise, gt_img=gt, perc_on=True)
+            loss.backward()
+            return loss.item(), _grad_vector(torch, adapter)
+
+        reset_sd_launches(attn, mlp)
+        loss_k, g_k = grad()
+        n = sd_launches(attn, mlp)
+        with plain_sd_kernels(attn, mlp):
+            loss_p, g_p = grad()
+            unet.compute_dtype = vae.compute_dtype = dino.dtype = torch.float32
+            try:
+                loss_32, g_32 = grad()
+            finally:
+                unet.compute_dtype = vae.compute_dtype = dino.dtype = torch.bfloat16
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+        rk, rp = rel(g_k, g_32), rel(g_p, g_32)
+        print(f"dino-train-grad: seed {s} SD-1.5 64x64 latent B=1 t={int(t.item())} clip_w 0.1 (DINOv2 at 518), "
+              f"perc_w 0.1 (LPIPS at 512): loss(kernel, plain, fp32)=({loss_k:.6f}, {loss_p:.6f}, {loss_32:.6f}) "
+              f"rel(g_kernel, g_plain)={rel(g_k, g_p):.3e} to_fp32(kernel, plain)=({rk:.3e}, {rp:.3e}) "
+              f"ratio={rk / rp:.4f} launches={n}")
+        check(bool(torch.isfinite(g_k).all().item()) and g_k.norm().item() > 0, "adapter gradient not finite or zero")
+        check(rk <= FP32_RATIO * rp, f"adapter gradient: kernel path {rk} from fp32 > {FP32_RATIO} x plain's {rp}")
+        check(n == TRAIN_LAUNCHES, f"one loss and backward launched {n}, expected {TRAIN_LAUNCHES}")
+
+    # steady-state steps at batch 4 with the terms on, LPIPS on and off
+    b4 = batch(seed + 28, TRAIN_BATCH)
+    s_step = {}
+    for on in (False, True):
+        losses = [step(*b4, perc_on=on) for _ in range(2)]  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            losses.append(step(*b4, perc_on=on))
+        torch.cuda.synchronize()
+        s_step[on] = (time.perf_counter() - t0) / 3
+        check(all(bool(torch.isfinite(v).item()) for v in losses), "training loss not finite")
+    print(f"dino-train-step: batch {TRAIN_BATCH}, SD-1.5 {SD_SIZE}px, DINO term on: {s_step[False]:.4f} s per step, "
+          f"with LPIPS too {s_step[True]:.4f} s (3 synchronized steps each), beside phase 11's "
+          f"{s_step_clip:.4f} s without the terms, on {card}")
+    del dec, unet, vae, adapter, dino, lp, step, b4
+    torch.cuda.empty_cache()
+
+    # the CLI: 2 epochs at batch 4, LPIPS every 2nd step
+    seen, start = [], {}
+    make = tr.make_sd_train_step
+
+    def recording(decoder, optimizer, cfg, ema=None, dino=None, lpips=None):
+        start.update({k: v.detach().clone() for k, v in decoder.adapter.state_dict().items()})
+        fn = make(decoder, optimizer, cfg, ema, dino=dino, lpips=lpips)
+
+        def wrapped(*a):
+            loss = fn(*a)
+            seen.append((isinstance(dino, DinoV2) and dino.dtype == torch.bfloat16, isinstance(lpips, LPIPS),
+                         tuple(a[5].shape), a[6], loss))
+            return loss
+
+        return wrapped
+
+    out = store / "out"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr.make_sd_train_step = recording
+    try:
+        with raw_frames(have_zstd), mock.patch.dict(os.environ, env):
+            reset_sd_launches(attn, mlp)
+            t0 = time.perf_counter()
+            train_sd.main(["--store_dir", str(store), "--epochs", str(TRAIN_EPOCHS), "--batch_size",
+                           str(TRAIN_BATCH), "--perc_every", "2", "--save_dir", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = sd_launches(attn, mlp)
+    finally:
+        tr.make_sd_train_step = make
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    steps = TRAIN_EPOCHS * (TRAIN_IMAGES // TRAIN_BATCH)
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    final = out / "sd_adapter_final.pt"
+    trained = torch.load(final, map_location="cpu", weights_only=True)
+    changed = max((trained[k] - v.cpu()).abs().max().item() for k, v in start.items())
+    losses = [float(r[4]) for r in seen]
+    print(f"dino-train: cli.train_sd, {TRAIN_EPOCHS} epochs x {TRAIN_IMAGES // TRAIN_BATCH} steps at batch "
+          f"{TRAIN_BATCH}, --perc_every 2, both variables set: {wall:.3f} s in all (weights load and checkpoints "
+          f"included), peak device memory {peak:.2f} GiB on {card}; losses {[round(v, 6) for v in losses]}; LPIPS "
+          f"on {[r[3] for r in seen]}; adapter max change {changed:.3e}; launches={launches}")
+    check(len(seen) == steps and all(r[0] and r[1] and r[2] == (TRAIN_BATCH, 256, 256, 3) for r in seen),
+          "the CLI's steps did not get the bf16 DINO tower, LPIPS and the 256px images")
+    check([r[3] for r in seen] == [i % 2 == 0 for i in range(steps)], "LPIPS did not run on every 2nd step")
+    check(all(np.isfinite(losses)), "training loss not finite")
+    check(changed > 0, "the adapter did not change")
+    check(launches == want, f"training launches {launches} != {want}")
+    return store, final, launches
+
+
+def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, final, clip_times):
+    """21c: one guided step's latent gradient through the DINO backend
+    (kernel, plain, fp32 plain) at two seeds; the SD CLI at its default
+    flags on a frame of 21b's store (auto -> dino); s/request, busy share,
+    peak memory. Returns the request's launches."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
+    from clip_codec_tpu_torch.cli.reconstruct_diffusion import decode_embedding
+    from clip_codec_tpu_torch.encoders import DinoEncoder
+    from clip_codec_tpu_torch.models.sd.decoder import sd_step_coefficients
+
+    sd_dir = ROOT / "build" / "chip_smoke" / "sd"
+    t_start = time.perf_counter()
+    dec = cli.load_decoder(sd_dir / "unet.pt", sd_dir / "vae.pt", final, dev, heads=8)  # 21b's adapter
+    check(dec.adapter.proj[1].in_features == 768, "the trained adapter does not take 768-d embeddings")
+    dino = DinoEncoder(weights_path=str(weights), device=dev).model
+    embed = cli.dino_embed_fn(dino)
+    _, co = sd_step_coefficients(INV_STEPS)
+    i = INV_STEPS // 2
+    for s in (seed, seed + 1):
+        g = torch.Generator(device=dev).manual_seed(s + 27)
+        lat, eps = (torch.randn((1, 64, 64, 4), generator=g, device=dev) for _ in range(2))
+        z = torch.nn.functional.normalize(torch.randn((1, 768), generator=g, device=dev), dim=-1)
+
+        def grad():
+            return dec.inversion_grad(lat, eps, float(co["c_noise"][i]), float(co["c_x0"][i]), embed, z).flatten()
+
+        reset_sd_launches(attn, mlp)
+        g_k = grad()
+        n = sd_launches(attn, mlp)
+        with plain_sd_kernels(attn, mlp):
+            g_p = grad()
+            dec.vae.compute_dtype = dino.dtype = torch.float32
+            try:
+                g_32 = grad()
+            finally:
+                dec.vae.compute_dtype = dino.dtype = torch.bfloat16
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+        rk, rp = rel(g_k, g_32), rel(g_p, g_32)
+        print(f"dino-inv-grad: seed {s} SD-1.5 VAE + DINOv2 ViT-B/14, 64x64 latent B=1, step {i} of "
+              f"ddim-{INV_STEPS}: rel(g_kernel, g_plain)={rel(g_k, g_p):.3e} to_fp32(kernel, plain)=({rk:.3e}, "
+              f"{rp:.3e}) ratio={rk / rp:.4f} launches={n}")
+        check(bool(torch.isfinite(g_k).all().item()) and g_k.norm().item() > 0, "latent gradient not finite or zero")
+        check(rk <= FP32_RATIO * rp, f"latent gradient: kernel path {rk} from fp32 > {FP32_RATIO} x plain's {rp}")
+        check((n["flash_attention"], n["flash_attention_bwd_dq"], n["flash_attention_bwd_dkv"]) == (1, 1, 1),
+              f"one guided step's gradient launched {n}")
+    print(f"dino-inv-grad: loads and both seeds in {time.perf_counter() - t_start:.1f} s")
+
+    # the CLI at its default flags on the first frame of 21b's store: dim 768, so auto -> dino
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    frame = Path(json.loads((store / "manifest.json").read_text())[0]["bitstream"])
+    out = frame.with_name(f"{frame.stem}-{INV_STEPS}-5-1.png")
+    out.unlink(missing_ok=True)
+    env = {"CLIP_CODEC_SD_UNET_WEIGHTS": str(sd_dir / "unet.pt"), "CLIP_CODEC_SD_VAE_WEIGHTS": str(sd_dir / "vae.pt"),
+           "CLIP_CODEC_DINO_WEIGHTS": str(weights)}
+    with raw_frames(have_zstd), mock.patch.dict(os.environ, env):
+        os.environ.pop("CLIP_CODEC_CLIP_WEIGHTS", None)  # the dino backend needs no CLIP tower
+        z = decode_embedding(frame, store)
+        torch.cuda.synchronize()
+        reset_sd_launches(attn, mlp)
+        t0 = time.perf_counter()
+        cli.main(["--store_dir", str(store), "--bitstream", str(frame), "--adapter", str(final)])
+        cli_s = time.perf_counter() - t0
+    launches = sd_launches(attn, mlp)
+    png = np.asarray(Image.open(out))
+    print(f"dino-inv-cli: reconstruct_sd_diffusion.main at its default flags (ddim-{INV_STEPS}, guidance 5, "
+          f"inv_weight 1 every step, backend auto -> dino at dim {z.shape[1]}, 512px)"
+          f"{'' if have_zstd else ' from a raw-code frame (no zstandard)'}: {out.name} {png.shape} in {cli_s:.3f} s "
+          f"(weights load included) on {card}; launches={launches}")
+    check(z.shape == (1, 768) and cli.resolve_backend("auto", z.shape[1]) == "dino", f"dim {z.shape}")
+    check(png.shape == (SD_SIZE, SD_SIZE, 3) and int(png.max()) > int(png.min()), f"{out.name}: {png.shape}")
+    check(launches == INV_LAUNCHES, f"inversion request launches {launches} != {INV_LAUNCHES}")
+
+    run = lambda: cli.sample_images(dec, z, SD_SIZE, steps=INV_STEPS, guidance=SD_GUIDANCE, seed=seed,
+                                    inv_weight=1.0, embed_fn=embed)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        img = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(img.float()).all().item()), "non-finite image")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    busy = device_ms(torch, run) / 1e3 / min(times)
+    prof_s = time.perf_counter() - t0
+    check(busy > 0, "the profiler saw no device time")
+    print(f"dino-inv-time: request of 1 embedding, ddim-{INV_STEPS}, 512px, CFG batched, inv_weight 1 through "
+          f"DINOv2 at 518: {[round(t, 4) for t in times]} s, device busy {100 * busy:.1f}%, peak device memory "
+          f"{peak:.2f} GiB; phase 17's CLIP backend {[round(t, 4) for t in clip_times['s']]} s, busy "
+          f"{100 * clip_times['busy']:.1f}%, peak {clip_times['peak']:.2f} GiB; on {card} (the profiled request "
+          f"{prof_s:.1f} s)")
+    del dec, dino, embed
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2966,7 +3389,7 @@ def main() -> int:
         phase_build(builds, ("flash_attention_bwd",))
         records.update(phase_flash_bwd(torch, attn, args.seed, dev))
         phase_train_grad(torch, attn, mlp, unet, vae, adapter, args.seed, dev)
-        train_launches = phase_train(torch, attn, mlp, unet, vae, adapter, args.seed, dev, card)
+        train_launches, train_s_step = phase_train(torch, attn, mlp, unet, vae, adapter, args.seed, dev, card)
         launches.update({k: train_launches[k] for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
         del unet, vae, adapter
         torch.cuda.empty_cache()
@@ -2982,7 +3405,7 @@ def main() -> int:
 
         phase_compress(torch, args.seed, dev, card)
 
-        inv_records, inv_launches = phase_inversion(torch, attn, mlp, args.seed, dev, card)
+        inv_records, inv_launches, inv_times = phase_inversion(torch, attn, mlp, args.seed, dev, card)
         launches.update(phase_eval(torch, rc, args.seed, dev, card))
 
         phase_build(builds, ("u8_ip_scan",))
@@ -2991,6 +3414,13 @@ def main() -> int:
         launches.update(ret_launches)
 
         art = phase_artifacts(torch, attn, mlp, rc, args.seed, dev, card)
+        torch.cuda.empty_cache()
+
+        dino_w = phase_dino_encode(torch, args.seed, dev, card)
+        dino_store, dino_adapter, dino_train = phase_dino_train(torch, attn, mlp, args.seed, dev, card, dino_w,
+                                                                train_s_step)
+        dino_inv = phase_dino_inversion(torch, attn, mlp, args.seed, dev, card, dino_w, dino_store, dino_adapter,
+                                        inv_times)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3024,6 +3454,10 @@ def main() -> int:
                     str(list(shape)): c for (k, shape), c in art["artifact_by_shape"].items() if k == name}})
         if name in inv_records:  # K5 at the guided decode's shape, launches per default inversion request
             kernels.append({**head, "launches": inv_launches[name], **inv_records[name]})
+        if name in dino_train:  # phase 21's path: the SD CLIs on the DINO store (21b training, 21c a request)
+            timed = inv_records.get(name) or (records[name][0] if isinstance(records[name], list) else records[name])
+            kernels.append({**head, **timed, "launches": dino_train[name] + dino_inv[name], "phase": 21,
+                            "launches_by_step": {"21b": dino_train[name], "21c": dino_inv[name]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,12 +17,13 @@ the head count (``--heads``). ``--device`` is ``cpu`` or ``cuda``; ``cuda``
 without a card is an error.
 
 Inversion (``--inv_weight`` > 0, 1.0 by default) steers every
-``--inv_every``-th step towards the bitstream's own embedding through the
-CLIP ViT-B/32 image tower (``$CLIP_CODEC_CLIP_WEIGHTS``): ``--inv_backend
-auto`` picks it at dim 512. The DINOv2 backend (``dino``, or ``auto`` at
-another dim) is not ported (``encoders/dino.py``), nor is ``--int8``;
-``--inv_clip_arch`` and ``--inv_clip_ckpt`` are accepted and unused, as in
-the JAX CLI. The default output name is
+``--inv_every``-th step towards the bitstream's own embedding through an
+image tower: ``--inv_backend auto`` picks the CLIP ViT-B/32 tower
+(``$CLIP_CODEC_CLIP_WEIGHTS``) at dim 512 and the DINOv2 ViT-B/14 tower
+(``$CLIP_CODEC_DINO_WEIGHTS``) at any other dim; ``clip`` at another dim
+raises, as in JAX. ``--inv_clip_arch``, ``--inv_clip_ckpt`` and
+``--inv_dino_model`` are accepted and unused, as in the JAX CLI.
+``--int8`` is not ported. The default output name is
 ``<stem>-<steps>-<guidance>-<inv_weight>.png`` beside the bitstream.
 """
 
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..encoders.clip import CLIP_MEAN, CLIP_STD, CLIPModel
+from ..encoders.dino import DinoV2, embed_m11_images_dino
 from ..models.sd import AutoencoderKL, SDClipAdapter, SDUNet, StableDiffusionDecoder
 from ..models.sd.decoder import EmbedFn, clip_m11
 from ..weights import sd_checkpoint as ckpt
@@ -108,19 +110,23 @@ def clip_embed_fn(model: CLIPModel) -> EmbedFn:
     return embed
 
 
-def require_clip_backend(backend: str, dim: int) -> None:
-    """``--inv_backend`` resolved against the bitstream's dim must be
-    ``clip``: ``auto`` is ``clip`` at 512, else ``dino``, which is not
-    ported (an exit, never a fall back to clip); ``clip`` at another dim
-    raises, as in JAX."""
+def dino_embed_fn(model: DinoV2) -> EmbedFn:
+    """The inversion encoder on a DINOv2 tower, as the JAX CLI builds it:
+    [-1, 1] NHWC images clipped, mapped to [0, 1], resized bilinear (no
+    antialias) to the tower's image size, ImageNet-normalized, then the
+    tower's unnormalized CLS in fp32 (``embed_m11_images_dino``).
+    Differentiable in the images."""
+    return lambda x_m11: embed_m11_images_dino(model, x_m11, model.cfg.image_size)
+
+
+def resolve_backend(backend: str, dim: int) -> str:
+    """``--inv_backend`` against the bitstream's dim: ``auto`` is ``clip``
+    at 512 and ``dino`` otherwise; ``clip`` at another dim raises, as in JAX."""
     if backend == "auto":
         backend = "clip" if dim == 512 else "dino"
-    if backend == "dino":
-        raise SystemExit("the DINOv2 inversion backend is not ported to the PyTorch package yet "
-                         f"(encoders/dino.py; bitstream dim {dim}); pass --inv_backend clip at dim 512 "
-                         "or --inv_weight 0")
-    if dim != 512:
+    if backend == "clip" and dim != 512:
         raise ValueError(f"inv_backend=clip but bitstream dim is {dim}; use --inv_backend dino (or auto)")
+    return backend
 
 
 def _fmt_num(x: float) -> str:
@@ -167,14 +173,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     unet_path, vae_path = ckpt.require_sd_weight_paths(args.model_name)
     z = decode_embedding(args.bitstream, args.store_dir)  # (1, dim), L2-normalized
-    if inv_use:
-        require_clip_backend(args.inv_backend, z.shape[1])
+    backend = resolve_backend(args.inv_backend, z.shape[1]) if inv_use else None
     dec = load_decoder(unet_path, vae_path, args.adapter, args.device, heads=args.heads)
     embed_fn = None
-    if inv_use:
+    if backend == "clip":
         from ..encoders import ClipEncoder
 
         embed_fn = clip_embed_fn(ClipEncoder(device=args.device).model)
+    elif backend == "dino":
+        from ..encoders import DinoEncoder
+
+        embed_fn = dino_embed_fn(DinoEncoder(device=args.device).model)
     img = sample_images(dec, z, args.size, args.steps, args.sampler, args.eta, args.guidance, args.seed,
                         inv_weight=args.inv_weight, inv_every=args.inv_every, embed_fn=embed_fn)
     if args.out == Path("recon.png"):  # the default is detected by value, as in the JAX CLI

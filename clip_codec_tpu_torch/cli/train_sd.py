@@ -14,10 +14,13 @@ adapter starts from fresh parameters drawn from ``--seed``. Writes
 the store), readable by ``cli/reconstruct_sd_diffusion --adapter``;
 ``--resume`` continues from the last full-state checkpoint there.
 
-Not ported yet, and refused rather than silently dropped: the ``--clip_w``
-DINO term and the ``--perc_w`` LPIPS term, which the JAX CLI turns on when
-``$CLIP_CODEC_DINO_WEIGHTS`` / ``$CLIP_CODEC_LPIPS_WEIGHTS`` are set (unset,
-they are off in both packages), and ``--data_parallel`` / ``--distributed``.
+As in the JAX CLI, the ``--clip_w`` DINO-alignment term is on when
+``--clip_w`` > 0 and ``$CLIP_CODEC_DINO_WEIGHTS`` is set (the DINOv2
+ViT-B/14 tower, bf16, frozen), and the ``--perc_w`` LPIPS term when
+``--perc_w`` > 0 and ``$CLIP_CODEC_LPIPS_WEIGHTS`` is set (VGG16, fp32, on
+every ``--perc_every``-th step); both compare against the records' images
+loaded at ``--out_size``. ``--data_parallel`` / ``--distributed`` are not
+ported and are refused.
 """
 
 from __future__ import annotations
@@ -29,31 +32,23 @@ from typing import Optional, Sequence
 
 import torch
 
-NOT_PORTED = {
-    "CLIP_CODEC_DINO_WEIGHTS": "the --clip_w DINO-alignment term is not ported to the PyTorch package yet "
-                               "(ROADMAP.md Queue 1, encoders/dino.py)",
-    "CLIP_CODEC_LPIPS_WEIGHTS": "the --perc_w LPIPS term is not ported to the PyTorch package yet: like "
-                                "--clip_w it needs the ground-truth images in the training batch "
-                                "(ROADMAP.md Queue 1, encoders/dino.py)",
-}
-
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Train StableDiffusionDecoder's CLIP adapter on a store.")
     ap.add_argument("--store_dir", type=str, required=True)
     ap.add_argument("--model_name", type=str, default="runwayml/stable-diffusion-v1-5")
-    ap.add_argument("--out_size", type=int, default=256, help="GT size of the DINO/LPIPS terms (not ported)")
+    ap.add_argument("--out_size", type=int, default=256, help="GT size of the DINO/LPIPS terms")
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--timesteps", type=int, default=1000)
     ap.add_argument("--recon_w", type=float, default=0.05)
-    ap.add_argument("--clip_w", type=float, default=0.1, help="DINO-alignment weight (not ported)")
+    ap.add_argument("--clip_w", type=float, default=0.1, help="DINO-alignment weight (the reference's name for it)")
     ap.add_argument("--tv_w", type=float, default=1e-4)
-    ap.add_argument("--perc_w", type=float, default=0.1, help="LPIPS weight (not ported)")
+    ap.add_argument("--perc_w", type=float, default=0.1, help="LPIPS weight")
     ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--save_dir", type=str, default=None)
-    ap.add_argument("--perc_every", type=int, default=10, help="LPIPS cadence (not ported)")
+    ap.add_argument("--perc_every", type=int, default=10, help="LPIPS every this many steps")
     ap.add_argument("--n_tokens", type=int, default=8)
     ap.add_argument("--heads", type=int, default=8,
                     help="UNet attention heads (not recoverable from the weight shapes)")
@@ -72,10 +67,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     if args.data_parallel or args.distributed:
         raise SystemExit(NOT_PORTED_DP)
-    weights = {"CLIP_CODEC_DINO_WEIGHTS": args.clip_w, "CLIP_CODEC_LPIPS_WEIGHTS": args.perc_w}
-    for env, w in weights.items():
-        if w > 0 and os.environ.get(env):
-            raise SystemExit(f"{NOT_PORTED[env]}; unset {env} or pass a weight of 0")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
 
@@ -93,14 +84,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     init_params(adapter, torch.Generator(device=args.device).manual_seed(args.seed))
     decoder = StableDiffusionDecoder(unet, vae, adapter)
 
+    dino = None
+    if args.clip_w > 0 and os.environ.get("CLIP_CODEC_DINO_WEIGHTS"):
+        from ..encoders import DinoEncoder
+
+        dino = DinoEncoder(device=args.device).model
+    lpips_model = None
+    if args.perc_w > 0:
+        from ..eval.lpips import LPIPSModel
+
+        scorer = LPIPSModel.from_env(args.device)  # None without weights
+        lpips_model = None if scorer is None else scorer.model
+
     cfg = SDTrainConfig(
-        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr, timesteps=args.timesteps,
-        recon_w=args.recon_w, tv_w=args.tv_w, seed=args.seed, log_every=args.log_every,
+        out_size=args.out_size, epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+        timesteps=args.timesteps, recon_w=args.recon_w, clip_w=args.clip_w, perc_w=args.perc_w,
+        tv_w=args.tv_w, perc_every=args.perc_every, seed=args.seed, log_every=args.log_every,
         ema_decay=args.ema_decay, data_workers=args.data_workers,
     )
     final = train_sd_diffusion(Path(args.store_dir), decoder,
                                save_dir=Path(args.save_dir) if args.save_dir else None,
-                               config=cfg, resume=args.resume)
+                               dino=dino, lpips_model=lpips_model, config=cfg, resume=args.resume)
     print(f"Saved final adapter to {final}")
 
 

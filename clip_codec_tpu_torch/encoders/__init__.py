@@ -1,12 +1,14 @@
 """Image and text encoders: files or token ids -> L2-normalized fp32
-embeddings — the port of ``clip_codec_tpu/encoders/__init__.py`` (CLIP;
-DINOv2 is not ported).
+embeddings — the port of ``clip_codec_tpu/encoders/__init__.py`` (CLIP and
+DINOv2).
 
 Pretrained weights are not bundled. ``ClipEncoder`` reads a CLIP ViT-B/32
 checkpoint (openai / open_clip ``.pt`` or HuggingFace ``CLIPModel``
 ``.bin``/``.safetensors``; ``weights/convert_clip.py``) from its argument or
 ``CLIP_CODEC_CLIP_WEIGHTS``, and the tokenizer's merges from ``bpe_path``
-or ``CLIP_BPE_PATH``; missing files raise with the variable's name.
+or ``CLIP_BPE_PATH``; ``DinoEncoder`` a HuggingFace ``Dinov2Model``
+checkpoint (``weights/convert_dino.py``) from its argument or
+``CLIP_CODEC_DINO_WEIGHTS``. Missing files raise with the variable's name.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ from PIL import Image
 
 from .clip import (CLIPConfig, CLIPModel, VIT_B_32, clip_normalize_table, normalize_u8, preprocess_pil,
                    preprocess_pil_u8)
+from .dino import DINOV2_BASE, DinoConfig, DinoV2, preprocess_dino
 from .tokenizer import CLIPTokenizer
 
 __all__ = ["CLIPConfig", "CLIPModel", "VIT_B_32", "preprocess_pil", "preprocess_pil_u8",
-           "CLIPTokenizer", "ClipEncoder"]
+           "CLIPTokenizer", "ClipEncoder", "DINOV2_BASE", "DinoConfig", "DinoV2", "preprocess_dino",
+           "DinoEncoder"]
 
 NOT_PORTED_DP = ("data parallelism (mesh=, --data_parallel) is not ported to the PyTorch package yet "
                  "(ROADMAP.md Queue 1, parallel/)")
@@ -149,3 +153,43 @@ class ClipEncoder:
 
     def encode_text(self, texts) -> np.ndarray:
         return self.embed_tokens(torch.from_numpy(self.tokenizer(texts))).cpu().numpy()
+
+
+class DinoEncoder:
+    """DINOv2 ViT-B/14 on ``device``: batched image encode (bf16 by
+    default) giving ``z / (||z|| + 1e-9)`` fp32 rows, as the JAX
+    ``DinoEncoder``. Images are decoded, resized and normalized on the host
+    (``preprocess_dino``); ``device="cuda"`` (the default) raises without a
+    card."""
+
+    def __init__(self, weights_path: Optional[str] = None, cfg: DinoConfig = DINOV2_BASE,
+                 dtype: torch.dtype = torch.bfloat16, device: Union[str, torch.device] = "cuda",
+                 mesh=None) -> None:
+        from ..weights.convert_dino import load_dino_state_dict
+
+        if mesh is not None:
+            raise NotImplementedError(NOT_PORTED_DP)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DinoEncoder: no CUDA device is available (pass device='cpu')")
+        wpath = _require(weights_path, "CLIP_CODEC_DINO_WEIGHTS", "DINOv2")
+        self.cfg = cfg
+        model = DinoV2(cfg, dtype=dtype)
+        model.load_state_dict(load_dino_state_dict(wpath), strict=True)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def embed_images(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) ImageNet-normalized pixels -> (B, dim) fp32 rows
+        divided by their norm + 1e-9, on the device."""
+        z = self.model(pixels.to(self.device)).float()
+        return z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-9)
+
+    def encode_images(self, paths: Sequence[str], batch_size: int = 16) -> Tuple[np.ndarray, List[str]]:
+        """Encode image files; corrupt files are skipped. Returns (Z, kept_paths)."""
+        def preprocess(p):
+            arr = np.asarray(Image.open(p).convert("RGB"), dtype=np.float32) / 255.0
+            return preprocess_dino(arr, self.cfg.image_size)
+
+        return _batched_encode(paths, preprocess, lambda x: self.embed_images(torch.from_numpy(x)).cpu().numpy(),
+                               batch_size, self.cfg.dim)

@@ -1,4 +1,4 @@
-"""Pre-LN transformer encoder of the CLIP towers — the port of
+"""Pre-LN transformer encoder of the CLIP and DINOv2 towers — the port of
 ``clip_codec_tpu/encoders/transformer.py``.
 
 Parameters carry the openai / open_clip state-dict names (``ln_1``,
@@ -11,13 +11,20 @@ kernel; LayerNorm computes in fp32 and rounds its output once.
 Attention is written as JAX writes it: logits / sqrt(d) in the compute
 dtype, the mask added and the softmax taken in fp32, the probabilities cast
 back, then P·V (not ``nn.MultiheadAttention`` or SDPA, whose internal
-rounding differs). DINOv2's LayerScale is not ported.
+rounding differs).
+
+A block takes its activation (CLIP's ``quick_gelu``, DINOv2's exact
+``F.gelu``), its LayerNorm eps and, for DINOv2, LayerScale: fp32 ``ls1`` and
+``ls2`` of shape (dim,) that multiply the attention and MLP outputs. As in
+JAX, a compute-dtype output times an fp32 scale is fp32, so from the first
+block on the residual stream of a bf16 tower with LayerScale is fp32 (its
+LayerNorms still round their outputs to the compute dtype).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,40 +65,55 @@ class MultiHeadAttention(nn.Module):
         return dense(self.out_proj, out, dtype)
 
 
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
+
 class MLP(nn.Module):
-    def __init__(self, dim: int, mlp_dim: int) -> None:
+    def __init__(self, dim: int, mlp_dim: int, act: Activation = quick_gelu) -> None:
         super().__init__()
+        self.act = act
         self.c_fc = nn.Linear(dim, mlp_dim)
         self.c_proj = nn.Linear(mlp_dim, dim)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return dense(self.c_proj, quick_gelu(dense(self.c_fc, x, dtype)), dtype)
+        return dense(self.c_proj, self.act(dense(self.c_fc, x, dtype)), dtype)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + attn(ln_1(x)); x + mlp(ln_2(x))."""
+    """Pre-LN block: x + ls1 attn(ln_1(x)); x + ls2 mlp(ln_2(x)), the
+    scales only with ``layer_scale``."""
 
-    def __init__(self, dim: int, heads: int, mlp_dim: int, eps: float = 1e-5) -> None:
+    def __init__(self, dim: int, heads: int, mlp_dim: int, eps: float = 1e-5, act: Activation = quick_gelu,
+                 layer_scale: bool = False) -> None:
         super().__init__()
         self.ln_1 = nn.LayerNorm(dim, eps=eps)
         self.attn = MultiHeadAttention(dim, heads)
         self.ln_2 = nn.LayerNorm(dim, eps=eps)
-        self.mlp = MLP(dim, mlp_dim)
+        self.mlp = MLP(dim, mlp_dim, act)
+        if layer_scale:
+            self.ls1 = nn.Parameter(torch.ones(dim))
+            self.ls2 = nn.Parameter(torch.ones(dim))
+        else:
+            self.ls1 = self.ls2 = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
-        x = x + self.attn(layer_norm(self.ln_1, x, dtype), mask, dtype)
-        return x + self.mlp(layer_norm(self.ln_2, x, dtype), dtype)
+        y = self.attn(layer_norm(self.ln_1, x, dtype), mask, dtype)
+        x = x + (y if self.ls1 is None else y * self.ls1)
+        y = self.mlp(layer_norm(self.ln_2, x, dtype), dtype)
+        return x + (y if self.ls2 is None else y * self.ls2)
 
 
 class Transformer(nn.Module):
-    def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int, eps: float = 1e-5) -> None:
+    def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int, eps: float = 1e-5,
+                 act: Activation = quick_gelu, layer_scale: bool = False) -> None:
         super().__init__()
-        self.resblocks = nn.ModuleList(TransformerBlock(dim, heads, mlp_dim, eps) for _ in range(depth))
+        self.resblocks = nn.ModuleList(TransformerBlock(dim, heads, mlp_dim, eps, act, layer_scale)
+                                       for _ in range(depth))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """x: (B, N, dim) -> (B, N, dim) in ``dtype``; ``mask`` an fp32
-        additive (N, N) mask or None."""
+        """x: (B, N, dim) -> (B, N, dim) in ``dtype`` (fp32 with LayerScale);
+        ``mask`` an fp32 additive (N, N) mask or None."""
         x = x.to(dtype)
         for blk in self.resblocks:
             x = blk(x, mask, dtype)

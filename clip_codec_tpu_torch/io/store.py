@@ -104,14 +104,18 @@ def write_store(
     scale: np.ndarray,
     zero: np.ndarray,
     quantized: np.ndarray,
+    dim_dtype: str = "int32",
 ) -> List[Dict[str, str]]:
-    """Write a whole store: ``codec_meta.npz`` (``dim`` an int32, as the
-    reference's CLIP writer stores it), one ``.clp`` per image and the
-    manifest."""
+    """Write a whole store: ``codec_meta.npz``, one ``.clp`` per image and
+    the manifest. ``dim`` is saved as the reference's two writers save it:
+    ``int32`` for the CLIP path, an ``int64`` scalar array for the DINO path
+    (``cli/encode_images_dino.py``)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
+    D = int(feats.shape[1])
+    dim = np.int32(D) if dim_dtype == "int32" else np.array(D, dtype=np.int64)
     np.savez(out / "codec_meta.npz", scale=np.asarray(scale, dtype="float32"),
-             zero=np.asarray(zero, dtype="float32"), dim=np.int32(feats.shape[1]))
+             zero=np.asarray(zero, dtype="float32"), dim=dim)
     manifest = _write_frames(out, image_paths, quantized, dedupe_stems(image_paths))
     _dump_manifest(out, manifest)
     return manifest

@@ -243,7 +243,15 @@ def make_handler(codec: ClipCodec, artifact=None, batcher: Optional[_MicroBatche
             n = int(self.headers.get("Content-Length", 0))
             if n > _MAX_BODY_BYTES:
                 raise _BodyTooLarge(n)
+            self._unread = 0
             return self.rfile.read(n)
+
+        def _drain(self) -> None:
+            """Read a body that an early answer (400, 404, 412, 503) left
+            unread: closing the socket over unread bytes resets the
+            connection, and the client may lose the answer it was sent."""
+            if 0 < self._unread <= _MAX_BODY_BYTES:
+                self.rfile.read(self._unread)
 
         def _check_format(self, q) -> bool:
             """``?format=`` checked before any compute."""
@@ -323,6 +331,13 @@ def make_handler(codec: ClipCodec, artifact=None, batcher: Optional[_MicroBatche
                 self._json(404, {"error": "unknown endpoint"})
 
         def do_POST(self):
+            self._unread = int(self.headers.get("Content-Length", 0))
+            try:
+                self._post()
+            finally:
+                self._drain()
+
+        def _post(self):
             url = urlparse(self.path)
             q = parse_qs(url.query)
             try:

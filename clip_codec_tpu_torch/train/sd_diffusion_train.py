@@ -7,20 +7,25 @@ their weights in the compute dtype as detached tensors). Per sample, with
 ``t`` and ``noise`` drawn by the loop (or injected by a caller):
 
     lat_t  = sqrt(abar_t) lat0 + sqrt(1 - abar_t) noise
+    x_hat  = vae.decode(lat0_hat)
     loss   = |unet(lat_t, t, adapter(z)) - noise|^2
-             + recon_w |vae.decode(lat0_hat) - vae.decode(lat0)|^2 + tv_w TV(vae.decode(lat0_hat))
+             + recon_w |x_hat - vae.decode(lat0)|^2 + tv_w TV(x_hat)
+             + clip_w (1 - cos(DINO(x_hat), DINO(gt)))          with a DINOv2 tower
+             + perc_w LPIPS(x_hat, gt resized to x_hat's size)  with LPIPS, every perc_every-th step
 
 with ``lat0_hat`` the x0-prediction, averaged over the batch's real rows.
-The gradient reaches the adapter through every cross-attention of the UNet
-and, by the decode of ``lat0_hat``, through the VAE: the flash-attention
-backward kernel runs there (``ops/attention.py``). The UNet and VAE compute
-in their own dtype (bf16 on the card); the adapter, AdamW and the loss
-arithmetic are fp32.
-
-The JAX trainer's DINO (``clip_w``) and LPIPS (``perc_w``) terms need
-released weights and ports of their towers, and data parallelism needs the
-parallel slice; neither is ported (``ROADMAP.md``), so the ground-truth
-images those terms compare against are not loaded.
+``gt`` is the record's image, loaded at ``out_size`` (uint8 to the device,
+scaled there by ``scale_m11_u8``) only when one of the last two terms is
+on; its DINO embedding takes no gradient, and the cosine divides by the
+product of the norms + 1e-8, as JAX's. ``clip_w`` keeps the reference's name
+for the DINO term. The gradient reaches the adapter through every
+cross-attention of the UNet and, by the decode of ``lat0_hat``, through the
+VAE: the flash-attention backward kernel runs there (``ops/attention.py``);
+the DINO tower and LPIPS' VGG16 are plain torch (their JAX counterparts
+reach no Pallas kernel). The UNet, VAE and DINO tower compute in their own
+dtype (bf16 on the card); the adapter, AdamW, LPIPS and the loss arithmetic
+are fp32. Data parallelism needs the parallel slice and is not ported
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -32,12 +37,16 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
+from ..encoders.dino import DinoV2, embed_m11_images_dino
 from ..io.store import Store
 from ..models.sd.decoder import SD_SCALING_FACTOR, StableDiffusionDecoder, sd_alphas_cumprod
 from ..utils.batching import padded_index_batches, prefetch_iter
 from ..utils.checkpoint import TrainCheckpointer, save_state_dict
 from ..utils.logging import TrainLogger
+from .data import load_image_u8, scale_m11_u8
 from .losses import eps_mse, total_variation, weighted_mean
 from .optim import ema_update, make_optimizer
 
@@ -48,16 +57,19 @@ NOT_PORTED_DP = ("data parallelism (mesh, --data_parallel, --distributed) is not
 
 @dataclass
 class SDTrainConfig:
-    """The JAX ``SDTrainConfig`` without the fields of the DINO and LPIPS
-    terms (``out_size``, ``clip_w``, ``perc_w``, ``perc_every``), which are
-    not ported."""
+    """The JAX ``SDTrainConfig``: ``out_size`` is the ground-truth image's
+    size for the DINO (``clip_w``) and LPIPS (``perc_w``) terms."""
 
+    out_size: int = 256
     epochs: int = 20
     batch_size: int = 4
     lr: float = 1e-4
     timesteps: int = 1000
     recon_w: float = 0.05
+    clip_w: float = 0.1
+    perc_w: float = 0.1
     tv_w: float = 1e-4
+    perc_every: int = 10
     seed: int = 0
     log_every: int = 0
     ema_decay: float = 0.0  # EMA of the adapter (0 = off); also writes sd_adapter_ema_final.pt
@@ -66,10 +78,12 @@ class SDTrainConfig:
 
 class SDStoreData:
     """Store view over ``manifest_latents.json``: the dequantized,
-    L2-normalized embeddings and each record's latent."""
+    L2-normalized embeddings, each record's latent and, with ``image_size``,
+    its ground-truth image."""
 
-    def __init__(self, store_dir: PathLike) -> None:
+    def __init__(self, store_dir: PathLike, image_size: Optional[int] = None) -> None:
         self.store = Store.open(store_dir, manifest_name="manifest_latents.json")
+        self.image_size = image_size
         self.z = self.store.decode_all(renormalize=True)
 
     def __len__(self) -> int:
@@ -80,39 +94,50 @@ class SDStoreData:
         return lat.transpose(1, 2, 0)
 
     def batch(self, idx: np.ndarray):
-        """(z (B, D), latents (B, h, w, 4)) float32 for the rows ``idx``."""
-        return self.z[idx], np.stack([self._load_latent(int(i)) for i in idx])
+        """(z (B, D), latents (B, h, w, 4) float32, images (B, S, S, 3)
+        uint8 or None without ``image_size``) for the rows ``idx``."""
+        lats = np.stack([self._load_latent(int(i)) for i in idx])
+        imgs = None
+        if self.image_size is not None:
+            imgs = np.stack([load_image_u8(self.store.manifest[int(i)]["image"], self.image_size) for i in idx])
+        return self.z[idx], lats, imgs
 
 
-def freeze(decoder: StableDiffusionDecoder) -> None:
-    """Freeze the UNet and VAE and check that only the adapter trains."""
-    decoder.unet.requires_grad_(False)
-    decoder.vae.requires_grad_(False)
-    frozen = [p for m in (decoder.unet, decoder.vae) for p in m.parameters()]
-    assert not any(p.requires_grad for p in frozen), "UNet/VAE parameters must be frozen"
+def freeze(decoder: StableDiffusionDecoder, *towers: Optional[nn.Module]) -> None:
+    """Freeze the UNet, the VAE and the loss ``towers`` (None skipped) and
+    check that only the adapter trains."""
+    frozen = [decoder.unet, decoder.vae] + [m for m in towers if m is not None]
+    for m in frozen:
+        m.requires_grad_(False)
+    assert not any(p.requires_grad for m in frozen for p in m.parameters()), "frozen parameters must stay frozen"
     assert all(p.requires_grad for p in decoder.adapter.parameters()), "the adapter must train"
 
 
 def make_sd_train_step(decoder: StableDiffusionDecoder, optimizer: torch.optim.Optimizer,
-                       cfg: SDTrainConfig, ema: Optional[dict] = None):
-    """``step(z, lat0, weight, t, noise) -> loss`` (detached): the loss, its
-    backward, one optimizer step and, with ``ema``, the EMA update.
-    ``step.loss_fn(z, lat0, weight, t, noise)`` is the differentiable loss.
-    ``z`` (B, D), ``lat0`` and ``noise`` (B, h, w, 4) fp32 scaled latents,
-    ``weight`` (B,) fp32 (0 marks padding), ``t`` (B,) int."""
+                       cfg: SDTrainConfig, ema: Optional[dict] = None, dino: Optional[DinoV2] = None,
+                       lpips: Optional[nn.Module] = None):
+    """``step(z, lat0, weight, t, noise, gt_img=None, perc_on=False) ->
+    loss`` (detached): the loss, its backward, one optimizer step and, with
+    ``ema``, the EMA update. ``step.loss_fn`` (same arguments) is the
+    differentiable loss. ``z`` (B, D), ``lat0`` and ``noise`` (B, h, w, 4)
+    fp32 scaled latents, ``weight`` (B,) fp32 (0 marks padding), ``t`` (B,)
+    int; ``gt_img`` (B, S, S, 3) fp32 in [-1, 1], needed when ``dino`` (the
+    ``clip_w`` term) or ``lpips`` (an ``eval.lpips.LPIPS``, the ``perc_w``
+    term, run only where ``perc_on``) is given with a positive weight."""
     unet, vae, adapter = decoder.unet, decoder.vae, decoder.adapter
     dev = next(adapter.parameters()).device
     ac = torch.from_numpy(sd_alphas_cumprod(cfg.timesteps)).to(dev)
-    need_decode = cfg.recon_w > 0 or cfg.tv_w > 0
-    freeze(decoder)
+    dino_on = dino is not None and cfg.clip_w > 0
+    freeze(decoder, dino, lpips)
 
-    def loss_fn(z, lat0, weight, t, noise):
+    def loss_fn(z, lat0, weight, t, noise, gt_img=None, perc_on=False):
         sa = torch.sqrt(ac[t.long()])[:, None, None, None]
         sb = torch.sqrt(1.0 - ac[t.long()])[:, None, None, None]
         lat_t = sa * lat0 + sb * noise
         eps_hat = unet(lat_t, t, adapter(z)).float()
         per = eps_mse(eps_hat, noise)
-        if need_decode:
+        lpips_on = perc_on and lpips is not None and cfg.perc_w > 0
+        if cfg.recon_w > 0 or cfg.tv_w > 0 or dino_on or lpips_on:
             lat0_hat = (lat_t - sb * eps_hat) / sa
             x_hat = vae.decode(lat0_hat / SD_SCALING_FACTOR).float()
             if cfg.recon_w > 0:
@@ -120,13 +145,23 @@ def make_sd_train_step(decoder: StableDiffusionDecoder, optimizer: torch.optim.O
                 per = per + cfg.recon_w * torch.mean((x_hat - x_gt) ** 2, dim=(1, 2, 3))
             if cfg.tv_w > 0:
                 per = per + cfg.tv_w * total_variation(x_hat)
+            if dino_on:
+                ya = embed_m11_images_dino(dino, x_hat, dino.cfg.image_size)
+                with torch.no_grad():
+                    yb = embed_m11_images_dino(dino, gt_img, dino.cfg.image_size)
+                norms = torch.linalg.vector_norm(ya, dim=-1) * torch.linalg.vector_norm(yb, dim=-1)
+                per = per + cfg.clip_w * (1.0 - (ya * yb).sum(dim=-1) / (norms + 1e-8))
+            if lpips_on:
+                gt_small = F.interpolate(gt_img.permute(0, 3, 1, 2), size=x_hat.shape[1:3], mode="bilinear",
+                                         align_corners=False, antialias=False).permute(0, 2, 3, 1)
+                per = per + cfg.perc_w * lpips(x_hat, gt_small)
         return weighted_mean(per, weight)
 
     params = dict(adapter.named_parameters())
 
-    def step(z, lat0, weight, t, noise):
+    def step(z, lat0, weight, t, noise, gt_img=None, perc_on=False):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(z, lat0, weight, t, noise)
+        loss = loss_fn(z, lat0, weight, t, noise, gt_img, perc_on)
         loss.backward()
         optimizer.step()
         if ema is not None:
@@ -144,6 +179,8 @@ def train_sd_diffusion(
     batch_size: int = 4,
     lr: float = 1e-4,
     save_dir: Optional[PathLike] = None,
+    dino: Optional[DinoV2] = None,
+    lpips_model: Optional[nn.Module] = None,
     config: Optional[SDTrainConfig] = None,
     mesh=None,
     resume: bool = False,
@@ -155,12 +192,15 @@ def train_sd_diffusion(
     ``<save_dir>/state_sd/`` for ``resume=True``. The epoch order is
     ``np.random.default_rng(seed).permutation``; ``t`` and the noise come
     from a ``torch.Generator`` on the adapter's device seeded with
-    ``seed + 1``."""
+    ``seed + 1``. ``dino`` (a ``DinoV2``, frozen here) turns on the
+    ``clip_w`` term, ``lpips_model`` (an ``eval.lpips.LPIPS``, differentiable
+    in its inputs) the ``perc_w`` term on every ``perc_every``-th step."""
     if mesh is not None:
         raise NotImplementedError(NOT_PORTED_DP)
     cfg = config or SDTrainConfig(epochs=epochs, batch_size=batch_size, lr=lr)
     save_dir = Path(save_dir or store_dir)
-    data = SDStoreData(store_dir)
+    need_gt = (dino is not None and cfg.clip_w > 0) or (lpips_model is not None and cfg.perc_w > 0)
+    data = SDStoreData(store_dir, image_size=cfg.out_size if need_gt else None)
     adapter = decoder.adapter
     dev = next(adapter.parameters()).device
     optimizer = make_optimizer(adapter, cfg.lr)
@@ -178,7 +218,7 @@ def train_sd_diffusion(
                 ema = {k: v.float().clone() for k, v in src.items()}
             start_epoch = int(restored["epoch"])
             print(f"[train_sd] resumed from epoch {start_epoch}")
-    step_fn = make_sd_train_step(decoder, optimizer, cfg, ema)
+    step_fn = make_sd_train_step(decoder, optimizer, cfg, ema, dino=dino, lpips=lpips_model)
 
     logger = TrainLogger(log_every=cfg.log_every)
     host_rng = np.random.default_rng(cfg.seed)
@@ -186,7 +226,7 @@ def train_sd_diffusion(
     n = len(data)
 
     def epoch_batches(order):
-        # npz latent reads on a host thread, overlapping the device steps
+        # npz latent and image reads on a host thread, overlapping the device steps
         def gen_batches():
             for idx, w in padded_index_batches(n, cfg.batch_size, order):
                 yield (float(w.sum()), w) + data.batch(idx)
@@ -198,12 +238,14 @@ def train_sd_diffusion(
         order = host_rng.permutation(n)
         losses, wsums = [], []
         t0 = time.time()
-        for wsum, w, z, lat0 in epoch_batches(order):
+        for wsum, w, z, lat0, img in epoch_batches(order):
             z_d, lat_d, w_d = (torch.from_numpy(a).to(dev) for a in (z, lat0, w))
+            img_d = None if img is None else scale_m11_u8(torch.from_numpy(img).to(dev))  # uint8 over the link
             b = lat_d.shape[0]
             t = torch.randint(0, cfg.timesteps, (b,), generator=gen, device=dev, dtype=torch.int32)
             noise = torch.randn(lat_d.shape, generator=gen, device=dev, dtype=torch.float32)
-            loss = step_fn(z_d, lat_d, w_d, t, noise)
+            perc_on = lpips_model is not None and step % cfg.perc_every == 0
+            loss = step_fn(z_d, lat_d, w_d, t, noise, img_d, perc_on)
             losses.append(loss)
             wsums.append(wsum)
             step += 1

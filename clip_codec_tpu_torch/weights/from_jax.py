@@ -15,7 +15,9 @@
 * ``clip_state_dict_from_jax``: the CLIP towers in the openai layout, the
   inverse of ``convert_clip_openai`` (``clip_codec_tpu/weights/convert_clip.py``):
   q/k/v fused into ``in_proj_weight`` (3D, D), the patch conv's flax HWIO
-  kernel as torch's OIHW, the projections kept as ``x @ proj``.
+  kernel as torch's OIHW, the projections kept as ``x @ proj``;
+* ``dino_state_dict_from_jax``: the DINOv2 tower in the port's names, the
+  same block map plus the LayerScale vectors ``ls1``/``ls2``.
 """
 
 from __future__ import annotations
@@ -190,11 +192,12 @@ def sd_adapter_state_dict_from_jax(params: Mapping) -> StateDict:
     return _tensors(sd)
 
 
-def _clip_tower(sd, prefix: str, blocks: Mapping) -> None:
-    """A JAX CLIP ``Transformer`` (block_i: ln1, attn.{q,k,v,out}_proj, ln2,
-    fc1, fc2) -> ``{prefix}transformer.resblocks.i.*``, q/k/v fused."""
+def _encoder_blocks(sd, prefix: str, blocks: Mapping) -> None:
+    """A JAX ``Transformer`` (block_i: ln1, attn.{q,k,v,out}_proj, ln2,
+    fc1, fc2, and ls1, ls2 with LayerScale) -> ``{prefix}resblocks.i.*``,
+    q/k/v fused."""
     for i in range(_count(blocks, "block_{}")):
-        b, p = f"{prefix}transformer.resblocks.{i}", blocks[f"block_{i}"]
+        b, p = f"{prefix}resblocks.{i}", blocks[f"block_{i}"]
         a = p["attn"]
         _norm(sd, f"{b}.ln_1", p["ln1"]["scale"], p["ln1"]["bias"])
         _put(sd, f"{b}.attn.in_proj_weight",
@@ -204,6 +207,9 @@ def _clip_tower(sd, prefix: str, blocks: Mapping) -> None:
         _norm(sd, f"{b}.ln_2", p["ln2"]["scale"], p["ln2"]["bias"])
         _linear(sd, f"{b}.mlp.c_fc", p["fc1"])
         _linear(sd, f"{b}.mlp.c_proj", p["fc2"])
+        for ls in ("ls1", "ls2"):
+            if ls in p:
+                _put(sd, f"{b}.{ls}", p[ls])
 
 
 def clip_state_dict_from_jax(params: Mapping) -> StateDict:
@@ -216,12 +222,25 @@ def clip_state_dict_from_jax(params: Mapping) -> StateDict:
     _put(sd, "visual.class_embedding", v["class_embedding"])
     _put(sd, "visual.positional_embedding", v["position_embedding"])
     _norm(sd, "visual.ln_pre", v["pre_ln"]["scale"], v["pre_ln"]["bias"])
-    _clip_tower(sd, "visual.", v["encoder"])
+    _encoder_blocks(sd, "visual.transformer.", v["encoder"])
     _norm(sd, "visual.ln_post", v["post_ln"]["scale"], v["post_ln"]["bias"])
     _put(sd, "visual.proj", v["visual_projection"])
     _put(sd, "token_embedding.weight", t["token_embedding"]["embedding"])
     _put(sd, "positional_embedding", t["position_embedding"])
-    _clip_tower(sd, "", t["encoder"])
+    _encoder_blocks(sd, "transformer.", t["encoder"])
     _norm(sd, "ln_final", t["final_ln"]["scale"], t["final_ln"]["bias"])
     _put(sd, "text_projection", t["text_projection"])
+    return _tensors(sd)
+
+
+def dino_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``DinoV2`` params (or under "params") -> the port's ``DinoV2``
+    state dict."""
+    p = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "patch_embed", p["patch_embed"])
+    _put(sd, "cls_token", p["cls_token"])
+    _put(sd, "position_embeddings", p["position_embeddings"])
+    _encoder_blocks(sd, "encoder.", p["encoder"])
+    _norm(sd, "final_ln", p["final_ln"]["scale"], p["final_ln"]["bias"])
     return _tensors(sd)

@@ -4,11 +4,13 @@ and the SD CLI's inversion branch) against the JAX package, on the CPU.
 The tiny SD decoder of tests/test_torch_sd.py (its weights carried to JAX
 by the JAX package's converters), 32x32 latents so that the UNet's first
 stage and the VAE's mid-block take flash attention (its plain forward and
-backward on the CPU), fp32, the JAX initial noise injected. Two embedding
+backward on the CPU), fp32, the JAX initial noise injected. Three embedding
 functions, each given to both packages: JAX's toy pooled embed
-(tests/test_sd_train.py) and a tiny CLIP tower read by both packages'
+(tests/test_sd_train.py), a tiny CLIP tower read by both packages'
 ``ClipEncoder`` from one HuggingFace-layout file, behind the JAX CLI's
-preprocessing (clip, bilinear 224, mean/std). Latents within 1e-4 of their
+preprocessing (clip, bilinear 224, mean/std), and the tiny DINOv2 tower of
+tests/test_torch_dino.py behind the JAX CLI's DINO preprocessing (clip,
+bilinear to its 28, ImageNet mean/std). Latents within 1e-4 of their
 largest magnitude; the guidance must move them well past that. The latent
 gradient's clip ties (exact +-1.0 in the decoded image) are split as
 ``jnp.clip`` splits them, pinned against ``jax.grad``.
@@ -23,15 +25,19 @@ from PIL import Image
 
 import clip_codec_tpu.encoders as jax_encoders
 import clip_codec_tpu_torch.encoders as encoders
+from clip_codec_tpu.encoders import dino as jdino
 from clip_codec_tpu.encoders.clip import CLIP_MEAN, CLIP_STD
 from clip_codec_tpu.encoders.clip import CLIPConfig as JaxConfig
 from clip_codec_tpu.encoders.clip import CLIPModel as JaxCLIPModel
 from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
 from clip_codec_tpu_torch.encoders.clip import CLIPConfig
+from clip_codec_tpu_torch.encoders.dino import DinoConfig
 from clip_codec_tpu_torch.models import sd as tsd
 from clip_codec_tpu_torch.models.sd.decoder import inversion_loss
 from tests.test_torch_clip import TINY, random_clip_sd
 from tests.test_torch_compress import hf_layout
+from tests.test_torch_dino import TINY as DINO_TINY
+from tests.test_torch_dino import port_dino, random_hf_dino
 from tests.test_torch_sd import CLIP_DIM, _close, _decoders, _seeded, port  # noqa: F401  (port: a fixture)
 
 torch.set_num_threads(1)
@@ -63,6 +69,30 @@ def jax_clip_embed(enc):
     return embed_fn
 
 
+@pytest.fixture(scope="module")
+def dino_towers():
+    """The tiny DINOv2 (embed dim 32) as JAX params and as the port's module."""
+    from clip_codec_tpu_torch.weights.convert_dino import dino_state_dict_from_hf
+
+    hf = random_hf_dino(DINO_TINY, 4)
+    jp = {"params": jdino.convert_dino_hf({k: v.numpy() for k, v in hf.items()}, depth=DINO_TINY["depth"])}
+    return jp, port_dino(dino_state_dict_from_hf(hf))
+
+
+def jax_dino_embed(params):
+    """The JAX CLI's DINO embed_fn (clip_codec_tpu/cli/reconstruct_sd_diffusion.py)."""
+    model, size = jdino.DinoV2(jdino.DinoConfig(**DINO_TINY)), DINO_TINY["image_size"]
+
+    def embed_fn(x_m11):
+        x = (jnp.clip(x_m11, -1, 1) + 1.0) / 2.0
+        B = x.shape[0]
+        x = jax.image.resize(x, (B, size, size, 3), method="bilinear", antialias=False)
+        x = (x - jnp.asarray(jdino.IMAGENET_MEAN)) / jnp.asarray(jdino.IMAGENET_STD)
+        return model.apply(params, x).astype(jnp.float32)
+
+    return embed_fn
+
+
 def jax_toy_embed(x_m11):  # tests/test_sd_train.py's cheap differentiable encoder
     pooled = jnp.mean(x_m11, axis=(1, 2))
     return jnp.tile(pooled, (1, 11))[:, :32]
@@ -86,12 +116,24 @@ def _embeds(kind, towers):
 def test_sample_with_inversion_matches_jax(rng, port, towers, embed, sampler, inv_every, cfg_batched):
     """Three guided CFG steps over (2, 32, 32, 4) latents; the target is a
     second embedding, so the loss is not at its minimum."""
+    _check_guided_sampling(rng, port, _embeds(embed, towers), sampler, inv_every, cfg_batched)
+
+
+def test_sample_with_inversion_through_dino_matches_jax(rng, port, dino_towers):
+    """The same through the tiny DINOv2 tower and the CLI's ``dino_embed_fn``
+    (the 64px decode resized down to 28), at the CLI's default sampler, two
+    guided steps."""
+    jp, model = dino_towers
+    _check_guided_sampling(rng, port, (jax_dino_embed(jp), cli.dino_embed_fn(model)), "ddim", 1, True, steps=2)
+
+
+def _check_guided_sampling(rng, port, embeds, sampler, inv_every, cfg_batched, steps=3):
     jdec, tdec = _decoders(port)
-    jembed, tembed = _embeds(embed, towers)
+    jembed, tembed = embeds
     z = rng.standard_normal((2, CLIP_DIM)).astype(np.float32)
     z_tgt = rng.standard_normal((2, CLIP_DIM)).astype(np.float32)
     shape, key = (2, 32, 32, 4), jax.random.PRNGKey(11)
-    kw = dict(steps=3, guidance_scale=2.5, inv_weight=3.0, inv_every=inv_every, cfg_batched=cfg_batched,
+    kw = dict(steps=steps, guidance_scale=2.5, inv_weight=3.0, inv_every=inv_every, cfg_batched=cfg_batched,
               sampler=sampler)
     lj = np.asarray(jdec.sample_with_inversion(jnp.asarray(z), jnp.asarray(z_tgt), jembed, shape, rng=key,
                                                decode_pixels=False, **kw))
@@ -209,11 +251,46 @@ def test_cli_default_flags_run_inversion_at_dim_512(tmp_path, port, sd_env, monk
     assert not np.array_equal(np.asarray(to_pil(plain[0].float().numpy())), want)
 
 
-def test_cli_inversion_refusals(tmp_path, port, sd_env):
+def test_cli_default_flags_run_dino_inversion_at_dim_32(tmp_path, port, sd_env, monkeypatch, capsys):
+    """The CLI's inversion defaults at dim 32: backend auto -> dino, the
+    DINOv2 tower read from ``$CLIP_CODEC_DINO_WEIGHTS`` (a HuggingFace-layout
+    file of the tiny tower, dim 32); the PNG equals ``sample_with_inversion``
+    called directly with ``dino_embed_fn``, and differs from the unguided one."""
     argv = _store(tmp_path, port, CLIP_DIM)
-    for extra in ([], ["--inv_backend", "dino"], ["--inv_backend", "auto"]):
-        with pytest.raises(SystemExit, match="encoders/dino.py"):
-            cli.main(argv + extra)  # auto at dim 32 is dino, which is not ported: no fall back to clip
+    torch.save(random_hf_dino(DINO_TINY, 6), tmp_path / "dino.bin")
+    monkeypatch.setenv("CLIP_CODEC_DINO_WEIGHTS", str(tmp_path / "dino.bin"))
+    real = encoders.DinoEncoder
+    made = []
+
+    def tiny_encoder(**kw):
+        made.append(real(**kw, cfg=DinoConfig(**DINO_TINY), dtype=torch.float32))
+        return made[-1]
+
+    monkeypatch.setattr(encoders, "DinoEncoder", tiny_encoder)
+    monkeypatch.setattr(encoders, "ClipEncoder", None)  # auto must not reach the CLIP tower
+    cli.main(argv)
+    assert "img-2-5-1.png" in capsys.readouterr().out and len(made) == 1
+    got = np.asarray(Image.open(tmp_path / "img-2-5-1.png"))
+
+    from clip_codec_tpu_torch.cli.reconstruct_diffusion import decode_embedding, to_pil
+
+    dec = cli.load_decoder(tmp_path / "unet.bin", tmp_path / "vae.bin", tmp_path / "adapter.pt", "cpu", heads=2)
+    z = torch.from_numpy(decode_embedding(tmp_path / "img.clp", tmp_path))
+    img = dec.sample_with_inversion(z, z, cli.dino_embed_fn(made[0].model), (1, 8, 8, 4), steps=2, inv_weight=1.0,
+                                    generator=torch.Generator().manual_seed(0))
+    want = np.asarray(to_pil(img[0].float().numpy()))
+    np.testing.assert_array_equal(got, want)
+    plain = dec.sample(z, (1, 8, 8, 4), steps=2, generator=torch.Generator().manual_seed(0))
+    assert not np.array_equal(np.asarray(to_pil(plain[0].float().numpy())), want)
+    assert cli.resolve_backend("auto", 768) == "dino" and cli.resolve_backend("auto", 512) == "clip"
+
+
+def test_cli_inversion_refusals(tmp_path, port, sd_env, monkeypatch):
+    argv = _store(tmp_path, port, CLIP_DIM)
+    monkeypatch.delenv("CLIP_CODEC_DINO_WEIGHTS", raising=False)
+    for extra in ([], ["--inv_backend", "dino"], ["--inv_backend", "auto"], ["--inv_dino_model", "unused"]):
+        with pytest.raises(RuntimeError, match="CLIP_CODEC_DINO_WEIGHTS"):
+            cli.main(argv + extra)  # auto at dim 32 is dino, whose weights are missing: no fall back to clip
     with pytest.raises(ValueError, match="inv_backend=clip but bitstream dim is 32"):
         cli.main(argv + ["--inv_backend", "clip"])
     with pytest.raises(SystemExit, match="incompatible with inversion guidance"):

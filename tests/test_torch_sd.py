@@ -260,8 +260,9 @@ def test_cli_writes_a_png_from_a_pt_store(tmp_path, port, monkeypatch):
         cli.main(argv + ["--inv_weight", "0"])
     monkeypatch.setenv("CLIP_CODEC_SD_UNET_WEIGHTS", str(tmp_path / "unet.bin"))
     monkeypatch.setenv("CLIP_CODEC_SD_VAE_WEIGHTS", str(tmp_path / "vae.bin"))
-    with pytest.raises(SystemExit, match="encoders/dino.py"):
-        cli.main(argv)  # the default --inv_weight 1.0 at dim 32 asks for the DINOv2 backend
+    monkeypatch.delenv("CLIP_CODEC_DINO_WEIGHTS", raising=False)
+    with pytest.raises(RuntimeError, match="CLIP_CODEC_DINO_WEIGHTS"):
+        cli.main(argv)  # the default --inv_weight 1.0 at dim 32 asks for the DINOv2 backend, here without weights
     cli.main(argv + ["--inv_weight", "0"])
     img = Image.open(tmp_path / "img-2-5-0.png")
     assert img.size == (16, 16) and img.mode == "RGB"

@@ -123,6 +123,73 @@ def test_loss_and_adapter_gradients_match_jax(rng, models):
     assert all(not p.requires_grad for m in (dec.unet, dec.vae) for p in m.parameters())
 
 
+@pytest.fixture(scope="module")
+def loss_towers():
+    """The tiny DINOv2 of tests/test_torch_dino.py and a seeded full-width
+    LPIPS-VGG16, each given to both packages."""
+    from clip_codec_tpu.encoders import dino as jdino
+    from clip_codec_tpu.eval.lpips import convert_lpips_torch
+    from clip_codec_tpu_torch.eval import lpips as tlpips
+    from clip_codec_tpu_torch.weights.convert_dino import dino_state_dict_from_hf
+    from tests.test_torch_dino import TINY, port_dino, random_hf_dino
+
+    hf = random_hf_dino(TINY, 1)
+    jdp = {"params": jdino.convert_dino_hf({k: v.numpy() for k, v in hf.items()}, depth=TINY["depth"])}
+    lp = tlpips.init_params(tlpips.LPIPS(), torch.Generator().manual_seed(3))
+    jm = jdino.DinoV2(jdino.DinoConfig(**TINY))
+    jembed = lambda dp, imgs: jdino.embed_m11_images_dino(jm, dp, imgs, TINY["image_size"])
+    return dict(jdino=jdp, jlpips=convert_lpips_torch(lp.state_dict()), jembed=jembed,
+                dino=port_dino(dino_state_dict_from_hf(hf)), lpips=lp)
+
+
+@pytest.mark.parametrize("perc_on", [True, False], ids=["perc_on", "perc_off"])
+def test_loss_with_dino_and_lpips_matches_jax(rng, models, loss_towers, perc_on):
+    """The default loss with both terms of JAX's ``make_sd_train_step(...,
+    dino_embed_fn=..., use_lpips=True)`` at batch 3 with a padded row: clip_w
+    0.1 through the tiny DINO tower (decoded 16px and ground-truth 20px
+    images, both resized to 28), perc_w 0.1 LPIPS against the ground truth
+    resized to 16px on a ``perc_on`` step only; loss within 1e-5, adapter
+    gradients within 1e-4, as the default loss's."""
+    jp, dec = models
+    T = loss_towers
+    B = 3
+    z = rng.standard_normal((B, CLIP_DIM)).astype(np.float32)
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    lat0 = rng.standard_normal((B, 8, 8, 4)).astype(np.float32)
+    gt = rng.uniform(-1, 1, (B, 20, 20, 3)).astype(np.float32)
+    w = np.array([1.0, 1.0, 0.0], np.float32)
+    cfg_j = jtrain.SDTrainConfig()
+    assert (cfg_j.clip_w, cfg_j.perc_w) == (0.1, 0.1)
+    jdec = jsd.StableDiffusionDecoder(jp["vae"], jp["unet"], adapter_params=jp["adapter"], clip_dim=CLIP_DIM,
+                                      n_tokens=8, unet_cfg=jsd.SDUNetConfig(**UCFG),
+                                      vae_cfg=jsd.VAEConfig(**VCFG), dtype=jnp.float32)
+    grads_out = optax.GradientTransformation(lambda p: p, lambda g, s, p=None: (g, g))
+    step = jtrain.make_sd_train_step(jdec, grads_out, cfg_j, dino_embed_fn=T["jembed"], use_lpips=True)
+    key = jax.random.PRNGKey(5)
+    fresh = lambda: jax.tree_util.tree_map(jnp.array, jp["adapter"])
+    frozen = {"unet": jp["unet"], "vae": jp["vae"], "dino": T["jdino"], "lpips": T["jlpips"]}
+    _, grads, loss_j = step(fresh(), fresh(), frozen, jnp.asarray(z), jnp.asarray(lat0), jnp.asarray(gt),
+                            jnp.asarray(w), key, perc_on=perc_on)
+    t_rng, n_rng = jax.random.split(key)
+    t = np.array(jax.random.randint(t_rng, (B,), 0, cfg_j.timesteps, dtype=jnp.int32))
+    noise = np.array(jax.random.normal(n_rng, lat0.shape, dtype=jnp.float32))
+
+    opt = ttrain.make_optimizer(dec.adapter, 1e-4)
+    loss_fn = ttrain.make_sd_train_step(dec, opt, ttrain.SDTrainConfig(), dino=T["dino"], lpips=T["lpips"]).loss_fn
+    dec.adapter.zero_grad(set_to_none=True)
+    args = [torch.from_numpy(a) for a in (z, lat0, w, t, noise)]
+    loss_t = loss_fn(*args, gt_img=torch.from_numpy(gt), perc_on=perc_on)
+    loss_t.backward()
+    assert abs(loss_t.item() - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    want = sd_adapter_state_dict_from_jax(grads)
+    for name, p in dec.adapter.named_parameters():
+        _close(p.grad.numpy(), want[name].numpy(), 1e-4)
+    with torch.no_grad():  # the terms are in the loss: it moves without them
+        plain = ttrain.make_sd_train_step(dec, opt, ttrain.SDTrainConfig()).loss_fn(*args)
+    assert abs(plain.item() - loss_t.item()) > 1e-3 * abs(loss_t.item())
+    assert not any(p.requires_grad for m in (T["dino"], T["lpips"]) for p in m.parameters())
+
+
 def test_adamw_matches_optax(rng):
     lr = 1e-3
     params = {"w": rng.standard_normal((4, 3)).astype(np.float32), "b": rng.standard_normal(3).astype(np.float32)}
@@ -256,7 +323,8 @@ def test_precompute_latents_matches_jax_encoder(tmp_path, rng, models):
 def test_cli_trains_resumes_and_reconstructs(tmp_path, rng, models, monkeypatch):
     """precompute_latents then train_sd for 1 epoch on the CPU, --resume to
     a second epoch, and the final adapter drives the SD reconstruct CLI to a
-    PNG; the unported terms and data parallelism are refused."""
+    PNG; data parallelism is refused; a DINO or LPIPS variable that names a
+    missing file is an error where its term is on."""
     from clip_codec_tpu_torch.cli import precompute_latents, reconstruct_sd_diffusion, train_sd
 
     _, dec = models
@@ -286,19 +354,74 @@ def test_cli_trains_resumes_and_reconstructs(tmp_path, rng, models, monkeypatch)
         with pytest.raises(SystemExit, match="parallel/"):
             train_sd.main(base + [flag])
     monkeypatch.setenv("CLIP_CODEC_DINO_WEIGHTS", str(tmp_path / "dino.pt"))
-    with pytest.raises(SystemExit, match="DINO"):
+    with pytest.raises(RuntimeError, match="CLIP_CODEC_DINO_WEIGHTS"):
         train_sd.main(base)
-    train_sd.main(base + ["--epochs", "2", "--clip_w", "0", "--resume"])  # the term is off: nothing to refuse
+    train_sd.main(base + ["--epochs", "2", "--clip_w", "0", "--resume"])  # the term is off: its file is not read
     monkeypatch.setenv("CLIP_CODEC_LPIPS_WEIGHTS", str(tmp_path / "lpips.pt"))
-    with pytest.raises(SystemExit, match="LPIPS"):
+    with pytest.raises(FileNotFoundError, match="lpips.pt"):
         train_sd.main(base + ["--clip_w", "0"])
     with pytest.raises(NotImplementedError, match="parallel/"):
         ttrain.train_sd_diffusion(tmp_path, dec, mesh=object())
 
 
-def test_training_modules_import_no_jax(tmp_path, models):
-    """One training step and an encode run in a process with no jax."""
+def test_cli_trains_with_dino_and_lpips(tmp_path, rng, models, monkeypatch):
+    """train_sd with both variables set (the tiny DINOv2 as a HuggingFace-
+    layout file, a seeded LPIPS-VGG16 in the ``lpips`` layout) and both
+    weights at their defaults: every step gets the frozen tower and the
+    ground-truth images at ``--out_size``, LPIPS on steps 0 and 2 of three
+    (``--perc_every 2``), and the adapter trains."""
+    import clip_codec_tpu_torch.encoders as encoders
+    from clip_codec_tpu_torch.cli import precompute_latents, train_sd
+    from clip_codec_tpu_torch.encoders.dino import DinoConfig, DinoV2
+    from clip_codec_tpu_torch.eval import lpips as tlpips
+    from tests.test_torch_dino import TINY, random_hf_dino
+
     _, dec = models
+    _store(tmp_path, rng)
+    torch.save(dec.unet.state_dict(), tmp_path / "unet.bin")
+    torch.save(dec.vae.state_dict(), tmp_path / "vae.bin")
+    torch.save(random_hf_dino(TINY, 2), tmp_path / "dino.bin")
+    torch.save(tlpips.init_params(tlpips.LPIPS(), torch.Generator().manual_seed(4)).state_dict(),
+               tmp_path / "lpips.pt")
+    for env, name in (("SD_UNET", "unet.bin"), ("SD_VAE", "vae.bin"), ("DINO", "dino.bin"), ("LPIPS", "lpips.pt")):
+        monkeypatch.setenv(f"CLIP_CODEC_{env}_WEIGHTS", str(tmp_path / name))
+    real = encoders.DinoEncoder
+    monkeypatch.setattr(encoders, "DinoEncoder",
+                        lambda **kw: real(**kw, cfg=DinoConfig(**TINY), dtype=torch.float32))
+    calls = []
+    make = ttrain.make_sd_train_step
+
+    def recording(decoder, optimizer, cfg, ema=None, dino=None, lpips=None):
+        step = make(decoder, optimizer, cfg, ema, dino=dino, lpips=lpips)
+
+        def wrapped(z, lat0, weight, t, noise, gt_img=None, perc_on=False):
+            calls.append((type(dino), type(lpips), tuple(gt_img.shape), gt_img.dtype, perc_on))
+            return step(z, lat0, weight, t, noise, gt_img, perc_on)
+
+        return wrapped
+
+    monkeypatch.setattr(ttrain, "make_sd_train_step", recording)
+    precompute_latents.main(["--store_dir", str(tmp_path), "--size", "16", "--device", "cpu"])
+    train_sd.main(["--store_dir", str(tmp_path), "--heads", "2", "--device", "cpu", "--batch_size", "2",
+                   "--epochs", "1", "--out_size", "20", "--perc_every", "2", "--save_dir", str(tmp_path / "out")])
+    assert calls == [(DinoV2, tlpips.LPIPS, (2, 20, 20, 3), torch.float32, on) for on in (True, False, True)]
+    from clip_codec_tpu_torch.models import init_params
+
+    start = init_params(tsd.SDClipAdapter(CLIP_DIM, 16, n_tokens=8), torch.Generator().manual_seed(0)).state_dict()
+    final = torch.load(tmp_path / "out" / "sd_adapter_final.pt", weights_only=True)
+    assert final.keys() == start.keys() and any(not torch.equal(final[k], start[k]) for k in start)
+
+
+def test_training_modules_import_no_jax(tmp_path, models):
+    """In a process with no jax: a DINO encode of two images through
+    cli.encode_images_dino (a seeded tiny tower written as a HuggingFace-
+    layout file), one training step with the DINO term on, and a VAE encode."""
+    from tests.test_torch_dino import TINY as DINO_TINY
+
+    _, dec = models
+    for i, hw in enumerate([(30, 40), (50, 20)]):
+        (tmp_path / "imgs").mkdir(exist_ok=True)
+        Image.fromarray(np.full(hw + (3,), 40 * i + 20, np.uint8)).save(tmp_path / "imgs" / f"im{i}.png")
     torch.save(dec.unet.state_dict(), tmp_path / "unet.pt")
     torch.save(dec.vae.state_dict(), tmp_path / "vae.pt")
     code = (
@@ -310,10 +433,22 @@ def test_training_modules_import_no_jax(tmp_path, models):
         "import clip_codec_tpu_torch.io.store, clip_codec_tpu_torch.train.data, clip_codec_tpu_torch.utils.logging\n"
         f"u, v = load_frozen({str(tmp_path / 'unet.pt')!r}, {str(tmp_path / 'vae.pt')!r}, 'cpu', heads=2)\n"
         "d = StableDiffusionDecoder(u, v, SDClipAdapter(32, 16, 64, 8))\n"
-        "step = tr.make_sd_train_step(d, tr.make_optimizer(d.adapter, 1e-4), tr.SDTrainConfig())\n"
+        "from clip_codec_tpu_torch.encoders import dino\n"
+        "from clip_codec_tpu_torch.weights import convert_dino\n"
+        "from clip_codec_tpu_torch.cli import encode_images_dino\n"
+        "import clip_codec_tpu_torch.encoders as E\n"
         "g = torch.Generator().manual_seed(0)\n"
+        f"cfg = dino.DinoConfig(**{DINO_TINY!r})\n"
+        "tower = dino.init_params(dino.DinoV2(cfg), g)\n"
+        f"torch.save(convert_dino.dino_state_dict_to_hf(tower.state_dict()), {str(tmp_path / 'dino.bin')!r})\n"
+        "real = E.DinoEncoder\n"
+        "E.DinoEncoder = lambda **kw: real(**kw, cfg=cfg, dtype=torch.float32)\n"
+        f"encode_images_dino.main(['--img_dir', {str(tmp_path / 'imgs')!r}, '--out_dir', {str(tmp_path / 's')!r},\n"
+        f"                         '--weights', {str(tmp_path / 'dino.bin')!r}, '--device', 'cpu'])\n"
+        "step = tr.make_sd_train_step(d, tr.make_optimizer(d.adapter, 1e-4), tr.SDTrainConfig(), dino=tower)\n"
         "lat = torch.randn((2, 8, 8, 4), generator=g)\n"
-        "loss = step(torch.randn((2, 32), generator=g), lat, torch.ones(2), torch.tensor([3, 500]), torch.randn_like(lat))\n"
+        "loss = step(torch.randn((2, 32), generator=g), lat, torch.ones(2), torch.tensor([3, 500]), torch.randn_like(lat),\n"
+        "            torch.rand((2, 20, 20, 3), generator=g) * 2 - 1)\n"
         "assert bool(torch.isfinite(loss))\n"
         "x = precompute_latents.encode_latents(v, torch.zeros((1, 16, 16, 3)), generator=g)\n"
         "assert x.shape == (1, 8, 8, 4)\n"
@@ -324,4 +459,4 @@ def test_training_modules_import_no_jax(tmp_path, models):
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.split()[-1] == "ok" and "Encoded 2 images" in out.stdout

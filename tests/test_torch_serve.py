@@ -175,6 +175,17 @@ def test_oversized_body_is_413_in_both(servers):
     assert out[0] == out[1] and out[0][0] == 413 and "limit" in out[0][1]["error"]
 
 
+def test_early_answers_read_the_body_first(servers):
+    """A 412, 400 and 404 sent before the body is used: the server still
+    reads the whole body before it closes, so a client that sent a large one
+    gets its answer (closing over unread bytes resets the connection)."""
+    body = bytes(4 << 20)
+    for path, status in (("/decompress?steps=10", 412), ("/decompress?format=gif", 400), ("/nowhere", 404)):
+        for _ in range(3):
+            got, ctype, data = _request(servers["port"], "POST", path, body)
+            assert (got, ctype) == (status, "application/json") and "error" in json.loads(data)
+
+
 def test_weight_gated_paths_answer_503_then_search(servers, monkeypatch):
     """/compress and /search without CLIP weights: 503 from both, each
     message naming the variable; then /search with both text towers stubbed
