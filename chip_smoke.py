@@ -288,6 +288,42 @@ no kernel, and its path runs K4, K5 and K6 through the SD UNet and VAE):
    (backend auto -> dino): a 512x512 PNG and phase 17's launches a request;
    s/request, busy share and peak memory beside phase 17's CLIP backend.
 
+int8 serving (``ops/int8.py``, ``csrc/int8_conv.cu``: the implicit-GEMM int8
+conv, the quantize pass and the absmax reduction, counterparts of XLA
+programs; the int8 paths also run K1 in every pixel ResBlock, K3, and K4 in
+the SD self-attention, never K2 or K6):
+
+22. 22a: ``csrc/int8_conv.cu`` built with the others at the start; the
+   shapes of every int8 conv call of one forward of each full-width path
+   (the pixel U-Net at B = 16 and B = 1, SD-1.5 at 64x64 latents, CFG
+   batched, with the adapter's 8-token context) plus to_k/to_v on a
+   77-token context (check only); at each, the three kernels against their
+   plain versions bit for bit: absmax, codes and scale (dynamic, and
+   static at half the absmax, saturating), and the conv's int32
+   accumulator, fp32 and bf16 outputs; at the pixel artifact's shapes and
+   ``SD_TIMED`` each timed (CUDA-graph replay and events; absmax at the
+   dynamic server's B = 1 shapes) beside its plain version (events; the
+   conv's float64 product),
+   its bound (int8 operations over 1,979 TOP/s, or bytes), ``torch._int_mm``
+   for the GEMMs, ``torch.linalg.vector_norm(x, inf)`` for absmax, and
+   cuDNN's bf16 conv for scale. 22b: ``cli.export_decoder --int8`` from
+   phase 4's checkpoint at its defaults with ``--output uint8`` (the
+   artifact and ``<artifact>.quant.pt``); its replay (exactly 31 x 50 int8
+   convs and quantize passes, 28 x 50 K1, 50 K3, no absmax, K2 or K6) bit-
+   equal across a seed and to its own eager int8 sampler from the same x_T;
+   one static-int8 forward's eps against the bf16 forward's; a start-up
+   without the sidecar stops with JAX's message naming it; then ``serve``
+   behind the artifact answers 64 /decompress from 32 clients (img/s,
+   p50/p95 beside phase 20c's bf16 artifact), launches exact. 22c:
+   ``cli.reconstruct_diffusion --int8`` beside the bf16 CLI (calibration:
+   3 fp passes, 28 K1 and one K3 each); ``serve --int8`` with no artifact,
+   one /decompress (dynamic: 31 absmax a forward too);
+   ``cli.reconstruct_sd_diffusion --int8 --inv_weight 0`` (6 fp calibration
+   passes, then ddim-30: every int8 layer of the UNet once a forward, 10
+   K4, no K6) and the SD int8 artifact from ``cli.export_decoder --sd
+   --int8`` behind ``--sd_artifact`` (3 requests, seeds 0, 1, 0), each
+   beside the bf16 times of phases 17 and 20, launches exact.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4, at B=8 with
 its launches in phase 18 and at B=16 with its launches in phase 20c
@@ -298,7 +334,9 @@ launches in phase 17's default request; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
 record per training shape with its launches in phase 14; u8_ip_scores and
 u8_ip_probe: one record per timed shape with its launches in phase 19b-19d
-(0 at the check-only D = 100 shape); K4, the K5 pair and K6 once more with
+(0 at the check-only D = 100 shape); the three int8 kernels one record per
+timed phase 22a shape with its launches by shape over 22b's HTTP run and
+22c (``"phase": 22``); K4, the K5 pair and K6 once more with
 phase 21's launches (21b's CLI training plus 21c's CLI request, ``"phase":
 21``, beside the timed record's numbers: K4's and K6's first shape, K5's
 (1, 4096, 512)), ``library_ms`` null (no one PyTorch
@@ -360,6 +398,13 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     # XLA programs, not Pallas kernels: XLA fuses the u8 -> f32 convert into the dot
     "u8_ip_scores": ("u8_ip_scan", "clip_codec_tpu/index/search.py:97"),
     "u8_ip_probe": ("u8_ip_scan", "clip_codec_tpu/index/ivf.py:117"),
+    # XLA programs too: JAX's int8 conv and dense (lax conv / dot_general on int8 operands), their
+    # activation codes and the dynamic absmax
+    "int8_conv_nhwc": ("int8_conv", "clip_codec_tpu/ops/int8.py:70, clip_codec_tpu/ops/int8.py:98, "
+                                    "clip_codec_tpu/ops/int8.py:201"),
+    "int8_quantize": ("int8_conv", "clip_codec_tpu/ops/int8.py:68, clip_codec_tpu/ops/int8.py:96, "
+                                   "clip_codec_tpu/ops/int8.py:200"),
+    "absmax": ("int8_conv", "clip_codec_tpu/ops/int8.py:67, clip_codec_tpu/ops/int8.py:198"),
 }
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12  # H100 SXM: HBM3 rate, dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -2234,7 +2279,7 @@ def phase_inversion(torch, attn, mlp, seed, dev, card):
           f"peak device memory {peak[1.0]:.2f} and {peak[0.0]:.2f} GiB on {card}")
     del dec, enc, embed
     torch.cuda.empty_cache()
-    return records, launches, {"s": times[1.0], "busy": busy[1.0], "peak": peak[1.0]}
+    return records, launches, {"s": times[1.0], "busy": busy[1.0], "peak": peak[1.0], "s_inv0": times[0.0]}
 
 
 # ------------------------------------------------------------ evaluation
@@ -2960,7 +3005,9 @@ def _serve_http(torch, addr, store, card, px_ms, sd_ms, rc, attn, mlp):
     got = {k: launches[k] for k in want}
     print(f"serve-http: launches {got} ({replays} replays after one eager warm-up each) on {card}")
     check(got == want, f"HTTP run launches {got} != {want}")
-    return {**got, "replays": {k: 1 + v for k, v in replays.items()}}
+    return {**got, "replays": {k: 1 + v for k, v in replays.items()},
+            "times": {"img_s": ART_REQUESTS / dt, "p50": p50, "p95": p95, "px_ms": px_ms, "sd_ms": sd_ms,
+                      "sd_walls": sd_walls}}
 
 
 # ------------------------------------------------------------ the DINOv2 front end (phase 21)
@@ -3344,6 +3391,464 @@ def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, fina
     return launches
 
 
+# ------------------------------------------------------------ int8 serving (phase 22)
+
+
+Q8_KERNELS = ("int8_conv_nhwc", "int8_quantize", "absmax")
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+PX_INT8_LAYERS = 31  # 28 ResBlock convs + 3 downsample convs
+CLIP_TEXT_TOKENS = 77  # to_k/to_v also checked on a CLIP text context
+# 22a times these and checks every other shape only: the pixel artifact's seven conv shapes at B = 16, and of SD-1.5
+# (64x64 latents, CFG batched) each level's ResBlock 3x3 conv, to_q, the GEGLU projection, the MLP's
+# out-projection and to_k on the 8-token context; int8_quantize at their inputs, absmax at the dynamic
+# server's (B = 1) conv inputs. Keys: (xq shape, wq shape, stride, padding).
+SD_TIMED = {((2, 64, 64, 320), (320, 3, 3, 320), 1, 1), ((2, 32, 32, 640), (640, 3, 3, 640), 1, 1),
+            ((2, 16, 16, 1280), (1280, 3, 3, 1280), 1, 1), ((2, 8, 8, 1280), (1280, 3, 3, 1280), 1, 1),
+            ((8192, 1, 1, 320), (320, 1, 1, 320), 1, 0), ((8192, 1, 1, 320), (2560, 1, 1, 320), 1, 0),
+            ((8192, 1, 1, 1280), (320, 1, 1, 1280), 1, 0), ((16, 1, 1, 768), (320, 1, 1, 768), 1, 0)}
+
+
+def q8_launches(q8, gn, rc, attn, mlp) -> dict:
+    return {"int8_conv_nhwc": q8.int8_conv2d.launches, "int8_quantize": q8.quantize.launches,
+            "absmax": q8.absmax.launches, "group_norm_silu": gn.group_norm_silu.launches,
+            "affine_silu_conv3x3": rc.affine_silu_conv3x3.launches, "affine_conv3x3": rc.affine_conv3x3.launches,
+            "flash_attention": attn.flash_attention_fwd.launches, "mlp_up": mlp.mlp_up.launches,
+            "mlp_down": mlp.mlp_down.launches}
+
+
+def reset_q8_launches(q8, gn, rc, attn, mlp) -> None:
+    for wrapper in (q8.int8_conv2d, q8.quantize, q8.absmax, gn.group_norm_silu):
+        wrapper.launches = 0
+    reset_launches(rc)
+    reset_sd_launches(attn, mlp)
+
+
+def q8_forward(layers: int, dynamic: bool = False, k1: int = 0, k3: int = 0, k4: int = 0) -> dict:
+    """The launches of one int8 forward: a quantize and a conv per int8 layer
+    (and an absmax when dynamic), K1 and K3 in the pixel U-Net, K4 in the SD
+    UNet's self-attention, never K2 or K6."""
+    return {"int8_conv_nhwc": layers, "int8_quantize": layers, "absmax": layers if dynamic else 0,
+            "group_norm_silu": k1, "affine_silu_conv3x3": 0, "affine_conv3x3": k3, "flash_attention": k4,
+            "mlp_up": 0, "mlp_down": 0}
+
+
+def combined(*terms) -> dict:
+    """Sum of (launch dict, count) terms, key by key."""
+    out = {}
+    for d, n in terms:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v * n
+    return out
+
+
+@contextlib.contextmanager
+def q8_tally(torch, q8):
+    """The int8 kernels' launches by shape: the conv by (xq shape, wq shape,
+    stride, padding), quantize and absmax by x's shape. Eager launches land in
+    ["eager"], calls a CUDA-graph capture records in ["captured"]
+    (``fold_captured`` multiplies them by the replays)."""
+    tally = {"eager": collections.Counter(), "captured": collections.Counter()}
+    saved = q8._launch_conv, q8._launch_quantize, q8._launch_absmax
+
+    def counted(fn, key):
+        def run(*a):
+            tally["captured" if torch.cuda.is_current_stream_capturing() else "eager"][key(*a)] += 1
+            return fn(*a)
+        return run
+
+    q8._launch_conv = counted(saved[0], lambda xq, wq, *rest: (
+        "int8_conv_nhwc", (tuple(xq.shape), tuple(wq.shape), rest[3], rest[4])))
+    q8._launch_quantize = counted(saved[1], lambda x, am: ("int8_quantize", rows(x.shape)))
+    q8._launch_absmax = counted(saved[2], lambda x: ("absmax", rows(x.shape)))
+    try:
+        yield tally
+    finally:
+        q8._launch_conv, q8._launch_quantize, q8._launch_absmax = saved
+
+
+def rows(shape) -> tuple:
+    """An elementwise pass's shape as (rows, channels): a Linear's
+    (..., K) input and the conv kernel's (M, 1, 1, K) view of it alike."""
+    n = 1
+    for d in shape[:-1]:
+        n *= d
+    return (n, shape[-1])
+
+
+def fold_captured(tally, replays: int) -> None:
+    for key, n in tally["captured"].items():
+        tally["eager"][key] += n * replays
+    tally["captured"].clear()
+
+
+def int8_path_shapes(torch, q8, seed, dev):
+    """22a's shapes: every int8 conv call of one full-width forward of each
+    path (the pixel U-Net at B = 16, the artifact's batch, and at B = 1, the
+    dynamic server's; SD-1.5 at 64x64 latents, CFG batched, with the
+    adapter's 8-token context), plus to_k/to_v on a 77-token context (check
+    only). Returns {conv key: (path, in the main path?)}."""
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
+
+    shapes = {}
+    net = full_unet(torch, seed, dev)
+    net.int8 = True
+    sd_dir = ROOT / "build" / "chip_smoke" / "sd"
+    unet, vae = cli.load_frozen(sd_dir / "unet.pt", sd_dir / "vae.pt", dev, heads=8, int8=True)
+    del vae
+    gen = torch.Generator(device=dev).manual_seed(seed + 70)
+    runs = [(net, "pixel", (torch.randn((B, SIZE, SIZE, 3), generator=gen, device=dev),
+                            torch.randn((B, 512), generator=gen, device=dev),
+                            torch.full((B,), 500, dtype=torch.int32, device=dev))) for B in (WIDE_BATCH, 1)]
+    runs.append((unet, "sd", (torch.randn((2, 64, 64, 4), generator=gen, device=dev),
+                              torch.full((2,), 500, dtype=torch.int32, device=dev),
+                              torch.randn((2, 8, 768), generator=gen, device=dev))))
+    with torch.no_grad(), q8_tally(torch, q8) as tally:
+        for model, path, args in runs:
+            model(*args)
+            for (name, key), _ in tally["eager"].items():
+                if name == "int8_conv_nhwc" and key not in shapes:
+                    shapes[key] = (path, True)
+    ctx_rows = 2 * 8
+    for (xs, ws, stride, pad) in list(shapes):
+        if xs == (ctx_rows, 1, 1, 768):
+            shapes[((2 * CLIP_TEXT_TOKENS, 1, 1, 768), ws, stride, pad)] = ("sd, 77-token context", False)
+    del net, unet
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
+    """22a: the three kernels against their plain versions, bit for bit, at
+    every shape of ``shapes``: the int32 accumulator, the fp32 and bf16
+    outputs, and the codes and scale in dynamic and static mode. At the
+    timed shapes (the pixel artifact's and ``SD_TIMED``) each kernel timed
+    (CUDA-graph replay, and events) beside its plain version (events) and
+    its bound, the GEMMs beside ``torch._int_mm`` and the convs beside
+    cuDNN's bf16 conv (for scale). Returns the records."""
+    import math
+
+    F = torch.nn.functional
+    check(SD_TIMED <= set(shapes), f"SD_TIMED shapes not on the path: {SD_TIMED - set(shapes)}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 71)
+    recs = {name: [] for name in Q8_KERNELS}
+    done = {name: set() for name in Q8_KERNELS}
+    for (xs, ws, stride, pad), (path, main) in shapes.items():
+        cout, k, _, cin = ws
+        x = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((cout, cin, k, k), generator=gen, device=dev) / math.sqrt(cin * k * k)
+        bias = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+        wq, wsc = q8.quantize_weight(w)
+        am, am_p = q8.absmax(x), q8.absmax_plain(x)
+        xq, s = q8.quantize(x, am)
+        xq_p, s_p = q8.quantize_plain(x, am_p)
+        check(torch.equal(am, am_p) and torch.equal(xq, xq_p) and torch.equal(s, s_p),
+              f"int8 codes {xs} dynamic: kernel != plain")
+        half = am_p * 0.5  # a calibrated absmax below max|x|: codes saturate
+        check(all(torch.equal(a, b) for a, b in zip(q8.quantize(x, half), q8.quantize_plain(x, half))),
+              f"int8 codes {xs} static: kernel != plain")
+        acc_p = q8.int8_conv2d_plain(xq, wq, wsc, s, bias, stride, pad, torch.int32)
+        errs = {}
+        for dt in (torch.int32, torch.float32, torch.bfloat16):
+            got = q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad, dt)
+            want = q8._epilogue(acc_p, wsc, s, bias, dt).contiguous()
+            errs[str(dt).removeprefix("torch.")] = float((got.double() - want.double()).abs().max().item())
+            check(torch.equal(got, want), f"int8 conv {xs} x {ws} s{stride} p{pad} {dt}: kernel != plain {errs}")
+        torch.cuda.synchronize()
+        timed = (path == "pixel" and xs[0] == WIDE_BATCH) or (xs, ws, stride, pad) in SD_TIMED
+        if timed:
+            time_conv(torch, q8, F, recs, x, w, xq, wq, wsc, s, bias, stride, pad, acc_p, errs, path, card)
+        n = x.numel()
+        for name, call, plain, lib, nbytes, wanted in (
+                ("int8_quantize", lambda: q8.quantize(x, am), lambda: q8.quantize_plain(x, am_p), None, 3 * n, timed),
+                ("absmax", lambda: q8.absmax(x), lambda: q8.absmax_plain(x),
+                 lambda: torch.linalg.vector_norm(x, float("inf")), 2 * n, path == "pixel" and xs[0] == 1)):
+            if not wanted or rows(xs) in done[name]:
+                continue
+            done[name].add(rows(xs))
+            k_ms, k_ev = graph_ms(torch, call, iters=10), cuda_ms(torch, call, iters=10)
+            p_ms = cuda_ms(torch, plain, iters=3)
+            l_ms = None if lib is None else graph_ms(torch, lib, iters=10)
+            qb_ms, qb_by, _ = bound(nbytes, 0.0)
+            recs[name].append({"shape": list(rows(xs)), "path": path, "ms": k_ms, "events_ms": k_ev, "plain_ms": p_ms,
+                               "bound_ms": qb_ms, "bound_by": qb_by, "library_ms": l_ms, "max_abs_err": 0.0})
+            print(f"int8-kernels: {name} {rows(xs)} bf16: ms={k_ms:.4f} (graph) events_ms={k_ev:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={qb_ms:.4f} ({qb_by}) library_ms={l_ms} on {card}")
+        del x, w, xq, wq, acc_p
+    print(f"int8-kernels: bit-equal to the plain versions at all {len(shapes)} shapes "
+          f"({sum(not m for _, m in shapes.values())} check-only): absmax, codes and scale dynamic and static, the "
+          f"conv's int32, fp32 and bf16 outputs")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def time_conv(torch, q8, F, recs, x, w, xq, wq, wsc, s, bias, stride, pad, acc_p, errs, path, card):
+    """One timed int8 conv record: the kernel (graph replay, events), its
+    plain version (events), its bound, and ``torch._int_mm`` (a GEMM) or
+    cuDNN's bf16 conv (for scale)."""
+    xs, (cout, k, _, cin) = tuple(xq.shape), wq.shape
+    B, H, W, _ = xs
+    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    M, K = B * ho * wo, k * k * cin
+    run = lambda: q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16)
+    ms, ev_ms = graph_ms(torch, run, iters=10), cuda_ms(torch, run, iters=10)
+    plain_ms = cuda_ms(torch, lambda: q8.int8_conv2d_plain(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16),
+                       iters=1, warmup=1)
+    b_ms, b_by, _ = bound(xq.numel() + wq.numel() + 2 * M * cout + 8 * cout, 2.0 * M * cout * K, INT8_OPS_PER_S)
+    lib_ms, scale_ms = None, None
+    if k == 1:  # a GEMM: torch._int_mm is the one PyTorch call for the same int32 product
+        a2, b2 = xq.reshape(M, K), wq.reshape(cout, K).t()
+        try:
+            check(torch.equal(torch._int_mm(a2, b2), acc_p.reshape(M, cout)), f"_int_mm {xs}: another product")
+            lib_ms = graph_ms(torch, lambda: torch._int_mm(a2, b2), iters=10)
+        except RuntimeError as e:
+            print(f"int8-kernels: torch._int_mm refuses ({M}, {K}) x ({K}, {cout}): {str(e).splitlines()[0]}")
+    else:  # no PyTorch call convolves int8 on CUDA: cuDNN's bf16 conv of the same shape, for scale
+        xb = x.permute(0, 3, 1, 2)
+        wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        scale_ms = graph_ms(torch, lambda: F.conv2d(xb, wb, None, stride, pad), iters=10)
+    rec = {"shape": [list(xs), list(wq.shape), stride, pad], "path": path, "ms": ms, "events_ms": ev_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "cudnn_bf16_ms": scale_ms, "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+           "tops": 2.0 * M * cout * K / ms / 1e9}
+    recs["int8_conv_nhwc"].append(rec)
+    print(f"int8-kernels: int8_conv_nhwc {path} x {xs} w {tuple(wq.shape)} s{stride} p{pad}: ms={ms:.4f} (graph) "
+          f"events_ms={ev_ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) {rec['tops']:.1f} TOP/s "
+          f"_int_mm_ms={lib_ms} cudnn_bf16_ms={scale_ms} on {card}")
+
+
+def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
+    """22b: the main path. ``cli.export_decoder --int8`` (calibration, the
+    artifact, its sidecar), the artifact's replay against its own eager int8
+    sampler, one int8 forward against the bf16 one, a start-up without the
+    sidecar, then ``serve`` behind the artifact answering 64 /decompress from
+    32 clients. 22c: ``cli.reconstruct_diffusion --int8`` beside the bf16
+    CLI, ``serve --int8`` with no artifact (dynamic), ``cli.reconstruct_sd_diffusion
+    --int8 --inv_weight 0`` and the SD int8 artifact behind --sd_artifact.
+    Launch counts exact throughout. Returns the int8 kernels' launches by
+    shape over the HTTP run of 22b and the runs of 22c."""
+    import importlib.util
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch import deploy, serve
+    from clip_codec_tpu_torch.cli import export_decoder, reconstruct_diffusion, reconstruct_sd_diffusion
+    from clip_codec_tpu_torch.cli.search_text import load_features
+    from clip_codec_tpu_torch.models import CLIPCondUNet
+    from clip_codec_tpu_torch.models.sd import SD15_UNET, SDUNet
+    from clip_codec_tpu_torch.probes.serve_times import drive, percentiles, request
+    from clip_codec_tpu_torch.utils.checkpoint import load_state_dict
+    from clip_codec_tpu_torch.weights import sd_checkpoint as ckpt
+
+    build = ROOT / "build" / "chip_smoke"
+    px_weights, sd_dir, store = build / "store" / "diffusion_unet_final.pt", build / "sd", build / "compress" / "store"
+    out = build / "int8"
+    out.mkdir(parents=True, exist_ok=True)
+    env = {ckpt.UNET_ENV: str(sd_dir / "unet.pt"), ckpt.VAE_ENV: str(sd_dir / "vae.pt")}
+    manifest = json.loads((store / "manifest.json").read_text())
+    frames = [Path(r["bitstream"]).read_bytes() for r in manifest]
+    with torch.device("meta"):
+        sd_layers = len(q8.int8_layer_names(SDUNet(SD15_UNET)))
+    px_fwd = q8_forward(PX_INT8_LAYERS, k1=GN_PER_FORWARD, k3=1)
+    sd_fwd = q8_forward(sd_layers, k4=SD_FLASH_PER_FORWARD)
+    times = art["times"]
+    launches_by_shape = collections.Counter()
+
+    def counts():
+        return q8_launches(q8, gn, rc, attn, mlp)
+
+    def expect(got, want, what):
+        print(f"int8-launches: {what}: {got}")
+        check(got == {k: want.get(k, 0) for k in got}, f"{what}: launches {got} != {want}")
+
+    def start(srv):
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        return srv.server_address, thread
+
+    def stop(srv, thread):
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+
+    with mock.patch.dict(os.environ, env), raw_frames(importlib.util.find_spec("zstandard") is not None), \
+            q8_tally(torch, q8) as tally:
+        # 22b: export at the CLI's defaults (256px, DDIM-50, batch 16), uint8 output
+        art_path = out / "decoder_int8.torchprog"
+        t0 = time.perf_counter()
+        export_decoder.main(["--weights", str(px_weights), "--out", str(art_path), "--output", "uint8", "--int8"])
+        export_s = time.perf_counter() - t0
+        meta = deploy.read_artifact_meta(art_path)
+        sidecar = Path(str(art_path) + deploy.QUANT_SUFFIX)
+        check(sidecar.exists(), f"no sidecar {sidecar}")
+        quant = q8.read_quant(sidecar, dev)
+        print(f"int8-export: {art_path.name} + {sidecar.name} ({len(quant)} scales, absmax "
+              f"{min(v.item() for v in quant.values()):.3f}..{max(v.item() for v in quant.values()):.3f}) in "
+              f"{export_s:.2f} s (calibration included) on {card}; header {meta}")
+        check(meta["int8"] is True and (meta["size"], meta["steps"], meta["batch_size"], meta["output"]) ==
+              (SIZE, STEPS, WIDE_BATCH, "uint8"), f"int8 artifact header {meta}")
+        check(len(quant) == PX_INT8_LAYERS, f"{len(quant)} scales, want {PX_INT8_LAYERS}")
+
+        feats, _ = load_features(store)
+        z = torch.from_numpy(feats[:WIDE_BATCH]).to(dev)
+        px = deploy.load_decompressor(art_path)
+        params = load_state_dict(px_weights)
+        t0 = time.perf_counter()
+        a = px(params, z, seed=seed, quant=quant)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        reset_q8_launches(q8, gn, rc, attn, mlp)
+        b = px(params, z, seed=seed, quant=quant)
+        expect(counts(), combined((px_fwd, STEPS)), "a replay of the pixel int8 artifact")
+        check(torch.equal(a, b), "two int8 replays of one seed differ")
+        x_T = torch.randn((WIDE_BATCH, SIZE, SIZE, 3), generator=torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+        t0 = time.perf_counter()
+        e = px.sample(px.net, z, x_T)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        d = (a.int() - e.int()).abs()
+        ms = cuda_ms(torch, lambda: px(params, z, seed=seed, quant=quant), iters=1, warmup=0)
+        print(f"int8-replay: capture + first replay {first:.3f} s; uint8 vs its eager int8 sampler from the same x_T: "
+              f"max |delta| {d.max().item()} levels; a call {ms:.3f} ms device (phase 20's bf16 artifact "
+              f"{times['px_ms']:.3f} ms), eager {eager_s:.3f} s wall, batch {WIDE_BATCH} on {card}")
+        check(torch.equal(a, e), "the int8 replay is not bit-equal to its eager int8 sampler")
+        fp = CLIPCondUNet(z_dim=512, base=PX_BASE, ch_mult=PX_CH_MULT, time_dim=256, dtype=torch.bfloat16,
+                          int8=False)
+        fp.load_state_dict(params, strict=True)
+        fp = fp.to(dev).eval()
+        gen = torch.Generator(device=dev).manual_seed(seed + 72)
+        xs = (torch.randn((4, SIZE, SIZE, 3), generator=gen, device=dev), z[:4],
+              torch.tensor([999, 700, 300, 20], dtype=torch.int32, device=dev))
+        with torch.no_grad():
+            eps_q, eps_b = px.net(*xs).float(), fp(*xs).float()
+        rel = ((eps_q - eps_b).norm() / eps_b.norm()).item()
+        print(f"int8-forward: static int8 eps vs the bf16 forward, B=4 at t = 999, 700, 300, 20: "
+              f"||delta|| / ||bf16|| {rel:.4e} on {card}")
+        check(bool(torch.isfinite(eps_q).all().item()) and rel < 0.5, f"int8 eps {rel}")
+        del px, fp, a, b, e, eps_q, eps_b
+        torch.cuda.empty_cache()
+
+        lone = out / "no_sidecar.torchprog"
+        shutil.copyfile(art_path, lone)
+        try:
+            serve.serve(str(store), weights=str(px_weights), port=0, artifact=str(lone))
+            check(False, "an int8 artifact without its sidecar served")
+        except ValueError as err:
+            want = f"int8 artifact: calibration sidecar {lone}{deploy.QUANT_SUFFIX} not found " \
+                   f"(cli.export_decoder --int8 writes it)"
+            check(str(err) == want, f"missing sidecar: {err!r}")
+            print(f"int8-serve: without the sidecar the server stops at start-up: {err}")
+
+        # the main path: the server behind the int8 artifact, counts from 0 just before it starts
+        reset_q8_launches(q8, gn, rc, attn, mlp)
+        tally["eager"].clear()
+        tally["captured"].clear()
+        t0 = time.perf_counter()
+        srv = serve.serve(str(store), weights=str(px_weights), port=0, artifact=str(art_path),
+                          batch_wait_ms=ART_WAIT_MS)
+        started = time.perf_counter() - t0
+        addr, thread = start(srv)
+        try:
+            dt, lat, res = drive(addr, "/decompress", [frames[i % len(frames)] for i in range(ART_REQUESTS)],
+                                 ART_CLIENTS)
+            for status, _, body, _ in res:
+                check(status == 200 and Image.open(io.BytesIO(body)).size == (SIZE, SIZE), f"/decompress {status}")
+            mb = json.loads(request(addr, "/stats", method="GET")[2])["micro_batch"]
+        finally:
+            stop(srv, thread)
+        p50, p95 = percentiles(lat)
+        replays = 1 + mb["calls"]  # the start-up call and the micro-batches
+        print(f"int8-serve: started (artifact loaded, captured) in {started:.2f} s; {ART_REQUESTS} /decompress from "
+              f"{ART_CLIENTS} clients in {dt:.3f} s = {ART_REQUESTS / dt:.3f} img/s, p50 {p50:.3f} s p95 {p95:.3f} s, "
+              f"{mb['calls']} replays, fill rate {mb['fill_rate']}; phase 20c's bf16 artifact {times['img_s']:.3f} "
+              f"img/s, p50 {times['p50']:.3f} s p95 {times['p95']:.3f} s on {card}")
+        expect(counts(), combined((px_fwd, STEPS * (1 + replays))),
+               f"the HTTP run (one eager warm-up, {replays} replays)")
+        fold_captured(tally, replays)
+
+        # 22c: the pixel CLI with --int8 (static, calibrated first) beside the bf16 CLI
+        f0 = Path(manifest[0]["bitstream"])
+        cli_s = {}
+        for flags in ([], ["--int8"]):
+            reset_q8_launches(q8, gn, rc, attn, mlp)
+            png = out / f"recon{'_int8' if flags else ''}.png"
+            t0 = time.perf_counter()
+            try:
+                reconstruct_diffusion.main(["--store_dir", str(store), "--bitstream", str(f0), "--weights",
+                                            str(px_weights), "--out", str(png), "--seed", str(seed)] + flags)
+            finally:
+                q8.set_int8_conv(False)
+            cli_s[bool(flags)] = time.perf_counter() - t0
+            check(np.asarray(Image.open(png)).shape == (SIZE, SIZE, 3), f"{png.name}")
+        calibration = {"group_norm_silu": GN_PER_FORWARD, "affine_conv3x3": 1}  # an fp pass of the int8 U-Net
+        expect(counts(), combined((calibration, 3), (px_fwd, STEPS)), "cli.reconstruct_diffusion --int8")
+        # serve --int8, no artifact: ClipCodec with the dynamic int8 U-Net
+        q8.set_int8_conv(True)
+        try:
+            srv = serve.serve(str(store), weights=str(px_weights), port=0)
+            addr, thread = start(srv)
+            reset_q8_launches(q8, gn, rc, attn, mlp)
+            try:
+                status, ctype, body, dyn_s = request(addr, f"/decompress?size={SIZE}&steps={STEPS}&seed={seed}",
+                                                     frames[0])
+            finally:
+                stop(srv, thread)
+        finally:
+            q8.set_int8_conv(False)
+        check(status == 200 and Image.open(io.BytesIO(body)).size == (SIZE, SIZE), f"serve --int8: {status}")
+        expect(counts(), combined((q8_forward(PX_INT8_LAYERS, dynamic=True, k1=GN_PER_FORWARD, k3=1), STEPS)),
+               "serve --int8 /decompress (dynamic)")
+        print(f"int8-cli: cli.reconstruct_diffusion (DDIM-{STEPS}, {SIZE}px, one image, weights load included) "
+              f"bf16 {cli_s[False]:.3f} s, --int8 {cli_s[True]:.3f} s (calibration included); serve --int8 "
+              f"(dynamic) one /decompress {dyn_s:.3f} s on {card}")
+
+        # the SD CLI with --int8 --inv_weight 0 (static, calibrated on both CFG branches)
+        reset_q8_launches(q8, gn, rc, attn, mlp)
+        t0 = time.perf_counter()
+        try:
+            reconstruct_sd_diffusion.main(["--store_dir", str(store), "--bitstream", str(f0), "--adapter",
+                                           str(sd_dir / "adapter.pt"), "--int8", "--inv_weight", "0", "--out",
+                                           str(out / "sd_int8.png")])
+        finally:
+            q8.set_int8_conv(False)
+        sd_cli_s = time.perf_counter() - t0
+        check(np.asarray(Image.open(out / "sd_int8.png")).shape == (SD_SIZE, SD_SIZE, 3), "sd_int8.png")
+        sd_calibration = {"flash_attention": SD_FLASH_PER_FORWARD}  # an fp pass: 3 timesteps x 2 branches
+        sd_request = combined((sd_fwd, INV_STEPS), ({"flash_attention": 1}, 1))  # + the VAE decode
+        expect(counts(), combined((sd_calibration, 6), (sd_request, 1)), "cli.reconstruct_sd_diffusion --int8")
+        # the SD int8 artifact behind --sd_artifact
+        sd_art = out / "sd_int8.torchprog"
+        export_decoder.main(["--sd", "--adapter", str(sd_dir / "adapter.pt"), "--out", str(sd_art), "--int8"])
+        check(Path(str(sd_art) + deploy.QUANT_SUFFIX).exists(), "no SD sidecar")
+        reset_q8_launches(q8, gn, rc, attn, mlp)
+        srv = serve.serve(str(store), port=0, sd_artifact=str(sd_art), adapter=str(sd_dir / "adapter.pt"))
+        addr, thread = start(srv)
+        walls, pngs = [], []
+        try:
+            for s in (0, 1, 0):
+                status, ctype, body, wall = request(addr, f"/decompress_sd?seed={s}&guidance={SD_GUIDANCE}",
+                                                    frames[2])
+                check(status == 200 and Image.open(io.BytesIO(body)).size == (SD_SIZE, SD_SIZE),
+                      f"/decompress_sd {status} {body[:200]!r}")
+                walls.append(wall)
+                pngs.append(body)
+        finally:
+            stop(srv, thread)
+        check(pngs[0] == pngs[2] and pngs[0] != pngs[1], "/decompress_sd int8 seeds")
+        expect(counts(), combined((sd_request, 1 + 1 + len(walls))),
+               "the SD int8 artifact (one eager warm-up, the start-up replay, 3 requests)")
+        fold_captured(tally, 1 + len(walls))
+        print(f"int8-sd: cli.reconstruct_sd_diffusion --int8 --inv_weight 0 (ddim-{INV_STEPS}, {SD_SIZE}px, "
+              f"weights load and calibration included) {sd_cli_s:.3f} s (phase 17's bf16 request without the "
+              f"weights load {[round(t, 4) for t in inv_times['s_inv0']]} s); the SD int8 artifact's "
+              f"/decompress_sd {[round(w, 4) for w in walls]} s (phase 20c's bf16 "
+              f"{[round(w, 4) for w in times['sd_walls']]} s) on {card}")
+        launches_by_shape.update(tally["eager"])
+    return launches_by_shape
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3357,6 +3862,7 @@ def main() -> int:
     from clip_codec_tpu_torch.ops import attention as attn
     from clip_codec_tpu_torch.ops import attention_probe as ap
     from clip_codec_tpu_torch.ops import groupnorm as gn
+    from clip_codec_tpu_torch.ops import int8 as q8
     from clip_codec_tpu_torch.ops import mlp
     from clip_codec_tpu_torch.ops import resblock_conv as rc
 
@@ -3421,6 +3927,13 @@ def main() -> int:
                                                                 train_s_step)
         dino_inv = phase_dino_inversion(torch, attn, mlp, args.seed, dev, card, dino_w, dino_store, dino_adapter,
                                         inv_times)
+
+        phase_build(builds, ("int8_conv",))
+        q8_records = phase_int8_kernels(torch, q8, int8_path_shapes(torch, q8, args.seed, dev), args.seed, dev, card)
+        q8_by_shape = phase_int8(torch, q8, gn, rc, attn, mlp, args.seed, dev, card, art, inv_times)
+        for name in Q8_KERNELS:  # each launched on the main path
+            n = sum(v for (k, _), v in q8_by_shape.items() if k == name)
+            check(n > 0, f"{name}: no launch on the int8 paths")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3428,6 +3941,12 @@ def main() -> int:
     kernels = []
     for name, (lib, replaces) in KERNELS.items():
         head = {"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces}
+        if name in Q8_KERNELS:  # one record per phase 22a shape, launches by shape on the phase 22b-22c paths
+            for rec in q8_records[name]:
+                xs = rec["shape"]
+                key = (tuple(xs[0]), tuple(xs[1]), xs[2], xs[3]) if name == "int8_conv_nhwc" else tuple(xs)
+                kernels.append({**head, "launches": q8_by_shape.get((name, key), 0), **rec, "phase": 22})
+            continue
         if isinstance(records[name], list):  # the convs, K6 and K1: one record per path shape
             for rec in records[name]:
                 if name in ("mlp_up", "mlp_down"):

@@ -15,8 +15,9 @@ similarity by scorers loaded once (NaN where ``$CLIP_CODEC_LPIPS_WEIGHTS`` or
 ``$CLIP_CODEC_CLIP_WEIGHTS`` is unset). ``--weights`` is a ``.pt`` state dict;
 the ``model_config.json`` beside it, if any, gives the architecture and
 schedule (else ``--base``, ``--ch_mult`` and a 1000-step cosine schedule).
-``--device`` is ``cuda`` (the default) or ``cpu``. Not ported:
-``--data_parallel`` (``parallel/``) and ``--int8`` (``ops/int8.py``).
+``--device`` is ``cuda`` (the default) or ``cpu``. ``--int8`` evaluates the
+static-int8 U-Net (``ops/int8.py``), calibrated first as JAX's CLI does. Not
+ported: ``--data_parallel`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from ..eval.metrics import (_default_clip_encoder, _default_lpips, clip_similarity_batch, lpips_batch,
                             psnr_batch, ssim_batch)
+from ._common import add_int8_flag, apply_int8_flag
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -50,18 +52,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="U-Net base width (default: model_config.json next to --weights, else 128)")
     ap.add_argument("--ch_mult", type=str, default=None, help="U-Net channel multipliers")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--int8", action="store_true", help="int8 serving mode (not ported)")
+    add_int8_flag(ap)
     args = ap.parse_args(argv)
     if args.data_parallel:
         raise SystemExit("--data_parallel is not ported to the PyTorch package yet (parallel/)")
-    if args.int8:
-        raise SystemExit("--int8 is not ported to the PyTorch package yet (ops/int8.py)")
+    apply_int8_flag(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
 
     from ..diffusion import NoiseSchedule, make_sampler
     from ..io.store import Store
     from ..models import CLIPCondUNet
+    from ..ops.int8 import calibrate_unet, load_quant
     from ..train.data import load_image_m11
     from ..utils.batching import pad_rows
     from ..utils.checkpoint import load_state_dict
@@ -74,11 +76,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ch_mult = (tuple(int(c) for c in args.ch_mult.split(","))
                if args.ch_mult is not None else (mc.ch_mult if mc else (1, 2, 2)))
     net = CLIPCondUNet(z_dim=store.dim, base=base, ch_mult=ch_mult, time_dim=mc.time_dim if mc else 256,
-                       img_ch=3, dtype=torch.bfloat16)
+                       img_ch=3, dtype=torch.bfloat16, int8=True if args.int8 else None)
     net.load_state_dict(load_state_dict(args.weights), strict=True)
     net = net.to(device).eval()
     sched = (NoiseSchedule.create(mc.timesteps, mc.schedule, device=device) if mc
              else NoiseSchedule.create(1000, "cosine", device=device))
+    if args.int8:
+        # static activation scales (ops/int8.py calibrate_unet)
+        load_quant(net, calibrate_unet(net, args.size, store.dim, timesteps=sched.timesteps))
     sampler = make_sampler(args.sampler, sched, eta=args.eta)
     lpips_model = _default_lpips(device)
     clip_enc = _default_clip_encoder(device)

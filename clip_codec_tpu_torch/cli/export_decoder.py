@@ -17,8 +17,14 @@ without one, the state dict's own shapes); the SD UNet and VAE come from
 files, the head count from ``--heads``), the adapter from ``--adapter``.
 Defaults as JAX's: 256px, 50 steps, batch 16 (pixel); 512px, 30 steps,
 batch 1 (SD). ``--platforms`` names the device kinds the artifact may load
-on (``cuda``, ``cpu``; default ``--device``'s). ``--int8`` is refused: int8
-serving waits for ``ops/int8.py``.
+on (``cuda``, ``cpu``; default ``--device``'s). ``--int8`` exports the
+static-int8 program: the U-Net's activation scales are calibrated here, on
+``--device`` with the real weights (pixel: ``ops.int8.calibrate_unet`` at
+the artifact's size over the schedule's length; SD:
+``calibrate_int8_scales`` on both CFG branches, for a random unit
+embedding from ``default_rng(0)``), and written, once the artifact is, to
+``<out>.quant.pt`` (``torch.save`` of the quant dict; JAX writes
+``.quant.msgpack``), which serving passes back in.
 """
 
 from __future__ import annotations
@@ -54,13 +60,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--z_dim", type=int, default=None, help="override the z_dim inferred from the checkpoint")
     ap.add_argument("--heads", type=int, default=8,
                     help="SD UNet attention heads (not recoverable from the weight shapes)")
-    ap.add_argument("--int8", action="store_true", help="int8 serving program (not ported)")
+    ap.add_argument("--int8", action="store_true",
+                    help="static-int8 serving program; calibrates here and writes <out>.quant.pt for serve boxes")
     ap.add_argument("--output", type=str, default="float32", choices=("float32", "uint8"),
                     help="pixel path: uint8 folds the PNG-prep conversion into the program "
                          "(4x smaller device-to-host copy)")
     args = ap.parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8 is not ported to the PyTorch package yet (ops/int8.py)")
     platforms = args.platforms.split(",") if args.platforms else [args.device]
     if args.sd:
         _export_sd(args, platforms)
@@ -88,10 +93,37 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         mc = ModelConfig.infer_from_state_dict(sd, **overrides)
     elif overrides:  # explicit flags beat the config file, as in the reconstruct/eval CLIs
         mc = dataclasses.replace(mc, **overrides)
+    quant = None
+    if args.int8:
+        # calibrate on the build box (the real weights are here) and ship the
+        # quant dict as a sidecar the serving box passes back in
+        import torch
+
+        from ..models import CLIPCondUNet
+        from ..ops.int8 import calibrate_unet
+
+        with torch.device(args.device):
+            net = CLIPCondUNet(z_dim=mc.z_dim, base=mc.base, ch_mult=mc.ch_mult, time_dim=mc.time_dim,
+                               img_ch=mc.img_ch, dtype=torch.bfloat16, int8=True)
+        net.load_state_dict(sd, strict=True)
+        quant = calibrate_unet(net.eval(), size, mc.z_dim, timesteps=mc.timesteps)
     path = export_decompressor(sd, mc, args.out, size=size, steps=steps, sampler=args.sampler, eta=args.eta,
-                               batch_size=batch, output=args.output, platforms=platforms)
+                               batch_size=batch, quant=quant, output=args.output, platforms=platforms)
     print(f"Exported {path} ({path.stat().st_size / 1024:.1f} KiB, sampler={args.sampler}, steps={steps}, "
-          f"size={size}, batch={batch}, int8=False)")
+          f"size={size}, batch={batch}, int8={args.int8}){_write_sidecar(path, quant)}")
+
+
+def _write_sidecar(path: Path, quant) -> str:
+    """Write ``<artifact>.quant.pt`` (only after the export succeeded: a
+    stale sidecar beside an old artifact would mis-scale a later serve)."""
+    if quant is None:
+        return ""
+    from ..deploy import QUANT_SUFFIX
+    from ..ops.int8 import save_quant
+
+    sidecar = Path(str(path) + QUANT_SUFFIX)
+    save_quant(quant, sidecar)
+    return f" + {sidecar}"
 
 
 def _export_sd(args, platforms) -> None:
@@ -107,12 +139,41 @@ def _export_sd(args, platforms) -> None:
     usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
     vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
     asd = ckpt.adapter_state_dict(ckpt.read_checkpoint(Path(args.adapter)))
+    ucfg, vcfg = ckpt.unet_config(usd, heads=args.heads), ckpt.vae_config(vsd)
+    quant = None
+    if args.int8:
+        quant = _calibrate_sd(args, usd, vsd, asd, ucfg, vcfg, size, batch)
     path = export_sd_decompressor(
-        usd, vsd, asd, args.out, unet_cfg=ckpt.unet_config(usd, heads=args.heads), vae_cfg=ckpt.vae_config(vsd),
-        clip_dim=args.z_dim, size=size, steps=steps, sampler=args.sampler, eta=args.eta, batch_size=batch,
-        platforms=platforms)
+        usd, vsd, asd, args.out, unet_cfg=ucfg, vae_cfg=vcfg, clip_dim=args.z_dim, size=size, steps=steps,
+        sampler=args.sampler, eta=args.eta, batch_size=batch, quant=quant, platforms=platforms)
     print(f"Exported {path} ({path.stat().st_size / 1024:.1f} KiB, sd path, sampler={args.sampler}, "
-          f"steps={steps}, size={size}, batch={batch}, int8=False)")
+          f"steps={steps}, size={size}, batch={batch}, int8={args.int8}){_write_sidecar(path, quant)}")
+
+
+def _calibrate_sd(args, usd, vsd, asd, ucfg, vcfg, size: int, batch: int):
+    """The SD UNet's quant dict, calibrated as JAX's export CLI does: a
+    decoder with the int8 UNet, a random unit embedding per batch row from
+    ``default_rng(0)``, both CFG branches at the artifact's latent shape."""
+    import numpy as np
+    import torch
+
+    from ..models.sd import AutoencoderKL, SDClipAdapter, SDUNet, StableDiffusionDecoder
+    from ..weights.sd_checkpoint import adapter_dims
+
+    clip_dim, hidden = adapter_dims(asd)
+    with torch.device(args.device):
+        unet = SDUNet(ucfg, dtype=torch.bfloat16, int8=True)
+        vae = AutoencoderKL(vcfg, dtype=torch.bfloat16)
+        adapter = SDClipAdapter(clip_dim, ucfg.cross_dim, hidden,
+                                int(asd["proj.3.weight"].shape[0]) // ucfg.cross_dim)
+    for mod, state in ((unet, usd), (vae, vsd), (adapter, asd)):
+        mod.load_state_dict(state, strict=True)
+    dec = StableDiffusionDecoder(unet, vae, adapter)
+    f = 2 ** (len(vcfg.block_out) - 1)
+    r = np.random.default_rng(0).standard_normal((batch, clip_dim))
+    z = torch.from_numpy((r / (np.linalg.norm(r, axis=1, keepdims=True) + 1e-9)).astype(np.float32))
+    dec.calibrate_int8_scales(z.to(args.device), (batch, size // f, size // f, vcfg.latent_ch))
+    return dec.unet_quant
 
 
 if __name__ == "__main__":

@@ -3,10 +3,12 @@
     python -m clip_codec_tpu_torch.cli.reconstruct_diffusion --store_dir STORE \\
         --bitstream img.clp --weights STORE/diffusion_unet_final.pt --out recon.png
 
-Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_diffusion.py``) except
-``--int8``; ``--device`` defaults to ``cuda``, ``--sampler`` is ``ddim``,
-``ddim_std`` or ``dpmpp``. ``--weights`` is a ``.pt`` state dict; the ``model_config.json``
-beside it, if any, gives the architecture and schedule.
+Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_diffusion.py``);
+``--device`` defaults to ``cuda``, ``--sampler`` is ``ddim``, ``ddim_std`` or
+``dpmpp``. ``--weights`` is a ``.pt`` state dict; the ``model_config.json``
+beside it, if any, gives the architecture and schedule. ``--int8`` samples
+with the static-int8 U-Net (``ops/int8.py``), its activation scales
+calibrated here first (``calibrate_unet`` over the schedule's length).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from pathlib import Path
 from typing import Optional, Sequence, Union
 
 import numpy as np
+
+from ._common import add_int8_flag, apply_int8_flag
 
 PathLike = Union[str, Path]
 
@@ -58,12 +62,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--sampler", type=str, default="ddim", choices=("ddim", "ddim_std", "dpmpp"),
                     help="ddim (reference parity), ddim_std (textbook strided DDIM) or dpmpp "
                          "(DPM-Solver++(2M))")
+    add_int8_flag(ap)
     args = ap.parse_args(argv)
+    apply_int8_flag(args)
 
     import torch
 
     from ..diffusion import NoiseSchedule, make_sampler
     from ..models import CLIPCondUNet
+    from ..ops.int8 import calibrate_unet, load_quant
     from ..utils.checkpoint import load_state_dict
     from ..utils.config import ModelConfig
 
@@ -76,9 +83,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         mc = replace(mc, ch_mult=tuple(int(c) for c in args.ch_mult.split(",")))
     z = torch.from_numpy(decode_embedding(args.bitstream, args.store_dir)).to(device)
     net = CLIPCondUNet(z_dim=z.shape[1], base=mc.base, ch_mult=mc.ch_mult, time_dim=mc.time_dim,
-                       img_ch=3, dtype=torch.bfloat16)
+                       img_ch=3, dtype=torch.bfloat16, int8=True if args.int8 else None)
     net.load_state_dict(sd, strict=True)
     net = net.to(device).eval()
+    if args.int8:
+        # static activation scales: no per-conv absmax pass
+        load_quant(net, calibrate_unet(net, args.size, z.shape[1], timesteps=mc.timesteps))
     sched = NoiseSchedule.create(mc.timesteps, mc.schedule, device=device)
     sampler = make_sampler(args.sampler, sched, eta=args.eta)
     gen = torch.Generator(device=device).manual_seed(args.seed)

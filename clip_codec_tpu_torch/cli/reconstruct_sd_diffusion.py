@@ -23,8 +23,11 @@ image tower: ``--inv_backend auto`` picks the CLIP ViT-B/32 tower
 (``$CLIP_CODEC_DINO_WEIGHTS``) at any other dim; ``clip`` at another dim
 raises, as in JAX. ``--inv_clip_arch``, ``--inv_clip_ckpt`` and
 ``--inv_dino_model`` are accepted and unused, as in the JAX CLI.
-``--int8`` is not ported. The default output name is
-``<stem>-<steps>-<guidance>-<inv_weight>.png`` beside the bitstream.
+``--int8`` (with ``--inv_weight 0``: JAX refuses it with inversion, and so
+does this CLI) samples with the static-int8 UNet (``ops/int8.py``), its
+scales calibrated first on both CFG branches (``calibrate_int8_scales``).
+The default output name is ``<stem>-<steps>-<guidance>-<inv_weight>.png``
+beside the bitstream.
 """
 
 from __future__ import annotations
@@ -42,20 +45,21 @@ from ..encoders.dino import DinoV2, embed_m11_images_dino
 from ..models.sd import AutoencoderKL, SDClipAdapter, SDUNet, StableDiffusionDecoder
 from ..models.sd.decoder import EmbedFn, clip_m11
 from ..weights import sd_checkpoint as ckpt
+from ._common import add_int8_flag, apply_int8_flag
 
 PathLike = Union[str, Path]
 N_TOKENS = 8
 
 
 def load_frozen(unet_path: PathLike, vae_path: PathLike, device: Union[str, torch.device],
-                heads: int = 8) -> Tuple[SDUNet, AutoencoderKL]:
+                heads: int = 8, int8: Optional[bool] = None) -> Tuple[SDUNet, AutoencoderKL]:
     """The UNet and VAE from diffusers files, loaded with ``strict=True``
     into modules built on ``device`` with fp32 parameters that compute in
-    bf16, as the JAX CLIs' decoder does."""
+    bf16, as the JAX CLIs' decoder does; ``int8`` is the UNet's setting."""
     usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
     vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
     with torch.device(device):
-        unet = SDUNet(ckpt.unet_config(usd, heads=heads), dtype=torch.bfloat16)
+        unet = SDUNet(ckpt.unet_config(usd, heads=heads), dtype=torch.bfloat16, int8=int8)
         vae = AutoencoderKL(ckpt.vae_config(vsd), dtype=torch.bfloat16)
     unet.load_state_dict(usd, strict=True)
     vae.load_state_dict(vsd, strict=True)
@@ -63,10 +67,11 @@ def load_frozen(unet_path: PathLike, vae_path: PathLike, device: Union[str, torc
 
 
 def load_decoder(unet_path: PathLike, vae_path: PathLike, adapter_path: PathLike,
-                 device: Union[str, torch.device], heads: int = 8) -> StableDiffusionDecoder:
+                 device: Union[str, torch.device], heads: int = 8, int8: Optional[bool] = None
+                 ) -> StableDiffusionDecoder:
     """The SD decoder from diffusers UNet/VAE files and a reference adapter
     file (``load_frozen``; the adapter is fp32, ``strict=True``)."""
-    unet, vae = load_frozen(unet_path, vae_path, device, heads)
+    unet, vae = load_frozen(unet_path, vae_path, device, heads, int8)
     asd = ckpt.adapter_state_dict(ckpt.read_checkpoint(adapter_path))
     in_dim, hidden = ckpt.adapter_dims(asd)
     with torch.device(device):
@@ -155,7 +160,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--heads", type=int, default=8,
                     help="UNet attention heads (not recoverable from the weight shapes)")
-    ap.add_argument("--int8", action="store_true", help="int8 serving mode (not ported)")
+    add_int8_flag(ap)
     args = ap.parse_args(argv)
     inv_use = args.inv_weight > 0
     if args.int8 and inv_use:
@@ -164,8 +169,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             "gradient, so the latent gradient through int8 convs vanishes); "
             "pass --inv_weight 0"
         )
-    if args.int8:
-        raise SystemExit("--int8 is not ported to the PyTorch package yet (ops/int8.py; ROADMAP.md, Queue 1)")
+    apply_int8_flag(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
 
@@ -174,7 +178,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     unet_path, vae_path = ckpt.require_sd_weight_paths(args.model_name)
     z = decode_embedding(args.bitstream, args.store_dir)  # (1, dim), L2-normalized
     backend = resolve_backend(args.inv_backend, z.shape[1]) if inv_use else None
-    dec = load_decoder(unet_path, vae_path, args.adapter, args.device, heads=args.heads)
+    dec = load_decoder(unet_path, vae_path, args.adapter, args.device, heads=args.heads,
+                       int8=True if args.int8 else None)
+    if args.int8:
+        # static activation scales, both CFG branches
+        f = 2 ** (len(dec.vae.cfg.block_out) - 1)
+        dec.calibrate_int8_scales(torch.from_numpy(z).to(args.device),
+                                  (1, args.size // f, args.size // f, dec.vae.cfg.latent_ch))
     embed_fn = None
     if backend == "clip":
         from ..encoders import ClipEncoder

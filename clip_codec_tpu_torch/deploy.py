@@ -47,8 +47,14 @@ Kernel calls recorded during the capture are tallied per wrapper
 (``ops.attention.RECORDED``); each replay adds them to the wrappers'
 ``launches``, so a replayed request counts its kernels as an eager one does.
 
-Not ported: int8 artifacts (``ops/int8.py``) and the sharded ones
-(``parallel/``); both are refused with a message that names the module.
+int8 artifacts (``quant=`` at export; the header's ``int8: true``) serve the
+static-int8 U-Net (``ops/int8.py``): every call passes the calibrated quant
+dict (``cli.export_decoder --int8`` writes it beside the artifact as
+``<artifact>.quant.pt``), and a call without it raises. Its scales are 0-d
+device tensors the captured graph reads: each call copies the dict it is
+given into static buffers before the replay, as it does z, so one capture
+serves any calibration. Not ported: the sharded artifacts (``parallel/``),
+refused with a message that names the module.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from .models.sd.decoder import clip_m11
 from .models.sd.unet import SD15_UNET
 from .models.sd.vae import SD15_VAE, AutoencoderKL
 from .ops import attention as _attention
+from .ops import int8 as q8
 from .utils.config import ModelConfig
 
 PathLike = Union[str, Path]
@@ -79,7 +86,7 @@ _MAGIC = b"CLPTORCHPROG1\n"
 _KINDS = ("pixel", "sd")
 PLATFORMS = ("cuda", "cpu")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-NOT_PORTED_INT8 = "int8 artifacts are not ported to the PyTorch package yet (ops/int8.py)"
+QUANT_SUFFIX = ".quant.pt"  # the calibration sidecar beside an int8 artifact
 NOT_PORTED_SHARDED = "sharded artifacts are not ported to the PyTorch package yet (parallel/)"
 
 
@@ -116,8 +123,6 @@ def _read_artifact(path: PathLike, expect_kind: str) -> dict:
             f"load_{'sd_' if meta['kind'] == 'sd' else ''}decompressor")
     if meta.get("sharded"):
         raise ValueError(f"{path}: {NOT_PORTED_SHARDED}")
-    if meta.get("int8"):
-        raise ValueError(f"{path}: {NOT_PORTED_INT8}")
     return meta
 
 
@@ -148,6 +153,39 @@ def _check_shapes(module: torch.nn.Module, state: StateDict, what: str) -> None:
         shapes = sorted(k for k in want.keys() & got.keys() if want[k] != got[k])
         raise ValueError(f"{what} parameters do not fit the architecture: missing {missing[:5]}, "
                          f"unexpected {extra[:5]}, other shapes {shapes[:5]}")
+
+
+def _check_quant(unet: torch.nn.Module, quant: q8.Quant) -> None:
+    """``quant`` holds one scalar absmax for each int8 layer of ``unet``
+    (which may live on the meta device) and nothing else."""
+    want, got = set(q8.int8_layer_names(unet)), set(quant)
+    if want != got:
+        raise ValueError(f"quant does not fit the architecture's int8 layers: missing {sorted(want - got)[:5]}, "
+                         f"unexpected {sorted(got - want)[:5]}")
+    bad = sorted(k for k, v in quant.items() if not torch.is_tensor(v) or v.numel() != 1)
+    if bad:
+        raise ValueError(f"quant values must be scalar tensors: {bad[:5]}")
+
+
+def _quant_inputs(program: "_Program", unet: torch.nn.Module, quant: Optional[q8.Quant]) -> Dict[str, torch.Tensor]:
+    """The call's quant dict as program inputs (``q:<layer>`` -> a 0-d fp32
+    tensor on the device): required by an int8 artifact, refused by another."""
+    if not program.meta["int8"]:
+        if quant is not None:
+            raise ValueError("quant= is for int8 artifacts; this artifact is not one")
+        return {}
+    if quant is None:
+        raise ValueError(f"int8 artifact: pass quant= (the calibration collection exported next to it, "
+                         f"<artifact>{QUANT_SUFFIX})")
+    _check_quant(unet, quant)
+    return {"q:" + k: v.reshape(()).to(device=program.device, dtype=torch.float32) for k, v in quant.items()}
+
+
+def _use_quant(unet: torch.nn.Module, inputs: Dict[str, torch.Tensor]) -> None:
+    """Point the int8 layers at the quant inputs (the static buffers when
+    captured); a program without them leaves the U-Net as it is."""
+    if inputs:
+        q8.load_quant(unet, {k[2:]: v for k, v in inputs.items()})
 
 
 def _load(module: torch.nn.Module, state: StateDict, what: str) -> torch.nn.Module:
@@ -279,7 +317,8 @@ def make_decompress_fn(mc: ModelConfig, size: int = 256, steps: int = 50, sample
 def _pixel_net(meta: dict, device: Union[str, torch.device] = "meta") -> CLIPCondUNet:
     with torch.device(device):
         return CLIPCondUNet(z_dim=meta["z_dim"], base=meta["base"], ch_mult=tuple(meta["ch_mult"]),
-                            time_dim=meta["time_dim"], img_ch=meta["img_ch"], dtype=_DTYPES[meta["dtype"]])
+                            time_dim=meta["time_dim"], img_ch=meta["img_ch"], dtype=_DTYPES[meta["dtype"]],
+                            int8=bool(meta["int8"]))
 
 
 def export_decompressor(
@@ -300,22 +339,25 @@ def export_decompressor(
     """Write a pixel artifact for ``mc``'s architecture. ``params`` (a
     ``CLIPCondUNet`` state dict) is checked against it, shapes only: the
     artifact carries no weights. ``dtype`` is the U-Net's compute dtype
-    (bf16, as the JAX program; fp32 for parity runs)."""
-    if quant is not None:
-        raise ValueError(NOT_PORTED_INT8)
+    (bf16, as the JAX program; fp32 for parity runs). ``quant`` (a
+    calibrated quant dict, ``ops.int8.calibrate_unet``) makes it a
+    static-int8 artifact, whose calls then take that dict."""
     make_decompress_fn(mc, size, steps, sampler, eta, output)  # rejects a bad sampler, eta or output
     meta = dict(size=int(size), steps=int(steps), sampler=sampler, eta=float(eta), batch_size=int(batch_size),
-                z_dim=int(mc.z_dim), img_ch=int(mc.img_ch), int8=False, output=output,
+                z_dim=int(mc.z_dim), img_ch=int(mc.img_ch), int8=quant is not None, output=output,
                 base=int(mc.base), ch_mult=[int(c) for c in mc.ch_mult], time_dim=int(mc.time_dim),
                 timesteps=int(mc.timesteps), schedule=mc.schedule, dtype=_dtype_name(dtype),
                 platforms=_platforms(platforms))
-    _load(_pixel_net(meta), params, "U-Net")
+    net = _load(_pixel_net(meta), params, "U-Net")
+    if quant is not None:
+        _check_quant(net, quant)
     return _write_artifact(path, "pixel", meta)
 
 
 class PixelDecompressor(_Program):
-    """``call(params, z, seed=0, x_T=None) -> images``, (B, size, size,
-    img_ch) float32 in [-1, 1] or uint8, on the program's device."""
+    """``call(params, z, seed=0, x_T=None, quant=None) -> images``, (B,
+    size, size, img_ch) float32 in [-1, 1] or uint8, on the program's
+    device; ``quant`` is required by an int8 artifact and only by one."""
 
     def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
         super().__init__(meta, device)
@@ -329,13 +371,19 @@ class PixelDecompressor(_Program):
     def _build(self, params: StateDict) -> None:
         self.net = _load(_pixel_net(self.meta, self.device), params, "U-Net").eval()
 
-    def __call__(self, params: StateDict, z, seed: int = 0, x_T=None) -> torch.Tensor:
+    def __call__(self, params: StateDict, z, seed: int = 0, x_T=None, quant: Optional[q8.Quant] = None
+                 ) -> torch.Tensor:
         m = self.meta
         B = m["batch_size"]
         self._bind((params,))
         z = self._tensor(z, (B, m["z_dim"]), "z")
-        return self._run({"z": z}, lambda z, x_T, generator: self.sample(self.net, z, x_T, generator),
-                         seed, x_T, (B, m["size"], m["size"], m["img_ch"]))
+
+        def eager(z, x_T, generator, **q):
+            _use_quant(self.net, q)
+            return self.sample(self.net, z, x_T, generator)
+
+        return self._run({"z": z, **_quant_inputs(self, self.net, quant)}, eager, seed, x_T,
+                         (B, m["size"], m["size"], m["img_ch"]))
 
 
 def load_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> PixelDecompressor:
@@ -376,7 +424,7 @@ def _sd_modules(meta: dict, device: Union[str, torch.device] = "meta"):
     vcfg = VAEConfig(**{**meta["vae"], "block_out": tuple(meta["vae"]["block_out"])})
     dt = _DTYPES[meta["dtype"]]
     with torch.device(device):
-        return (SDUNet(ucfg, dtype=dt), AutoencoderKL(vcfg, dtype=dt),
+        return (SDUNet(ucfg, dtype=dt, int8=bool(meta["int8"])), AutoencoderKL(vcfg, dtype=dt),
                 SDClipAdapter(meta["z_dim"], ucfg.cross_dim, meta["adapter_hidden"], meta["n_tokens"]))
 
 
@@ -403,9 +451,9 @@ def export_sd_decompressor(
     """Write an SD artifact. The three state dicts are checked against the
     architecture, shapes only (``unet_cfg``/``vae_cfg`` default to SD-1.5's);
     the adapter geometry (clip_dim, hidden, n_tokens) is read off the
-    adapter's weights unless overridden."""
-    if quant is not None:
-        raise ValueError(NOT_PORTED_INT8)
+    adapter's weights unless overridden. ``quant`` (the UNet's calibrated
+    quant dict, ``StableDiffusionDecoder.calibrate_int8_scales``) makes it a
+    static-int8 artifact, whose calls then take that dict."""
     ucfg = unet_cfg if unet_cfg is not None else SD15_UNET
     vcfg = vae_cfg if vae_cfg is not None else SD15_VAE
     fc1, fc2 = adapter_params["proj.1.weight"], adapter_params["proj.3.weight"]
@@ -417,20 +465,23 @@ def export_sd_decompressor(
     if size % down:
         raise ValueError(f"size {size} not divisible by the VAE factor {down}")
     meta = dict(size=int(size), steps=int(steps), sampler=sampler, eta=float(eta), batch_size=int(batch_size),
-                z_dim=clip_dim, n_tokens=n_tokens, int8=False,
+                z_dim=clip_dim, n_tokens=n_tokens, int8=quant is not None,
                 cfg_batched=batch_size <= 4 if cfg_batched is None else bool(cfg_batched),
                 unet=dataclasses.asdict(ucfg), vae=dataclasses.asdict(vcfg), adapter_hidden=hidden,
                 dtype=_dtype_name(dtype), platforms=_platforms(platforms))
-    for mod, state, what in zip(_sd_modules(meta), (unet_params, vae_params, adapter_params),
-                                ("UNet", "VAE", "adapter")):
+    mods = _sd_modules(meta)
+    for mod, state, what in zip(mods, (unet_params, vae_params, adapter_params), ("UNet", "VAE", "adapter")):
         _load(mod, state, what)
+    if quant is not None:
+        _check_quant(mods[0], quant)
     return _write_artifact(path, "sd", meta)
 
 
 class SDDecompressor(_Program):
     """``call(unet_params, vae_params, adapter_params, z, seed=0,
-    guidance_scale=5.0, x_T=None) -> images``, (B, size, size, 3) float32
-    in [-1, 1] on the program's device; ``x_T`` is the initial latent."""
+    guidance_scale=5.0, x_T=None, quant=None) -> images``, (B, size, size,
+    3) float32 in [-1, 1] on the program's device; ``x_T`` is the initial
+    latent, ``quant`` the UNet's calibration (int8 artifacts only)."""
 
     def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
         super().__init__(meta, device)
@@ -450,16 +501,19 @@ class SDDecompressor(_Program):
         return (m["batch_size"], m["size"] // f, m["size"] // f, m["vae"]["latent_ch"])
 
     def __call__(self, unet_params: StateDict, vae_params: StateDict, adapter_params: StateDict, z,
-                 seed: int = 0, guidance_scale: float = 5.0, x_T=None) -> torch.Tensor:
+                 seed: int = 0, guidance_scale: float = 5.0, x_T=None, quant: Optional[q8.Quant] = None
+                 ) -> torch.Tensor:
         m = self.meta
         self._bind((unet_params, vae_params, adapter_params))
         z = self._tensor(z, (m["batch_size"], m["z_dim"]), "z")
         g = torch.full((), float(np.float32(guidance_scale)), dtype=torch.float32, device=self.device)
 
-        def eager(z, x_T, guidance, generator):
+        def eager(z, x_T, guidance, generator, **q):
+            _use_quant(self.decoder.unet, q)
             return self.sample(self.decoder, z, x_T, guidance, generator)
 
-        return self._run({"z": z, "guidance": g}, eager, seed, x_T, self.latent_shape())
+        return self._run({"z": z, "guidance": g, **_quant_inputs(self, self.decoder.unet, quant)}, eager, seed, x_T,
+                         self.latent_shape())
 
 
 def load_sd_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> SDDecompressor:

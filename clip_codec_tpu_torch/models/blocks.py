@@ -16,6 +16,8 @@ The ResBlock has the JAX block's two forms on the same parameters:
   ``x + conv2(gn_silu2(film(conv1(gn_silu1(x)), h)))``, with GroupNorm+SiLU
   through ``ops.groupnorm.group_norm_silu`` (K1 on the card) and the convs
   as ``F.conv2d``; differentiable in every parameter.
+* int8 (serving, ``ops/int8.py``): the direct form with both convs through
+  the int8 conv kernel, as the JAX block takes its direct path in int8 mode.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import groupnorm as gn
+from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
 
 
@@ -92,6 +95,8 @@ class ResBlock(nn.Module):
     ``x + conv2(silu(gn2(film(conv1(silu(gn1(x))), h))))`` with
     ``min(groups, C)`` GroupNorm groups."""
 
+    INT8_LAYERS = ("conv1", "conv2")
+
     def __init__(self, features: int, cond_dim: int, groups: int = 8) -> None:
         super().__init__()
         g = min(groups, features)
@@ -101,10 +106,11 @@ class ResBlock(nn.Module):
         self.norm2 = nn.GroupNorm(g, features)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, fused: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, fused: bool = True,
+                int8: bool = False) -> torch.Tensor:
         """x: (B, H, W, C) NHWC; h: (B, cond_dim) -> (B, H, W, C) in ``dtype``."""
-        if not fused:
-            return self.direct(x, h, dtype)
+        if int8 or not fused:
+            return self.direct(x, h, dtype, int8)
         g = self.norm1.num_groups
         xd = x.to(dtype).contiguous()
         A1, B1 = rc.gn_affine(x, self.norm1.weight, self.norm1.bias, g)
@@ -118,13 +124,15 @@ class ResBlock(nn.Module):
             y, A2, B2, kernel_weight(self.conv2, dtype), self.conv2.bias, add=xd)
         return out
 
-    def direct(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """The JAX block's direct form (``blocks.py`` ``ResBlock.__call__``)."""
+    def direct(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
+        """The JAX block's direct form (``blocks.py`` ``ResBlock.__call__``),
+        its convs in int8 with ``int8``."""
+        conv = q8.conv if int8 else conv2d
         g = self.norm1.num_groups
         x = x.to(dtype).contiguous()
         y = gn.group_norm_silu(x, (self.norm1.weight, self.norm1.bias), g)
-        y = conv2d(self.conv1, y, dtype, padding=1)
+        y = conv(self.conv1, y, dtype, padding=1)
         fs, fb = self.film.coeffs(h, dtype)
         y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
         y = gn.group_norm_silu(y, (self.norm2.weight, self.norm2.bias), g)
-        return x + conv2d(self.conv2, y, dtype, padding=1)
+        return x + conv(self.conv2, y, dtype, padding=1)

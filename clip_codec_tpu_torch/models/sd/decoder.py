@@ -16,14 +16,18 @@
 Sampling is a Python loop over fp32 per-step coefficients precomputed on the
 host; the update runs in fp32 on the device while the UNet computes in its
 own dtype. A guided step backpropagates an embedding loss through the VAE
-decode, so on the card it runs flash attention's backward kernels. int8 is
-not ported; see ``ROADMAP.md``.
+decode, so on the card it runs flash attention's backward kernels.
+
+int8 serving (``ops/int8.py``): ``StableDiffusionDecoder(..., int8=True)``
+runs the UNet's interior in int8 (the VAE stays fp), with the dynamic
+per-tensor scales until ``calibrate_int8_scales`` records static ones into
+``unet_quant``, which the UNet then reads.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...diffusion.dpm import dpmpp_coefficients
+from ...ops import int8 as q8
 from .layers import LN_EPS, layer_norm
 from .unet import SDUNet
 from .vae import AutoencoderKL
@@ -150,12 +155,55 @@ class StableDiffusionDecoder:
     ``forward`` and ``sample`` serve under ``torch.no_grad``; the trainer
     (``train/sd_diffusion_train.py``) calls ``unet``, ``vae.decode`` and
     ``adapter`` with autograd on, and ``sample_with_inversion`` takes the
-    gradient of its loss in the latent alone."""
+    gradient of its loss in the latent alone.
 
-    def __init__(self, unet: SDUNet, vae: AutoencoderKL, adapter: SDClipAdapter) -> None:
+    ``int8``: None keeps the UNet's own setting; True or False pins it
+    (``SDUNet.int8``)."""
+
+    def __init__(self, unet: SDUNet, vae: AutoencoderKL, adapter: SDClipAdapter,
+                 int8: Optional[bool] = None) -> None:
         self.unet = unet.eval().requires_grad_(False)
         self.vae = vae.eval().requires_grad_(False)
         self.adapter = adapter.eval()
+        if int8 is not None:
+            self.unet.int8 = int8
+        self._unet_quant: Optional[q8.Quant] = None
+
+    @property
+    def unet_quant(self) -> Optional[q8.Quant]:
+        """The UNet's static int8 activation scales (the quant dict), or
+        None for the dynamic ones; setting it loads them into the UNet."""
+        return self._unet_quant
+
+    @unet_quant.setter
+    def unet_quant(self, quant: Optional[q8.Quant]) -> None:
+        q8.load_quant(self.unet, quant)
+        self._unet_quant = quant
+
+    def calibrate_int8_scales(self, z_clip: torch.Tensor, shape: Tuple[int, int, int, int],
+                              timesteps: Optional[Sequence[int]] = None,
+                              latents: Optional[torch.Tensor] = None) -> None:
+        """Record static per-layer activation absmax for the int8 UNet into
+        ``unet_quant``: one fp pass per calibration timestep on noise-scale
+        latents, for both CFG branches (the adapter's context for
+        ``z_clip`` and for zeros). ``timesteps`` None takes the 95%, 50% and
+        5% points of the 1000-step schedule, as JAX. The latents of
+        ``shape`` are drawn from a ``torch.Generator`` seeded 0 on the
+        UNet's device (JAX draws them from ``PRNGKey(0)``: other numbers of
+        the same law), or are ``latents``."""
+        if timesteps is None:
+            T = SD_TIMESTEPS
+            timesteps = [max(0, min(T - 1, int(round(f * T)))) for f in (0.95, 0.5, 0.05)]
+        dev = z_clip.device
+        with torch.no_grad():
+            cond = self.adapter(z_clip)
+            uncond = self.adapter(torch.zeros_like(z_clip))
+        if latents is None:
+            latents = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        lat = latents.to(device=dev, dtype=torch.float32)
+        self.unet_quant = q8.calibrate_int8(
+            self.unet, *[(lat, torch.full((shape[0],), int(t), dtype=torch.int32, device=dev), ctx)
+                         for t in timesteps for ctx in (cond, uncond)])
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:

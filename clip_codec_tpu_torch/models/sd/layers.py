@@ -22,8 +22,18 @@ The parameters are not: the conv weights' compute-dtype copies that
 ``_converted`` caches are detached (``cast`` tracks a cast only for a
 parameter that wants a gradient), so the UNet and VAE train nothing and
 their parameters are kept frozen (``requires_grad=False``) by the trainer.
-The JAX TPU layouts (the spatial fold, the phase-decomposed upsample) and
-int8 are not ported.
+The JAX TPU layouts (the spatial fold, the phase-decomposed upsample) are
+not ported.
+
+int8 serving (``ops/int8.py``): each block's ``forward`` takes ``int8``, and
+with it runs the layers it lists in ``INT8_LAYERS`` through the int8 conv
+kernel, as the JAX blocks do in int8 mode: ``ResnetBlock2D``'s convs and
+shortcut, ``CrossAttention``'s four projections, the GEGLU projection and
+the out-projection, ``Transformer2D``'s 1x1 projections, and the
+``Downsample2D``/``Upsample2D`` convs. The transformer block's MLP then runs
+unfused (LayerNorm, int8 GEGLU projection, exact-erf GELU gate, int8
+out-projection), never the fused MLP kernel; self-attention stays on flash
+attention. The VAE calls its blocks without ``int8`` and stays fp.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import attention as attn_ops
+from ...ops import int8 as q8
 from ...ops import mlp as mlp_ops
 from ...ops.groupnorm import group_norm
 from ..blocks import _converted, cast
@@ -84,10 +95,23 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, stride: int = 1,
     return y.permute(0, 2, 3, 1)
 
 
-def conv1x1(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def conv1x1(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
     """A 1x1 conv of NHWC ``x`` as a linear map over the channels."""
+    if int8:
+        return q8.linear(layer, x, dtype)
     w = _converted(layer, "weight", dtype, lambda w, dt: w.reshape(w.shape[0], -1).to(dt))
     return F.linear(x.to(dtype), w, cast(layer, "bias", dtype))
+
+
+def conv_q(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, int8: bool, stride: int = 1,
+           padding: int = 1) -> torch.Tensor:
+    """``conv``, or its int8 form with ``int8``."""
+    return (q8.conv if int8 else conv)(layer, x, dtype, stride=stride, padding=padding)
+
+
+def dense_q(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, int8: bool) -> torch.Tensor:
+    """``dense``, or its int8 form with ``int8``."""
+    return q8.linear(layer, x, dtype) if int8 else dense(layer, x, dtype)
 
 
 class Block(nn.Module):
@@ -107,6 +131,8 @@ class ResnetBlock2D(nn.Module):
     """GN32 -> SiLU -> conv -> (+ temb proj) -> GN32 -> SiLU -> conv, with a
     1x1 shortcut when channels change (diffusers ``ResnetBlock2D`` names)."""
 
+    INT8_LAYERS = ("conv1", "conv2", "conv_shortcut")
+
     def __init__(self, in_ch: int, out_ch: int, temb_dim: Optional[int] = None,
                  eps: float = 1e-5) -> None:
         super().__init__()
@@ -119,13 +145,14 @@ class ResnetBlock2D(nn.Module):
         if in_ch != out_ch:
             self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1)
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
-        h = conv(self.conv1, F.silu(group_norm32(x, self.norm1)), dtype)
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor], dtype: torch.dtype,
+                int8: bool = False) -> torch.Tensor:
+        h = conv_q(self.conv1, F.silu(group_norm32(x, self.norm1)), dtype, int8)
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + dense(self.time_emb_proj, F.silu(temb), dtype)[:, None, None, :]
-        h = conv(self.conv2, F.silu(group_norm32(h, self.norm2)), dtype)
+        h = conv_q(self.conv2, F.silu(group_norm32(h, self.norm2)), dtype, int8)
         if hasattr(self, "conv_shortcut"):
-            x = conv1x1(self.conv_shortcut, x, dtype)
+            x = conv1x1(self.conv_shortcut, x, dtype, int8)
         return x.to(dtype) + h
 
 
@@ -148,6 +175,8 @@ class CrossAttention(nn.Module):
     """Multi-head attention; ``context=None`` is self-attention (diffusers
     ``Attention``: to_q/to_k/to_v without bias, to_out.0 with bias)."""
 
+    INT8_LAYERS = ("to_q", "to_k", "to_v", "to_out.0")
+
     def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None) -> None:
         super().__init__()
         cd = dim if context_dim is None else context_dim
@@ -157,15 +186,16 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(cd, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], dtype: torch.dtype,
+                int8: bool = False) -> torch.Tensor:
         ctx = x if context is None else context
         B, N, dim = x.shape
         M = ctx.shape[1]
         h = self.heads
         d = dim // h
-        q = dense(self.to_q, x, dtype).view(B, N, h, d)
-        k = dense(self.to_k, ctx, dtype).view(B, M, h, d)
-        v = dense(self.to_v, ctx, dtype).view(B, M, h, d)
+        q = dense_q(self.to_q, x, dtype, int8).view(B, N, h, d)
+        k = dense_q(self.to_k, ctx, dtype, int8).view(B, M, h, d)
+        v = dense_q(self.to_v, ctx, dtype, int8).view(B, M, h, d)
         if context is None and _flash_gate(N):
             # Self-attention over thousands of latent pixels: the (h, N, N)
             # logits never reach device memory.
@@ -173,7 +203,7 @@ class CrossAttention(nn.Module):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
         else:
             out = _attention_plain(q, k, v, d, dtype)
-        return dense(self.to_out[0], out.reshape(B, N, dim), dtype)
+        return dense_q(self.to_out[0], out.reshape(B, N, dim), dtype, int8)
 
 
 class GEGLU(nn.Module):
@@ -202,7 +232,10 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn(context) -> fused LN -> GEGLU ->
-    out-proj MLP; every LayerNorm has flax's eps 1e-6."""
+    out-proj MLP; every LayerNorm has flax's eps 1e-6. In int8 mode the MLP
+    is unfused, its two projections in int8 (JAX's ``fused_mlp`` gate)."""
+
+    INT8_LAYERS = ("ff.net.0.proj", "ff.net.2")
 
     def __init__(self, dim: int, heads: int, cross_dim: int) -> None:
         super().__init__()
@@ -223,9 +256,14 @@ class BasicTransformerBlock(nn.Module):
             hit = self._packed_cache = (key, mlp_ops.pack_weights(wh, wg, out.t(), dtype))
         return hit[1]
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        x = x + self.attn1(layer_norm(self.norm1, x, dtype), None, dtype)
-        x = x + self.attn2(layer_norm(self.norm2, x, dtype), context, dtype)
+    def forward(self, x: torch.Tensor, context: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
+        x = x + self.attn1(layer_norm(self.norm1, x, dtype), None, dtype, int8)
+        x = x + self.attn2(layer_norm(self.norm2, x, dtype), context, dtype, int8)
+        if int8:
+            hg = q8.linear(self.ff.net[0].proj, layer_norm(self.norm3, x, dtype), dtype)
+            f = hg.shape[-1] // 2
+            y = hg[..., :f] * mlp_ops.gelu_erf(hg[..., f:])
+            return x + q8.linear(self.ff.net[2], y, dtype)
         wh, bh, wg, bg = self.ff.net[0].halves()
         out = self.ff.net[2]
         packed = self._packed(dtype) if x.device.type == "cuda" else None
@@ -239,6 +277,8 @@ class Transformer2D(nn.Module):
     blocks over the (B, H*W, C) tokens -> 1x1 proj_out, residual (SD-1.5's
     conv projections)."""
 
+    INT8_LAYERS = ("proj_in", "proj_out")
+
     def __init__(self, dim: int, heads: int, cross_dim: int, depth: int = 1) -> None:
         super().__init__()
         self.norm = nn.GroupNorm(groups_for(dim), dim, eps=1e-6)
@@ -247,40 +287,47 @@ class Transformer2D(nn.Module):
             [BasicTransformerBlock(dim, heads, cross_dim) for _ in range(depth)])
         self.proj_out = nn.Conv2d(dim, dim, 1)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
         B, H, W, C = x.shape
-        h = conv1x1(self.proj_in, group_norm32(x, self.norm), dtype).reshape(B, H * W, C)
+        h = conv1x1(self.proj_in, group_norm32(x, self.norm), dtype, int8).reshape(B, H * W, C)
         for blk in self.transformer_blocks:
-            h = blk(h, context, dtype)
-        return x.to(dtype) + conv1x1(self.proj_out, h.reshape(B, H, W, C), dtype)
+            h = blk(h, context, dtype, int8)
+        return x.to(dtype) + conv1x1(self.proj_out, h.reshape(B, H, W, C), dtype, int8)
 
 
 class Downsample2D(nn.Module):
     """Stride-2 3x3 conv; ``asymmetric=True`` pads (0, 1) on H and W, as the
-    VAE encoder does, instead of 1 on every side."""
+    VAE encoder does, instead of 1 on every side (only the symmetric form
+    runs in int8: it is the UNet's)."""
+
+    INT8_LAYERS = ("conv",)
 
     def __init__(self, in_ch: int, out_ch: int, asymmetric: bool = False) -> None:
         super().__init__()
         self.asymmetric = asymmetric
         self.conv = nn.Conv2d(in_ch, out_ch, 3, stride=2, padding=0 if asymmetric else 1)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
         if self.asymmetric:
+            if int8:
+                raise ValueError("the asymmetric (VAE) downsample has no int8 form")
             x = F.pad(x, (0, 0, 0, 1, 0, 1))  # NHWC: W right, H bottom
             return conv(self.conv, x, dtype, stride=2, padding=0)
-        return conv(self.conv, x, dtype, stride=2, padding=1)
+        return conv_q(self.conv, x, dtype, int8, stride=2, padding=1)
 
 
 class Upsample2D(nn.Module):
     """Nearest 2x, then a 3x3 conv (the SD upsampler)."""
 
+    INT8_LAYERS = ("conv",)
+
     def __init__(self, ch: int, out_ch: int) -> None:
         super().__init__()
         self.conv = nn.Conv2d(ch, out_ch, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
         up = F.interpolate(x.to(dtype).permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
-        return conv(self.conv, up.permute(0, 2, 3, 1), dtype)
+        return conv_q(self.conv, up.permute(0, 2, 3, 1), dtype, int8)
 
 
 class AttnBlockVAE(nn.Module):

@@ -10,6 +10,13 @@ At SD-1.5 widths and 64x64 latents one forward launches flash attention 10
 times (the 5 self-attentions at 64x64, D=40, and the 5 at 32x32, D=80; the
 16x16 and 8x8 ones stay under the N >= 1024 gate) and the fused MLP 16 times
 (every transformer block).
+
+``int8=True`` (``None``: the process default ``ops.int8.set_int8_conv``, read
+at forward time) runs the interior in int8 serving mode (``layers.py``):
+every resnet conv and shortcut, transformer projection and resampler conv
+through the int8 conv kernel, the MLPs unfused (no fused MLP launch),
+flash attention as before. ``conv_in``, ``conv_out`` and the time
+embedding stay fp, as in JAX. The state dict does not change.
 """
 
 from __future__ import annotations
@@ -17,13 +24,14 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import int8 as q8
 from .layers import (Block, Downsample2D, ResnetBlock2D, Transformer2D, Upsample2D, conv, dense, group_norm32,
                      groups_for)
 
@@ -74,10 +82,12 @@ class SDUNet(nn.Module):
     """``forward(latents (B, H, W, in_ch), t (B,), context (B, S, cross_dim))``
     -> eps (B, H, W, out_ch) in ``dtype``."""
 
-    def __init__(self, cfg: SDUNetConfig = SD15_UNET, dtype: torch.dtype = torch.float32) -> None:
+    def __init__(self, cfg: SDUNetConfig = SD15_UNET, dtype: torch.dtype = torch.float32,
+                 int8: Optional[bool] = None) -> None:
         super().__init__()
         c = self.cfg = cfg
         self.compute_dtype = dtype
+        self.int8 = int8
         n = len(c.block_out)
         has_attn = [i < n - 1 for i in range(n)]  # SD: the last down block is plain
         self.time_embedding = _TimeEmbedding(c.freq_dim, c.temb_dim)
@@ -125,6 +135,7 @@ class SDUNet(nn.Module):
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        q = q8.resolve(self.int8)
         te = self.time_embedding
         temb = sd_timestep_embedding(t, self.cfg.freq_dim).to(dt)
         temb = dense(te.linear_2, F.silu(dense(te.linear_1, temb, dt)), dt)
@@ -134,26 +145,26 @@ class SDUNet(nn.Module):
         skips = [x]
         for blk in self.down_blocks:
             for j, res in enumerate(blk.resnets):
-                x = res(x, temb, dt)
+                x = res(x, temb, dt, q)
                 if len(blk.attentions):
-                    x = blk.attentions[j](x, context, dt)
+                    x = blk.attentions[j](x, context, dt, q)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
-                x = blk.downsamplers[0](x, dt)
+                x = blk.downsamplers[0](x, dt, q)
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb, dt)
-        x = mid.attentions[0](x, context, dt)
-        x = mid.resnets[1](x, temb, dt)
+        x = mid.resnets[0](x, temb, dt, q)
+        x = mid.attentions[0](x, context, dt, q)
+        x = mid.resnets[1](x, temb, dt, q)
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=-1), temb, dt)
+                x = res(torch.cat([x, skips.pop()], dim=-1), temb, dt, q)
                 if len(blk.attentions):
-                    x = blk.attentions[j](x, context, dt)
+                    x = blk.attentions[j](x, context, dt, q)
             if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0](x, dt)
+                x = blk.upsamplers[0](x, dt, q)
 
         x = F.silu(group_norm32(x, self.conv_norm_out))
         return conv(self.conv_out, x, dt)

@@ -7,7 +7,9 @@ NHWC activations in ``dtype``; fp32 parameters under diffusers'
 ``strict=True`` (the legacy ``query/key/value/proj_attn`` names are renamed
 by ``weights.sd_checkpoint.vae_state_dict``). At 512px the decoder's
 mid-block attention is one flash-attention launch over 4096 pixels, D=512.
-The latent scaling factor is applied by the caller.
+The latent scaling factor is applied by the caller. The VAE stays fp
+whatever ``ops.int8``'s process default says: its blocks are called without
+``int8``, as JAX pins ``int8=False`` here.
 """
 
 from __future__ import annotations

@@ -20,8 +20,15 @@ Two forms on the same parameters, JAX's ``fused_pallas`` and ``remat``:
   forward. ``remat`` recomputes each ResBlock in the backward
   (``torch.utils.checkpoint``), JAX's ``nn.remat(ResBlock)``.
 
-The stem, downsample and transposed convs are plain ``F.conv2d`` /
-``F.conv_transpose2d`` (outside any kernel in JAX too). Activations are NHWC
+* ``int8=True`` (serving, ``ops/int8.py``; ``None`` reads the process
+  default at forward time): direct ResBlocks with both convs in int8 (K1
+  around the int8 conv kernel), the three stride-2 downsample convs in int8,
+  and the head as in the fused form (one K3 call): 31 int8 convs, 28 K1 and
+  one K3 per forward at ch_mult=(1,2,2). The state dict does not change.
+
+The stem and transposed convs are plain ``F.conv2d`` /
+``F.conv_transpose2d`` (outside any kernel in JAX too), and so are the
+downsample convs outside int8 mode. Activations are NHWC
 in ``dtype`` (bf16 on the card); parameters are fp32 with the reference
 torch state-dict names, so exported JAX params load with ``strict=True``.
 """
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
 from ..ops.groupnorm import group_norm
 from .blocks import ResBlock, cast, conv2d, kernel_weight, linear
@@ -74,12 +82,14 @@ class CLIPCondUNet(nn.Module):
 
     def __init__(self, z_dim: int = 512, base: int = 128, ch_mult: Sequence[int] = (1, 2, 2),
                  time_dim: int = 256, img_ch: int = 3, dtype: torch.dtype = torch.float32,
-                 fused_pallas: bool = True, remat: bool = False) -> None:
+                 fused_pallas: bool = True, remat: bool = False, int8: Optional[bool] = None) -> None:
         super().__init__()
         self.time_dim = time_dim
         self.compute_dtype = dtype
         self.fused_pallas = fused_pallas
         self.remat = remat
+        self.int8 = int8
+        self.INT8_LAYERS = tuple(f"down.{3 * i + 2}" for i in range(len(ch_mult)))  # the downsample convs
         self.time_proj = nn.Sequential(nn.Linear(time_dim, time_dim * 4), nn.SiLU(),
                                        nn.Linear(time_dim * 4, time_dim))
         self.z_proj = nn.Sequential(nn.Linear(z_dim, time_dim), nn.SiLU())
@@ -103,6 +113,7 @@ class CLIPCondUNet(nn.Module):
     def forward(self, x_t: torch.Tensor, z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         fused = self.fused_pallas and not self.remat
+        int8 = q8.resolve(self.int8)
         temb = timestep_embedding(t, self.time_dim).to(dt)
         temb = linear(self.time_proj[2], F.silu(linear(self.time_proj[0], temb, dt)), dt)
         h = temb + F.silu(linear(self.z_proj[0], z, dt))
@@ -110,9 +121,9 @@ class CLIPCondUNet(nn.Module):
         def rb_pair(x, rb0, rb1):
             for rb in (rb0, rb1):
                 if self.remat:
-                    x = checkpoint(rb, x, h, dt, False, use_reentrant=False)
+                    x = checkpoint(rb, x, h, dt, False, int8, use_reentrant=False)
                 else:
-                    x = rb(x, h, dt, fused)
+                    x = rb(x, h, dt, fused, int8)
             return x
 
         x = conv2d(self.in_conv, x_t, dt, padding=1)
@@ -121,7 +132,7 @@ class CLIPCondUNet(nn.Module):
             rb0, rb1, ds = self.down[i : i + 3]
             x = rb_pair(x, rb0, rb1)
             skips.append(x)
-            x = conv2d(ds, x, dt, stride=2, padding=1)
+            x = (q8.conv if int8 else conv2d)(ds, x, dt, stride=2, padding=1)
         x = rb_pair(x, self.mid1, self.mid2)
         for j in range(0, len(self.up), 3):
             rb0, rb1, us = self.up[j : j + 3]

@@ -24,7 +24,9 @@ sums, then group sums) and ``group_norm_silu_norm_plain`` (raw moments
 rounding to x's dtype). ``group_norm_silu_plain`` is JAX's jnp
 ``group_norm_silu`` instead: two-pass statistics, the normalised value
 rounded to x's dtype before the SiLU. In bf16 the kernel and it differ by
-an ulp or two.
+an ulp or two. ``group_norm_silu.launches`` counts K1's launches (a call
+recorded into a CUDA graph is tallied as ``ops/attention.py``'s ``_count``
+says: the int8 serving artifacts replay K1).
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .attention import _count
 
 GN_EPS = 1e-5
 _LIB = "groupnorm_silu"
@@ -228,7 +232,7 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: in
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"groupnorm_silu kernel launch failed: CUDA error {rc}")
-    group_norm_silu.launches += 1
+    _count(group_norm_silu)
     return y, part
 
 

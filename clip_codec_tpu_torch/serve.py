@@ -32,8 +32,14 @@ startup, before the socket takes traffic, so no request thread runs during
 a capture and every later request replays under the device lock. A
 batch > 1 artifact turns on micro-batching: concurrent requests gathered
 within ``--batch_wait_ms`` share one replay (padded with the last row), and
-``seed`` is refused (one replay, one seed). ``--int8`` is refused: int8
-serving waits for ``ops/int8.py``.
+``seed`` is refused (one replay, one seed).
+
+``--int8`` turns on int8 serving (``ops/int8.py``): with no artifact,
+``/decompress`` runs the U-Net with dynamic int8 scales through
+``ClipCodec``. An int8 artifact (``cli.export_decoder --int8``) is static
+int8 whatever the flag says, and needs its calibration sidecar
+``<artifact>.quant.pt``: a server whose sidecar is missing stops at start-up
+with a message that names it, and every call passes the dict to the program.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 from PIL import Image
 
+from .cli._common import add_int8_flag, apply_int8_flag
 from .codec import ClipCodec
 
 _MAX_BODY_BYTES = 64 << 20
@@ -365,7 +372,7 @@ def make_handler(codec: ClipCodec, artifact=None, batcher: Optional[_MicroBatche
                     if not self._check_format(q):
                         return
                     if artifact is not None:
-                        call, params = artifact
+                        call, params, quant = artifact
                         if not self._check_statics(q, call.meta):
                             return
                         # the frame is decoded on the host: a device round trip here
@@ -382,7 +389,7 @@ def make_handler(codec: ClipCodec, artifact=None, batcher: Optional[_MicroBatche
                             z = codec.decode_embeddings_host([self._body()])
                             seed = int(q.get("seed", ["0"])[0])
                             with lock:
-                                img = call(params, z, seed=seed)[0].cpu().numpy()
+                                img = call(params, z, seed=seed, quant=quant)[0].cpu().numpy()
                     else:
                         size = int(q.get("size", ["256"])[0])
                         steps = int(q.get("steps", ["50"])[0])
@@ -398,14 +405,15 @@ def make_handler(codec: ClipCodec, artifact=None, batcher: Optional[_MicroBatche
                     if sd is None:
                         self._json(503, {"error": "no SD artifact loaded; start with --sd_artifact + --adapter"})
                         return
-                    sd_call, up, vp, ap_ = sd
+                    sd_call, up, vp, ap_, sd_quant = sd
                     if not self._check_format(q) or not self._check_statics(q, sd_call.meta):
                         return
                     z = codec.decode_embeddings_host([self._body()])
                     seed = int(q.get("seed", ["0"])[0])
                     guidance = float(q.get("guidance", ["5.0"])[0])
                     with lock:
-                        img = sd_call(up, vp, ap_, z, seed=seed, guidance_scale=guidance)[0].cpu().numpy()
+                        img = sd_call(up, vp, ap_, z, seed=seed, guidance_scale=guidance,
+                                      quant=sd_quant)[0].cpu().numpy()
                     record("decompress_sd", time.monotonic() - t0)
                     self._send_image(img, q)
                 else:
@@ -444,13 +452,13 @@ def serve(store_dir: str, weights: Optional[str] = None, host: str = "127.0.0.1"
         from .utils.checkpoint import load_state_dict
 
         call = load_decompressor(artifact, device=device)
-        _validate_artifact(call, codec, artifact)
+        quant = _validate_artifact(call, codec, artifact)
         params = load_state_dict(weights)
-        art = (call, params)
+        art = (call, params, quant)
 
         def run(zs, seed):
             with device_lock:
-                return call(params, zs, seed=seed).cpu().numpy()
+                return call(params, zs, seed=seed, quant=quant).cpu().numpy()
 
         # the first call builds the network and captures the sampler: pay it
         # before the socket takes traffic
@@ -471,15 +479,27 @@ def serve(store_dir: str, weights: Optional[str] = None, host: str = "127.0.0.1"
     return server
 
 
-def _validate_artifact(call, codec: ClipCodec, artifact_path: str) -> None:
+def _validate_artifact(call, codec: ClipCodec, artifact_path: str):
     """Startup checks shared by the pixel and SD artifacts: the embedding
-    dim and the device kind (the loader refuses int8 artifacts)."""
+    dim, the device kind and, for an int8 artifact, its calibration sidecar.
+    Returns the sidecar's quant dict on the codec's device, or None."""
     if call.meta["z_dim"] != codec.dim:
         raise ValueError(f"{artifact_path}: exported for z_dim={call.meta['z_dim']} but the store carries "
                          f"dim={codec.dim} embeddings; re-export against this store's checkpoint")
     if codec.device.type not in call.platforms:
         raise ValueError(f"{artifact_path}: exported for platforms {list(call.platforms)} but this server "
                          f"runs {codec.device.type!r}; re-export with --platforms {codec.device.type}")
+    if not call.meta.get("int8"):
+        return None
+    from .deploy import QUANT_SUFFIX
+    from .ops.int8 import read_quant
+
+    sidecar = f"{artifact_path}{QUANT_SUFFIX}"
+    try:
+        return read_quant(sidecar, codec.device)
+    except FileNotFoundError:
+        raise ValueError(f"int8 artifact: calibration sidecar {sidecar} not found "
+                         f"(cli.export_decoder --int8 writes it)") from None
 
 
 def _load_sd_serving(sd_artifact: str, adapter: Optional[str], codec: ClipCodec):
@@ -498,13 +518,13 @@ def _load_sd_serving(sd_artifact: str, adapter: Optional[str], codec: ClipCodec)
         raise ValueError(f"SD serving artifacts must be exported with --batch_size 1 (got "
                          f"{call.meta['batch_size']}): guidance_scale is per program call, so requests "
                          f"cannot be coalesced")
-    _validate_artifact(call, codec, sd_artifact)
+    quant = _validate_artifact(call, codec, sd_artifact)
     up = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
     vp = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
     ap_ = ckpt.adapter_state_dict(ckpt.read_checkpoint(adapter))
     # build and capture before the socket takes traffic
-    call(up, vp, ap_, np.zeros((1, codec.dim), np.float32), seed=0, guidance_scale=5.0)
-    return (call, up, vp, ap_)
+    call(up, vp, ap_, np.zeros((1, codec.dim), np.float32), seed=0, guidance_scale=5.0, quant=quant)
+    return (call, up, vp, ap_, quant)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -529,11 +549,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--search_u8", action="store_true",
                     help="serve /search and /search_image from a uint8-resident index; composes with "
                          "--search_ivf")
-    ap.add_argument("--int8", action="store_true", help="int8 serving mode (not ported)")
+    add_int8_flag(ap)
     ap.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8 is not ported to the PyTorch package yet (ops/int8.py)")
+    apply_int8_flag(args)
     serve(args.store_dir, args.weights, args.host, args.port, artifact=args.artifact,
           batch_wait_ms=args.batch_wait_ms, sd_artifact=args.sd_artifact, adapter=args.adapter,
           search_ivf=args.search_ivf, search_nlist=args.search_nlist, search_nprobe=args.search_nprobe,

@@ -17,7 +17,13 @@
   q/k/v fused into ``in_proj_weight`` (3D, D), the patch conv's flax HWIO
   kernel as torch's OIHW, the projections kept as ``x @ proj``;
 * ``dino_state_dict_from_jax``: the DINOv2 tower in the port's names, the
-  same block map plus the LayerScale vectors ``ls1``/``ls2``.
+  same block map plus the LayerScale vectors ``ls1``/``ls2``;
+* ``unet_quant_from_jax``, ``sd_unet_quant_from_jax``: a JAX int8
+  ``'quant'`` collection (each int8 layer's calibrated ``x_absmax``) as the
+  port's quant dict (``ops/int8.py``), keyed by the same module names as
+  the state dicts. JAX's GEGLU has two projections, ``proj_h`` and
+  ``proj_g``, that read the same input and so record the same absmax; the
+  port's one fused ``proj`` takes it, after a check that the two agree.
 """
 
 from __future__ import annotations
@@ -244,3 +250,67 @@ def dino_state_dict_from_jax(params: Mapping) -> StateDict:
     _encoder_blocks(sd, "encoder.", p["encoder"])
     _norm(sd, "final_ln", p["final_ln"]["scale"], p["final_ln"]["bias"])
     return _tensors(sd)
+
+
+def _absmax(p: Mapping) -> torch.Tensor:
+    return torch.from_numpy(np.array(p["x_absmax"], dtype=np.float32).reshape(()))
+
+
+def _resnet_quant(q: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    for name in ("conv1", "conv2", "conv_shortcut"):
+        if name in p:
+            q[f"{prefix}.{name}"] = _absmax(p[name])
+
+
+def unet_quant_from_jax(quant: Mapping, ch_mult: Sequence[int] = (1, 2, 2)) -> Dict[str, torch.Tensor]:
+    """A JAX ``CLIPCondUNet`` quant collection -> the port's quant dict."""
+    q: Dict[str, torch.Tensor] = {}
+    _resnet_quant(q, "mid1", quant["mid1"])
+    _resnet_quant(q, "mid2", quant["mid2"])
+    for i in range(len(ch_mult)):
+        for j in range(2):
+            _resnet_quant(q, f"down.{3 * i + j}", quant[f"down_{i}_rb{j}"])
+            _resnet_quant(q, f"up.{3 * i + j}", quant[f"up_{i}_rb{j}"])
+        q[f"down.{3 * i + 2}"] = _absmax(quant[f"down_{i}_ds"])
+    return q
+
+
+def _transformer2d_quant(q: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    q[f"{prefix}.proj_in"] = _absmax(p["proj_in"])
+    q[f"{prefix}.proj_out"] = _absmax(p["proj_out"])
+    blk, b = p["block_0"], f"{prefix}.transformer_blocks.0"
+    for a in ("attn1", "attn2"):
+        for name in ("to_q", "to_k", "to_v"):
+            q[f"{b}.{a}.{name}"] = _absmax(blk[a][name])
+        q[f"{b}.{a}.to_out.0"] = _absmax(blk[a]["to_out"])
+    h, g = _absmax(blk["ff_geglu"]["proj_h"]), _absmax(blk["ff_geglu"]["proj_g"])
+    if not torch.equal(h, g):
+        raise ValueError(f"{b}: GEGLU proj_h and proj_g recorded different absmax ({h.item()} vs {g.item()}); "
+                         f"the fused projection takes one")
+    q[f"{b}.ff.net.0.proj"] = h
+    q[f"{b}.ff.net.2"] = _absmax(blk["ff_out"])
+
+
+def sd_unet_quant_from_jax(quant: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``SDUNet`` quant collection -> the port's quant dict."""
+    n = _count(quant, "down_{}_res_0")
+    layers = _count(quant, "down_0_res_{}")
+    q: Dict[str, torch.Tensor] = {}
+    for i in range(n):
+        for j in range(layers):
+            _resnet_quant(q, f"down_blocks.{i}.resnets.{j}", quant[f"down_{i}_res_{j}"])
+            if f"down_{i}_attn_{j}" in quant:
+                _transformer2d_quant(q, f"down_blocks.{i}.attentions.{j}", quant[f"down_{i}_attn_{j}"])
+        if f"down_{i}_ds" in quant:
+            q[f"down_blocks.{i}.downsamplers.0.conv"] = _absmax(quant[f"down_{i}_ds"]["conv"])
+    _resnet_quant(q, "mid_block.resnets.0", quant["mid_res_0"])
+    _transformer2d_quant(q, "mid_block.attentions.0", quant["mid_attn"])
+    _resnet_quant(q, "mid_block.resnets.1", quant["mid_res_1"])
+    for k in range(n):
+        for j in range(layers + 1):
+            _resnet_quant(q, f"up_blocks.{k}.resnets.{j}", quant[f"up_{k}_res_{j}"])
+            if f"up_{k}_attn_{j}" in quant:
+                _transformer2d_quant(q, f"up_blocks.{k}.attentions.{j}", quant[f"up_{k}_attn_{j}"])
+        if f"up_{k}_us" in quant:
+            q[f"up_blocks.{k}.upsamplers.0.conv"] = _absmax(quant[f"up_{k}_us"]["conv"])
+    return q

@@ -224,23 +224,39 @@ def test_mismatches_and_foreign_files_raise(pixel, tmp_path):
 
 
 def test_int8_and_sharded_are_refused(pixel, tmp_path):
-    with pytest.raises(ValueError, match="ops/int8.py"):
-        _export(pixel, tmp_path / "q.torchprog", quant={"q": 1})
-    path = _export(pixel, tmp_path / "i.torchprog")
-    meta = deploy.read_artifact_meta(path)
-    for key, module in (("int8", "ops/int8.py"), ("sharded", "parallel/")):
-        forged = tmp_path / f"{key}.torchprog"
-        forged.write_bytes(b"CLPTORCHPROG1\n" + json.dumps({**meta, key: True}).encode() + b"\n")
-        with pytest.raises(ValueError, match=module):
-            deploy.load_decompressor(forged, device="cpu")
+    """int8 artifacts are served (static int8: the call takes the quant
+    dict, and equals the eager sampler of the U-Net with those scales; a
+    call without it raises naming the sidecar, a non-int8 artifact refuses
+    one); sharded artifacts stay refused."""
+    from clip_codec_tpu_torch.models import CLIPCondUNet
+    from clip_codec_tpu_torch.ops import int8 as q8
+
+    net = CLIPCondUNet(**CFG, time_dim=256, int8=True)
+    net.load_state_dict(pixel["sd"], strict=True)
+    quant = q8.calibrate_unet(net.eval(), SIZE, CFG["z_dim"], timesteps=MC["timesteps"], batch=B)
+    with pytest.raises(ValueError, match="does not fit the architecture's int8 layers"):
+        _export(pixel, tmp_path / "q.torchprog", quant={"q": torch.tensor(1.0)})
+    call = deploy.load_decompressor(_export(pixel, tmp_path / "q.torchprog", quant=quant), device="cpu")
+    assert call.meta["int8"] is True
+    z = np.random.default_rng(1).standard_normal((B, CFG["z_dim"])).astype(np.float32)
+    x_T = np.random.default_rng(2).standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
+    with pytest.raises(ValueError, match=r"int8 artifact: pass quant= .*<artifact>\.quant\.pt"):
+        call(pixel["sd"], z)
+    got = call(pixel["sd"], z, x_T=x_T, quant=quant)
+    q8.load_quant(net, quant)
+    want = deploy.make_decompress_fn(pixel["mc"], SIZE, STEPS)(net, torch.from_numpy(z), torch.from_numpy(x_T))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="not one"):
+        deploy.load_decompressor(_export(pixel, tmp_path / "f.torchprog"), device="cpu")(pixel["sd"], z, quant=quant)
+    meta = deploy.read_artifact_meta(tmp_path / "f.torchprog")
+    forged = tmp_path / "sharded.torchprog"
+    forged.write_bytes(b"CLPTORCHPROG1\n" + json.dumps({**meta, "sharded": True}).encode() + b"\n")
+    with pytest.raises(ValueError, match="parallel/"):
+        deploy.load_decompressor(forged, device="cpu")
     for fn in (deploy.export_sharded_decompressor, deploy.load_sharded_decompressor,
                deploy.export_sharded_sd_decompressor, deploy.load_sharded_sd_decompressor):
         with pytest.raises(NotImplementedError, match="parallel/"):
             fn()
-    from clip_codec_tpu_torch.cli.export_decoder import main
-
-    with pytest.raises(SystemExit, match="ops/int8.py"):
-        main(["--weights", "w.pt", "--int8", "--device", "cpu"])
 
 
 def test_schedule_host_tables_keep_the_samplers_bit_equal():
@@ -276,6 +292,16 @@ def test_export_cli_writes_a_loadable_artifact(pixel, tmp_path):
         dict(size=16, steps=2, batch_size=1, z_dim=8, output="uint8", platforms=["cpu"], timesteps=50)
     img = call(pixel["sd"], np.ones((1, 8), np.float32), seed=1)
     assert img.shape == (1, 16, 16, 3) and img.dtype == torch.uint8
+    # --int8: the static-int8 artifact, calibrated here, its sidecar beside it
+    main(["--weights", str(ckpt), "--out", str(tmp_path / "q.torchprog"), "--size", "16", "--steps", "2",
+          "--batch_size", "1", "--device", "cpu", "--int8"])
+    from clip_codec_tpu_torch.ops import int8 as q8
+
+    quant = q8.read_quant(tmp_path / "q.torchprog.quant.pt")
+    call = deploy.load_decompressor(tmp_path / "q.torchprog", device="cpu")
+    assert call.meta["int8"] is True and len(quant) == 22 and all(v.item() > 0 for v in quant.values())
+    img = call(pixel["sd"], np.ones((1, 8), np.float32), seed=1, quant=quant)
+    assert img.shape == (1, 16, 16, 3) and bool(torch.isfinite(img).all())
     # without model_config.json the architecture comes from the weights; defaults as JAX's
     (ckpt.parent / "model_config.json").unlink()
     main(["--weights", str(ckpt), "--out", str(out), "--device", "cpu", "--platforms", "cpu,cuda"])
@@ -348,6 +374,17 @@ def test_sd_header_and_cli(sd_weights, tmp_path, monkeypatch):
     assert a.shape == (1, 16, 16, 3) and bool(torch.isfinite(a).all())
     assert torch.equal(a, call(*sd_weights["sd"], z, seed=4))
     assert not torch.equal(a, call(*sd_weights["sd"], z, seed=4, guidance_scale=0.0))
+    # --int8: the UNet calibrated on both CFG branches, the sidecar beside the artifact
+    from clip_codec_tpu_torch.ops import int8 as q8
+
+    main(argv[:4] + [str(tmp_path / "sdq.torchprog")] + argv[5:] + ["--int8"])
+    call = deploy.load_sd_decompressor(tmp_path / "sdq.torchprog", device="cpu")
+    quant = q8.read_quant(tmp_path / "sdq.torchprog.quant.pt")
+    assert call.meta["int8"] is True and set(quant) == set(q8.int8_layer_names(tsd.SDUNet(tsd.SDUNetConfig(**UCFG))))
+    with pytest.raises(ValueError, match="pass quant="):
+        call(*sd_weights["sd"], z, seed=4)
+    b = call(*sd_weights["sd"], z, seed=4, quant=quant)
+    assert b.shape == (1, 16, 16, 3) and bool(torch.isfinite(b).all()) and not torch.equal(a, b)
 
 
 def test_cfg_combine_tensor_form_equals_the_float_form(sd_weights):

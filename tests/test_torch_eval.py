@@ -32,6 +32,7 @@ from clip_codec_tpu.eval import metrics as jm
 from clip_codec_tpu_torch.encoders.clip import CLIPConfig
 from clip_codec_tpu_torch.eval import lpips as tlpips
 from clip_codec_tpu_torch.eval import metrics as tm
+from clip_codec_tpu_torch.ops import int8 as q8
 from tests.test_torch_clip import TINY, random_clip_sd
 from tests.test_torch_compress import hf_layout
 
@@ -246,8 +247,12 @@ def test_eval_cli_skips_nan_metrics_and_refuses_what_is_not_ported(tmp_path, rng
     assert re.fullmatch(r"Average PSNR: \d+\.\d\d dB", out[0]) and re.fullmatch(r"Average SSIM: -?\d\.\d{4}", out[1])
     with pytest.raises(SystemExit, match="parallel/"):
         cli_eval.main(argv + ["--data_parallel"])
-    with pytest.raises(SystemExit, match="ops/int8.py"):
+    try:  # --int8: the static-int8 U-Net, calibrated first; the same four lines
         cli_eval.main(argv + ["--int8"])
+    finally:
+        q8.set_int8_conv(False)
+    out8 = capsys.readouterr().out.splitlines()
+    assert out8[2:] == out[2:] and re.fullmatch(r"Average PSNR: \d+\.\d\d dB", out8[0]) and out8[:2] != out[:2]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli_eval.main(argv[:-2])

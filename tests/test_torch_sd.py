@@ -27,6 +27,7 @@ from clip_codec_tpu.weights.convert_sd import convert_sd_adapter, convert_sd_une
 from clip_codec_tpu_torch.models import init_params
 from clip_codec_tpu_torch.models import sd as tsd
 from clip_codec_tpu_torch.models.sd.decoder import sd_step_coefficients
+from clip_codec_tpu_torch.ops import int8 as q8
 from clip_codec_tpu_torch.weights import sd_checkpoint as ckpt
 from clip_codec_tpu_torch.weights.from_jax import (
     sd_adapter_state_dict_from_jax,
@@ -266,8 +267,21 @@ def test_cli_writes_a_png_from_a_pt_store(tmp_path, port, monkeypatch):
     cli.main(argv + ["--inv_weight", "0"])
     img = Image.open(tmp_path / "img-2-5-0.png")
     assert img.size == (16, 16) and img.mode == "RGB"
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    img = np.asarray(img)
+    try:  # --int8: the UNet calibrated on both CFG branches, then sampled in static int8
         cli.main(argv + ["--inv_weight", "0", "--int8"])
+    finally:
+        q8.set_int8_conv(False)
+    got = np.asarray(Image.open(tmp_path / "img-2-5-0.png"))
+    from clip_codec_tpu_torch.cli.reconstruct_diffusion import decode_embedding, to_pil
+
+    dec = cli.load_decoder(tmp_path / "unet.bin", tmp_path / "vae.bin", tmp_path / "adapter.pt", "cpu", heads=2,
+                           int8=True)
+    z = decode_embedding(tmp_path / "img.clp", tmp_path)
+    dec.calibrate_int8_scales(torch.from_numpy(z), (1, 8, 8, 4))
+    want = np.asarray(to_pil(cli.sample_images(dec, z, 16, 2, "dpmpp")[0].float().numpy()))
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, np.asarray(img))
 
 
 def test_sd_modules_import_no_jax(tmp_path, port):

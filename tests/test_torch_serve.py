@@ -41,6 +41,7 @@ from clip_codec_tpu_torch import deploy, serve
 from clip_codec_tpu_torch.codec import ClipCodec
 from clip_codec_tpu_torch.models import init_params
 from clip_codec_tpu_torch.models import sd as tsd
+from clip_codec_tpu_torch.ops import int8 as q8
 from clip_codec_tpu_torch.utils.config import ModelConfig
 from tests.test_torch_deploy import jax_unet_params
 
@@ -378,8 +379,17 @@ def test_sd_artifact_serving(servers, monkeypatch):
         serve.serve(st, port=0, sd_artifact=str(b2), adapter=str(root / "sd_adapter.pt"), device="cpu")
     with pytest.raises(ValueError, match="still needs --weights"):
         serve.serve(st, port=0, artifact=str(servers["artifact"]), device="cpu")
-    with pytest.raises(SystemExit, match="ops/int8.py"):
-        serve.main(["--store_dir", st, "--int8", "--device", "cpu"])
+    started = []
+    monkeypatch.setattr(serve, "serve", lambda *a, **kw: started.append(q8.int8_enabled()) or SimpleNamespace(
+        serve_forever=lambda: None))
+    try:
+        serve.main(["--store_dir", st, "--int8", "--device", "cpu"])  # --int8 turns the process default on
+    finally:
+        q8.set_int8_conv(False)
+    assert started == [True]
+    monkeypatch.undo()
+    monkeypatch.setenv("CLIP_CODEC_SD_UNET_WEIGHTS", str(root / "sd_unet.pt"))
+    monkeypatch.setenv("CLIP_CODEC_SD_VAE_WEIGHTS", str(root / "sd_vae.pt"))
     srv = serve.serve(st, port=0, sd_artifact=str(art), adapter=str(root / "sd_adapter.pt"), device="cpu")
     addr = _start(srv)
     try:
@@ -394,6 +404,68 @@ def test_sd_artifact_serving(servers, monkeypatch):
         # no pixel decoder behind /decompress: the codec's own 503
         status, _, d = _request(addr, "POST", "/decompress?size=16&steps=1", blob)
         assert status == 503 and "No decoder" in json.loads(d)["error"]
+    finally:
+        srv.shutdown()
+
+
+def test_int8_serving(servers, tmp_path, monkeypatch):
+    """``--int8`` with no artifact: /decompress through ClipCodec with the
+    dynamic int8 U-Net. An int8 artifact without its sidecar stops the
+    server at start-up, naming the file; with it, /decompress and
+    /decompress_sd answer from the static-int8 programs."""
+    from clip_codec_tpu_torch.models import CLIPCondUNet
+
+    st, root = str(servers["store"]), servers["root"]
+    frame = (servers["store"] / "img0.clp").read_bytes()
+    want = {}
+    for on in (False, True):
+        q8.set_int8_conv(on)
+        try:
+            codec = ClipCodec.load(st, weights=str(servers["weights"]), device="cpu")
+            want[on] = codec.decompress([frame], size=16, steps=2, batch_size=1, seed=3)[0]
+            srv = serve.serve(st, weights=str(servers["weights"]), port=0, device="cpu")
+            addr = _start(srv)
+            status, _, data = _request(addr, "POST", "/decompress?size=16&steps=2&seed=3", frame)
+            srv.shutdown()
+        finally:
+            q8.set_int8_conv(False)
+        got = np.asarray(Image.open(io.BytesIO(data)), np.uint8)
+        assert status == 200 and np.array_equal(got, ((np.clip(want[on], -1, 1) + 1.0) * 127.5).astype(np.uint8))
+    assert not np.array_equal(want[False], want[True])
+
+    net = CLIPCondUNet(**CFG, time_dim=256, int8=True)
+    net.load_state_dict(torch.load(servers["weights"], weights_only=True))
+    quant = q8.calibrate_unet(net.eval(), 16, DIM, timesteps=MC["timesteps"], batch=1)
+    art = deploy.export_decompressor(torch.load(servers["weights"]), ModelConfig(**MC), root / "q.torchprog",
+                                     platforms=["cpu"], quant=quant, **STATICS)
+    with pytest.raises(ValueError, match=r"int8 artifact: calibration sidecar .*q\.torchprog\.quant\.pt not found "
+                                         r"\(cli\.export_decoder --int8 writes it\)"):
+        serve.serve(st, weights=str(servers["weights"]), port=0, artifact=str(art), device="cpu")
+    q8.save_quant(quant, str(art) + ".quant.pt")
+
+    gen = torch.Generator().manual_seed(0)
+    mods = [tsd.SDUNet(tsd.SDUNetConfig(block_out=(8, 16), layers_per_block=1, cross_dim=16, heads=2, freq_dim=8)),
+            tsd.AutoencoderKL(tsd.VAEConfig(block_out=(8, 16), layers_per_block=1, latent_ch=4)),
+            tsd.SDClipAdapter(in_dim=DIM, ctx_dim=16, n_tokens=2)]
+    for name, m in zip(("unet", "vae", "adapter"), mods):
+        init_params(m, gen)
+        torch.save(m.state_dict(), root / f"sdq_{name}.pt")
+    dec = tsd.StableDiffusionDecoder(*mods, int8=True)
+    dec.calibrate_int8_scales(torch.from_numpy(servers["feats"][:1]), (1, 8, 8, 4))
+    sd_art = deploy.export_sd_decompressor(*[m.state_dict() for m in mods], root / "sdq.torchprog",
+                                           unet_cfg=mods[0].cfg, vae_cfg=mods[1].cfg, size=16, steps=2,
+                                           platforms=["cpu"], quant=dec.unet_quant)
+    q8.save_quant(dec.unet_quant, str(sd_art) + ".quant.pt")
+    monkeypatch.setenv("CLIP_CODEC_SD_UNET_WEIGHTS", str(root / "sdq_unet.pt"))
+    monkeypatch.setenv("CLIP_CODEC_SD_VAE_WEIGHTS", str(root / "sdq_vae.pt"))
+    srv = serve.serve(st, weights=str(servers["weights"]), port=0, artifact=str(art), sd_artifact=str(sd_art),
+                      adapter=str(root / "sdq_adapter.pt"), device="cpu")
+    addr = _start(srv)
+    try:
+        status, ctype, data = _request(addr, "POST", "/decompress?seed=2", frame)
+        assert (status, ctype) == (200, "image/png") and Image.open(io.BytesIO(data)).size == (16, 16)
+        status, ctype, data = _request(addr, "POST", "/decompress_sd?seed=2", frame)
+        assert (status, ctype) == (200, "image/png") and Image.open(io.BytesIO(data)).size == (16, 16)
     finally:
         srv.shutdown()
 
