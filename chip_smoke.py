@@ -324,6 +324,45 @@ the SD self-attention, never K2 or K6):
    --int8`` behind ``--sd_artifact`` (3 requests, seeds 0, 1, 0), each
    beside the bf16 times of phases 17 and 20, launches exact.
 
+The data axis (``parallel/``, the trainers' and CLIs' ``--data_parallel``, the
+sharded indexes and the data-sharded pixel artifact; no new kernel: the ranks
+run K1, K2/K3, K4-K6 and ``u8_ip_scores``):
+
+23. two ranks started as two launcher nodes on this machine
+   (``parallel.launch.spawn_ranks``), so both drive cuda:0 and talk over
+   gloo, then one rank alone under a one-rank launcher environment, which
+   picks NCCL; each rank runs ``probes.dp_rank`` (the kernels are built by
+   now, so no rank compiles). 23a: ``cli.train --data_parallel`` at full
+   width (256px, base 128, global batch 8, 4 a rank) over 20 seeded images,
+   3 steps, the last with 4 real rows (rank 1's half all padding), against
+   ``cli.train --distributed`` on the one rank: losses and the first
+   step's gradient summed over the ranks (||g_2 - g_1|| / ||g_1||) within
+   2e-2, the two ranks' parameters bit-equal after the run, the same start,
+   each rank's K1 launches the one-rank run's (28 a step, at batch 4 by
+   shape); the parameters' update over the run (||d(theta_3 - theta_0)|| /
+   ||theta_3 - theta_0||) and s/step of both, printed. 23b: ``cli.train_sd`` the same way at SD-1.5 512px,
+   global batch 4, 2 steps over phase 11's images and latents (phase 8's
+   weights), each rank launching phase 11's tally a step. 23c: 1M unit rows
+   at D = 512 drawn on every rank, the sharded fp32 and u8 exact indexes
+   against the single ones at k = 10, Q = 1 and 64: scores within 1e-5,
+   ids equal wherever neighbouring scores differ by more than 1e-5, one
+   ``u8_ip_scores`` a u8 search a rank; a rank's device ms (its scoring and
+   top-k) and a whole search's wall, resident bytes a rank; then
+   ``cli.search_text`` on phase 16's store with and without
+   ``--data_parallel`` (fp32 and ``--u8``): the same 10 lines, from rank 0
+   only. 23d: the data-sharded pixel artifact (B = 16, DDIM-50) exported
+   and loaded over the two ranks from phase 4's checkpoint: each rank's
+   rows within one uint8 level of the single-device artifact at the rank's
+   batch (8) fed the same rows of the seed's global x_T, and equal in >=
+   99.9% of pixels (phase 20's bound); the images against the single-device
+   artifact at B = 16 printed beside that artifact's own B = 16 against
+   B = 8 (bf16 at another batch, through the first step's clip); a call's
+   K2 and K3 launches exact a rank (28 x 50 and 50), a replay's device ms a
+   rank. 23e: the backends chosen
+   (``cpu:gloo,cuda:gloo`` for the two ranks, ``cpu:gloo,cuda:nccl`` for
+   the one). Two ranks sharing one card measure correctness and overhead,
+   not scaling. Phase 23's wall time is printed.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4, at B=8 with
 its launches in phase 18 and at B=16 with its launches in phase 20c
@@ -339,7 +378,9 @@ timed phase 22a shape with its launches by shape over 22b's HTTP run and
 22c (``"phase": 22``); K4, the K5 pair and K6 once more with
 phase 21's launches (21b's CLI training plus 21c's CLI request, ``"phase":
 21``, beside the timed record's numbers: K4's and K6's first shape, K5's
-(1, 4096, 512)), ``library_ms`` null (no one PyTorch
+(1, 4096, 512)); K1, K2, K3, K4, the K5 pair, K6 and ``u8_ip_scores`` once more
+with phase 23's launches summed over the two ranks (``"phase": 23``,
+beside the timed record's numbers as for phase 21), ``library_ms`` null (no one PyTorch
 call takes uint8 codes and fp32 queries) and ``matmul_ms`` beside it for
 scale; ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
@@ -469,6 +510,11 @@ ART_REQUESTS, ART_CLIENTS, ART_WAIT_MS = 64, 32, 20.0
 # The DINOv2 front end (phase 21): ViT-B/14 at 518px, cli.encode_images_dino's
 # batch of 16 over phase 16's images; SD training and inversion on a dim-768 store.
 DINO_BATCH = 16
+# The data axis (phase 23): two ranks sharing the card over gloo, one NCCL rank alone. Pixel training at
+# global batch 8 over 20 images: 3 steps, the last of 4 real rows, so rank 1's half of it is all padding (weight
+# 0); SD training at global batch 4 over phase 11's 8 images: 2 steps. Losses and the first step's gradient,
+# summed over the ranks, within DP_TOL of one rank's (bf16 at another per-rank batch).
+DP_PX_IMAGES, DP_TRAIN_BATCH, DP_TOL, DP_TIMEOUT = 20, {"train": 8, "train_sd": 4}, 2e-2, 420.0
 
 
 class PhaseError(RuntimeError):
@@ -3849,6 +3895,267 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
     return launches_by_shape
 
 
+# ------------------------------------------------- the data axis (phase 23)
+
+
+def _dp_px_store(seed, store: Path, have_zstd: bool) -> None:
+    """DP_PX_IMAGES seeded PNGs and their frames (raw codes where zstandard
+    is missing: every rank reads them through ``raw_frames``)."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch.io.bitstream import write_bitstream
+
+    rng = np.random.default_rng(seed + 23)
+    images = rng.integers(0, 256, (DP_PX_IMAGES, 96, 128, 3), dtype=np.uint8)  # resized to 256 on load
+    codes = rng.integers(0, 256, (DP_PX_IMAGES, 512), dtype=np.uint8)
+    store.mkdir(parents=True, exist_ok=True)
+    np.savez(store / "codec_meta.npz", scale=np.full(512, 2.0 / 255.0, np.float32), zero=np.full(512, -1.0, np.float32))
+    recs = []
+    with raw_frames(have_zstd):
+        for i, (im, row) in enumerate(zip(images, codes)):
+            Image.fromarray(im).save(store / f"img{i}.png")
+            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
+            recs.append({"image": str(store / f"img{i}.png"), "bitstream": str(store / f"img{i}.clp")})
+    (store / "manifest.json").write_text(json.dumps(recs))
+
+
+def _run_ranks(torch, job: dict, world: int, env: dict, timeout: float) -> list:
+    """``probes.dp_rank`` on ``job`` as ``world`` ranks (launcher nodes of
+    their own, so every rank drives cuda:0); each rank's record."""
+    import json
+
+    from clip_codec_tpu_torch.parallel.launch import spawn_ranks
+
+    out = Path(job["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "job.json").write_text(json.dumps(job))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = spawn_ranks(["-m", "clip_codec_tpu_torch.probes.dp_rank", str(out / "job.json")], world, timeout,
+                       env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    for r, (rc, log) in enumerate(runs):
+        (out / f"rank{r}.log").write_text(log)
+        check(rc == 0, f"{world}-rank run, rank {r} exited {rc}:\n{log[-6000:]}")
+    recs = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    for r, rec in enumerate(recs):
+        check(rec["world"] == world and rec["jax_modules"] == [], f"rank {r}: world {rec['world']}, "
+              f"jax modules {rec['jax_modules']}")
+        rec["log"] = runs[r][1]
+    print(f"dp: {world} rank(s) ran {[t['name'] for t in job['tasks']]} in {wall:.1f} s (process start, kernel "
+          f"loads and model builds included), backend {recs[0]['backend']}")
+    return recs
+
+
+def _dp_train_checks(torch, name, two, one, dp, card, want_launches):
+    """Phase 23a/23b: the two ranks' trajectory against one rank's."""
+    a, b = (t[name] for t in two)
+    ref = one[0][name]
+    pr = lambda tag: torch.load(dp / tag, weights_only=True)
+    start, final0, final1 = pr(f"two/rank0_{name}_start.pt"), pr(f"two/rank0_{name}_final.pt"), \
+        pr(f"two/rank1_{name}_final.pt")
+    start1, final_one = pr(f"one/rank0_{name}_start.pt"), pr(f"one/rank0_{name}_final.pt")
+    g_two, g_one = pr(f"two/rank0_{name}_grad1.pt"), pr(f"one/rank0_{name}_grad1.pt")
+    rel_grad = ((g_two - g_one).norm() / g_one.norm()).item()
+    check(a["losses"] == b["losses"], f"{name}: the ranks' global losses differ: {a['losses']} {b['losses']}")
+    rel_loss = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], ref["losses"]))
+    same = all(torch.equal(final0[k], final1[k]) for k in final0)
+    same_start = all(torch.equal(start[k], start1[k]) for k in start)
+    d_two = torch.cat([(final0[k] - start[k]).float().flatten() for k in start])
+    d_one = torch.cat([(final_one[k] - start1[k]).float().flatten() for k in start])
+    rel_upd = ((d_two - d_one).norm() / d_one.norm()).item()
+    per_step = lambda r: sorted(r["step_s"][1:])[len(r["step_s"][1:]) // 2]  # the median after the first
+    nonzero = lambda counts: {k: v for k, v in counts.items() if v}
+    print(f"dp-{name}: 2 ranks sharing {card} over gloo, {len(a['losses'])} steps at global batch "
+          f"{DP_TRAIN_BATCH[name]} ({DP_TRAIN_BATCH[name] // 2} a rank), against 1 NCCL rank: losses "
+          f"{[round(x, 6) for x in a['losses']]} vs {[round(x, 6) for x in ref['losses']]} (max rel "
+          f"{rel_loss:.3e}); the first step's summed gradient ||g_2ranks - g_1rank|| / ||g_1rank|| = "
+          f"{rel_grad:.3e}; ||d(theta_final - theta_0)|| / ||theta_final - theta_0|| = {rel_upd:.3e}; ranks "
+          f"bit-equal: {same}; the same start: {same_start}; s/step (median after the first) 2 ranks "
+          f"{per_step(a):.4f} / {per_step(b):.4f}, 1 rank {per_step(ref):.4f} (steps "
+          f"{[round(x, 4) for x in a['step_s']]} / {[round(x, 4) for x in ref['step_s']]}); launches rank 0 "
+          f"{nonzero(a['launches'])}, rank 1 {nonzero(b['launches'])}, 1 rank {nonzero(ref['launches'])}")
+    check(rel_loss <= DP_TOL, f"{name}: losses {a['losses']} vs one rank's {ref['losses']}")
+    # Held: the gradient. AdamW's first steps move a parameter by ~lr x sign(g) whatever |g| is, so the update
+    # over the run moves by 2 lr wherever bf16 rounding flips a near-zero gradient's sign (printed, not held),
+    # and it cannot see a gradient scaled by a constant: the normalisation error a data-parallel sum can make.
+    check(rel_grad <= DP_TOL, f"{name}: the first step's gradient differs from one rank's by {rel_grad}")
+    check(same, f"{name}: the ranks' parameters differ")
+    check(same_start, f"{name}: the runs start from different parameters")
+    for r in (a, b):
+        got = {k: r["launches"][k] for k in want_launches}
+        check(got == want_launches, f"{name}: a rank launched {got}, expected {want_launches} (the one-rank run's)")
+    check({k: ref["launches"][k] for k in want_launches} == want_launches,
+          f"{name}: one rank launched {ref['launches']}, expected {want_launches}")
+    return {k: a["launches"][k] + b["launches"][k] for k in want_launches}
+
+
+def phase_dp(torch, seed, dev, card):
+    """Phase 23: the data axis with two ranks sharing the card (gloo) and one
+    NCCL rank alone. Returns each kernel's launches summed over the two
+    ranks."""
+    import numpy as np
+
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.io.bitstream import write_bitstream
+    from clip_codec_tpu_torch.utils.checkpoint import load_state_dict
+    from clip_codec_tpu_torch.utils.config import ModelConfig
+
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build" / "chip_smoke"
+    dp = build / "dp"
+    shutil.rmtree(dp, ignore_errors=True)
+    dp.mkdir(parents=True)
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    _dp_px_store(seed, dp / "px", have_zstd)
+    sd_store = build / "train"  # phase 11's images and latents; its frames, raw where zstandard is missing
+    codes = _train_store(seed, sd_store)
+    if codes is not None:
+        with raw_frames(have_zstd):
+            for i, row in enumerate(codes):
+                write_bitstream(row.tobytes(), 512, sd_store / f"img{i}.clp")
+    rng = np.random.default_rng(seed + 24)
+    z = rng.standard_normal((WIDE_BATCH, 512)).astype(np.float32)
+    np.save(dp / "z.npy", z / np.linalg.norm(z, axis=1, keepdims=True))
+    px = ["--store_dir", str(dp / "px"), "--epochs", "1", "--batch_size", str(DP_TRAIN_BATCH["train"]), "--seed",
+          str(seed), "--data_workers", "2", "--log_every", "1"]
+    sd = ["--store_dir", str(sd_store), "--epochs", "1", "--batch_size", str(DP_TRAIN_BATCH["train_sd"]),
+          "--heads", "8", "--seed", str(seed), "--log_every", "1"]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CLIP_CODEC_")}
+    env.update(CLIP_CODEC_SD_UNET_WEIGHTS=str(build / "sd" / "unet.pt"),
+               CLIP_CODEC_SD_VAE_WEIGHTS=str(build / "sd" / "vae.pt"))
+    search = {"name": "search", "n": RET_N, "d": 512, "k": RET_K, "queries": list(RET_Q), "seed": seed + 25,
+              "tol": RET_NEAR, "cli": ["--store_dir", str(build / "compress" / "store"), "--query_clp",
+                                       str(sorted((build / "compress" / "store").glob("*.clp"))[3])]}
+    art = {"name": "artifact", "weights": str(build / "store" / "diffusion_unet_final.pt"),
+           "path": str(dp / "sharded.torchprog"), "size": SIZE, "steps": STEPS, "batch": WIDE_BATCH,
+           "z": str(dp / "z.npy"), "seeds": [seed, seed + 1]}
+    two = _run_ranks(torch, {"out": str(dp / "two"), "tasks": [
+        {"name": "train", "argv": px + ["--data_parallel", "--save_dir", str(dp / "px_two")]},
+        {"name": "train_sd", "argv": sd + ["--data_parallel", "--save_dir", str(dp / "sd_two")]},
+        search, art]}, 2, env, DP_TIMEOUT)
+    one = _run_ranks(torch, {"out": str(dp / "one"), "tasks": [
+        {"name": "train", "argv": px + ["--distributed", "--save_dir", str(dp / "px_one")]},
+        {"name": "train_sd", "argv": sd + ["--distributed", "--save_dir", str(dp / "sd_one")]}]}, 1, env, DP_TIMEOUT)
+
+    # Every sub-phase's checks run and print; the failures are raised together at the end.
+    errors, launches = [], {}
+
+    def part(fn):
+        try:
+            fn()
+        except PhaseError as e:
+            errors.append(str(e))
+
+    def backends():  # 23e
+        check(two[0]["backend"] == "cpu:gloo,cuda:gloo" and "[parallel] 2 rank(s), backend cpu:gloo,cuda:gloo "
+              "(2 ranks share 1 card(s))" in two[0]["log"], f"two ranks sharing the card: backend {two[0]['backend']}")
+        check(one[0]["backend"] == "cpu:gloo,cuda:nccl" and "[parallel] 1 rank(s), backend cpu:gloo,cuda:nccl "
+              "(one card per rank)" in one[0]["log"], f"one rank: backend {one[0]['backend']}")
+        print(f"dp-23e: one rank under a one-rank launcher environment (--distributed) chose {one[0]['backend']}; "
+              f"two ranks sharing {card} chose {two[0]['backend']}")
+
+    def pixel():  # 23a
+        steps = -(-DP_PX_IMAGES // DP_TRAIN_BATCH["train"])
+        launches.update(_dp_train_checks(torch, "train", two, one, dp, card,
+                                         {"group_norm_silu": GN_PER_FORWARD * steps}))
+        for r in two:  # each rank's K1 at its half of the batch, the one-rank run's shapes at the full batch
+            want = {str([DP_TRAIN_BATCH["train"] // 2, H, W, C]): n * steps
+                    for (H, W, C), n in zip(GN_SHAPES, (4, 8, 8, 8))}
+            check(r["train"]["k1_by_shape"] == want, f"K1 by shape {r['train']['k1_by_shape']} != {want}")
+
+    def sd():  # 23b
+        sd_steps = TRAIN_IMAGES // DP_TRAIN_BATCH["train_sd"]
+        launches.update(_dp_train_checks(torch, "train_sd", two, one, dp, card, {
+            k: v * sd_steps for k, v in TRAIN_LAUNCHES.items() if k != "transformer_mlp"}))
+
+    def retrieval():  # 23c: the sharded exact indexes and the CLI
+        for r, rec in enumerate(two):
+            for form, f in rec["search"]["forms"].items():
+                print(f"dp-search: rank {r} {form}: rows {f['rows']} from {f['base']} of {RET_N} at D = 512, "
+                      f"resident {f['resident_bytes']} bytes; by Q: " + "; ".join(
+                          f"Q={q} device {m['local_device_ms']:.4f} ms (its scores and top-{RET_K}), a whole "
+                          f"search {m['search_wall_ms']:.3f} ms wall (gather and host merge too), ids equal "
+                          f"{m['ids_equal']}, max score err {m['max_score_err']:.2e}, near-tie places "
+                          f"{m['near_tie_places']}, u8_ip_scores launches {m['launches_a_search']}"
+                          for q, m in f["by_q"].items()) + f" on {card}")
+                for q, m in f["by_q"].items():
+                    check(m["ids_equal"] and m["max_score_err"] <= RET_NEAR,
+                          f"rank {r} {form} Q={q}: sharded hits differ from the single index's: {m}")
+                    check(m["launches_a_search"] == (1 if form == "u8" else 0), f"rank {r} {form} Q={q}: {m}")
+        cli = two[0]["search"]["cli"]
+        launches["u8_ip_scores"] = sum(rec["search"]["cli_u8_launches"] for rec in two)
+        print(f"dp-search-cli: search_text on phase 16's store, rank 0: {cli}; rank 1: {two[1]['search']['cli']}; "
+              f"u8_ip_scores launches of the --data_parallel --u8 run {launches['u8_ip_scores']} over the ranks")
+        check(cli["sharded"] == cli["single"] and cli["sharded_u8"] == cli["single_u8"] and len(cli["sharded"]) == 10,
+              "search_text --data_parallel printed other lines than the single index's")
+        check(all(two[1]["search"]["cli"][k] == [] for k in ("sharded", "sharded_u8")), "rank 1 printed hits")
+
+    def artifact():  # 23d: the data-sharded pixel artifact against the single-device one
+        # Each rank's rows are held against the single-device artifact at the rank's batch, fed the same rows
+        # of the same seed's global x_T; against the single-device artifact at B = 16 the images are printed
+        # beside that artifact's own B = 16 against B = 8 on the same rows: bf16 GEMMs pick another
+        # reduction at another batch, and the first DDIM step (t = 999, where sqrt(al_bar) is ~0) clips
+        # x0 to +-1, so a rounding's difference flips whole pixels there.
+        params = load_state_dict(art["weights"])
+        mc = ModelConfig.find_for_checkpoint(art["weights"])
+        half = WIDE_BATCH // 2
+        single, single_half = (deploy.load_decompressor(deploy.export_decompressor(
+            params, mc, dp / f"single{b}.torchprog", size=SIZE, steps=STEPS, batch_size=b, output="uint8"),
+            device=dev) for b in (WIDE_BATCH, half))
+        zz = np.load(dp / "z.npy")
+        per_rank = {"affine_silu_conv3x3": (LAUNCHES_PER_FORWARD - 1) * STEPS, "affine_conv3x3": STEPS,
+                    "group_norm_silu": 0}
+        launches.update({k: sum(rec["artifact"]["launches"][k] for rec in two)
+                         for k in ("affine_silu_conv3x3", "affine_conv3x3")})
+
+        def agree(a, b):
+            d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+            return int(d.max()), float((d == 0).mean())
+
+        for s in art["seeds"]:
+            x_T = torch.randn((WIDE_BATCH, SIZE, SIZE, 3), generator=torch.Generator(device=dev).manual_seed(s),
+                              device=dev, dtype=torch.float32)  # the artifacts' draw for the seed
+            rows = [rec["artifact"]["rows"] for rec in two]
+            want = np.concatenate([single_half(params, zz[lo:hi], x_T=x_T[lo:hi]).cpu().numpy() for lo, hi in rows])
+            whole = single(params, zz, seed=s).cpu().numpy()
+            got = np.load(dp / "two" / f"artifact_seed{s}.npy")
+            rms = [rec["artifact"]["by_seed"][str(s)] for rec in two]
+            (d_rows, eq_rows), (d_whole, eq_whole), (d_floor, eq_floor) = (
+                agree(got, want), agree(got, whole), agree(want, whole))
+            print(f"dp-artifact: seed {s}: the sharded artifact (mesh {two[0]['artifact']['meta']['mesh']}, rows "
+                  f"{rows}, DDIM-{STEPS}) against the single-device artifact at B = {half} on each rank's rows: max "
+                  f"|uint8 diff| {d_rows}, equal {eq_rows:.6f}; against the single-device one at B = {WIDE_BATCH}: "
+                  f"max {d_whole}, equal {eq_whole:.6f} (that artifact at B = {WIDE_BATCH} against itself at B = "
+                  f"{half} on the same rows: max {d_floor}, equal {eq_floor:.6f}); a replay "
+                  f"{[round(m['replay_device_ms'], 3) for m in rms]} ms device a rank on {card}; launches a call "
+                  f"{[m['launches'] for m in rms]}; first call (warm-up and capture) "
+                  f"{[round(rec['artifact']['first_call_s'], 3) for rec in two]} s")
+            check(got.shape == want.shape == (WIDE_BATCH, SIZE, SIZE, 3), f"artifact shapes {got.shape} {want.shape}")
+            check(d_rows <= 1 and eq_rows >= 0.999, f"seed {s}: the ranks' rows: max diff {d_rows}, equal {eq_rows}")
+            for m in rms:
+                check(m["launches"] == per_rank, f"a call launched {m['launches']}, expected {per_rank}")
+        check(two[0]["artifact"]["meta"]["sharded"] is True and two[0]["artifact"]["meta"]["mesh"] ==
+              {"data": 2, "model": 1}, f"header {two[0]['artifact']['meta']}")
+        del single, single_half, params
+        torch.cuda.empty_cache()
+
+    for fn in (backends, pixel, sd, retrieval, artifact):
+        part(fn)
+    check(not errors, "; ".join(errors))
+    for name, n in launches.items():
+        check(n > 0, f"{name}: no launch on phase 23's paths")
+    print(f"dp: phase 23 in {time.perf_counter() - t_phase:.1f} s; launches summed over the two ranks {launches}; "
+          f"two ranks sharing one card measure correctness and overhead, not scaling")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3934,6 +4241,8 @@ def main() -> int:
         for name in Q8_KERNELS:  # each launched on the main path
             n = sum(v for (k, _), v in q8_by_shape.items() if k == name)
             check(n > 0, f"{name}: no launch on the int8 paths")
+
+        dp_launches = phase_dp(torch, args.seed, dev, card)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3977,6 +4286,11 @@ def main() -> int:
             timed = inv_records.get(name) or (records[name][0] if isinstance(records[name], list) else records[name])
             kernels.append({**head, **timed, "launches": dino_train[name] + dino_inv[name], "phase": 21,
                             "launches_by_step": {"21b": dino_train[name], "21c": dino_inv[name]}})
+    for name, n in dp_launches.items():  # phase 23: each kernel's launches summed over the two ranks
+        lib, replaces = KERNELS[name]
+        timed = inv_records.get(name) or (records[name][0] if isinstance(records[name], list) else records[name])
+        kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces, **timed,
+                        "launches": n, "phase": 23})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

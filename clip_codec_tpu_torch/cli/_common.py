@@ -1,4 +1,4 @@
-"""Shared CLI plumbing: the ``--int8`` flag and image discovery."""
+"""Shared CLI plumbing: the ``--int8`` flag, the data-parallel flags and image discovery."""
 
 from __future__ import annotations
 
@@ -29,3 +29,32 @@ IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".webp", ".bmp"}
 def rglob_images(img_dir: str) -> List[str]:
     """Every image file under ``img_dir``, recursively."""
     return [str(p) for p in Path(img_dir).rglob("*") if p.suffix.lower() in IMAGE_EXTS]
+
+
+def add_parallel_flags(ap, distributed: bool = True) -> None:
+    """``--data_parallel`` (and, for the trainers, ``--distributed``)."""
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="split each batch over the launcher's ranks, one per card (torchrun --nproc_per_node N); "
+                         "without a launcher, one rank")
+    if distributed:
+        ap.add_argument("--distributed", action="store_true",
+                        help="join the launcher's process group (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+                             "LOCAL_RANK) first; implies --data_parallel")
+
+
+def make_mesh_from_flags(args):
+    """The ``(data, model)`` mesh on ``args.device`` that the flags ask for,
+    or None. ``--distributed`` without the launcher's environment stops."""
+    from ..parallel.distributed import LAUNCHER_ENV, initialize_distributed, launcher_env
+
+    if getattr(args, "distributed", False):
+        if launcher_env() is None:
+            raise SystemExit(f"--distributed needs the launcher's environment ({', '.join(LAUNCHER_ENV)}, "
+                             f"LOCAL_RANK): start the run under torchrun")
+        initialize_distributed(device_type=args.device)
+        args.data_parallel = True
+    if not args.data_parallel:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(device_type=args.device)

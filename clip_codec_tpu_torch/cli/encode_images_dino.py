@@ -11,8 +11,8 @@ HuggingFace ``Dinov2Model`` state dict from ``--weights`` or
 error) or ``cpu``. As the reference's DINO writer: the directory is listed
 without recursion, sorted, over ``DINO_EXTS`` (with ``.gif``); the tower
 runs in bf16 in batches of 16 (the last one padded); the codebook is fit
-with eps 1e-6; ``dim`` is saved as an int64 scalar. ``--data_parallel`` is
-not ported and is refused.
+with eps 1e-6; ``dim`` is saved as an int64 scalar. ``--data_parallel`` as
+``cli/encode_images.py``'s: rank 0 writes the store.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 from typing import Optional, Sequence
+
+from ._common import add_parallel_flags
 
 DINO_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".gif"}
 
@@ -33,7 +35,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--weights", type=str, default=None,
                     help="Dinov2 checkpoint path (else $CLIP_CODEC_DINO_WEIGHTS)")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported")
+    add_parallel_flags(ap, distributed=False)
     args = ap.parse_args(argv)
 
     import torch
@@ -41,9 +43,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from .. import encoders
     from ..codecs.quantizer import fit_affine, quantize
     from ..io.store import write_store
+    from ..parallel.mesh import barrier, is_main
+    from ._common import make_mesh_from_flags
 
-    if args.data_parallel:
-        raise SystemExit(encoders.NOT_PORTED_DP)
     if "vit_base_patch14_dinov2" not in args.model_name:
         raise SystemExit(f"Only vit_base_patch14_dinov2 is built in (got {args.model_name}).")
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -53,15 +55,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not img_paths:
         raise ValueError(f"No supported image files found in {args.img_dir}")
 
-    encoder = encoders.DinoEncoder(weights_path=args.weights, device=args.device)
+    mesh = make_mesh_from_flags(args)
+    encoder = encoders.DinoEncoder(weights_path=args.weights, device=args.device, mesh=mesh)
     feats, kept = encoder.encode_images([str(p) for p in img_paths])
     if feats.size == 0:
         raise SystemExit("No images encoded.")
-    z = torch.from_numpy(feats).to(encoder.device)
-    scale, zero = fit_affine(z, eps=1e-6)  # the reference DINO writer's eps
-    q = quantize(z, scale, zero).cpu().numpy()
-    write_store(args.out_dir, feats, kept, scale, zero, q, dim_dtype="int64")
-    print(f"Encoded {len(kept)} images to {args.out_dir}")
+    if is_main(mesh):  # every rank holds the gathered embeddings; rank 0 writes
+        z = torch.from_numpy(feats).to(encoder.device)
+        scale, zero = fit_affine(z, eps=1e-6)  # the reference DINO writer's eps
+        q = quantize(z, scale, zero).cpu().numpy()
+        write_store(args.out_dir, feats, kept, scale, zero, q, dim_dtype="int64")
+        print(f"Encoded {len(kept)} images to {args.out_dir}")
+    barrier(mesh)
 
 
 if __name__ == "__main__":

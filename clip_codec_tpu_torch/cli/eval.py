@@ -16,8 +16,15 @@ similarity by scorers loaded once (NaN where ``$CLIP_CODEC_LPIPS_WEIGHTS`` or
 the ``model_config.json`` beside it, if any, gives the architecture and
 schedule (else ``--base``, ``--ch_mult`` and a 1000-step cosine schedule).
 ``--device`` is ``cuda`` (the default) or ``cpu``. ``--int8`` evaluates the
-static-int8 U-Net (``ops/int8.py``), calibrated first as JAX's CLI does. Not
-ported: ``--data_parallel`` (``parallel/``).
+static-int8 U-Net (``ops/int8.py``), calibrated first as JAX's CLI does.
+
+``--data_parallel`` (as JAX's) splits each reconstruction batch over the
+launcher's ranks through ``parallel.sample_sharded``, the reference-parity
+DDIM (``--batch_size`` must divide by the rank count; another ``--sampler``
+is refused, where JAX's CLI runs DDIM whatever it names); the initial noise
+is drawn for the whole batch from the same generator, so the images are a
+one-rank run's. Rank 0 computes the four metrics on the gathered images and
+prints them.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 
 from ..eval.metrics import (_default_clip_encoder, _default_lpips, clip_similarity_batch, lpips_batch,
                             psnr_batch, ssim_batch)
-from ._common import add_int8_flag, apply_int8_flag
+from ._common import add_int8_flag, add_parallel_flags, apply_int8_flag, make_mesh_from_flags
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -47,15 +54,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--out_json", type=str, default=None)
     ap.add_argument("--batch_size", type=int, default=8, help="DDIM reconstruction batch")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported")
     ap.add_argument("--base", type=int, default=None,
                     help="U-Net base width (default: model_config.json next to --weights, else 128)")
     ap.add_argument("--ch_mult", type=str, default=None, help="U-Net channel multipliers")
     ap.add_argument("--seed", type=int, default=0)
     add_int8_flag(ap)
+    add_parallel_flags(ap, distributed=False)
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data_parallel is not ported to the PyTorch package yet (parallel/)")
+    if args.data_parallel and args.sampler != "ddim":
+        raise SystemExit(f"--data_parallel samples with the reference-parity ddim (parallel.sample_sharded), "
+                         f"not --sampler {args.sampler}")
     apply_int8_flag(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
@@ -64,12 +72,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..io.store import Store
     from ..models import CLIPCondUNet
     from ..ops.int8 import calibrate_unet, load_quant
+    from ..parallel import sample_sharded
+    from ..parallel.mesh import axis_size, barrier, is_main, rank_device
     from ..train.data import load_image_m11
     from ..utils.batching import pad_rows
     from ..utils.checkpoint import load_state_dict
     from ..utils.config import ModelConfig
 
-    device = torch.device(args.device)
+    mesh = make_mesh_from_flags(args)
+    if mesh is not None and args.batch_size % axis_size(mesh):
+        raise ValueError(f"batch_size={args.batch_size} not divisible by the data-axis size {axis_size(mesh)}")
+    main = is_main(mesh)
+    device = rank_device(mesh) if mesh is not None else torch.device(args.device)
     store = Store.open(args.store_dir)
     mc = ModelConfig.find_for_checkpoint(args.weights)
     base = args.base if args.base is not None else (mc.base if mc else 128)
@@ -85,8 +99,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         # static activation scales (ops/int8.py calibrate_unet)
         load_quant(net, calibrate_unet(net, args.size, store.dim, timesteps=sched.timesteps))
     sampler = make_sampler(args.sampler, sched, eta=args.eta)
-    lpips_model = _default_lpips(device)
-    clip_enc = _default_clip_encoder(device)
+    lpips_model = _default_lpips(device) if main else None
+    clip_enc = _default_clip_encoder(device) if main else None
 
     metrics = []
     B = args.batch_size
@@ -94,8 +108,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     for s in range(0, n, B):
         idx = list(range(s, min(s + B, n)))
-        z = torch.from_numpy(pad_rows(np.stack([store.decode_vector(i) for i in idx]), B)).to(device)
-        x = sampler.sample(net, z, (B, args.size, args.size, 3), steps=args.steps, generator=gen)
+        zb = pad_rows(np.stack([store.decode_vector(i) for i in idx]), B)
+        if mesh is not None:
+            x = torch.from_numpy(sample_sharded(mesh, net, sched, zb, args.size, args.steps, args.eta,
+                                                generator=gen)).to(device)
+            if not main:  # rank 0 scores the gathered images
+                continue
+        else:
+            x = sampler.sample(net, torch.from_numpy(zb).to(device), (B, args.size, args.size, 3),
+                               steps=args.steps, generator=gen)
         recon = torch.clamp(x[: len(idx)].float(), -1.0, 1.0)
         orig = torch.from_numpy(np.stack([load_image_m11(store.manifest[i]["image"], args.size)
                                           for i in idx])).to(device)
@@ -116,13 +137,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         vals = [m[key] for m in metrics if not np.isnan(m[key])]
         return float(np.mean(vals)) if vals else float("nan")
 
-    print(f"Average PSNR: {_agg('psnr'):.2f} dB")
-    print(f"Average SSIM: {_agg('ssim'):.4f}")
-    print(f"Average LPIPS: {_agg('lpips'):.4f}")
-    print(f"Average CLIP similarity: {_agg('clip_sim'):.4f}")
-    if args.out_json:
-        with open(args.out_json, "w", encoding="utf-8") as f:
-            json.dump(metrics, f, ensure_ascii=False, indent=2)
+    if main:
+        print(f"Average PSNR: {_agg('psnr'):.2f} dB")
+        print(f"Average SSIM: {_agg('ssim'):.4f}")
+        print(f"Average LPIPS: {_agg('lpips'):.4f}")
+        print(f"Average CLIP similarity: {_agg('clip_sim'):.4f}")
+        if args.out_json:
+            with open(args.out_json, "w", encoding="utf-8") as f:
+                json.dump(metrics, f, ensure_ascii=False, indent=2)
+    barrier(mesh)
 
 
 if __name__ == "__main__":

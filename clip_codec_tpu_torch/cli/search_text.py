@@ -14,7 +14,11 @@ store's raw uint8 codes (``U8FlatIPIndex``, or with ``--ivf`` the uint8
 ``IVFIndex``) through the hand-written score kernels; ``--ivf`` the
 clustered index (``--nlist``, default ~sqrt(N); ``--nprobe``).
 ``--use_gpu`` is accepted and ignored; ``--device`` is ``cuda`` (the
-default) or ``cpu``. Not ported: ``--data_parallel`` (``parallel/``).
+default) or ``cpu``. ``--data_parallel`` splits the exact index's rows
+(fp32, or with ``--u8`` the codes) over the launcher's ranks
+(``ShardedFlatIPIndex``, ``ShardedU8FlatIPIndex``): every rank embeds the
+query and searches its block, and rank 0 prints the merged hits, the
+single index's. As in JAX, ``--ivf`` with ``--data_parallel`` is refused.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ._common import add_parallel_flags, make_mesh_from_flags
 
 
 def load_features(store_dir: Path):
@@ -63,7 +69,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                              "codec meta: no weights needed")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--use_gpu", action="store_true", help="accepted for parity; placement is --device")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported")
+    add_parallel_flags(ap, distributed=False)
     ap.add_argument("--ivf", action="store_true",
                     help="use the clustered IVF index (FAISS IndexIVFFlat analogue) instead of exact search: "
                          "probes only --nprobe of --nlist k-means cells per query")
@@ -79,23 +85,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", type=str, default="cuda", choices=("cpu", "cuda"))
     args = ap.parse_args(argv)
     if args.ivf and args.data_parallel:
-        # no sharded IVF exists; refusing beats silently dropping one flag
+        # JAX's CLI builds no sharded IVF (shard_ivf_index is the library's); refusing beats dropping a flag
         raise SystemExit("--ivf and --data_parallel do not combine; pick the "
                          "clustered single-chip index or the sharded exact one")
-    if args.data_parallel:
-        raise SystemExit("--data_parallel is not ported to the PyTorch package yet (parallel/)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
 
-    from ..index import build_index, build_index_u8, build_ivf_index, build_ivf_index_u8, search_index
+    from ..index import (build_index, build_index_u8, build_ivf_index, build_ivf_index_u8, build_sharded_index,
+                         build_sharded_index_u8, search_index)
+    from ..parallel.mesh import barrier, is_main, rank_device
 
-    store_dir, dev = Path(args.store_dir), args.device
+    mesh = make_mesh_from_flags(args)
+    store_dir = Path(args.store_dir)
+    dev = rank_device(mesh) if mesh is not None else args.device
     if args.u8:
         codes, scale, zero, paths = load_codes(store_dir)
         if args.ivf:
             idx = build_ivf_index_u8(codes, scale, zero, nlist=args.nlist, nprobe=args.nprobe, device=dev)
+        elif mesh is not None:
+            idx = build_sharded_index_u8(codes, scale, zero, mesh)
         else:
             idx = build_index_u8(codes, scale, zero, device=dev)
+    elif mesh is not None:
+        feats, paths = load_features(store_dir)
+        idx = build_sharded_index(feats, mesh)
     elif args.ivf:
         feats, paths = load_features(store_dir)
         idx = build_ivf_index(feats, nlist=args.nlist, nprobe=args.nprobe, device=dev)
@@ -134,8 +147,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
         encoder = ClipEncoder(weights_path=args.weights, bpe_path=args.bpe, device=dev)
         qvec = encoder.encode_text(args.query)[0]
-    for p, s in search_index(qvec, idx, paths, k=args.k):
-        print(f"{s:.4f}\t{p}")
+    hits = search_index(qvec, idx, paths, k=args.k)  # a collective under a mesh: every rank searches
+    if is_main(mesh):
+        for p, s in hits:
+            print(f"{s:.4f}\t{p}")
+    barrier(mesh)
 
 
 if __name__ == "__main__":

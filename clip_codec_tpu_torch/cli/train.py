@@ -16,14 +16,24 @@ which ``ClipCodec.load`` and ``cli/reconstruct_diffusion --weights`` read;
 ``--clip_weights`` (a CLIP checkpoint) turns on the CLIP-alignment term:
 the image tower in bf16 on ``--device``, fed the clamped x0-prediction
 resized to 224 with no mean/std, on even epochs, without a gradient (the
-reference's quirk). Not ported yet, and refused rather than silently
-dropped: ``--data_parallel`` / ``--distributed`` / ``--spatial_shard > 1``.
+reference's quirk).
+
+``--data_parallel`` trains data-parallel over every rank of the launcher
+(one rank per card: ``torchrun --nproc_per_node N -m
+clip_codec_tpu_torch.cli.train --data_parallel ...``; without a launcher, a
+world of one); ``--batch_size`` is then the global batch and must divide by
+the rank count. ``--distributed`` joins the launcher's process group before
+anything touches a device and implies ``--data_parallel``; without the
+launcher's environment it stops. Rank 0 writes the files. Not ported yet,
+and refused rather than silently dropped: ``--spatial_shard > 1``.
 """
 
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
+
+from ._common import add_parallel_flags, make_mesh_from_flags
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Train the CLIP-conditioned diffusion decoder on a store.")
@@ -57,28 +67,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--remat", action="store_true",
                     help="recompute ResBlocks in the backward pass (more FLOPs, less activation memory)")
     ap.add_argument("--spatial_shard", type=int, default=1, help="not ported (values > 1 are refused)")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported")
-    ap.add_argument("--distributed", action="store_true", help="not ported")
+    add_parallel_flags(ap)
     args = ap.parse_args(argv)
 
     import torch
 
-    from ..train.diffusion_train import NOT_PORTED_SPATIAL, DiffusionTrainConfig, train_diffusion
-    from ..train.sd_diffusion_train import NOT_PORTED_DP
+    from ..parallel.mesh import is_main, rank_device
+    from ..parallel.sample import NOT_PORTED_SPATIAL
+    from ..train.diffusion_train import DiffusionTrainConfig, train_diffusion
 
-    if args.data_parallel or args.distributed:
-        raise SystemExit(NOT_PORTED_DP)
     if args.spatial_shard > 1:
         raise SystemExit(NOT_PORTED_SPATIAL)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
+    mesh = make_mesh_from_flags(args)
+    device = rank_device(mesh) if mesh is not None else args.device
 
     clip_embed_fn = None
     if args.clip_weights:
         from ..encoders import ClipEncoder
         from ..encoders.clip import embed_m11_images
 
-        enc = ClipEncoder(weights_path=args.clip_weights, dtype=torch.bfloat16, device=args.device)
+        enc = ClipEncoder(weights_path=args.clip_weights, dtype=torch.bfloat16, device=device)
         clip_embed_fn = lambda _params, imgs: embed_m11_images(enc.model, imgs)
 
     cfg = DiffusionTrainConfig(
@@ -91,8 +101,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         data_workers=args.data_workers, cache_images=args.cache_images,
     )
     ckpt = train_diffusion(args.store_dir, config=cfg, save_dir=args.save_dir, resume=args.resume,
-                           clip_embed_fn=clip_embed_fn, device=args.device)
-    print(f"Final checkpoint: {ckpt}")
+                           clip_embed_fn=clip_embed_fn, mesh=mesh, device=device)
+    if is_main(mesh):
+        print(f"Final checkpoint: {ckpt}")
 
 
 if __name__ == "__main__":

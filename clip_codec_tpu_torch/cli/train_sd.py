@@ -19,8 +19,9 @@ As in the JAX CLI, the ``--clip_w`` DINO-alignment term is on when
 ViT-B/14 tower, bf16, frozen), and the ``--perc_w`` LPIPS term when
 ``--perc_w`` > 0 and ``$CLIP_CODEC_LPIPS_WEIGHTS`` is set (VGG16, fp32, on
 every ``--perc_every``-th step); both compare against the records' images
-loaded at ``--out_size``. ``--data_parallel`` / ``--distributed`` are not
-ported and are refused.
+loaded at ``--out_size``. ``--data_parallel`` and ``--distributed`` as
+``cli/train.py``'s: the adapter trains data-parallel over the launcher's
+ranks, the frozen UNet and VAE loaded on every rank's card; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
+
+from ._common import add_parallel_flags, make_mesh_from_flags
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -59,16 +62,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="EMA of the adapter (0 = off); also writes sd_adapter_ema_final.pt")
     ap.add_argument("--data_workers", type=int, default=0,
                     help="accepted for the JAX CLI's flags; the latents load on one prefetch thread")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported")
-    ap.add_argument("--distributed", action="store_true", help="not ported")
+    add_parallel_flags(ap)
     args = ap.parse_args(argv)
 
-    from ..train.sd_diffusion_train import NOT_PORTED_DP, SDTrainConfig, train_sd_diffusion
+    from ..parallel.mesh import is_main, rank_device
+    from ..train.sd_diffusion_train import SDTrainConfig, train_sd_diffusion
 
-    if args.data_parallel or args.distributed:
-        raise SystemExit(NOT_PORTED_DP)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
+    mesh = make_mesh_from_flags(args)
+    device = rank_device(mesh) if mesh is not None else torch.device(args.device)
 
     from ..io.store import Store
     from ..models import init_params
@@ -77,23 +80,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from .reconstruct_sd_diffusion import load_frozen
 
     unet_path, vae_path = require_sd_weight_paths(args.model_name)
-    unet, vae = load_frozen(unet_path, vae_path, args.device, heads=args.heads)
+    unet, vae = load_frozen(unet_path, vae_path, device, heads=args.heads)
     store = Store.open(args.store_dir, manifest_name="manifest_latents.json")
-    with torch.device(args.device):
+    with torch.device(device):
         adapter = SDClipAdapter(store.dim, unet.cfg.cross_dim, n_tokens=args.n_tokens)
-    init_params(adapter, torch.Generator(device=args.device).manual_seed(args.seed))
+    init_params(adapter, torch.Generator(device=device).manual_seed(args.seed))
     decoder = StableDiffusionDecoder(unet, vae, adapter)
 
     dino = None
     if args.clip_w > 0 and os.environ.get("CLIP_CODEC_DINO_WEIGHTS"):
         from ..encoders import DinoEncoder
 
-        dino = DinoEncoder(device=args.device).model
+        dino = DinoEncoder(device=device).model
     lpips_model = None
     if args.perc_w > 0:
         from ..eval.lpips import LPIPSModel
 
-        scorer = LPIPSModel.from_env(args.device)  # None without weights
+        scorer = LPIPSModel.from_env(device)  # None without weights
         lpips_model = None if scorer is None else scorer.model
 
     cfg = SDTrainConfig(
@@ -104,8 +107,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     )
     final = train_sd_diffusion(Path(args.store_dir), decoder,
                                save_dir=Path(args.save_dir) if args.save_dir else None,
-                               dino=dino, lpips_model=lpips_model, config=cfg, resume=args.resume)
-    print(f"Saved final adapter to {final}")
+                               dino=dino, lpips_model=lpips_model, config=cfg, mesh=mesh, resume=args.resume)
+    if is_main(mesh):
+        print(f"Saved final adapter to {final}")
 
 
 if __name__ == "__main__":

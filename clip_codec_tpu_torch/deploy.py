@@ -53,8 +53,20 @@ dict (``cli.export_decoder --int8`` writes it beside the artifact as
 ``<artifact>.quant.pt``), and a call without it raises. Its scales are 0-d
 device tensors the captured graph reads: each call copies the dict it is
 given into static buffers before the replay, as it does z, so one capture
-serves any calibration. Not ported: the sharded artifacts (``parallel/``),
-refused with a message that names the module.
+serves any calibration.
+
+The data-sharded pixel artifact (``export_sharded_decompressor``,
+``load_sharded_decompressor``) splits the batch over a mesh's ``data``
+axis: its header adds JAX's ``sharded``, ``spatial`` and ``mesh: {data,
+model}``, and a load checks the mesh's shape. Each rank samples its
+``batch_size / n_data`` rows on its own device (on the card through its own
+whole-sampler graph at that batch) from x_T drawn for the global batch from
+the seed, so its rows are the single-device artifact's at that batch on
+those rows of the seed's noise (in bf16 another batch rounds otherwise);
+the rows are gathered after the replay, since a gloo collective is not
+captured. Not
+ported: spatial sharding and the tensor-parallel SD artifacts
+(``parallel/tp.py``), refused with a message that names them.
 """
 
 from __future__ import annotations
@@ -77,6 +89,8 @@ from .models.sd.unet import SD15_UNET
 from .models.sd.vae import SD15_VAE, AutoencoderKL
 from .ops import attention as _attention
 from .ops import int8 as q8
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size, barrier, is_main, local_rows,
+                            rank_device)
 from .utils.config import ModelConfig
 
 PathLike = Union[str, Path]
@@ -87,7 +101,8 @@ _KINDS = ("pixel", "sd")
 PLATFORMS = ("cuda", "cpu")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 QUANT_SUFFIX = ".quant.pt"  # the calibration sidecar beside an int8 artifact
-NOT_PORTED_SHARDED = "sharded artifacts are not ported to the PyTorch package yet (parallel/)"
+NOT_PORTED_SHARDED = ("spatially sharded and tensor-parallel SD artifacts are not ported to the PyTorch package "
+                      "yet (ROADMAP.md Queue 1: parallel/tp.py and spatial sharding, the model axis)")
 
 
 # ---------------------------------------------------------------- the file
@@ -115,14 +130,19 @@ def read_artifact_meta(path: PathLike) -> dict:
     return meta
 
 
-def _read_artifact(path: PathLike, expect_kind: str) -> dict:
+def _read_artifact(path: PathLike, expect_kind: str, sharded: bool = False) -> dict:
     meta = read_artifact_meta(path)
     if meta["kind"] != expect_kind:
         raise ValueError(
             f"{path}: this is a {meta['kind']!r} artifact — load it with "
             f"load_{'sd_' if meta['kind'] == 'sd' else ''}decompressor")
-    if meta.get("sharded"):
+    if meta.get("sharded") and (expect_kind == "sd" or meta.get("spatial")):
         raise ValueError(f"{path}: {NOT_PORTED_SHARDED}")
+    if meta.get("sharded") and not sharded:
+        raise ValueError(f"{path}: sharded artifact (mesh {meta.get('mesh')}) — use "
+                         f"load_sharded_decompressor(path, mesh)")
+    if sharded and not meta.get("sharded"):
+        raise ValueError(f"{path}: not a sharded artifact — use load_decompressor")
     return meta
 
 
@@ -241,6 +261,7 @@ class _Program:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available (load with device='cpu')")
         self.generator = torch.Generator(device=self.device)
+        self.rows = slice(None)  # this program's rows of the artifact's batch
         self.graph: Optional[_Graph] = None
         self._params: Optional[tuple] = None
         self._static: Dict[str, torch.Tensor] = {}
@@ -263,11 +284,13 @@ class _Program:
         return t.to(device=self.device, dtype=torch.float32)
 
     def _noise(self, seed: int, x_T, shape: Tuple[int, ...]) -> torch.Tensor:
-        """Seed the generator, then the initial noise: ``x_T``, or drawn from it."""
+        """Seed the generator, then the initial noise of the artifact's whole
+        batch (``x_T``, or drawn from it), cut to this program's rows."""
         self.generator.manual_seed(int(seed))
+        whole = (self.meta["batch_size"],) + tuple(shape[1:])
         if x_T is not None:
-            return self._tensor(x_T, shape, "x_T")
-        return torch.randn(shape, generator=self.generator, device=self.device, dtype=torch.float32)
+            return self._tensor(x_T, whole, "x_T")[self.rows]
+        return torch.randn(whole, generator=self.generator, device=self.device, dtype=torch.float32)[self.rows]
 
     def _run(self, inputs: Dict[str, torch.Tensor], eager: Callable[..., torch.Tensor],
              seed: int, x_T, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -291,21 +314,23 @@ class _Program:
 
 
 def make_decompress_fn(mc: ModelConfig, size: int = 256, steps: int = 50, sampler: str = "ddim",
-                       eta: float = 0.0, output: str = "float32",
+                       eta: float = 0.0, output: str = "float32", batch_rows: Optional[Tuple[int, slice]] = None,
                        ) -> Callable[..., torch.Tensor]:
     """The serving function ``(net, z, x_T, generator) -> images``: the
     sampler from ``x_T`` (B, size, size, img_ch) conditioned on ``z`` (B,
     z_dim), clipped to [-1, 1], and with ``output="uint8"`` converted as
     the host prepares a PNG, ``((x + 1) * 127.5)`` truncated to uint8.
-    ``generator`` draws the per-step noise at ``eta > 0``."""
+    ``generator`` draws the per-step noise at ``eta > 0``, for the whole
+    batch of ``batch_rows`` = (batch, rows) when these B are its ``rows``."""
     if output not in ("float32", "uint8"):
         raise ValueError(f"output must be 'float32' or 'uint8', got {output!r}")
     sched = NoiseSchedule.create(mc.timesteps, mc.schedule)
     smp = make_sampler(sampler, sched, eta=eta)
+    split = {} if batch_rows is None or eta == 0 else {"batch_rows": batch_rows}
 
     def run(net: CLIPCondUNet, z: torch.Tensor, x_T: torch.Tensor,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = smp.sample(net, z, tuple(x_T.shape), steps=steps, x_T=x_T, generator=generator)
+        x = smp.sample(net, z, tuple(x_T.shape), steps=steps, x_T=x_T, generator=generator, **split)
         x = torch.clamp(x, -1.0, 1.0)
         if output == "uint8":
             x = ((x + 1.0) * 127.5).to(torch.uint8)
@@ -342,6 +367,15 @@ def export_decompressor(
     (bf16, as the JAX program; fp32 for parity runs). ``quant`` (a
     calibrated quant dict, ``ops.int8.calibrate_unet``) makes it a
     static-int8 artifact, whose calls then take that dict."""
+    meta = _pixel_meta(params, mc, size, steps, sampler, eta, batch_size, quant, output, platforms, dtype)
+    return _write_artifact(path, "pixel", meta)
+
+
+def _pixel_meta(params: StateDict, mc: ModelConfig, size: int, steps: int, sampler: str, eta: float,
+                batch_size: int, quant, output: str, platforms: Optional[Sequence[str]],
+                dtype: Union[str, torch.dtype]) -> dict:
+    """A pixel artifact's header, after checking ``params`` (and ``quant``)
+    against the architecture."""
     make_decompress_fn(mc, size, steps, sampler, eta, output)  # rejects a bad sampler, eta or output
     meta = dict(size=int(size), steps=int(steps), sampler=sampler, eta=float(eta), batch_size=int(batch_size),
                 z_dim=int(mc.z_dim), img_ch=int(mc.img_ch), int8=quant is not None, output=output,
@@ -351,7 +385,7 @@ def export_decompressor(
     net = _load(_pixel_net(meta), params, "U-Net")
     if quant is not None:
         _check_quant(net, quant)
-    return _write_artifact(path, "pixel", meta)
+    return meta
 
 
 class PixelDecompressor(_Program):
@@ -374,16 +408,15 @@ class PixelDecompressor(_Program):
     def __call__(self, params: StateDict, z, seed: int = 0, x_T=None, quant: Optional[q8.Quant] = None
                  ) -> torch.Tensor:
         m = self.meta
-        B = m["batch_size"]
         self._bind((params,))
-        z = self._tensor(z, (B, m["z_dim"]), "z")
+        z = self._tensor(z, (m["batch_size"], m["z_dim"]), "z")[self.rows]
 
         def eager(z, x_T, generator, **q):
             _use_quant(self.net, q)
             return self.sample(self.net, z, x_T, generator)
 
         return self._run({"z": z, **_quant_inputs(self, self.net, quant)}, eager, seed, x_T,
-                         (B, m["size"], m["size"], m["img_ch"]))
+                         (z.shape[0], m["size"], m["size"], m["img_ch"]))
 
 
 def load_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> PixelDecompressor:
@@ -522,18 +555,84 @@ def load_sd_decompressor(path: PathLike, device: Union[str, torch.device] = "cud
     return SDDecompressor(_read_artifact(path, "sd"), device)
 
 
-def export_sharded_decompressor(*args, **kwargs):
+# ---------------------------------------------------------------- sharded
+
+
+def _mesh_shape(mesh) -> dict:
+    return {"data": axis_size(mesh, DATA_AXIS), "model": axis_size(mesh, MODEL_AXIS)}
+
+
+def export_sharded_decompressor(
+    params: StateDict,
+    mc: ModelConfig,
+    path: PathLike,
+    mesh,
+    *,
+    spatial: bool = False,
+    size: int = 256,
+    steps: int = 50,
+    sampler: str = "ddim",
+    eta: float = 0.0,
+    batch_size: int = 16,
+    platforms: Optional[Sequence[str]] = None,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+) -> Path:
+    """Write a pixel artifact whose batch splits over ``mesh``'s ``data``
+    axis (weights replicated, no collective inside the sampler). Every rank
+    calls it; rank 0 writes the file. A seed's x_T is drawn for the whole
+    batch, as the single-device artifact draws it. ``spatial=True`` is not
+    ported."""
+    if spatial:
+        raise NotImplementedError(NOT_PORTED_SHARDED)
+    shape = _mesh_shape(mesh)
+    if batch_size % shape["data"]:
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {shape['data']}")
+    meta = _pixel_meta(params, mc, size, steps, sampler, eta, batch_size, None, "float32", platforms, dtype)
+    meta.update(sharded=True, spatial=False, mesh=shape)
+    if is_main(mesh):
+        _write_artifact(path, "pixel", meta)
+    barrier(mesh)
+    return Path(path)
+
+
+class ShardedPixelDecompressor(PixelDecompressor):
+    """``call(params, z, seed=0, x_T=None) -> images``: the whole batch's
+    (batch_size, size, size, img_ch) float32 images on every rank, of which
+    this rank sampled its rows."""
+
+    def __init__(self, meta: dict, mesh) -> None:
+        super().__init__(meta, rank_device(mesh))
+        self.mesh = mesh
+        self.rows = local_rows(mesh, meta["batch_size"])
+        self.sample = make_decompress_fn(self.mc, meta["size"], meta["steps"], meta["sampler"], meta["eta"],
+                                         meta["output"], batch_rows=(meta["batch_size"], self.rows))
+
+    def __call__(self, params: StateDict, z, seed: int = 0, x_T=None) -> torch.Tensor:
+        return all_gather_rows(self.mesh, super().__call__(params, z, seed, x_T))
+
+
+def load_sharded_decompressor(path: PathLike, mesh) -> ShardedPixelDecompressor:
+    """Load a sharded artifact on each rank's device for a mesh of the
+    export-time shape (``meta["mesh"]``); every rank calls it alike."""
+    meta = _read_artifact(path, "pixel", sharded=True)
+    want, have = meta["mesh"], _mesh_shape(mesh)
+    if have != want:
+        raise ValueError(f"{path}: exported for mesh {want}, got {have}")
+    return ShardedPixelDecompressor(meta, mesh)
+
+
+def export_sharded_sd_decompressor(*args, **kwargs):
+    """Not ported: the tensor-parallel SD artifact needs ``parallel/tp.py``."""
     raise NotImplementedError(NOT_PORTED_SHARDED)
 
 
-load_sharded_decompressor = export_sharded_sd_decompressor = load_sharded_sd_decompressor = \
-    export_sharded_decompressor
+load_sharded_sd_decompressor = export_sharded_sd_decompressor
 
 
 __all__ = [
     "make_decompress_fn", "export_decompressor", "load_decompressor", "PixelDecompressor",
     "make_sd_decompress_fn", "export_sd_decompressor", "load_sd_decompressor", "SDDecompressor",
-    "export_sharded_decompressor", "load_sharded_decompressor",
+    "export_sharded_decompressor", "load_sharded_decompressor", "ShardedPixelDecompressor",
     "export_sharded_sd_decompressor", "load_sharded_sd_decompressor",
     "read_artifact_meta",
 ]

@@ -81,16 +81,28 @@ def ddim_sample(
     generator: Optional[torch.Generator] = None,
     x_T: Optional[torch.Tensor] = None,
     standard: bool = False,
+    batch_rows: Optional[Tuple[int, slice]] = None,
 ) -> torch.Tensor:
     """Sample fp32 images of ``shape`` = (B, H, W, C) conditioned on ``z``.
 
     ``generator`` (on z's device) draws the initial noise when ``x_T`` is
-    None and, for ``eta > 0``, the per-step noise."""
+    None and, for ``eta > 0``, the per-step noise. ``batch_rows`` =
+    (global batch, rows): these B rows are ``rows`` of a larger batch, and
+    every draw is made for the whole batch and cut to them, so a batch split
+    over ranks samples what the whole batch would."""
     device = z.device
+
+    def draw() -> torch.Tensor:
+        if batch_rows is None:
+            return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        total, rows = batch_rows
+        whole = (total,) + tuple(shape[1:])
+        return torch.randn(whole, generator=generator, device=device, dtype=torch.float32)[rows]
+
     ts, abt, ab_s = _step_coefficients(sched, steps, standard)
     c_noise, c_x0, c_s, c_dir, sig = _update_coefficients(abt, ab_s, eta, standard)
     if x_T is None:
-        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        x = draw()
     else:
         x = x_T.to(device=device, dtype=torch.float32)
     for i in range(len(ts)):
@@ -99,8 +111,7 @@ def ddim_sample(
         x0 = torch.clamp((x - float(c_noise[i]) * eps) / float(c_x0[i]), -1.0, 1.0)
         x = float(c_s[i]) * x0 + float(c_dir[i]) * eps
         if eta > 0:
-            noise = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-            x = x + float(sig[i]) * noise
+            x = x + float(sig[i]) * draw()
     return x
 
 
@@ -121,7 +132,8 @@ class DDIMSampler:
         cfg_scale: float = 1.0,
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        batch_rows: Optional[Tuple[int, slice]] = None,
     ) -> torch.Tensor:
         del cfg_scale  # accepted and ignored, as in the reference, see (d)
         return ddim_sample(model_fn, self.sched, z, tuple(shape), steps, self.eta,
-                           generator, x_T, standard=self.standard)
+                           generator, x_T, standard=self.standard, batch_rows=batch_rows)

@@ -9,6 +9,11 @@ checkpoint (openai / open_clip ``.pt`` or HuggingFace ``CLIPModel``
 or ``CLIP_BPE_PATH``; ``DinoEncoder`` a HuggingFace ``Dinov2Model``
 checkpoint (``weights/convert_dino.py``) from its argument or
 ``CLIP_CODEC_DINO_WEIGHTS``. Missing files raise with the variable's name.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh) makes the batched image encode
+data-parallel: each batch is padded to a multiple of the data axis, every
+rank embeds its rows on its own device, and the rows are gathered, so every
+rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -30,9 +35,6 @@ __all__ = ["CLIPConfig", "CLIPModel", "VIT_B_32", "preprocess_pil", "preprocess_
            "CLIPTokenizer", "ClipEncoder", "DINOV2_BASE", "DinoConfig", "DinoV2", "preprocess_dino",
            "DinoEncoder"]
 
-NOT_PORTED_DP = ("data parallelism (mesh=, --data_parallel) is not ported to the PyTorch package yet "
-                 "(ROADMAP.md Queue 1, parallel/)")
-
 
 def _require(path: Optional[str], env: str, what: str) -> Path:
     path = path or os.environ.get(env)
@@ -44,17 +46,35 @@ def _require(path: Optional[str], env: str, what: str) -> Path:
     return Path(path)
 
 
+def _device(device, mesh) -> torch.device:
+    """The encoder's device: the rank's under a mesh, else ``device``."""
+    if mesh is not None:
+        from ..parallel.mesh import rank_device
+
+        return rank_device(mesh)
+    return torch.device(device)
+
+
 def _batched_encode(paths: Sequence[str], preprocess: Callable[[str], np.ndarray],
                     embed: Callable[[np.ndarray], np.ndarray], batch_size: int,
-                    dim: int) -> Tuple[np.ndarray, List[str]]:
+                    dim: int, mesh=None) -> Tuple[np.ndarray, List[str]]:
     """File -> embedding batching loop: every batch is zero-padded to
     ``batch_size`` rows, so a row's result does not depend on the size of
     the tail batch (the library would pick another GEMM for another row
     count); files that fail to open or decode are skipped.
-    ``preprocess(path) -> (H, W, C)``; ``embed(pixels) -> (B, dim)``.
-    Returns (Z fp32, kept_paths)."""
+    ``preprocess(path) -> (H, W, C)``; ``embed(pixels) -> (B, dim)``. Under
+    ``mesh`` the padded batch is rounded up to a multiple of the data axis,
+    each rank embeds its rows and the host rows are gathered (gloo serves
+    CPU tensors on every backend layout). Returns (Z fp32, kept_paths)."""
     from ..utils.batching import pad_rows
 
+    rows = slice(None)
+    if mesh is not None:  # the padded batch must split evenly over the ranks
+        from ..parallel.mesh import all_gather_rows, axis_size, local_rows
+
+        n_data = axis_size(mesh)
+        batch_size = -(-batch_size // n_data) * n_data
+        rows = local_rows(mesh, batch_size)
     zs: List[np.ndarray] = []
     kept: List[str] = []
     batch: List[np.ndarray] = []
@@ -64,7 +84,10 @@ def _batched_encode(paths: Sequence[str], preprocess: Callable[[str], np.ndarray
         if not batch:
             return
         x = np.stack(batch)
-        zs.append(embed(pad_rows(x, batch_size))[: x.shape[0]])
+        z = embed(pad_rows(x, batch_size)[rows])
+        if mesh is not None:
+            z = all_gather_rows(mesh, torch.from_numpy(np.ascontiguousarray(z))).numpy()
+        zs.append(z[: x.shape[0]])
         kept.extend(bpaths)
         batch.clear()
         bpaths.clear()
@@ -90,7 +113,9 @@ class ClipEncoder:
     uint8 pixel batches (``preprocess_pil_u8``) cross to the device as they
     are and are normalized there by a gather from ``clip_normalize_table``,
     bit-equal to host ``preprocess_pil``. ``device="cuda"`` (the default)
-    raises without a card: the encoder never falls back to the CPU."""
+    raises without a card: the encoder never falls back to the CPU. Under
+    ``mesh`` it lives on the rank's device and ``encode_images`` is
+    data-parallel."""
 
     def __init__(
         self,
@@ -103,9 +128,8 @@ class ClipEncoder:
     ) -> None:
         from ..weights.convert_clip import load_clip_state_dict
 
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED_DP)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = _device(device, mesh)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ClipEncoder: no CUDA device is available (pass device='cpu')")
         wpath = _require(weights_path, "CLIP_CODEC_CLIP_WEIGHTS", "CLIP")
@@ -143,8 +167,8 @@ class ClipEncoder:
         """Encode image files; corrupt files are skipped. Returns (Z, kept_paths)."""
         return _batched_encode(
             paths, lambda p: preprocess_pil_u8(Image.open(p), self.cfg.image_size),
-            lambda x: self.embed_images(torch.from_numpy(x)).cpu().numpy(),
-            batch_size, self.cfg.embed_dim)
+            lambda x: self.embed_images(torch.from_numpy(x)).cpu().numpy(), batch_size, self.cfg.embed_dim,
+            self.mesh)
 
     def encode_image_array(self, images_hwc: np.ndarray) -> np.ndarray:
         """Encode loaded HWC images: uint8 (``preprocess_pil_u8``'s output),
@@ -160,16 +184,15 @@ class DinoEncoder:
     default) giving ``z / (||z|| + 1e-9)`` fp32 rows, as the JAX
     ``DinoEncoder``. Images are decoded, resized and normalized on the host
     (``preprocess_dino``); ``device="cuda"`` (the default) raises without a
-    card."""
+    card. ``mesh`` as ``ClipEncoder``'s."""
 
     def __init__(self, weights_path: Optional[str] = None, cfg: DinoConfig = DINOV2_BASE,
                  dtype: torch.dtype = torch.bfloat16, device: Union[str, torch.device] = "cuda",
                  mesh=None) -> None:
         from ..weights.convert_dino import load_dino_state_dict
 
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED_DP)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = _device(device, mesh)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DinoEncoder: no CUDA device is available (pass device='cpu')")
         wpath = _require(weights_path, "CLIP_CODEC_DINO_WEIGHTS", "DINOv2")
@@ -192,4 +215,4 @@ class DinoEncoder:
             return preprocess_dino(arr, self.cfg.image_size)
 
         return _batched_encode(paths, preprocess, lambda x: self.embed_images(torch.from_numpy(x)).cpu().numpy(),
-                               batch_size, self.cfg.dim)
+                               batch_size, self.cfg.dim, self.mesh)

@@ -25,6 +25,8 @@ The bucketing, the rebalance and the seeded init are host numpy, copied
 from the JAX package as they are, so the same data gives the same lists.
 Semantics match FAISS IVF with ``METRIC_INNER_PRODUCT``; probing
 ``nprobe >= nlist`` is exact (every row lives in exactly one list).
+``shard_ivf_index`` splits the lists over a mesh's ``data`` axis
+(``ShardedIVFIndex``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch
 from ..ops.u8_scan import CHUNK_ROWS, fold_query, full_fp32, u8_ip_probe
 from .search import Device, _device, _host, _no_hits, _queries, _rank, _tensor
 
-__all__ = ["IVFIndex", "build_ivf_index", "build_ivf_index_u8", "kmeans"]
+__all__ = ["IVFIndex", "build_ivf_index", "build_ivf_index_u8", "kmeans", "ShardedIVFIndex", "shard_ivf_index"]
 
 
 # ------------------------------------------------------------------ k-means
@@ -338,3 +340,101 @@ def build_ivf_index_u8(
         scale=_tensor(scale, torch.float32, dev), zero=_tensor(zero, torch.float32, dev),
         list_inv=torch.from_numpy(list_inv).to(dev),
     )
+
+
+# ------------------------------------------------------------------ sharded
+
+
+@dataclass
+class ShardedIVFIndex:
+    """:class:`IVFIndex` with the inverted lists split over a mesh's ``data``
+    axis, fp32 or uint8 (``scale``/``zero``/``list_inv`` set). The
+    centroids are whole on every rank, so every rank computes the same
+    probe set; each scores only the probed lists it owns (the uint8 form
+    through ``u8_ip_probe``), takes its local top-k, and the ranks'
+    candidates are merged on the host. Every real list lives on exactly one
+    rank, so the hits are :class:`IVFIndex`'s (among equal scores held by
+    different ranks the lower rank's come first). Build with
+    :func:`shard_ivf_index`."""
+
+    centroids: torch.Tensor  # (nlist, D) fp32, whole
+    lists: torch.Tensor      # (local_nlist, cap, D) this rank's lists, zero-padded
+    list_ids: torch.Tensor   # (local_nlist, cap) int32, -1 = padding
+    base: int                # the first list this rank owns
+    ntotal: int
+    nlist_real: int
+    mesh: object
+    nprobe: int = 8
+    scale: torch.Tensor | None = None
+    zero: torch.Tensor | None = None
+    list_inv: torch.Tensor | None = None  # (local_nlist, cap) in u8 mode
+
+    def search(self, queries, k: int, nprobe: int | None = None) -> Tuple[np.ndarray, np.ndarray]:
+        """(Q, D) queries -> (scores (Q, k), ids (Q, k)) descending; past the
+        candidates the probed lists held, ids are -1 and scores 0 (the JAX
+        sharded index's contract), padded to exactly k columns."""
+        from ..parallel.mesh import all_gather_rows
+
+        q = _queries(queries, self.centroids.device)
+        nq = q.shape[0]
+        if self.ntotal == 0:
+            return _no_hits(nq)
+        k = max(1, min(k, self.ntotal))
+        np_ = max(1, min(self.nprobe if nprobe is None else int(nprobe), self.nlist_real))
+        local_nlist, cap = self.list_ids.shape
+        with full_fp32():
+            probe = _rank(q @ self.centroids.T, np_)[1]          # (Q, nprobe) global list ids
+        lp = probe - self.base
+        own = (lp >= 0) & (lp < local_nlist)
+        lpc = torch.clamp(lp, 0, local_nlist - 1)
+        if self.scale is not None:
+            qs, qz = fold_query(q, self.scale, self.zero)
+            sims = u8_ip_probe(self.lists, self.list_inv, lpc.to(torch.int32), qs, qz)
+        else:
+            with full_fp32():
+                sims = torch.einsum("qd,qpcd->qpc", q, self.lists[lpc])
+        ids = torch.where(own[..., None], self.list_ids[lpc], -1)
+        sims = torch.where(ids >= 0, sims, -torch.inf).reshape(nq, -1)
+        s, j = _rank(sims, min(k, np_ * cap))
+        ids = ids.reshape(nq, -1).gather(1, j)
+        s = all_gather_rows(self.mesh, s, dim=1).cpu().numpy()
+        ids = all_gather_rows(self.mesh, ids, dim=1).cpu().numpy()
+        s = np.where(ids >= 0, s, -np.inf)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        rows = np.arange(nq)[:, None]
+        s, i = s[rows, order], ids[rows, order]
+        i = np.where(np.isfinite(s), i, -1).astype(np.int32)
+        s = np.where(np.isfinite(s), s, 0.0).astype(np.float32)
+        if s.shape[1] < k:  # nprobe * cap * shards < k
+            s = np.pad(s, ((0, 0), (0, k - s.shape[1])))
+            i = np.pad(i, ((0, 0), (0, k - i.shape[1])), constant_values=-1)
+        return s, i
+
+
+def shard_ivf_index(index: IVFIndex, mesh) -> ShardedIVFIndex:
+    """Split an :class:`IVFIndex`'s inverted lists over ``mesh``'s ``data``
+    axis (fp32 or uint8) onto each rank's device. Lists are padded to a
+    multiple of the axis with id -1 rows, masked before ranking and never
+    probed (probe ids come from the real centroids)."""
+    from ..parallel.mesh import axis_index, axis_size, rank_device
+
+    dev = rank_device(mesh)
+    n_sh = axis_size(mesh)
+    nlist_real, cap = index.list_ids.shape
+    per = -(-nlist_real // n_sh)
+    lo = axis_index(mesh) * per
+    hi = min(lo + per, nlist_real)
+
+    def block(t: torch.Tensor, fill) -> torch.Tensor:
+        got = t[lo:hi].to(dev)
+        pad = per - got.shape[0]
+        if pad:
+            got = torch.cat([got, torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=dev)])
+        return got.contiguous()
+
+    u8 = index.scale is not None
+    return ShardedIVFIndex(
+        centroids=index.centroids.to(dev), lists=block(index.lists, 0), list_ids=block(index.list_ids, -1),
+        base=lo, ntotal=index.ntotal, nlist_real=nlist_real, mesh=mesh, nprobe=index.nprobe,
+        scale=index.scale.to(dev) if u8 else None, zero=index.zero.to(dev) if u8 else None,
+        list_inv=block(index.list_inv, 0.0) if u8 else None)

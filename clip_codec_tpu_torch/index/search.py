@@ -14,6 +14,11 @@ keep the reference's API, k clamped to ntotal.
 Constructors take ``device`` (default ``"cuda"``) and raise without a card:
 the index never falls back to the CPU. ``search`` takes numpy or torch
 queries and returns numpy ``(scores (Q, k) fp32, ids (Q, k) int32)``.
+
+The sharded forms (``ShardedFlatIPIndex``, ``ShardedU8FlatIPIndex``) split
+the rows over a mesh's ``data`` axis, one block a rank on the rank's
+device; every rank calls ``search`` with the same queries and gets the
+single index's hits.
 """
 
 from __future__ import annotations
@@ -178,3 +183,137 @@ def build_index_u8(codes, scale, zero, device: Device = "cuda") -> U8FlatIPIndex
     codes = _tensor(codes, torch.uint8, dev)
     scale, zero = _tensor(scale, torch.float32, dev), _tensor(zero, torch.float32, dev)
     return U8FlatIPIndex(codes=codes, scale=scale, zero=zero, inv_norms=_u8_inv_norms(codes, scale, zero))
+
+
+# ------------------------------------------------------------------ sharded
+
+
+def _local_candidates(sims: torch.Tensor, base: int, ntotal: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's (Q, rows) scores -> its top-k with global ids, on the
+    device. Padded rows (global id >= ntotal) are masked to -inf BEFORE the
+    top-k: a zero-padded row scores exactly 0, which would push a real row
+    with a negative score out of the shard's candidates."""
+    gids = base + torch.arange(sims.shape[1], device=sims.device, dtype=torch.int32)
+    sims = torch.where(gids[None, :] < ntotal, sims, -torch.inf)
+    s, i = _rank(sims, min(k, sims.shape[1]))
+    return s, (i + base).to(torch.int32)
+
+
+def _merge_candidates(mesh, scores: torch.Tensor, ids: torch.Tensor, ntotal: int, k: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Every shard's candidates gathered to every rank, (Q, k * n_shards)
+    (only (Q, k) a shard crosses between ranks, never the (Q, N) scores),
+    then merged on the host to (Q, k), dropping padded rows (id >= ntotal).
+    The sort is stable over candidates laid out shard by shard, each
+    shard's in ``_rank``'s order, so equal scores keep the lower id first:
+    the single index's order."""
+    from ..parallel.mesh import all_gather_rows
+
+    scores = all_gather_rows(mesh, scores, dim=1).cpu().numpy()
+    ids = all_gather_rows(mesh, ids, dim=1).cpu().numpy()
+    scores = np.where(ids < ntotal, scores, -np.inf)
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    rows = np.arange(scores.shape[0])[:, None]
+    return scores[rows, order].astype(np.float32), ids[rows, order].astype(np.int32)
+
+
+def _shard_block(a: np.ndarray, mesh) -> Tuple[np.ndarray, int]:
+    """This rank's block of rows of ``a`` zero-padded to a multiple of the
+    data axis, and the block's first global row."""
+    from ..parallel.mesh import axis_index, axis_size
+
+    if a.ndim != 2:  # an empty store's features
+        a = a.reshape(0, 0)
+    n = axis_size(mesh)
+    per = -(-a.shape[0] // n)
+    lo = axis_index(mesh) * per
+    block = a[lo:lo + per]
+    if block.shape[0] < per:
+        block = np.concatenate([block, np.zeros((per - block.shape[0],) + a.shape[1:], a.dtype)])
+    return np.ascontiguousarray(block), lo
+
+
+@dataclass
+class ShardedFlatIPIndex:
+    """:class:`FlatIPIndex` with the feature ROWS split over a mesh's ``data``
+    axis: each rank keeps its block on its device, scores it and takes its
+    local top-k, and the ranks' candidates are merged on the host. The hits
+    of :class:`FlatIPIndex` (exact search); every rank returns them."""
+
+    feats: torch.Tensor  # (rows, D) float32: this rank's block, zero-padded
+    base: int            # the block's first global row
+    ntotal: int          # real rows (before padding)
+    mesh: object
+
+    def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = _queries(queries, self.feats.device)
+        if self.ntotal == 0:  # empty store: no candidates
+            return _no_hits(q.shape[0])
+        k = max(1, min(k, self.ntotal))
+        return _merge_candidates(self.mesh, *self._local(q, k), self.ntotal, k)
+
+    def _local(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This shard's candidates: device tensors, no host sync."""
+        with full_fp32():
+            sims = q @ self.feats.T
+        return _local_candidates(sims, self.base, self.ntotal, k)
+
+
+def build_sharded_index(feats, mesh) -> ShardedFlatIPIndex:
+    """Split ``feats`` (host (N, D)) over ``mesh``'s ``data`` axis,
+    zero-padded to a multiple of it (padded rows never win: they are masked
+    before each shard's top-k and dropped by id at the merge)."""
+    from ..parallel.mesh import rank_device
+
+    feats = _host(feats)
+    block, base = _shard_block(feats, mesh)
+    return ShardedFlatIPIndex(feats=torch.from_numpy(block).to(rank_device(mesh)), base=base,
+                              ntotal=int(feats.shape[0]), mesh=mesh)
+
+
+@dataclass
+class ShardedU8FlatIPIndex:
+    """Row-sharded :class:`U8FlatIPIndex`: each rank keeps its block of the
+    store's uint8 codes and their inverse norms, and scores it with
+    ``u8_ip_scores`` (the hand-written kernel on the card); then the local
+    top-k and the same host merge as :class:`ShardedFlatIPIndex`."""
+
+    codes: torch.Tensor      # (rows, D) uint8: this rank's block, zero-padded
+    scale: torch.Tensor      # (D,) float32
+    zero: torch.Tensor       # (D,) float32
+    inv_norms: torch.Tensor  # (rows,) float32, 0 on padding
+    base: int
+    ntotal: int
+    mesh: object
+
+    def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        q = _queries(queries, self.codes.device)
+        if self.ntotal == 0:
+            return _no_hits(q.shape[0])
+        k = max(1, min(k, self.ntotal))
+        return _merge_candidates(self.mesh, *self._local(q, k), self.ntotal, k)
+
+    def _local(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This shard's candidates: device tensors, no host sync."""
+        qs, qz = fold_query(q, self.scale, self.zero)
+        return _local_candidates(u8_ip_scores(self.codes, qs, qz, self.inv_norms), self.base, self.ntotal, k)
+
+
+def build_sharded_index_u8(codes, scale, zero, mesh) -> ShardedU8FlatIPIndex:
+    """Split the store's raw codes over ``mesh``'s ``data`` axis; each rank
+    computes its block's row norms on its device (padding rows: all-zero
+    codes with inverse norm 0, masked before the local top-k)."""
+    from ..parallel.mesh import rank_device
+
+    dev = rank_device(mesh)
+    codes = np.ascontiguousarray(_host(codes, np.uint8))
+    n = codes.shape[0]
+    block, base = _shard_block(codes, mesh)
+    real = max(0, min(block.shape[0], n - base))
+    block_d = torch.from_numpy(block).to(dev)
+    scale, zero = _tensor(scale, torch.float32, dev), _tensor(zero, torch.float32, dev)
+    inv = torch.zeros((block.shape[0],), dtype=torch.float32, device=dev)
+    if real:
+        inv[:real] = _u8_inv_norms(block_d[:real], scale, zero)
+    return ShardedU8FlatIPIndex(codes=block_d, scale=scale, zero=zero, inv_norms=inv, base=base, ntotal=n,
+                                mesh=mesh)

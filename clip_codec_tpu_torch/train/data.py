@@ -1,5 +1,5 @@
 """Host-side data pipeline for training from a store — the port of
-``clip_codec_tpu/train/data.py`` (without its multi-process ``local=`` rows).
+``clip_codec_tpu/train/data.py``.
 
 * ``load_image_u8`` / ``load_image_m11``: PIL decode, BICUBIC resize, (H, W, 3)
   uint8 or float32 in [-1, 1] (PIL is imported when an image is loaded);
@@ -10,7 +10,8 @@
   uint8 RAM cache with ``cache_images``) into fixed-shape batches whose
   padded tail rows carry weight 0; a prefetch thread overlaps the decode
   with the device's steps. Cached, pooled and plain decodes give the same
-  bits.
+  bits. Under data parallelism (``local=``) a rank decodes only its rows
+  of every global batch.
 """
 
 from __future__ import annotations
@@ -82,7 +83,9 @@ class Batch:
     x0: np.ndarray  # (B, H, W, 3) float32 in [-1, 1] (uint8 under epoch(u8=True))
     z: np.ndarray  # (B, D) float32, L2-normalized
     weight: np.ndarray  # (B,) float32, 0.0 marks padding
-    wsum: float = 0.0  # real rows in the batch
+    # real rows of the GLOBAL batch: weight.sum() except under local= rows,
+    # where weight covers only this rank's rows
+    wsum: float = 0.0
 
 
 class StoreData:
@@ -116,16 +119,26 @@ class StoreData:
         imgs = np.stack(self._pool.map(self._decode_u8, [int(i) for i in idx]))
         return imgs if u8 else imgs.astype(np.float32) / 127.5 - 1.0
 
-    def _epoch_sync(self, batch_size: int, rng: np.random.Generator, shuffle: bool, u8: bool) -> Iterator[Batch]:
+    def _epoch_sync(self, batch_size: int, rng: np.random.Generator, shuffle: bool, local: Optional[tuple],
+                    u8: bool) -> Iterator[Batch]:
         n = len(self)
         order = rng.permutation(n) if shuffle else np.arange(n)
         for idx, w in padded_index_batches(n, batch_size, order):
-            yield Batch(x0=self._load_images(idx, u8=u8), z=self.z[idx], weight=w, wsum=float(w.sum()))
+            wsum = float(w.sum())
+            if local is not None:
+                lo, hi = local
+                idx, w = idx[lo:hi], w[lo:hi]
+            yield Batch(x0=self._load_images(idx, u8=u8), z=self.z[idx], weight=w, wsum=wsum)
 
     def epoch(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True, prefetch: int = 2,
-              u8: bool = False) -> Iterator[Batch]:
+              local: Optional[tuple] = None, u8: bool = False) -> Iterator[Batch]:
         """Fixed-shape batches over one epoch in ``rng``'s order, the tail
         padded with repeats of weight 0; ``prefetch`` batches are decoded
         ahead on a host thread (0: synchronous); ``u8`` yields raw uint8
-        pixels for ``scale_m11_u8`` on the device."""
-        yield from prefetch_iter(self._epoch_sync(batch_size, rng, shuffle, u8), prefetch)
+        pixels for ``scale_m11_u8`` on the device.
+
+        ``local=(lo, hi)``: data parallelism. The order and the padding stay
+        global (the same on every rank for the same ``rng`` seed), but only
+        rows ``[lo:hi)`` of each batch are decoded and yielded;
+        ``Batch.wsum`` is still the global batch's real-row count."""
+        yield from prefetch_iter(self._epoch_sync(batch_size, rng, shuffle, local, u8), prefetch)

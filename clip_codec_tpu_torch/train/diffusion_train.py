@@ -18,8 +18,19 @@ AdamW and the loss arithmetic fp32.
 
 The CLIP-alignment term runs when a ``clip_embed_fn`` is given (the CLI
 builds it from ``encoders.ClipEncoder`` and ``encoders.clip.embed_m11_images``)
-and is skipped without one, as in JAX without CLIP weights. Data
-parallelism and spatial sharding (``mesh``, ``spatial``) are not ported.
+and is skipped without one, as in JAX without CLIP weights.
+
+Data parallelism (``mesh``, a ``parallel.make_mesh`` mesh): ``batch_size``
+is the global batch, and each rank decodes and steps on its rows of it. A
+rank's loss is its rows' weighted sum over the global batch's real-row
+count, so the ranks' gradients, summed by one all-reduce, are the gradient
+of JAX's global ``weighted_mean`` (a rank whose rows are all padding adds
+zeros). ``t`` and the noise are drawn for the global batch from the same
+seed on every rank and cut to its rows, so one rank and several train the
+same trajectory up to the order of the sum. Parameters start equal on every
+rank (a broadcast from rank 0), so the optimizer and the EMA stay equal too;
+rank 0 writes the files and prints. Spatial sharding (``spatial=True``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -34,17 +45,16 @@ import torch
 
 from ..diffusion.schedule import NoiseSchedule
 from ..models.unet import CLIPCondUNet, init_params
+from ..parallel.mesh import axis_size, barrier, is_main, local_rows, rank_device, replicate, sum_gradients
+from ..parallel.sample import NOT_PORTED_SPATIAL
 from ..utils.checkpoint import TrainCheckpointer, save_state_dict
 from ..utils.config import ModelConfig
 from ..utils.logging import TrainLogger
 from .data import StoreData, scale_m11_u8
 from .losses import clip_alignment, eps_mse, l1, total_variation, weighted_mean
 from .optim import ema_update, make_optimizer
-from .sd_diffusion_train import NOT_PORTED_DP
 
 PathLike = Union[str, Path]
-NOT_PORTED_SPATIAL = ("spatial sharding (spatial=True, --spatial_shard > 1) is not ported to the PyTorch "
-                      "package yet (ROADMAP.md Queue 1, parallel/)")
 
 
 @dataclass
@@ -75,19 +85,22 @@ class DiffusionTrainConfig:
 
 def make_train_step(net: CLIPCondUNet, sched: NoiseSchedule, optimizer: torch.optim.Optimizer,
                     cfg: DiffusionTrainConfig, clip_embed_fn: Optional[Callable] = None,
-                    ema: Optional[dict] = None):
-    """``step(x0, z, weight, t, noise, clip_on) -> loss`` (detached): the
-    loss, its backward, one optimizer step and, with ``ema``, the EMA
-    update. ``step.loss_fn`` (same arguments) is the differentiable loss.
-    ``x0`` and ``noise`` (B, H, W, 3) fp32, ``z`` (B, D), ``weight`` (B,)
-    fp32 (0 marks padding), ``t`` (B,) int; ``clip_embed_fn(images)`` maps
-    [-1, 1] NHWC images to CLIP embeddings."""
+                    ema: Optional[dict] = None, mesh=None):
+    """``step(x0, z, weight, t, noise, clip_on, wsum=None) -> loss``
+    (detached): the loss, its backward, one optimizer step and, with
+    ``ema``, the EMA update. ``step.loss_fn`` (same arguments) is the
+    differentiable loss. ``x0`` and ``noise`` (B, H, W, 3) fp32, ``z`` (B,
+    D), ``weight`` (B,) fp32 (0 marks padding), ``t`` (B,) int;
+    ``clip_embed_fn(images)`` maps [-1, 1] NHWC images to CLIP embeddings.
+    With ``mesh`` the arguments are this rank's rows, ``wsum`` (required)
+    the global batch's real-row count, and the step sums the gradients and
+    the loss over the data axis: it returns the global batch's loss."""
     if net.fused_pallas and not net.remat:
         raise NotImplementedError("the fused serving form computes no gradient: "
                                   "train CLIPCondUNet(fused_pallas=False)")
     params = dict(net.named_parameters())
 
-    def loss_fn(x0, z, weight, t, noise, clip_on=False):
+    def loss_fn(x0, z, weight, t, noise, clip_on=False, wsum=None):
         ti = t.long()
         x_t = sched.q_sample(x0, ti, noise)
         eps_hat = net(x_t, z, t).float()
@@ -100,12 +113,16 @@ def make_train_step(net: CLIPCondUNet, sched: NoiseSchedule, optimizer: torch.op
         if clip_on and cfg.clip_w > 0 and clip_embed_fn is not None:
             align = clip_alignment(x0_pred, z, clip_embed_fn, stop_grad=not cfg.clip_align_grad)
             per = per + cfg.clip_w * align
-        return weighted_mean(per, weight)
+        return weighted_mean(per, weight, wsum)
 
-    def step(x0, z, weight, t, noise, clip_on=False):
+    def step(x0, z, weight, t, noise, clip_on=False, wsum=None):
+        if mesh is not None and wsum is None:
+            raise ValueError("a data-parallel step needs wsum, the global batch's real-row count")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(x0, z, weight, t, noise, clip_on)
+        loss = loss_fn(x0, z, weight, t, noise, clip_on, wsum)
         loss.backward()
+        if mesh is not None:
+            (loss,) = sum_gradients(mesh, list(params.values()), loss)
         optimizer.step()
         if ema is not None:
             ema_update(ema, params, cfg.ema_decay)
@@ -146,16 +163,26 @@ def train_diffusion(
     ``init_params`` with a generator on ``device`` seeded with ``seed``; the
     epoch order is ``np.random.default_rng(seed)``'s; ``t`` and the noise come
     from a generator on ``device`` seeded with ``seed + 1``; the CLIP term
-    (``clip_embed_fn(clip_params, images)``) runs on even epochs."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_DP)
+    (``clip_embed_fn(clip_params, images)``) runs on even epochs.
+
+    ``mesh``: a ``parallel.make_mesh`` mesh for data-parallel training on
+    the rank's device (``device`` is then ignored); ``cfg.batch_size`` is
+    the global batch and must divide by the mesh's data axis."""
     if spatial:
         raise NotImplementedError(NOT_PORTED_SPATIAL)
     cfg = config or DiffusionTrainConfig(
         out_size=out_size, epochs=epochs, batch_size=batch_size, lr=lr, timesteps=timesteps,
         schedule=schedule, recon_w=recon_w, clip_w=clip_w, tv_w=tv_w)
     save_dir = Path(save_dir or store_dir)
-    dev = torch.device(device)
+    rows, epoch_local = slice(None), None
+    if mesh is not None:
+        n_data = axis_size(mesh)
+        if cfg.batch_size % n_data:
+            raise ValueError(f"batch_size={cfg.batch_size} not divisible by data axis {n_data}")
+        rows = local_rows(mesh, cfg.batch_size)
+        epoch_local = (rows.start, rows.stop)  # decode only this rank's rows
+    main = is_main(mesh)
+    dev = rank_device(mesh) if mesh is not None else torch.device(device)
     data = StoreData(store_dir, out_size=cfg.out_size, workers=cfg.data_workers, cache_images=cfg.cache_images)
     with torch.device(dev):
         net = CLIPCondUNet(z_dim=data.z_dim, base=cfg.base, ch_mult=cfg.ch_mult, img_ch=3,
@@ -164,8 +191,10 @@ def train_diffusion(
     init_params(net, torch.Generator(device=dev).manual_seed(cfg.seed))
     sched = NoiseSchedule.create(cfg.timesteps, cfg.schedule, device=dev)
     optimizer = make_optimizer(net, cfg.lr)
-    ModelConfig(z_dim=data.z_dim, base=cfg.base, ch_mult=tuple(cfg.ch_mult), timesteps=cfg.timesteps,
-                schedule=cfg.schedule, out_size=cfg.out_size).save(save_dir)
+    if main:
+        ModelConfig(z_dim=data.z_dim, base=cfg.base, ch_mult=tuple(cfg.ch_mult), timesteps=cfg.timesteps,
+                    schedule=cfg.schedule, out_size=cfg.out_size).save(save_dir)
+    barrier(mesh)
 
     checkpointer = TrainCheckpointer(save_dir / "state")
     use_ema = cfg.ema_decay > 0
@@ -179,11 +208,16 @@ def train_diffusion(
             if use_ema:  # a state saved without an EMA restarts the average from its params
                 ema = {k: v.float().clone() for k, v in (restored.get("ema") or restored["params"]).items()}
             start_epoch = int(restored["epoch"])
-            print(f"[train] resumed from epoch {start_epoch}")
+            if main:
+                print(f"[train] resumed from epoch {start_epoch}")
+    if mesh is not None:  # every rank loaded the same file (or none), so the optimizer state is equal too
+        replicate(mesh, net)
+        if use_ema:
+            replicate(mesh, ema)
     embed = None if clip_embed_fn is None else (lambda images: clip_embed_fn(clip_params, images))
-    step_fn = make_train_step(net, sched, optimizer, cfg, embed, ema)
+    step_fn = make_train_step(net, sched, optimizer, cfg, embed, ema, mesh)
 
-    logger = TrainLogger(log_every=cfg.log_every)
+    logger = TrainLogger(log_every=cfg.log_every, enabled=main)
     data_rng = np.random.default_rng(cfg.seed)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     step = 0
@@ -191,25 +225,32 @@ def train_diffusion(
         clip_on = ep % 2 == 0  # the reference's every other epoch
         losses, wsums = [], []
         t0 = time.time()
-        for batch in data.epoch(cfg.batch_size, data_rng, u8=True):
+        for batch in data.epoch(cfg.batch_size, data_rng, local=epoch_local, u8=True):
             # uint8 pixels cross to the device and are scaled there, bit-equal to the host math
             x0 = scale_m11_u8(torch.from_numpy(batch.x0).to(dev))
             z, w = (torch.from_numpy(a).to(dev) for a in (batch.z, batch.weight))
-            t = torch.randint(0, cfg.timesteps, (x0.shape[0],), generator=gen, device=dev, dtype=torch.int32)
-            noise = torch.randn(x0.shape, generator=gen, device=dev, dtype=torch.float32)
-            loss = step_fn(x0, z, w, t, noise, clip_on)
+            # drawn for the global batch on every rank, then cut to its rows
+            B = cfg.batch_size
+            t = torch.randint(0, cfg.timesteps, (B,), generator=gen, device=dev, dtype=torch.int32)[rows]
+            noise = torch.randn((B,) + x0.shape[1:], generator=gen, device=dev, dtype=torch.float32)[rows]
+            loss = step_fn(x0, z, w, t, noise, clip_on, batch.wsum if mesh is not None else None)
             losses.append(loss)
             wsums.append(batch.wsum)
             step += 1
             logger.step(step, loss)
         ep_loss = float(np.average([float(l) for l in losses], weights=wsums))
-        save_state_dict(save_dir / f"diffusion_unet_ep{ep + 1}.pt", net.state_dict())
-        state = {"params": net.state_dict(), "optimizer": optimizer.state_dict(), "epoch": ep + 1}
-        if use_ema:
-            state["ema"] = ema
-        checkpointer.save(ep + 1, state)
+        if main:
+            save_state_dict(save_dir / f"diffusion_unet_ep{ep + 1}.pt", net.state_dict())
+            state = {"params": net.state_dict(), "optimizer": optimizer.state_dict(), "epoch": ep + 1}
+            if use_ema:
+                state["ema"] = ema
+            checkpointer.save(ep + 1, state)
+        barrier(mesh)
         logger.epoch(ep + 1, cfg.epochs, ep_loss, sum(wsums) / max(time.time() - t0, 1e-9))
-    final = save_state_dict(save_dir / "diffusion_unet_final.pt", net.state_dict())
-    if use_ema:
-        save_state_dict(save_dir / "diffusion_unet_ema_final.pt", ema)
+    final = save_dir / "diffusion_unet_final.pt"
+    if main:
+        save_state_dict(final, net.state_dict())
+        if use_ema:
+            save_state_dict(save_dir / "diffusion_unet_ema_final.pt", ema)
+    barrier(mesh)
     return final

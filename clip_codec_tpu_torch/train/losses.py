@@ -5,13 +5,17 @@ NHWC tensors."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
-def weighted_mean(per_sample: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Average over real (non-padding) samples only."""
+def weighted_mean(per_sample: torch.Tensor, weight: torch.Tensor, total: Optional[float] = None) -> torch.Tensor:
+    """Average over real (non-padding) samples only. ``total`` is the real
+    rows of the global batch when these are one rank's rows of it: the
+    ranks' results then sum to the global batch's mean."""
+    if total is not None:
+        return torch.sum(per_sample * weight) / max(float(total), 1.0)
     return torch.sum(per_sample * weight) / torch.clamp(torch.sum(weight), min=1.0)
 
 

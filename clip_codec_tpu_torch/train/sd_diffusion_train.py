@@ -24,8 +24,14 @@ VAE: the flash-attention backward kernel runs there (``ops/attention.py``);
 the DINO tower and LPIPS' VGG16 are plain torch (their JAX counterparts
 reach no Pallas kernel). The UNet, VAE and DINO tower compute in their own
 dtype (bf16 on the card); the adapter, AdamW, LPIPS and the loss arithmetic
-are fp32. Data parallelism needs the parallel slice and is not ported
-(``ROADMAP.md``).
+are fp32.
+
+Data parallelism (``mesh``) as the pixel trainer's: the frozen UNet and
+VAE are loaded on every rank and only the adapter is data-parallel; each
+rank loads its rows of every global batch (latents and images), draws ``t``
+and the noise for the global batch and cuts them to its rows, computes
+every term (DINO and LPIPS too) on its rows, and the adapter's gradients
+are summed over the data axis; rank 0 writes the files and prints.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from torch import nn
 from ..encoders.dino import DinoV2, embed_m11_images_dino
 from ..io.store import Store
 from ..models.sd.decoder import SD_SCALING_FACTOR, StableDiffusionDecoder, sd_alphas_cumprod
+from ..parallel.mesh import axis_size, barrier, is_main, local_rows, replicate, sum_gradients
 from ..utils.batching import padded_index_batches, prefetch_iter
 from ..utils.checkpoint import TrainCheckpointer, save_state_dict
 from ..utils.logging import TrainLogger
@@ -51,8 +58,6 @@ from .losses import eps_mse, total_variation, weighted_mean
 from .optim import ema_update, make_optimizer
 
 PathLike = Union[str, Path]
-NOT_PORTED_DP = ("data parallelism (mesh, --data_parallel, --distributed) is not ported to the "
-                 "PyTorch package yet (ROADMAP.md Queue 1, parallel/)")
 
 
 @dataclass
@@ -115,22 +120,25 @@ def freeze(decoder: StableDiffusionDecoder, *towers: Optional[nn.Module]) -> Non
 
 def make_sd_train_step(decoder: StableDiffusionDecoder, optimizer: torch.optim.Optimizer,
                        cfg: SDTrainConfig, ema: Optional[dict] = None, dino: Optional[DinoV2] = None,
-                       lpips: Optional[nn.Module] = None):
-    """``step(z, lat0, weight, t, noise, gt_img=None, perc_on=False) ->
-    loss`` (detached): the loss, its backward, one optimizer step and, with
-    ``ema``, the EMA update. ``step.loss_fn`` (same arguments) is the
-    differentiable loss. ``z`` (B, D), ``lat0`` and ``noise`` (B, h, w, 4)
-    fp32 scaled latents, ``weight`` (B,) fp32 (0 marks padding), ``t`` (B,)
-    int; ``gt_img`` (B, S, S, 3) fp32 in [-1, 1], needed when ``dino`` (the
-    ``clip_w`` term) or ``lpips`` (an ``eval.lpips.LPIPS``, the ``perc_w``
-    term, run only where ``perc_on``) is given with a positive weight."""
+                       lpips: Optional[nn.Module] = None, mesh=None):
+    """``step(z, lat0, weight, t, noise, gt_img=None, perc_on=False,
+    wsum=None) -> loss`` (detached): the loss, its backward, one optimizer
+    step and, with ``ema``, the EMA update. ``step.loss_fn`` (same
+    arguments) is the differentiable loss. ``z`` (B, D), ``lat0`` and
+    ``noise`` (B, h, w, 4) fp32 scaled latents, ``weight`` (B,) fp32 (0
+    marks padding), ``t`` (B,) int; ``gt_img`` (B, S, S, 3) fp32 in [-1,
+    1], needed when ``dino`` (the ``clip_w`` term) or ``lpips`` (an
+    ``eval.lpips.LPIPS``, the ``perc_w`` term, run only where ``perc_on``)
+    is given with a positive weight. With ``mesh`` the arguments are this
+    rank's rows, ``wsum`` (required) the global batch's real-row count, and
+    the step sums the adapter's gradients and the loss over the data axis."""
     unet, vae, adapter = decoder.unet, decoder.vae, decoder.adapter
     dev = next(adapter.parameters()).device
     ac = torch.from_numpy(sd_alphas_cumprod(cfg.timesteps)).to(dev)
     dino_on = dino is not None and cfg.clip_w > 0
     freeze(decoder, dino, lpips)
 
-    def loss_fn(z, lat0, weight, t, noise, gt_img=None, perc_on=False):
+    def loss_fn(z, lat0, weight, t, noise, gt_img=None, perc_on=False, wsum=None):
         sa = torch.sqrt(ac[t.long()])[:, None, None, None]
         sb = torch.sqrt(1.0 - ac[t.long()])[:, None, None, None]
         lat_t = sa * lat0 + sb * noise
@@ -155,14 +163,18 @@ def make_sd_train_step(decoder: StableDiffusionDecoder, optimizer: torch.optim.O
                 gt_small = F.interpolate(gt_img.permute(0, 3, 1, 2), size=x_hat.shape[1:3], mode="bilinear",
                                          align_corners=False, antialias=False).permute(0, 2, 3, 1)
                 per = per + cfg.perc_w * lpips(x_hat, gt_small)
-        return weighted_mean(per, weight)
+        return weighted_mean(per, weight, wsum)
 
     params = dict(adapter.named_parameters())
 
-    def step(z, lat0, weight, t, noise, gt_img=None, perc_on=False):
+    def step(z, lat0, weight, t, noise, gt_img=None, perc_on=False, wsum=None):
+        if mesh is not None and wsum is None:
+            raise ValueError("a data-parallel step needs wsum, the global batch's real-row count")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(z, lat0, weight, t, noise, gt_img, perc_on)
+        loss = loss_fn(z, lat0, weight, t, noise, gt_img, perc_on, wsum)
         loss.backward()
+        if mesh is not None:
+            (loss,) = sum_gradients(mesh, list(params.values()), loss)
         optimizer.step()
         if ema is not None:
             ema_update(ema, params, cfg.ema_decay)
@@ -194,11 +206,18 @@ def train_sd_diffusion(
     from a ``torch.Generator`` on the adapter's device seeded with
     ``seed + 1``. ``dino`` (a ``DinoV2``, frozen here) turns on the
     ``clip_w`` term, ``lpips_model`` (an ``eval.lpips.LPIPS``, differentiable
-    in its inputs) the ``perc_w`` term on every ``perc_every``-th step."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_DP)
+    in its inputs) the ``perc_w`` term on every ``perc_every``-th step.
+    ``mesh``: data-parallel training with the decoder on the rank's device;
+    ``cfg.batch_size`` is the global batch and must divide by the data axis."""
     cfg = config or SDTrainConfig(epochs=epochs, batch_size=batch_size, lr=lr)
     save_dir = Path(save_dir or store_dir)
+    rows = slice(None)
+    if mesh is not None:
+        n_data = axis_size(mesh)
+        if cfg.batch_size % n_data:
+            raise ValueError(f"batch_size={cfg.batch_size} not divisible by data axis {n_data}")
+        rows = local_rows(mesh, cfg.batch_size)  # load only this rank's rows
+    main = is_main(mesh)
     need_gt = (dino is not None and cfg.clip_w > 0) or (lpips_model is not None and cfg.perc_w > 0)
     data = SDStoreData(store_dir, image_size=cfg.out_size if need_gt else None)
     adapter = decoder.adapter
@@ -217,10 +236,16 @@ def train_sd_diffusion(
                 src = restored.get("ema") or restored["adapter"]
                 ema = {k: v.float().clone() for k, v in src.items()}
             start_epoch = int(restored["epoch"])
-            print(f"[train_sd] resumed from epoch {start_epoch}")
-    step_fn = make_sd_train_step(decoder, optimizer, cfg, ema, dino=dino, lpips=lpips_model)
+            if main:
+                print(f"[train_sd] resumed from epoch {start_epoch}")
+    if mesh is not None:  # the frozen models are loaded alike on every rank; the adapter starts as rank 0's
+        replicate(mesh, adapter)
+        if use_ema:
+            replicate(mesh, ema)
+    dp = {} if mesh is None else {"mesh": mesh}  # a one-device run calls the step factory as before
+    step_fn = make_sd_train_step(decoder, optimizer, cfg, ema, dino=dino, lpips=lpips_model, **dp)
 
-    logger = TrainLogger(log_every=cfg.log_every)
+    logger = TrainLogger(log_every=cfg.log_every, enabled=main)
     host_rng = np.random.default_rng(cfg.seed)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     n = len(data)
@@ -229,7 +254,7 @@ def train_sd_diffusion(
         # npz latent and image reads on a host thread, overlapping the device steps
         def gen_batches():
             for idx, w in padded_index_batches(n, cfg.batch_size, order):
-                yield (float(w.sum()), w) + data.batch(idx)
+                yield (float(w.sum()), w[rows]) + data.batch(idx[rows])
 
         return prefetch_iter(gen_batches(), prefetch=2)
 
@@ -241,23 +266,28 @@ def train_sd_diffusion(
         for wsum, w, z, lat0, img in epoch_batches(order):
             z_d, lat_d, w_d = (torch.from_numpy(a).to(dev) for a in (z, lat0, w))
             img_d = None if img is None else scale_m11_u8(torch.from_numpy(img).to(dev))  # uint8 over the link
-            b = lat_d.shape[0]
-            t = torch.randint(0, cfg.timesteps, (b,), generator=gen, device=dev, dtype=torch.int32)
-            noise = torch.randn(lat_d.shape, generator=gen, device=dev, dtype=torch.float32)
+            B = cfg.batch_size  # drawn for the global batch on every rank, then cut to its rows
+            t = torch.randint(0, cfg.timesteps, (B,), generator=gen, device=dev, dtype=torch.int32)[rows]
+            noise = torch.randn((B,) + lat_d.shape[1:], generator=gen, device=dev, dtype=torch.float32)[rows]
             perc_on = lpips_model is not None and step % cfg.perc_every == 0
-            loss = step_fn(z_d, lat_d, w_d, t, noise, img_d, perc_on)
+            loss = step_fn(z_d, lat_d, w_d, t, noise, img_d, perc_on, **({"wsum": wsum} if dp else {}))
             losses.append(loss)
             wsums.append(wsum)
             step += 1
             logger.step(step, loss)
         ep_loss = float(np.average([float(l) for l in losses], weights=wsums))
-        save_state_dict(save_dir / f"sd_adapter_ep{ep + 1}.pt", adapter.state_dict())
-        state = {"adapter": adapter.state_dict(), "optimizer": optimizer.state_dict(), "epoch": ep + 1}
-        if use_ema:
-            state["ema"] = ema
-        checkpointer.save(ep + 1, state)
+        if main:
+            save_state_dict(save_dir / f"sd_adapter_ep{ep + 1}.pt", adapter.state_dict())
+            state = {"adapter": adapter.state_dict(), "optimizer": optimizer.state_dict(), "epoch": ep + 1}
+            if use_ema:
+                state["ema"] = ema
+            checkpointer.save(ep + 1, state)
+        barrier(mesh)  # every rank waits for rank 0's write (a resume reads it on every rank)
         logger.epoch(ep + 1, cfg.epochs, ep_loss, sum(wsums) / max(time.time() - t0, 1e-9))
-    final = save_state_dict(save_dir / "sd_adapter_final.pt", adapter.state_dict())
-    if use_ema:
-        save_state_dict(save_dir / "sd_adapter_ema_final.pt", ema)
+    final = save_dir / "sd_adapter_final.pt"
+    if main:
+        save_state_dict(final, adapter.state_dict())
+        if use_ema:
+            save_state_dict(save_dir / "sd_adapter_ema_final.pt", ema)
+    barrier(mesh)
     return final

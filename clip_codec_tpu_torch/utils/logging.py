@@ -6,12 +6,16 @@ from __future__ import annotations
 
 
 class TrainLogger:
-    def __init__(self, log_every: int = 0) -> None:
+    """``enabled=False`` prints nothing (a data-parallel rank other than 0)."""
+
+    def __init__(self, log_every: int = 0, enabled: bool = True) -> None:
         self.log_every = log_every
+        self.enabled = enabled
 
     def step(self, step: int, loss) -> None:
-        if self.log_every and step % self.log_every == 0:
+        if self.enabled and self.log_every and step % self.log_every == 0:
             print(f"[train] step {step} loss={float(loss):.4f}")
 
     def epoch(self, ep: int, total: int, loss: float, imgs_per_sec: float) -> None:
-        print(f"[train] epoch {ep}/{total} loss={loss:.4f} ({imgs_per_sec:.1f} imgs/s)")
+        if self.enabled:
+            print(f"[train] epoch {ep}/{total} loss={loss:.4f} ({imgs_per_sec:.1f} imgs/s)")

@@ -236,8 +236,6 @@ def test_u8_input_is_bit_equal_to_host_normalized_input(encs, rng):
 
 
 def test_encoder_refusals(ckpt, monkeypatch):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        encoders.ClipEncoder(weights_path=ckpt, cfg=CLIPConfig(**TINY), device="cpu", mesh=object())
     monkeypatch.delenv("CLIP_CODEC_CLIP_WEIGHTS", raising=False)
     with pytest.raises(RuntimeError, match="CLIP_CODEC_CLIP_WEIGHTS"):
         encoders.ClipEncoder(device="cpu")
@@ -333,8 +331,6 @@ def test_encode_cli_refusals(tmp_path, ckpt, monkeypatch):
     from clip_codec_tpu_torch.cli.encode_images import main
 
     base = ["--img_dir", str(tmp_path), "--out_dir", str(tmp_path / "s"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="parallel/"):
-        main(base + ["--data_parallel"])
     with pytest.raises(SystemExit, match="Only ViT-B-32"):
         main(base + ["--model", "ViT-L-14"])
     with pytest.raises(SystemExit, match="existing store"):

@@ -227,7 +227,9 @@ def test_int8_and_sharded_are_refused(pixel, tmp_path):
     """int8 artifacts are served (static int8: the call takes the quant
     dict, and equals the eager sampler of the U-Net with those scales; a
     call without it raises naming the sidecar, a non-int8 artifact refuses
-    one); sharded artifacts stay refused."""
+    one); a data-sharded file is refused by ``load_decompressor`` with
+    JAX's message, and the spatial and SD sharded artifacts stay refused,
+    naming the modules still to port."""
     from clip_codec_tpu_torch.models import CLIPCondUNet
     from clip_codec_tpu_torch.ops import int8 as q8
 
@@ -251,12 +253,17 @@ def test_int8_and_sharded_are_refused(pixel, tmp_path):
     meta = deploy.read_artifact_meta(tmp_path / "f.torchprog")
     forged = tmp_path / "sharded.torchprog"
     forged.write_bytes(b"CLPTORCHPROG1\n" + json.dumps({**meta, "sharded": True}).encode() + b"\n")
-    with pytest.raises(ValueError, match="parallel/"):
+    with pytest.raises(ValueError, match="use load_sharded_decompressor"):
         deploy.load_decompressor(forged, device="cpu")
-    for fn in (deploy.export_sharded_decompressor, deploy.load_sharded_decompressor,
-               deploy.export_sharded_sd_decompressor, deploy.load_sharded_sd_decompressor):
-        with pytest.raises(NotImplementedError, match="parallel/"):
+    spatial = tmp_path / "spatial.torchprog"
+    spatial.write_bytes(b"CLPTORCHPROG1\n" + json.dumps({**meta, "sharded": True, "spatial": True}).encode() + b"\n")
+    with pytest.raises(ValueError, match="parallel/tp.py and spatial sharding"):
+        deploy.load_sharded_decompressor(spatial, None)
+    for fn in (deploy.export_sharded_sd_decompressor, deploy.load_sharded_sd_decompressor):
+        with pytest.raises(NotImplementedError, match="parallel/tp.py and spatial sharding"):
             fn()
+    with pytest.raises(NotImplementedError, match="parallel/tp.py and spatial sharding"):
+        deploy.export_sharded_decompressor(pixel["sd"], pixel["mc"], tmp_path / "s.torchprog", None, spatial=True)
 
 
 def test_schedule_host_tables_keep_the_samplers_bit_equal():

@@ -222,8 +222,6 @@ def test_encoder_defaults_and_refusals(dino_file, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         encoders.DinoEncoder(weights_path=str(dino_file))
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        encoders.DinoEncoder(weights_path=str(dino_file), device="cpu", mesh=object())
     monkeypatch.delenv("CLIP_CODEC_DINO_WEIGHTS", raising=False)
     with pytest.raises(RuntimeError, match="CLIP_CODEC_DINO_WEIGHTS"):
         encoders.DinoEncoder(device="cpu")
@@ -292,8 +290,6 @@ def test_encode_cli_refusals(tmp_path, rng, monkeypatch):
     from clip_codec_tpu_torch.cli import encode_images_dino as cli
 
     base = ["--img_dir", str(tmp_path), "--out_dir", str(tmp_path / "s"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="parallel/"):
-        cli.main(base + ["--data_parallel"])
     with pytest.raises(SystemExit, match="Only vit_base_patch14_dinov2"):
         cli.main(base + ["--model_name", "vit_large_patch14_dinov2.lvd142m"])
     with pytest.raises(ValueError, match="No supported image files"):

@@ -245,8 +245,8 @@ def test_eval_cli_skips_nan_metrics_and_refuses_what_is_not_ported(tmp_path, rng
     out = capsys.readouterr().out.splitlines()
     assert out[2:] == ["Average LPIPS: nan", "Average CLIP similarity: nan"]
     assert re.fullmatch(r"Average PSNR: \d+\.\d\d dB", out[0]) and re.fullmatch(r"Average SSIM: -?\d\.\d{4}", out[1])
-    with pytest.raises(SystemExit, match="parallel/"):
-        cli_eval.main(argv + ["--data_parallel"])
+    with pytest.raises(SystemExit, match="reference-parity ddim"):
+        cli_eval.main(argv + ["--data_parallel", "--sampler", "dpmpp"])
     try:  # --int8: the static-int8 U-Net, calibrated first; the same four lines
         cli_eval.main(argv + ["--int8"])
     finally:

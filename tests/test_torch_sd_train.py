@@ -323,8 +323,8 @@ def test_precompute_latents_matches_jax_encoder(tmp_path, rng, models):
 def test_cli_trains_resumes_and_reconstructs(tmp_path, rng, models, monkeypatch):
     """precompute_latents then train_sd for 1 epoch on the CPU, --resume to
     a second epoch, and the final adapter drives the SD reconstruct CLI to a
-    PNG; data parallelism is refused; a DINO or LPIPS variable that names a
-    missing file is an error where its term is on."""
+    PNG; --distributed without a launcher is refused; a DINO or LPIPS
+    variable that names a missing file is an error where its term is on."""
     from clip_codec_tpu_torch.cli import precompute_latents, reconstruct_sd_diffusion, train_sd
 
     _, dec = models
@@ -350,9 +350,8 @@ def test_cli_trains_resumes_and_reconstructs(tmp_path, rng, models, monkeypatch)
                                    "--sampler", "dpmpp", "--size", "16", "--heads", "2", "--device", "cpu",
                                    "--inv_weight", "0"])
     assert Image.open(tmp_path / "im0-2-5-0.png").size == (16, 16)
-    for flag in ("--data_parallel", "--distributed"):
-        with pytest.raises(SystemExit, match="parallel/"):
-            train_sd.main(base + [flag])
+    with pytest.raises(SystemExit, match="launcher's environment"):
+        train_sd.main(base + ["--distributed"])
     monkeypatch.setenv("CLIP_CODEC_DINO_WEIGHTS", str(tmp_path / "dino.pt"))
     with pytest.raises(RuntimeError, match="CLIP_CODEC_DINO_WEIGHTS"):
         train_sd.main(base)
@@ -360,8 +359,6 @@ def test_cli_trains_resumes_and_reconstructs(tmp_path, rng, models, monkeypatch)
     monkeypatch.setenv("CLIP_CODEC_LPIPS_WEIGHTS", str(tmp_path / "lpips.pt"))
     with pytest.raises(FileNotFoundError, match="lpips.pt"):
         train_sd.main(base + ["--clip_w", "0"])
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        ttrain.train_sd_diffusion(tmp_path, dec, mesh=object())
 
 
 def test_cli_trains_with_dino_and_lpips(tmp_path, rng, models, monkeypatch):

@@ -5,8 +5,9 @@ store, on the CPU: the printed ``score\\tpath`` lines must be equal.
 ``--u8 --ivf``); ``--query`` and ``--query_image`` run through a tiny
 random CLIP tower (HuggingFace names, which both packages read) and a
 synthetic merges file, as tests/test_torch_clip.py builds them. Then the
-refusals: ``--data_parallel`` (``parallel/``), ``--ivf --data_parallel``
-with JAX's message, and ``--device cuda`` without a card.
+refusals: ``--ivf --data_parallel`` with JAX's message, and ``--device
+cuda`` without a card (``--data_parallel`` runs in
+tests/test_torch_parallel_cli.py).
 """
 
 import gzip
@@ -120,8 +121,6 @@ def test_refusals(store, tmp_path, monkeypatch, capsys):
 
     frame = str(next((store / "store").glob("*.clp")))
     base = ["--store_dir", str(store / "store"), "--query_clp", frame, "--device", "cpu"]
-    with pytest.raises(SystemExit, match=r"parallel/\)$"):
-        main(base + ["--data_parallel"])
     argv = base[:-2] + ["--ivf", "--data_parallel"]
     monkeypatch.setattr(sys, "argv", ["search_text"] + argv)
     with pytest.raises(SystemExit) as want:

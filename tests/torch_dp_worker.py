@@ -1,0 +1,269 @@
+"""One rank of the port's two-rank CPU tests (gloo), started by
+tests/test_torch_parallel*.py through ``clip_codec_tpu_torch.parallel.launch``:
+
+    python tests/torch_dp_worker.py <task> <workdir>
+
+with the launcher's environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT).
+The parent writes the inputs under <workdir>; each task runs several checks
+in this one process and writes this rank's results as
+``<workdir>/rank<r>_<task>.pt`` (a dict torch.load reads). No jax is
+imported here: the parent holds the port's results against the JAX package.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def _error(fn) -> str:
+    try:
+        fn()
+    except (ValueError, RuntimeError, NotImplementedError, SystemExit) as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def store_images(root: Path, rng, n=5, dim=8):
+    """A tiny store: PNG images, .clp frames of random codes, codec_meta."""
+    from PIL import Image
+
+    from clip_codec_tpu_torch.io.bitstream import write_bitstream
+
+    root.mkdir(parents=True, exist_ok=True)
+    recs = []
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)).save(root / f"im{i}.png")
+        write_bitstream(rng.integers(0, 256, dim, dtype=np.uint8).tobytes(), dim, root / f"im{i}.clp")
+        recs.append({"image": str(root / f"im{i}.png"), "bitstream": str(root / f"im{i}.clp")})
+    (root / "manifest.json").write_text(json.dumps(recs))
+    np.savez(root / "codec_meta.npz", scale=np.full(dim, 1 / 127.5, np.float32),
+             zero=np.full(dim, -1.0, np.float32), dim=np.int32(dim))
+
+
+def run_ranks(task: str, work: Path, world: int = 2, env: dict = None, timeout: float = 240) -> list:
+    """The worker's ``task`` as ``world`` gloo ranks (``env`` added to this
+    process's); each rank's results."""
+    import os
+
+    from clip_codec_tpu_torch.parallel.launch import spawn_ranks
+
+    root = Path(__file__).resolve().parents[1]
+    full = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(root), **(env or {})}
+    runs = spawn_ranks([str(Path(__file__).resolve()), task, str(work)], world, timeout, env=full, cwd=str(root))
+    for r, (rc, log) in enumerate(runs):
+        assert rc == 0, f"rank {r} exited {rc}:\n{log[-4000:]}"
+    outs = [torch.load(work / f"rank{r}_{task}.pt", weights_only=False) for r in range(world)]
+    for o, (_, log) in zip(outs, runs):
+        assert o["world"] == world and o["jax_modules"] == []
+        o["log"] = log
+    return outs
+
+
+def _tiny_unet(path, cfg):
+    from clip_codec_tpu_torch.models import CLIPCondUNet
+
+    net = CLIPCondUNet(**cfg, time_dim=256, fused_pallas=False)
+    net.load_state_dict(torch.load(path, weights_only=True), strict=True)
+    return net
+
+
+def lib(work: Path, rank: int) -> dict:
+    """make_mesh, shard_batch, StoreData.epoch(local=), sample_sharded, the
+    three sharded indexes and the sharded pixel artifact."""
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule, ddim_sample
+    from clip_codec_tpu_torch.index import (build_ivf_index, build_ivf_index_u8, build_sharded_index,
+                                            build_sharded_index_u8, shard_ivf_index)
+    from clip_codec_tpu_torch.parallel import make_mesh, sample_sharded, shard_batch
+    from clip_codec_tpu_torch.parallel.mesh import axis_index, axis_size, local_rows
+    from clip_codec_tpu_torch.train.data import StoreData
+    from clip_codec_tpu_torch.utils.config import ModelConfig
+
+    inp = dict(np.load(work / "lib_in.npz"))
+    spec = json.loads((work / "lib_in.json").read_text())
+    out = {}
+    mesh = make_mesh(device_type="cpu")
+    out["mesh"] = [list(mesh.shape), list(mesh.mesh_dim_names), axis_size(mesh), axis_index(mesh), mesh.device_type]
+    tp = make_mesh(model_parallel=2, device_type="cpu")
+    out["mesh_tp"] = [list(tp.shape), axis_size(tp, "model"), axis_index(tp, "model")]
+    out["mesh_errors"] = [_error(lambda: make_mesh(model_parallel=3, device_type="cpu")),
+                          _error(lambda: make_mesh(n_devices=4, device_type="cpu"))]
+    out["shard_batch"] = [t.tolist() for t in shard_batch(mesh, np.arange(8), torch.arange(16).reshape(8, 2))]
+    out["shard_error"] = _error(lambda: shard_batch(mesh, np.arange(5)))
+    out["rows"] = [local_rows(mesh, 8).start, local_rows(mesh, 8).stop]
+
+    data = StoreData(work / "store", out_size=12)
+    rng = np.random.default_rng(4)
+    rows = local_rows(mesh, 4)
+    out["epoch"] = [(b.x0, b.z, b.weight, b.wsum) for _ in range(2)
+                    for b in data.epoch(4, rng, local=(rows.start, rows.stop), u8=True)]
+
+    net = _tiny_unet(work / "unet.pt", spec["cfg"])
+    sched = NoiseSchedule.create(50, "linear")
+    z, x_T = inp["z"], inp["x_T"]
+    with torch.no_grad():
+        out["sample_x_T"] = sample_sharded(mesh, net, sched, z, 16, steps=3, x_T=x_T)
+        for eta in (0.0, 0.5):
+            out[f"sample_gen_{eta}"] = sample_sharded(mesh, net, sched, z, 16, steps=3, eta=eta,
+                                                      generator=torch.Generator().manual_seed(9))
+        out["sample_error"] = _error(lambda: sample_sharded(mesh, net, sched, z[:3], 16, steps=1))
+        out["whole_gen_0.5"] = ddim_sample(net, sched, torch.from_numpy(z), (4, 16, 16, 3), 3, 0.5,
+                                           torch.Generator().manual_seed(9)).numpy()
+
+    idx = {}
+    for name, build in (("fp32", lambda: build_sharded_index(inp["feats"], mesh)),
+                        ("u8", lambda: build_sharded_index_u8(inp["codes"], inp["scale"], inp["zero"], mesh)),
+                        ("empty", lambda: build_sharded_index(np.zeros((0, 8), np.float32), mesh))):
+        index = build()
+        idx[name] = [index.search(inp["queries"], k) for k in spec["ks"]]
+        idx[name + "_rows"] = (index.base, tuple(getattr(index, "feats", getattr(index, "codes", None)).shape))
+    for name, single in (("ivf", build_ivf_index(inp["feats"], nlist=3, nprobe=2, device="cpu")),
+                         ("ivf_u8", build_ivf_index_u8(inp["codes"], inp["scale"], inp["zero"], nlist=3, nprobe=2,
+                                                       device="cpu"))):
+        index = shard_ivf_index(single, mesh)
+        idx[name] = [index.search(inp["queries"], k, nprobe=p) for k in spec["ks"] for p in (1, 2, 3)]
+        idx[name + "_lists"] = (index.base, tuple(index.lists.shape))
+    out["index"] = idx
+
+    mc = ModelConfig(**spec["mc"])
+    params = torch.load(work / "unet.pt", weights_only=True)
+    path = work / "sharded.torchprog"
+    kw = dict(size=16, steps=3, batch_size=4, dtype="float32", platforms=["cpu"])
+    out["export_error"] = _error(lambda: deploy.export_sharded_decompressor(params, mc, path, mesh, **dict(
+        kw, batch_size=3)))
+    deploy.export_sharded_decompressor(params, mc, path, mesh, **kw)
+    call = deploy.load_sharded_decompressor(path, mesh)
+    out["artifact_meta"] = dict(call.meta)
+    out["artifact"] = [call(params, z, seed=3).numpy(), call(params, z, seed=3).numpy(),
+                       call(params, z, seed=4).numpy()]
+    out["artifact_errors"] = [_error(lambda: deploy.load_sharded_decompressor(path, tp)),
+                              _error(lambda: deploy.load_decompressor(path, device="cpu"))]
+    return out
+
+
+def train(work: Path, rank: int) -> dict:
+    """Two data-parallel steps of the pixel trainer and of the SD adapter
+    trainer (DINO and LPIPS on) with injected t and noise, then the two
+    training CLIs with --data_parallel."""
+    from clip_codec_tpu_torch.cli import train as train_cli
+    from clip_codec_tpu_torch.cli import train_sd as train_sd_cli
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule
+    from clip_codec_tpu_torch.encoders.dino import DinoConfig, DinoV2
+    from clip_codec_tpu_torch.eval import lpips as tlpips
+    from clip_codec_tpu_torch.models import sd as tsd
+    from clip_codec_tpu_torch.parallel import make_mesh
+    from clip_codec_tpu_torch.parallel.mesh import local_rows
+    from clip_codec_tpu_torch.train import diffusion_train as ptrain
+    from clip_codec_tpu_torch.train import sd_diffusion_train as strain
+    from clip_codec_tpu_torch.train.optim import make_optimizer
+
+    spec = json.loads((work / "train_in.json").read_text())
+    px = dict(np.load(work / "px_in.npz"))
+    sd = dict(np.load(work / "sd_in.npz"))
+    mesh = make_mesh(device_type="cpu")
+    out = {}
+
+    net = _tiny_unet(work / "unet16.pt", spec["cfg"])
+    cfg = ptrain.DiffusionTrainConfig(base=spec["cfg"]["base"], ch_mult=tuple(spec["cfg"]["ch_mult"]), bf16=False)
+    step = ptrain.make_train_step(net, NoiseSchedule.create(1000, "cosine"), make_optimizer(net, cfg.lr), cfg,
+                                  mesh=mesh)
+    rows = local_rows(mesh, px["x0"].shape[0])
+    out["px_loss"] = []
+    for i in range(2):
+        w = px["w"][i]
+        args = (px["x0"], px["z"], w, px["t"][i], px["noise"][i])
+        out["px_loss"].append(float(step(*(torch.from_numpy(a[rows]) for a in args), wsum=float(w.sum()))))
+    out["px_params"] = {k: v.clone() for k, v in net.state_dict().items()}
+    out["px_error"] = _error(lambda: step(*(torch.from_numpy(a[rows]) for a in args)))
+
+    ucfg = tsd.SDUNetConfig(**{**spec["ucfg"], "block_out": tuple(spec["ucfg"]["block_out"])})
+    vcfg = tsd.VAEConfig(**{**spec["vcfg"], "block_out": tuple(spec["vcfg"]["block_out"])})
+    unet, vae = tsd.SDUNet(ucfg), tsd.AutoencoderKL(vcfg)
+    adapter = tsd.SDClipAdapter(spec["clip_dim"], ucfg.cross_dim, 1024, 8)
+    for m, name in ((unet, "unet"), (vae, "vae"), (adapter, "adapter")):
+        m.load_state_dict(torch.load(work / f"sd_{name}.pt", weights_only=True), strict=True)
+    dino = DinoV2(DinoConfig(**spec["dino"]), dtype=torch.float32)
+    dino.load_state_dict(torch.load(work / "dino.pt", weights_only=True), strict=True)
+    lpips = tlpips.LPIPS()
+    lpips.load_state_dict(torch.load(work / "lpips.pt", weights_only=True), strict=True)
+    dec = tsd.StableDiffusionDecoder(unet, vae, adapter)
+    sstep = strain.make_sd_train_step(dec, make_optimizer(adapter, 1e-4), strain.SDTrainConfig(), dino=dino,
+                                      lpips=lpips, mesh=mesh)
+    rows = local_rows(mesh, sd["z"].shape[0])
+    out["sd_loss"] = []
+    for i in range(2):
+        w = sd["w"][i]
+        args = (sd["z"], sd["lat0"], w, sd["t"][i], sd["noise"][i])
+        loss = sstep(*(torch.from_numpy(a[rows]) for a in args), gt_img=torch.from_numpy(sd["gt"][rows]),
+                     perc_on=True, wsum=float(w.sum()))
+        out["sd_loss"].append(float(loss))
+    out["sd_params"] = {k: v.clone() for k, v in adapter.state_dict().items()}
+
+    train_cli.main(spec["train_argv"] + ["--data_parallel"])
+    train_sd_cli.main(spec["train_sd_argv"] + ["--data_parallel"])
+    out["cli_errors"] = [_error(lambda: train_cli.main(spec["train_argv"] + ["--data_parallel", "--batch_size", "3"]))]
+    return out
+
+
+def _printed(fn) -> list:
+    """What ``fn()`` prints, as lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    return buf.getvalue().splitlines()
+
+
+def tiny_towers(spec) -> None:
+    """The CLIs' CLIP and DINOv2 towers at the tests' tiny fp32 configs."""
+    import clip_codec_tpu_torch.encoders as E
+    from clip_codec_tpu_torch.encoders.clip import CLIPConfig
+    from clip_codec_tpu_torch.encoders.dino import DinoConfig
+
+    clip, dino = E.ClipEncoder, E.DinoEncoder
+    E.ClipEncoder = lambda **kw: clip(**kw, cfg=CLIPConfig(**spec["clip"]), dtype=torch.float32)
+    E.DinoEncoder = lambda **kw: dino(**kw, cfg=DinoConfig(**spec["dino"]), dtype=torch.float32)
+
+
+def cli(work: Path, rank: int) -> dict:
+    """encode_images (and --append), encode_images_dino, eval and
+    search_text (fp32 and --u8), each with --data_parallel; what rank 0
+    prints and the refusals."""
+    from clip_codec_tpu_torch.cli import encode_images, encode_images_dino, search_text
+    from clip_codec_tpu_torch.cli import eval as eval_cli
+
+    spec = json.loads((work / "cli_in.json").read_text())
+    tiny_towers(spec)
+    dp = ["--data_parallel"]
+    out = {"encode": _printed(lambda: encode_images.main(spec["encode"] + dp)),
+           "append": _printed(lambda: encode_images.main(spec["append"] + dp)),
+           "dino": _printed(lambda: encode_images_dino.main(spec["dino_argv"] + dp)),
+           "eval": _printed(lambda: eval_cli.main(spec["eval"] + dp)),
+           "search": [_printed(lambda: search_text.main(argv + dp)) for argv in spec["search"]],
+           "errors": [_error(lambda: eval_cli.main(spec["eval"] + dp + ["--batch_size", "3"]))]}
+    return out
+
+
+def main() -> None:
+    import torch.distributed as dist
+
+    task, work = sys.argv[1], Path(sys.argv[2])
+    rank = int(__import__("os").environ["RANK"])
+    out = {"lib": lib, "train": train, "cli": cli}[task](work, rank)
+    out["world"] = dist.get_world_size()
+    bad = sorted(m for m in sys.modules if m in ("jax", "clip_codec_tpu") or m.startswith(("jax.", "clip_codec_tpu.")))
+    out["jax_modules"] = bad
+    torch.save(out, work / f"rank{rank}_{task}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
