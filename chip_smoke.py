@@ -362,6 +362,34 @@ run K1, K2/K3, K4-K6 and ``u8_ip_scores``):
    (``cpu:gloo,cuda:gloo`` for the two ranks, ``cpu:gloo,cuda:nccl`` for
    the one). Two ranks sharing one card measure correctness and overhead,
    not scaling. Phase 23's wall time is printed.
+24. the model axis (``probes.mp_rank`` a rank; two ranks sharing the card
+   over gloo on a (1, 2) mesh, then one NCCL rank on (1, 1)). 24a: K1's
+   split entries (``group_norm_silu_stats``, with and without a shift, and
+   ``group_norm_silu_apply``) against their plain versions at the spatial
+   U-Net's half-height shapes (B = 16, bf16), an fp32 case and a ragged
+   one: partials within 1e-5 of the sums of |terms|, the normalisation
+   within phase 13's rtol = atol (2e-2 bf16, 1e-4 fp32) of plain and of
+   the one-shot plain GroupNorm+SiLU; each timed (CUDA-graph replay and
+   events) beside plain, the one-launch K1, ``F.group_norm`` + ``F.silu``
+   and its bound. 24b: the tensor-parallel SD-1.5 UNet (phase 8's weights,
+   bf16) at UNet batch 2, 64x64 latents, a 77-token context: the ranks' eps
+   bit-equal and within 2e-2 (relative norm) of the one-rank forward, each
+   rank launching K4 on its 4 heads ((8, 4096, 40) and (8, 1024, 80)) and
+   K6 on F/2; a forward's device ms a rank. 24c: the tensor-parallel SD
+   artifact (512px, ddim-10, batch 1): over gloo ``replay == "eager"`` and
+   a request within 2e-2 of the single-device artifact, s/request; on the
+   NCCL rank ``replay == "graph"`` and images bit-equal to the
+   single-device artifact. 24d: ``sample_spatial_sharded`` of phase 14's
+   checkpoint (256px, B = 16, H over 2): fp32, 3 DDIM steps on a linear
+   schedule, within 1e-3 of the unsharded direct form (plain GroupNorm;
+   printed beside the one-launch K1's), then bf16 DDIM-50 timed, K1's split
+   launches by shape exact. 24e: the spatial artifact from the same
+   checkpoint: JAX's header keys and values, the mesh-shape refusal,
+   ``replay == "eager"``, images within 1e-3 of 24d's bf16 sample at the
+   same seed. K4 and K6 are also checked and timed at the tensor-parallel
+   shapes, and ``mlp_down``'s split counts at F/2 printed. Phase 24's wall
+   time is printed; two ranks sharing one card measure correctness and
+   overhead, not scaling.
 
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4, at B=8 with
@@ -382,7 +410,9 @@ phase 21's launches (21b's CLI training plus 21c's CLI request, ``"phase":
 with phase 23's launches summed over the two ranks (``"phase": 23``,
 beside the timed record's numbers as for phase 21), ``library_ms`` null (no one PyTorch
 call takes uint8 codes and fp32 queries) and ``matmul_ms`` beside it for
-scale; ``bound_ms``: the
+scale; K1's split entries one record per phase 24a shape, and K4 and K6 one
+record per tensor-parallel shape, each with its phase 24 launches by shape
+summed over the two ranks (``"phase": 24``); ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
 989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
 its fp32 rate outside the tensor cores, for K1 and the u8 kernels, and,
@@ -433,6 +463,9 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "flash_attention_bwd_dkv": ("flash_attention_bwd", "clip_codec_tpu/ops/pallas_attention.py:212"),
     "group_norm_silu": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:53, "
                                           "clip_codec_tpu/ops/pallas_groupnorm.py:69"),
+    # K1's split form (phase 24): the JAX original's two pallas_calls
+    "group_norm_silu_stats": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:98"),
+    "group_norm_silu_apply": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:107"),
     "flash_probe_variant": ("flash_attention_probe", "bench_attn_probe.py:103"),
     "flash_probe_fast": ("flash_attention_probe", "bench_attn_probe.py:214"),
     "flash_probe_single_pass": ("flash_attention_probe", "bench_attn_probe.py:281"),
@@ -515,6 +548,26 @@ DINO_BATCH = 16
 # 0); SD training at global batch 4 over phase 11's 8 images: 2 steps. Losses and the first step's gradient,
 # summed over the ranks, within DP_TOL of one rank's (bf16 at another per-rank batch).
 DP_PX_IMAGES, DP_TRAIN_BATCH, DP_TOL, DP_TIMEOUT = 20, {"train": 8, "train_sd": 4}, 2e-2, 420.0
+# The model axis (phase 24): two ranks sharing the card over gloo on a (1, 2) mesh, one NCCL rank on (1, 1).
+# Tensor parallelism at the SD artifact's shape (one embedding, CFG batched: UNet batch 2, 64x64 latents, a
+# 77-token context): each rank's 4 of 8 heads through K4, its F/2 GEGLU columns through K6. Spatial sharding of
+# the full-width pixel U-Net at 256px, B = 16, H split in two: K1's split form at each level's half-height shape.
+MP_TP_BATCH, MP_CTX, MP_SD_STEPS, MP_REPS = 2, 77, SD_STEPS, 5
+MP_TP_FLASH = [(8, 4096, 40), (8, 1024, 80)]  # (BH, N, D) a rank
+MP_TP_MLP = [(8192, 320, 640), (2048, 640, 1280), (512, 1280, 2560), (128, 1280, 2560)]  # (R, C, F / 2)
+MP_GN_SHAPES = [(WIDE_BATCH, H // 2, W, C) for H, W, C in GN_SHAPES]
+MP_GN_CALLS = (4, 8, 8, 8)  # GroupNorm+SiLU calls a forward at each of MP_GN_SHAPES
+# The fp32 check: a few DDIM steps on a 20-step linear schedule, as the JAX package's own spatial test (its
+# alpha-bar stays O(1); at 1000 steps the first x0 divides eps by sqrt(alpha-bar) ~ 6e-3 and amplifies fp32
+# reassociation 160-fold). The spatial sample against the unsharded direct form: the same operations summed in
+# other orders (halo'd convs may take other cuDNN algorithms, the cross-rank GroupNorm totals), images in [-1, 1].
+MP_CHECK_STEPS, MP_CHECK_TIMESTEPS, MP_FP32_TOL = 3, 20, 1e-3
+# The tensor-parallel forward and request against the one-rank ones: both bf16 paths round at other places, so
+# they are held to within MP_TP_FLOOR x the one-rank path's own distance from the fp32 plain path (the bf16
+# noise floor of this random-weight UNet, measured in the run; phase 7 records 0.7-1.6e-2).
+MP_TP_FLOOR = 1.5
+MP_TIMEOUT = 600.0
+MP_K1 = ("group_norm_silu_stats", "group_norm_silu_apply")
 
 
 class PhaseError(RuntimeError):
@@ -932,12 +985,21 @@ def _randn(torch, gen, shape, dev, scale=1.0, dtype=None):
 def phase_sd_kernels(torch, attn, mlp, seed, dev):
     """Flash attention and the fused MLP against their plain versions at the
     SD-1.5 512px shapes, bf16; returns per-kernel records."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    rec = {"flash_attention": flash_cases(torch, attn, gen, dev, FLASH_SHAPES)}
+    rec.update(phase_mlp_kernels(torch, mlp, gen, dev))
+    return rec
+
+
+def flash_cases(torch, attn, gen, dev, shapes):
+    """K4 against its plain version at each (BH, N, D) of ``shapes``, normal
+    and extreme logits, bf16, timed beside SDPA at normal logits; the record
+    (the first shape's times, every shape's under ``shapes``)."""
     import torch.nn.functional as F
 
-    gen = torch.Generator(device=dev).manual_seed(seed + 2)
     bf = torch.bfloat16
-    rec = {"flash_attention": {"max_abs_err": 0.0}}
-    for BH, N, D in FLASH_SHAPES:
+    rec = {"max_abs_err": 0.0}
+    for BH, N, D in shapes:
         for q_scale in (1.0, 30.0):
             q = _randn(torch, gen, (BH, N, D), dev, q_scale, bf)
             k, v = (_randn(torch, gen, (BH, N, D), dev, 1.0, bf) for _ in range(2))
@@ -962,17 +1024,16 @@ def phase_sd_kernels(torch, attn, mlp, seed, dev):
                          f" sdpa_library_not_plain_ms={lib_ms:.4f} sdpa_graph_ms={libg_ms:.4f}"
                          f" bound_ms={b_ms:.4f} ({b_unit}) kernel_TFLOPs={tflops:.1f}")
                 # every path shape; the record's own keys are the first shape's
-                rec["flash_attention"].setdefault("shapes", []).append(
+                rec.setdefault("shapes", []).append(
                     dict(shape=[BH, N, D], ms=k_ms, graph_ms=kg_ms, plain_ms=p_ms, library_ms=lib_ms,
                          library_graph_ms=libg_ms, bound_ms=b_ms, bound_by=b_by, bound_unit=b_unit))
-                if (BH, N, D) == FLASH_SHAPES[0]:
-                    rec["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                                                  bound_by=b_by, bound_unit=b_unit, timed_at=tag)
+                if (BH, N, D) == tuple(shapes[0]):
+                    rec.update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                               bound_unit=b_unit, timed_at=tag)
             print(line)
             check(ok, f"{tag}: out outside rtol=atol=2e-2 (max abs err {err})")
             check(lse_err <= 1e-3, f"{tag}: lse abs err {lse_err} > 1e-3")
-            rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], err)
-    rec.update(phase_mlp_kernels(torch, mlp, gen, dev))
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return rec
 
 
@@ -988,12 +1049,12 @@ def _mlp_bounds(R, C, Fh):
             bound(2 * R * C * 2 + vec + 3 * C * Fh * 2, 6 * R * C * Fh))
 
 
-def phase_mlp_kernels(torch, mlp, gen, dev):
+def phase_mlp_kernels(torch, mlp, gen, dev, shapes=tuple(MLP_SHAPES), ragged=MLP_RAGGED):
     """K6's two kernels (mlp_up: the LayerNorm pre-pass and the GEGLU
     product; mlp_down: the out-projection, with its split sum where it
     splits), each against its plain piece on the same input, and the pair
-    against mlp_plain, at every MLP_SHAPES entry and a ragged one; timed at
-    MLP_SHAPES. Returns one record per kernel and shape."""
+    against mlp_plain, at every ``shapes`` entry and the ``ragged`` one (if
+    any); timed at ``shapes``. Returns one record per kernel and shape."""
     import torch.nn.functional as F
 
     from clip_codec_tpu_torch.probes.mlp_times import cublas_unfused
@@ -1002,7 +1063,7 @@ def phase_mlp_kernels(torch, mlp, gen, dev):
     errs = {"mlp_up": 0.0, "mlp_down": 0.0}
     splits_seen = set()
     bf = torch.bfloat16
-    for R, C, Fh in MLP_SHAPES + [MLP_RAGGED]:
+    for R, C, Fh in list(shapes) + ([ragged] if ragged else []):
         x = _randn(torch, gen, (R, C), dev, 1.0, bf)
         lns, lnb = 1 + _randn(torch, gen, (C,), dev, 0.1), _randn(torch, gen, (C,), dev, 0.1)
         wh, wg = (_randn(torch, gen, (C, Fh), dev, C ** -0.5) for _ in range(2))
@@ -1029,7 +1090,7 @@ def phase_mlp_kernels(torch, mlp, gen, dev):
                   f"{name} {tag}: outside rtol=atol=2e-2 of its plain version (max abs err {err})")
             if name in errs:
                 errs[name] = max(errs[name], err)
-        if (R, C, Fh) == MLP_RAGGED:
+        if (R, C, Fh) == ragged:
             print(line)
             continue
         pair = lambda: mlp.transformer_mlp(*args, packed=packed)
@@ -1061,8 +1122,8 @@ def phase_mlp_kernels(torch, mlp, gen, dev):
                  f" cublas_unfused_library_not_plain_ms={t['cublas_unfused_ms']:.4f}"
                  f" (graph {t['cublas_unfused_graph_ms']:.4f}) kernel_TFLOPs={6 * R * C * Fh / 1e9 / t['pair_graph_ms']:.1f}")
         print(line)
-    # mlp_down's two epilogues: bf16 from registers, and fp32 partials + the sum kernel
-    check(splits_seen == {False, True}, "MLP shapes must run mlp_down both with and without a split")
+    if ragged:  # mlp_down's two epilogues: bf16 from registers, and fp32 partials + the sum kernel
+        check(splits_seen == {False, True}, "MLP shapes must run mlp_down both with and without a split")
     for name, rs in recs.items():
         for r in rs:
             r["max_abs_err"] = errs[name]
@@ -3922,9 +3983,10 @@ def _dp_px_store(seed, store: Path, have_zstd: bool) -> None:
     (store / "manifest.json").write_text(json.dumps(recs))
 
 
-def _run_ranks(torch, job: dict, world: int, env: dict, timeout: float) -> list:
-    """``probes.dp_rank`` on ``job`` as ``world`` ranks (launcher nodes of
-    their own, so every rank drives cuda:0); each rank's record."""
+def _run_ranks(torch, job: dict, world: int, env: dict, timeout: float, probe: str = "dp_rank") -> list:
+    """``probes.<probe>`` (``dp_rank``: phase 23, ``mp_rank``: phase 24) on
+    ``job`` as ``world`` ranks (launcher nodes of their own, so every rank
+    drives cuda:0); each rank's record."""
     import json
 
     from clip_codec_tpu_torch.parallel.launch import spawn_ranks
@@ -3935,7 +3997,7 @@ def _run_ranks(torch, job: dict, world: int, env: dict, timeout: float) -> list:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    runs = spawn_ranks(["-m", "clip_codec_tpu_torch.probes.dp_rank", str(out / "job.json")], world, timeout,
+    runs = spawn_ranks(["-m", f"clip_codec_tpu_torch.probes.{probe}", str(out / "job.json")], world, timeout,
                        env=env, cwd=str(ROOT))
     wall = time.perf_counter() - t0
     for r, (rc, log) in enumerate(runs):
@@ -3946,8 +4008,8 @@ def _run_ranks(torch, job: dict, world: int, env: dict, timeout: float) -> list:
         check(rec["world"] == world and rec["jax_modules"] == [], f"rank {r}: world {rec['world']}, "
               f"jax modules {rec['jax_modules']}")
         rec["log"] = runs[r][1]
-    print(f"dp: {world} rank(s) ran {[t['name'] for t in job['tasks']]} in {wall:.1f} s (process start, kernel "
-          f"loads and model builds included), backend {recs[0]['backend']}")
+    print(f"{probe[:2]}: {world} rank(s) ran {[t['name'] for t in job['tasks']]} in {wall:.1f} s (process start, "
+          f"kernel loads and model builds included), backend {recs[0]['backend']}")
     return recs
 
 
@@ -4155,6 +4217,313 @@ def phase_dp(torch, seed, dev, card):
           f"two ranks sharing one card measure correctness and overhead, not scaling")
     return launches
 
+# ------------------------------------------------- the model axis (phase 24)
+
+
+def phase_k1_split(torch, gn, seed, dev):
+    """24a: K1's split entries against their plain versions at the spatial
+    U-Net's half-height shapes (bf16), an fp32 case and a ragged one, with
+    and without a shift, timed at the half-height shapes; returns a record
+    per entry and shape."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    G, bf = GN_GROUPS, torch.bfloat16
+    recs = {"group_norm_silu_stats": [], "group_norm_silu_apply": []}
+    worst = {k: 0.0 for k in recs}
+    cases = [(shape, bf) for shape in MP_GN_SHAPES] + [((WIDE_BATCH, 32, 64, 256), torch.float32), (GN_TAIL, bf)]
+    for shape, dtype in cases:
+        B, H, W, C = shape
+        n = H * W * (C // G)
+        x, scale, bias = _gn_inputs(torch, gen, shape, dev, dtype)
+        with torch.no_grad():
+            mean = gn.group_norm_silu_stats_plain(x, G).sum(dim=1)[:, 0] / n
+            n0 = (gn.group_norm_silu_stats.launches, gn.group_norm_silu_apply.launches)
+            part, part_s = gn.group_norm_silu_stats(x, G), gn.group_norm_silu_stats(x, G, shift=mean)
+            tot = part_s.sum(dim=1)
+            y = gn.group_norm_silu_apply(x, tot, n, (scale, bias), G, shift=mean)
+            y_raw = gn.group_norm_silu_apply(x, part.sum(dim=1), n, (scale, bias), G)
+        torch.cuda.synchronize()
+        check((gn.group_norm_silu_stats.launches, gn.group_norm_silu_apply.launches) == (n0[0] + 2, n0[1] + 2),
+              f"K1 split {shape}: not one launch per call")
+        tag = f"group_norm_silu split {tuple(shape)} G={G} {str(dtype).split('.')[-1]}"
+        # the partials' summation error scales with the sums of |terms|
+        errs = {}
+        for key, got, sh in (("stats", part, None), ("stats_shifted", part_s, mean)):
+            want = gn.group_norm_silu_stats_plain(x, G, sh)
+            mag = gn.group_norm_silu_stats_plain((x.float() if sh is None else x.float() - sh.repeat_interleave(
+                C // G, dim=1)[:, None, None, :]).abs(), G)[:, :, 0].max()
+            errs[key] = max((got[:, :, 0] - want[:, :, 0]).abs().max().item() / mag.item(),
+                            ((got[:, :, 1] - want[:, :, 1]).abs().max() / want[:, :, 1].abs().max()).item())
+            check(errs[key] <= 1e-5, f"{tag}: {key} partials off their plain version by {errs[key]} of their scale")
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for key, got, want in (
+                ("apply", y, gn.group_norm_silu_norm_plain(x, tot, scale, bias, G, n=n, shift=mean)),
+                ("apply_unshifted", y_raw, gn.group_norm_silu_norm_plain(x, part.sum(dim=1), scale, bias, G)),
+                ("vs_group_norm_silu_plain", y, gn.group_norm_silu_plain(x, (scale, bias), G))):
+            d = (got.float() - want.float()).abs()
+            errs[key] = d.max().item()
+            check(bool((d <= tol + tol * want.float().abs()).all().item()),
+                  f"{tag}: {key} outside rtol=atol={tol} (max abs err {errs[key]})")
+        worst["group_norm_silu_stats"] = max(worst["group_norm_silu_stats"], errs["stats"], errs["stats_shifted"])
+        worst["group_norm_silu_apply"] = max(worst["group_norm_silu_apply"], errs["apply"])
+        line = f"kernel-check: {tag} " + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
+        if dtype == bf and shape in MP_GN_SHAPES:
+            with torch.no_grad():
+                stats = lambda: gn.group_norm_silu_stats(x, G, shift=mean)
+                apply = lambda: gn.group_norm_silu_apply(x, tot, n, (scale, bias), G, shift=mean)
+                t = dict(stats_ms=graph_ms(torch, stats), stats_events_ms=cuda_ms(torch, stats),
+                         apply_ms=graph_ms(torch, apply), apply_events_ms=cuda_ms(torch, apply),
+                         stats_plain_ms=cuda_ms(torch, lambda: gn.group_norm_silu_stats_plain(x, G, mean), iters=5),
+                         apply_plain_ms=cuda_ms(torch, lambda: gn.group_norm_silu_norm_plain(
+                             x, tot, scale, bias, G, n=n, shift=mean), iters=5),
+                         one_launch_k1_ms=graph_ms(torch, lambda: gn.group_norm_silu(x, (scale, bias), G)))
+                xc, sb, bb = x.permute(0, 3, 1, 2), scale.to(bf), bias.to(bf)  # NCHW view, channels_last
+                t["library_ms"] = graph_ms(torch, lambda: F.silu(F.group_norm(xc, G, sb, bb, 1e-5)))
+            m = B * H * W * C
+            sb_ms, sb_by, sb_unit = bound(m * 2 + B * 2 * G * 4, 3 * m, FP32_FLOPS_PER_S)  # x read once
+            ab_ms, ab_by, ab_unit = bound(2 * m * 2, 11 * m, FP32_FLOPS_PER_S)  # x read once, y written once
+            lib = "F.group_norm + F.silu (bf16, NCHW view): the whole GroupNorm+SiLU, for scale; never called"
+            for name, ms, ev, pl, b in (("group_norm_silu_stats", t["stats_ms"], t["stats_events_ms"],
+                                         t["stats_plain_ms"], (sb_ms, sb_by, sb_unit)),
+                                        ("group_norm_silu_apply", t["apply_ms"], t["apply_events_ms"],
+                                         t["apply_plain_ms"], (ab_ms, ab_by, ab_unit))):
+                recs[name].append(dict(shape=list(shape), ms=ms, events_ms=ev, plain_ms=pl, bound_ms=b[0],
+                                       bound_by=b[1], bound_unit=b[2], library_ms=t["library_ms"], library=lib,
+                                       one_launch_k1_ms=t["one_launch_k1_ms"]))
+            line += (f" stats_ms={t['stats_ms']:.4f} (graph; events {t['stats_events_ms']:.4f}, plain "
+                     f"{t['stats_plain_ms']:.4f}, bound {sb_ms:.4f} {sb_unit}) apply_ms={t['apply_ms']:.4f} (graph; "
+                     f"events {t['apply_events_ms']:.4f}, plain {t['apply_plain_ms']:.4f}, bound {ab_ms:.4f} "
+                     f"{ab_unit}) spatial_gn_ms={2 * t['stats_ms'] + t['apply_ms']:.4f} (2 stats + apply, the "
+                     f"all-reduces apart) one_launch_k1_ms={t['one_launch_k1_ms']:.4f} "
+                     f"library_ms={t['library_ms']:.4f}")
+        print(line)
+        del x, part, part_s, y, y_raw
+    for name, rs in recs.items():
+        for r in rs:
+            r["max_abs_err"] = worst[name]
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _shape_key(key: str):
+    """``"<kernel> [a, b, c]"`` -> (kernel, (a, b, c))."""
+    name, shape = key.split(" ", 1)
+    return name, tuple(json.loads(shape))
+
+
+def phase_mp(torch, attn, mlp, seed, dev, card):
+    """Phase 24 (24b-24e): the model axis with two ranks sharing the card
+    (gloo) and one NCCL rank alone. Returns the kernels' launches by
+    (kernel, shape), summed over the two ranks, and K4's and K6's records
+    at the tensor-parallel shapes."""
+    import numpy as np
+
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as sd_cli
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule, ddim_sample
+    from clip_codec_tpu_torch.models import CLIPCondUNet
+    from clip_codec_tpu_torch.models.sd import StableDiffusionDecoder
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+    from clip_codec_tpu_torch.utils.checkpoint import load_state_dict
+    from clip_codec_tpu_torch.utils.config import ModelConfig
+    from clip_codec_tpu_torch.weights import sd_checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    build = ROOT / "build" / "chip_smoke"
+    mp = build / "mp"
+    shutil.rmtree(mp, ignore_errors=True)
+    mp.mkdir(parents=True)
+    sd_dir, weights = build / "sd", build / "store" / "diffusion_unet_final.pt"
+    rng = np.random.default_rng(seed + 40)
+    np.savez(mp / "tp_in.npz", lat=rng.standard_normal((MP_TP_BATCH, 64, 64, 4)).astype(np.float32),
+             t=np.full(MP_TP_BATCH, 500, np.int32),
+             ctx=rng.standard_normal((MP_TP_BATCH, MP_CTX, 768)).astype(np.float32))
+    z_sd = rng.standard_normal((1, 512)).astype(np.float32)
+    np.save(mp / "z_sd.npy", z_sd / np.linalg.norm(z_sd))
+    z_px = rng.standard_normal((WIDE_BATCH, 512)).astype(np.float32)
+    np.save(mp / "z_px.npy", z_px / np.linalg.norm(z_px, axis=1, keepdims=True))
+    np.save(mp / "x_T.npy", rng.standard_normal((WIDE_BATCH, SIZE, SIZE, 3)).astype(np.float32))
+    sd_files = dict(unet=str(sd_dir / "unet.pt"), vae=str(sd_dir / "vae.pt"), adapter=str(sd_dir / "adapter.pt"))
+    tp_art = dict(name="tp_artifact", **sd_files, path=str(mp / "tp.torchprog"), size=SD_SIZE, steps=MP_SD_STEPS,
+                  z=str(mp / "z_sd.npy"), seed=seed)
+    px = dict(weights=str(weights), z=str(mp / "z_px.npy"), size=SIZE, steps=STEPS, seed=seed)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CLIP_CODEC_")}
+    two = _run_ranks(torch, {"out": str(mp / "two"), "tasks": [
+        dict(name="tp_forward", unet=sd_files["unet"], inputs=str(mp / "tp_in.npz"), reps=MP_REPS), tp_art,
+        dict(name="spatial_sample", **px, x_T=str(mp / "x_T.npy"), check_steps=MP_CHECK_STEPS,
+             check_timesteps=MP_CHECK_TIMESTEPS),
+        dict(name="spatial_artifact", **px, path=str(mp / "spatial.torchprog"))]}, 2, env, MP_TIMEOUT, "mp_rank")
+    one = _run_ranks(torch, {"out": str(mp / "one"), "tasks": [tp_art]}, 1, env, MP_TIMEOUT, "mp_rank")
+
+    errors, launches = [], collections.Counter()
+
+    def part(fn):
+        try:
+            fn()
+        except PhaseError as e:
+            errors.append(str(e))
+
+    def tally(task):
+        for rec in two:
+            for key, n in rec[task]["by_shape"].items():
+                launches[_shape_key(key)] += n
+
+    def tp_forward():  # 24b
+        unet, _ = sd_cli.load_frozen(sd_dir / "unet.pt", sd_dir / "vae.pt", dev, heads=8)
+        inp = np.load(mp / "tp_in.npz")
+        args = [torch.from_numpy(inp[k]).to(dev) for k in ("lat", "t", "ctx")]
+        with torch.no_grad():
+            want = unet(*args).float().cpu()
+            unet.compute_dtype = torch.float32
+            with plain_sd_kernels(attn, mlp):
+                fp32 = unet(*args).float().cpu()
+        del unet
+        torch.cuda.empty_cache()
+        eps = [torch.load(mp / "two" / f"rank{r}_tp_eps.pt", weights_only=True) for r in range(2)]
+        rel = [((e - want).norm() / want.norm()).item() for e in eps]
+        floor = ((want - fp32).norm() / fp32.norm()).item()
+        tp32 = ((eps[0] - fp32).norm() / fp32.norm()).item()
+        recs = [r["tp_forward"] for r in two]
+        want_shapes = {f"flash_attention {list(s)}": 5 for s in MP_TP_FLASH}
+        want_shapes.update({f"mlp_up {list(s)}": c for s, c in zip(MP_TP_MLP, (5, 5, 5, 1))})
+        print(f"mp-24b: the tensor-parallel SD-1.5 UNet, 2 ranks sharing {card} over gloo, one forward at UNet "
+              f"batch {MP_TP_BATCH} (CFG batched), 64x64 latents, a {MP_CTX}-token context: heads a rank "
+              f"{[r['heads'] for r in recs]}; ranks bit-equal: {torch.equal(eps[0], eps[1])}; ||eps_rank - "
+              f"eps_one_rank|| / ||eps_one_rank|| = {[f'{x:.3e}' for x in rel]}; from the fp32 plain path: one "
+              f"rank {floor:.3e}, TP {tp32:.3e} (ratio {tp32 / floor:.4f}); launches by shape a rank "
+              f"{[r['by_shape'] for r in recs]}; device ms a forward (events over {MP_REPS}, each rank's own "
+              f"and the other's work: a shared card, not scaling) {[round(r['device_ms'], 3) for r in recs]}")
+        check(torch.equal(eps[0], eps[1]), "24b: the two ranks' eps differ")
+        check(max(rel) <= MP_TP_FLOOR * floor, f"24b: TP eps off the one-rank forward by {rel}, over "
+              f"{MP_TP_FLOOR} x the one-rank path's distance from fp32 ({floor})")
+        for r in recs:
+            check(r["by_shape"] == want_shapes, f"24b: launches by shape {r['by_shape']} != {want_shapes}")
+            check(r["launches"]["mlp_down"] == 16 and r["launches"]["flash_attention"] == 10,
+                  f"24b: launches {r['launches']}")
+        tally("tp_forward")
+
+    def tp_artifact():  # 24c
+        unet, vae, adapter = (ckpt.read_checkpoint(sd_dir / f"{n}.pt") for n in ("unet", "vae", "adapter"))
+        unet, vae, adapter = ckpt.unet_state_dict(unet), ckpt.vae_state_dict(vae), ckpt.adapter_state_dict(adapter)
+        single = deploy.load_sd_decompressor(deploy.export_sd_decompressor(
+            unet, vae, adapter, mp / "single.torchprog", size=SD_SIZE, steps=MP_SD_STEPS, batch_size=1), device=dev)
+        want = single(unet, vae, adapter, np.load(mp / "z_sd.npy"), seed=seed).cpu()
+        # the same request through the plain versions in fp32 (eager, the artifact's x_T draw for the seed)
+        meta = deploy.read_artifact_meta(deploy.export_sd_decompressor(
+            unet, vae, adapter, mp / "fp32.torchprog", size=SD_SIZE, steps=MP_SD_STEPS, batch_size=1,
+            dtype="float32"))
+        mods = deploy._sd_modules(meta, dev)
+        for m, st in zip(mods, (unet, vae, adapter)):
+            m.load_state_dict(st, strict=True)
+        dec = StableDiffusionDecoder(*(m.eval() for m in mods))
+        z = torch.from_numpy(np.load(mp / "z_sd.npy")).to(dev)
+        x_T = torch.randn(single.latent_shape(), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+        with torch.no_grad(), plain_sd_kernels(attn, mlp):
+            fp32 = deploy.make_sd_decompress_fn(SD_SIZE, MP_SD_STEPS, batch_size=1)(dec, z, x_T, 5.0).cpu()
+        del single, dec, mods, unet, vae, adapter
+        torch.cuda.empty_cache()
+        got = torch.from_numpy(np.load(mp / "two" / "tp_artifact.npy"))
+        rel = ((got - want).norm() / want.norm()).item()
+        floor = ((want - fp32).norm() / fp32.norm()).item()
+        tp32 = ((got - fp32).norm() / fp32.norm()).item()
+        a, o = [r["tp_artifact"] for r in two], one[0]["tp_artifact"]
+        print(f"mp-24c: the tensor-parallel SD artifact (512px, ddim-{MP_SD_STEPS}, batch 1, CFG batched) on a "
+              f"(1, 2) mesh over gloo: replay {[r['replay'] for r in a]}, a request {[round(r['request_s'], 3) for r in a]}"
+              f" s a rank (a shared card, not scaling; the first call {[round(r['first_call_s'], 3) for r in a]} s), "
+              f"||img - single|| / ||single|| = {rel:.3e} (from the fp32 plain sampler: single {floor:.3e}, TP "
+              f"{tp32:.3e}), launches a request {a[0]['request_launches']}; on one "
+              f"NCCL rank, mesh (1, 1): replay {o['replay']}, a request {o['request_s']:.3f} s (the single-device "
+              f"artifact's replay {o['single_replay']}), bit-equal to the single-device artifact: "
+              f"{o['bit_equal_to_single']} (max |diff| {o['max_abs_diff_to_single']:.3e}) on {card}")
+        check(all(r["replay"] == "eager" for r in a), f"24c: gloo replay {[r['replay'] for r in a]}")
+        check(a[0]["meta"]["mesh"] == {"data": 1, "model": 2} and a[0]["meta"]["sharded"] is True,
+              f"24c: header {a[0]['meta']}")
+        check(rel <= MP_TP_FLOOR * floor, f"24c: TP images off the single-device artifact's by {rel}, over "
+              f"{MP_TP_FLOOR} x its distance from the fp32 plain sampler ({floor})")
+        check(o["replay"] == "graph" and o["single_replay"] == "graph", f"24c: NCCL replay {o['replay']}")
+        check(o["bit_equal_to_single"], "24c: the (1, 1) artifact's images differ from the single-device one's")
+        want_req = {"flash_attention": MP_SD_STEPS * SD_FLASH_PER_FORWARD + 1,
+                    "mlp_up": MP_SD_STEPS * SD_MLP_PER_FORWARD, "mlp_down": MP_SD_STEPS * SD_MLP_PER_FORWARD,
+                    "transformer_mlp": MP_SD_STEPS * SD_MLP_PER_FORWARD}
+        for r in a:
+            check(r["request_launches"] == want_req, f"24c: a request launched {r['request_launches']} != {want_req}")
+        tally("tp_artifact")  # the warm-up call and the request
+
+    def spatial():  # 24d, 24e
+        mc = ModelConfig.find_for_checkpoint(weights)
+        with torch.device(dev):
+            net = CLIPCondUNet(z_dim=mc.z_dim, base=mc.base, ch_mult=tuple(mc.ch_mult), time_dim=mc.time_dim,
+                               img_ch=mc.img_ch, dtype=torch.float32, fused_pallas=False)
+        net.load_state_dict(load_state_dict(weights), strict=True)
+        net.eval().requires_grad_(False)
+        z = torch.from_numpy(np.load(mp / "z_px.npy")).to(dev)
+        x_T = torch.from_numpy(np.load(mp / "x_T.npy")).to(dev)
+        sched = NoiseSchedule.create(MP_CHECK_TIMESTEPS, "linear")
+        with torch.no_grad():
+            want_k1 = ddim_sample(net, sched, z, tuple(x_T.shape), MP_CHECK_STEPS, x_T=x_T).cpu().numpy()
+            with plain_k1(gn):
+                want = ddim_sample(net, sched, z, tuple(x_T.shape), MP_CHECK_STEPS, x_T=x_T).cpu().numpy()
+        del net
+        torch.cuda.empty_cache()
+        got = np.load(mp / "two" / "spatial_fp32.npy")
+        d, d_k1, d_ref = (float(np.abs(a - b).max()) for a, b in ((got, want), (got, want_k1), (want_k1, want)))
+        s = [r["spatial_sample"] for r in two]
+        by_shape = [{k: v for k, v in r["by_shape"].items()} for r in s]
+        want_shapes = {}
+        for shape, calls in zip(MP_GN_SHAPES, MP_GN_CALLS):
+            want_shapes[f"group_norm_silu_stats {list(shape)}"] = 2 * calls * STEPS
+            want_shapes[f"group_norm_silu_apply {list(shape)}"] = calls * STEPS
+        print(f"mp-24d: sample_spatial_sharded, the pixel U-Net (base {mc.base}, ch_mult {tuple(mc.ch_mult)}, "
+              f"{SIZE}px, B = {WIDE_BATCH}), H split over 2 ranks sharing {card} over gloo: fp32, {MP_CHECK_STEPS} "
+              f"DDIM steps on a linear schedule, max |x_spatial - x_unsharded| = {d:.3e} against the unsharded direct "
+              f"form with the plain GroupNorm+SiLU, {d_k1:.3e} against it with the one-launch K1 (which itself sits "
+              f"{d_ref:.3e} from the plain form); bf16 DDIM-{STEPS} {[round(r['bf16_s'], 3) for r in s]} s a rank "
+              f"(a shared card and gloo halos, not scaling); K1 split launches a rank "
+              f"{[(r['launches']['group_norm_silu_stats'], r['launches']['group_norm_silu_apply']) for r in s]}, "
+              f"one-launch K1 {[r['launches']['group_norm_silu'] for r in s]}")
+        check(np.isfinite(got).all() and got.shape == (WIDE_BATCH, SIZE, SIZE, 3), f"24d: output {got.shape}")
+        check(d <= MP_FP32_TOL, f"24d: the fp32 spatial sample is {d} from the unsharded direct form (bound "
+              f"{MP_FP32_TOL})")
+        for b in by_shape:
+            check(b == want_shapes, f"24d: K1 split launches by shape {b} != {want_shapes}")
+        tally("spatial_sample")
+        a = [r["spatial_artifact"] for r in two]
+        path = mp / "spatial.torchprog"
+        jax_header = {"kind": "pixel", "size": SIZE, "steps": STEPS, "sampler": "ddim", "eta": 0.0,
+                      "batch_size": WIDE_BATCH, "z_dim": mc.z_dim, "img_ch": mc.img_ch, "sharded": True,
+                      "spatial": True, "mesh": {"data": 1, "model": 2}}  # what JAX's export writes for these flags
+        meta = a[0]["meta"]
+        print(f"mp-24e: the spatial pixel artifact (DDIM-{STEPS}, B = {WIDE_BATCH}, {SIZE}px) on (1, 2) over gloo: "
+              f"replay {[r['replay'] for r in a]}, a call {[round(r['call_s'], 3) for r in a]} s a rank (a shared "
+              f"card, not scaling), max |img - 24d's clipped bf16 sample| = {a[0]['max_abs_diff_to_sample']:.3e}, "
+              f"JAX's header keys and values: {({k: meta.get(k) for k in jax_header} == jax_header)}, the mesh "
+              f"refusal: {a[0]['mesh_refusal']!r}")
+        check({k: meta.get(k) for k in jax_header} == jax_header, f"24e: header {meta} != JAX's {jax_header}")
+        check(all(r["replay"] == "eager" for r in a), f"24e: gloo replay {[r['replay'] for r in a]}")
+        check(a[0]["mesh_refusal"] == f"{path}: exported for mesh {{'data': 1, 'model': 2}}, got "
+              f"{{'data': 2, 'model': 1}}", f"24e: mesh refusal {a[0]['mesh_refusal']!r}")
+        check(a[0]["max_abs_diff_to_sample"] <= MP_FP32_TOL, f"24e: the artifact's images are "
+              f"{a[0]['max_abs_diff_to_sample']} from 24d's sample at the same seed")
+        for r in a:
+            check(r["by_shape"] == want_shapes, f"24e: K1 split launches by shape {r['by_shape']} != {want_shapes}")
+        tally("spatial_artifact")
+
+    for fn in (tp_forward, tp_artifact, spatial):
+        part(fn)
+    check(not errors, "; ".join(errors))
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    records = {"flash_attention": flash_cases(torch, attn, gen, dev, MP_TP_FLASH)}
+    records.update(phase_mlp_kernels(torch, mlp, gen, dev, MP_TP_MLP, ragged=None))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"mp-24: mlp_down splits at the tensor-parallel shapes (R, C, F/2): "
+          f"{ {str(s): mlp.down_splits(*s, sms) for s in MP_TP_MLP} } on {sms} SMs (the whole F: "
+          f"{ {str((R, C, 2 * F)): mlp.down_splits(R, C, 2 * F, sms) for R, C, F in MP_TP_MLP} })")
+    print(f"mp: phase 24 in {time.perf_counter() - t_phase:.1f} s; launches by shape summed over the two ranks "
+          f"{dict(launches)}; two ranks sharing one card measure correctness and overhead, not scaling")
+    return launches, records
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4243,6 +4612,16 @@ def main() -> int:
             check(n > 0, f"{name}: no launch on the int8 paths")
 
         dp_launches = phase_dp(torch, args.seed, dev, card)
+
+        records.update(phase_k1_split(torch, gn, args.seed, dev))
+        mp_launches, mp_records = phase_mp(torch, attn, mlp, args.seed, dev, card)
+        for name, rs in mp_records.items():  # K4 and K6 at the tensor-parallel shapes, K1's split entries
+            for rec in rs["shapes"] if name == "flash_attention" else rs:
+                check(mp_launches[(name if name != "mlp_down" else "mlp_up", tuple(rec["shape"]))] > 0,
+                      f"{name} {rec['shape']}: no launch on phase 24's paths")
+        for name in MP_K1:
+            for rec in records[name]:
+                check(mp_launches[(name, tuple(rec["shape"]))] > 0, f"{name} {rec['shape']}: no launch on phase 24")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4250,6 +4629,10 @@ def main() -> int:
     kernels = []
     for name, (lib, replaces) in KERNELS.items():
         head = {"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces}
+        if name in MP_K1:  # one record per phase 24a shape, its launches by shape over phase 24d-24e's two ranks
+            for rec in records[name]:
+                kernels.append({**head, "launches": mp_launches[(name, tuple(rec["shape"]))], **rec, "phase": 24})
+            continue
         if name in Q8_KERNELS:  # one record per phase 22a shape, launches by shape on the phase 22b-22c paths
             for rec in q8_records[name]:
                 xs = rec["shape"]
@@ -4286,6 +4669,13 @@ def main() -> int:
             timed = inv_records.get(name) or (records[name][0] if isinstance(records[name], list) else records[name])
             kernels.append({**head, **timed, "launches": dino_train[name] + dino_inv[name], "phase": 21,
                             "launches_by_step": {"21b": dino_train[name], "21c": dino_inv[name]}})
+    for name, rs in mp_records.items():  # phase 24b-24c: K4 and K6 at each rank's shapes, summed over the ranks
+        lib, replaces = KERNELS[name]
+        for rec in (rs["shapes"] if name == "flash_attention" else rs):
+            rec = {**rec, "max_abs_err": rs["max_abs_err"]} if name == "flash_attention" else rec
+            kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces,
+                            **rec, "phase": 24,
+                            "launches": mp_launches[(name if name != "mlp_down" else "mlp_up", tuple(rec["shape"]))]})
     for name, n in dp_launches.items():  # phase 23: each kernel's launches summed over the two ranks
         lib, replaces = KERNELS[name]
         timed = inv_records.get(name) or (records[name][0] if isinstance(records[name], list) else records[name])

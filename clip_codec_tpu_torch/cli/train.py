@@ -25,7 +25,8 @@ world of one); ``--batch_size`` is then the global batch and must divide by
 the rank count. ``--distributed`` joins the launcher's process group before
 anything touches a device and implies ``--data_parallel``; without the
 launcher's environment it stops. Rank 0 writes the files. Not ported yet,
-and refused rather than silently dropped: ``--spatial_shard > 1``.
+and refused rather than silently dropped: spatially sharded training,
+``--spatial_shard > 1``.
 """
 
 from __future__ import annotations
@@ -66,18 +67,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="cache decoded images as resized uint8 in RAM so epochs after the first skip decoding")
     ap.add_argument("--remat", action="store_true",
                     help="recompute ResBlocks in the backward pass (more FLOPs, less activation memory)")
-    ap.add_argument("--spatial_shard", type=int, default=1, help="not ported (values > 1 are refused)")
+    ap.add_argument("--spatial_shard", type=int, default=1, help="spatially sharded training: not ported (values > 1 are refused)")
     add_parallel_flags(ap)
     args = ap.parse_args(argv)
 
     import torch
 
     from ..parallel.mesh import is_main, rank_device
-    from ..parallel.sample import NOT_PORTED_SPATIAL
-    from ..train.diffusion_train import DiffusionTrainConfig, train_diffusion
+    from ..train.diffusion_train import NOT_PORTED_SPATIAL_TRAINING, DiffusionTrainConfig, train_diffusion
 
     if args.spatial_shard > 1:
-        raise SystemExit(NOT_PORTED_SPATIAL)
+        raise SystemExit(NOT_PORTED_SPATIAL_TRAINING)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
     mesh = make_mesh_from_flags(args)

@@ -68,6 +68,31 @@
 // Groups of fewer than 8 channels (C/G < 8) split a thread's 8-channel vector
 // across groups; each thread keeps the group of each of its channels.
 //
+// The split form (groupnorm_silu_stats, groupnorm_silu_apply): the same
+// statistics and normalisation in two ordinary launches, for a caller that
+// has to combine the statistics of several tensors between the two, as a
+// U-Net whose image height is split over ranks sums its GroupNorm totals
+// over them (models/unet.py, the spatial form). No grid barrier can span two
+// ranks, so the one launch above cannot serve it; the TPU original is two
+// pallas_calls for the same reason. One block a slab (grid (S, B)):
+//   * gn_stats_kernel sums its slab chunk by chunk in row order, as the one
+//     launch's `accumulate` does, and `publish`es -> the (B, S, 2, G)
+//     partials; with no shift they are the one launch's bits for the same
+//     slab cut. With a shift (B, G) it sums x - shift and its squares: the
+//     shifted-data form of the variance, which a caller that can pass a
+//     mean estimate (the spatial U-Net: the mean from a first, unshifted
+//     pass) uses to keep the raw-moment difference SS/n - mean^2 from
+//     cancelling where |mean| >> std;
+//   * gn_apply_kernel takes (B, 2, G) fp32 totals over n elements a group
+//     (the caller sums the partials, and across ranks) of x - shift (shift
+//     0 when none is given), forms mean = shift + S/n and rstd in raw
+//     moments of the shifted data, and normalises its slab with the one
+//     launch's `normalise`, x to y.
+// Bound: memory. The unshifted pair reads x twice and writes y once (the
+// one launch reads x once), the shifted form reads it three times; at the
+// spatial U-Net's shapes the extra passes cost what the cross-rank sums
+// between them need.
+//
 // Development build: -DGN_TRACE stamps %globaltimer at each round's phases
 // (probes/gn_trace.py).
 //
@@ -709,9 +734,131 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The split form: one block of COMPUTE threads a slab, grid (S, B).
+template <typename T>
+__global__ void __launch_bounds__(COMPUTE) gn_stats_kernel(const Params p, const float* shift) {
+  __shared__ __align__(16) float scratch[SCRATCH];
+  const int b = blockIdx.y, gid = b * p.S + blockIdx.x, rows = slab_rows(p, gid);
+  const int lanes = p.lanes, lane = p.nvec_.div(threadIdx.x), v = threadIdx.x - lane * p.nvec_.d;
+  const T* src = reinterpret_cast<const T*>(static_cast<const unsigned char*>(p.x) + slab_offset(p, gid)) + v * VEC;
+  float sm[VEC], sq[VEC], sh[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    sm[j] = sq[j] = 0.f;
+    sh[j] = shift != nullptr ? shift[(size_t)b * p.G + p.cg_.div(v * VEC + j)] : 0.f;
+  }
+  // `accumulate`'s order: chunk by chunk, each thread every lanes-th row of a chunk in row order
+  for (int c = 0; lane < lanes && c * p.chunk_rows < rows; ++c) {
+    const T* chunk = src + (size_t)c * p.chunk_rows * p.C;
+    const int n = min(p.chunk_rows, rows - c * p.chunk_rows);
+#pragma unroll 4
+    for (int r = lane; r < n; r += lanes) {
+      float f[VEC];
+      load8(chunk + (size_t)r * p.C, f);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float d = f[j] - sh[j];
+        sm[j] += d;
+        sq[j] = fmaf(d, d, sq[j]);
+      }
+    }
+  }
+  publish(p, sm, sq, scratch, p.part + (size_t)gid * 2 * p.G, 0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(COMPUTE) gn_apply_kernel(const Params p, const float* tot, const float* shift) {
+  const int b = blockIdx.y, gid = b * p.S + blockIdx.x, G = p.G;
+  const int c0 = (threadIdx.x - p.nvec_.div(threadIdx.x) * p.nvec_.d) * VEC;  // this thread's 8 channels
+  const float* t = tot + (size_t)b * 2 * G;
+  float a[VEC], bb[VEC], a2[VEC], b2[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int g = p.cg_.div(c0 + j);
+    const float m = t[g] / p.n;  // the mean of x - shift
+    const float var = t[G + g] / p.n - m * m;
+    const float mean = shift != nullptr ? shift[(size_t)b * G + g] + m : m;
+    a[j] = rsqrtf(var + p.eps) * __ldg(p.scale + c0 + j);
+    bb[j] = fmaf(-mean, a[j], __ldg(p.bias + c0 + j));
+    a2[j] = a[j] * NEG_LOG2E;
+    b2[j] = bb[j] * NEG_LOG2E;
+  }
+  const size_t off = slab_offset(p, gid);
+  normalise<T>(p, reinterpret_cast<const T*>(static_cast<const unsigned char*>(p.x) + off),
+               reinterpret_cast<T*>(static_cast<unsigned char*>(p.y) + off), slab_rows(p, gid), a, bb, a2, b2);
+}
+
+// The fields of Params the split form reads, for the slab cut given; 0 or
+// cudaErrorInvalidValue for arguments the kernels do not take.
+int split_params(Params& p, int B, int HW, int C, int G, int chunk_rows, int chunks, int elt) {
+  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || C % VEC || C > MAX_C || G <= 0 || C % G || chunk_rows <= 0 ||
+      chunk_rows > CHUNK_BYTES / (C * elt) || chunks < 1 || chunks > MAX_CHUNKS)
+    return (int)cudaErrorInvalidValue;
+  p = Params{};
+  p.B = B;
+  p.HW = HW;
+  p.C = C;
+  p.G = G;
+  p.chunk_rows = chunk_rows;
+  p.chunks = chunks;
+  p.slab_rows = chunks * chunk_rows;
+  p.S = (HW + p.slab_rows - 1) / p.slab_rows;
+  p.row_bytes = C * elt;
+  const int m = C / G % VEC ? 0 : C / G / VEC;
+  p.group_vecs = m > 0 && m <= 32 && (m & (m - 1)) == 0 ? m : 0;
+  p.lanes = COMPUTE / (C / VEC);
+  p.S_ = fast_div(p.S);
+  p.nvec_ = fast_div(C / VEC);
+  p.cg_ = fast_div(C / G);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The split form's statistics: x (B, HW, C) bf16 (is_bf16 = 1) or fp32 ->
+// part (B, S, 2, G) fp32 slab partials of x - shift (shift (B, G) fp32, or
+// null for none), for the caller's slab cut.
+int groupnorm_silu_stats(const void* x, const float* shift, float* part, int B, int HW, int C, int G,
+                         int chunk_rows, int chunks, int is_bf16, cudaStream_t stream) {
+  Params p;
+  const int rc = split_params(p, B, HW, C, G, chunk_rows, chunks, is_bf16 ? 2 : 4);
+  if (rc != 0) return rc;
+  p.x = x;
+  p.part = part;
+  const dim3 grid(p.S, B);
+  if (is_bf16)
+    gn_stats_kernel<__nv_bfloat16><<<grid, COMPUTE, 0, stream>>>(p, shift);
+  else
+    gn_stats_kernel<float><<<grid, COMPUTE, 0, stream>>>(p, shift);
+  return (int)cudaGetLastError();
+}
+
+// The split form's normalisation: y = silu((x - mean) * rstd * scale + bias)
+// with mean and rstd from tot (B, 2, G) fp32, the sums and sums of squares
+// of x - shift over n elements a group (shift (B, G) fp32, or null for
+// none); x, y (B, HW, C) bf16 or fp32, scale and bias (C,) fp32.
+int groupnorm_silu_apply(const void* x, const float* tot, const float* shift, const float* scale,
+                         const float* bias, void* y, int B, int HW, int C, int G, int chunk_rows, int chunks,
+                         float n, float eps, int is_bf16, cudaStream_t stream) {
+  Params p;
+  const int rc = split_params(p, B, HW, C, G, chunk_rows, chunks, is_bf16 ? 2 : 4);
+  if (rc != 0) return rc;
+  if (!(n > 0.f)) return (int)cudaErrorInvalidValue;
+  p.x = x;
+  p.y = y;
+  p.scale = scale;
+  p.bias = bias;
+  p.n = n;
+  p.eps = eps;
+  const dim3 grid(p.S, B);
+  if (is_bf16)
+    gn_apply_kernel<__nv_bfloat16><<<grid, COMPUTE, 0, stream>>>(p, tot, shift);
+  else
+    gn_apply_kernel<float><<<grid, COMPUTE, 0, stream>>>(p, tot, shift);
+  return (int)cudaGetLastError();
+}
 
 // The plan of a call (see make_plan) -> out: ring, samples a round, rounds,
 // grid, shared memory bytes. Returns 0, or cudaErrorInvalidValue for

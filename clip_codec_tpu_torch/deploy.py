@@ -55,18 +55,36 @@ device tensors the captured graph reads: each call copies the dict it is
 given into static buffers before the replay, as it does z, so one capture
 serves any calibration.
 
-The data-sharded pixel artifact (``export_sharded_decompressor``,
-``load_sharded_decompressor``) splits the batch over a mesh's ``data``
-axis: its header adds JAX's ``sharded``, ``spatial`` and ``mesh: {data,
-model}``, and a load checks the mesh's shape. Each rank samples its
-``batch_size / n_data`` rows on its own device (on the card through its own
-whole-sampler graph at that batch) from x_T drawn for the global batch from
-the seed, so its rows are the single-device artifact's at that batch on
-those rows of the seed's noise (in bf16 another batch rounds otherwise);
-the rows are gathered after the replay, since a gloo collective is not
-captured. Not
-ported: spatial sharding and the tensor-parallel SD artifacts
-(``parallel/tp.py``), refused with a message that names them.
+The sharded artifacts split the work over a mesh (``parallel.make_mesh``);
+their headers add JAX's ``sharded`` (and for pixel ``spatial``) and
+``mesh: {data, model}``, and a load checks the mesh's shape with JAX's
+message. Every rank exports (rank 0 writes) and loads alike. x_T is drawn
+for the global batch from the seed and cut to the rank's part, so a rank's
+rows are the single-device artifact's at the rank's batch on those rows of
+the seed's noise (in bf16 another batch rounds otherwise).
+
+* The data-sharded pixel artifact (``export_sharded_decompressor``,
+  ``load_sharded_decompressor``) splits the batch over the ``data`` axis:
+  each rank samples its ``batch_size / n_data`` rows, no collective inside
+  the sampler; the rows are gathered after it.
+* ``spatial=True`` also splits the image height over the ``model`` axis:
+  the U-Net's spatial form (``CLIPCondUNet.forward_spatial``, halo rows and
+  GroupNorm totals exchanged over the axis inside every forward); the rows
+  are gathered over both axes after the sampler.
+* The tensor-parallel SD artifact (``export_sharded_sd_decompressor``,
+  ``load_sharded_sd_decompressor``) splits the UNet Megatron-style over the
+  ``model`` axis (``parallel/tp.py``: each rank loads its slices,
+  ``shard_params_tp``, three all-reduces a transformer block) and the batch
+  over ``data``; the VAE and the adapter are replicated. No int8, as JAX's.
+
+Replay follows the backend and is never chosen by catching a failed
+capture: a sampler with model-axis collectives is captured only where NCCL
+serves them (``parallel.mesh.capturable``); under gloo (ranks sharing one
+card) it runs eagerly on the card, since a gloo collective cannot be
+captured. A sampler with no collective inside (a model axis of one) is
+captured on the card as the single-device artifact is. The loaded call
+says which as ``call.replay`` (``"graph"`` or ``"eager"``; the CPU runs
+eagerly).
 """
 
 from __future__ import annotations
@@ -83,14 +101,17 @@ import torch
 from .diffusion import NoiseSchedule, make_sampler
 from .models import CLIPCondUNet
 from .models.sd import SDClipAdapter, SDUNet, SDUNetConfig, StableDiffusionDecoder, VAEConfig
+from .models.sd.unet import NO_TP_INT8
+from .models.unet import check_spatial
 from .models.sd.decoder import SAMPLERS as SD_SAMPLERS
 from .models.sd.decoder import clip_m11
 from .models.sd.unet import SD15_UNET
 from .models.sd.vae import SD15_VAE, AutoencoderKL
 from .ops import attention as _attention
 from .ops import int8 as q8
-from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size, barrier, is_main, local_rows,
-                            rank_device)
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_rows, axis_size, barrier, capturable, is_main,
+                            local_rows, model_slice, rank_device)
+from .parallel.tp import shard_params_tp, validate_tp
 from .utils.config import ModelConfig
 
 PathLike = Union[str, Path]
@@ -101,8 +122,6 @@ _KINDS = ("pixel", "sd")
 PLATFORMS = ("cuda", "cpu")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 QUANT_SUFFIX = ".quant.pt"  # the calibration sidecar beside an int8 artifact
-NOT_PORTED_SHARDED = ("spatially sharded and tensor-parallel SD artifacts are not ported to the PyTorch package "
-                      "yet (ROADMAP.md Queue 1: parallel/tp.py and spatial sharding, the model axis)")
 
 
 # ---------------------------------------------------------------- the file
@@ -136,13 +155,12 @@ def _read_artifact(path: PathLike, expect_kind: str, sharded: bool = False) -> d
         raise ValueError(
             f"{path}: this is a {meta['kind']!r} artifact — load it with "
             f"load_{'sd_' if meta['kind'] == 'sd' else ''}decompressor")
-    if meta.get("sharded") and (expect_kind == "sd" or meta.get("spatial")):
-        raise ValueError(f"{path}: {NOT_PORTED_SHARDED}")
+    sd = "sd_" if expect_kind == "sd" else ""
     if meta.get("sharded") and not sharded:
         raise ValueError(f"{path}: sharded artifact (mesh {meta.get('mesh')}) — use "
-                         f"load_sharded_decompressor(path, mesh)")
+                         f"load_sharded_{sd}decompressor(path, mesh)")
     if sharded and not meta.get("sharded"):
-        raise ValueError(f"{path}: not a sharded artifact — use load_decompressor")
+        raise ValueError(f"{path}: not a sharded artifact — use load_{sd}decompressor")
     return meta
 
 
@@ -251,7 +269,7 @@ class _Program:
     """A loaded artifact: ``meta`` (the header), ``platforms``, the device,
     and the networks built from the last parameters it was called with."""
 
-    def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
+    def __init__(self, meta: dict, device: Union[str, torch.device], mesh=None) -> None:
         self.meta = meta
         self.platforms = tuple(meta["platforms"])
         self.device = torch.device(device)
@@ -260,8 +278,12 @@ class _Program:
                              f"{self.device.type!r}; re-export with --platforms {self.device.type}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available (load with device='cpu')")
+        self.mesh = mesh
+        # one CUDA graph where the sampler's collectives (if any) can be captured, else the eager loop
+        self.replay = "graph" if self.device.type == "cuda" and capturable(mesh) else "eager"
         self.generator = torch.Generator(device=self.device)
         self.rows = slice(None)  # this program's rows of the artifact's batch
+        self.cut = self.rows  # its part of the initial noise of the artifact's whole batch
         self.graph: Optional[_Graph] = None
         self._params: Optional[tuple] = None
         self._static: Dict[str, torch.Tensor] = {}
@@ -283,27 +305,28 @@ class _Program:
                              f"got {tuple(t.shape)}")
         return t.to(device=self.device, dtype=torch.float32)
 
-    def _noise(self, seed: int, x_T, shape: Tuple[int, ...]) -> torch.Tensor:
+    def _noise(self, seed: int, x_T, whole: Tuple[int, ...]) -> torch.Tensor:
         """Seed the generator, then the initial noise of the artifact's whole
-        batch (``x_T``, or drawn from it), cut to this program's rows."""
+        batch (``x_T``, or drawn from it), cut to this program's part."""
         self.generator.manual_seed(int(seed))
-        whole = (self.meta["batch_size"],) + tuple(shape[1:])
         if x_T is not None:
-            return self._tensor(x_T, whole, "x_T")[self.rows]
-        return torch.randn(whole, generator=self.generator, device=self.device, dtype=torch.float32)[self.rows]
+            return self._tensor(x_T, whole, "x_T")[self.cut]
+        return torch.randn(whole, generator=self.generator, device=self.device, dtype=torch.float32)[self.cut]
 
     def _run(self, inputs: Dict[str, torch.Tensor], eager: Callable[..., torch.Tensor],
-             seed: int, x_T, shape: Tuple[int, ...]) -> torch.Tensor:
-        """Eager on the CPU; on the card: capture on the first call with these
-        parameters, then copy the inputs and the noise in and replay."""
+             seed: int, x_T, shape: Tuple[int, ...], whole: Tuple[int, ...]) -> torch.Tensor:
+        """The eager loop on the CPU and where ``replay`` is ``"eager"``;
+        else capture on the first call with these parameters, then copy the
+        inputs and the noise in and replay. ``shape`` is this program's
+        part of the initial noise, ``whole`` the artifact's."""
         gen = self.generator if self.meta["eta"] > 0 else None
-        if self.device.type == "cpu":
-            return eager(x_T=self._noise(seed, x_T, shape), generator=gen, **inputs)
+        if self.replay == "eager":
+            return eager(x_T=self._noise(seed, x_T, whole), generator=gen, **inputs)
         if self.graph is None:
             self._static = {k: torch.zeros_like(v) for k, v in inputs.items()}
             self._static["x_T"] = torch.zeros(shape, device=self.device, dtype=torch.float32)
             self.graph = _Graph(lambda: eager(generator=gen, **self._static), gen)
-        noise = self._noise(seed, x_T, shape)
+        noise = self._noise(seed, x_T, whole)
         for k, v in inputs.items():
             self._static[k].copy_(v)
         self._static["x_T"].copy_(noise)
@@ -314,14 +337,17 @@ class _Program:
 
 
 def make_decompress_fn(mc: ModelConfig, size: int = 256, steps: int = 50, sampler: str = "ddim",
-                       eta: float = 0.0, output: str = "float32", batch_rows: Optional[Tuple[int, slice]] = None,
-                       ) -> Callable[..., torch.Tensor]:
+                       eta: float = 0.0, output: str = "float32", batch_rows: Optional[Tuple[object, object]] = None,
+                       spatial=None) -> Callable[..., torch.Tensor]:
     """The serving function ``(net, z, x_T, generator) -> images``: the
     sampler from ``x_T`` (B, size, size, img_ch) conditioned on ``z`` (B,
     z_dim), clipped to [-1, 1], and with ``output="uint8"`` converted as
     the host prepares a PNG, ``((x + 1) * 127.5)`` truncated to uint8.
     ``generator`` draws the per-step noise at ``eta > 0``, for the whole
-    batch of ``batch_rows`` = (batch, rows) when these B are its ``rows``."""
+    batch of ``batch_rows`` = (batch, rows) when these B are its ``rows``
+    (or (whole shape, index), ``ddim_sample``'s). ``spatial``: a mesh whose
+    model axis splits the height of ``x_T``, which the U-Net's spatial form
+    then samples."""
     if output not in ("float32", "uint8"):
         raise ValueError(f"output must be 'float32' or 'uint8', got {output!r}")
     sched = NoiseSchedule.create(mc.timesteps, mc.schedule)
@@ -330,7 +356,8 @@ def make_decompress_fn(mc: ModelConfig, size: int = 256, steps: int = 50, sample
 
     def run(net: CLIPCondUNet, z: torch.Tensor, x_T: torch.Tensor,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = smp.sample(net, z, tuple(x_T.shape), steps=steps, x_T=x_T, generator=generator, **split)
+        fn = net if spatial is None else (lambda x, zz, t: net.forward_spatial(x, zz, t, spatial))
+        x = smp.sample(fn, z, tuple(x_T.shape), steps=steps, x_T=x_T, generator=generator, **split)
         x = torch.clamp(x, -1.0, 1.0)
         if output == "uint8":
             x = ((x + 1.0) * 127.5).to(torch.uint8)
@@ -393,8 +420,8 @@ class PixelDecompressor(_Program):
     size, size, img_ch) float32 in [-1, 1] or uint8, on the program's
     device; ``quant`` is required by an int8 artifact and only by one."""
 
-    def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
-        super().__init__(meta, device)
+    def __init__(self, meta: dict, device: Union[str, torch.device], mesh=None) -> None:
+        super().__init__(meta, device, mesh)
         self.mc = ModelConfig(z_dim=meta["z_dim"], base=meta["base"], ch_mult=tuple(meta["ch_mult"]),
                               time_dim=meta["time_dim"], img_ch=meta["img_ch"], timesteps=meta["timesteps"],
                               schedule=meta["schedule"], out_size=meta["size"])
@@ -415,8 +442,9 @@ class PixelDecompressor(_Program):
             _use_quant(self.net, q)
             return self.sample(self.net, z, x_T, generator)
 
-        return self._run({"z": z, **_quant_inputs(self, self.net, quant)}, eager, seed, x_T,
-                         (z.shape[0], m["size"], m["size"], m["img_ch"]))
+        whole = (m["batch_size"], m["size"], m["size"], m["img_ch"])
+        shape = tuple(torch.empty(whole, device="meta")[self.cut].shape)
+        return self._run({"z": z, **_quant_inputs(self, self.net, quant)}, eager, seed, x_T, shape, whole)
 
 
 def load_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> PixelDecompressor:
@@ -452,12 +480,14 @@ def make_sd_decompress_fn(size: int = 512, steps: int = 30, sampler: str = "ddim
     return run
 
 
-def _sd_modules(meta: dict, device: Union[str, torch.device] = "meta"):
+def _sd_modules(meta: dict, device: Union[str, torch.device] = "meta", mesh=None):
+    """The UNet (this rank's tensor-parallel one under ``mesh``), the VAE and
+    the adapter of an SD header."""
     ucfg = SDUNetConfig(**{**meta["unet"], "block_out": tuple(meta["unet"]["block_out"])})
     vcfg = VAEConfig(**{**meta["vae"], "block_out": tuple(meta["vae"]["block_out"])})
     dt = _DTYPES[meta["dtype"]]
     with torch.device(device):
-        return (SDUNet(ucfg, dtype=dt, int8=bool(meta["int8"])), AutoencoderKL(vcfg, dtype=dt),
+        return (SDUNet(ucfg, dtype=dt, int8=bool(meta["int8"]), mesh=mesh), AutoencoderKL(vcfg, dtype=dt),
                 SDClipAdapter(meta["z_dim"], ucfg.cross_dim, meta["adapter_hidden"], meta["n_tokens"]))
 
 
@@ -487,6 +517,17 @@ def export_sd_decompressor(
     adapter's weights unless overridden. ``quant`` (the UNet's calibrated
     quant dict, ``StableDiffusionDecoder.calibrate_int8_scales``) makes it a
     static-int8 artifact, whose calls then take that dict."""
+    meta = _sd_meta(unet_params, vae_params, adapter_params, unet_cfg, vae_cfg, clip_dim, n_tokens, size, steps,
+                    sampler, eta, cfg_batched, batch_size, quant, platforms, dtype)
+    return _write_artifact(path, "sd", meta)
+
+
+def _sd_meta(unet_params: StateDict, vae_params: StateDict, adapter_params: StateDict,
+             unet_cfg: Optional[SDUNetConfig], vae_cfg: Optional[VAEConfig], clip_dim: Optional[int],
+             n_tokens: Optional[int], size: int, steps: int, sampler: str, eta: float, cfg_batched: Optional[bool],
+             batch_size: int, quant, platforms: Optional[Sequence[str]], dtype: Union[str, torch.dtype]) -> dict:
+    """An SD artifact's header, after checking the state dicts (and
+    ``quant``) against the architecture."""
     ucfg = unet_cfg if unet_cfg is not None else SD15_UNET
     vcfg = vae_cfg if vae_cfg is not None else SD15_VAE
     fc1, fc2 = adapter_params["proj.1.weight"], adapter_params["proj.3.weight"]
@@ -507,7 +548,7 @@ def export_sd_decompressor(
         _load(mod, state, what)
     if quant is not None:
         _check_quant(mods[0], quant)
-    return _write_artifact(path, "sd", meta)
+    return meta
 
 
 class SDDecompressor(_Program):
@@ -516,19 +557,23 @@ class SDDecompressor(_Program):
     3) float32 in [-1, 1] on the program's device; ``x_T`` is the initial
     latent, ``quant`` the UNet's calibration (int8 artifacts only)."""
 
-    def __init__(self, meta: dict, device: Union[str, torch.device]) -> None:
-        super().__init__(meta, device)
+    def __init__(self, meta: dict, device: Union[str, torch.device], mesh=None) -> None:
+        super().__init__(meta, device, mesh)
         self.sample = make_sd_decompress_fn(meta["size"], meta["steps"], meta["sampler"], meta["eta"],
                                             meta["cfg_batched"], meta["batch_size"])
         self.decoder: Optional[StableDiffusionDecoder] = None
 
     def _build(self, unet_params: StateDict, vae_params: StateDict, adapter_params: StateDict) -> None:
+        if self.mesh is not None:  # this rank's slices of the whole UNet, checked whole
+            _check_shapes(_sd_modules(self.meta)[0], unet_params, "UNet")
+            unet_params = shard_params_tp(self.mesh, unet_params)
         mods = [_load(mod, state, what).eval() for mod, state, what in
-                zip(_sd_modules(self.meta, self.device), (unet_params, vae_params, adapter_params),
+                zip(_sd_modules(self.meta, self.device, self.mesh), (unet_params, vae_params, adapter_params),
                     ("UNet", "VAE", "adapter"))]
         self.decoder = StableDiffusionDecoder(*mods)
 
     def latent_shape(self) -> Tuple[int, int, int, int]:
+        """The artifact's whole initial latent (B, h, w, latent_ch)."""
         m = self.meta
         f = 2 ** (len(m["vae"]["block_out"]) - 1)
         return (m["batch_size"], m["size"] // f, m["size"] // f, m["vae"]["latent_ch"])
@@ -538,15 +583,16 @@ class SDDecompressor(_Program):
                  ) -> torch.Tensor:
         m = self.meta
         self._bind((unet_params, vae_params, adapter_params))
-        z = self._tensor(z, (m["batch_size"], m["z_dim"]), "z")
+        z = self._tensor(z, (m["batch_size"], m["z_dim"]), "z")[self.rows]
         g = torch.full((), float(np.float32(guidance_scale)), dtype=torch.float32, device=self.device)
 
         def eager(z, x_T, guidance, generator, **q):
             _use_quant(self.decoder.unet, q)
             return self.sample(self.decoder, z, x_T, guidance, generator)
 
+        whole = self.latent_shape()
         return self._run({"z": z, "guidance": g, **_quant_inputs(self, self.decoder.unet, quant)}, eager, seed, x_T,
-                         self.latent_shape())
+                         (z.shape[0],) + whole[1:], whole)
 
 
 def load_sd_decompressor(path: PathLike, device: Union[str, torch.device] = "cuda") -> SDDecompressor:
@@ -578,61 +624,132 @@ def export_sharded_decompressor(
     dtype: Union[str, torch.dtype] = "bfloat16",
 ) -> Path:
     """Write a pixel artifact whose batch splits over ``mesh``'s ``data``
-    axis (weights replicated, no collective inside the sampler). Every rank
-    calls it; rank 0 writes the file. A seed's x_T is drawn for the whole
-    batch, as the single-device artifact draws it. ``spatial=True`` is not
-    ported."""
-    if spatial:
-        raise NotImplementedError(NOT_PORTED_SHARDED)
+    axis (weights replicated, no collective inside the sampler) and, with
+    ``spatial=True``, whose image height also splits over its ``model``
+    axis (the U-Net's spatial form). Every rank calls it; rank 0 writes the
+    file. A seed's x_T is drawn for the whole batch, as the single-device
+    artifact draws it."""
     shape = _mesh_shape(mesh)
     if batch_size % shape["data"]:
         raise ValueError(f"batch_size {batch_size} not divisible by data axis {shape['data']}")
+    if spatial:
+        if size % shape["model"]:
+            raise ValueError(f"size {size} not divisible by model axis {shape['model']}")
+        check_spatial(size, len(mc.ch_mult), shape["model"])
     meta = _pixel_meta(params, mc, size, steps, sampler, eta, batch_size, None, "float32", platforms, dtype)
-    meta.update(sharded=True, spatial=False, mesh=shape)
+    meta.update(sharded=True, spatial=bool(spatial), mesh=shape)
     if is_main(mesh):
         _write_artifact(path, "pixel", meta)
     barrier(mesh)
     return Path(path)
 
 
-class ShardedPixelDecompressor(PixelDecompressor):
-    """``call(params, z, seed=0, x_T=None) -> images``: the whole batch's
-    (batch_size, size, size, img_ch) float32 images on every rank, of which
-    this rank sampled its rows."""
-
-    def __init__(self, meta: dict, mesh) -> None:
-        super().__init__(meta, rank_device(mesh))
-        self.mesh = mesh
-        self.rows = local_rows(mesh, meta["batch_size"])
-        self.sample = make_decompress_fn(self.mc, meta["size"], meta["steps"], meta["sampler"], meta["eta"],
-                                         meta["output"], batch_rows=(meta["batch_size"], self.rows))
-
-    def __call__(self, params: StateDict, z, seed: int = 0, x_T=None) -> torch.Tensor:
-        return all_gather_rows(self.mesh, super().__call__(params, z, seed, x_T))
-
-
-def load_sharded_decompressor(path: PathLike, mesh) -> ShardedPixelDecompressor:
-    """Load a sharded artifact on each rank's device for a mesh of the
-    export-time shape (``meta["mesh"]``); every rank calls it alike."""
-    meta = _read_artifact(path, "pixel", sharded=True)
+def _check_mesh(path: PathLike, meta: dict, mesh) -> None:
     want, have = meta["mesh"], _mesh_shape(mesh)
     if have != want:
         raise ValueError(f"{path}: exported for mesh {want}, got {have}")
+
+
+class ShardedPixelDecompressor(PixelDecompressor):
+    """``call(params, z, seed=0, x_T=None) -> images``: the whole batch's
+    (batch_size, size, size, img_ch) float32 images on every rank, of which
+    this rank sampled its rows (and, spatially sharded, its height slice)."""
+
+    def __init__(self, meta: dict, mesh) -> None:
+        super().__init__(meta, rank_device(mesh), mesh)
+        self.rows = local_rows(mesh, meta["batch_size"])
+        spatial = bool(meta["spatial"])
+        self.cut = (self.rows, model_slice(mesh, meta["size"])) if spatial else self.rows
+        whole = (meta["batch_size"], meta["size"], meta["size"], meta["img_ch"])
+        self.sample = make_decompress_fn(self.mc, meta["size"], meta["steps"], meta["sampler"], meta["eta"],
+                                         meta["output"], batch_rows=(whole, self.cut),
+                                         spatial=mesh if spatial else None)
+
+    def __call__(self, params: StateDict, z, seed: int = 0, x_T=None) -> torch.Tensor:
+        out = super().__call__(params, z, seed, x_T)
+        if self.meta["spatial"]:
+            out = all_gather_rows(self.mesh, out, dim=1, axis=MODEL_AXIS)
+        return all_gather_rows(self.mesh, out)
+
+
+def load_sharded_decompressor(path: PathLike, mesh) -> ShardedPixelDecompressor:
+    """Load a sharded pixel artifact on each rank's device for a mesh of
+    the export-time shape (``meta["mesh"]``); every rank calls it alike."""
+    meta = _read_artifact(path, "pixel", sharded=True)
+    _check_mesh(path, meta, mesh)
     return ShardedPixelDecompressor(meta, mesh)
 
 
-def export_sharded_sd_decompressor(*args, **kwargs):
-    """Not ported: the tensor-parallel SD artifact needs ``parallel/tp.py``."""
-    raise NotImplementedError(NOT_PORTED_SHARDED)
+def export_sharded_sd_decompressor(
+    unet_params: StateDict,
+    vae_params: StateDict,
+    adapter_params: StateDict,
+    path: PathLike,
+    mesh,
+    *,
+    unet_cfg: Optional[SDUNetConfig] = None,
+    vae_cfg: Optional[VAEConfig] = None,
+    size: int = 512,
+    steps: int = 30,
+    sampler: str = "ddim",
+    eta: float = 0.0,
+    cfg_batched: Optional[bool] = None,
+    batch_size: int = 1,
+    quant=None,
+    platforms: Optional[Sequence[str]] = None,
+    dtype: Union[str, torch.dtype] = "bfloat16",
+) -> Path:
+    """Write the SD artifact tensor-parallel over ``mesh``: the UNet split
+    Megatron-style over the ``model`` axis (``parallel/tp.py``), the batch
+    over ``data``, the VAE and adapter replicated; the low-latency SD
+    serving shape (B = 1 with CFG, where batching cannot help). The state
+    dicts are whole and checked as ``export_sd_decompressor`` checks them.
+    Every rank calls it; rank 0 writes the file. ``quant`` is refused:
+    tensor parallelism takes no int8."""
+    if quant is not None:
+        raise ValueError(NO_TP_INT8)
+    shape = _mesh_shape(mesh)
+    validate_tp(unet_cfg if unet_cfg is not None else SD15_UNET, shape["model"])
+    if batch_size % shape["data"]:
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {shape['data']}")
+    meta = _sd_meta(unet_params, vae_params, adapter_params, unet_cfg, vae_cfg, None, None, size, steps, sampler,
+                    eta, cfg_batched, batch_size, None, platforms, dtype)
+    meta.update(sharded=True, mesh=shape)
+    if is_main(mesh):
+        _write_artifact(path, "sd", meta)
+    barrier(mesh)
+    return Path(path)
 
 
-load_sharded_sd_decompressor = export_sharded_sd_decompressor
+class ShardedSDDecompressor(SDDecompressor):
+    """``call(unet_params, vae_params, adapter_params, z, seed=0,
+    guidance_scale=5.0, x_T=None) -> images``: the whole batch's images on
+    every rank. The parameters are whole state dicts; each rank loads its
+    UNet slices (``shard_params_tp``) and samples its data rows with the
+    other ranks of its model axis."""
+
+    def __init__(self, meta: dict, mesh) -> None:
+        super().__init__(meta, rank_device(mesh), mesh)
+        self.rows = self.cut = local_rows(mesh, meta["batch_size"])
+
+    def __call__(self, unet_params: StateDict, vae_params: StateDict, adapter_params: StateDict, z,
+                 seed: int = 0, guidance_scale: float = 5.0, x_T=None) -> torch.Tensor:
+        out = super().__call__(unet_params, vae_params, adapter_params, z, seed, guidance_scale, x_T)
+        return all_gather_rows(self.mesh, out)
+
+
+def load_sharded_sd_decompressor(path: PathLike, mesh) -> ShardedSDDecompressor:
+    """Load a tensor-parallel SD artifact on each rank's device for a mesh
+    of the export-time shape; every rank calls it alike."""
+    meta = _read_artifact(path, "sd", sharded=True)
+    _check_mesh(path, meta, mesh)
+    return ShardedSDDecompressor(meta, mesh)
 
 
 __all__ = [
     "make_decompress_fn", "export_decompressor", "load_decompressor", "PixelDecompressor",
     "make_sd_decompress_fn", "export_sd_decompressor", "load_sd_decompressor", "SDDecompressor",
     "export_sharded_decompressor", "load_sharded_decompressor", "ShardedPixelDecompressor",
-    "export_sharded_sd_decompressor", "load_sharded_sd_decompressor",
+    "export_sharded_sd_decompressor", "load_sharded_sd_decompressor", "ShardedSDDecompressor",
     "read_artifact_meta",
 ]

@@ -81,7 +81,7 @@ def ddim_sample(
     generator: Optional[torch.Generator] = None,
     x_T: Optional[torch.Tensor] = None,
     standard: bool = False,
-    batch_rows: Optional[Tuple[int, slice]] = None,
+    batch_rows: Optional[Tuple[object, object]] = None,
 ) -> torch.Tensor:
     """Sample fp32 images of ``shape`` = (B, H, W, C) conditioned on ``z``.
 
@@ -89,14 +89,16 @@ def ddim_sample(
     None and, for ``eta > 0``, the per-step noise. ``batch_rows`` =
     (global batch, rows): these B rows are ``rows`` of a larger batch, and
     every draw is made for the whole batch and cut to them, so a batch split
-    over ranks samples what the whole batch would."""
+    over ranks samples what the whole batch would; (global shape, index)
+    cuts a draw of the whole shape by the index (the rows and the height
+    slice of a spatially sharded sample)."""
     device = z.device
 
     def draw() -> torch.Tensor:
         if batch_rows is None:
             return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         total, rows = batch_rows
-        whole = (total,) + tuple(shape[1:])
+        whole = tuple(total) if isinstance(total, (tuple, list)) else (total,) + tuple(shape[1:])
         return torch.randn(whole, generator=generator, device=device, dtype=torch.float32)[rows]
 
     ts, abt, ab_s = _step_coefficients(sched, steps, standard)
@@ -132,7 +134,7 @@ class DDIMSampler:
         cfg_scale: float = 1.0,
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-        batch_rows: Optional[Tuple[int, slice]] = None,
+        batch_rows: Optional[Tuple[object, object]] = None,
     ) -> torch.Tensor:
         del cfg_scale  # accepted and ignored, as in the reference, see (d)
         return ddim_sample(model_fn, self.sched, z, tuple(shape), steps, self.eta,

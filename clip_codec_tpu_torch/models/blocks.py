@@ -18,6 +18,11 @@ The ResBlock has the JAX block's two forms on the same parameters:
   as ``F.conv2d``; differentiable in every parameter.
 * int8 (serving, ``ops/int8.py``): the direct form with both convs through
   the int8 conv kernel, as the JAX block takes its direct path in int8 mode.
+* spatial (sampling with the image height split over a mesh's ``model``
+  axis, ``spatial``): the direct form on this rank's rows, each
+  GroupNorm+SiLU as K1's split form with the totals summed over the axis
+  between its halves, each 3x3 conv reading one halo row of each neighbour
+  (``parallel.mesh.halo_rows``). What GSPMD inserts into JAX's direct form.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from torch import nn
 from ..ops import groupnorm as gn
 from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
+from ..parallel.mesh import MODEL_AXIS, all_reduce_model, axis_size, halo_rows
 
 
 def _converted(module: nn.Module, name: str, dtype: torch.dtype, convert) -> torch.Tensor:
@@ -73,6 +79,30 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, **kw) -> torch.
     """``conv(x)`` on NHWC ``x``, computed in ``dtype``; NHWC out."""
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), cast(conv, "weight", dtype), cast(conv, "bias", dtype), **kw)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3_spatial(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, mesh, stride: int = 1) -> torch.Tensor:
+    """A 3x3 conv with padding 1 of this rank's rows ``x`` of an image
+    whose height is split over ``mesh``'s model axis: the rows are read
+    between a halo row of each neighbour (stride 1), or of the rank above
+    only (stride 2, where every shard starts on an even row), and padded
+    on W alone."""
+    return conv2d(conv, halo_rows(mesh, x, 1, 1 if stride == 1 else 0), dtype, stride=stride, padding=(0, 1))
+
+
+def group_norm_silu_spatial(x: torch.Tensor, norm: nn.GroupNorm, mesh) -> torch.Tensor:
+    """GroupNorm+SiLU of this rank's rows ``x`` of an image whose height is
+    split over ``mesh``'s model axis: K1's statistics over the rows with
+    the totals summed over the axis, twice (the mean, then the sums of
+    ``x - mean``: the shifted-data variance, which does not cancel where
+    the mean is large against the spread), then K1's normalisation over the
+    whole image's count."""
+    g = norm.num_groups
+    B, h, W, C = x.shape
+    n = h * axis_size(mesh, MODEL_AXIS) * W * (C // g)
+    mean = all_reduce_model(mesh, gn.group_norm_silu_stats(x, g).sum(dim=1))[:, 0] / n
+    tot = all_reduce_model(mesh, gn.group_norm_silu_stats(x, g, shift=mean).sum(dim=1))
+    return gn.group_norm_silu_apply(x, tot, n, (norm.weight, norm.bias), g, shift=mean)
 
 
 class FiLM(nn.Module):
@@ -136,3 +166,13 @@ class ResBlock(nn.Module):
         y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
         y = gn.group_norm_silu(y, (self.norm2.weight, self.norm2.bias), g)
         return x + conv(self.conv2, y, dtype, padding=1)
+
+    def spatial(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, mesh) -> torch.Tensor:
+        """The direct form on this rank's rows of an image whose height is
+        split over ``mesh``'s model axis (forward only)."""
+        x = x.to(dtype).contiguous()
+        y = conv3x3_spatial(self.conv1, group_norm_silu_spatial(x, self.norm1, mesh), dtype, mesh)
+        fs, fb = self.film.coeffs(h, dtype)
+        y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
+        y = group_norm_silu_spatial(y.contiguous(), self.norm2, mesh)
+        return x + conv3x3_spatial(self.conv2, y, dtype, mesh)

@@ -34,6 +34,20 @@ the out-projection, ``Transformer2D``'s 1x1 projections, and the
 unfused (LayerNorm, int8 GEGLU projection, exact-erf GELU gate, int8
 out-projection), never the fused MLP kernel; self-attention stays on flash
 attention. The VAE calls its blocks without ``int8`` and stays fp.
+
+Tensor parallelism (``parallel/tp.py``): ``CrossAttention``,
+``BasicTransformerBlock`` and ``Transformer2D`` take the mesh (``tp``)
+whose ``model`` axis splits them. At an axis of n > 1 ranks they hold this
+rank's slices: ``heads / n`` heads from column-parallel ``to_q``/``to_k``/
+``to_v``, the row-parallel ``to_out.0`` run without its bias into fp32
+partials, summed over the axis (``parallel.mesh.all_reduce_model``),
+biased and rounded once, as the one-rank product rounds once; the fused
+MLP on the rank's ``4C / n`` GEGLU columns, its output (K6's, in the
+compute dtype, as JAX psums its kernel's output) summed over the axis
+before ``x + y + bo``. At an axis of one they are the single-device
+blocks, code path and all (``F.linear`` with its bias folded in rounds
+otherwise than a product and then a bias). No int8 form under tensor
+parallelism, as in JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ from ...ops import attention as attn_ops
 from ...ops import int8 as q8
 from ...ops import mlp as mlp_ops
 from ...ops.groupnorm import group_norm
+from ...parallel.mesh import MODEL_AXIS, all_reduce_model, axis_size
 from ..blocks import _converted, cast
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -171,27 +186,42 @@ def _flash_gate(n: int) -> bool:
     return n >= 1024 and n % 128 == 0
 
 
+def model_ranks(tp) -> int:
+    """The model-axis size of mesh ``tp`` (1 without one)."""
+    return 1 if tp is None else axis_size(tp, MODEL_AXIS)
+
+
+def _tp(tp):
+    """``tp`` where its model axis splits the blocks, else None (the
+    single-device blocks)."""
+    return tp if model_ranks(tp) > 1 else None
+
+
 class CrossAttention(nn.Module):
     """Multi-head attention; ``context=None`` is self-attention (diffusers
-    ``Attention``: to_q/to_k/to_v without bias, to_out.0 with bias)."""
+    ``Attention``: to_q/to_k/to_v without bias, to_out.0 with bias). Under
+    a model axis of n ranks (``tp``) this rank's ``heads / n`` heads."""
 
     INT8_LAYERS = ("to_q", "to_k", "to_v", "to_out.0")
 
-    def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None) -> None:
+    def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None, tp=None) -> None:
         super().__init__()
         cd = dim if context_dim is None else context_dim
-        self.heads = heads
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(cd, dim, bias=False)
-        self.to_v = nn.Linear(cd, dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+        n = model_ranks(tp)
+        self.tp = _tp(tp)
+        self.heads = heads // n
+        self.to_q = nn.Linear(dim, dim // n, bias=False)
+        self.to_k = nn.Linear(cd, dim // n, bias=False)
+        self.to_v = nn.Linear(cd, dim // n, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim // n, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], dtype: torch.dtype,
                 int8: bool = False) -> torch.Tensor:
         ctx = x if context is None else context
-        B, N, dim = x.shape
+        B, N, _ = x.shape
         M = ctx.shape[1]
         h = self.heads
+        dim = self.to_q.out_features  # this rank's heads' width
         d = dim // h
         q = dense_q(self.to_q, x, dtype, int8).view(B, N, h, d)
         k = dense_q(self.to_k, ctx, dtype, int8).view(B, M, h, d)
@@ -203,7 +233,14 @@ class CrossAttention(nn.Module):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
         else:
             out = _attention_plain(q, k, v, d, dtype)
-        return dense_q(self.to_out[0], out.reshape(B, N, dim), dtype, int8)
+        out = out.reshape(B, N, dim)
+        if self.tp is None:
+            return dense_q(self.to_out[0], out, dtype, int8)
+        # fp32 partials of the compute-dtype operands, summed, biased and rounded once: the one-rank
+        # F.linear's roundings, in another summation order
+        proj = self.to_out[0]
+        y = all_reduce_model(self.tp, F.linear(out.float(), cast(proj, "weight", dtype).float()))
+        return (y + cast(proj, "bias", dtype).float()).to(dtype)
 
 
 class GEGLU(nn.Module):
@@ -223,28 +260,33 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """diffusers ``FeedForward`` names: net.0 = GEGLU, net.1 = dropout (no
-    parameters), net.2 = the out-projection."""
+    parameters), net.2 = the out-projection; ``n`` model-axis ranks keep
+    ``dim * mult / n`` hidden columns each."""
 
-    def __init__(self, dim: int, mult: int = 4) -> None:
+    def __init__(self, dim: int, mult: int = 4, n: int = 1) -> None:
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+        f = dim * mult // n
+        self.net = nn.ModuleList([GEGLU(dim, f), nn.Identity(), nn.Linear(f, dim)])
 
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn(context) -> fused LN -> GEGLU ->
     out-proj MLP; every LayerNorm has flax's eps 1e-6. In int8 mode the MLP
-    is unfused, its two projections in int8 (JAX's ``fused_mlp`` gate)."""
+    is unfused, its two projections in int8 (JAX's ``fused_mlp`` gate).
+    Under a model axis (``tp``) the MLP's output is summed over it before
+    the bias."""
 
     INT8_LAYERS = ("ff.net.0.proj", "ff.net.2")
 
-    def __init__(self, dim: int, heads: int, cross_dim: int) -> None:
+    def __init__(self, dim: int, heads: int, cross_dim: int, tp=None) -> None:
         super().__init__()
+        self.tp = _tp(tp)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn1 = CrossAttention(dim, heads)
+        self.attn1 = CrossAttention(dim, heads, tp=tp)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn2 = CrossAttention(dim, heads, cross_dim)
+        self.attn2 = CrossAttention(dim, heads, cross_dim, tp=tp)
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, n=model_ranks(tp))
 
     def _packed(self, dtype: torch.dtype) -> mlp_ops.Packed:
         """The fused MLP's packed weights, cached per load of the parameters."""
@@ -269,6 +311,8 @@ class BasicTransformerBlock(nn.Module):
         packed = self._packed(dtype) if x.device.type == "cuda" else None
         y = mlp_ops.transformer_mlp(x.contiguous(), self.norm3.weight, self.norm3.bias,
                                     wh, bh, wg, bg, out.weight.t(), packed=packed)
+        if self.tp is not None:
+            y = all_reduce_model(self.tp, y)
         return x + y + cast(out, "bias", dtype)
 
 
@@ -279,12 +323,12 @@ class Transformer2D(nn.Module):
 
     INT8_LAYERS = ("proj_in", "proj_out")
 
-    def __init__(self, dim: int, heads: int, cross_dim: int, depth: int = 1) -> None:
+    def __init__(self, dim: int, heads: int, cross_dim: int, depth: int = 1, tp=None) -> None:
         super().__init__()
         self.norm = nn.GroupNorm(groups_for(dim), dim, eps=1e-6)
         self.proj_in = nn.Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(dim, heads, cross_dim) for _ in range(depth)])
+            [BasicTransformerBlock(dim, heads, cross_dim, tp=tp) for _ in range(depth)])
         self.proj_out = nn.Conv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:

@@ -17,6 +17,14 @@ every resnet conv and shortcut, transformer projection and resampler conv
 through the int8 conv kernel, the MLPs unfused (no fused MLP launch),
 flash attention as before. ``conv_in``, ``conv_out`` and the time
 embedding stay fp, as in JAX. The state dict does not change.
+
+``mesh`` (a ``parallel.make_mesh`` mesh) with a ``model`` axis of n > 1
+ranks builds this rank's tensor-parallel UNet (``parallel/tp.py``): each
+transformer block with its slices of the Megatron layout, which
+``parallel.shard_params_tp`` cuts from a whole state dict, and three
+all-reduces over the axis. K4 runs on the rank's ``heads / n`` heads, K6 on
+its ``4C / n`` GEGLU columns; every rank returns the same eps. A model axis
+of one builds the single-device UNet. Tensor parallelism takes no int8.
 """
 
 from __future__ import annotations
@@ -32,8 +40,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import int8 as q8
+from ...parallel.tp import validate_tp
 from .layers import (Block, Downsample2D, ResnetBlock2D, Transformer2D, Upsample2D, conv, dense, group_norm32,
-                     groups_for)
+                     groups_for, model_ranks)
+
+NO_TP_INT8 = "tensor parallelism takes no int8 (JAX's tensor-parallel SD artifact takes no quant either)"
 
 
 @dataclass(frozen=True)
@@ -83,18 +94,22 @@ class SDUNet(nn.Module):
     -> eps (B, H, W, out_ch) in ``dtype``."""
 
     def __init__(self, cfg: SDUNetConfig = SD15_UNET, dtype: torch.dtype = torch.float32,
-                 int8: Optional[bool] = None) -> None:
+                 int8: Optional[bool] = None, mesh=None) -> None:
         super().__init__()
         c = self.cfg = cfg
         self.compute_dtype = dtype
         self.int8 = int8
+        self.n_model = model_ranks(mesh)
+        validate_tp(c, self.n_model)
+        if self.n_model > 1 and int8:
+            raise ValueError(NO_TP_INT8)
         n = len(c.block_out)
         has_attn = [i < n - 1 for i in range(n)]  # SD: the last down block is plain
         self.time_embedding = _TimeEmbedding(c.freq_dim, c.temb_dim)
         self.conv_in = nn.Conv2d(c.in_ch, c.block_out[0], 3, padding=1)
 
         def trf(ch):
-            return Transformer2D(ch, c.heads, c.cross_dim)
+            return Transformer2D(ch, c.heads, c.cross_dim, tp=mesh)
 
         skips = [c.block_out[0]]
         ch_prev = c.block_out[0]
@@ -136,6 +151,8 @@ class SDUNet(nn.Module):
     def forward(self, latents: torch.Tensor, t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         q = q8.resolve(self.int8)
+        if q and self.n_model > 1:
+            raise ValueError(NO_TP_INT8)
         te = self.time_embedding
         temb = sd_timestep_embedding(t, self.cfg.freq_dim).to(dt)
         temb = dense(te.linear_2, F.silu(dense(te.linear_1, temb, dt)), dt)

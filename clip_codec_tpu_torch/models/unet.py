@@ -26,6 +26,21 @@ Two forms on the same parameters, JAX's ``fused_pallas`` and ``remat``:
   and the head as in the fused form (one K3 call): 31 int8 convs, 28 K1 and
   one K3 per forward at ch_mult=(1,2,2). The state dict does not change.
 
+* ``forward_spatial(x_t, z, t, mesh)`` (sampling with the image height
+  split over ``mesh``'s ``model`` axis, ``parallel.sample_spatial_sharded``):
+  the direct form on this rank's rows whatever ``fused_pallas`` says, as
+  JAX asks for ``fused_pallas=False`` there, with what GSPMD inserts made
+  explicit: each GroupNorm+SiLU as K1's split form with the totals summed
+  over the axis (``group_norm_silu_stats`` twice, the second on ``x -
+  mean``, each followed by an all-reduce, then ``group_norm_silu_apply``:
+  56 + 28 launches a forward at ch_mult (1, 2, 2)), the head's GroupNorm from
+  totals summed the same way, one halo row of each neighbour around every
+  3x3 stride-1 conv, one of the rank above before a stride-2 downsample
+  (every shard starts on an even row), and one each side before a 4x4
+  stride-2 transposed conv, cropped after. Every level's rows must split
+  into an even count a rank (``check_spatial``: JAX pads through GSPMD
+  instead; the port refuses).
+
 The stem and transposed convs are plain ``F.conv2d`` /
 ``F.conv_transpose2d`` (outside any kernel in JAX too), and so are the
 downsample convs outside int8 mode. Activations are NHWC
@@ -47,8 +62,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
-from ..ops.groupnorm import group_norm
-from .blocks import ResBlock, cast, conv2d, kernel_weight, linear
+from ..ops.groupnorm import GN_EPS, group_norm
+from ..parallel.mesh import MODEL_AXIS, all_reduce_model, axis_size, halo_rows
+from .blocks import ResBlock, cast, conv2d, conv3x3_spatial, kernel_weight, linear
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,6 +90,34 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> to
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
+
+
+def check_spatial(size: int, levels: int, n_model: int) -> None:
+    """Raise unless an image of ``size`` rows splits over ``n_model`` ranks
+    into an even count of rows a rank at each of the U-Net's ``levels``
+    downsampling levels (a stride-2 conv then starts every shard on an even
+    row), naming the first level that does not."""
+    for level in range(levels):
+        rows = size // 2 ** level
+        if size % 2 ** level or rows % (2 * n_model):
+            raise ValueError(f"spatial sharding: level {level} has {size / 2 ** level:g} rows, "
+                             f"{rows / n_model:g} a rank over a model axis of {n_model}, and its stride-2 "
+                             f"downsample needs an even count a rank (the JAX package pads unevenly split "
+                             f"levels through GSPMD; the port refuses them)")
+
+
+def _group_norm_spatial(x: torch.Tensor, norm: nn.GroupNorm, mesh, eps: float = GN_EPS) -> torch.Tensor:
+    """``group_norm`` of this rank's rows ``x`` of an image whose height is
+    split over ``mesh``'s model axis: the mean, then the centred sum of
+    squares, each from fp32 sums over the rows summed over the axis."""
+    B, h, W, C = x.shape
+    G = norm.num_groups
+    xg = x.float().reshape(B, h, W, G, C // G)
+    count = h * axis_size(mesh, MODEL_AXIS) * W * (C // G)
+    mean = (all_reduce_model(mesh, xg.sum(dim=(1, 2, 4))) / count)[:, None, None, :, None]
+    var = (all_reduce_model(mesh, (xg - mean).square().sum(dim=(1, 2, 4))) / count)[:, None, None, :, None]
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(B, h, W, C)
+    return (y * norm.weight.float() + norm.bias.float()).to(x.dtype)
 
 
 class CLIPCondUNet(nn.Module):
@@ -148,6 +192,40 @@ class CLIPCondUNet(nn.Module):
         y, _ = rc.affine_conv3x3(x.to(dt).contiguous(), A, B,
                                  kernel_weight(self.out, dt), self.out.bias)
         return y
+
+    @torch.no_grad()
+    def forward_spatial(self, x_t: torch.Tensor, z: torch.Tensor, t: torch.Tensor, mesh) -> torch.Tensor:
+        """eps of this rank's rows ``x_t`` (B, H / n, W, img_ch) of images
+        whose height is split over ``mesh``'s model axis of n ranks in rank
+        order; every rank of the axis calls it together."""
+        dt = self.compute_dtype
+        if q8.resolve(self.int8):
+            raise ValueError("spatial sharding takes no int8 (the JAX package's spatial artifact takes no quant)")
+        n = axis_size(mesh, MODEL_AXIS)
+        check_spatial(x_t.shape[1] * n, len(self.down) // 3, n)
+        temb = timestep_embedding(t, self.time_dim).to(dt)
+        temb = linear(self.time_proj[2], F.silu(linear(self.time_proj[0], temb, dt)), dt)
+        h = temb + F.silu(linear(self.z_proj[0], z, dt))
+
+        x = conv3x3_spatial(self.in_conv, x_t, dt, mesh)
+        skips = []
+        for i in range(0, len(self.down), 3):
+            rb0, rb1, ds = self.down[i : i + 3]
+            x = rb1.spatial(rb0.spatial(x, h, dt, mesh), h, dt, mesh)
+            skips.append(x)
+            x = conv3x3_spatial(ds, x, dt, mesh, stride=2)
+        x = self.mid2.spatial(self.mid1.spatial(x, h, dt, mesh), h, dt, mesh)
+        for j in range(0, len(self.up), 3):
+            rb0, rb1, us = self.up[j : j + 3]
+            x = rb1.spatial(rb0.spatial(x, h, dt, mesh), h, dt, mesh)
+            rows = x.shape[1]
+            # output row o of the transposed conv reads input rows floor(o/2) - 1 .. floor(o/2): with a
+            # halo row each side and no H padding, this rank's 2 * rows outputs start at row 3
+            y = F.conv_transpose2d(halo_rows(mesh, x, 1, 1).permute(0, 3, 1, 2), cast(us, "weight", dt),
+                                   cast(us, "bias", dt), stride=2, padding=(0, 1))
+            x = y[:, :, 3:3 + 2 * rows].permute(0, 2, 3, 1).contiguous() + skips.pop()
+        x = _group_norm_spatial(x, self.out_norm, mesh)
+        return conv3x3_spatial(self.out, x, dt, mesh)
 
 
 # flax's lecun_normal is variance_scaling(1, "fan_in", "truncated_normal"): a

@@ -27,12 +27,37 @@ rounded to x's dtype before the SiLU. In bf16 the kernel and it differ by
 an ulp or two. ``group_norm_silu.launches`` counts K1's launches (a call
 recorded into a CUDA graph is tallied as ``ops/attention.py``'s ``_count``
 says: the int8 serving artifacts replay K1).
+
+The split form, for a caller that combines the statistics of several
+tensors between the two halves (the U-Net whose height is split over the
+ranks of a mesh's model axis sums its totals over them, ``models/unet.py``
+``forward_spatial``), is the JAX original's own two steps:
+
+* ``group_norm_silu_stats(x, groups, shift=None)``: the (B, S, 2, G) fp32
+  slab partials of ``x - shift`` (shift (B, G) fp32, per sample and
+  group), the one launch's without a shift for the same slab cut (its plain
+  version ``group_norm_silu_stats_plain``);
+* ``group_norm_silu_apply(x, tot, n, (scale, bias), groups, eps, shift)``:
+  the normalisation, affine and SiLU from (B, 2, G) fp32 totals of ``x -
+  shift`` over ``n`` elements a group, mean ``shift + S / n`` (its plain
+  version ``group_norm_silu_norm_plain``).
+
+The shift is the shifted-data form of the variance: the raw-moment
+difference ``SS / n - mean^2`` cancels in fp32 where a group's mean is
+large against its spread (a pixel U-Net's activations after a conv and
+FiLM are), and the sums of ``x - mean`` do not. The spatial U-Net passes
+the mean of a first, unshifted pass.
+
+On a CUDA tensor each launches its kernel of ``csrc/groupnorm_silu.cu`` (an
+ordinary launch, one block a slab) or raises, counted on its own
+``.launches``; on a CPU tensor each runs its plain version. Forward only:
+the spatial form samples, it does not train.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +153,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.groupnorm_silu.restype = I
         lib.groupnorm_silu_plan.argtypes = [I] * 8 + [P]
         lib.groupnorm_silu_plan.restype = I
+        lib.groupnorm_silu_stats.argtypes = [P] * 3 + [I] * 7 + [P]
+        lib.groupnorm_silu_stats.restype = I
+        lib.groupnorm_silu_apply.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float] * 2 + [I, P]
+        lib.groupnorm_silu_apply.restype = I
         lib._typed = True
     return lib
 
@@ -150,6 +179,12 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 
 def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int) -> None:
+    _check_x(x, groups)
+    _check("scale", scale, (x.shape[3],), torch.float32, x.device)
+    _check("bias", bias, (x.shape[3],), torch.float32, x.device)
+
+
+def _check_x(x: torch.Tensor, groups: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"GroupNorm+SiLU kernel needs a CUDA or CPU tensor, got {x.device}")
     if x.dim() != 4:
@@ -162,36 +197,43 @@ def _check_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups
     _check("x", x, x.shape, x.dtype, x.device)
     if groups <= 0 or C % groups:
         raise ValueError(f"C={C} is not a multiple of groups={groups}")
-    _check("scale", scale, (C,), torch.float32, x.device)
-    _check("bias", bias, (C,), torch.float32, x.device)
 
 
-def group_norm_silu_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
+def group_norm_silu_stats_plain(x: torch.Tensor, groups: int, shift: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """The kernel's slab partials, (B, S, 2, G) fp32: over each slab of
     ``slab_rows`` pixels (the last of a sample ragged) every channel's sum
-    and sum of squares, then each group's sums of its channels in order."""
+    and sum of squares of ``x - shift`` (shift (B, G), per sample and
+    group; none: x itself), then each group's sums of its channels in
+    order."""
     B, H, W, C = x.shape
     hw = H * W
     rows = slab_rows(hw, C, x.element_size())
     S = -(-hw // rows)
-    xs = F.pad(x.to(torch.promote_types(x.dtype, torch.float32)).reshape(B, hw, C),
-               (0, 0, 0, rows * S - hw)).reshape(B, S, rows, C)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(B, hw, C)
+    if shift is not None:
+        xf = xf - shift.to(xf.dtype).repeat_interleave(C // groups, dim=1)[:, None, :]
+    xs = F.pad(xf, (0, 0, 0, rows * S - hw)).reshape(B, S, rows, C)
     part = torch.stack([xs.sum(dim=2), xs.square().sum(dim=2)], dim=2)
     return part.reshape(B, S, 2, groups, C // groups).sum(dim=4)
 
 
 def group_norm_silu_norm_plain(x: torch.Tensor, part: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                               groups: int, eps: float = GN_EPS) -> torch.Tensor:
-    """The kernel's result from its slab partials: the partials summed over
-    the slabs in a fixed order, group statistics in raw moments, then
-    ``silu((x - mean) * rstd * scale + bias)`` in fp32, stored once in x's
-    dtype."""
+                               groups: int, eps: float = GN_EPS, n: Optional[float] = None,
+                               shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's result from its slab partials (B, S, 2, G), summed over
+    the slabs in a fixed order, or from totals (B, 2, G) over ``n``
+    elements a group (default: x's own, H * W * C / G), of ``x - shift``
+    (shift (B, G); none: x itself): group statistics in raw moments of the
+    shifted data, mean ``shift + S / n``, then ``silu((x - mean) * rstd *
+    scale + bias)`` in fp32, stored once in x's dtype."""
     B, H, W, C = x.shape
     cg = C // groups
-    tot = part.sum(dim=1)  # (B, 2, G)
-    n = float(H * W * cg)
-    mean = tot[:, 0] / n
-    rstd = torch.rsqrt(tot[:, 1] / n - mean * mean + eps)
+    tot = part.sum(dim=1) if part.dim() == 4 else part  # (B, 2, G)
+    n = float(H * W * cg) if n is None else float(n)
+    m = tot[:, 0] / n
+    rstd = torch.rsqrt(tot[:, 1] / n - m * m + eps)
+    mean = m if shift is None else shift.to(m.dtype) + m
     mean_c = mean.repeat_interleave(cg, dim=1)[:, None, None, :]
     rstd_c = rstd.repeat_interleave(cg, dim=1)[:, None, None, :]
     t = (x.to(part.dtype) - mean_c) * rstd_c * scale.to(part.dtype) + bias.to(part.dtype)
@@ -269,3 +311,76 @@ def group_norm_silu(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tenso
 
 
 group_norm_silu.launches = 0
+
+
+def _split_cut(x: torch.Tensor) -> Tuple[int, int, int]:
+    """(rows a chunk, chunks a slab, slabs a sample) of ``slab_cut``."""
+    hw = x.shape[1] * x.shape[2]
+    rows, chunks = slab_cut(hw, x.shape[3], x.element_size())
+    return rows, chunks, -(-hw // (rows * chunks))
+
+
+def group_norm_silu_stats(x: torch.Tensor, groups: int, shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The slab partials (B, S, 2, G) fp32 of NHWC ``x - shift`` (shift (B,
+    G) fp32 or None): the split form's kernel on a CUDA tensor (or raise),
+    ``group_norm_silu_stats_plain`` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return group_norm_silu_stats_plain(x, groups, shift)
+    return _launch_stats(x, groups, shift)
+
+
+def _launch_stats(x: torch.Tensor, groups: int, shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the split form's statistics kernel, checked and counted."""
+    _check_x(x, groups)
+    B, H, W, C = x.shape
+    if shift is not None:
+        _check("shift", shift, (B, groups), torch.float32, x.device)
+    rows, chunks, S = _split_cut(x)
+    part = torch.empty((B, S, 2, groups), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kernel_lib().groupnorm_silu_stats(x.data_ptr(), None if shift is None else shift.data_ptr(),
+                                                part.data_ptr(), B, H * W, C, groups, rows, chunks,
+                                                int(x.dtype == torch.bfloat16),
+                                                torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"groupnorm_silu_stats kernel launch failed: CUDA error {rc}")
+    _count(group_norm_silu_stats)
+    return part
+
+
+def group_norm_silu_apply(x: torch.Tensor, tot: torch.Tensor, n: float,
+                          scale_bias: Tuple[torch.Tensor, torch.Tensor], groups: int,
+                          eps: float = GN_EPS, shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``silu(GroupNorm(x))`` from the groups' fp32 totals ``tot`` (B, 2,
+    G: sums, then sums of squares) of ``x - shift`` (shift (B, G) fp32 or
+    None) over ``n`` elements a group: the split form's kernel on a CUDA
+    tensor (or raise), ``group_norm_silu_norm_plain`` on a CPU tensor."""
+    scale, bias = scale_bias
+    if x.device.type == "cpu":
+        return group_norm_silu_norm_plain(x, tot, scale, bias, groups, eps, n=n, shift=shift)
+    return _launch_apply(x, tot, n, scale, bias, groups, eps, shift)
+
+
+def _launch_apply(x: torch.Tensor, tot: torch.Tensor, n: float, scale: torch.Tensor, bias: torch.Tensor,
+                  groups: int, eps: float, shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the split form's normalisation kernel, checked and counted."""
+    _check_args(x, scale, bias, groups)
+    B, H, W, C = x.shape
+    _check("tot", tot, (B, 2, groups), torch.float32, x.device)
+    if shift is not None:
+        _check("shift", shift, (B, groups), torch.float32, x.device)
+    rows, chunks, _ = _split_cut(x)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernel_lib().groupnorm_silu_apply(
+            x.data_ptr(), tot.data_ptr(), None if shift is None else shift.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), B, H * W, C, groups, rows, chunks, float(n), eps,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"groupnorm_silu_apply kernel launch failed: CUDA error {rc}")
+    _count(group_norm_silu_apply)
+    return y
+
+
+group_norm_silu_stats.launches = 0
+group_norm_silu_apply.launches = 0

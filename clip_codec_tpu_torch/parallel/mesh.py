@@ -1,4 +1,4 @@
-"""The device mesh and its data-axis collectives: the port of
+"""The device mesh and its collectives: the port of
 ``clip_codec_tpu/parallel/mesh.py``.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` of shape
@@ -9,6 +9,16 @@ hands back a global array, the rows are gathered so that every rank holds
 the whole (``all_gather_rows``). Parameters are replicated by a broadcast
 from rank 0 (``replicate``), and a data-parallel step sums its gradients
 over the axis (``sum_gradients``): the one collective of a training step.
+
+The ``model`` axis has the two collectives GSPMD inserts in JAX:
+``all_reduce_model``, the sum after a row-parallel product of the
+tensor-parallel SD UNet (``parallel/tp.py``) and the GroupNorm totals of a
+spatially sharded U-Net, and ``halo_rows``, the neighbours' edge rows that
+a conv of an image whose height is split over the axis reads. Both are
+built on ``all_reduce`` and ``all_gather``, which gloo takes on CUDA
+tensors (``send``/``recv`` it may refuse there). Whether a CUDA graph may
+capture them is the backend's (``capturable``): NCCL's collectives can be
+captured, gloo's cannot.
 """
 
 from __future__ import annotations
@@ -124,18 +134,85 @@ def replicate(mesh, tree):
     return tree
 
 
-def all_gather_rows(mesh, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order over the
-    data axis (the global array of rows that ``local_rows`` split)."""
+def all_gather_rows(mesh, t: torch.Tensor, dim: int = 0, axis: str = DATA_AXIS) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order over
+    ``axis`` (the global array of rows that ``local_rows`` split; over the
+    model axis, the image rows that ``model_slice`` split)."""
     import torch.distributed as dist
 
-    n = axis_size(mesh)
+    n = axis_size(mesh, axis)
     if n == 1:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=mesh.get_group(DATA_AXIS))
+    dist.all_gather(parts, t, group=mesh.get_group(axis))
     return torch.cat(parts, dim=dim)
+
+
+def model_slice(mesh, size: int) -> slice:
+    """This rank's part of ``size`` split evenly over the model axis in rank
+    order (rows of an image, columns of a weight)."""
+    n = axis_size(mesh, MODEL_AXIS)
+    if size % n:
+        raise ValueError(f"{size} not divisible by model axis {n}")
+    per = size // n
+    lo = axis_index(mesh, MODEL_AXIS) * per
+    return slice(lo, lo + per)
+
+
+def all_reduce_model(mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum of every model-axis rank's ``t``, on every rank, in t's
+    dtype. The partials are summed in fp32 and the sum rounded once to t's
+    dtype: closest to the one-rank product, which accumulates its whole
+    contraction in fp32 and rounds once (a bf16 partial has already been
+    rounded once by the product that made it, so a bf16 sum sits within
+    about 1.5 ulp of the one-rank value, against 0.5). Every rank receives
+    the same bits. A model axis of one returns ``t`` itself."""
+    import torch.distributed as dist
+
+    if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
+        return t
+    s = t.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(s, group=mesh.get_group(MODEL_AXIS))
+    return s.to(t.dtype)
+
+
+def halo_rows(mesh, x: torch.Tensor, n_top: int, n_bottom: int) -> torch.Tensor:
+    """``x`` (B, h, W, C), this rank's rows of an NHWC tensor whose height
+    is split over the model axis in rank order, between its neighbours'
+    edge rows: the last ``n_top`` rows of the rank above (zeros on the
+    first rank: the image's top) and the first ``n_bottom`` of the rank
+    below (zeros on the last) -> (B, n_top + h + n_bottom, W, C). One
+    ``all_gather`` over the axis of every rank's edge rows."""
+    import torch.distributed as dist
+
+    B, h, W, C = x.shape
+    if n_top > h or n_bottom > h:
+        raise ValueError(f"a halo of {n_top} + {n_bottom} rows around a shard of {h}")
+    n, k = axis_size(mesh, MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
+    zeros = lambda rows: x.new_zeros((B, rows, W, C))
+    top, bottom = zeros(n_top), zeros(n_bottom)
+    if n > 1:
+        edges = torch.cat([x[:, :n_bottom], x[:, h - n_top:]], dim=1).contiguous()
+        parts = [torch.empty_like(edges) for _ in range(n)]
+        dist.all_gather(parts, edges, group=mesh.get_group(MODEL_AXIS))
+        if k > 0:
+            top = parts[k - 1][:, n_bottom:]
+        if k < n - 1:
+            bottom = parts[k + 1][:, :n_bottom]
+    return torch.cat([top, x, bottom], dim=1)
+
+
+def capturable(mesh) -> bool:
+    """True where a CUDA graph may capture a sampler's model-axis
+    collectives on the card: the axis has one rank (no collective runs), or
+    NCCL serves CUDA tensors (one card a rank). Under gloo (ranks sharing a
+    card) a sampler with a model axis runs eagerly."""
+    import torch.distributed as dist
+
+    if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
+        return True
+    return "cuda:nccl" in str(dist.get_backend_config(mesh.get_group(MODEL_AXIS)))
 
 
 def sum_gradients(mesh, params: Sequence[torch.nn.Parameter], *scalars: torch.Tensor) -> Tuple[torch.Tensor, ...]:

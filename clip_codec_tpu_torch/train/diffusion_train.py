@@ -29,8 +29,9 @@ zeros). ``t`` and the noise are drawn for the global batch from the same
 seed on every rank and cut to its rows, so one rank and several train the
 same trajectory up to the order of the sum. Parameters start equal on every
 rank (a broadcast from rank 0), so the optimizer and the EMA stay equal too;
-rank 0 writes the files and prints. Spatial sharding (``spatial=True``) is
-not ported.
+rank 0 writes the files and prints. Spatially sharded training
+(``spatial=True``) is not ported; spatially sharded sampling is
+(``parallel.sample_spatial_sharded``).
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ import torch
 from ..diffusion.schedule import NoiseSchedule
 from ..models.unet import CLIPCondUNet, init_params
 from ..parallel.mesh import axis_size, barrier, is_main, local_rows, rank_device, replicate, sum_gradients
-from ..parallel.sample import NOT_PORTED_SPATIAL
 from ..utils.checkpoint import TrainCheckpointer, save_state_dict
 from ..utils.config import ModelConfig
 from ..utils.logging import TrainLogger
@@ -55,6 +55,12 @@ from .losses import clip_alignment, eps_mse, l1, total_variation, weighted_mean
 from .optim import ema_update, make_optimizer
 
 PathLike = Union[str, Path]
+
+NOT_PORTED_SPATIAL_TRAINING = (
+    "spatially sharded training (train_diffusion(spatial=True), --spatial_shard > 1: a differentiable halo "
+    "exchange and GroupNorm reduce, the TV loss across the shard boundary, gradients summed over both axes) is "
+    "not ported to the PyTorch package yet (ROADMAP.md Queue 1); spatially sharded sampling is "
+    "(parallel.sample_spatial_sharded)")
 
 
 @dataclass
@@ -169,7 +175,7 @@ def train_diffusion(
     the rank's device (``device`` is then ignored); ``cfg.batch_size`` is
     the global batch and must divide by the mesh's data axis."""
     if spatial:
-        raise NotImplementedError(NOT_PORTED_SPATIAL)
+        raise NotImplementedError(NOT_PORTED_SPATIAL_TRAINING)
     cfg = config or DiffusionTrainConfig(
         out_size=out_size, epochs=epochs, batch_size=batch_size, lr=lr, timesteps=timesteps,
         schedule=schedule, recon_w=recon_w, clip_w=clip_w, tv_w=tv_w)

@@ -227,9 +227,11 @@ def test_int8_and_sharded_are_refused(pixel, tmp_path):
     """int8 artifacts are served (static int8: the call takes the quant
     dict, and equals the eager sampler of the U-Net with those scales; a
     call without it raises naming the sidecar, a non-int8 artifact refuses
-    one); a data-sharded file is refused by ``load_decompressor`` with
-    JAX's message, and the spatial and SD sharded artifacts stay refused,
-    naming the modules still to port."""
+    one); a data-sharded or spatial file is refused by ``load_decompressor``
+    with JAX's message, a file that is not sharded by the sharded loaders,
+    and the tensor-parallel SD artifact refuses int8, naming it (the
+    sharded artifacts themselves: tests/test_torch_parallel.py,
+    tests/test_torch_tp.py, tests/test_torch_spatial.py)."""
     from clip_codec_tpu_torch.models import CLIPCondUNet
     from clip_codec_tpu_torch.ops import int8 as q8
 
@@ -257,13 +259,16 @@ def test_int8_and_sharded_are_refused(pixel, tmp_path):
         deploy.load_decompressor(forged, device="cpu")
     spatial = tmp_path / "spatial.torchprog"
     spatial.write_bytes(b"CLPTORCHPROG1\n" + json.dumps({**meta, "sharded": True, "spatial": True}).encode() + b"\n")
-    with pytest.raises(ValueError, match="parallel/tp.py and spatial sharding"):
-        deploy.load_sharded_decompressor(spatial, None)
-    for fn in (deploy.export_sharded_sd_decompressor, deploy.load_sharded_sd_decompressor):
-        with pytest.raises(NotImplementedError, match="parallel/tp.py and spatial sharding"):
-            fn()
-    with pytest.raises(NotImplementedError, match="parallel/tp.py and spatial sharding"):
-        deploy.export_sharded_decompressor(pixel["sd"], pixel["mc"], tmp_path / "s.torchprog", None, spatial=True)
+    with pytest.raises(ValueError, match="use load_sharded_decompressor"):
+        deploy.load_decompressor(spatial, device="cpu")
+    with pytest.raises(ValueError, match="not a sharded artifact — use load_decompressor"):
+        deploy.load_sharded_decompressor(tmp_path / "f.torchprog", None)
+    sd_file = tmp_path / "sd.torchprog"
+    sd_file.write_bytes(b"CLPTORCHPROG1\n" + json.dumps({**meta, "kind": "sd"}).encode() + b"\n")
+    with pytest.raises(ValueError, match="not a sharded artifact — use load_sd_decompressor"):
+        deploy.load_sharded_sd_decompressor(sd_file, None)
+    with pytest.raises(ValueError, match="tensor parallelism takes no int8"):
+        deploy.export_sharded_sd_decompressor({}, {}, {}, tmp_path / "tp.torchprog", None, quant=quant)
 
 
 def test_schedule_host_tables_keep_the_samplers_bit_equal():

@@ -235,7 +235,7 @@ def test_store_data_batches_match_jax(tmp_path, rng, u8, cache, workers):
 def test_cli_trains_resumes_and_reconstructs(tmp_path, rng):
     """cli.train for 1 epoch on the CPU (with an EMA), --resume to a second,
     and the final checkpoint drives cli.reconstruct_diffusion to a PNG;
-    spatial sharding is refused naming the module still to port, and
+    spatially sharded training is refused as not ported yet, and
     --distributed without a launcher (--clip_weights runs in
     tests/test_torch_compress.py, --data_parallel in
     tests/test_torch_parallel_train.py)."""
@@ -264,10 +264,10 @@ def test_cli_trains_resumes_and_reconstructs(tmp_path, rng):
                                 "--size", "16", "--device", "cpu", "--out", str(out)])
     assert Image.open(out).size == (16, 16)
     for flags, match in ((["--distributed"], "launcher's environment"),
-                         (["--spatial_shard", "2"], "spatial sharding.*parallel/sample.py")):
+                         (["--spatial_shard", "2"], "spatially sharded training.*not ported")):
         with pytest.raises(SystemExit, match=match):
             train.main(base + flags)
-    with pytest.raises(NotImplementedError, match="spatial sharding.*parallel/sample.py"):
+    with pytest.raises(NotImplementedError, match="spatially sharded training.*not ported"):
         ttrain.train_diffusion(tmp_path, device="cpu", spatial=True)
 
 

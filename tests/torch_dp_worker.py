@@ -1,5 +1,6 @@
 """One rank of the port's two-rank CPU tests (gloo), started by
-tests/test_torch_parallel*.py through ``clip_codec_tpu_torch.parallel.launch``:
+tests/test_torch_parallel*.py, tests/test_torch_tp.py and
+tests/test_torch_spatial.py through ``clip_codec_tpu_torch.parallel.launch``:
 
     python tests/torch_dp_worker.py <task> <workdir>
 
@@ -23,7 +24,7 @@ torch.set_num_threads(1)
 def _error(fn) -> str:
     try:
         fn()
-    except (ValueError, RuntimeError, NotImplementedError, SystemExit) as e:
+    except (ValueError, TypeError, RuntimeError, NotImplementedError, SystemExit) as e:
         return f"{type(e).__name__}: {e}"
     return ""
 
@@ -251,12 +252,107 @@ def cli(work: Path, rank: int) -> dict:
     return out
 
 
+def _sd_modules(work: Path, spec: dict, name: str):
+    from clip_codec_tpu_torch.models import sd as tsd
+
+    ucfg = tsd.SDUNetConfig(**{**spec[name], "block_out": tuple(spec[name]["block_out"])})
+    return ucfg, torch.load(work / f"{name}_unet.pt", weights_only=True)
+
+
+def tp(work: Path, rank: int) -> dict:
+    """The tensor-parallel SD UNet on a (1, 2) mesh: each rank's slices,
+    its forwards (TINY at 8x8, TINY4 at 8x8 and at 32x32, where the
+    self-attention of the first level passes the flash gate), the UNet on a
+    model axis of one, the int8 refusals, and the tensor-parallel SD
+    artifact (header, replay, images, refusals)."""
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.models import sd as tsd
+    from clip_codec_tpu_torch.parallel import make_mesh, shard_params_tp
+
+    spec = json.loads((work / "tp_in.json").read_text())
+    inp = dict(np.load(work / "tp_in.npz"))
+    mesh = make_mesh(model_parallel=2, device_type="cpu")
+    dp = make_mesh(device_type="cpu")  # (2, 1): a model axis of one
+    out = {}
+    with torch.no_grad():
+        for name in ("tiny", "tiny4"):
+            ucfg, sd = _sd_modules(work, spec, name)
+            local = shard_params_tp(mesh, sd)
+            out[f"{name}_shards"] = local
+            net = tsd.SDUNet(ucfg, mesh=mesh)
+            net.load_state_dict(local, strict=True)
+            one = tsd.SDUNet(ucfg, mesh=dp)
+            one.load_state_dict(shard_params_tp(dp, sd), strict=True)
+            for S in spec["sizes"][name]:
+                args = [torch.from_numpy(inp[f"{k}{S}"]) for k in ("lat", "t", "ctx")]
+                out[f"{name}_fwd{S}"] = net(*args).numpy()
+                out[f"{name}_one{S}"] = one(*args).numpy()
+        ucfg, sd = _sd_modules(work, spec, "tiny")
+        out["int8_errors"] = [_error(lambda: tsd.SDUNet(ucfg, int8=True, mesh=mesh))]
+        vcfg = tsd.VAEConfig(**{**spec["vae"], "block_out": tuple(spec["vae"]["block_out"])})
+        vae, adapter = (torch.load(work / f"{n}.pt", weights_only=True) for n in ("vae", "adapter"))
+        path = work / "tp.torchprog"
+        kw = dict(unet_cfg=ucfg, vae_cfg=vcfg, size=16, steps=2, batch_size=1, platforms=["cpu"], dtype="float32")
+        out["export_errors"] = [
+            _error(lambda: deploy.export_sharded_sd_decompressor(sd, vae, adapter, path, mesh, quant={}, **kw)),
+            _error(lambda: deploy.export_sharded_sd_decompressor(sd, vae, adapter, path, mesh, **dict(
+                kw, unet_cfg=tsd.SDUNetConfig(**{**spec["tiny"], "heads": 3}))))]
+        deploy.export_sharded_sd_decompressor(sd, vae, adapter, path, mesh, **kw)
+        call = deploy.load_sharded_sd_decompressor(path, mesh)
+        out["sd_meta"], out["sd_replay"] = dict(call.meta), call.replay
+        out["sd_images"] = [call(sd, vae, adapter, inp["z"], guidance_scale=g, x_T=inp["x_T"]).numpy()
+                            for g in (4.0, 0.0)]
+        out["sd_errors"] = [_error(lambda: deploy.load_sharded_sd_decompressor(path, dp)),
+                            _error(lambda: deploy.load_sd_decompressor(path, device="cpu"))]
+    return out
+
+
+def spatial(work: Path, rank: int) -> dict:
+    """``sample_spatial_sharded`` on a (1, 2) mesh at eta 0 (x_T injected)
+    and 0.5 (drawn from a generator), its refusals, and the spatial pixel
+    artifact."""
+    from clip_codec_tpu_torch import deploy
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule
+    from clip_codec_tpu_torch.parallel import make_mesh, sample_spatial_sharded
+    from clip_codec_tpu_torch.utils.config import ModelConfig
+
+    inp = dict(np.load(work / "spatial_in.npz"))
+    spec = json.loads((work / "spatial_in.json").read_text())
+    mesh = make_mesh(model_parallel=2, device_type="cpu")
+    dp = make_mesh(device_type="cpu")
+    net = _tiny_unet(work / "unet.pt", spec["cfg"])
+    sched = NoiseSchedule.create(50, "linear")
+    z, x_T = inp["z"], inp["x_T"]
+    out = {}
+    with torch.no_grad():
+        out["sample"] = sample_spatial_sharded(mesh, net, sched, z, 16, steps=3, x_T=x_T)
+        out["sample_eta"] = sample_spatial_sharded(mesh, net, sched, z, 16, steps=3, eta=0.5,
+                                                   generator=torch.Generator().manual_seed(9))
+        out["sample_errors"] = [
+            _error(lambda: sample_spatial_sharded(dp, net, sched, z[:3], 16, steps=1)),
+            _error(lambda: sample_spatial_sharded(mesh, net, sched, z, 15, steps=1)),
+            _error(lambda: sample_spatial_sharded(mesh, net, sched, z, 12, steps=1)),
+            _error(lambda: sample_spatial_sharded(mesh, lambda x, zz, t: x, sched, z, 16, steps=1))]
+    mc = ModelConfig(**spec["mc"])
+    params = torch.load(work / "unet.pt", weights_only=True)
+    path = work / "spatial.torchprog"
+    kw = dict(spatial=True, size=16, steps=3, batch_size=4, dtype="float32", platforms=["cpu"])
+    out["export_errors"] = [_error(lambda: deploy.export_sharded_decompressor(params, mc, path, mesh, **dict(
+        kw, size=12)))]
+    deploy.export_sharded_decompressor(params, mc, path, mesh, **kw)
+    call = deploy.load_sharded_decompressor(path, mesh)
+    out["artifact_meta"], out["artifact_replay"] = dict(call.meta), call.replay
+    out["artifact"] = [call(params, z, x_T=x_T).numpy(), call(params, z, seed=3).numpy()]
+    out["artifact_errors"] = [_error(lambda: deploy.load_sharded_decompressor(path, dp))]
+    return out
+
+
 def main() -> None:
     import torch.distributed as dist
 
     task, work = sys.argv[1], Path(sys.argv[2])
     rank = int(__import__("os").environ["RANK"])
-    out = {"lib": lib, "train": train, "cli": cli}[task](work, rank)
+    out = {"lib": lib, "train": train, "cli": cli, "tp": tp, "spatial": spatial}[task](work, rank)
     out["world"] = dist.get_world_size()
     bad = sorted(m for m in sys.modules if m in ("jax", "clip_codec_tpu") or m.startswith(("jax.", "clip_codec_tpu.")))
     out["jax_modules"] = bad
