@@ -337,15 +337,16 @@ class _Program:
 
 
 def make_decompress_fn(mc: ModelConfig, size: int = 256, steps: int = 50, sampler: str = "ddim",
-                       eta: float = 0.0, output: str = "float32", batch_rows: Optional[Tuple[object, object]] = None,
+                       eta: float = 0.0, output: str = "float32",
+                       batch_rows: Optional[Tuple[Tuple[int, ...], object]] = None,
                        spatial=None) -> Callable[..., torch.Tensor]:
     """The serving function ``(net, z, x_T, generator) -> images``: the
     sampler from ``x_T`` (B, size, size, img_ch) conditioned on ``z`` (B,
     z_dim), clipped to [-1, 1], and with ``output="uint8"`` converted as
     the host prepares a PNG, ``((x + 1) * 127.5)`` truncated to uint8.
     ``generator`` draws the per-step noise at ``eta > 0``, for the whole
-    batch of ``batch_rows`` = (batch, rows) when these B are its ``rows``
-    (or (whole shape, index), ``ddim_sample``'s). ``spatial``: a mesh whose
+    sample of ``batch_rows`` = (whole shape, index) when ``x_T`` is its
+    ``index`` cut (``ddim_sample``'s). ``spatial``: a mesh whose
     model axis splits the height of ``x_T``, which the U-Net's spatial form
     then samples."""
     if output not in ("float32", "uint8"):

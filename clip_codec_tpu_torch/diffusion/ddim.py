@@ -81,25 +81,23 @@ def ddim_sample(
     generator: Optional[torch.Generator] = None,
     x_T: Optional[torch.Tensor] = None,
     standard: bool = False,
-    batch_rows: Optional[Tuple[object, object]] = None,
+    batch_rows: Optional[Tuple[Tuple[int, ...], object]] = None,
 ) -> torch.Tensor:
     """Sample fp32 images of ``shape`` = (B, H, W, C) conditioned on ``z``.
 
     ``generator`` (on z's device) draws the initial noise when ``x_T`` is
     None and, for ``eta > 0``, the per-step noise. ``batch_rows`` =
-    (global batch, rows): these B rows are ``rows`` of a larger batch, and
-    every draw is made for the whole batch and cut to them, so a batch split
-    over ranks samples what the whole batch would; (global shape, index)
-    cuts a draw of the whole shape by the index (the rows and the height
-    slice of a spatially sharded sample)."""
+    (whole shape, index): ``shape`` is the ``index`` cut of a larger sample
+    (a rank's rows, and under spatial sharding its height slice), and every
+    draw is made for the whole shape and cut by the index, so a sample split
+    over ranks draws what the whole one would."""
     device = z.device
 
     def draw() -> torch.Tensor:
         if batch_rows is None:
             return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        total, rows = batch_rows
-        whole = tuple(total) if isinstance(total, (tuple, list)) else (total,) + tuple(shape[1:])
-        return torch.randn(whole, generator=generator, device=device, dtype=torch.float32)[rows]
+        whole, index = batch_rows
+        return torch.randn(tuple(whole), generator=generator, device=device, dtype=torch.float32)[index]
 
     ts, abt, ab_s = _step_coefficients(sched, steps, standard)
     c_noise, c_x0, c_s, c_dir, sig = _update_coefficients(abt, ab_s, eta, standard)
@@ -134,7 +132,7 @@ class DDIMSampler:
         cfg_scale: float = 1.0,
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-        batch_rows: Optional[Tuple[object, object]] = None,
+        batch_rows: Optional[Tuple[Tuple[int, ...], object]] = None,
     ) -> torch.Tensor:
         del cfg_scale  # accepted and ignored, as in the reference, see (d)
         return ddim_sample(model_fn, self.sched, z, tuple(shape), steps, self.eta,

@@ -20,8 +20,8 @@ The ResBlock has the JAX block's two forms on the same parameters:
   the int8 conv kernel, as the JAX block takes its direct path in int8 mode.
 * spatial (sampling with the image height split over a mesh's ``model``
   axis, ``spatial``): the direct form on this rank's rows, each
-  GroupNorm+SiLU as K1's split form with the totals summed over the axis
-  between its halves, each 3x3 conv reading one halo row of each neighbour
+  GroupNorm+SiLU as K1's split form with the ranks' moments merged over
+  the axis between its halves, each 3x3 conv reading one halo row of each neighbour
   (``parallel.mesh.halo_rows``). What GSPMD inserts into JAX's direct form.
 """
 
@@ -36,7 +36,7 @@ from torch import nn
 from ..ops import groupnorm as gn
 from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
-from ..parallel.mesh import MODEL_AXIS, all_reduce_model, axis_size, halo_rows
+from ..parallel.mesh import MODEL_AXIS, axis_size, halo_rows, merge_moments_model
 
 
 def _converted(module: nn.Module, name: str, dtype: torch.dtype, convert) -> torch.Tensor:
@@ -92,17 +92,21 @@ def conv3x3_spatial(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, mesh, 
 
 def group_norm_silu_spatial(x: torch.Tensor, norm: nn.GroupNorm, mesh) -> torch.Tensor:
     """GroupNorm+SiLU of this rank's rows ``x`` of an image whose height is
-    split over ``mesh``'s model axis: K1's statistics over the rows with
-    the totals summed over the axis, twice (the mean, then the sums of
-    ``x - mean``: the shifted-data variance, which does not cancel where
-    the mean is large against the spread), then K1's normalisation over the
-    whole image's count."""
+    split over ``mesh``'s model axis: one K1 statistics pass over the rows
+    of ``x - shift``, the shift one element of each group on this rank
+    (the shifted-data sums, which do not cancel where a group's mean is
+    large against its spread), the ranks' moments merged in one collective
+    (``merge_moments_model``), then K1's normalisation about the merged
+    mean over the whole image's count."""
     g = norm.num_groups
     B, h, W, C = x.shape
-    n = h * axis_size(mesh, MODEL_AXIS) * W * (C // g)
-    mean = all_reduce_model(mesh, gn.group_norm_silu_stats(x, g).sum(dim=1))[:, 0] / n
-    tot = all_reduce_model(mesh, gn.group_norm_silu_stats(x, g, shift=mean).sum(dim=1))
-    return gn.group_norm_silu_apply(x, tot, n, (norm.weight, norm.bias), g, shift=mean)
+    n = h * W * (C // g)
+    shift = x[:, 0, 0].reshape(B, g, C // g)[:, :, 0].float().contiguous()
+    part = gn.group_norm_silu_stats(x, g, shift=shift).sum(dim=1)
+    mean, m2 = merge_moments_model(mesh, shift, part[:, 0], part[:, 1], n)
+    tot = torch.stack([torch.zeros_like(m2), m2], dim=1)
+    return gn.group_norm_silu_apply(x, tot, n * axis_size(mesh, MODEL_AXIS), (norm.weight, norm.bias), g,
+                                    shift=mean)
 
 
 class FiLM(nn.Module):

@@ -30,11 +30,11 @@ Two forms on the same parameters, JAX's ``fused_pallas`` and ``remat``:
   split over ``mesh``'s ``model`` axis, ``parallel.sample_spatial_sharded``):
   the direct form on this rank's rows whatever ``fused_pallas`` says, as
   JAX asks for ``fused_pallas=False`` there, with what GSPMD inserts made
-  explicit: each GroupNorm+SiLU as K1's split form with the totals summed
-  over the axis (``group_norm_silu_stats`` twice, the second on ``x -
-  mean``, each followed by an all-reduce, then ``group_norm_silu_apply``:
-  56 + 28 launches a forward at ch_mult (1, 2, 2)), the head's GroupNorm from
-  totals summed the same way, one halo row of each neighbour around every
+  explicit: each GroupNorm+SiLU as K1's split form with the ranks' moments
+  merged over the axis (``group_norm_silu_stats`` of ``x - shift``, one
+  all-gather, then ``group_norm_silu_apply``: 28 + 28 launches a forward at
+  ch_mult (1, 2, 2)), the head's GroupNorm from moments merged the same
+  way, one halo row of each neighbour around every
   3x3 stride-1 conv, one of the rank above before a stride-2 downsample
   (every shard starts on an even row), and one each side before a 4x4
   stride-2 transposed conv, cropped after. Every level's rows must split
@@ -63,7 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
 from ..ops.groupnorm import GN_EPS, group_norm
-from ..parallel.mesh import MODEL_AXIS, all_reduce_model, axis_size, halo_rows
+from ..parallel.mesh import MODEL_AXIS, axis_size, halo_rows, merge_moments_model
 from .blocks import ResBlock, cast, conv2d, conv3x3_spatial, kernel_weight, linear
 
 
@@ -108,15 +108,18 @@ def check_spatial(size: int, levels: int, n_model: int) -> None:
 
 def _group_norm_spatial(x: torch.Tensor, norm: nn.GroupNorm, mesh, eps: float = GN_EPS) -> torch.Tensor:
     """``group_norm`` of this rank's rows ``x`` of an image whose height is
-    split over ``mesh``'s model axis: the mean, then the centred sum of
-    squares, each from fp32 sums over the rows summed over the axis."""
+    split over ``mesh``'s model axis: fp32 sums over the rows about this
+    rank's own group means, the ranks' moments merged in one collective
+    (``merge_moments_model``)."""
     B, h, W, C = x.shape
     G = norm.num_groups
     xg = x.float().reshape(B, h, W, G, C // G)
-    count = h * axis_size(mesh, MODEL_AXIS) * W * (C // G)
-    mean = (all_reduce_model(mesh, xg.sum(dim=(1, 2, 4))) / count)[:, None, None, :, None]
-    var = (all_reduce_model(mesh, (xg - mean).square().sum(dim=(1, 2, 4))) / count)[:, None, None, :, None]
-    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(B, h, W, C)
+    n = h * W * (C // G)
+    local = xg.mean(dim=(1, 2, 4))
+    d = xg - local[:, None, None, :, None]
+    mean, m2 = merge_moments_model(mesh, local, d.sum(dim=(1, 2, 4)), d.square().sum(dim=(1, 2, 4)), n)
+    var = m2 / (n * axis_size(mesh, MODEL_AXIS))
+    y = ((xg - mean[:, None, None, :, None]) * torch.rsqrt(var + eps)[:, None, None, :, None]).reshape(B, h, W, C)
     return (y * norm.weight.float() + norm.bias.float()).to(x.dtype)
 
 

@@ -30,8 +30,9 @@ says: the int8 serving artifacts replay K1).
 
 The split form, for a caller that combines the statistics of several
 tensors between the two halves (the U-Net whose height is split over the
-ranks of a mesh's model axis sums its totals over them, ``models/unet.py``
-``forward_spatial``), is the JAX original's own two steps:
+ranks of a mesh's model axis merges its moments over them,
+``models/unet.py`` ``forward_spatial``), is the JAX original's own two
+steps:
 
 * ``group_norm_silu_stats(x, groups, shift=None)``: the (B, S, 2, G) fp32
   slab partials of ``x - shift`` (shift (B, G) fp32, per sample and
@@ -45,8 +46,9 @@ ranks of a mesh's model axis sums its totals over them, ``models/unet.py``
 The shift is the shifted-data form of the variance: the raw-moment
 difference ``SS / n - mean^2`` cancels in fp32 where a group's mean is
 large against its spread (a pixel U-Net's activations after a conv and
-FiLM are), and the sums of ``x - mean`` do not. The spatial U-Net passes
-the mean of a first, unshifted pass.
+FiLM are), and the sums of ``x - shift`` for a shift near the data do
+not. The spatial U-Net shifts each rank's statistics by one element of each
+group, and normalises about the merged mean with totals ``(0, M2)``.
 
 On a CUDA tensor each launches its kernel of ``csrc/groupnorm_silu.cu`` (an
 ordinary launch, one block a slab) or raises, counted on its own

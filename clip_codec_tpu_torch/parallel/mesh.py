@@ -10,12 +10,12 @@ the whole (``all_gather_rows``). Parameters are replicated by a broadcast
 from rank 0 (``replicate``), and a data-parallel step sums its gradients
 over the axis (``sum_gradients``): the one collective of a training step.
 
-The ``model`` axis has the two collectives GSPMD inserts in JAX:
+The ``model`` axis has the collectives GSPMD inserts in JAX:
 ``all_reduce_model``, the sum after a row-parallel product of the
-tensor-parallel SD UNet (``parallel/tp.py``) and the GroupNorm totals of a
-spatially sharded U-Net, and ``halo_rows``, the neighbours' edge rows that
-a conv of an image whose height is split over the axis reads. Both are
-built on ``all_reduce`` and ``all_gather``, which gloo takes on CUDA
+tensor-parallel SD UNet (``parallel/tp.py``); ``merge_moments_model``, the
+GroupNorm statistics of a spatially sharded U-Net; and ``halo_rows``, the
+neighbours' edge rows that a conv of an image whose height is split over
+the axis reads. They are built on ``all_reduce`` and ``all_gather``, which gloo takes on CUDA
 tensors (``send``/``recv`` it may refuse there). Whether a CUDA graph may
 capture them is the backend's (``capturable``): NCCL's collectives can be
 captured, gloo's cannot.
@@ -175,6 +175,25 @@ def all_reduce_model(mesh, t: torch.Tensor) -> torch.Tensor:
     s = t.to(torch.float32, copy=True).contiguous()
     dist.all_reduce(s, group=mesh.get_group(MODEL_AXIS))
     return s.to(t.dtype)
+
+
+def merge_moments_model(mesh, shift: torch.Tensor, s: torch.Tensor, q: torch.Tensor,
+                        n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean and the centred sum of squares over the model axis of data
+    that each rank holds ``n`` elements of, from this rank's fp32 sums
+    ``s`` of ``x - shift`` and ``q`` of its squares (``shift`` this rank's
+    own, near its data: the sums then do not cancel where the mean is large
+    against the spread): Chan's merge of every rank's (mean, centred sum),
+    summed in rank order from one ``all_gather``, so every rank holds the
+    same bits. A model axis of one merges nothing."""
+    mean = shift + s / n
+    m2 = q - s * (s / n)
+    if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
+        return mean, m2
+    parts = all_gather_rows(mesh, torch.stack([mean, m2])[None], axis=MODEL_AXIS)
+    means, m2s = parts[:, 0], parts[:, 1]
+    mean = means.mean(dim=0)
+    return mean, m2s.sum(dim=0) + n * (means - mean).square().sum(dim=0)
 
 
 def halo_rows(mesh, x: torch.Tensor, n_top: int, n_bottom: int) -> torch.Tensor:

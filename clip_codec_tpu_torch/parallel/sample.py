@@ -51,7 +51,7 @@ def sample_sharded(
     z_l = torch.as_tensor(np.asarray(z, np.float32) if not torch.is_tensor(z) else z)[rows].to(dev, torch.float32)
     x0 = None if x_T is None else torch.as_tensor(x_T)[rows].to(dev, torch.float32)
     shape = (z_l.shape[0], image_size, image_size, channels)
-    out = ddim_sample(model_fn, sched, z_l, shape, steps, eta, generator, x0, batch_rows=(B, rows))
+    out = ddim_sample(model_fn, sched, z_l, shape, steps, eta, generator, x0, batch_rows=((B,) + shape[1:], rows))
     return all_gather_rows(mesh, out).cpu().numpy()
 
 

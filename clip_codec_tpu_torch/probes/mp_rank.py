@@ -14,8 +14,9 @@ after, and this rank writes what it did to ``<out>/rank<r>.json``
   bf16) loaded with this rank's slices (``shard_params_tp``) of the
   diffusers file at ``unet``; one forward at the inputs in ``inputs``
   (latents, t, context) saved as fp32, its launches by shape (K4's (BH, N,
-  D), K6's (R, C, F)), then the device ms a forward (CUDA events over
-  ``reps`` forwards; ranks that share a card time each other's work too);
+  D), each of K6's two stages' (R, C, F)), then the device ms a forward
+  (CUDA events over ``reps`` forwards; ranks that share a card time each
+  other's work too);
 * ``tp_artifact``: ``export_sharded_sd_decompressor`` /
   ``load_sharded_sd_decompressor`` of the diffusers files; ``call.replay``,
   the header, a first call (capture or eager warm-up) and one request's
@@ -71,13 +72,14 @@ def _counts() -> dict:
 
 @contextlib.contextmanager
 def _by_shape(shapes: collections.Counter):
-    """Tally K4, K6 (mlp_up) and K1's split entries by shape into
-    ``shapes`` (keys ``"<kernel> <shape>"``), through each one's launcher."""
+    """Tally K4, K6's two stages and K1's split entries by shape into
+    ``shapes`` (keys ``"<kernel> <shape>"``; K6's (R, C, F)), through each
+    one's launcher."""
     from ..ops import attention as attn
     from ..ops import groupnorm as gn
     from ..ops import mlp
 
-    saved = attn._launch, mlp._launch_up, gn._launch_stats, gn._launch_apply
+    saved = attn._launch, mlp._launch_up, mlp._launch_down, gn._launch_stats, gn._launch_apply
 
     def flash(q, k, v):
         shapes[f"flash_attention {list(q.shape)}"] += 1
@@ -87,19 +89,24 @@ def _by_shape(shapes: collections.Counter):
         shapes[f"mlp_up {[x.numel() // x.shape[-1], x.shape[-1], rest[2].shape[0]]}"] += 1
         return saved[1](x, *rest)
 
+    def down(h, wdown, *a, **k):
+        shapes[f"mlp_down {[h.numel() // h.shape[-1], wdown.shape[0], h.shape[-1]]}"] += 1
+        return saved[2](h, wdown, *a, **k)
+
     def stats(x, *a, **k):
         shapes[f"group_norm_silu_stats {list(x.shape)}"] += 1
-        return saved[2](x, *a, **k)
+        return saved[3](x, *a, **k)
 
     def apply(x, *a, **k):
         shapes[f"group_norm_silu_apply {list(x.shape)}"] += 1
-        return saved[3](x, *a, **k)
+        return saved[4](x, *a, **k)
 
-    attn._launch, mlp._launch_up, gn._launch_stats, gn._launch_apply = flash, up, stats, apply
+    attn._launch, mlp._launch_up, mlp._launch_down, gn._launch_stats, gn._launch_apply = (
+        flash, up, down, stats, apply)
     try:
         yield
     finally:
-        attn._launch, mlp._launch_up, gn._launch_stats, gn._launch_apply = saved
+        attn._launch, mlp._launch_up, mlp._launch_down, gn._launch_stats, gn._launch_apply = saved
 
 
 def _mesh():

@@ -147,3 +147,26 @@ def test_split_plain_pair_over_two_halves_equals_one_shot(dtype):
     torch.testing.assert_close(got, one, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got.float(), gn.group_norm_silu_plain(x.float(), (scale, bias), 8), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_shifted_stats_hold_a_mean_that_dwarfs_the_spread():
+    """The spatial GroupNorm's one statistics pass, as ``group_norm_silu_spatial``
+    makes it: the sums of x minus one element of each group, the moments
+    merged (one rank here), then apply about the mean with totals (0, M2):
+    in fp32 within 1e-4 of the fp64 one-shot result on the same values
+    where the mean is 1e3 times the spread, as raw moments are not."""
+    from clip_codec_tpu_torch.parallel.mesh import merge_moments_model
+
+    gen = torch.Generator().manual_seed(1)
+    xf = torch.randn(2, 16, 12, 32, generator=gen) * 0.1 + 100.0
+    scale, bias = torch.randn(32, generator=gen) * 0.2 + 1, torch.randn(32, generator=gen) * 0.1
+    x, n = xf.double(), 16 * 12 * 4
+    shift = xf[:, 0, 0].reshape(2, 8, 4)[:, :, 0].contiguous()
+    tot = gn.group_norm_silu_stats(xf, 8, shift=shift).sum(dim=1)
+    mean, m2 = merge_moments_model(None, shift, tot[:, 0], tot[:, 1], n)
+    got = gn.group_norm_silu_apply(xf, torch.stack([torch.zeros_like(m2), m2], dim=1), n, (scale, bias), 8,
+                                   shift=mean)
+    want = gn.group_norm_silu_plain(x, (scale.double(), bias.double()), 8)
+    torch.testing.assert_close(got.double(), want, rtol=1e-4, atol=1e-4)
+    raw = gn.group_norm_silu_apply(xf, gn.group_norm_silu_stats(xf, 8).sum(dim=1), n, (scale, bias), 8)
+    assert (raw.double() - want).abs().max() > 1e-2  # the raw moments cancel here
