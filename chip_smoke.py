@@ -3640,6 +3640,7 @@ def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
 
     F = torch.nn.functional
     check(SD_TIMED <= set(shapes), f"SD_TIMED shapes not on the path: {SD_TIMED - set(shapes)}")
+    int8_ptxas_report()
     gen = torch.Generator(device=dev).manual_seed(seed + 71)
     recs = {name: [] for name in Q8_KERNELS}
     done = {name: set() for name in Q8_KERNELS}
@@ -3688,8 +3689,58 @@ def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
     print(f"int8-kernels: bit-equal to the plain versions at all {len(shapes)} shapes "
           f"({sum(not m for _, m in shapes.values())} check-only): absmax, codes and scale dynamic and static, the "
           f"conv's int32, fp32 and bf16 outputs")
+    int8_replays(torch, q8, gen, dev)
     torch.cuda.empty_cache()
     return recs
+
+
+def int8_ptxas_report() -> None:
+    """Registers and spills of each kernel in int8_conv.cu, from the build's
+    ``-Xptxas -v`` log; a spill fails the phase."""
+    from clip_codec_tpu_torch.ops import _build
+
+    name = None
+    for line in _build.library_path("int8_conv").with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+        if m:
+            name = m.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            print(f"int8-kernels: ptxas {name}: {line.strip()}")
+            if "spill" in line:
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"int8_conv.cu spills in {name}: {line}")
+
+
+def int8_replays(torch, q8, gen, dev) -> None:
+    """Two CUDA-graph replays bit-equal to each other and to the plain
+    version: SD's 8^2 conv, whose plan splits K (its arrival counters reset
+    themselves, its partials are overwritten), and absmax at the dynamic
+    server's largest input (one launch, its counter reset by its last
+    block)."""
+    (xs, ws, stride, pad) = ((2, 8, 8, 1280), (1280, 3, 3, 1280), 1, 1)
+    plan = q8.int8_conv_plan(*xs, ws[0], ws[1], stride, pad, torch.cuda.get_device_properties(dev).multi_processor_count)
+    check(plan.splits > 1, f"int8 replays: the SD 8^2 conv's plan does not split K: {plan}")
+    xq = torch.randint(-127, 128, xs, generator=gen, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, ws, generator=gen, device=dev, dtype=torch.int8)
+    wsc = torch.rand((ws[0],), generator=gen, device=dev) * 1e-3 + 1e-4
+    s, bias = torch.full((), 0.02, device=dev), torch.randn((ws[0],), generator=gen, device=dev)
+    x = torch.randn((65536, 128), generator=gen, device=dev).to(torch.bfloat16)
+    for what, run, want in (
+            (f"int8_conv_nhwc {xs} x {ws} ({plan.splits} K slices)",
+             lambda: q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16),
+             q8.int8_conv2d_plain(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16)),
+            ("absmax (65536, 128) bf16", lambda: q8.absmax(x), q8.absmax_plain(x))):
+        run()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(first, out) and torch.equal(out, want), f"int8 replays: {what}: two replays differ or "
+              f"leave the plain version")
+        print(f"int8-kernels: {what}: two graph replays bit-equal to each other and to the plain version")
+        del graph
 
 
 def time_conv(torch, q8, F, recs, x, w, xq, wq, wsc, s, bias, stride, pad, acc_p, errs, path, card):
@@ -3717,14 +3768,18 @@ def time_conv(torch, q8, F, recs, x, w, xq, wq, wsc, s, bias, stride, pad, acc_p
         xb = x.permute(0, 3, 1, 2)
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         scale_ms = graph_ms(torch, lambda: F.conv2d(xb, wb, None, stride, pad), iters=10)
+    pl = q8.int8_conv_plan(B, H, W, cin, cout, k, stride, pad,
+                           torch.cuda.get_device_properties(xq.device).multi_processor_count)
+    plan = {"n_tile": pl.n_width, "rows": pl.rows, "mw": pl.mw, "splits": pl.splits, "swap": pl.swap,
+            "units": pl.units, "blocks": pl.blocks, "stages": pl.stages}
     rec = {"shape": [list(xs), list(wq.shape), stride, pad], "path": path, "ms": ms, "events_ms": ev_ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
            "cudnn_bf16_ms": scale_ms, "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
-           "tops": 2.0 * M * cout * K / ms / 1e9}
+           "tops": 2.0 * M * cout * K / ms / 1e9, "plan": plan}
     recs["int8_conv_nhwc"].append(rec)
     print(f"int8-kernels: int8_conv_nhwc {path} x {xs} w {tuple(wq.shape)} s{stride} p{pad}: ms={ms:.4f} (graph) "
           f"events_ms={ev_ms:.4f} plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) {rec['tops']:.1f} TOP/s "
-          f"_int_mm_ms={lib_ms} cudnn_bf16_ms={scale_ms} on {card}")
+          f"_int_mm_ms={lib_ms} cudnn_bf16_ms={scale_ms} plan {plan} on {card}")
 
 
 def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):

@@ -1,21 +1,29 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu), the attention probes
 // (flash_attention_probe.cu), the ResBlock conv (affine_conv3x3.cu), the
-// transformer MLP (transformer_mlp.cu) and GroupNorm+SiLU (groupnorm_silu.cu):
+// transformer MLP (transformer_mlp.cu), GroupNorm+SiLU (groupnorm_silu.cu)
+// and the int8 conv (int8_conv.cu):
 //   * host: a TMA tensor map from libcuda's cuTensorMapEncodeTiled, reached
-//     through cudaGetDriverEntryPoint (the libraries link no -lcuda);
+//     through cudaGetDriverEntryPoint (the libraries link no -lcuda); bf16
+//     maps, and maps of any type with traversal strides, which a strided
+//     conv's tap window needs;
 //   * cp.async.bulk.tensor loads (1-D to 4-D) into shared memory that
 //     complete on an mbarrier with expect_tx, and the mbarrier wait and
 //     arrive of an N-stage ring (full and empty barriers per stage), with
 //     the proxy fence a stage needs when threads wrote it before TMA refills
-//     or stores it; bulk copies of contiguous bytes both ways (no tensor
-//     map);
+//     or stores it; 2-D tensor stores from shared memory as bulk groups;
+//     bulk copies of contiguous bytes both ways (no tensor map);
 //   * wgmma shared-memory descriptors for 128-byte-swizzled tiles, K-major
 //     (the operand's depth contiguous) and MN-major (its rows contiguous: a
 //     transposed B);
 //   * wgmma.mma_async m64nNk16 bf16 -> fp32, A from shared memory (ss) or
 //     from registers (rs), with fence, commit_group and wait_group, and
-//     setmaxnreg for warp-specialised blocks.
+//     setmaxnreg for warp-specialised blocks;
+//   * wgmma.mma_async m64nNk32 s8 x s8 -> s32 (WgmmaS8), A and B from
+//     shared memory by descriptor. Integer wgmma has no transpose, so both
+//     operands are K-major; a k32 step is 32 bytes of the 128-byte row, the
+//     byte geometry of a bf16 k16 step, so desc_k serves both. The int8
+//     conv feeds A by TMA (a tap's window is a box), so it has no rs form.
 //
 // Tile layout. Every bf16 operand tile is stored as 64-column blocks: block
 // cb holds columns [64 cb, 64 cb + 64) of all the tile's rows, 128 bytes a
@@ -125,6 +133,23 @@ inline int tmap_vec_f32(CUtensorMap* map, const void* base, long long n, int box
   return r == CUDA_SUCCESS ? 0 : TMAP_ENCODE_FAILED + (int)r;
 }
 
+// A tensor of `type` and `rank` (<= 5) dimensions, innermost first, with
+// traversal strides `elem` (1 to 8 a dimension; a box dimension of n *
+// elem[i] values loads n of them, every elem[i]-th), the byte strides of
+// dimensions 1.. (multiples of 16), the given box and swizzle. Loads read
+// elements outside the tensor, at negative coordinates too, as zero; stores
+// drop them. Returns 0 or an error code.
+inline int tmap_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box, const cuuint32_t* elem,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return TMAP_NO_ENTRY_POINT;
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ENCODE_FAILED + (int)r;
+}
+
 // --------------------------------------------------------------- device
 
 constexpr int WARPGROUP = 128;
@@ -186,6 +211,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of shared memory to a 2-D map at (c0, c1), a bulk group of this
+// thread: commit it, then wait with bulk_wait_read / bulk_wait below.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
 }
 
 // Orders this thread's earlier shared-memory accesses (the generic proxy)
@@ -268,6 +302,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Named barriers (ids 1..15; 0 is __syncthreads') over `threads` threads:
@@ -507,4 +546,73 @@ struct Wgmma<256> {
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
   }
 };
+
+// wgmma.mma_async m64nNk32, s8 x s8, s32 accumulate, A and B K-major from
+// descriptors: d = A B (accumulate = 0) or d += A B. Same accumulator layout
+// as the fp32 forms above (d[4c + e]: row 16 w + g (+ 8 for e >= 2), column
+// 8 c + 2 q + (e & 1)). Integer N takes 8..256 in steps of 8 to 32, then 16;
+// these are the widths the int8 conv instantiates.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<8> {
+  static __device__ __forceinline__ void ss(int (&d)[4], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {%0, %1, %2, %3}, %4, %5, p;\n}\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void ss(int (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void ss(int (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p;\n}\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void ss(int (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void ss(int (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+                 : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
 }  // namespace sm90

@@ -18,6 +18,12 @@ On a CUDA tensor the three steps are hand-written kernels
 ``int8_conv_nhwc``, which also runs every ``Linear`` as a 1x1 conv over
 ``(M, 1, 1, K)`` rows. They raise on what they do not take (Cin % 32 != 0,
 Cout % 8 != 0, other kernel sizes, strides or paddings); nothing falls back.
+The conv's tiles, K splits and operand swap come from
+:func:`int8_conv_plan`, a pure function the CPU tests check and the
+launch passes to the kernel as it is. Split-K tiles and ``absmax`` sum
+across blocks through a scratch buffer whose arrival counters every launch
+leaves zero (:func:`_workspace`): one for each device and stream, as the
+launches that share it must be ordered.
 On a CPU tensor each runs its plain version: the codes in fp32 with
 ``torch.round`` (half to even) and a true division, and the integer product
 in float64, which is exact for these sums (|sum| <= 9 * 2560 * 127^2 < 2^53;
@@ -36,7 +42,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+import functools
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -133,23 +140,212 @@ def int8_conv2d_plain(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     return _epilogue(acc, w_scale, s, bias, out_dtype).contiguous()
 
 
+# ------------------------------------------------------------ the conv's plan
+#
+# csrc/int8_conv.cu's constants, mirrored: a block is two consumer
+# warpgroups, each 64 MW rows of wgmma's M side; a ring stage carries 128
+# bytes of K (one 128-byte swizzled row) of 128 MW A rows and BN B rows.
+
+KSTEP = 128
+TILES = ((1, 64), (1, 128), (1, 256), (2, 64), (2, 128))  # (MW, BN): 128 MW output rows x BN channels
+SWAP_BN = (8, 16, 32, 64)  # M <= 64: the weights are the 128-row side, the M rows wgmma's N
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+SMEM_FIXED = 1024 + 8 * 2048 + 2 * 8 * 8 + 16 + 4096 + 16 * 32  # alignment, staging, barriers, flag, scales, units
+MAX_STAGES = 8
+SPLIT_TILE_INTS = 256 * 128  # a split slice's scratch: 128 MW x BN <= 32768 int32
+# The plan's cost model, microseconds on an H100 SXM at 700 W: a K step and
+# an epilogue of each tile, a split tile's arrival, and the last slice's read
+# of the others' partials (a KB); a swapped tile is priced as a (1, 64) one.
+# Fitted by least squares to CUDA-graph times of every plan at the int8
+# paths' shapes.
+STEP_US = {(1, 64): 0.28, (1, 128): 0.36, (1, 256): 0.54, (2, 64): 0.42, (2, 128): 0.58}
+EPILOGUE_US = {(1, 64): 1.5, (1, 128): 2.3, (1, 256): 5.8, (2, 64): 3.4, (2, 128): 4.0}
+SPLIT_US, SLICE_US_PER_KB = 2.4, 0.011
+
+
+class Int8ConvPlan(NamedTuple):
+    """How ``int8_conv_nhwc`` walks one call. ``view`` is the output as the
+    kernel sees it: ``(B, Ho, Wo)``, or ``(M, 1, 1)`` for a GEMM (a 1x1,
+    stride 1, unpadded conv, whose rows are contiguous). A tile is ``rows``
+    output pixels, ``tile = (TB, TH, TW)`` of images, rows and columns,
+    times ``n_width`` output channels; each of its ``k_steps`` steps is one
+    tap's 128 input channels. ``swap``: the weights are wgmma's 128-row A
+    side and the pixels its N = ``bn`` side. A unit is one of ``splits``
+    slices of a tile's K steps; ``blocks`` persistent blocks walk the
+    ``units`` with a ring of ``stages``."""
+    mw: int
+    bn: int
+    splits: int
+    swap: bool
+    gemm: bool
+    view: Tuple[int, int, int]
+    tile: Tuple[int, int, int]
+    m_tiles: int
+    n_tiles: int
+    k_steps: int
+    units: int
+    blocks: int
+    stages: int
+
+    @property
+    def rows(self) -> int:
+        """Output pixels a tile."""
+        return self.bn if self.swap else 128 * self.mw
+
+    @property
+    def n_width(self) -> int:
+        """Output channels a tile."""
+        return 128 if self.swap else self.bn
+
+    def unit(self, u: int) -> Tuple[int, Tuple[int, int, int], int, Tuple[int, int]]:
+        """Unit ``u`` as the kernel decodes it: ``(tile, (b0, h0, w0), n0,
+        (k0, k1))``, slice ``u % splits`` of tile ``u // splits``; tiles
+        walk the output pixels fastest (columns, rows, images), then the
+        channels."""
+        split, tile = u % self.splits, u // self.splits
+        tiles_w, tiles_h = _cdiv(self.view[2], self.tile[2]), _cdiv(self.view[1], self.tile[1])
+        mt = tile % self.m_tiles
+        corner = (mt // (tiles_w * tiles_h) * self.tile[0], mt // tiles_w % tiles_h * self.tile[1],
+                  mt % tiles_w * self.tile[2])
+        steps = (split * self.k_steps // self.splits, (split + 1) * self.k_steps // self.splits)
+        return tile, corner, tile // self.m_tiles * self.n_width, steps
+
+
+def ring_stages(mw: int, bn: int) -> int:
+    """Stages of the ring that fit beside the fixed shared memory."""
+    return min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // ((128 * mw + bn) * KSTEP))
+
+
+def smem_bytes(mw: int, bn: int) -> int:
+    """The kernel's dynamic shared memory at (MW, BN)."""
+    return SMEM_FIXED + ring_stages(mw, bn) * (128 * mw + bn) * KSTEP
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _tile(view: Tuple[int, int, int], rows: int) -> Tuple[int, int, int]:
+    """``rows`` output pixels as (TB, TH, TW): powers of two, the columns first."""
+    tw = min(_pow2(view[2]), rows)
+    th = min(_pow2(view[1]), rows // tw)
+    return rows // (tw * th), th, tw
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def int8_conv_plans(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int, padding: int,
+                    sms: int) -> List[Tuple[float, Int8ConvPlan]]:
+    """Every plan ``int8_conv_nhwc`` can run for a ``k`` x ``k`` conv of
+    ``(B, H, W, cin)`` codes to ``cout`` channels on a card of ``sms`` SMs,
+    with its modelled microseconds: waves of units times a unit's K steps,
+    epilogue and split costs. M = B Ho Wo <= 64 swaps the operands; K is
+    split (int32 partials summed exactly, in any order) only where the output
+    tiles cannot fill the card, into at most 2 sms units."""
+    ho, wo = (H + 2 * padding - k) // stride + 1, (W + 2 * padding - k) // stride + 1
+    M = B * ho * wo
+    gemm = k == 1 and stride == 1 and padding == 0
+    view = (M, 1, 1) if gemm else (B, ho, wo)
+    k_steps = k * k * _cdiv(cin, KSTEP)
+    swap = M <= 64
+    shapes = [(1, next(b for b in SWAP_BN if b >= M))] if swap else list(TILES)
+    plans = []
+    for mw, bn in shapes:
+        rows, width = (bn, 128) if swap else (128 * mw, bn)
+        tb, th, tw = _tile(view, rows)
+        m_tiles = _cdiv(view[0], tb) * _cdiv(view[1], th) * _cdiv(view[2], tw)
+        n_tiles = _cdiv(cout, width)
+        tiles = m_tiles * n_tiles
+        priced = (1, 64) if swap else (mw, bn)
+        slice_kb = 128 * mw * bn * 4 / 1024
+        for splits in range(1, min(k_steps, 64) + 1):
+            if splits > 1 and (tiles >= sms or tiles * splits > 2 * sms):
+                break
+            units = tiles * splits
+            split = SPLIT_US + (splits - 1) * slice_kb * SLICE_US_PER_KB if splits > 1 else 0.0
+            cost = _cdiv(units, sms) * (_cdiv(k_steps, splits) * STEP_US[priced] + EPILOGUE_US[priced] + split)
+            plans.append((cost, Int8ConvPlan(mw, bn, splits, swap, gemm, view, (tb, th, tw), m_tiles, n_tiles,
+                                             k_steps, units, min(units, sms), ring_stages(mw, bn))))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def int8_conv_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int, padding: int,
+                   sms: int) -> Int8ConvPlan:
+    """The plan ``int8_conv_nhwc`` runs: of ``int8_conv_plans``, the least
+    modelled time; on a tie the fewer splits, then the larger tile. Cached:
+    the launch asks at every call, an eager SD request makes thousands,
+    and listing the plans takes longer than the launch itself."""
+    return min(int8_conv_plans(B, H, W, cin, cout, k, stride, padding, sms),
+               key=lambda cp: (round(cp[0], 6), cp[1].splits, -cp[1].mw, -cp[1].bn))[1]
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _workspace_ints(sms: int) -> int:
+    """The scratch's int32 count: the split slices' partial sums (a split
+    plan has at most 2 sms units), a counter per tile (fewer than sms),
+    absmax's counter (padded to 16 bytes) and its per-block maxima (at most
+    2 a SM)."""
+    return _absmax_scratch(sms) + 4 + 2 * sms
+
+
+def _absmax_scratch(sms: int) -> int:
+    """Where absmax's part of the scratch starts, in int32."""
+    return 2 * sms * SPLIT_TILE_INTS + sms
+
+
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    """The split-K and absmax scratch of launches on ``stream`` (a
+    ``cudaStream_t``) of ``dev``. Its arrival counters are zero when made and
+    left zero by every launch (the last block to reach a split tile, or
+    absmax's last block, resets its counter); the partials are overwritten.
+    So a launch or a graph replay needs no memset, but two launches that
+    share a scratch must not overlap: one scratch a stream keeps them
+    ordered. A CUDA graph keeps the scratch of the stream it was captured
+    on (its first capture there records the zero fill), so graphs captured
+    on one stream must not be replayed concurrently."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    ws = _WORKSPACE.get((idx, stream))
+    if ws is None:
+        ws = _WORKSPACE[(idx, stream)] = torch.zeros(_workspace_ints(_sms(dev)), dtype=torch.int32, device=dev)
+    return ws
+
+
 # ------------------------------------------------------------ the kernels
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' arguments on a loaded library."""
+    if not getattr(lib, "_typed", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.int8_conv_nhwc.argtypes = [P] * 7 + [L] + [I] * 21 + [P]
+        lib.int8_conv_nhwc.restype = I
+        lib.int8_quantize.argtypes = [P, I, L, P, P, P, P]
+        lib.int8_quantize.restype = I
+        lib.absmax.argtypes = [P, I, L, P, P, L, I, P]
+        lib.absmax.restype = I
+        lib._typed = True
+    return lib
 
 
 def _kernel_lib() -> ctypes.CDLL:
     from . import _build
 
-    lib = _build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.int8_conv_nhwc.argtypes = [P] * 6 + [I] * 10 + [P]
-        lib.int8_conv_nhwc.restype = I
-        lib.int8_quantize.argtypes = [P, I, L, P, P, P, P]
-        lib.int8_quantize.restype = I
-        lib.absmax.argtypes = [P, I, L, P, P]
-        lib.absmax.restype = I
-        lib._typed = True
-    return lib
+    return bind(_build.load(_LIB))
 
 
 def _check(name: str, t: torch.Tensor, dtypes, device, shape=None, align: int = 4) -> None:
@@ -179,8 +375,10 @@ def _launch_absmax(x: torch.Tensor) -> torch.Tensor:
     _check_elementwise("absmax", x)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        sms, stream = _sms(x.device), _stream(x.device)
+        ws, at = _workspace(x.device, stream), _absmax_scratch(sms)
         rc = _kernel_lib().absmax(x.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(), out.data_ptr(),
-                                  _stream(x.device))
+                                  ws.data_ptr() + 4 * at, 4 * (ws.numel() - at), sms, stream)
     if rc != 0:
         raise _launch_error("absmax kernel", rc)
     return out
@@ -226,6 +424,7 @@ def quantize_act(x: torch.Tensor, absmax: Optional[torch.Tensor] = None) -> Tupl
 
 
 def _launch_conv(xq, wq, w_scale, s, bias, stride: int, padding: int, out_dtype) -> torch.Tensor:
+    """The kernel's launch, with ``int8_conv_plan``'s plan."""
     if xq.device.type != "cuda":
         raise ValueError(f"int8_conv2d needs a CUDA or CPU tensor, got {xq.device}")
     if xq.dim() != 4 or wq.dim() != 4:
@@ -248,11 +447,18 @@ def _launch_conv(xq, wq, w_scale, s, bias, stride: int, padding: int, out_dtype)
     if bias is not None:
         _check("bias", bias, (torch.float32,), dev, (cout,))
     ho, wo = (H + 2 * padding - kh) // stride + 1, (W + 2 * padding - kw) // stride + 1
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"the int8 conv of a {H}x{W} input by {kh}x{kw}, padding {padding}, has no output")
     y = torch.empty((B, ho, wo, cout), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
-        rc = _kernel_lib().int8_conv_nhwc(xq.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), s.data_ptr(),
-                                          None if bias is None else bias.data_ptr(), y.data_ptr(), B, H, W, cin,
-                                          cout, kh, kw, stride, padding, _OUT_KIND[out_dtype], _stream(dev))
+        sms, stream = _sms(dev), _stream(dev)
+        pl = int8_conv_plan(B, H, W, cin, cout, kh, stride, padding, sms)
+        ws = _workspace(dev, stream)
+        rc = _kernel_lib().int8_conv_nhwc(
+            xq.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), s.data_ptr(), None if bias is None else bias.data_ptr(),
+            y.data_ptr(), ws.data_ptr(), 4 * ws.numel(), B, H, W, cin, cout, kh, kw, stride, padding,
+            _OUT_KIND[out_dtype], pl.mw, pl.bn, pl.splits, int(pl.swap), int(pl.gemm), *pl.tile, pl.blocks, pl.stages,
+            sms, stream)
     if rc != 0:
         raise _launch_error("int8_conv_nhwc kernel", rc)
     return y

@@ -16,7 +16,9 @@ logits their values are ~0.02, so the elementwise atol alone would let a
 dropped key tile pass), the P2 row sum within 2e-2 relative; a guided
 inversion step's latent gradient within 2e-2 (relative norm) of the plain
 path's; PSNR and SSIM within 1e-5 of the CPU's and LPIPS within 1e-4
-relative. This file imports no jax, so it runs on a machine without it:
+relative; the int8 conv, quantize and absmax bit-equal to their plain
+versions, and across CUDA-graph replays. This file imports no jax, so it
+runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -28,6 +30,7 @@ import torch
 from clip_codec_tpu_torch.models import CLIPCondUNet, init_params
 from clip_codec_tpu_torch.ops import attention as attn
 from clip_codec_tpu_torch.ops import attention_probe as ap
+from clip_codec_tpu_torch.ops import int8 as q8
 from clip_codec_tpu_torch.ops import mlp
 from clip_codec_tpu_torch.ops import resblock_conv as rc
 from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
@@ -1290,3 +1293,131 @@ def test_sd_artifact_replay_serves_every_guidance(rng, cuda, tmp_path):
     for g, out in outs.items():
         e = call.sample(call.decoder, z.to(cuda), x_T, g)
         assert ((out - e).norm() / e.norm()).item() < 2e-2, g
+
+
+# ------------------------------------------------------------ int8 (ops/int8.py)
+
+INT8_CASES = {  # (xq shape, wq shape, stride, padding): the plan's forms on a 132-SM card
+    "sd 8^2 split": ((2, 8, 8, 1280), (1280, 3, 3, 1280), 1, 1),
+    "sd 16^2 split": ((2, 16, 16, 1280), (1280, 3, 3, 1280), 1, 1),
+    "split 3x3 small": ((2, 8, 8, 256), (128, 3, 3, 256), 1, 1),
+    "stride 2": ((2, 32, 32, 128), (256, 3, 3, 128), 2, 1),
+    "stride 2 odd": ((1, 15, 15, 64), (64, 3, 3, 64), 2, 1),
+    "swap M=16 linear": ((16, 1, 1, 768), (320, 1, 1, 768), 1, 0),
+    "swap split": ((16, 1, 1, 4096), (320, 1, 1, 4096), 1, 0),
+    "swap M=64 conv": ((1, 8, 8, 256), (256, 3, 3, 256), 1, 1),
+    "swap M=27 conv": ((3, 3, 3, 96), (40, 3, 3, 96), 1, 1),
+    "ragged M=154 gemm": ((154, 1, 1, 768), (320, 1, 1, 768), 1, 0),
+    "cin 320": ((2, 16, 16, 320), (320, 3, 3, 320), 1, 1),
+    "ragged image": ((3, 20, 12, 96), (40, 3, 3, 96), 1, 1),
+    "1x1 stride 2": ((2, 16, 16, 64), (128, 1, 1, 64), 2, 0),
+    "mw2 gemm": ((8192, 1, 1, 320), (2560, 1, 1, 320), 1, 0),
+    "pixel 32^2": ((4, 32, 32, 512), (512, 3, 3, 512), 1, 1),
+}
+
+
+def _int8_args(rng, xs, ws, dev):
+    xq = torch.from_numpy(rng.integers(-127, 128, xs, dtype=np.int8)).to(dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, ws, dtype=np.int8)).to(dev)
+    wsc = torch.from_numpy((rng.random(ws[0]) * 1e-3 + 1e-4).astype(np.float32)).to(dev)
+    s = torch.tensor(0.02, device=dev)
+    bias = torch.from_numpy(rng.standard_normal(ws[0]).astype(np.float32)).to(dev)
+    return xq, wq, wsc, s, bias
+
+
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_conv_bit_equal_to_plain(rng, cuda, case):
+    """Split-K, swapped, stride-2, ragged and Cin = 320 plans: the int32
+    accumulator, fp32 and bf16 outputs bit for bit (integer sums are exact)."""
+    xs, ws, stride, pad = INT8_CASES[case]
+    xq, wq, wsc, s, bias = _int8_args(rng, xs, ws, cuda)
+    acc = q8.int8_conv2d_plain(xq, wq, wsc, s, bias, stride, pad, torch.int32)
+    n0 = q8.int8_conv2d.launches
+    for dt in (torch.int32, torch.float32, torch.bfloat16):
+        got = q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad, dt)
+        want = q8._epilogue(acc, wsc, s, bias, dt).contiguous()
+        torch.cuda.synchronize()
+        assert got.dtype == dt and torch.equal(got, want), (case, dt)
+    assert torch.equal(q8.int8_conv2d(xq, wq, wsc, s, None, stride, pad, torch.float32),
+                       q8._epilogue(acc, wsc, s, None, torch.float32).contiguous())
+    assert q8.int8_conv2d.launches == n0 + 4
+
+
+def test_int8_conv_split_graph_replays_are_bit_equal(rng, cuda):
+    """SD's 8^2 conv splits K over several blocks a tile: the arrival
+    counters reset themselves and the partials are overwritten, so two
+    replays agree with each other and with the plain version."""
+    xs, ws, stride, pad = INT8_CASES["sd 8^2 split"]
+    xq, wq, wsc, s, bias = _int8_args(rng, xs, ws, cuda)
+    plan = q8.int8_conv_plan(*xs, ws[0], ws[1], stride, pad, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.splits > 1
+    run = lambda: q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16)
+    run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = q8.int8_conv2d_plain(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16)
+    assert torch.equal(first, out) and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("n", [8, 4096 * 256, 65536 * 128 + 8, 1000 * 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_absmax_one_launch_bit_equal_and_replayable(rng, cuda, n, dtype):
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda, dtype)
+    x[n // 3] = -7.5  # the max is a negative value's magnitude
+    want = q8.absmax_plain(x)
+    n0 = q8.absmax.launches
+    assert torch.equal(q8.absmax(x), want) and q8.absmax.launches == n0 + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = q8.absmax(x)
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, want) and torch.equal(out, want)
+
+
+def test_int8_split_conv_on_two_streams_keeps_its_own_scratch(rng, cuda):
+    """Split-K launches on two streams overlap: each stream has its own
+    scratch, so neither stream's arrival counters see the other's slices."""
+    xs, ws, stride, pad = INT8_CASES["sd 8^2 split"]
+    args = [_int8_args(rng, xs, ws, cuda) for _ in range(2)]
+    want = [q8.int8_conv2d_plain(*a, stride, pad, torch.int32) for a in args]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(q8.int8_conv2d(*args[i], stride, pad, torch.int32))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i]), i
+
+
+def test_int8_kernels_refuse_a_scratch_too_small(rng, cuda):
+    """The C entry points check the scratch they are handed against the
+    launch: a split conv or an absmax it could not hold returns an error."""
+    xs, ws, stride, pad = INT8_CASES["sd 8^2 split"]
+    xq, wq, wsc, s, bias = _int8_args(rng, xs, ws, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pl = q8.int8_conv_plan(*xs, ws[0], ws[1], stride, pad, sms)
+    lib = q8._kernel_lib()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    small = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    y = torch.empty((xs[0], xs[1], xs[2], ws[0]), dtype=torch.int32, device=cuda)
+    rc = lib.int8_conv_nhwc(xq.data_ptr(), wq.data_ptr(), wsc.data_ptr(), s.data_ptr(), None, y.data_ptr(),
+                            small.data_ptr(), 4 * small.numel(), *xs, ws[0], ws[1], ws[2], stride, pad, 2, pl.mw,
+                            pl.bn, pl.splits, int(pl.swap), int(pl.gemm), *pl.tile, pl.blocks, pl.stages, sms, stream)
+    assert pl.splits > 1 and rc != 0
+    x = torch.ones(1 << 20, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((), dtype=torch.float32, device=cuda)
+    rc = lib.absmax(x.data_ptr(), 1, x.numel(), out.data_ptr(), small.data_ptr(), 32, sms, stream)
+    assert rc != 0
+    torch.cuda.synchronize()
