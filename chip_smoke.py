@@ -157,7 +157,7 @@ The compress side (``encoders/``, ``codecs/``, ``io/store.py``, ``codec.py``,
    tower's; ``ClipCodec.compress`` of 8 images decodes back
    (``decode_embeddings_host``) to cosine >= 0.99; the text tower on seeded
    ids (B = 64, EOT at varied positions) finite and unit. Without
-   zstandard (the card machine has none) frames carry the raw codes and
+   zstd engine (``bitstream.zstd_engine()`` None) frames carry the raw codes and
    the run says so. Printed: PIL preprocess ms per image, encode img/s from
    uint8 arrays at batch 64, the tower's forward device ms at B = 64 (CUDA
    graph replay) beside its FLOPs (``encoders.clip.vision_flops``) over
@@ -178,7 +178,7 @@ the SD CLI's inversion branch, ``eval/``, ``cli/eval.py``):
    with its default flags (ddim-30, guidance 5, inv_weight 1 every step,
    backend auto -> clip at dim 512, 512px) and only the required paths and
    the weights' variables set (phase 8's files, phase 16's tower), entered
-   at a frame that carries the raw codes where zstandard is missing: it
+   at a frame that carries the raw codes where no zstd engine exists: it
    writes a 512x512 PNG and launches per request 30 x (10 + 1) + 1 flash
    forwards, 30 of each backward kernel and 30 x 16 of each MLP kernel;
    then s/request with inv_weight 1 and 0 in turns (1, 0, 0, 1), the
@@ -393,6 +393,36 @@ run K1, K2/K3, K4-K6 and ``u8_ip_scores``):
    time is printed; two ranks sharing one card measure correctness and
    overhead, not scaling.
 
+The modules with no TPU kernel of their own (phase 25, after 24; phase 8's
+SD files, phase 14's store):
+
+25. 25a: the store codec frames with the native engine
+   (``io/native.py``, ``csrc/store_codec.cpp`` over the card machine's
+   libzstd): 10,000 code rows of D = 512 framed and read back equal as a
+   batch and frame by frame (the same bytes), through ``write_store`` and
+   ``Store.read_codes``, bad magic, a truncated header, a corrupt payload
+   and a decompression bomb refused; us a frame for each. 25b: a
+   full-width pixel U-Net (base 128, (1, 2, 2), z 512, seeded) written as
+   ``diffusion_unet_final.msgpack`` by the numpy ``convert_unet`` and the
+   port's flax writer into a store of real frames; ``ClipCodec.load`` takes
+   it, and its DDIM-50 256px decompress of 4 frames is bit-equal to the same
+   weights' from a ``.pt`` store, 29 x 50 launches each; phase 8's adapter
+   written as a JAX ``.msgpack`` gives the SD CLI's PNG (``--adapter``,
+   dpmpp-10, inv_weight 0) bit-equal to its ``.pt``'s. 25c:
+   ``CLIPCondDecoder`` (192 -> 512px) and ``FeatureToImageDecoderLite``
+   (256 -> 64px) at B = 16: bf16 within 2e-2 (relative norm) of fp32, the
+   bf16 forward's device ms, ``reconstruct_image_from_bitstream`` on a real
+   frame, then 5 ``train_direct_decoder`` steps on phase 14's 16 images at
+   batch 16 (s/step, peak memory). 25d: ``ddpm_sample`` through the
+   full-width U-Net at B = 2, 256px: on a 50-step schedule the kernel path
+   within 2e-2 (relative norm) of the plain path on the same injected
+   noise; then the full T = 1000 run through the kernels, finite, each of
+   K1, K2 and K3 launched exactly its per-forward tally x 1000, its seconds.
+   25e: ``utils.profiling.trace`` around one forward writes a Chrome trace
+   naming the ``annotate`` region and a K2 kernel, and ``nan_checked``
+   raises on an injected NaN. Every time is printed beside the card's name
+   and power limit.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4, at B=8 with
 its launches in phase 18 and at B=16 with its launches in phase 20c
@@ -414,7 +444,9 @@ beside the timed record's numbers as for phase 21), ``library_ms`` null (no one 
 call takes uint8 codes and fp32 queries) and ``matmul_ms`` beside it for
 scale; K1's split entries one record per phase 24a shape, and K4 and K6 one
 record per tensor-parallel shape, each with its phase 24 launches by shape
-summed over the two ranks (``"phase": 24``); ``bound_ms``: the
+summed over the two ranks (``"phase": 24``); K2 and K3 once more with
+phase 25's launches (25b's two decompresses and 25d's DDPM runs,
+``"phase": 25``, beside the first path shape's timed numbers); ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
 989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
 its fp32 rate outside the tensor cores, for K1 and the u8 kernels, and,
@@ -731,12 +763,13 @@ def _conv_bound(B, H, W, cin, cout, use_add, mom):
     return bound(nbytes, 2 * 9 * cin * cout * px)
 
 
-def phase_kernels(torch, rc, seed, dev):
+def phase_kernels(torch, rc, seed, dev, batches=(2, SERVE_BATCH, EVAL_BATCH, WIDE_BATCH), checked=(2,)):
     """Kernel vs plain at every fused conv shape of the full-width U-Net at
-    256px, B=2 (every combination of residual and moments), B=4 (the
-    serving batch), B=8 (the eval CLI's) and B=16 (the exported artifact's,
-    phase 20): the two forms the U-Net runs, each timed; returns per-kernel
-    records, one per path shape and batch."""
+    256px and each of ``batches``: at a batch in ``checked`` every
+    combination of residual and moments, untimed; at the others (B=4 the
+    serving batch, B=8 the eval CLI's, B=16 the exported artifact's, phase
+    20) the two forms the U-Net runs, each timed. Returns per-kernel
+    records, one per timed path shape and batch."""
     import torch.nn.functional as F
 
     from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
@@ -744,7 +777,7 @@ def phase_kernels(torch, rc, seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     records = {"affine_silu_conv3x3": [], "affine_conv3x3": []}
     errs = {"affine_silu_conv3x3": 0.0, "affine_conv3x3": 0.0}
-    for batch in (2, SERVE_BATCH, EVAL_BATCH, WIDE_BATCH):
+    for batch in batches:
         shapes = path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, batch)
         for (B, H, W, cin, cout), calls in shapes:
             linear = (B, H, W, cin, cout) == shapes[-1][0]  # the head: K3
@@ -752,7 +785,7 @@ def phase_kernels(torch, rc, seed, dev):
             fn = rc.affine_conv3x3 if linear else rc.affine_silu_conv3x3
             if linear:
                 forms = [(False, False)]
-            elif B == 2:
+            elif B in checked:
                 forms = [(a, m) for a in (False, True) for m in (False, True)]
             else:
                 forms = [(False, True), (True, False)]  # a ResBlock's conv1 and conv2
@@ -773,7 +806,7 @@ def phase_kernels(torch, rc, seed, dev):
                         mom_rel = max(mom_rel, (m[:, k] - m_ref[:, k]).abs().max().item() / max(scale, 1e-30))
                 tag = f"{name} B={B} {H}x{W} {cin}->{cout} add={int(use_add)} moments={int(mom)}"
                 line = f"kernel-check: {tag} max_abs_err={err:.3e} moments_rel_err={mom_rel:.3e}"
-                if B != 2:
+                if B not in checked:
                     call = lambda: fn(x, A, Bv, w9, bias, add, mom)
                     act = x.permute(0, 3, 1, 2)
                     wt = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
@@ -880,14 +913,9 @@ def phase_serve(torch, rc, net, seed, dev, card):
     codec = ClipCodec.load(store, device=dev)
     check(codec.net is not None, "ClipCodec.load found no decoder")
 
-    try:
-        from clip_codec_tpu_torch.io.bitstream import compress_frame
+    from clip_codec_tpu_torch.io.bitstream import compress_frames
 
-        compress_frame(b"\0")
-        frames = True
-    except ImportError:
-        frames = False
-        print("frames: skipped (no zstandard)")
+    frames = frame_engine("serve")
 
     sizes, batch_size, steps = (1, 3, 6), 4, STEPS
     batches = sum(-(-n // batch_size) for n in sizes)
@@ -896,7 +924,7 @@ def phase_serve(torch, rc, net, seed, dev, card):
     for n in sizes:
         q = codes[s : s + n]
         s += n
-        requests.append([compress_frame(row.tobytes()) for row in q] if frames else q)
+        requests.append(compress_frames(q) if frames else q)
 
     torch.cuda.synchronize()
     reset_launches(rc)
@@ -1204,7 +1232,7 @@ def phase_sd_forward(torch, attn, mlp, unet, vae, seed, dev):
 
 def sd_embeddings(seed, n):
     """(n, 512) L2-normalised embeddings as the CLI reads them: through .clp
-    frames where zstandard is installed, else from the codes directly."""
+    frames where a zstd engine exists, else from the codes directly."""
     import numpy as np
 
     from clip_codec_tpu_torch.codecs.quantizer import dequantize_l2norm_host
@@ -1213,20 +1241,18 @@ def sd_embeddings(seed, n):
     codes = rng.integers(0, 256, (n, 512), dtype=np.uint8)
     scale = np.full(512, 2.0 / 255.0, np.float32)
     zero = np.full(512, -1.0, np.float32)
-    try:
-        from clip_codec_tpu_torch.cli.reconstruct_diffusion import decode_embedding
-        from clip_codec_tpu_torch.io.bitstream import write_bitstream
-
-        store = ROOT / "build" / "chip_smoke" / "sd"
-        np.savez(store / "codec_meta.npz", scale=scale, zero=zero)
-        z = []
-        for i, row in enumerate(codes):
-            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
-            z.append(decode_embedding(store / f"img{i}.clp", store))
-        return np.concatenate(z)
-    except ImportError:
-        print("sd frames: skipped (no zstandard)")
+    if not frame_engine("sd"):
         return dequantize_l2norm_host(codes, scale, zero).astype(np.float32)
+    from clip_codec_tpu_torch.io.bitstream import write_bitstream
+    from clip_codec_tpu_torch.train.train_decoder import decode_embedding
+
+    store = ROOT / "build" / "chip_smoke" / "sd"
+    np.savez(store / "codec_meta.npz", scale=scale, zero=zero)
+    z = []
+    for i, row in enumerate(codes):
+        write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
+        z.append(decode_embedding(store / f"img{i}.clp", store))
+    return np.concatenate(z)
 
 
 def phase_sd_serve(torch, attn, mlp, unet, vae, adapter, seed, dev, card):
@@ -1451,8 +1477,8 @@ def phase_train_grad(torch, attn, mlp, unet, vae, adapter, seed, dev):
 
 
 def _train_store(seed, store: Path):
-    """8 seeded PNG images with .clp frames; returns their codes where
-    zstandard is missing (the store is then entered at the codes), else None."""
+    """8 seeded PNG images with .clp frames; returns their codes where no
+    zstd engine exists (the store is then entered at the codes), else None."""
     import json
 
     import numpy as np
@@ -1467,14 +1493,12 @@ def _train_store(seed, store: Path):
         Image.fromarray(im).save(store / f"img{i}.png")
     recs = [{"image": str(store / f"img{i}.png"), "bitstream": str(store / f"img{i}.clp")} for i in range(TRAIN_IMAGES)]
     (store / "manifest.json").write_text(json.dumps(recs))
-    try:
-        from clip_codec_tpu_torch.io.bitstream import write_bitstream
+    if not frame_engine("train"):
+        return codes  # the store is entered at the codes
+    from clip_codec_tpu_torch.io.bitstream import compress_frames
 
-        for i, row in enumerate(codes):
-            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
-    except ImportError:
-        print("train frames: zstandard missing, entering at the codes")
-        return codes
+    for i, frame in enumerate(compress_frames(codes)):
+        (store / f"img{i}.clp").write_bytes(frame)
     return None
 
 
@@ -1770,7 +1794,7 @@ def phase_px_grad(torch, gn, rc, seed, dev):
 
 def _px_store(seed, store: Path):
     """16 seeded PNG images with .clp frames; returns the codes, and whether
-    the frames were written (zstandard present)."""
+    the frames were written (a zstd engine present)."""
     import json
 
     import numpy as np
@@ -1785,14 +1809,12 @@ def _px_store(seed, store: Path):
         Image.fromarray(im).save(store / f"img{i}.png")
     recs = [{"image": str(store / f"img{i}.png"), "bitstream": str(store / f"img{i}.clp")} for i in range(PX_IMAGES)]
     (store / "manifest.json").write_text(json.dumps(recs))
-    try:
-        from clip_codec_tpu_torch.io.bitstream import write_bitstream
+    if not frame_engine("px-train"):
+        return codes, False  # the store is entered at the codes
+    from clip_codec_tpu_torch.io.bitstream import compress_frames
 
-        for i, row in enumerate(codes):
-            write_bitstream(row.tobytes(), 512, store / f"img{i}.clp")
-    except ImportError:
-        print("px-train frames: zstandard missing, entering at the codes")
-        return codes, False
+    for i, frame in enumerate(compress_frames(codes)):
+        (store / f"img{i}.clp").write_bytes(frame)
     return codes, True
 
 
@@ -2066,11 +2088,21 @@ def phase_probe(torch, ap, seed, dev, rec):
 # ------------------------------------------------------- the compress side (CLIP ViT-B/32)
 
 
+def frame_engine(tag: str) -> bool:
+    """Whether a zstd engine frames ``.clp`` records on this machine (the
+    native codec on the card machine, which has no zstandard); prints which."""
+    from clip_codec_tpu_torch.io.bitstream import zstd_engine
+
+    engine = zstd_engine()
+    print(f"{tag} frames: {f'real zstd frames ({engine})' if engine else 'raw codes (no zstd engine)'}")
+    return engine is not None
+
+
 def raw_frames(have_zstd: bool):
-    """Without zstandard a frame carries the raw codes behind its magic and
-    length: the store writer, the manifest, ``ClipCodec`` and the server run
-    as they are and only the zstd payload is left out (the codes are what
-    the phases hold)."""
+    """With no zstd engine a frame carries the raw codes behind its magic
+    and length: the store writer, the manifest, ``ClipCodec`` and the server
+    run as they are and only the zstd payload is left out (the codes are
+    what the phases hold)."""
     from clip_codec_tpu_torch.probes.serve_times import raw_frames as framed
 
     return framed(have_zstd)
@@ -2101,7 +2133,6 @@ def phase_compress(torch, seed, dev, card):
     """CLIP ViT-B/32 at full width, bf16, batch 64, through cli.encode_images
     (write, then --append), ClipCodec.compress and the text tower; its
     numbers beside the card's bound."""
-    import importlib.util
 
     import numpy as np
     from PIL import Image
@@ -2125,9 +2156,9 @@ def phase_compress(torch, seed, dev, card):
     print(f"compress: random ViT-B/32 (openai layout, seed {seed + 16}) saved and {CLIP_IMAGES} + {CLIP_APPEND} "
           f"PNGs + 1 corrupt written in {time.perf_counter() - t0:.3f} s")
     shutil.rmtree(store, ignore_errors=True)
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("compress")
     if not have_zstd:
-        print("compress frames: zstandard missing: frames carry the raw codes (no zstd payload); the codebook, "
+        print("compress frames: no zstd engine: frames carry the raw codes (no zstd payload); the codebook, "
               "codes, manifest and append are held as they are")
 
     made, written, appended = [], [], []
@@ -2289,7 +2320,6 @@ def phase_inversion(torch, attn, mlp, seed, dev, card):
     with its launches; s/request with and without inversion. Returns the
     K5 records at that shape, the CLI request's launches and, with inversion
     on, its s/request, busy share and peak memory."""
-    import importlib.util
 
     import numpy as np
 
@@ -2342,7 +2372,7 @@ def phase_inversion(torch, attn, mlp, seed, dev, card):
     # the CLI at its default flags: only the required paths and the weights' variables
     inv_dir = ROOT / "build" / "chip_smoke" / "inversion"
     inv_dir.mkdir(parents=True, exist_ok=True)
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("inversion")
     codes = np.random.default_rng(seed + 22).integers(0, 256, 512, dtype=np.uint8)
     weights = dict(CLIP_CODEC_SD_UNET_WEIGHTS=sd_dir / "unet.pt", CLIP_CODEC_SD_VAE_WEIGHTS=sd_dir / "vae.pt",
                    CLIP_CODEC_CLIP_WEIGHTS=clip_w)
@@ -2364,7 +2394,7 @@ def phase_inversion(torch, attn, mlp, seed, dev, card):
 
     png = np.asarray(Image.open(out))
     print(f"inv-cli: reconstruct_sd_diffusion.main at its default flags (ddim-{INV_STEPS}, guidance 5, inv_weight 1 "
-          f"every step, backend auto -> clip, 512px){'' if have_zstd else ' from a raw-code frame (no zstandard)'}: "
+          f"every step, backend auto -> clip, 512px){'' if have_zstd else ' from a raw-code frame (no zstd engine)'}: "
           f"{out.name} {png.shape} in {cli_s:.3f} s (weights load included) on {card}; launches={launches}")
     check(png.shape == (SD_SIZE, SD_SIZE, 3) and int(png.max()) > int(png.min()), f"{out.name}: {png.shape}")
     check(launches == INV_LAUNCHES, f"inversion request launches {launches} != {INV_LAUNCHES}")
@@ -2400,7 +2430,6 @@ def phase_eval(torch, rc, seed, dev, card):
     """cli.eval over phase 14's store with its trained decoder, all four
     metrics on; launches by shape, the card's metrics against the CPU's,
     the records against the printed means. Returns K2/K3 launches by shape."""
-    import importlib.util
     import io
 
     import numpy as np
@@ -2418,7 +2447,7 @@ def phase_eval(torch, rc, seed, dev, card):
     store = ROOT / "build" / "chip_smoke" / "train_px"
     weights = store / "out" / "diffusion_unet_final.pt"
     clip_w = ROOT / "build" / "chip_smoke" / "compress" / "clip_vit_b32.pt"
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("eval")
 
     seen, spent = [], collections.Counter()
 
@@ -2563,7 +2592,6 @@ def phase_retrieval(torch, seed, dev, card):
     CLI over phase 16's store (19d), times (19e). Returns the kernel records
     (one per shape) and the path's launches (19b-19d)."""
     import gzip
-    import importlib.util
     import io
 
     import numpy as np
@@ -2750,7 +2778,7 @@ def phase_retrieval(torch, seed, dev, card):
         with gzip.open(bpe, "wt", encoding="utf-8") as f:  # a synthetic merges file, as the tokenizer tests use
             f.write("#version: 0.2\n" + "\n".join(["t h", "th e</w>", "h e", "c a", "ca t</w>", "d o", "do g</w>"])
                     + "\n")
-        have_zstd = importlib.util.find_spec("zstandard") is not None
+        have_zstd = frame_engine("retrieval")
         manifest = json.loads((store / "manifest.json").read_text())
         n_store = len(manifest)
         nlist = max(1, round(n_store ** 0.5))
@@ -2859,7 +2887,6 @@ def phase_artifacts(torch, attn, mlp, rc, seed, dev, card):
     """Export both artifacts through the CLI (20a), replay them against the
     eager samplers (20b), then serve every endpoint over HTTP (20c). Returns
     the launches of 20c, the main path's run, per kernel and shape."""
-    import importlib.util
 
     from clip_codec_tpu_torch import deploy, serve
     from clip_codec_tpu_torch.cli import export_decoder
@@ -2875,7 +2902,7 @@ def phase_artifacts(torch, attn, mlp, rc, seed, dev, card):
     env = {ckpt.UNET_ENV: str(sd_dir / "unet.pt"), ckpt.VAE_ENV: str(sd_dir / "vae.pt"),
            "CLIP_CODEC_CLIP_WEIGHTS": str(build / "compress" / "clip_vit_b32.pt"),
            "CLIP_BPE_PATH": str(build / "retrieval" / "bpe.txt.gz")}
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("artifacts")
     captured = collections.Counter()  # (kernel, shape) -> calls a capture recorded
     saved = rc._launch, attn._launch, mlp._launch_up
     rc._launch = _tally_captured(torch, captured, lambda x, A, B, w9, bias, add, want_moments, linear: (
@@ -3139,7 +3166,6 @@ def phase_dino_encode(torch, seed, dev, card):
     """21a: the tower in bf16 against fp32; cli.encode_images_dino over phase
     16's images (bf16, batch 16) with its store's checks; the encode's times.
     Returns the tower file."""
-    import importlib.util
 
     import numpy as np
     from PIL import Image
@@ -3157,7 +3183,7 @@ def phase_dino_encode(torch, seed, dev, card):
     print(f"dino: random DINOv2 ViT-B/14 (encoders.dino.init_params, seed {seed + 24}) saved under HF Dinov2Model "
           f"names in {time.perf_counter() - t0:.3f} s")
     shutil.rmtree(store, ignore_errors=True)
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("dino-encode")
     made, written = [], []
     real_encoder, real_write = encoders.DinoEncoder, store_mod.write_store
 
@@ -3253,7 +3279,6 @@ def phase_dino_train(torch, attn, mlp, seed, dev, card, weights, s_step_clip):
     the adapter's gradient with both terms on (kernel, plain, fp32 plain) at
     two seeds; s/step with the terms on; cli.train_sd for 2 epochs with both
     variables set. Returns the store, the final adapter and the CLI's launches."""
-    import importlib.util
 
     import numpy as np
 
@@ -3272,7 +3297,7 @@ def phase_dino_train(torch, attn, mlp, seed, dev, card, weights, s_step_clip):
     store.mkdir(parents=True)
     for i in range(TRAIN_IMAGES):  # phase 11's images
         shutil.copy(build / "train" / f"img{i}.png", store / f"img{i}.png")
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("dino-train")
     env = {"CLIP_CODEC_SD_UNET_WEIGHTS": str(sd_dir / "unet.pt"), "CLIP_CODEC_SD_VAE_WEIGHTS": str(sd_dir / "vae.pt"),
            "CLIP_CODEC_DINO_WEIGHTS": str(weights), "CLIP_CODEC_LPIPS_WEIGHTS": str(lp_file)}
     with raw_frames(have_zstd), mock.patch.dict(os.environ, env):
@@ -3404,7 +3429,6 @@ def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, fina
     (kernel, plain, fp32 plain) at two seeds; the SD CLI at its default
     flags on a frame of 21b's store (auto -> dino); s/request, busy share,
     peak memory. Returns the request's launches."""
-    import importlib.util
 
     import numpy as np
     from PIL import Image
@@ -3452,7 +3476,7 @@ def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, fina
     print(f"dino-inv-grad: loads and both seeds in {time.perf_counter() - t_start:.1f} s")
 
     # the CLI at its default flags on the first frame of 21b's store: dim 768, so auto -> dino
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("dino-inversion")
     frame = Path(json.loads((store / "manifest.json").read_text())[0]["bitstream"])
     out = frame.with_name(f"{frame.stem}-{INV_STEPS}-5-1.png")
     out.unlink(missing_ok=True)
@@ -3470,7 +3494,7 @@ def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, fina
     png = np.asarray(Image.open(out))
     print(f"dino-inv-cli: reconstruct_sd_diffusion.main at its default flags (ddim-{INV_STEPS}, guidance 5, "
           f"inv_weight 1 every step, backend auto -> dino at dim {z.shape[1]}, 512px)"
-          f"{'' if have_zstd else ' from a raw-code frame (no zstandard)'}: {out.name} {png.shape} in {cli_s:.3f} s "
+          f"{'' if have_zstd else ' from a raw-code frame (no zstd engine)'}: {out.name} {png.shape} in {cli_s:.3f} s "
           f"(weights load included) on {card}; launches={launches}")
     check(z.shape == (1, 768) and cli.resolve_backend("auto", z.shape[1]) == "dino", f"dim {z.shape}")
     check(png.shape == (SD_SIZE, SD_SIZE, 3) and int(png.max()) > int(png.min()), f"{out.name}: {png.shape}")
@@ -3792,7 +3816,6 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
     --int8 --inv_weight 0`` and the SD int8 artifact behind --sd_artifact.
     Launch counts exact throughout. Returns the int8 kernels' launches by
     shape over the HTTP run of 22b and the runs of 22c."""
-    import importlib.util
     import io
 
     import numpy as np
@@ -3838,7 +3861,7 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
         srv.server_close()
         thread.join()
 
-    with mock.patch.dict(os.environ, env), raw_frames(importlib.util.find_spec("zstandard") is not None), \
+    with mock.patch.dict(os.environ, env), raw_frames(frame_engine("int8")), \
             q8_tally(torch, q8) as tally:
         # 22b: export at the CLI's defaults (256px, DDIM-50, batch 16), uint8 output
         art_path = out / "decoder_int8.torchprog"
@@ -4019,7 +4042,7 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
 
 
 def _dp_px_store(seed, store: Path, have_zstd: bool) -> None:
-    """DP_PX_IMAGES seeded PNGs and their frames (raw codes where zstandard
+    """DP_PX_IMAGES seeded PNGs and their frames (raw codes where no zstd engine
     is missing: every rank reads them through ``raw_frames``)."""
     import json
 
@@ -4126,16 +4149,15 @@ def phase_dp(torch, seed, dev, card):
     from clip_codec_tpu_torch.utils.checkpoint import load_state_dict
     from clip_codec_tpu_torch.utils.config import ModelConfig
 
-    import importlib.util
 
     t_phase = time.perf_counter()
     build = ROOT / "build" / "chip_smoke"
     dp = build / "dp"
     shutil.rmtree(dp, ignore_errors=True)
     dp.mkdir(parents=True)
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = frame_engine("dp")
     _dp_px_store(seed, dp / "px", have_zstd)
-    sd_store = build / "train"  # phase 11's images and latents; its frames, raw where zstandard is missing
+    sd_store = build / "train"  # phase 11's images and latents; its frames, raw where no zstd engine exists
     codes = _train_store(seed, sd_store)
     if codes is not None:
         with raw_frames(have_zstd):
@@ -4594,6 +4616,345 @@ def phase_mp(torch, attn, mlp, seed, dev, card):
 
 
 
+
+# ------------------------------------------------ phase 25: the modules with no TPU kernel of their own
+
+CODEC_ROWS, CODEC_DIM = 10_000, 512
+DEC_BATCH, DEC_STEPS = 16, 5
+DDPM_SHORT, DDPM_T, DDPM_BATCH = 50, 1000, 2
+P25_FRAMES = 4  # frames a 25b decompress request carries (one batch of SERVE_BATCH)
+
+
+@contextlib.contextmanager
+def conv_tally(rc):
+    """K2 and K3 launches by (kernel, (B, H, W, Cin, Cout)), counted at
+    the wrappers' one launcher."""
+    tally = collections.Counter()
+    launch = rc._launch
+
+    def counted(x, A, B, w9, bias, add, want_moments, linear):
+        tally[("affine_conv3x3" if linear else "affine_silu_conv3x3", (*x.shape, w9.shape[2]))] += 1
+        return launch(x, A, B, w9, bias, add, want_moments, linear)
+
+    rc._launch = counted
+    try:
+        yield tally
+    finally:
+        rc._launch = launch
+
+
+def check_conv_launches(rc, tally, batch, forwards, tag):
+    """K2's and K3's counts, each read on its own since ``reset_launches``,
+    against ``forwards`` forwards of the full-width U-Net, and the tally by
+    shape against its conv shapes at ``batch``."""
+    from clip_codec_tpu_torch.probes.conv_times import path_conv_shapes
+
+    got = {"affine_silu_conv3x3": rc.affine_silu_conv3x3.launches, "affine_conv3x3": rc.affine_conv3x3.launches}
+    want = {"affine_silu_conv3x3": (LAUNCHES_PER_FORWARD - 1) * forwards, "affine_conv3x3": forwards}
+    check(got == want, f"{tag}: launches {got} != {want}")
+    shapes = path_conv_shapes(PX_BASE, PX_CH_MULT, SIZE, batch)
+    want = {("affine_conv3x3" if shape == shapes[-1][0] else "affine_silu_conv3x3", shape): calls * forwards
+            for shape, calls in shapes}
+    check(dict(tally) == want, f"{tag}: launches by shape {dict(tally)} != {want}")
+    return got
+
+
+def _code_rows(seed, n, d):
+    """Code-like rows: a quantized Gaussian around the middle of the range."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.clip(np.rint(rng.standard_normal((n, d)) * 24 + 128), 0, 255).astype(np.uint8)
+
+
+def phase_codec(torch, seed, card):
+    """25a: the native store codec on the card machine."""
+    import numpy as np
+
+    from clip_codec_tpu_torch.io import bitstream, native
+    from clip_codec_tpu_torch.io.store import Store, write_store
+
+    t0 = time.perf_counter()
+    nc = native.codec()
+    check(nc is not None, f"25a: the native store codec did not build: {native.load_error()}")
+    engine = bitstream.zstd_engine()
+    check(engine == "native", f"25a: the zstd engine is {engine!r}, not native")
+    print(f"25a: engine {engine}, libzstd {nc.zstd_version}, built and loaded in {time.perf_counter() - t0:.3f} s")
+    codes = _code_rows(seed + 25, CODEC_ROWS, CODEC_DIM)
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[name] = (time.perf_counter() - t) / CODEC_ROWS * 1e6
+        return out
+
+    frames = timed("batch_compress", lambda: bitstream.compress_frames(codes))
+    back = timed("batch_decompress", lambda: bitstream.decompress_frames(frames, CODEC_DIM))
+    check(np.array_equal(back, codes), "25a: batch frames do not read back to the codes")
+    single = timed("single_compress", lambda: [bitstream.compress_frame(r.tobytes()) for r in codes])
+    check(single == frames, "25a: single frames differ from the batch's")
+    back = timed("single_decompress", lambda: np.stack([bitstream.decompress_frame(f) for f in frames]))
+    check(np.array_equal(back, codes), "25a: single frames do not read back to the codes")
+    store = ROOT / "build" / "chip_smoke" / "codec"
+    shutil.rmtree(store, ignore_errors=True)
+    scale, zero = np.full(CODEC_DIM, 2 / 255, np.float32), np.full(CODEC_DIM, -1.0, np.float32)
+    timed("write_store", lambda: write_store(store, codes.astype(np.float32), [f"img{i}.png" for i in range(CODEC_ROWS)],
+                                             scale, zero, codes))
+    back = timed("read_codes", lambda: Store.open(store).read_codes())
+    check(np.array_equal(back, codes), "25a: the store does not read back to the codes")
+    good = frames[0]
+    bomb = nc.compress_frame(bytes(1 << 21))
+    for name, bad, kw in (("bad magic", b"XXXX" + good[4:], {}), ("truncated header", b"CLPF\x01", {}),
+                          ("corrupt payload", good[:8] + bytes(len(good) - 8), {}),
+                          ("bomb", bomb, {"max_output": 1 << 20})):
+        try:
+            bitstream.decompress_frame(bad, **kw)
+        except ValueError as e:
+            print(f"25a: {name} refused: {e}")
+        else:
+            raise PhaseError(f"25a: a frame with a {name} was accepted")
+    shutil.rmtree(store, ignore_errors=True)
+    mean_bytes = sum(len(f) for f in frames) / len(frames)
+    print(f"25a: {CODEC_ROWS} rows of D = {CODEC_DIM}, {mean_bytes:.1f} bytes a frame; us a frame: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items()) + f" (host CPU, {card})")
+    return times
+
+
+def phase_msgpack(torch, rc, seed, dev, card):
+    """25b: JAX-layout .msgpack checkpoints written on the card machine and
+    loaded by the port's entry points."""
+    import warnings
+
+    import numpy as np
+    from PIL import Image
+
+    from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as sd_cli
+    from clip_codec_tpu_torch.codec import ClipCodec
+    from clip_codec_tpu_torch.io.store import write_store
+    from clip_codec_tpu_torch.utils.checkpoint import save_params
+    from clip_codec_tpu_torch.weights.convert import convert_sd_adapter, convert_unet
+
+    root = ROOT / "build" / "chip_smoke" / "msgpack"
+    shutil.rmtree(root, ignore_errors=True)
+    net = full_unet(torch, seed + 25, dev)
+    sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    del net
+    codes = _code_rows(seed + 26, P25_FRAMES, 512)
+    scale, zero = np.full(512, 2 / 255, np.float32), np.full(512, -1.0, np.float32)
+    out = {}
+    launches = collections.Counter()  # K2 and K3 by (kernel, shape) over the two decompresses
+    for name in ("msgpack", "pt"):
+        store = root / name
+        manifest = write_store(store, codes.astype(np.float32), [f"img{i}.png" for i in range(P25_FRAMES)],
+                               scale, zero, codes)
+        t0 = time.perf_counter()
+        if name == "msgpack":
+            save_params(store / "diffusion_unet_final.msgpack", convert_unet(sd, PX_CH_MULT))
+        else:
+            torch.save(sd, store / "diffusion_unet_final.pt")
+        t1 = time.perf_counter()
+        with warnings.catch_warnings():  # no model_config.json: the architecture is inferred
+            warnings.simplefilter("ignore")
+            codec = ClipCodec.load(store, device=dev)
+        t2 = time.perf_counter()
+        check(codec.net is not None and (codec.mc.base, codec.mc.ch_mult) == (PX_BASE, PX_CH_MULT),
+              f"25b: ClipCodec.load of the {name} store: {codec.mc}")
+        frames = [Path(r["bitstream"]).read_bytes() for r in manifest]
+        reset_launches(rc)
+        torch.cuda.synchronize()
+        with conv_tally(rc) as tally:
+            t3 = time.perf_counter()
+            out[name] = codec.decompress(frames, size=SIZE, steps=STEPS, batch_size=SERVE_BATCH, seed=seed)
+            t4 = time.perf_counter()
+        got = check_conv_launches(rc, tally, SERVE_BATCH, STEPS, f"25b: {name}")
+        launches.update(tally)
+        print(f"25b: {name}: launches {got}; written in {t1 - t0:.3f} s ({(store / f'diffusion_unet_final.{name}').stat().st_size / 2**20:.1f} "
+              f"MiB), ClipCodec.load {t2 - t1:.3f} s, DDIM-{STEPS} {SIZE}px decompress of {P25_FRAMES} frames "
+              f"{t4 - t3:.3f} s on {card}")
+        del codec
+        torch.cuda.empty_cache()
+    check(np.array_equal(out["msgpack"], out["pt"]), "25b: the .msgpack store's images differ from the .pt store's")
+    check(bool(np.isfinite(out["pt"]).all()), "25b: non-finite images")
+    print("25b: the .msgpack and .pt stores' images bit-equal")
+    sd_dir = ROOT / "build" / "chip_smoke" / "sd"
+    adapter = torch.load(sd_dir / "adapter.pt", map_location="cpu", weights_only=True)
+    save_params(root / "sd_adapter_final.msgpack", convert_sd_adapter(adapter))
+    pngs = {}
+    env = {"CLIP_CODEC_SD_UNET_WEIGHTS": str(sd_dir / "unet.pt"), "CLIP_CODEC_SD_VAE_WEIGHTS": str(sd_dir / "vae.pt")}
+    with mock.patch.dict(os.environ, env):
+        for name, path in (("pt", sd_dir / "adapter.pt"), ("msgpack", root / "sd_adapter_final.msgpack")):
+            png = root / f"sd_{name}.png"
+            t0 = time.perf_counter()
+            sd_cli.main(["--store_dir", str(sd_dir), "--bitstream", str(sd_dir / "img0.clp"), "--adapter", str(path),
+                         "--out", str(png), "--steps", str(SD_STEPS), "--sampler", "dpmpp", "--inv_weight", "0"])
+            print(f"25b: SD CLI --adapter {path.name}: {time.perf_counter() - t0:.3f} s on {card}")
+            pngs[name] = np.asarray(Image.open(png))
+    check(pngs["pt"].shape == (SD_SIZE, SD_SIZE, 3), f"25b: SD PNG {pngs['pt'].shape}")
+    check(np.array_equal(pngs["pt"], pngs["msgpack"]), "25b: the SD CLI's PNG from the .msgpack adapter differs")
+    print("25b: the SD CLI's PNGs from the .msgpack and .pt adapters bit-equal")
+    return launches
+
+
+def phase_direct_decoders(torch, seed, dev, card):
+    """25c: the direct decoders on the card, bf16 against fp32, the
+    inference helper on a real frame and the trainer's s/step."""
+    import numpy as np
+
+    from clip_codec_tpu_torch.models import CLIPCondDecoder, FeatureToImageDecoderLite, init_params
+    from clip_codec_tpu_torch.train.train_decoder import reconstruct_image_from_bitstream, train_direct_decoder
+
+    z = torch.randn((DEC_BATCH, 512), generator=torch.Generator().manual_seed(seed + 27))
+    z = (z / z.norm(dim=1, keepdim=True)).to(dev)
+    px_store = ROOT / "build" / "chip_smoke" / "train_px"  # phase 14's 16 images and their frames
+    frame = Path(json.loads((px_store / "manifest.json").read_text())[0]["bitstream"])
+    for name, make, size in (("CLIPCondDecoder", lambda dt: CLIPCondDecoder(512, 192, 512, dtype=dt), 512),
+                             ("FeatureToImageDecoderLite", lambda dt: FeatureToImageDecoderLite(512, 256, 64, dtype=dt),
+                              64)):
+        m32 = init_params(make(torch.float32), torch.Generator().manual_seed(seed)).to(dev).eval()
+        mbf = make(torch.bfloat16)
+        mbf.load_state_dict(m32.state_dict())
+        mbf = mbf.to(dev).eval()
+        with torch.no_grad():
+            y32, ybf = m32(z), mbf(z).float()
+            rel = float((ybf - y32).norm() / y32.norm())
+            ms = cuda_ms(torch, lambda: mbf(z))
+        check(tuple(y32.shape) == (DEC_BATCH, size, size, 3), f"25c: {name} output {tuple(y32.shape)}")
+        check(bool(torch.isfinite(ybf).all()), f"25c: {name}: non-finite bf16 output")
+        check(rel < 2e-2, f"25c: {name}: bf16 {rel:.3e} from fp32")
+        img = reconstruct_image_from_bitstream(frame, px_store, m32)
+        check(img.size == (size, size), f"25c: {name}: reconstruct_image_from_bitstream gave {img.size}")
+        train_direct_decoder(px_store, m32, out_size=size, epochs=1, batch_size=DEC_BATCH, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, loss = train_direct_decoder(px_store, m32, out_size=size, epochs=DEC_STEPS, batch_size=DEC_BATCH,
+                                       device=dev)
+        torch.cuda.synchronize()
+        s_step = (time.perf_counter() - t0) / DEC_STEPS
+        check(loss is not None and np.isfinite(loss), f"25c: {name}: training loss {loss}")
+        print(f"25c: {name} {size}px B={DEC_BATCH}: bf16 {rel:.3e} from fp32 (relative norm), bf16 forward "
+              f"{ms:.3f} ms; reconstruct_image_from_bitstream {img.size}; train_direct_decoder fp32 "
+              f"{s_step:.3f} s/step over {DEC_STEPS} steps (loss {loss:.4f}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+        del m32, mbf, y32, ybf
+        torch.cuda.empty_cache()
+
+
+def phase_ddpm(torch, rc, gn, seed, dev, card):
+    """25d: ancestral DDPM through the full-width U-Net. Returns the net,
+    K2's and K3's launches by (kernel, shape) over the two kernel-path runs
+    and their records at the runs' B = 2 shapes."""
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule, ddpm_sample
+    from clip_codec_tpu_torch.utils.profiling import StepTimer
+
+    records = phase_kernels(torch, rc, seed + 28, dev, batches=(DDPM_BATCH,), checked=())
+    net = full_unet(torch, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    shape = (DDPM_BATCH, SIZE, SIZE, 3)
+    z = torch.randn((DDPM_BATCH, 512), generator=gen, device=dev)
+    z = z / z.norm(dim=1, keepdim=True)
+    x_T = torch.randn(shape, generator=gen, device=dev)
+    noise = [torch.randn(shape, generator=gen, device=dev) for _ in range(DDPM_SHORT - 1)]
+    short = NoiseSchedule.create(DDPM_SHORT, device=dev)
+    reset_launches(rc)
+    with conv_tally(rc) as launches:
+        xk = ddpm_sample(net, short, z, shape, x_T=x_T, noise=noise)
+    n_short = check_conv_launches(rc, launches, DDPM_BATCH, DDPM_SHORT, f"25d: DDPM-{DDPM_SHORT}")
+    with plain_convs(rc):
+        xp = ddpm_sample(net, short, z, shape, x_T=x_T, noise=noise)
+    rel = float((xk - xp).norm() / xp.norm())
+    check(bool(torch.isfinite(xk).all()), "25d: non-finite DDPM-50 sample")
+    check(rel < 2e-2, f"25d: DDPM-{DDPM_SHORT} kernel path {rel:.3e} from the plain path")
+    print(f"25d: DDPM-{DDPM_SHORT} B={DDPM_BATCH} {SIZE}px: kernel path {rel:.3e} from the plain path (relative norm); "
+          f"launches {n_short}")
+    del noise, xk, xp
+    counters = {"group_norm_silu": gn.group_norm_silu, "affine_silu_conv3x3": rc.affine_silu_conv3x3,
+                "affine_conv3x3": rc.affine_conv3x3}
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        net(x_T, z, torch.full((DDPM_BATCH,), DDPM_T - 1, dtype=torch.int32, device=dev))
+    tally = {k: c.launches for k, c in counters.items()}
+    for c in counters.values():
+        c.launches = 0
+    timer = StepTimer(skip_first=0, device=dev)
+    with conv_tally(rc) as long_tally, timer:
+        x = ddpm_sample(net, NoiseSchedule.create(DDPM_T, device=dev), z, shape, generator=gen)
+    got = {k: c.launches for k, c in counters.items()}
+    check(bool(torch.isfinite(x).all()), f"25d: non-finite DDPM-{DDPM_T} sample")
+    for k in counters:
+        check(got[k] == tally[k] * DDPM_T, f"25d: {k}: {got[k]} launches != {tally[k]} x {DDPM_T}")
+    check_conv_launches(rc, long_tally, DDPM_BATCH, DDPM_T, f"25d: DDPM-{DDPM_T}")
+    launches.update(long_tally)
+    print(f"25d: DDPM-{DDPM_T} B={DDPM_BATCH} {SIZE}px through the kernels: {timer.mean_s:.3f} s "
+          f"({timer.mean_s / DDPM_T * 1e3:.3f} ms a step) on {card}; launches {got} = per-forward {tally} x {DDPM_T}")
+    return net, launches, records
+
+
+def phase_utils(torch, rc, net, seed, dev, card):
+    """25e: a Chrome trace around one forward, and nan_checked on the card."""
+    from clip_codec_tpu_torch.utils.debug import nan_checked
+    from clip_codec_tpu_torch.utils.profiling import TRACE_NAME, annotate, trace
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    x = torch.randn((SERVE_BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+    z = torch.randn((SERVE_BATCH, 512), generator=gen, device=dev)
+    t = torch.full((SERVE_BATCH,), 500, dtype=torch.int32, device=dev)
+    out = ROOT / "build" / "chip_smoke" / "trace"
+    shutil.rmtree(out, ignore_errors=True)
+    with torch.no_grad():
+        net(x, z, t)  # warm
+        with trace(out):
+            with annotate("chip_smoke_unet_forward"):
+                n0 = rc.affine_silu_conv3x3.launches
+                net(x, z, t)
+                launched = rc.affine_silu_conv3x3.launches - n0
+    events = json.loads((out / TRACE_NAME).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k2 = [e for e in kernels if "conv_wgmma_kernel" in e.get("name", "")]
+    check(any(e.get("name") == "chip_smoke_unet_forward" for e in events), "25e: no annotate region in the trace")
+    # CUPTI may drop a kernel at the profiler's start: the trace must name K2, not hold every launch
+    check(0 < len(k2) <= launched == LAUNCHES_PER_FORWARD - 1, f"25e: {len(k2)} K2 kernels in the trace, {launched} launched")
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    print(f"25e: trace {out / TRACE_NAME} ({(out / TRACE_NAME).stat().st_size / 2**10:.0f} KiB): the annotate region, "
+          f"{len(kernels)} kernels ({len(k2)} K2 of the {launched} launched) summing to {busy:.3f} ms of device time "
+          f"in one B={SERVE_BATCH} forward on {card}")
+    checked = nan_checked(net)
+    with torch.no_grad():
+        checked(x, z, t)
+        x[0, 7, 7, 0] = float("nan")
+        try:
+            checked(x, z, t)
+        except FloatingPointError as e:
+            print(f"25e: nan_checked raised on the card: {e}")
+        else:
+            raise PhaseError("25e: nan_checked did not raise on a NaN input")
+
+
+def phase_25(torch, rc, gn, seed, dev, card, records):
+    """25a-25e; returns the kernels line's phase 25 rows: K2 and K3 at each
+    shape that 25b's two decompresses (B = 4, timed in phase 1) and 25d's
+    two DDPM runs (B = 2, timed in 25d) launched them at, with the launches
+    counted there."""
+    t0 = time.perf_counter()
+    phase_codec(torch, seed, card)
+    launches = phase_msgpack(torch, rc, seed, dev, card)
+    phase_direct_decoders(torch, seed, dev, card)
+    net, ddpm_launches, ddpm_records = phase_ddpm(torch, rc, gn, seed, dev, card)
+    phase_utils(torch, rc, net, seed, dev, card)
+    del net
+    torch.cuda.empty_cache()
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s on {card}")
+    launches.update(ddpm_launches)
+    rows = []
+    for (name, shape), n in sorted(launches.items()):
+        rec = next((r for r in records[name] + ddpm_records[name] if tuple(r["shape"]) == shape), None)
+        check(rec is not None, f"phase 25: {name} launched at {shape}, where no record was timed")
+        rows.append((name, {**rec, "launches": n, "phase": 25}))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4691,6 +5052,8 @@ def main() -> int:
         for name in MP_K1:
             for rec in records[name]:
                 check(mp_launches[(name, tuple(rec["shape"]))] > 0, f"{name} {rec['shape']}: no launch on phase 24")
+
+        p25_rows = phase_25(torch, rc, gn, args.seed, dev, card, records)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4745,6 +5108,9 @@ def main() -> int:
             kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces,
                             **rec, "phase": 24,
                             "launches": mp_launches[(name, tuple(rec["shape"]))]})
+    for name, rec in p25_rows:  # phase 25's paths (25b, 25d): K2 and K3 by shape
+        lib, replaces = KERNELS[name]
+        kernels.append({"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces, **rec})
     for name, n in dp_launches.items():  # phase 23: each kernel's launches summed over the two ranks
         lib, replaces = KERNELS[name]
         timed = inv_records.get(name) or (records[name][0] if isinstance(records[name], list) else records[name])

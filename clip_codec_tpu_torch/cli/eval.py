@@ -12,8 +12,8 @@ pixel U-Net in its serving form (bf16) and the sampler of ``--sampler``, the
 initial noise of every batch drawn in turn from one generator seeded with
 ``--seed``; PSNR and SSIM are computed on the device, LPIPS and CLIP
 similarity by scorers loaded once (NaN where ``$CLIP_CODEC_LPIPS_WEIGHTS`` or
-``$CLIP_CODEC_CLIP_WEIGHTS`` is unset). ``--weights`` is a ``.pt`` state dict;
-the ``model_config.json`` beside it, if any, gives the architecture and
+``$CLIP_CODEC_CLIP_WEIGHTS`` is unset). ``--weights`` is a ``.pt`` state dict
+or the JAX trainer's ``.msgpack``; the ``model_config.json`` beside it, if any, gives the architecture and
 schedule (else ``--base``, ``--ch_mult`` and a 1000-step cosine schedule).
 ``--device`` is ``cuda`` (the default) or ``cpu``. ``--int8`` evaluates the
 static-int8 U-Net (``ops/int8.py``), calibrated first as JAX's CLI does.
@@ -76,7 +76,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..parallel.mesh import axis_size, barrier, is_main, rank_device
     from ..train.data import load_image_m11
     from ..utils.batching import pad_rows
-    from ..utils.checkpoint import load_state_dict
+    from ..utils.checkpoint import load_unet_checkpoint
     from ..utils.config import ModelConfig
 
     mesh = make_mesh_from_flags(args)
@@ -91,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                if args.ch_mult is not None else (mc.ch_mult if mc else (1, 2, 2)))
     net = CLIPCondUNet(z_dim=store.dim, base=base, ch_mult=ch_mult, time_dim=mc.time_dim if mc else 256,
                        img_ch=3, dtype=torch.bfloat16, int8=True if args.int8 else None)
-    net.load_state_dict(load_state_dict(args.weights), strict=True)
+    net.load_state_dict(load_unet_checkpoint(args.weights), strict=True)
     net = net.to(device).eval()
     sched = (NoiseSchedule.create(mc.timesteps, mc.schedule, device=device) if mc
              else NoiseSchedule.create(1000, "cosine", device=device))

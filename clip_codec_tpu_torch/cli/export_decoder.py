@@ -10,7 +10,8 @@
 
 The artifact (``deploy.py``) records the statics and the architecture; the
 weights stay call-time arguments, so ``serve --artifact`` loads the same
-checkpoint again. The pixel checkpoint is the port's ``.pt`` with its
+checkpoint again. The pixel checkpoint is the port's ``.pt`` (or the JAX trainer's
+``.msgpack``) with its
 ``model_config.json`` (``--base``/``--ch_mult``/``--z_dim`` override it or,
 without one, the state dict's own shapes); the SD UNet and VAE come from
 ``$CLIP_CODEC_SD_UNET_WEIGHTS``/``$CLIP_CODEC_SD_VAE_WEIGHTS`` (diffusers
@@ -39,7 +40,7 @@ from ..deploy import PLATFORMS
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Export the decompress program as a serving artifact.")
-    ap.add_argument("--weights", type=str, default=None, help="pixel path: the decoder's .pt state dict")
+    ap.add_argument("--weights", type=str, default=None, help="pixel path: the decoder's .pt state dict or JAX .msgpack")
     ap.add_argument("--sd", action="store_true",
                     help="export the SD latent path instead (frozen UNet/VAE from "
                          "$CLIP_CODEC_SD_UNET_WEIGHTS/$CLIP_CODEC_SD_VAE_WEIGHTS + --adapter)")
@@ -77,10 +78,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     batch = 16 if args.batch_size is None else args.batch_size
 
     from ..deploy import export_decompressor
-    from ..utils.checkpoint import load_state_dict
+    from ..utils.checkpoint import load_unet_checkpoint
     from ..utils.config import ModelConfig
 
-    sd = load_state_dict(args.weights)
+    sd = load_unet_checkpoint(args.weights)
     overrides = {}
     if args.z_dim is not None:
         overrides["z_dim"] = args.z_dim
@@ -136,9 +137,9 @@ def _export_sd(args, platforms) -> None:
     size = 512 if args.size is None else args.size
     steps = 30 if args.steps is None else args.steps
     batch = 1 if args.batch_size is None else args.batch_size
-    usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
-    vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
-    asd = ckpt.adapter_state_dict(ckpt.read_checkpoint(Path(args.adapter)))
+    usd = ckpt.load_unet(unet_path)
+    vsd = ckpt.load_vae(vae_path)
+    asd = ckpt.load_adapter(Path(args.adapter))
     ucfg, vcfg = ckpt.unet_config(usd, heads=args.heads), ckpt.vae_config(vsd)
     quant = None
     if args.int8:

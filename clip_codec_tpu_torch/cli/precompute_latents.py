@@ -86,7 +86,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from ..weights import sd_checkpoint as ckpt
 
-    vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
+    vsd = ckpt.load_vae(vae_path)
     with torch.device(args.device):
         vae = AutoencoderKL(ckpt.vae_config(vsd), dtype=torch.bfloat16)
     vae.load_state_dict(vsd, strict=True)

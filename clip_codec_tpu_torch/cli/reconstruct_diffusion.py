@@ -5,8 +5,8 @@
 
 Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_diffusion.py``);
 ``--device`` defaults to ``cuda``, ``--sampler`` is ``ddim``, ``ddim_std`` or
-``dpmpp``. ``--weights`` is a ``.pt`` state dict; the ``model_config.json``
-beside it, if any, gives the architecture and schedule. ``--int8`` samples
+``dpmpp``. ``--weights`` is a ``.pt`` state dict or the JAX trainer's ``.msgpack``;
+the ``model_config.json`` beside it, if any, gives the architecture and schedule. ``--int8`` samples
 with the static-int8 U-Net (``ops/int8.py``), its activation scales
 calibrated here first (``calibrate_unet`` over the schedule's length).
 """
@@ -15,33 +15,10 @@ from __future__ import annotations
 
 import argparse
 from dataclasses import replace
-from pathlib import Path
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
-import numpy as np
-
+from ..train.train_decoder import decode_embedding, to_pil
 from ._common import add_int8_flag, apply_int8_flag
-
-PathLike = Union[str, Path]
-
-
-def decode_embedding(bit_path: PathLike, store_dir: PathLike) -> np.ndarray:
-    """.clp file -> dequantized, L2-normalized (1, D) fp32 embedding."""
-    from ..codecs.quantizer import dequantize_l2norm_host
-    from ..io.bitstream import read_bitstream
-
-    meta = np.load(Path(store_dir) / "codec_meta.npz")
-    q = read_bitstream(bit_path)
-    return dequantize_l2norm_host(q[None, :], meta["scale"].astype(np.float32),
-                                  meta["zero"].astype(np.float32)).astype(np.float32)
-
-
-def to_pil(img_m11: np.ndarray):
-    """(H, W, 3) float in [-1, 1] -> PIL uint8 image."""
-    from PIL import Image
-
-    arr = np.clip(np.asarray(img_m11), -1.0, 1.0)
-    return Image.fromarray(((arr + 1.0) * 127.5).astype(np.uint8))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -71,11 +48,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..diffusion import NoiseSchedule, make_sampler
     from ..models import CLIPCondUNet
     from ..ops.int8 import calibrate_unet, load_quant
-    from ..utils.checkpoint import load_state_dict
+    from ..utils.checkpoint import load_unet_checkpoint
     from ..utils.config import ModelConfig
 
     device = torch.device(args.device)
-    sd = load_state_dict(args.weights)
+    sd = load_unet_checkpoint(args.weights)
     mc = ModelConfig.find_for_checkpoint(args.weights) or ModelConfig.infer_from_state_dict(sd)
     if args.base is not None:
         mc = replace(mc, base=args.base)

@@ -11,8 +11,9 @@ feature-inversion guidance.
 Flags as the JAX CLI (``clip_codec_tpu/cli/reconstruct_sd_diffusion.py``).
 The UNet and VAE are diffusers checkpoints (``.bin``/``.pt``, or
 ``.safetensors`` where the safetensors package is installed) and the adapter
-a reference ``.pt``; all load as they are, with no conversion (the card
-machine has no jax). The architecture is read off the weight shapes except
+a ``.pt``; all load as they are. Each may instead be the JAX package's
+``.msgpack`` tree (its converted UNet/VAE, its ``sd_adapter_*.msgpack``),
+read and mapped in the port's own code (no jax or msgpack needed). The architecture is read off the weight shapes except
 the head count (``--heads``). ``--device`` is ``cpu`` or ``cuda``; ``cuda``
 without a card is an error.
 
@@ -56,8 +57,8 @@ def load_frozen(unet_path: PathLike, vae_path: PathLike, device: Union[str, torc
     """The UNet and VAE from diffusers files, loaded with ``strict=True``
     into modules built on ``device`` with fp32 parameters that compute in
     bf16, as the JAX CLIs' decoder does; ``int8`` is the UNet's setting."""
-    usd = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
-    vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
+    usd = ckpt.load_unet(unet_path)
+    vsd = ckpt.load_vae(vae_path)
     with torch.device(device):
         unet = SDUNet(ckpt.unet_config(usd, heads=heads), dtype=torch.bfloat16, int8=int8)
         vae = AutoencoderKL(ckpt.vae_config(vsd), dtype=torch.bfloat16)
@@ -72,7 +73,7 @@ def load_decoder(unet_path: PathLike, vae_path: PathLike, adapter_path: PathLike
     """The SD decoder from diffusers UNet/VAE files and a reference adapter
     file (``load_frozen``; the adapter is fp32, ``strict=True``)."""
     unet, vae = load_frozen(unet_path, vae_path, device, heads, int8)
-    asd = ckpt.adapter_state_dict(ckpt.read_checkpoint(adapter_path))
+    asd = ckpt.load_adapter(adapter_path)
     in_dim, hidden = ckpt.adapter_dims(asd)
     with torch.device(device):
         adapter = SDClipAdapter(in_dim, unet.cfg.cross_dim, hidden, N_TOKENS)
@@ -142,7 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description="Reconstruct an image from a .clp bitstream via SD-1.5 + CFG.")
     ap.add_argument("--store_dir", type=Path, required=True)
     ap.add_argument("--bitstream", type=Path, required=True)
-    ap.add_argument("--adapter", type=Path, required=True, help="trained adapter checkpoint (.pt)")
+    ap.add_argument("--adapter", type=Path, required=True, help="trained adapter checkpoint (.pt, or a JAX sd_adapter_*.msgpack)")
     ap.add_argument("--model_name", type=str, default="runwayml/stable-diffusion-v1-5")
     ap.add_argument("--out", type=Path, default=Path("recon.png"))
     ap.add_argument("--steps", type=int, default=30)
@@ -173,7 +174,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
 
-    from .reconstruct_diffusion import decode_embedding, to_pil
+    from ..train.train_decoder import decode_embedding, to_pil
 
     unet_path, vae_path = ckpt.require_sd_weight_paths(args.model_name)
     z = decode_embedding(args.bitstream, args.store_dir)  # (1, dim), L2-normalized

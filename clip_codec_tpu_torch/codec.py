@@ -24,13 +24,14 @@ from PIL import Image
 
 from .codecs.quantizer import dequantize_l2norm, dequantize_l2norm_host, quantize
 from .diffusion import DDIMSampler, NoiseSchedule, make_sampler
-from .io.bitstream import compress_frame, decompress_frame
+from .io import bitstream
 from .models import CLIPCondUNet
-from .utils.checkpoint import load_state_dict
+from .utils.checkpoint import load_unet_checkpoint
 from .utils.config import ModelConfig
 
 PathLike = Union[str, Path]
 DEFAULT_WEIGHTS = "diffusion_unet_final.pt"
+JAX_WEIGHTS = "diffusion_unet_final.msgpack"  # what the JAX trainer writes
 
 
 class ClipCodec:
@@ -70,18 +71,26 @@ class ClipCodec:
     def load(cls, store_dir: PathLike, weights: Optional[PathLike] = None,
              device: Union[str, torch.device] = "cuda",
              dtype: torch.dtype = torch.bfloat16, encoder=None) -> "ClipCodec":
-        """From a store directory: ``codec_meta.npz`` plus a ``.pt`` decoder
-        checkpoint (default ``diffusion_unet_final.pt`` in the store, when
-        present) and the ``model_config.json`` beside it."""
+        """From a store directory: ``codec_meta.npz`` plus a decoder
+        checkpoint, ``.pt`` or the JAX package's ``.msgpack`` (default
+        ``diffusion_unet_final.pt`` in the store, else
+        ``diffusion_unet_final.msgpack``, when present) and the
+        ``model_config.json`` beside it; without one the architecture is
+        inferred from the weights."""
         store_dir = Path(store_dir)
         meta = np.load(store_dir / "codec_meta.npz")
         explicit = weights is not None
-        weights = Path(weights) if explicit else store_dir / DEFAULT_WEIGHTS
+        if explicit:
+            weights = Path(weights)
+        else:
+            weights = store_dir / DEFAULT_WEIGHTS
+            if not weights.exists() and (store_dir / JAX_WEIGHTS).exists():
+                weights = store_dir / JAX_WEIGHTS
         if explicit and not weights.exists():
             raise FileNotFoundError(f"decoder checkpoint not found: {weights}")
         sd, mc = None, None
         if weights.exists():
-            sd = load_state_dict(weights)
+            sd = load_unet_checkpoint(weights)
             mc = ModelConfig.find_for_checkpoint(weights)
             if mc is None:
                 mc = ModelConfig.infer_from_state_dict(sd)
@@ -108,22 +117,15 @@ class ClipCodec:
         for s in range(0, len(images), batch_size):
             x = np.stack([preprocess_pil_u8(im, self.encoder.cfg.image_size) for im in images[s : s + batch_size]])
             feats.append(self.encoder.embed_images(torch.from_numpy(pad_rows(x, batch_size)))[: x.shape[0]])
-        q = quantize(torch.cat(feats), self.scale, self.zero).cpu().numpy()
-        return [compress_frame(row.tobytes()) for row in q]
+        return bitstream.compress_frames(quantize(torch.cat(feats), self.scale, self.zero).cpu().numpy())
 
     # ---------------------------------------------------------- embeddings
 
     def codes(self, blobs: Sequence[bytes]) -> np.ndarray:
-        """``.clp`` frames -> (N, dim) uint8 codes (host work)."""
-        if len(blobs) == 0:
-            return np.zeros((0, self.dim), np.uint8)
-        q = np.stack([decompress_frame(b) for b in blobs])
-        if q.shape[1] != self.dim:
-            # the frame carries no dim: a frame from another store gets a
-            # real message, not a broadcast error
-            raise ValueError(f"frame is {q.shape[1]}-d but this codec is "
-                             f"{self.dim}-d; it belongs to a different store")
-        return q
+        """``.clp`` frames -> (N, dim) uint8 codes (host work, one batch).
+        The frame carries no dim: a frame from another store raises a
+        ValueError that says so."""
+        return bitstream.decompress_frames(list(blobs), self.dim)
 
     def _embed(self, q: np.ndarray) -> torch.Tensor:
         return dequantize_l2norm(torch.from_numpy(np.ascontiguousarray(q)).to(self.device),

@@ -89,3 +89,18 @@ class NoiseSchedule:
         a = self.sqrt_alphas_cumprod[t].reshape(shape)
         b = self.sqrt_one_minus_alphas_cumprod[t].reshape(shape)
         return (x_t - b * eps_hat) / a
+
+    def p_mean_variance(self, model_fn, x_t: torch.Tensor, z: torch.Tensor, t: torch.Tensor):
+        """Posterior (mean, variance, clipped x0-prediction) of ancestral
+        DDPM at ``t`` (B,), the model's eps turned into an x0-prediction
+        clipped to [-1, 1]; fp32, gathered on the tables' device."""
+        eps = model_fn(x_t, z, t).float()
+        x0_pred = torch.clamp(self.predict_x0_from_eps(x_t, t, eps), -1.0, 1.0)
+        shape = (-1,) + (1,) * (x_t.dim() - 1)
+        al_t = self.alphas[t].reshape(shape)
+        al_bar_t = self.alphas_cumprod[t].reshape(shape)
+        al_bar_prev = self.alphas_cumprod_prev[t].reshape(shape)
+        coef1 = torch.sqrt(al_bar_prev) * (1 - al_t) / (1 - al_bar_t)
+        coef2 = torch.sqrt(al_t) * (1 - al_bar_prev) / (1 - al_bar_t)
+        mean = coef1 * x0_pred + coef2 * x_t
+        return mean, self.posterior_variance[t].reshape(shape), x0_pred

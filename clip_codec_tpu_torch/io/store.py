@@ -5,9 +5,10 @@ records), ``codec_meta.npz`` (``scale``, ``zero``, ``dim``) and one ``.clp``
 frame per image; the SD latent path adds ``latents/<stem>.npz`` (key
 ``lat``, fp16 CHW) and ``manifest_latents.json`` (records with a
 ``latent`` field). ``write_store`` and ``append_store`` write it;
-``read_codes`` reads it. Frames are built and read one by one in Python,
-the path the JAX package takes without its native batch codec (whose bytes
-it holds equal to this path's).
+``read_codes`` reads it. Frames are built and read as a batch
+(``bitstream.compress_frames`` / ``decompress_frames``: the native batch
+codec where its library builds, as the JAX store does, else frame by
+frame); which engine ran never changes the stored bytes.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .bitstream import read_bitstream, write_bitstream
+from . import bitstream
+from .bitstream import read_bitstream
 
 PathLike = Union[str, Path]
 
@@ -66,9 +68,8 @@ class Store:
 
     def read_codes(self) -> np.ndarray:
         """Every record's raw quantized codes as an ``(N, D)`` uint8 matrix."""
-        if not self.manifest:
-            return np.zeros((0, self.dim), dtype=np.uint8)
-        return np.stack([read_bitstream(rec["bitstream"]) for rec in self.manifest])
+        return bitstream.decompress_frames([Path(rec["bitstream"]).read_bytes() for rec in self.manifest],
+                                           self.dim)
 
     def decode_all(self, renormalize: bool = True) -> np.ndarray:
         """Dequantize every record into an ``(N, D)`` float32 matrix."""
@@ -133,12 +134,11 @@ def _dump_manifest(out: Path, manifest: List[Dict[str, str]]) -> None:
 
 def _write_frames(out: Path, image_paths: List[str], quantized: np.ndarray,
                   stems: List[str]) -> List[Dict[str, str]]:
-    q_mat = np.ascontiguousarray(np.asarray(quantized, dtype=np.uint8))
-    D = int(q_mat.shape[1])
+    frames = bitstream.compress_frames(np.asarray(quantized, dtype=np.uint8)) if image_paths else []
     manifest: List[Dict[str, str]] = []
     for i, p in enumerate(image_paths):
         out_path = out / (stems[i] + ".clp")
-        write_bitstream(q_mat[i].tobytes(), D, out_path)
+        out_path.write_bytes(frames[i])
         manifest.append({"image": str(p), "bitstream": str(out_path)})
     return manifest
 

@@ -1,5 +1,6 @@
-"""FiLM and the FiLM-conditioned ResBlock (port of ``clip_codec_tpu/models/blocks.py``),
-NHWC activations, fp32 parameters in the reference torch state-dict layout.
+"""FiLM, the FiLM-conditioned ResBlock, the direct decoders' ``DWConvBlock``
+and ``AttnBlock`` (port of ``clip_codec_tpu/models/blocks.py``), NHWC
+activations, fp32 parameters in the reference torch state-dict layout.
 
 The ResBlock has the JAX block's two forms on the same parameters:
 
@@ -27,6 +28,7 @@ The ResBlock has the JAX block's two forms on the same parameters:
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -180,3 +182,65 @@ class ResBlock(nn.Module):
         y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
         y = group_norm_silu_spatial(y.contiguous(), self.norm2, mesh)
         return x + conv3x3_spatial(self.conv2, y, dtype, mesh)
+
+
+def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` (its own padding and groups, bias or none) on NHWC ``x`` in ``dtype``."""
+    b = None if conv.bias is None else cast(conv, "bias", dtype)
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), cast(conv, "weight", dtype), b, padding=conv.padding,
+                 groups=conv.groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def group_norm_nhwc(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """Plain GroupNorm of NHWC ``x`` with fp32 statistics, back in x's dtype
+    (``clip_codec_tpu.ops.groupnorm.group_norm``)."""
+    y = F.group_norm(x.float().permute(0, 3, 1, 2), norm.num_groups, norm.weight.float(), norm.bias.float(),
+                     norm.eps)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class DWConvBlock(nn.Module):
+    """Depthwise-separable conv block, dw3x3 -> pw1x1 -> GN -> GELU (exact),
+    both convs bias-free; NHWC in and out, computed in ``dtype``. Parameter
+    names as the reference block: ``dw``, ``pw``, ``gn`` (gcd(cout, 8)
+    groups)."""
+
+    def __init__(self, cin: int, cout: int, max_groups: int = 8, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.dw = nn.Conv2d(cin, cin, 3, padding=1, groups=cin, bias=False)
+        self.pw = nn.Conv2d(cin, cout, 1, bias=False)
+        self.gn = nn.GroupNorm(math.gcd(cout, max_groups) or 1, cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _conv_nhwc(self.pw, _conv_nhwc(self.dw, x, self.dtype), self.dtype)
+        return F.gelu(group_norm_nhwc(self.gn, y))
+
+
+class AttnBlock(nn.Module):
+    """Pixels-as-queries attention over one key/value token derived from the
+    conditioning vector ``h``, in its intended form (the reference block
+    crashes on any call; the JAX block, ``clip_codec_tpu/models/blocks.py``,
+    is the one ported): ``q`` a 1x1 conv of x, ``kv`` a linear of h split in
+    two, softmax over the token axis, ``proj`` a 1x1 conv, residual add.
+    With one token the softmax is 1; the general form is kept. NHWC."""
+
+    def __init__(self, features: int, cond_dim: int, heads: int = 4, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.heads = heads
+        self.dtype = dtype
+        self.q = nn.Conv2d(features, features, 1)
+        self.kv = nn.Linear(cond_dim, 2 * features)
+        self.proj = nn.Conv2d(features, features, 1)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        d = C // self.heads
+        q = _conv_nhwc(self.q, x, self.dtype).reshape(B, H * W, self.heads, d)
+        k, v = linear(self.kv, h, self.dtype).chunk(2, dim=-1)
+        k = k.reshape(B, -1, self.heads, d)
+        v = v.reshape(B, -1, self.heads, d)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v).reshape(B, H, W, C)
+        return x + _conv_nhwc(self.proj, out, self.dtype)

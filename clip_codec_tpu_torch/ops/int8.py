@@ -648,7 +648,12 @@ def save_quant(quant: Quant, path) -> None:
 
 
 def read_quant(path, device: Union[str, torch.device] = "cpu") -> Quant:
-    """A sidecar written by :func:`save_quant`, its tensors on ``device``."""
+    """A sidecar written by :func:`save_quant`, its tensors on ``device``.
+    A JAX sidecar (``.quant.msgpack``) is refused: it goes with a JAX
+    artifact, which the port does not serve (a known difference)."""
+    if str(path).endswith(".msgpack"):
+        raise ValueError(f"{path}: a JAX int8 calibration sidecar; the port reads only its own "
+                         "<artifact>.quant.pt (export_decoder --int8 writes one)")
     q = torch.load(path, map_location=device, weights_only=True)
     if not isinstance(q, dict) or not all(isinstance(k, str) and torch.is_tensor(v) and v.numel() == 1
                                           for k, v in q.items()):

@@ -26,14 +26,14 @@ runs here in turn and this rank writes what it did to
   events around the graph's replay) and rank 0's gathered images as uint8;
   the task's launches in all.
 
-Frames carry the raw codes where zstandard is missing (``serve_times.raw_frames``).
+Frames are real zstd frames where a zstd engine exists (``bitstream.zstd_engine()``: the native
+codec on the card machine), else they carry the raw codes (``serve_times.raw_frames``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import importlib.util
 import json
 import os
 import sys
@@ -207,10 +207,11 @@ def search(task: dict, out: Path, rank: int) -> dict:
         del single, sharded
     del x, codes
     torch.cuda.empty_cache()
+    from ..io.bitstream import zstd_engine
     from .serve_times import raw_frames
 
     rec["cli"] = {}
-    with raw_frames(importlib.util.find_spec("zstandard") is not None):
+    with raw_frames(zstd_engine() is not None):
         for name, extra in (("single", []), ("sharded", ["--data_parallel"])):
             for u8 in ([], ["--u8"]):
                 u8_scan.u8_ip_scores.launches = 0
@@ -281,13 +282,14 @@ def main(argv=None) -> int:
     rank = int(os.environ.get("RANK", 0))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from ..io.bitstream import zstd_engine
     from .serve_times import raw_frames
 
     rec = {}
     for task in job["tasks"]:
         t0 = time.perf_counter()
         if task["name"] in ("train", "train_sd"):
-            with raw_frames(importlib.util.find_spec("zstandard") is not None):
+            with raw_frames(zstd_engine() is not None):
                 rec[task["name"]] = TASKS[task["name"]](task, out, rank)
         else:
             rec[task["name"]] = TASKS[task["name"]](task, out, rank)

@@ -20,7 +20,6 @@ one call. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import subprocess
@@ -35,6 +34,7 @@ import torch
 
 from clip_codec_tpu_torch import serve
 from clip_codec_tpu_torch.cli import reconstruct_diffusion, reconstruct_sd_diffusion
+from clip_codec_tpu_torch.io.bitstream import zstd_engine
 from clip_codec_tpu_torch.ops import int8 as q8
 from clip_codec_tpu_torch.probes.serve_times import raw_frames, request
 from clip_codec_tpu_torch.weights import sd_checkpoint as ckpt
@@ -101,7 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     env = {ckpt.UNET_ENV: str(sd_dir / "unet.pt"), ckpt.VAE_ENV: str(sd_dir / "vae.pt")}
     rounds: List[Dict[str, float]] = []
     with tempfile.TemporaryDirectory(dir=build) as tmp, mock.patch.dict(os.environ, env), \
-            raw_frames(importlib.util.find_spec("zstandard") is not None):
+            raw_frames(zstd_engine() is not None):
         for r in range(args.reps + 1):
             rounds.append(one_round(build, Path(tmp), args.seed))
             print(f"[int8-cli-times] round {r}{' (warm-up, untimed)' if r == 0 else ''}: "

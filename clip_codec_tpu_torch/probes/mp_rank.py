@@ -118,9 +118,9 @@ def _mesh():
 def _sd_files(task: dict):
     from ..weights import sd_checkpoint as ckpt
 
-    return (ckpt.unet_state_dict(ckpt.read_checkpoint(task["unet"])),
-            ckpt.vae_state_dict(ckpt.read_checkpoint(task["vae"])),
-            ckpt.adapter_state_dict(ckpt.read_checkpoint(task["adapter"])))
+    return (ckpt.load_unet(task["unet"]),
+            ckpt.load_vae(task["vae"]),
+            ckpt.load_adapter(task["adapter"]))
 
 
 def tp_forward(task: dict, out: Path, rank: int) -> dict:
@@ -132,7 +132,7 @@ def tp_forward(task: dict, out: Path, rank: int) -> dict:
 
     mesh = _mesh()
     dev = rank_device(mesh)
-    sd = ckpt.unet_state_dict(ckpt.read_checkpoint(task["unet"]))
+    sd = ckpt.load_unet(task["unet"])
     with torch.device(dev):
         unet = SDUNet(ckpt.unet_config(sd, heads=8), dtype=torch.bfloat16, mesh=mesh)
     unet.load_state_dict(shard_params_tp(mesh, sd), strict=True)

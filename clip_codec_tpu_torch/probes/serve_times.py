@@ -16,8 +16,10 @@ single requests. Flags and defaults as ``bench_serve.py``'s.
 Prints the p50/p95 request latency and the micro-batcher's fill rate, then
 as the last line one JSON object ``{"metric", "value", "unit",
 "vs_baseline"}``, ``vs_baseline`` against the same 2.0 img/s A100 estimate
-``bench.py`` documents. Without zstandard (the card machine has none) the
-frames carry the raw codes behind their magic and length (``raw_frames``).
+``bench.py`` documents. The frames are real zstd frames where a zstd
+engine exists (the native codec on the card machine, which has no
+zstandard); on a machine with neither engine they carry the raw codes
+behind their magic and length (``raw_frames``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import http.client
-import importlib.util
 import json
 import os
 import struct
@@ -46,10 +47,10 @@ BATCH_WAIT_MS, GUIDANCE, SEED = 20.0, 5.0, 0  # bench_serve.py's gather window; 
 
 @contextlib.contextmanager
 def raw_frames(have_zstd: bool):
-    """Without zstandard, a frame is the magic, the length and the raw
-    codes: the store writer, ``ClipCodec`` and the server run as they are
-    and only the zstd payload is left out."""
-    from .. import codec as codec_mod
+    """On a machine with no zstd engine (``bitstream.zstd_engine()`` None:
+    neither zstandard nor a native codec that builds), a frame is the magic,
+    the length and the raw codes: the store writer, ``ClipCodec`` and the
+    server run as they are and only the zstd payload is left out."""
     from ..io import bitstream
 
     if have_zstd:
@@ -69,14 +70,25 @@ def raw_frames(have_zstd: bool):
             raise ValueError(f"raw frame declares {n} bytes and holds {len(data) - 8}")
         return np.frombuffer(data[8:], dtype=np.uint8)
 
-    saved = bitstream.compress_frame, bitstream.decompress_frame
-    bitstream.compress_frame = codec_mod.compress_frame = compress
-    bitstream.decompress_frame = codec_mod.decompress_frame = decompress
+    def compress_many(q: np.ndarray) -> list:
+        return [compress(row.tobytes()) for row in np.asarray(q, dtype=np.uint8)]
+
+    def decompress_many(frames, dim: int) -> np.ndarray:
+        rows = [decompress(f) for f in frames]
+        for i, r in enumerate(rows):
+            if r.size != dim:
+                raise ValueError(f"frame {i} is {r.size}-d but the codes are {dim}-d: it belongs to a different store")
+        return np.stack(rows) if rows else np.zeros((0, dim), np.uint8)
+
+    names = ("compress_frame", "decompress_frame", "compress_frames", "decompress_frames")
+    saved = [getattr(bitstream, n) for n in names]
+    for n, f in zip(names, (compress, decompress, compress_many, decompress_many)):
+        setattr(bitstream, n, f)
     try:
         yield
     finally:
-        bitstream.compress_frame, bitstream.decompress_frame = saved
-        codec_mod.compress_frame, codec_mod.decompress_frame = saved
+        for n, f in zip(names, saved):
+            setattr(bitstream, n, f)
 
 
 def request(addr, path: str, body: Optional[bytes] = None, method: str = "POST",
@@ -188,7 +200,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from ..utils.config import ModelConfig
     from ..weights import sd_checkpoint as ckpt
 
-    have_zstd = importlib.util.find_spec("zstandard") is not None
+    have_zstd = bitstream.zstd_engine() is not None
+    print(f"frames: {bitstream.zstd_engine() or 'raw codes (no zstd engine)'}")
     with tempfile.TemporaryDirectory(prefix="serve_times_") as tmp, raw_frames(have_zstd):
         tmp = Path(tmp)
         rng = np.random.default_rng(SEED)
@@ -202,10 +215,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         t0 = time.perf_counter()
         if args.sd:
             files = sd_weight_files(tmp, SEED, args.device)
-            usd = ckpt.unet_state_dict(ckpt.read_checkpoint(files["unet"]))
-            vsd = ckpt.vae_state_dict(ckpt.read_checkpoint(files["vae"]))
+            usd = ckpt.load_unet(files["unet"])
+            vsd = ckpt.load_vae(files["vae"])
             art = Path(args.artifact) if args.artifact else export_sd_decompressor(
-                usd, vsd, ckpt.adapter_state_dict(ckpt.read_checkpoint(files["adapter"])), tmp / "sd.torchprog",
+                usd, vsd, ckpt.load_adapter(files["adapter"]), tmp / "sd.torchprog",
                 unet_cfg=ckpt.unet_config(usd), vae_cfg=ckpt.vae_config(vsd), size=size, steps=steps,
                 sampler=args.sampler, platforms=[args.device])
             del usd, vsd

@@ -449,11 +449,11 @@ def serve(store_dir: str, weights: Optional[str] = None, host: str = "127.0.0.1"
             raise ValueError("--artifact serving still needs --weights (params are call-time arguments, "
                              "not baked into artifacts)")
         from .deploy import load_decompressor
-        from .utils.checkpoint import load_state_dict
+        from .utils.checkpoint import load_unet_checkpoint
 
         call = load_decompressor(artifact, device=device)
         quant = _validate_artifact(call, codec, artifact)
-        params = load_state_dict(weights)
+        params = load_unet_checkpoint(weights)
         art = (call, params, quant)
 
         def run(zs, seed):
@@ -519,9 +519,9 @@ def _load_sd_serving(sd_artifact: str, adapter: Optional[str], codec: ClipCodec)
                          f"{call.meta['batch_size']}): guidance_scale is per program call, so requests "
                          f"cannot be coalesced")
     quant = _validate_artifact(call, codec, sd_artifact)
-    up = ckpt.unet_state_dict(ckpt.read_checkpoint(unet_path))
-    vp = ckpt.vae_state_dict(ckpt.read_checkpoint(vae_path))
-    ap_ = ckpt.adapter_state_dict(ckpt.read_checkpoint(adapter))
+    up = ckpt.load_unet(unet_path)
+    vp = ckpt.load_vae(vae_path)
+    ap_ = ckpt.load_adapter(adapter)
     # build and capture before the socket takes traffic
     call(up, vp, ap_, np.zeros((1, codec.dim), np.float32), seed=0, guidance_scale=5.0, quant=quant)
     return (call, up, vp, ap_, quant)

@@ -18,6 +18,10 @@
   kernel as torch's OIHW, the projections kept as ``x @ proj``;
 * ``dino_state_dict_from_jax``: the DINOv2 tower in the port's names, the
   same block map plus the LayerScale vectors ``ls1``/``ls2``;
+* ``clip_cond_decoder_state_dict_from_jax``, ``lite_decoder_state_dict_from_jax``,
+  ``dwconv_state_dict_from_jax``, ``attn_block_state_dict_from_jax``: the
+  direct decoders and their blocks in the reference names (the inverses of
+  ``convert_clip_cond_decoder`` / ``convert_lite_decoder``);
 * ``unet_quant_from_jax``, ``sd_unet_quant_from_jax``: a JAX int8
   ``'quant'`` collection (each int8 layer's calibrated ``x_absmax``) as the
   port's quant dict (``ops/int8.py``), keyed by the same module names as
@@ -28,7 +32,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,8 +82,11 @@ def _film_resblock(sd, prefix: str, p: Mapping) -> None:
     _linear(sd, f"{prefix}.film.to_shift", p["film"]["to_shift"])
 
 
-def unet_state_dict_from_jax(params: Mapping, ch_mult: Sequence[int] = (1, 2, 2)) -> StateDict:
-    """``load_state_dict(strict=True)``-ready tensors for ``CLIPCondUNet``."""
+def unet_state_dict_from_jax(params: Mapping, ch_mult: Optional[Sequence[int]] = None) -> StateDict:
+    """``load_state_dict(strict=True)``-ready tensors for ``CLIPCondUNet``;
+    ``ch_mult`` gives the number of levels (None: counted in the tree)."""
+    if ch_mult is None:
+        ch_mult = range(_count(params, "down_{}_rb0"))
     sd: Dict[str, np.ndarray] = {}
     _linear(sd, "time_proj.0", params["time_proj_0"])
     _linear(sd, "time_proj.2", params["time_proj_2"])
@@ -96,6 +103,52 @@ def unet_state_dict_from_jax(params: Mapping, ch_mult: Sequence[int] = (1, 2, 2)
         _film_resblock(sd, f"up.{3 * i}", params[f"up_{i}_rb0"])
         _film_resblock(sd, f"up.{3 * i + 1}", params[f"up_{i}_rb1"])
         _conv(sd, f"up.{3 * i + 2}", params[f"up_{i}_us"])
+    return _tensors(sd)
+
+
+def _dwconv(sd, prefix: str, p: Mapping) -> None:
+    _conv(sd, f"{prefix}.dw", p["dw"])
+    _conv(sd, f"{prefix}.pw", p["pw"])
+    _norm(sd, f"{prefix}.gn", p["gn_scale"], p["gn_bias"])
+
+
+def dwconv_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``DWConvBlock`` params -> the port's (``dw``, ``pw``, ``gn``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _dwconv(sd, "", params)
+    return _tensors({k[1:]: v for k, v in sd.items()})
+
+
+def attn_block_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``AttnBlock`` params -> the port's (``q``, ``kv``, ``proj``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "q", params["q"])
+    _linear(sd, "kv", params["kv"])
+    _conv(sd, "proj", params["proj"])
+    return _tensors(sd)
+
+
+def clip_cond_decoder_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``CLIPCondDecoder`` params -> the reference layout (stage i at
+    ``up.{3i}`` and ``up.{3i+2}``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "fc.0", params["fc"])
+    _conv(sd, "to_img.0", params["to_img"])
+    for i in range(_count(params, "up_{}_a")):
+        _dwconv(sd, f"up.{3 * i}", params[f"up_{i}_a"])
+        _dwconv(sd, f"up.{3 * i + 2}", params[f"up_{i}_b"])
+    return _tensors(sd)
+
+
+def lite_decoder_state_dict_from_jax(params: Mapping) -> StateDict:
+    """JAX ``FeatureToImageDecoderLite`` params -> the reference layout."""
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "fc.0", params["fc"])
+    _conv(sd, "to_img.0", params["to_img"])
+    for name in ("up1", "up2", "up3"):
+        for k, (ci, gi) in enumerate([(0, 1), (3, 4)]):
+            _conv(sd, f"{name}.{ci}", params[f"{name}_conv{k}"])
+            _norm(sd, f"{name}.{gi}", params[f"{name}_gn{k}_scale"], params[f"{name}_gn{k}_bias"])
     return _tensors(sd)
 
 

@@ -9,6 +9,12 @@ attention names (``norm``/``query``/``key``/``value``/``proj_attn``) and
 legacy 1x1-conv attention weights. The architecture is read off the weight
 shapes; only the UNet's head count is not recoverable from them.
 
+``load_unet``, ``load_vae`` and ``load_adapter`` also take the JAX
+package's ``.msgpack`` trees: its converted UNet and VAE trees
+(``save_params`` of ``convert_sd_unet`` / ``convert_sd_vae``, which its
+``load_sd_params`` reads) and its trained adapters
+(``sd_adapter_*.msgpack``), mapped by ``weights/from_jax.py``.
+
 Nothing here imports jax: the card machine loads diffusers files directly.
 """
 
@@ -51,8 +57,8 @@ def read_checkpoint(path: PathLike) -> Dict[str, torch.Tensor]:
     ``safetensors`` package is installed, as a dict of CPU tensors."""
     path = Path(path)
     if path.suffix == ".msgpack":
-        raise ValueError(f"{path}: converted flax (.msgpack) trees are not read by the torch "
-                         "package; pass the diffusers checkpoint itself")
+        raise ValueError(f"{path}: a flax (.msgpack) tree, not a torch checkpoint: read it with "
+                         "load_unet / load_vae / load_adapter")
     if path.suffix == ".safetensors":
         try:
             from safetensors.torch import load_file
@@ -98,6 +104,32 @@ def adapter_state_dict(raw: Mapping) -> Dict[str, torch.Tensor]:
     """A reference adapter checkpoint (``{'adapter': ...}`` or bare) as the
     port's ``SDClipAdapter`` state dict."""
     return strip_prefixes(raw)
+
+
+def _load(path: PathLike, from_jax: str, from_torch):
+    path = Path(path)
+    if path.suffix == ".msgpack":
+        from ..utils.checkpoint import float_leaves, load_params
+        from . import from_jax as fj
+
+        return getattr(fj, from_jax)(float_leaves(load_params(path)))
+    return from_torch(read_checkpoint(path))
+
+
+def load_unet(path: PathLike) -> Dict[str, torch.Tensor]:
+    """The port's ``SDUNet`` state dict from a diffusers checkpoint or a JAX ``.msgpack`` tree."""
+    return _load(path, "sd_unet_state_dict_from_jax", unet_state_dict)
+
+
+def load_vae(path: PathLike) -> Dict[str, torch.Tensor]:
+    """The port's ``AutoencoderKL`` state dict from a diffusers checkpoint or a JAX ``.msgpack`` tree."""
+    return _load(path, "sd_vae_state_dict_from_jax", vae_state_dict)
+
+
+def load_adapter(path: PathLike) -> Dict[str, torch.Tensor]:
+    """The ``SDClipAdapter`` state dict from a ``.pt`` (the port's trainer,
+    the reference) or a JAX ``sd_adapter_*.msgpack``."""
+    return _load(path, "sd_adapter_state_dict_from_jax", adapter_state_dict)
 
 
 def _count(sd: Mapping, fmt: str) -> int:

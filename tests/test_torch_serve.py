@@ -515,11 +515,11 @@ def test_raw_frames_keep_the_magic_and_the_length():
     read back by the codec (and refused without the magic)."""
     import struct
 
-    from clip_codec_tpu_torch import codec as codec_mod
     from clip_codec_tpu_torch.io import bitstream
     from clip_codec_tpu_torch.probes.serve_times import raw_frames
 
-    saved = bitstream.compress_frame, bitstream.decompress_frame, codec_mod.decompress_frame
+    names = ("compress_frame", "decompress_frame", "compress_frames", "decompress_frames")
+    saved = [getattr(bitstream, n) for n in names]
     codes = np.arange(DIM, dtype=np.uint8)
     with raw_frames(False):
         frame = bitstream.compress_frame(codes.tobytes())
@@ -528,4 +528,4 @@ def test_raw_frames_keep_the_magic_and_the_length():
         np.testing.assert_array_equal(codec.codes([frame])[0], codes)
         with pytest.raises(ValueError, match="Bad magic"):
             codec.codes([codes.tobytes()])
-    assert (bitstream.compress_frame, bitstream.decompress_frame, codec_mod.decompress_frame) == saved
+    assert [getattr(bitstream, n) for n in names] == saved

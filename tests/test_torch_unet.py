@@ -84,13 +84,23 @@ def test_state_dict_from_jax_equals_export_unet(rng, ch_mult):
 
 def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
     """The port (its JAX weight bridge, its pixel trainer and CLI, and the
-    compress side's encoders, quantizer, store writer and encode CLI, and
-    the retrieval indexes and search CLI included) runs in a process that
-    loads nothing of jax, flax or the JAX package."""
+    compress side's encoders, quantizer, store writer and encode CLI, the
+    retrieval indexes and search CLI, the native store codec, the msgpack
+    reader, the direct decoders, DDPM and the utilities included) runs in a
+    process that loads nothing of jax, flax, msgpack or the JAX package,
+    and reads JAX's ``.msgpack`` U-Net there."""
+    from clip_codec_tpu.utils.checkpoint import save_params
+
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     (tmp_path / "params.pkl").write_bytes(pickle.dumps(tree))
+    save_params(tmp_path / "diffusion_unet_final.msgpack", jax_params)
     code = (
         "import pickle, sys\n"
+        "import clip_codec_tpu_torch.io.native, clip_codec_tpu_torch.io.bitstream, clip_codec_tpu_torch.weights.convert\n"
+        "import clip_codec_tpu_torch.utils.flax_msgpack, clip_codec_tpu_torch.utils.checkpoint\n"
+        "import clip_codec_tpu_torch.models.decoders, clip_codec_tpu_torch.train.train_decoder\n"
+        "import clip_codec_tpu_torch.diffusion.ddpm, clip_codec_tpu_torch.utils.profiling\n"
+        "import clip_codec_tpu_torch.utils.debug, clip_codec_tpu_torch.utils.logging\n"
         "import clip_codec_tpu_torch.codec, clip_codec_tpu_torch.cli.reconstruct_diffusion\n"
         "import clip_codec_tpu_torch.models.sd, clip_codec_tpu_torch.cli.reconstruct_sd_diffusion\n"
         "import clip_codec_tpu_torch.ops.attention, clip_codec_tpu_torch.ops.mlp, clip_codec_tpu_torch.cli.train\n"
@@ -113,6 +123,9 @@ def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
         "from clip_codec_tpu_torch.weights.from_jax import unet_state_dict_from_jax\n"
         f"tree = pickle.load(open({str(tmp_path / 'params.pkl')!r}, 'rb'))\n"
         "sd = unet_state_dict_from_jax(tree, (1, 2))\n"
+        "from clip_codec_tpu_torch.utils.checkpoint import load_unet_checkpoint\n"
+        f"ms = load_unet_checkpoint({str(tmp_path / 'diffusion_unet_final.msgpack')!r})\n"
+        "assert ms.keys() == sd.keys() and all(torch.equal(ms[k], sd[k]) for k in sd)\n"
         "net = CLIPCondUNet(z_dim=8, base=8, ch_mult=(1, 2), time_dim=256, fused_pallas=False)\n"
         "net.load_state_dict(sd, strict=True)\n"
         "cfg = tr.DiffusionTrainConfig(base=8, ch_mult=(1, 2), bf16=False)\n"
@@ -120,7 +133,7 @@ def test_from_jax_and_the_port_import_no_jax(tmp_path, jax_params):
         "x = torch.zeros((2, 16, 16, 3))\n"
         "assert bool(torch.isfinite(step(x, torch.ones((2, 8)), torch.ones(2), torch.tensor([3, 40]), x + 1)))\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'clip_codec_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'clip_codec_tpu.')))\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'msgpack', 'clip_codec_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
