@@ -366,7 +366,8 @@ run K1, K2/K3, K4-K6 and ``u8_ip_scores``):
    over gloo on a (1, 2) mesh, then one NCCL rank on (1, 1)). 24a: K1's
    split entries (``group_norm_silu_stats``, with and without a shift, and
    ``group_norm_silu_apply``) against their plain versions at the spatial
-   U-Net's half-height shapes (B = 16, bf16), an fp32 case and a ragged
+   U-Net's half-height shapes (B = 16 at 256px, and phase 26's B = 2 at
+   512px, bf16), an fp32 case and a ragged
    one: partials within 1e-5 of the sums of |terms|, the normalisation
    within phase 13's rtol = atol (2e-2 bf16, 1e-4 fp32) of plain and of
    the one-shot plain GroupNorm+SiLU; each timed (CUDA-graph replay and
@@ -423,6 +424,27 @@ SD files, phase 14's store):
    raises on an injected NaN. Every time is printed beside the card's name
    and power limit.
 
+Spatially sharded training (``train_diffusion(spatial=True)``,
+``cli.train --spatial_shard``; phase 26, after 25):
+
+26. ``probes.mp_rank spatial_train`` on two ranks sharing the card over gloo
+   on a (1, 2) mesh, the image height split over them, then on one NCCL
+   rank unsharded: the full-width pixel U-Net (base 128, (1, 2, 2), z 512,
+   seeded weights) at 512px, global batch 2. On two seeded batches with
+   injected t and noise: the fp32 loss within 1e-4 (relative) and each
+   parameter's gradient, summed over the mesh, within 1e-3 of its largest
+   magnitude of the unsharded step's (phase 24's spatial bound); the bf16
+   spatial gradient at most 1.1x as far from the fp32 plain unsharded
+   step's as the unsharded bf16 step's, at --seed and --seed + 1 (phase
+   13's check); the ranks' losses equal; K1's split form 28 + 28 launches
+   a forward (4, 8, 8, 8 by level) and none in the backward. Then
+   ``cli.train --spatial_shard 2`` (one rank: ``--distributed``) for 3
+   steps over 6 seeded images: every step 28 + 28 split launches by shape,
+   the ranks' losses equal and within 2e-2 of one rank's; s/step, peak
+   device memory a rank (below the unsharded rank's) and the collectives a
+   step are printed. Two ranks sharing one card measure correctness and
+   overhead, not scaling.
+
 The line before the last is the kernels' JSON record (K2 and K3: one
 record per path shape at B=4 with its launches in phase 4, at B=8 with
 its launches in phase 18 and at B=16 with its launches in phase 20c
@@ -444,7 +466,8 @@ beside the timed record's numbers as for phase 21), ``library_ms`` null (no one 
 call takes uint8 codes and fp32 queries) and ``matmul_ms`` beside it for
 scale; K1's split entries one record per phase 24a shape, and K4 and K6 one
 record per tensor-parallel shape, each with its phase 24 launches by shape
-summed over the two ranks (``"phase": 24``); K2 and K3 once more with
+summed over the two ranks (``"phase": 24``; K1's split entries at phase 26's
+shapes with phase 26's CLI steps' launches, ``"phase": 26``); K2 and K3 once more with
 phase 25's launches (25b's two decompresses and 25d's DDPM runs,
 ``"phase": 25``, beside the first path shape's timed numbers); ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
@@ -604,6 +627,14 @@ MP_CHECK_STEPS, MP_CHECK_TIMESTEPS, MP_FP32_TOL = 3, 20, 1e-3
 MP_TP_RATIO, MP_TP_FLOOR = 1.1, 1.5
 MP_TIMEOUT = 600.0
 MP_K1 = ("group_norm_silu_stats", "group_norm_silu_apply")
+# Spatially sharded training (phase 26): the full-width pixel U-Net at 512px, global batch 2, the height split
+# over two ranks sharing the card over gloo on a (1, 2) mesh, against one NCCL rank's unsharded step; the CLI for
+# 3 steps over 6 images. K1's split form at each level's half-height shape, MP_GN_CALLS of each a forward. The
+# fp32 bounds are phase 24's spatial ones (loss relative, each gradient against its largest magnitude); the bf16
+# check is phase 13's fp32 ratio.
+ST_SIZE, ST_BATCH, ST_IMAGES, ST_STEPS, ST_TIMEOUT = 512, 2, 6, 3, 600.0
+ST_GN_SHAPES = [(ST_BATCH, H * ST_SIZE // SIZE // 2, W * ST_SIZE // SIZE, C) for H, W, C in GN_SHAPES]
+ST_LOSS_TOL, ST_GRAD_TOL = 1e-4, MP_FP32_TOL
 
 
 class PhaseError(RuntimeError):
@@ -1731,13 +1762,13 @@ def px_net(torch, seed, dev, remat=False):
     return init_params(net, torch.Generator(device=dev).manual_seed(seed))
 
 
-def px_batch(torch, seed, dev, B):
-    """Seeded (x0, z, weight, t, noise) of one 256px training batch."""
+def px_batch(torch, seed, dev, B, size=SIZE):
+    """Seeded (x0, z, weight, t, noise) of one training batch at ``size`` px."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x0 = torch.rand((B, SIZE, SIZE, 3), generator=gen, device=dev) * 2 - 1
+    x0 = torch.rand((B, size, size, 3), generator=gen, device=dev) * 2 - 1
     z = torch.nn.functional.normalize(torch.randn((B, 512), generator=gen, device=dev), dim=-1)
     t = torch.randint(0, 1000, (B,), generator=gen, device=dev, dtype=torch.int32)
-    noise = torch.randn((B, SIZE, SIZE, 3), generator=gen, device=dev)
+    noise = torch.randn((B, size, size, 3), generator=gen, device=dev)
     return x0, z, torch.ones(B, device=dev), t, noise
 
 
@@ -4041,8 +4072,8 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
 # ------------------------------------------------- the data axis (phase 23)
 
 
-def _dp_px_store(seed, store: Path, have_zstd: bool) -> None:
-    """DP_PX_IMAGES seeded PNGs and their frames (raw codes where no zstd engine
+def _dp_px_store(seed, store: Path, have_zstd: bool, n: int = DP_PX_IMAGES) -> None:
+    """``n`` seeded PNGs and their frames (raw codes where no zstd engine
     is missing: every rank reads them through ``raw_frames``)."""
     import json
 
@@ -4052,8 +4083,8 @@ def _dp_px_store(seed, store: Path, have_zstd: bool) -> None:
     from clip_codec_tpu_torch.io.bitstream import write_bitstream
 
     rng = np.random.default_rng(seed + 23)
-    images = rng.integers(0, 256, (DP_PX_IMAGES, 96, 128, 3), dtype=np.uint8)  # resized to 256 on load
-    codes = rng.integers(0, 256, (DP_PX_IMAGES, 512), dtype=np.uint8)
+    images = rng.integers(0, 256, (n, 96, 128, 3), dtype=np.uint8)  # resized to out_size on load
+    codes = rng.integers(0, 256, (n, 512), dtype=np.uint8)
     store.mkdir(parents=True, exist_ok=True)
     np.savez(store / "codec_meta.npz", scale=np.full(512, 2.0 / 255.0, np.float32), zero=np.full(512, -1.0, np.float32))
     recs = []
@@ -4303,11 +4334,12 @@ def phase_dp(torch, seed, dev, card):
 
 def phase_k1_split(torch, gn, seed, dev):
     """24a: K1's split entries against their plain versions at the spatial
-    U-Net's half-height shapes (bf16), an fp32 case and a ragged one, with
-    and without a shift, timed at the half-height shapes; returns a record
-    per entry and shape. Shifted as the spatial U-Net calls them: the stats
-    of x - (one element of each group), then apply about the mean with
-    totals (0, M2) (``models.blocks.group_norm_silu_spatial``)."""
+    U-Net's half-height shapes (bf16; phase 24's sampling at 256px and phase
+    26's training at 512px), an fp32 case and a ragged one, with and without
+    a shift, timed at the half-height shapes; returns a record per entry and
+    shape. Shifted as the spatial U-Net calls them: the stats of x - (one
+    element of each group), then apply about the mean with totals (0, M2)
+    (``ops.groupnorm.group_norm_silu_spatial``)."""
     import torch.nn.functional as F
 
     from clip_codec_tpu_torch.parallel.mesh import merge_moments_model
@@ -4316,7 +4348,8 @@ def phase_k1_split(torch, gn, seed, dev):
     G, bf = GN_GROUPS, torch.bfloat16
     recs = {"group_norm_silu_stats": [], "group_norm_silu_apply": []}
     worst = {k: 0.0 for k in recs}
-    cases = [(shape, bf) for shape in MP_GN_SHAPES] + [((WIDE_BATCH, 32, 64, 256), torch.float32), (GN_TAIL, bf)]
+    timed = MP_GN_SHAPES + ST_GN_SHAPES  # phase 24's sampling shapes and phase 26's training shapes
+    cases = [(shape, bf) for shape in timed] + [((WIDE_BATCH, 32, 64, 256), torch.float32), (GN_TAIL, bf)]
     for shape, dtype in cases:
         B, H, W, C = shape
         n = H * W * (C // G)
@@ -4354,7 +4387,7 @@ def phase_k1_split(torch, gn, seed, dev):
         worst["group_norm_silu_stats"] = max(worst["group_norm_silu_stats"], errs["stats"], errs["stats_shifted"])
         worst["group_norm_silu_apply"] = max(worst["group_norm_silu_apply"], errs["apply"])
         line = f"kernel-check: {tag} " + " ".join(f"{k}_err={v:.3e}" for k, v in errs.items())
-        if dtype == bf and shape in MP_GN_SHAPES:
+        if dtype == bf and shape in timed:
             with torch.no_grad():
                 stats = lambda: gn.group_norm_silu_stats(x, G, shift=shift)
                 apply = lambda: gn.group_norm_silu_apply(x, tot, n, (scale, bias), G, shift=mean)
@@ -4955,6 +4988,109 @@ def phase_25(torch, rc, gn, seed, dev, card, records):
     return rows
 
 
+# ------------------------------------------------ phase 26: spatially sharded training
+
+
+def phase_spatial_train(torch, seed, dev, card):
+    """Phase 26: ``probes.mp_rank spatial_train`` on two ranks sharing the
+    card over gloo on a (1, 2) mesh and on one NCCL rank unsharded. Returns
+    K1's split launches by (kernel, shape) over the two ranks' CLI steps."""
+    t_phase = time.perf_counter()
+    st = ROOT / "build" / "chip_smoke" / "st"
+    shutil.rmtree(st, ignore_errors=True)
+    st.mkdir(parents=True)
+    net = px_net(torch, seed, dev)
+    torch.save({k: v.cpu() for k, v in net.state_dict().items()}, st / "unet.pt")
+    del net
+    batches = []
+    for i, s in enumerate((seed, seed + 1)):
+        x0, z, w, t, noise = px_batch(torch, s + 26, dev, ST_BATCH, ST_SIZE)
+        torch.save({"x0": x0.cpu(), "z": z.cpu(), "w": w.cpu(), "t": t.cpu(), "noise": noise.cpu()}, st / f"batch{i}.pt")
+        batches.append(str(st / f"batch{i}.pt"))
+    _dp_px_store(seed + 26, st / "store", frame_engine("st"), n=ST_IMAGES)
+    task = dict(name="spatial_train", weights=str(st / "unet.pt"), batches=batches, z_dim=512, **PX_MODEL,
+                argv=["--store_dir", str(st / "store"), "--out_size", str(ST_SIZE), "--epochs", "1", "--batch_size",
+                      str(ST_BATCH), "--seed", str(seed), "--log_every", "1"])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CLIP_CODEC_")}
+    two = _run_ranks(torch, {"out": str(st / "two"), "tasks": [task]}, 2, env, ST_TIMEOUT, "mp_rank")
+    one = _run_ranks(torch, {"out": str(st / "one"), "tasks": [task]}, 1, env, ST_TIMEOUT, "mp_rank")
+    a, b = (r["spatial_train"] for r in two)
+    o = one[0]["spatial_train"]
+    grads = lambda side, tag: torch.load(st / side / f"rank0_grad_{tag}.pt", weights_only=True)
+    flat = lambda g: torch.cat([g["grads"][k].flatten() for k in sorted(g["grads"])])
+    rel = lambda x, y: ((x - y).norm() / y.norm()).item()
+
+    # fp32: the spatial step against the unsharded one (the kernel paths)
+    sp, un = grads("two", "fp32"), grads("one", "fp32")
+    rel_loss = abs(sp["loss"] - un["loss"]) / abs(un["loss"])
+    per_param = {k: ((sp["grads"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                 for k, v in un["grads"].items()}
+    worst = max(per_param, key=per_param.get)
+    # bf16: the discriminating fp32 ratio at two seeds
+    ratios = []
+    for i in range(len(batches)):
+        g32 = flat(grads("one", f"fp32_plain{i}"))
+        r_sp, r_un = rel(flat(grads("two", f"bf16_{i}")), g32), rel(flat(grads("one", f"bf16_{i}")), g32)
+        ratios.append((r_sp, r_un))
+    want_shapes = {}
+    for shape, calls in zip(ST_GN_SHAPES, MP_GN_CALLS):
+        for name in MP_K1:
+            want_shapes[f"{name} {list(shape)}"] = calls
+    per_step = lambda r: sorted(x["s"] for x in r["steps"][1:])[(len(r["steps"]) - 1) // 2]  # the median after the first
+    gib = lambda n: n / 2 ** 30
+    print(f"st-26: spatially sharded training, the pixel U-Net ({PX_MODEL}, z 512) at {ST_SIZE}px, global batch "
+          f"{ST_BATCH}, H over 2 ranks sharing {card} over gloo on (1, 2), against one NCCL rank unsharded: fp32 loss "
+          f"{sp['loss']:.6f} vs {un['loss']:.6f} (rel {rel_loss:.3e}), the worst parameter's gradient {worst} "
+          f"{per_param[worst]:.3e} of its largest magnitude (whole gradient rel {rel(flat(sp), flat(un)):.3e}); bf16 "
+          f"gradient from the fp32 plain unsharded step, spatial vs unsharded "
+          f"{[(round(x, 6), round(y, 6), round(x / y, 4)) for x, y in ratios]} at seeds {seed}, {seed + 1}; K1 "
+          f"launches a forward {a['grads']['bf16_0']['forward_launches']} (backward "
+          f"{a['grads']['bf16_0']['backward_launches']}), unsharded {o['grads']['bf16_0']['forward_launches']} "
+          f"(backward {o['grads']['bf16_0']['backward_launches']})")
+    print(f"st-26: cli.train --spatial_shard 2, {len(a['steps'])} steps: losses {[round(x['loss'], 6) for x in a['steps']]} "
+          f"vs one rank's {[round(x['loss'], 6) for x in o['steps']]}; s/step {[round(x['s'], 4) for x in a['steps']]} / "
+          f"{[round(x['s'], 4) for x in b['steps']]} (median after the first {per_step(a):.4f} / {per_step(b):.4f}) "
+          f"against one rank's {[round(x['s'], 4) for x in o['steps']]} ({per_step(o):.4f}); peak device memory a "
+          f"rank {gib(a['peak_bytes']):.3f} / {gib(b['peak_bytes']):.3f} GiB against one rank's unsharded "
+          f"{gib(o['peak_bytes']):.3f} GiB; collectives a step {a['steps'][-1]['collectives']} (one rank "
+          f"{o['steps'][-1]['collectives']}); launches a step {a['steps'][-1]['launches']} (one rank "
+          f"{o['steps'][-1]['launches']}); a shared card over gloo: overhead, not scaling")
+    check(rel_loss <= ST_LOSS_TOL, f"26: fp32 spatial loss {sp['loss']} vs unsharded {un['loss']} (rel {rel_loss})")
+    check(per_param[worst] <= ST_GRAD_TOL, f"26: fp32 gradient of {worst} off the unsharded one by {per_param[worst]} "
+          f"of its largest magnitude")
+    check(all(bool(torch.isfinite(v).all()) for v in sp["grads"].values()), "26: a non-finite spatial gradient")
+    for r_sp, r_un in ratios:
+        check(r_sp <= FP32_RATIO * r_un, f"26: the bf16 spatial gradient {r_sp} from fp32 > {FP32_RATIO} x the "
+              f"unsharded bf16 step's {r_un}")
+    for tag in a["grads"]:
+        check(a["grads"][tag]["loss"] == b["grads"][tag]["loss"], f"26: the ranks' {tag} losses differ")
+    for r in (a, b):
+        for tag, g in r["grads"].items():
+            check(g["forward_launches"] == {k: GN_PER_FORWARD for k in MP_K1} and g["backward_launches"] == {}
+                  and g["by_shape"] == want_shapes, f"26: {tag}: K1 launches forward {g['forward_launches']} "
+                  f"backward {g['backward_launches']} by shape {g['by_shape']}")
+        check(len(r["steps"]) == ST_STEPS, f"26: {len(r['steps'])} CLI steps")
+        for x in r["steps"]:
+            check(x["launches"] == {k: GN_PER_FORWARD for k in MP_K1} and x["by_shape"] == want_shapes,
+                  f"26: a CLI step launched {x['launches']} by shape {x['by_shape']}")
+        check(r["peak_bytes"] < o["peak_bytes"], f"26: peak {r['peak_bytes']} B a spatial rank, not below the "
+              f"unsharded {o['peak_bytes']}")
+    check([x["loss"] for x in a["steps"]] == [x["loss"] for x in b["steps"]], "26: the ranks' CLI losses differ")
+    dl = max(abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(a["steps"], o["steps"]))
+    check(dl <= DP_TOL, f"26: CLI losses {a['steps']} vs one rank's {o['steps']} (max rel {dl})")
+    for tag, g in o["grads"].items():
+        want = {"group_norm_silu": GN_PER_FORWARD} if not tag.startswith("fp32_plain") else {}
+        check(g["forward_launches"] == want and g["backward_launches"] == {},
+              f"26: unsharded {tag}: K1 launches {g['forward_launches']} / {g['backward_launches']}")
+    launches = collections.Counter()
+    for r in (a, b):
+        for x in r["steps"]:
+            for key, n in x["by_shape"].items():
+                launches[_shape_key(key)] += n
+    print(f"st: phase 26 in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5051,9 +5187,14 @@ def main() -> int:
                       f"{name} {rec['shape']}: no launch on phase 24's paths")
         for name in MP_K1:
             for rec in records[name]:
-                check(mp_launches[(name, tuple(rec["shape"]))] > 0, f"{name} {rec['shape']}: no launch on phase 24")
+                if tuple(rec["shape"]) in MP_GN_SHAPES:
+                    check(mp_launches[(name, tuple(rec["shape"]))] > 0, f"{name} {rec['shape']}: no launch on phase 24")
 
         p25_rows = phase_25(torch, rc, gn, args.seed, dev, card, records)
+        st_launches = phase_spatial_train(torch, args.seed, dev, card)
+        for name in MP_K1:
+            for shape in ST_GN_SHAPES:
+                check(st_launches[(name, shape)] > 0, f"{name} {list(shape)}: no launch on phase 26")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5061,9 +5202,12 @@ def main() -> int:
     kernels = []
     for name, (lib, replaces) in KERNELS.items():
         head = {"name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu", "replaces": replaces}
-        if name in MP_K1:  # one record per phase 24a shape, its launches by shape over phase 24d-24e's two ranks
-            for rec in records[name]:
-                kernels.append({**head, "launches": mp_launches[(name, tuple(rec["shape"]))], **rec, "phase": 24})
+        if name in MP_K1:  # one record per phase 24a shape, its launches by shape over phase 24d-24e's two ranks,
+            for rec in records[name]:  # or over phase 26's two ranks' CLI steps
+                shape = tuple(rec["shape"])
+                sampled = shape in MP_GN_SHAPES
+                kernels.append({**head, "launches": (mp_launches if sampled else st_launches)[(name, shape)], **rec,
+                                "phase": 24 if sampled else 26})
             continue
         if name in Q8_KERNELS:  # one record per phase 22a shape, launches by shape on the phase 22b-22c paths
             for rec in q8_records[name]:

@@ -42,14 +42,19 @@ def add_parallel_flags(ap, distributed: bool = True) -> None:
                              "LOCAL_RANK) first; implies --data_parallel")
 
 
-def make_mesh_from_flags(args):
+def make_mesh_from_flags(args, model_parallel: int = 1):
     """The ``(data, model)`` mesh on ``args.device`` that the flags ask for,
-    or None. ``--distributed`` without the launcher's environment stops."""
+    or None: ``(world / model_parallel, model_parallel)`` over the
+    launcher's ranks for ``--spatial_shard`` (``model_parallel`` > 1),
+    ``(world, 1)`` for ``--data_parallel``. ``--distributed`` or
+    ``--spatial_shard`` without the launcher's environment stops."""
     from ..parallel.distributed import LAUNCHER_ENV, initialize_distributed, launcher_env
 
-    if getattr(args, "distributed", False):
+    needs = ("--distributed" if getattr(args, "distributed", False) else
+             f"--spatial_shard {model_parallel}" if model_parallel > 1 else None)
+    if needs is not None:
         if launcher_env() is None:
-            raise SystemExit(f"--distributed needs the launcher's environment ({', '.join(LAUNCHER_ENV)}, "
+            raise SystemExit(f"{needs} needs the launcher's environment ({', '.join(LAUNCHER_ENV)}, "
                              f"LOCAL_RANK): start the run under torchrun")
         initialize_distributed(device_type=args.device)
         args.data_parallel = True
@@ -57,4 +62,4 @@ def make_mesh_from_flags(args):
         return None
     from ..parallel.mesh import make_mesh
 
-    return make_mesh(device_type=args.device)
+    return make_mesh(model_parallel=model_parallel, device_type=args.device)

@@ -24,9 +24,14 @@ clip_codec_tpu_torch.cli.train --data_parallel ...``; without a launcher, a
 world of one); ``--batch_size`` is then the global batch and must divide by
 the rank count. ``--distributed`` joins the launcher's process group before
 anything touches a device and implies ``--data_parallel``; without the
-launcher's environment it stops. Rank 0 writes the files. Not ported yet,
-and refused rather than silently dropped: spatially sharded training,
-``--spatial_shard > 1``.
+launcher's environment it stops. Rank 0 writes the files.
+
+``--spatial_shard k`` (k > 1) also splits each image's height over k ranks
+(``train_diffusion(spatial=True)`` on the ``(world / k, k)`` mesh, JAX's
+``make_mesh(model_parallel=k)``): ``torchrun --nproc_per_node N -m
+clip_codec_tpu_torch.cli.train --spatial_shard k ...``, N a multiple of k,
+``--out_size`` divisible by k (and every U-Net level's rows into an even
+count a rank); without the launcher's environment it stops.
 """
 
 from __future__ import annotations
@@ -67,20 +72,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="cache decoded images as resized uint8 in RAM so epochs after the first skip decoding")
     ap.add_argument("--remat", action="store_true",
                     help="recompute ResBlocks in the backward pass (more FLOPs, less activation memory)")
-    ap.add_argument("--spatial_shard", type=int, default=1, help="spatially sharded training: not ported (values > 1 are refused)")
+    ap.add_argument("--spatial_shard", type=int, default=1,
+                    help="also shard image height over K ranks of the launcher (memory lever for 512px+; "
+                         "out_size must divide by K)")
     add_parallel_flags(ap)
     args = ap.parse_args(argv)
 
     import torch
 
     from ..parallel.mesh import is_main, rank_device
-    from ..train.diffusion_train import NOT_PORTED_SPATIAL_TRAINING, DiffusionTrainConfig, train_diffusion
+    from ..train.diffusion_train import DiffusionTrainConfig, train_diffusion
 
-    if args.spatial_shard > 1:
-        raise SystemExit(NOT_PORTED_SPATIAL_TRAINING)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available (use --device cpu)")
-    mesh = make_mesh_from_flags(args)
+    spatial = args.spatial_shard > 1
+    mesh = make_mesh_from_flags(args, model_parallel=args.spatial_shard if spatial else 1)
     device = rank_device(mesh) if mesh is not None else args.device
 
     clip_embed_fn = None
@@ -101,7 +107,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         data_workers=args.data_workers, cache_images=args.cache_images,
     )
     ckpt = train_diffusion(args.store_dir, config=cfg, save_dir=args.save_dir, resume=args.resume,
-                           clip_embed_fn=clip_embed_fn, mesh=mesh, device=device)
+                           clip_embed_fn=clip_embed_fn, mesh=mesh, spatial=spatial, device=device)
     if is_main(mesh):
         print(f"Final checkpoint: {ckpt}")
 

@@ -19,11 +19,13 @@ The ResBlock has the JAX block's two forms on the same parameters:
   as ``F.conv2d``; differentiable in every parameter.
 * int8 (serving, ``ops/int8.py``): the direct form with both convs through
   the int8 conv kernel, as the JAX block takes its direct path in int8 mode.
-* spatial (sampling with the image height split over a mesh's ``model``
-  axis, ``spatial``): the direct form on this rank's rows, each
+* direct with a ``mesh`` (sampling and training with the image height split
+  over the mesh's ``model`` axis): the same body on this rank's rows, each
   GroupNorm+SiLU as K1's split form with the ranks' moments merged over
-  the axis between its halves, each 3x3 conv reading one halo row of each neighbour
-  (``parallel.mesh.halo_rows``). What GSPMD inserts into JAX's direct form.
+  the axis between its halves (``ops.groupnorm.group_norm_silu_spatial``),
+  each 3x3 conv reading one halo row of each neighbour
+  (``parallel.mesh.halo_rows``): what GSPMD inserts into JAX's direct form.
+  Differentiable, the collectives included.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from torch import nn
 from ..ops import groupnorm as gn
 from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
-from ..parallel.mesh import MODEL_AXIS, axis_size, halo_rows, merge_moments_model
+from ..parallel.mesh import halo_rows
 
 
 def _converted(module: nn.Module, name: str, dtype: torch.dtype, convert) -> torch.Tensor:
@@ -83,32 +85,25 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, **kw) -> torch.
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def conv3x3_spatial(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, mesh, stride: int = 1) -> torch.Tensor:
-    """A 3x3 conv with padding 1 of this rank's rows ``x`` of an image
-    whose height is split over ``mesh``'s model axis: the rows are read
-    between a halo row of each neighbour (stride 1), or of the rank above
-    only (stride 2, where every shard starts on an even row), and padded
-    on W alone."""
+def conv3x3(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, mesh=None, stride: int = 1) -> torch.Tensor:
+    """A 3x3 conv with padding 1 of NHWC ``x`` in ``dtype``. With ``mesh``,
+    of this rank's rows of an image whose height is split over the mesh's
+    model axis: the rows are read between a halo row of each neighbour
+    (stride 1), or of the rank above only (stride 2, where every shard
+    starts on an even row), and padded on W alone."""
+    if mesh is None:
+        return conv2d(conv, x, dtype, stride=stride, padding=1)
     return conv2d(conv, halo_rows(mesh, x, 1, 1 if stride == 1 else 0), dtype, stride=stride, padding=(0, 1))
 
 
-def group_norm_silu_spatial(x: torch.Tensor, norm: nn.GroupNorm, mesh) -> torch.Tensor:
-    """GroupNorm+SiLU of this rank's rows ``x`` of an image whose height is
-    split over ``mesh``'s model axis: one K1 statistics pass over the rows
-    of ``x - shift``, the shift one element of each group on this rank
-    (the shifted-data sums, which do not cancel where a group's mean is
-    large against its spread), the ranks' moments merged in one collective
-    (``merge_moments_model``), then K1's normalisation about the merged
-    mean over the whole image's count."""
-    g = norm.num_groups
-    B, h, W, C = x.shape
-    n = h * W * (C // g)
-    shift = x[:, 0, 0].reshape(B, g, C // g)[:, :, 0].float().contiguous()
-    part = gn.group_norm_silu_stats(x, g, shift=shift).sum(dim=1)
-    mean, m2 = merge_moments_model(mesh, shift, part[:, 0], part[:, 1], n)
-    tot = torch.stack([torch.zeros_like(m2), m2], dim=1)
-    return gn.group_norm_silu_apply(x, tot, n * axis_size(mesh, MODEL_AXIS), (norm.weight, norm.bias), g,
-                                    shift=mean)
+def group_norm_silu(x: torch.Tensor, norm: nn.GroupNorm, mesh=None) -> torch.Tensor:
+    """``silu(norm(x))`` of NHWC ``x`` through K1 (``ops.groupnorm``); with
+    ``mesh``, of this rank's rows of an image whose height is split over
+    the mesh's model axis, through K1's split form with the moments merged
+    over the axis."""
+    if mesh is None:
+        return gn.group_norm_silu(x, (norm.weight, norm.bias), norm.num_groups)
+    return gn.group_norm_silu_spatial(x, (norm.weight, norm.bias), norm.num_groups, mesh)
 
 
 class FiLM(nn.Module):
@@ -143,10 +138,11 @@ class ResBlock(nn.Module):
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, fused: bool = True,
-                int8: bool = False) -> torch.Tensor:
-        """x: (B, H, W, C) NHWC; h: (B, cond_dim) -> (B, H, W, C) in ``dtype``."""
-        if int8 or not fused:
-            return self.direct(x, h, dtype, int8)
+                int8: bool = False, mesh=None) -> torch.Tensor:
+        """x: (B, H, W, C) NHWC (with ``mesh``, this rank's rows of H); h:
+        (B, cond_dim) -> (B, H, W, C) in ``dtype``."""
+        if int8 or not fused or mesh is not None:
+            return self.direct(x, h, dtype, int8, mesh)
         g = self.norm1.num_groups
         xd = x.to(dtype).contiguous()
         A1, B1 = rc.gn_affine(x, self.norm1.weight, self.norm1.bias, g)
@@ -160,28 +156,17 @@ class ResBlock(nn.Module):
             y, A2, B2, kernel_weight(self.conv2, dtype), self.conv2.bias, add=xd)
         return out
 
-    def direct(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, int8: bool = False) -> torch.Tensor:
+    def direct(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, int8: bool = False,
+               mesh=None) -> torch.Tensor:
         """The JAX block's direct form (``blocks.py`` ``ResBlock.__call__``),
-        its convs in int8 with ``int8``."""
-        conv = q8.conv if int8 else conv2d
-        g = self.norm1.num_groups
+        its convs in int8 with ``int8``; with ``mesh``, on this rank's rows
+        of an image whose height is split over the mesh's model axis."""
+        conv = (lambda c, y: q8.conv(c, y, dtype, padding=1)) if int8 else (lambda c, y: conv3x3(c, y, dtype, mesh))
         x = x.to(dtype).contiguous()
-        y = gn.group_norm_silu(x, (self.norm1.weight, self.norm1.bias), g)
-        y = conv(self.conv1, y, dtype, padding=1)
+        y = conv(self.conv1, group_norm_silu(x, self.norm1, mesh))
         fs, fb = self.film.coeffs(h, dtype)
         y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
-        y = gn.group_norm_silu(y, (self.norm2.weight, self.norm2.bias), g)
-        return x + conv(self.conv2, y, dtype, padding=1)
-
-    def spatial(self, x: torch.Tensor, h: torch.Tensor, dtype: torch.dtype, mesh) -> torch.Tensor:
-        """The direct form on this rank's rows of an image whose height is
-        split over ``mesh``'s model axis (forward only)."""
-        x = x.to(dtype).contiguous()
-        y = conv3x3_spatial(self.conv1, group_norm_silu_spatial(x, self.norm1, mesh), dtype, mesh)
-        fs, fb = self.film.coeffs(h, dtype)
-        y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
-        y = group_norm_silu_spatial(y.contiguous(), self.norm2, mesh)
-        return x + conv3x3_spatial(self.conv2, y, dtype, mesh)
+        return x + conv(self.conv2, group_norm_silu(y, self.norm2, mesh))
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

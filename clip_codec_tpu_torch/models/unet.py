@@ -26,20 +26,23 @@ Two forms on the same parameters, JAX's ``fused_pallas`` and ``remat``:
   and the head as in the fused form (one K3 call): 31 int8 convs, 28 K1 and
   one K3 per forward at ch_mult=(1,2,2). The state dict does not change.
 
-* ``forward_spatial(x_t, z, t, mesh)`` (sampling with the image height
-  split over ``mesh``'s ``model`` axis, ``parallel.sample_spatial_sharded``):
+* ``forward(x_t, z, t, mesh)`` (sampling and training with the image
+  height split over ``mesh``'s ``model`` axis,
+  ``parallel.sample_spatial_sharded``, ``train_diffusion(spatial=True)``):
   the direct form on this rank's rows whatever ``fused_pallas`` says, as
   JAX asks for ``fused_pallas=False`` there, with what GSPMD inserts made
   explicit: each GroupNorm+SiLU as K1's split form with the ranks' moments
   merged over the axis (``group_norm_silu_stats`` of ``x - shift``, one
   all-gather, then ``group_norm_silu_apply``: 28 + 28 launches a forward at
-  ch_mult (1, 2, 2)), the head's GroupNorm from moments merged the same
-  way, one halo row of each neighbour around every
-  3x3 stride-1 conv, one of the rank above before a stride-2 downsample
-  (every shard starts on an even row), and one each side before a 4x4
-  stride-2 transposed conv, cropped after. Every level's rows must split
-  into an even count a rank (``check_spatial``: JAX pads through GSPMD
-  instead; the port refuses).
+  ch_mult (1, 2, 2), none in the backward, 56 + 56 under ``remat``), the
+  head's GroupNorm from moments merged the same way, one halo row of each
+  neighbour around every 3x3 stride-1 conv, one of the rank above before a
+  stride-2 downsample (every shard starts on an even row), and one each
+  side before a 4x4 stride-2 transposed conv, cropped after. Every
+  collective carries a gradient (``parallel/mesh.py``). Every level's rows
+  must split into an even count a rank (``check_spatial``: JAX pads through
+  GSPMD instead; the port refuses). ``forward_spatial`` is its no-grad
+  call.
 
 The stem and transposed convs are plain ``F.conv2d`` /
 ``F.conv_transpose2d`` (outside any kernel in JAX too), and so are the
@@ -64,7 +67,7 @@ from ..ops import int8 as q8
 from ..ops import resblock_conv as rc
 from ..ops.groupnorm import GN_EPS, group_norm
 from ..parallel.mesh import MODEL_AXIS, axis_size, halo_rows, merge_moments_model
-from .blocks import ResBlock, cast, conv2d, conv3x3_spatial, kernel_weight, linear
+from .blocks import ResBlock, cast, conv2d, conv3x3, kernel_weight, linear
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +113,7 @@ def _group_norm_spatial(x: torch.Tensor, norm: nn.GroupNorm, mesh, eps: float = 
     """``group_norm`` of this rank's rows ``x`` of an image whose height is
     split over ``mesh``'s model axis: fp32 sums over the rows about this
     rank's own group means, the ranks' moments merged in one collective
-    (``merge_moments_model``)."""
+    (``merge_moments_model``); differentiable through the merge."""
     B, h, W, C = x.shape
     G = norm.num_groups
     xg = x.float().reshape(B, h, W, G, C // G)
@@ -157,10 +160,19 @@ class CLIPCondUNet(nn.Module):
         self.out_norm = nn.GroupNorm(8, ch)
         self.out = nn.Conv2d(ch, img_ch, 3, padding=1)
 
-    def forward(self, x_t: torch.Tensor, z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_t: torch.Tensor, z: torch.Tensor, t: torch.Tensor, mesh=None) -> torch.Tensor:
+        """eps for ``x_t``; with ``mesh``, of this rank's rows ``x_t`` (B, H /
+        n, W, img_ch) of images whose height is split over the mesh's model
+        axis of n ranks in rank order (every rank of the axis calls it
+        together, in the direct form)."""
         dt = self.compute_dtype
-        fused = self.fused_pallas and not self.remat
         int8 = q8.resolve(self.int8)
+        fused = self.fused_pallas and not self.remat and mesh is None
+        if mesh is not None:
+            if int8:
+                raise ValueError("spatial sharding takes no int8 (the JAX package's spatial artifact takes no quant)")
+            n = axis_size(mesh, MODEL_AXIS)
+            check_spatial(x_t.shape[1] * n, len(self.down) // 3, n)
         temb = timestep_embedding(t, self.time_dim).to(dt)
         temb = linear(self.time_proj[2], F.silu(linear(self.time_proj[0], temb, dt)), dt)
         h = temb + F.silu(linear(self.z_proj[0], z, dt))
@@ -168,26 +180,36 @@ class CLIPCondUNet(nn.Module):
         def rb_pair(x, rb0, rb1):
             for rb in (rb0, rb1):
                 if self.remat:
-                    x = checkpoint(rb, x, h, dt, False, int8, use_reentrant=False)
+                    x = checkpoint(rb, x, h, dt, False, int8, mesh, use_reentrant=False)
                 else:
-                    x = rb(x, h, dt, fused, int8)
+                    x = rb(x, h, dt, fused, int8, mesh)
             return x
 
-        x = conv2d(self.in_conv, x_t, dt, padding=1)
+        x = conv3x3(self.in_conv, x_t, dt, mesh)
         skips = []
         for i in range(0, len(self.down), 3):
             rb0, rb1, ds = self.down[i : i + 3]
             x = rb_pair(x, rb0, rb1)
             skips.append(x)
-            x = (q8.conv if int8 else conv2d)(ds, x, dt, stride=2, padding=1)
+            x = q8.conv(ds, x, dt, stride=2, padding=1) if int8 else conv3x3(ds, x, dt, mesh, stride=2)
         x = rb_pair(x, self.mid1, self.mid2)
         for j in range(0, len(self.up), 3):
             rb0, rb1, us = self.up[j : j + 3]
             x = rb_pair(x, rb0, rb1)
-            x = F.conv_transpose2d(x.permute(0, 3, 1, 2), cast(us, "weight", dt), cast(us, "bias", dt),
-                                   stride=2, padding=1).permute(0, 2, 3, 1).contiguous()
+            if mesh is None:
+                x = F.conv_transpose2d(x.permute(0, 3, 1, 2), cast(us, "weight", dt), cast(us, "bias", dt),
+                                       stride=2, padding=1).permute(0, 2, 3, 1).contiguous()
+            else:
+                rows = x.shape[1]
+                # output row o of the transposed conv reads input rows floor(o/2) - 1 .. floor(o/2): with a
+                # halo row each side and no H padding, this rank's 2 * rows outputs start at row 3
+                y = F.conv_transpose2d(halo_rows(mesh, x, 1, 1).permute(0, 3, 1, 2), cast(us, "weight", dt),
+                                       cast(us, "bias", dt), stride=2, padding=(0, 1))
+                x = y[:, :, 3:3 + 2 * rows].permute(0, 2, 3, 1).contiguous()
             x = x + skips.pop()
 
+        if mesh is not None:
+            return conv3x3(self.out, _group_norm_spatial(x, self.out_norm, mesh), dt, mesh)
         if not fused:
             x = group_norm(x, (self.out_norm.weight, self.out_norm.bias), 8)
             return conv2d(self.out, x, dt, padding=1)
@@ -198,37 +220,9 @@ class CLIPCondUNet(nn.Module):
 
     @torch.no_grad()
     def forward_spatial(self, x_t: torch.Tensor, z: torch.Tensor, t: torch.Tensor, mesh) -> torch.Tensor:
-        """eps of this rank's rows ``x_t`` (B, H / n, W, img_ch) of images
-        whose height is split over ``mesh``'s model axis of n ranks in rank
-        order; every rank of the axis calls it together."""
-        dt = self.compute_dtype
-        if q8.resolve(self.int8):
-            raise ValueError("spatial sharding takes no int8 (the JAX package's spatial artifact takes no quant)")
-        n = axis_size(mesh, MODEL_AXIS)
-        check_spatial(x_t.shape[1] * n, len(self.down) // 3, n)
-        temb = timestep_embedding(t, self.time_dim).to(dt)
-        temb = linear(self.time_proj[2], F.silu(linear(self.time_proj[0], temb, dt)), dt)
-        h = temb + F.silu(linear(self.z_proj[0], z, dt))
-
-        x = conv3x3_spatial(self.in_conv, x_t, dt, mesh)
-        skips = []
-        for i in range(0, len(self.down), 3):
-            rb0, rb1, ds = self.down[i : i + 3]
-            x = rb1.spatial(rb0.spatial(x, h, dt, mesh), h, dt, mesh)
-            skips.append(x)
-            x = conv3x3_spatial(ds, x, dt, mesh, stride=2)
-        x = self.mid2.spatial(self.mid1.spatial(x, h, dt, mesh), h, dt, mesh)
-        for j in range(0, len(self.up), 3):
-            rb0, rb1, us = self.up[j : j + 3]
-            x = rb1.spatial(rb0.spatial(x, h, dt, mesh), h, dt, mesh)
-            rows = x.shape[1]
-            # output row o of the transposed conv reads input rows floor(o/2) - 1 .. floor(o/2): with a
-            # halo row each side and no H padding, this rank's 2 * rows outputs start at row 3
-            y = F.conv_transpose2d(halo_rows(mesh, x, 1, 1).permute(0, 3, 1, 2), cast(us, "weight", dt),
-                                   cast(us, "bias", dt), stride=2, padding=(0, 1))
-            x = y[:, :, 3:3 + 2 * rows].permute(0, 2, 3, 1).contiguous() + skips.pop()
-        x = _group_norm_spatial(x, self.out_norm, mesh)
-        return conv3x3_spatial(self.out, x, dt, mesh)
+        """``forward(x_t, z, t, mesh)`` without a gradient (the spatial
+        samplers' call)."""
+        return self(x_t, z, t, mesh)
 
 
 # flax's lecun_normal is variance_scaling(1, "fan_in", "truncated_normal"): a

@@ -31,8 +31,7 @@ says: the int8 serving artifacts replay K1).
 The split form, for a caller that combines the statistics of several
 tensors between the two halves (the U-Net whose height is split over the
 ranks of a mesh's model axis merges its moments over them,
-``models/unet.py`` ``forward_spatial``), is the JAX original's own two
-steps:
+``group_norm_silu_spatial``), is the JAX original's own two steps:
 
 * ``group_norm_silu_stats(x, groups, shift=None)``: the (B, S, 2, G) fp32
   slab partials of ``x - shift`` (shift (B, G) fp32, per sample and
@@ -52,8 +51,17 @@ group, and normalises about the merged mean with totals ``(0, M2)``.
 
 On a CUDA tensor each launches its kernel of ``csrc/groupnorm_silu.cu`` (an
 ordinary launch, one block a slab) or raises, counted on its own
-``.launches``; on a CPU tensor each runs its plain version. Forward only:
-the spatial form samples, it does not train.
+``.launches``; on a CPU tensor each runs its plain version.
+
+``group_norm_silu_spatial(x, (scale, bias), groups, mesh, eps)`` is
+GroupNorm+SiLU of one rank's rows of an image whose height is split over
+``mesh``'s model axis, differentiable: forward, the statistics kernel, the
+moments merged over the axis (``parallel.mesh.merge_moments_model``), the
+normalisation kernel (the plain pair on a CPU tensor); backward, autograd
+of the plain pair recomputed from the saved inputs with the differentiable
+merge between them (one all-gather and its backward's all-reduce over the
+axis), as the one-launch K1's backward is autograd of its plain version.
+No kernel launches in the backward.
 """
 
 from __future__ import annotations
@@ -386,3 +394,60 @@ def _launch_apply(x: torch.Tensor, tot: torch.Tensor, n: float, scale: torch.Ten
 
 group_norm_silu_stats.launches = 0
 group_norm_silu_apply.launches = 0
+
+
+def _spatial(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, mesh,
+             stats, apply) -> torch.Tensor:
+    """GroupNorm+SiLU of this rank's rows ``x`` through ``stats`` and
+    ``apply`` (the split form's entries or their plain versions): one
+    statistics pass over ``x - shift``, the shift one element of each group
+    on this rank (the shifted-data sums, which do not cancel where a
+    group's mean is large against its spread), the ranks' moments merged in
+    one collective, then the normalisation about the merged mean with
+    totals (0, M2) over the whole image's count."""
+    from ..parallel.mesh import MODEL_AXIS, axis_size, merge_moments_model
+
+    B, h, W, C = x.shape
+    n = h * W * (C // groups)
+    shift = x.detach()[:, 0, 0].reshape(B, groups, C // groups)[:, :, 0].float().contiguous()
+    part = stats(x, groups, shift=shift).sum(dim=1)
+    mean, m2 = merge_moments_model(mesh, shift, part[:, 0], part[:, 1], n)
+    tot = torch.stack([torch.zeros_like(m2), m2], dim=1)
+    ranks = 1 if mesh is None else axis_size(mesh, MODEL_AXIS)
+    return apply(x, tot, n * ranks, (scale, bias), groups, eps, shift=mean)
+
+
+def _apply_plain(x, tot, n, scale_bias, groups, eps, shift):
+    return group_norm_silu_norm_plain(x, tot, scale_bias[0], scale_bias[1], groups, eps, n=n, shift=shift)
+
+
+class _GroupNormSiLUSpatial(torch.autograd.Function):
+    """Forward: K1's split form with the moments merged over the mesh's
+    model axis (its plain pair on a CPU tensor). Backward: autograd of the
+    plain pair, and of the merge between them, recomputed from the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, mesh):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.groups, ctx.eps, ctx.mesh = groups, eps, mesh
+        return _spatial(x, scale, bias, groups, eps, mesh, group_norm_silu_stats, group_norm_silu_apply)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            x, scale, bias = (t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need))
+            y = _spatial(x, scale, bias, ctx.groups, ctx.eps, ctx.mesh, group_norm_silu_stats_plain, _apply_plain)
+            got = iter(torch.autograd.grad(y, [a for a, n in zip((x, scale, bias), need) if n], g))
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
+def group_norm_silu_spatial(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tensor], groups: int, mesh,
+                            eps: float = GN_EPS) -> torch.Tensor:
+    """``silu(GroupNorm(.))`` of this rank's rows ``x`` (B, h, W, C) of an
+    NHWC image whose height is split over ``mesh``'s model axis (None: a
+    model axis of one), its statistics over the whole image: K1's split form
+    on a CUDA tensor (or raise), its plain pair on a CPU tensor; every rank
+    of the axis calls it together. Differentiable in x, scale and bias."""
+    return _GroupNormSiLUSpatial.apply(x.contiguous(), scale_bias[0], scale_bias[1], groups, eps, mesh)

@@ -6,8 +6,9 @@ encoders, indexes, ``sample_sharded`` and the data-sharded pixel artifact);
 the model axis splits the SD-1.5 UNet Megatron-style (``tp.py``:
 ``sd_unet_tp_specs``, ``shard_params_tp``, ``validate_tp``; the
 tensor-parallel SD artifacts in ``deploy.py``) or the pixel U-Net's image
-height (``sample_spatial_sharded`` and the spatial pixel artifact).
-Spatially sharded training is not ported yet (ROADMAP.md). JAX's
+height (``sample_spatial_sharded``, the spatial pixel artifact and
+``train_diffusion(spatial=True)``; every model-axis gather carries a
+gradient). JAX's
 ``batch_sharded`` and ``replicated`` (``NamedSharding`` helpers) have no
 meaning here: a rank holds its rows (``shard_batch``) or a replica
 (``replicate``)."""

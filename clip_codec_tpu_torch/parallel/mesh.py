@@ -19,6 +19,18 @@ the axis reads. They are built on ``all_reduce`` and ``all_gather``, which gloo 
 tensors (``send``/``recv`` it may refuse there). Whether a CUDA graph may
 capture them is the backend's (``capturable``): NCCL's collectives can be
 captured, gloo's cannot.
+
+The gathers carry a gradient (``all_gather``, an autograd Function whose
+backward sums the gathered gradient over the axis in fp32 and keeps this
+rank's slot), so ``all_gather_rows``, ``merge_moments_model`` and
+``halo_rows`` train: a halo row's gradient goes back to the rank that owns
+the row, the merged moments' to every rank's sums. A backward collective
+runs on every rank of the axis or on none, so each of these makes its
+result depend on the whole gather on every rank (the first rank's zero top
+halo is a gathered slot times zero, not a fresh tensor): the ranks
+then reach the same backward collectives in the same order, and a spatially
+sharded step's gradient, summed over both axes by ``sum_gradients``, is the
+unsharded step's.
 """
 
 from __future__ import annotations
@@ -134,19 +146,45 @@ def replicate(mesh, tree):
     return tree
 
 
+class _AllGather(torch.autograd.Function):
+    """Forward: every rank's ``t`` stacked in rank order over the group.
+    Backward: the gathered gradient summed over the group in fp32 (fp64
+    stays fp64), this rank's slot, rounded once to t's dtype."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, k):
+        import torch.distributed as dist
+
+        ctx.group, ctx.k = group, k
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        s = g.to(torch.promote_types(g.dtype, torch.float32), copy=True).contiguous()
+        dist.all_reduce(s, group=ctx.group)
+        return s[ctx.k].to(g.dtype), None, None, None
+
+
+def all_gather(mesh, t: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """(n, *t.shape): every rank's ``t`` in rank order over ``axis`` of n
+    ranks, on every rank; differentiable (each rank's slot receives the sum
+    over the axis of every rank's gradient for it)."""
+    return _AllGather.apply(t, mesh.get_group(axis), axis_size(mesh, axis), axis_index(mesh, axis))
+
+
 def all_gather_rows(mesh, t: torch.Tensor, dim: int = 0, axis: str = DATA_AXIS) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in rank order over
     ``axis`` (the global array of rows that ``local_rows`` split; over the
-    model axis, the image rows that ``model_slice`` split)."""
-    import torch.distributed as dist
-
-    n = axis_size(mesh, axis)
-    if n == 1:
+    model axis, the image rows that ``model_slice`` split); differentiable
+    (``all_gather``)."""
+    if axis_size(mesh, axis) == 1:
         return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=mesh.get_group(axis))
-    return torch.cat(parts, dim=dim)
+    return torch.cat(all_gather(mesh, t, axis).unbind(0), dim=dim)
 
 
 def model_slice(mesh, size: int) -> slice:
@@ -185,12 +223,13 @@ def merge_moments_model(mesh, shift: torch.Tensor, s: torch.Tensor, q: torch.Ten
     own, near its data: the sums then do not cancel where the mean is large
     against the spread): Chan's merge of every rank's (mean, centred sum),
     summed in rank order from one ``all_gather``, so every rank holds the
-    same bits. A model axis of one merges nothing."""
+    same bits. A model axis of one merges nothing. Differentiable in
+    ``shift``, ``s`` and ``q``."""
     mean = shift + s / n
     m2 = q - s * (s / n)
     if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
         return mean, m2
-    parts = all_gather_rows(mesh, torch.stack([mean, m2])[None], axis=MODEL_AXIS)
+    parts = all_gather(mesh, torch.stack([mean, m2]))
     means, m2s = parts[:, 0], parts[:, 1]
     mean = means.mean(dim=0)
     return mean, m2s.sum(dim=0) + n * (means - mean).square().sum(dim=0)
@@ -202,23 +241,20 @@ def halo_rows(mesh, x: torch.Tensor, n_top: int, n_bottom: int) -> torch.Tensor:
     edge rows: the last ``n_top`` rows of the rank above (zeros on the
     first rank: the image's top) and the first ``n_bottom`` of the rank
     below (zeros on the last) -> (B, n_top + h + n_bottom, W, C). One
-    ``all_gather`` over the axis of every rank's edge rows."""
-    import torch.distributed as dist
-
+    ``all_gather`` over the axis of every rank's edge rows; differentiable
+    (each halo row's gradient reaches the rank that owns the row). An edge
+    rank's zero rows are a slot of the gather times zero, so every rank's
+    result depends on the gather and every rank joins its backward (a
+    product, not a tensor made on the host: a CUDA graph may capture it)."""
     B, h, W, C = x.shape
     if n_top > h or n_bottom > h:
         raise ValueError(f"a halo of {n_top} + {n_bottom} rows around a shard of {h}")
     n, k = axis_size(mesh, MODEL_AXIS), axis_index(mesh, MODEL_AXIS)
-    zeros = lambda rows: x.new_zeros((B, rows, W, C))
-    top, bottom = zeros(n_top), zeros(n_bottom)
-    if n > 1:
-        edges = torch.cat([x[:, :n_bottom], x[:, h - n_top:]], dim=1).contiguous()
-        parts = [torch.empty_like(edges) for _ in range(n)]
-        dist.all_gather(parts, edges, group=mesh.get_group(MODEL_AXIS))
-        if k > 0:
-            top = parts[k - 1][:, n_bottom:]
-        if k < n - 1:
-            bottom = parts[k + 1][:, :n_bottom]
+    if n == 1:
+        return torch.cat([x.new_zeros((B, n_top, W, C)), x, x.new_zeros((B, n_bottom, W, C))], dim=1)
+    parts = all_gather(mesh, torch.cat([x[:, :n_bottom], x[:, h - n_top:]], dim=1))
+    top = parts[k - 1][:, n_bottom:] if k > 0 else parts[0][:, n_bottom:] * 0.0
+    bottom = parts[k + 1][:, :n_bottom] if k < n - 1 else parts[k][:, :n_bottom] * 0.0
     return torch.cat([top, x, bottom], dim=1)
 
 
@@ -234,16 +270,21 @@ def capturable(mesh) -> bool:
     return "cuda:nccl" in str(dist.get_backend_config(mesh.get_group(MODEL_AXIS)))
 
 
-def sum_gradients(mesh, params: Sequence[torch.nn.Parameter], *scalars: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def sum_gradients(mesh, params: Sequence[torch.nn.Parameter], *scalars: torch.Tensor,
+                  spatial: bool = False) -> Tuple[torch.Tensor, ...]:
     """Sum every parameter's gradient, and ``scalars``, over the data axis
-    in one all-reduce of one fp32 buffer; the sums replace the gradients and
-    the scalars' sums are returned. A parameter without a gradient counts as
-    zeros. Every rank receives the same sums, bit for bit."""
+    (with ``spatial``, where each rank's loss covers its rows of the images,
+    over the whole ``(data, model)`` mesh; without, the model axis's ranks
+    are replicas) in one all-reduce of one fp32 buffer; the sums replace the
+    gradients and the scalars' sums are returned. A parameter without a
+    gradient counts as zeros. Every rank receives the same sums, bit for
+    bit."""
     import torch.distributed as dist
 
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1).float() for g in grads] + [s.detach().reshape(1).float() for s in scalars])
-    dist.all_reduce(flat, group=mesh.get_group(DATA_AXIS))
+    whole = spatial and axis_size(mesh, MODEL_AXIS) > 1  # the mesh spans every rank of the process group
+    dist.all_reduce(flat, group=None if whole else mesh.get_group(DATA_AXIS))
     off = 0
     for p, g in zip(params, grads):
         p.grad = flat[off:off + g.numel()].view_as(g).to(g.dtype)

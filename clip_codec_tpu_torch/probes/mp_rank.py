@@ -32,7 +32,20 @@ after, and this rank writes what it did to ``<out>/rank<r>.json``
 * ``spatial_artifact``: ``export_sharded_decompressor(spatial=True)`` and
   its loader on the same checkpoint; the header, ``call.replay``, the
   mesh-shape refusal, a call at ``seed`` timed with its launches, and its
-  images against ``spatial_sample``'s bf16 images.
+  images against ``spatial_sample``'s bf16 images;
+* ``spatial_train`` (phase 26): the pixel trainer with the image height
+  split over the ranks (``train_diffusion(spatial=True)``; on one rank the
+  unsharded step). The weights at ``weights`` (fp32 parameters), each of
+  the global batches ``batches`` (``x0``, ``z``, ``w``, ``t``, ``noise``)
+  cut to this rank's rows and height slice: the loss and every
+  parameter's gradient, summed over the mesh, in fp32 at the first batch
+  and in bf16 at each (on one rank also the plain path in fp32, K1's plain
+  version), K1's launches in the forward and in the backward by shape
+  (rank 0 saves each gradient to ``<out>/rank0_grad_<tag>.pt``); then
+  ``cli.train`` with ``argv`` and ``--spatial_shard <world>`` (one rank:
+  ``--distributed``), each step's seconds, global loss, kernel launches by
+  shape and collectives (``all_gather``, ``all_reduce``), and the process's
+  peak device memory over the run.
 """
 
 from __future__ import annotations
@@ -67,7 +80,7 @@ def _reset() -> None:
 
 
 def _counts() -> dict:
-    return {k: fn.launches for k, fn in _launches().items()}
+    return {k: getattr(fn, "launches", 0) for k, fn in _launches().items()}  # 0: routed to a plain version
 
 
 @contextlib.contextmanager
@@ -287,8 +300,136 @@ def spatial_artifact(task: dict, out: Path, rank: int) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def _counting(calls: collections.Counter):
+    """Count ``torch.distributed``'s ``all_gather`` and ``all_reduce`` calls
+    into ``calls``."""
+    import torch.distributed as dist
+
+    saved = dist.all_gather, dist.all_reduce
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    dist.all_gather, dist.all_reduce = counted("all_gather", saved[0]), counted("all_reduce", saved[1])
+    try:
+        yield
+    finally:
+        dist.all_gather, dist.all_reduce = saved
+
+
+@contextlib.contextmanager
+def _plain_k1(on: bool):
+    """The direct ResBlock's GroupNorm+SiLU through its plain version."""
+    from ..ops import groupnorm as gn
+
+    saved = gn.group_norm_silu
+    if on:
+        gn.group_norm_silu = gn.group_norm_silu_plain
+    try:
+        yield
+    finally:
+        gn.group_norm_silu = saved
+
+
+def spatial_train(task: dict, out: Path, rank: int) -> dict:
+    """Spatially sharded training (one rank: unsharded): gradients, then the CLI."""
+    from ..cli import train as train_cli
+    from ..diffusion import NoiseSchedule
+    from ..io.bitstream import zstd_engine
+    from ..models import CLIPCondUNet
+    from ..parallel.mesh import local_rows, model_slice, rank_device, sum_gradients
+    from ..train import diffusion_train as module
+    from ..train.optim import make_optimizer
+    from ..utils.checkpoint import load_state_dict
+    from .serve_times import raw_frames
+
+    mesh = _mesh()
+    spatial = mesh.size() > 1
+    dev = rank_device(mesh)
+    cfg = module.DiffusionTrainConfig(base=task["base"], ch_mult=tuple(task["ch_mult"]), bf16=False)
+    with torch.device(dev):
+        net = CLIPCondUNet(z_dim=task["z_dim"], base=cfg.base, ch_mult=cfg.ch_mult, dtype=torch.float32,
+                           fused_pallas=False)
+    net.load_state_dict(load_state_dict(task["weights"]), strict=True)
+    step = module.make_train_step(net, NoiseSchedule.create(cfg.timesteps, cfg.schedule, device=dev),
+                                  make_optimizer(net, cfg.lr), cfg, mesh=mesh if spatial else None, spatial=spatial)
+    rec = {"grads": {}}
+
+    def grad(tag, path, dtype, plain=False):
+        b = torch.load(path, weights_only=True)
+        B, S = b["x0"].shape[:2]
+        cut = (local_rows(mesh, B), model_slice(mesh, S)) if spatial else (slice(None),)
+        args = [b["x0"][cut], b["z"][cut[0]], b["w"][cut[0]], b["t"][cut[0]], b["noise"][cut]]
+        net.compute_dtype = dtype
+        net.zero_grad(set_to_none=True)
+        shapes = collections.Counter()
+        _reset()
+        with _by_shape(shapes), _plain_k1(plain):
+            loss = step.loss_fn(*(a.to(dev) for a in args), wsum=float(b["w"].sum()) if spatial else None)
+            torch.cuda.synchronize()
+            fwd = _counts()
+            loss.backward()
+            torch.cuda.synchronize()
+        bwd = {k: v - fwd[k] for k, v in _counts().items()}
+        if spatial:
+            (loss,) = sum_gradients(mesh, list(net.parameters()), loss, spatial=True)
+        loss = float(loss.detach())
+        grads = {k: p.grad.detach().float().cpu() for k, p in net.named_parameters()}
+        if rank == 0:
+            torch.save({"loss": loss, "grads": grads}, out / f"rank0_grad_{tag}.pt")
+        rec["grads"][tag] = {"loss": loss, "forward_launches": {k: v for k, v in fwd.items() if v},
+                             "backward_launches": {k: v for k, v in bwd.items() if v}, "by_shape": dict(shapes)}
+
+    first = task["batches"][0]
+    grad("fp32", first, torch.float32)
+    if not spatial:
+        for i, path in enumerate(task["batches"]):
+            grad(f"fp32_plain{i}", path, torch.float32, plain=True)
+    for i, path in enumerate(task["batches"]):
+        grad(f"bf16_{i}", path, torch.bfloat16)
+    del net, step
+    torch.cuda.empty_cache()
+
+    steps = rec["steps"] = []
+    real = module.make_train_step
+
+    def recording(*args, **kw):
+        run = real(*args, **kw)
+
+        def timed(*a, **k):
+            shapes, calls = collections.Counter(), collections.Counter()
+            _reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _by_shape(shapes), _counting(calls):
+                loss = run(*a, **k)
+                steps.append({"loss": float(loss)})  # the global loss: a host sync
+                torch.cuda.synchronize()
+            steps[-1].update(s=time.perf_counter() - t0, launches={k: v for k, v in _counts().items() if v},
+                             by_shape=dict(shapes), collectives=dict(calls))
+            return loss
+
+        return timed
+
+    argv = task["argv"] + (["--spatial_shard", str(mesh.size())] if spatial else ["--distributed"])
+    module.make_train_step = recording
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with raw_frames(zstd_engine() is not None):
+            train_cli.main(argv + ["--save_dir", str(out / "cli")])
+    finally:
+        module.make_train_step = real
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    return rec
+
+
 TASKS = {"tp_forward": tp_forward, "tp_artifact": tp_artifact, "spatial_sample": spatial_sample,
-         "spatial_artifact": spatial_artifact}
+         "spatial_artifact": spatial_artifact, "spatial_train": spatial_train}
 
 
 def main(argv=None) -> int:

@@ -29,9 +29,23 @@ zeros). ``t`` and the noise are drawn for the global batch from the same
 seed on every rank and cut to its rows, so one rank and several train the
 same trajectory up to the order of the sum. Parameters start equal on every
 rank (a broadcast from rank 0), so the optimizer and the EMA stay equal too;
-rank 0 writes the files and prints. Spatially sharded training
-(``spatial=True``) is not ported; spatially sharded sampling is
-(``parallel.sample_spatial_sharded``).
+rank 0 writes the files and prints.
+
+Spatially sharded training (``spatial=True``; a mesh with a model axis of
+k > 1, ``make_mesh(model_parallel=k)``) also splits the image height over
+the model axis, the memory lever for 512px+ training (activations scale as
+B*H*W*C): each rank decodes its data row's images and keeps its
+``model_slice`` of the rows, ``t`` and the noise are drawn for the global
+``(B, H, W, 3)`` and cut to its rows and height slice, and the U-Net runs
+``forward(..., mesh)`` (halo rows around every conv, K1's split form with
+the GroupNorm moments merged over the axis, every collective
+differentiable). Each per-sample loss term sums the rank's rows over the
+whole image's count (``losses.py``); the CLIP term runs on ``x0_pred``
+gathered over the model axis, counted once an image (each of the axis's n
+ranks adds 1/n of it); ``sum_gradients(spatial=True)`` sums the gradients
+and the loss over the whole mesh in one fp32 all-reduce. So the first step
+equals the unsharded one up to the order of the sums. JAX runs it in one
+process; here, as on the data axis, one process a rank under the launcher.
 """
 
 from __future__ import annotations
@@ -45,8 +59,9 @@ import numpy as np
 import torch
 
 from ..diffusion.schedule import NoiseSchedule
-from ..models.unet import CLIPCondUNet, init_params
-from ..parallel.mesh import axis_size, barrier, is_main, local_rows, rank_device, replicate, sum_gradients
+from ..models.unet import CLIPCondUNet, check_spatial, init_params
+from ..parallel.mesh import (MODEL_AXIS, all_gather_rows, axis_size, barrier, is_main, local_rows, model_slice,
+                             rank_device, replicate, sum_gradients)
 from ..utils.checkpoint import TrainCheckpointer, save_state_dict
 from ..utils.config import ModelConfig
 from ..utils.logging import TrainLogger
@@ -55,13 +70,6 @@ from .losses import clip_alignment, eps_mse, l1, total_variation, weighted_mean
 from .optim import ema_update, make_optimizer
 
 PathLike = Union[str, Path]
-
-NOT_PORTED_SPATIAL_TRAINING = (
-    "spatially sharded training (train_diffusion(spatial=True), --spatial_shard > 1: a differentiable halo "
-    "exchange and GroupNorm reduce, the TV loss across the shard boundary, gradients summed over both axes) is "
-    "not ported to the PyTorch package yet (ROADMAP.md Queue 1); spatially sharded sampling is "
-    "(parallel.sample_spatial_sharded)")
-
 
 @dataclass
 class DiffusionTrainConfig:
@@ -91,7 +99,7 @@ class DiffusionTrainConfig:
 
 def make_train_step(net: CLIPCondUNet, sched: NoiseSchedule, optimizer: torch.optim.Optimizer,
                     cfg: DiffusionTrainConfig, clip_embed_fn: Optional[Callable] = None,
-                    ema: Optional[dict] = None, mesh=None):
+                    ema: Optional[dict] = None, mesh=None, spatial: bool = False):
     """``step(x0, z, weight, t, noise, clip_on, wsum=None) -> loss``
     (detached): the loss, its backward, one optimizer step and, with
     ``ema``, the EMA update. ``step.loss_fn`` (same arguments) is the
@@ -100,24 +108,32 @@ def make_train_step(net: CLIPCondUNet, sched: NoiseSchedule, optimizer: torch.op
     ``clip_embed_fn(images)`` maps [-1, 1] NHWC images to CLIP embeddings.
     With ``mesh`` the arguments are this rank's rows, ``wsum`` (required)
     the global batch's real-row count, and the step sums the gradients and
-    the loss over the data axis: it returns the global batch's loss."""
+    the loss over the data axis: it returns the global batch's loss. With
+    ``spatial`` too, ``x0`` and ``noise`` are this rank's height slice of
+    them (``model_slice``) and the sums run over the whole mesh."""
     if net.fused_pallas and not net.remat:
         raise NotImplementedError("the fused serving form computes no gradient: "
                                   "train CLIPCondUNet(fused_pallas=False)")
     params = dict(net.named_parameters())
+    rows_mesh = mesh if spatial else None  # the mesh the images' rows are split over
 
     def loss_fn(x0, z, weight, t, noise, clip_on=False, wsum=None):
         ti = t.long()
         x_t = sched.q_sample(x0, ti, noise)
-        eps_hat = net(x_t, z, t).float()
-        per = eps_mse(eps_hat, noise)
+        eps_hat = net(x_t, z, t, rows_mesh).float()
+        per = eps_mse(eps_hat, noise, rows_mesh)
         x0_pred = torch.clamp(sched.predict_x0_from_eps(x_t, ti, eps_hat), -1.0, 1.0)
         if cfg.recon_w > 0:
-            per = per + cfg.recon_w * l1(x0_pred, x0)
+            per = per + cfg.recon_w * l1(x0_pred, x0, rows_mesh)
         if cfg.tv_w > 0:
-            per = per + cfg.tv_w * total_variation(x0_pred)
+            per = per + cfg.tv_w * total_variation(x0_pred, rows_mesh)
         if clip_on and cfg.clip_w > 0 and clip_embed_fn is not None:
-            align = clip_alignment(x0_pred, z, clip_embed_fn, stop_grad=not cfg.clip_align_grad)
+            if rows_mesh is None:
+                align = clip_alignment(x0_pred, z, clip_embed_fn, stop_grad=not cfg.clip_align_grad)
+            else:  # the whole images on every rank of the axis, each adding 1/n of the term
+                whole = all_gather_rows(rows_mesh, x0_pred, dim=1, axis=MODEL_AXIS)
+                align = clip_alignment(whole, z, clip_embed_fn, stop_grad=not cfg.clip_align_grad)
+                align = align / axis_size(rows_mesh, MODEL_AXIS)
             per = per + cfg.clip_w * align
         return weighted_mean(per, weight, wsum)
 
@@ -128,7 +144,7 @@ def make_train_step(net: CLIPCondUNet, sched: NoiseSchedule, optimizer: torch.op
         loss = loss_fn(x0, z, weight, t, noise, clip_on, wsum)
         loss.backward()
         if mesh is not None:
-            (loss,) = sum_gradients(mesh, list(params.values()), loss)
+            (loss,) = sum_gradients(mesh, list(params.values()), loss, spatial=spatial)
         optimizer.step()
         if ema is not None:
             ema_update(ema, params, cfg.ema_decay)
@@ -173,19 +189,30 @@ def train_diffusion(
 
     ``mesh``: a ``parallel.make_mesh`` mesh for data-parallel training on
     the rank's device (``device`` is then ignored); ``cfg.batch_size`` is
-    the global batch and must divide by the mesh's data axis."""
-    if spatial:
-        raise NotImplementedError(NOT_PORTED_SPATIAL_TRAINING)
+    the global batch and must divide by the mesh's data axis. ``spatial``:
+    also split the image height over the mesh's model axis (a mesh of
+    ``make_mesh(model_parallel=k)``, k > 1; ``out_size`` divides by k, and
+    every level's rows into an even count a rank)."""
     cfg = config or DiffusionTrainConfig(
         out_size=out_size, epochs=epochs, batch_size=batch_size, lr=lr, timesteps=timesteps,
         schedule=schedule, recon_w=recon_w, clip_w=clip_w, tv_w=tv_w)
     save_dir = Path(save_dir or store_dir)
-    rows, epoch_local = slice(None), None
+    if spatial and mesh is None:
+        raise ValueError("spatial=True requires a mesh (make_mesh(model_parallel=k))")
+    rows, cut, epoch_local = slice(None), (slice(None),), None
     if mesh is not None:
         n_data = axis_size(mesh)
         if cfg.batch_size % n_data:
             raise ValueError(f"batch_size={cfg.batch_size} not divisible by data axis {n_data}")
+        if spatial:
+            n_model = axis_size(mesh, MODEL_AXIS)
+            if n_model <= 1:
+                raise ValueError("spatial=True needs make_mesh(model_parallel=k>1)")
+            if cfg.out_size % n_model:
+                raise ValueError(f"out_size={cfg.out_size} not divisible by model axis {n_model}")
+            check_spatial(cfg.out_size, len(cfg.ch_mult), n_model)
         rows = local_rows(mesh, cfg.batch_size)
+        cut = (rows, model_slice(mesh, cfg.out_size)) if spatial else (rows,)
         epoch_local = (rows.start, rows.stop)  # decode only this rank's rows
     main = is_main(mesh)
     dev = rank_device(mesh) if mesh is not None else torch.device(device)
@@ -221,7 +248,7 @@ def train_diffusion(
         if use_ema:
             replicate(mesh, ema)
     embed = None if clip_embed_fn is None else (lambda images: clip_embed_fn(clip_params, images))
-    step_fn = make_train_step(net, sched, optimizer, cfg, embed, ema, mesh)
+    step_fn = make_train_step(net, sched, optimizer, cfg, embed, ema, mesh, spatial)
 
     logger = TrainLogger(log_every=cfg.log_every, enabled=main)
     data_rng = np.random.default_rng(cfg.seed)
@@ -232,13 +259,15 @@ def train_diffusion(
         losses, wsums = [], []
         t0 = time.time()
         for batch in data.epoch(cfg.batch_size, data_rng, local=epoch_local, u8=True):
-            # uint8 pixels cross to the device and are scaled there, bit-equal to the host math
-            x0 = scale_m11_u8(torch.from_numpy(batch.x0).to(dev))
+            # uint8 pixels (this rank's height slice under spatial) cross to the device and are scaled there,
+            # bit-equal to the host math
+            x0 = batch.x0[:, cut[1]] if spatial else batch.x0
+            x0 = scale_m11_u8(torch.from_numpy(np.ascontiguousarray(x0)).to(dev))
             z, w = (torch.from_numpy(a).to(dev) for a in (batch.z, batch.weight))
-            # drawn for the global batch on every rank, then cut to its rows
+            # drawn for the global batch on every rank, then cut to its rows (and height slice)
             B = cfg.batch_size
             t = torch.randint(0, cfg.timesteps, (B,), generator=gen, device=dev, dtype=torch.int32)[rows]
-            noise = torch.randn((B,) + x0.shape[1:], generator=gen, device=dev, dtype=torch.float32)[rows]
+            noise = torch.randn((B,) + batch.x0.shape[1:], generator=gen, device=dev, dtype=torch.float32)[cut]
             loss = step_fn(x0, z, w, t, noise, clip_on, batch.wsum if mesh is not None else None)
             losses.append(loss)
             wsums.append(batch.wsum)

@@ -235,10 +235,11 @@ def test_store_data_batches_match_jax(tmp_path, rng, u8, cache, workers):
 def test_cli_trains_resumes_and_reconstructs(tmp_path, rng):
     """cli.train for 1 epoch on the CPU (with an EMA), --resume to a second,
     and the final checkpoint drives cli.reconstruct_diffusion to a PNG;
-    spatially sharded training is refused as not ported yet, and
-    --distributed without a launcher (--clip_weights runs in
-    tests/test_torch_compress.py, --data_parallel in
-    tests/test_torch_parallel_train.py)."""
+    --spatial_shard and --distributed stop without a launcher, and
+    train_diffusion(spatial=True) without a mesh refuses with JAX's text
+    (--clip_weights runs in tests/test_torch_compress.py, --data_parallel in
+    tests/test_torch_parallel_train.py, --spatial_shard under a launcher in
+    tests/test_torch_spatial_train.py)."""
     from clip_codec_tpu_torch.cli import reconstruct_diffusion, train
 
     _store(tmp_path, rng)
@@ -264,10 +265,10 @@ def test_cli_trains_resumes_and_reconstructs(tmp_path, rng):
                                 "--size", "16", "--device", "cpu", "--out", str(out)])
     assert Image.open(out).size == (16, 16)
     for flags, match in ((["--distributed"], "launcher's environment"),
-                         (["--spatial_shard", "2"], "spatially sharded training.*not ported")):
+                         (["--spatial_shard", "2"], "--spatial_shard 2 needs the launcher's environment.*torchrun")):
         with pytest.raises(SystemExit, match=match):
             train.main(base + flags)
-    with pytest.raises(NotImplementedError, match="spatially sharded training.*not ported"):
+    with pytest.raises(ValueError, match=r"spatial=True requires a mesh \(make_mesh\(model_parallel=k\)\)"):
         ttrain.train_diffusion(tmp_path, device="cpu", spatial=True)
 
 

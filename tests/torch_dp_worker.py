@@ -1,6 +1,6 @@
-"""One rank of the port's two-rank CPU tests (gloo), started by
+"""One rank of the port's multi-rank CPU tests (gloo), started by
 tests/test_torch_parallel*.py, tests/test_torch_tp.py and
-tests/test_torch_spatial.py through ``clip_codec_tpu_torch.parallel.launch``:
+tests/test_torch_spatial*.py through ``clip_codec_tpu_torch.parallel.launch``:
 
     python tests/torch_dp_worker.py <task> <workdir>
 
@@ -65,10 +65,10 @@ def run_ranks(task: str, work: Path, world: int = 2, env: dict = None, timeout: 
     return outs
 
 
-def _tiny_unet(path, cfg):
+def _tiny_unet(path, cfg, **kw):
     from clip_codec_tpu_torch.models import CLIPCondUNet
 
-    net = CLIPCondUNet(**cfg, time_dim=256, fused_pallas=False)
+    net = CLIPCondUNet(**cfg, time_dim=256, fused_pallas=False, **kw)
     net.load_state_dict(torch.load(path, weights_only=True), strict=True)
     return net
 
@@ -347,12 +347,70 @@ def spatial(work: Path, rank: int) -> dict:
     return out
 
 
+SPATIAL_STEPS = {"stop_grad": {}, "align_grad": {"clip_align_grad": True},
+                 "remat": {"clip_align_grad": True, "remat": True}}
+
+
+def spatial_train(work: Path, rank: int) -> dict:
+    """Spatially sharded training on a (world / 2, 2) mesh: one step of the
+    pixel trainer (recon, TV and CLIP terms on, the CLIP term a stand-in
+    embed; ``t`` and the noise injected) for each of ``SPATIAL_STEPS``,
+    with the summed gradient and the parameters after AdamW; ``cli.train
+    --spatial_shard 2``; on two ranks also K1's split autograd in fp64 and
+    ``train_diffusion``'s refusals."""
+    from clip_codec_tpu_torch.cli import train as train_cli
+    from clip_codec_tpu_torch.diffusion import NoiseSchedule
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+    from clip_codec_tpu_torch.parallel import make_mesh
+    from clip_codec_tpu_torch.parallel.mesh import local_rows, model_slice
+    from clip_codec_tpu_torch.train import diffusion_train as ptrain
+    from clip_codec_tpu_torch.train.optim import make_optimizer
+
+    spec = json.loads((work / "spatial_train_in.json").read_text())
+    inp = dict(np.load(work / "spatial_train_in.npz"))
+    mesh = make_mesh(model_parallel=2, device_type="cpu")
+    B, S = inp["x0"].shape[:2]
+    rows, hs = local_rows(mesh, B), model_slice(mesh, S)
+    proj = torch.from_numpy(inp["proj"])
+    embed = lambda images: torch.tanh(images.reshape(images.shape[0], -1) @ proj)
+    args = [torch.from_numpy(inp[k][rows]) for k in ("x0", "z", "w", "t", "noise")]
+    args[0], args[4] = args[0][:, hs], args[4][:, hs]
+    out = {"mesh": list(mesh.shape)}
+    for name, kw in SPATIAL_STEPS.items():
+        net = _tiny_unet(work / "unet.pt", spec["cfg"], remat=kw.get("remat", False))
+        cfg = ptrain.DiffusionTrainConfig(base=spec["cfg"]["base"], ch_mult=tuple(spec["cfg"]["ch_mult"]), bf16=False,
+                                          **kw)
+        step = ptrain.make_train_step(net, NoiseSchedule.create(1000, "cosine"), make_optimizer(net, cfg.lr), cfg,
+                                      embed, mesh=mesh, spatial=True)
+        loss = step(*args, clip_on=True, wsum=float(inp["w"].sum()))
+        out[name] = {"loss": float(loss), "grads": {k: p.grad.clone() for k, p in net.named_parameters()},
+                     "params": {k: v.clone() for k, v in net.state_dict().items()}}
+    train_cli.main(spec["train_argv"] + ["--spatial_shard", "2", "--save_dir", str(work / f"cli{mesh.size()}")])
+    if mesh.size() > 2:
+        return out
+
+    x = torch.from_numpy(inp["gn_x"]).requires_grad_()  # K1's split form under autograd, this rank's rows
+    scale, bias = (torch.from_numpy(inp[k]).requires_grad_() for k in ("gn_scale", "gn_bias"))
+    xs = x[:, hs]
+    y = gn.group_norm_silu_spatial(xs, (scale, bias), 8, mesh)
+    y.backward(torch.from_numpy(inp["gn_g"])[:, hs])
+    out["gn"] = {"y": y.detach(), "dx": x.grad[:, hs], "dscale": scale.grad, "dbias": bias.grad}
+
+    dp = make_mesh(device_type="cpu")  # (2, 1)
+    cfg = lambda **kw: ptrain.DiffusionTrainConfig(**{**dict(out_size=S, batch_size=2, base=8, ch_mult=(1, 2)), **kw})
+    run = lambda m, **kw: ptrain.train_diffusion(work / "store", config=cfg(**kw), mesh=m, spatial=True, device="cpu")
+    out["errors"] = [_error(lambda: run(None)), _error(lambda: run(dp, batch_size=3)), _error(lambda: run(dp)),
+                     _error(lambda: run(mesh, out_size=15)), _error(lambda: run(mesh, out_size=12))]
+    return out
+
+
 def main() -> None:
     import torch.distributed as dist
 
     task, work = sys.argv[1], Path(sys.argv[2])
     rank = int(__import__("os").environ["RANK"])
-    out = {"lib": lib, "train": train, "cli": cli, "tp": tp, "spatial": spatial}[task](work, rank)
+    out = {"lib": lib, "train": train, "cli": cli, "tp": tp, "spatial": spatial,
+           "spatial_train": spatial_train}[task](work, rank)
     out["world"] = dist.get_world_size()
     bad = sorted(m for m in sys.modules if m in ("jax", "clip_codec_tpu") or m.startswith(("jax.", "clip_codec_tpu.")))
     out["jax_modules"] = bad
