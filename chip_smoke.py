@@ -288,30 +288,39 @@ no kernel, and its path runs K4, K5 and K6 through the SD UNet and VAE):
    (backend auto -> dino): a 512x512 PNG and phase 17's launches a request;
    s/request, busy share and peak memory beside phase 17's CLIP backend.
 
-int8 serving (``ops/int8.py``, ``csrc/int8_conv.cu``: the implicit-GEMM int8
-conv, the quantize pass and the absmax reduction, counterparts of XLA
-programs; the int8 paths also run K1 in every pixel ResBlock, K3, and K4 in
-the SD self-attention, never K2 or K6):
+int8 serving (``ops/int8.py``, ``csrc/int8_conv.cu``: the quantize pass,
+the implicit-GEMM int8 conv on the codes, and the absmax reduction,
+counterparts of XLA programs; the conv's act form, which quantizes its bf16
+or fp32 activations in shared memory, is checked and timed but on no model
+path, being slower than the pair at every path shape;
+the int8 paths also run K1 in every pixel ResBlock, K3, and K4 in the SD
+self-attention, never K2 or K6):
 
 22. 22a: ``csrc/int8_conv.cu`` built with the others at the start; the
    shapes of every int8 conv call of one forward of each full-width path
    (the pixel U-Net at B = 16 and B = 1, SD-1.5 at 64x64 latents, CFG
-   batched, with the adapter's 8-token context) plus to_k/to_v on a
-   77-token context (check only); at each, the three kernels against their
-   plain versions bit for bit: absmax, codes and scale (dynamic, and
-   static at half the absmax, saturating), and the conv's int32
-   accumulator, fp32 and bf16 outputs; at the pixel artifact's shapes and
+   batched, with the adapter's 8-token context), each forward (dynamic)
+   bit-equal to the same forward through the act form, plus to_k/to_v on a
+   77-token context (check
+   only); at each shape, the kernels against their plain versions bit for
+   bit: absmax, codes and scale (dynamic, and static at half the absmax,
+   saturating), the codes-in conv's int32 accumulator, fp32 and bf16
+   outputs, and the act form's from bf16 and fp32 activations, dynamic and
+   static at half the absmax; at the pixel artifact's shapes and
    ``SD_TIMED`` each timed (CUDA-graph replay and events; absmax at the
    dynamic server's B = 1 shapes) beside its plain version (events; the
-   conv's float64 product),
-   its bound (int8 operations over 1,979 TOP/s, or bytes), ``torch._int_mm``
+   conv's float64 product), the act form beside the paths' pair
+   (``int8_quantize`` then the codes-in conv, one graph),
+   its bound (int8 operations over 1,979 TOP/s, or bytes: the act form's
+   read of bf16 activations), ``torch._int_mm``
    for the GEMMs, ``torch.linalg.vector_norm(x, inf)`` for absmax, and
    cuDNN's bf16 conv for scale. 22b: ``cli.export_decoder --int8`` from
    phase 4's checkpoint at its defaults with ``--output uint8`` (the
    artifact and ``<artifact>.quant.pt``); its replay (exactly 31 x 50 int8
-   convs and quantize passes, 28 x 50 K1, 50 K3, no absmax, K2 or K6) bit-
-   equal across a seed and to its own eager int8 sampler from the same x_T;
-   one static-int8 forward's eps against the bf16 forward's; a start-up
+   convs and quantize passes, 28 x 50 K1, 50 K3, no absmax, act form, K2 or
+   K6) bit-equal across a seed and to its own eager int8 sampler from the
+   same x_T; one static-int8 forward's eps bit-equal to the act form's and
+   against the bf16 forward's; a start-up
    without the sidecar stops with JAX's message naming it; then ``serve``
    behind the artifact answers 64 /decompress from 32 clients (img/s,
    p50/p95 beside phase 20c's bf16 artifact), launches exact. 22c:
@@ -455,9 +464,10 @@ launches in phase 17's default request; mlp_up and
 mlp_down: one record per MLP shape with its launches in phase 8; K1: one
 record per training shape with its launches in phase 14; u8_ip_scores and
 u8_ip_probe: one record per timed shape with its launches in phase 19b-19d
-(0 at the check-only D = 100 shape); the three int8 kernels one record per
+(0 at the check-only D = 100 shape); the int8 kernels one record per
 timed phase 22a shape with its launches by shape over 22b's HTTP run and
-22c (``"phase": 22``); K4, the K5 pair and K6 once more with
+22c (``"phase": 22``; the act form's by both activation kinds: 0, as no
+path runs it); K4, the K5 pair and K6 once more with
 phase 21's launches (21b's CLI training plus 21c's CLI request, ``"phase":
 21``, beside the timed record's numbers: K4's and K6's first shape, K5's
 (1, 4096, 512)); K1, K2, K3, K4, the K5 pair, K6 and ``u8_ip_scores`` once more
@@ -530,7 +540,10 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "u8_ip_scores": ("u8_ip_scan", "clip_codec_tpu/index/search.py:97"),
     "u8_ip_probe": ("u8_ip_scan", "clip_codec_tpu/index/ivf.py:117"),
     # XLA programs too: JAX's int8 conv and dense (lax conv / dot_general on int8 operands), their
-    # activation codes and the dynamic absmax
+    # activation codes and the dynamic absmax; the act form is the quantize and the product of one layer
+    "int8_conv_act": ("int8_conv", "clip_codec_tpu/ops/int8.py:68, clip_codec_tpu/ops/int8.py:70, "
+                                   "clip_codec_tpu/ops/int8.py:96, clip_codec_tpu/ops/int8.py:98, "
+                                   "clip_codec_tpu/ops/int8.py:200, clip_codec_tpu/ops/int8.py:201"),
     "int8_conv_nhwc": ("int8_conv", "clip_codec_tpu/ops/int8.py:70, clip_codec_tpu/ops/int8.py:98, "
                                     "clip_codec_tpu/ops/int8.py:201"),
     "int8_quantize": ("int8_conv", "clip_codec_tpu/ops/int8.py:68, clip_codec_tpu/ops/int8.py:96, "
@@ -3560,7 +3573,8 @@ def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, fina
 # ------------------------------------------------------------ int8 serving (phase 22)
 
 
-Q8_KERNELS = ("int8_conv_nhwc", "int8_quantize", "absmax")
+Q8_KERNELS = ("int8_conv_act", "int8_conv_nhwc", "int8_quantize", "absmax")
+Q8_OFF_PATH = ("int8_conv_act",)  # checked and timed in 22a; no model path launches it
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 PX_INT8_LAYERS = 31  # 28 ResBlock convs + 3 downsample convs
 CLIP_TEXT_TOKENS = 77  # to_k/to_v also checked on a CLIP text context
@@ -3575,7 +3589,8 @@ SD_TIMED = {((2, 64, 64, 320), (320, 3, 3, 320), 1, 1), ((2, 32, 32, 640), (640,
 
 
 def q8_launches(q8, gn, rc, attn, mlp) -> dict:
-    return {"int8_conv_nhwc": q8.int8_conv2d.launches, "int8_quantize": q8.quantize.launches,
+    return {"int8_conv_act": q8.int8_conv2d_act.launches, "int8_conv_nhwc": q8.int8_conv2d.launches,
+            "int8_quantize": q8.quantize.launches,
             "absmax": q8.absmax.launches, "group_norm_silu": gn.group_norm_silu.launches,
             "affine_silu_conv3x3": rc.affine_silu_conv3x3.launches, "affine_conv3x3": rc.affine_conv3x3.launches,
             "flash_attention": attn.flash_attention_fwd.launches, "mlp_up": mlp.mlp_up.launches,
@@ -3583,7 +3598,8 @@ def q8_launches(q8, gn, rc, attn, mlp) -> dict:
 
 
 def reset_q8_launches(q8, gn, rc, attn, mlp) -> None:
-    for wrapper in (q8.int8_conv2d, q8.quantize, q8.absmax, gn.group_norm_silu):
+    for wrapper in (q8.int8_conv2d_act, q8.int8_linear_act, q8.int8_conv2d, q8.quantize, q8.absmax,
+                    gn.group_norm_silu):
         wrapper.launches = 0
     reset_launches(rc)
     reset_sd_launches(attn, mlp)
@@ -3592,8 +3608,9 @@ def reset_q8_launches(q8, gn, rc, attn, mlp) -> None:
 def q8_forward(layers: int, dynamic: bool = False, k1: int = 0, k3: int = 0, k4: int = 0) -> dict:
     """The launches of one int8 forward: a quantize and a conv per int8 layer
     (and an absmax when dynamic), K1 and K3 in the pixel U-Net, K4 in the SD
-    UNet's self-attention, never K2 or K6."""
-    return {"int8_conv_nhwc": layers, "int8_quantize": layers, "absmax": layers if dynamic else 0,
+    UNet's self-attention, never the act form, K2 or K6."""
+    return {"int8_conv_act": 0, "int8_conv_nhwc": layers, "int8_quantize": layers,
+            "absmax": layers if dynamic else 0,
             "group_norm_silu": k1, "affine_silu_conv3x3": 0, "affine_conv3x3": k3, "flash_attention": k4,
             "mlp_up": 0, "mlp_down": 0}
 
@@ -3610,11 +3627,12 @@ def combined(*terms) -> dict:
 @contextlib.contextmanager
 def q8_tally(torch, q8):
     """The int8 kernels' launches by shape: the conv by (xq shape, wq shape,
-    stride, padding), quantize and absmax by x's shape. Eager launches land in
+    stride, padding), the act form by (x shape, wq shape, stride, padding,
+    x's dtype), quantize and absmax by x's shape. Eager launches land in
     ["eager"], calls a CUDA-graph capture records in ["captured"]
     (``fold_captured`` multiplies them by the replays)."""
     tally = {"eager": collections.Counter(), "captured": collections.Counter()}
-    saved = q8._launch_conv, q8._launch_quantize, q8._launch_absmax
+    saved = q8._launch_conv, q8._launch_quantize, q8._launch_absmax, q8._launch_conv_act
 
     def counted(fn, key):
         def run(*a):
@@ -3626,10 +3644,46 @@ def q8_tally(torch, q8):
         "int8_conv_nhwc", (tuple(xq.shape), tuple(wq.shape), rest[3], rest[4])))
     q8._launch_quantize = counted(saved[1], lambda x, am: ("int8_quantize", rows(x.shape)))
     q8._launch_absmax = counted(saved[2], lambda x: ("absmax", rows(x.shape)))
+    q8._launch_conv_act = counted(saved[3], lambda x, am, wq, *rest: (
+        "int8_conv_act", (tuple(x.shape), tuple(wq.shape), rest[2], rest[3], dtype_name(x.dtype))))
     try:
         yield tally
     finally:
-        q8._launch_conv, q8._launch_quantize, q8._launch_absmax = saved
+        q8._launch_conv, q8._launch_quantize, q8._launch_absmax, q8._launch_conv_act = saved
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def layer_absmax(q8, layer, x):
+    """The layer's calibrated absmax (static), else ``absmax(x)``."""
+    am = layer.__dict__.get("_x_absmax")
+    return q8.absmax(x) if am is None else am
+
+
+@contextlib.contextmanager
+def act_form_layers(q8):
+    """``ops.int8.conv`` and ``linear`` through the act form (absmax when
+    dynamic, then one ``int8_conv_act_nhwc`` launch a layer), for a forward
+    to be held against the paths' two-launch form bit for bit."""
+    real_conv, real_linear = q8.conv, q8.linear
+
+    def conv(layer, x, dtype, stride=1, padding=1):
+        wq, ws = q8.layer_weight(layer)
+        x = x.contiguous()
+        return q8.int8_conv2d_act(x, layer_absmax(q8, layer, x), wq, ws, q8._bias(layer), stride, padding, dtype)
+
+    def linear(layer, x, dtype):
+        wq, ws = q8.layer_weight(layer)
+        x = x.contiguous()
+        return q8.int8_linear_act(x, layer_absmax(q8, layer, x), wq, ws, q8._bias(layer), dtype)
+
+    q8.conv, q8.linear = conv, linear
+    try:
+        yield
+    finally:
+        q8.conv, q8.linear = real_conv, real_linear
 
 
 def rows(shape) -> tuple:
@@ -3652,7 +3706,9 @@ def int8_path_shapes(torch, q8, seed, dev):
     path (the pixel U-Net at B = 16, the artifact's batch, and at B = 1, the
     dynamic server's; SD-1.5 at 64x64 latents, CFG batched, with the
     adapter's 8-token context), plus to_k/to_v on a 77-token context (check
-    only). Returns {conv key: (path, in the main path?)}."""
+    only); each forward (dynamic int8) also bit-equal to the same forward
+    through the act form (``act_form_layers``). Returns {conv key: (path,
+    in the main path?)}."""
     from clip_codec_tpu_torch.cli import reconstruct_sd_diffusion as cli
 
     shapes = {}
@@ -3668,12 +3724,22 @@ def int8_path_shapes(torch, q8, seed, dev):
     runs.append((unet, "sd", (torch.randn((2, 64, 64, 4), generator=gen, device=dev),
                               torch.full((2,), 500, dtype=torch.int32, device=dev),
                               torch.randn((2, 8, 768), generator=gen, device=dev))))
-    with torch.no_grad(), q8_tally(torch, q8) as tally:
+    with torch.no_grad():
         for model, path, args in runs:
-            model(*args)
+            with q8_tally(torch, q8) as tally:
+                out = model(*args)
             for (name, key), _ in tally["eager"].items():
+                check(name != "int8_conv_act", f"{path}: an act-form launch on the path")
                 if name == "int8_conv_nhwc" and key not in shapes:
                     shapes[key] = (path, True)
+            with act_form_layers(q8):
+                act = model(*args)
+            check(torch.equal(out, act), f"{path} int8 forward B={args[0].shape[0]}: the act form != the two-launch "
+                  f"form (max |delta| {(out.float() - act.float()).abs().max().item()})")
+            convs = sum(n for (k, _), n in tally["eager"].items() if k == "int8_conv_nhwc")
+            print(f"int8-kernels: {path} int8 forward B={args[0].shape[0]} (dynamic) through the act form bit-equal "
+                  f"to the path's two-launch form ({convs} quantize + conv pairs, "
+                  f"{sum(n for (k, _), n in tally['eager'].items() if k == 'absmax')} absmax)")
     ctx_rows = 2 * 8
     for (xs, ws, stride, pad) in list(shapes):
         if xs == (ctx_rows, 1, 1, 768):
@@ -3684,13 +3750,17 @@ def int8_path_shapes(torch, q8, seed, dev):
 
 
 def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
-    """22a: the three kernels against their plain versions, bit for bit, at
-    every shape of ``shapes``: the int32 accumulator, the fp32 and bf16
-    outputs, and the codes and scale in dynamic and static mode. At the
-    timed shapes (the pixel artifact's and ``SD_TIMED``) each kernel timed
-    (CUDA-graph replay, and events) beside its plain version (events) and
-    its bound, the GEMMs beside ``torch._int_mm`` and the convs beside
-    cuDNN's bf16 conv (for scale). Returns the records."""
+    """22a: the kernels against their plain versions, bit for bit, at every
+    shape of ``shapes``: the act form (bf16 and fp32 activations, dynamic
+    and static at half the absmax: ``quantize_plain`` then
+    ``int8_conv2d_plain``), the codes-in conv, each with the int32
+    accumulator, the fp32 and bf16 outputs, and the codes and scale in
+    dynamic and static mode. At the timed shapes (the pixel artifact's and
+    ``SD_TIMED``) each kernel timed (CUDA-graph replay, and events) beside
+    its plain version (events) and its bound, the act form beside the
+    paths' pair (``int8_quantize`` then the codes-in conv, one graph), the
+    GEMMs beside ``torch._int_mm`` and the convs beside cuDNN's bf16 conv
+    (for scale). Returns the records."""
     import math
 
     F = torch.nn.functional
@@ -3720,10 +3790,12 @@ def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
             want = q8._epilogue(acc_p, wsc, s, bias, dt).contiguous()
             errs[str(dt).removeprefix("torch.")] = float((got.double() - want.double()).abs().max().item())
             check(torch.equal(got, want), f"int8 conv {xs} x {ws} s{stride} p{pad} {dt}: kernel != plain {errs}")
+        act_errs = check_act_form(torch, q8, x, torch.randn(xs, generator=gen, device=dev), wq, wsc, bias, stride, pad)
         torch.cuda.synchronize()
         timed = (path == "pixel" and xs[0] == WIDE_BATCH) or (xs, ws, stride, pad) in SD_TIMED
         if timed:
             time_conv(torch, q8, F, recs, x, w, xq, wq, wsc, s, bias, stride, pad, acc_p, errs, path, card)
+            time_act(torch, q8, recs, x, am, wq, wsc, bias, stride, pad, act_errs, path, card)
         n = x.numel()
         for name, call, plain, lib, nbytes, wanted in (
                 ("int8_quantize", lambda: q8.quantize(x, am), lambda: q8.quantize_plain(x, am_p), None, 3 * n, timed),
@@ -3743,10 +3815,73 @@ def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
         del x, w, xq, wq, acc_p
     print(f"int8-kernels: bit-equal to the plain versions at all {len(shapes)} shapes "
           f"({sum(not m for _, m in shapes.values())} check-only): absmax, codes and scale dynamic and static, the "
-          f"conv's int32, fp32 and bf16 outputs")
+          f"conv's int32, fp32 and bf16 outputs; the act form's from bf16 and fp32 activations, dynamic and "
+          f"static at half the absmax")
     int8_replays(torch, q8, gen, dev)
     torch.cuda.empty_cache()
     return recs
+
+
+def check_act_form(torch, q8, x, x32, wq, wsc, bias, stride, pad) -> dict:
+    """The act form bit-equal to ``quantize_plain`` then ``int8_conv2d_plain``
+    on bf16 ``x`` and fp32 ``x32``, dynamic (absmax of x) and static at half
+    of it (codes saturate): int32, fp32 and bf16 out. Returns the largest
+    |kernel - plain| by case (0 throughout, or the phase has failed)."""
+    errs = {}
+    for xa in (x, x32):
+        am = q8.absmax(xa)
+        for mode, a in (("dynamic", am), ("static", am * 0.5)):
+            acc = q8.int8_conv2d_act_plain(xa, a, wq, wsc, bias, stride, pad, torch.int32)
+            s = q8.act_scale_plain(a)
+            for dt in (torch.int32, torch.float32, torch.bfloat16):
+                got = q8.int8_conv2d_act(xa, a, wq, wsc, bias, stride, pad, dt)
+                want = q8._epilogue(acc, wsc, s, bias, dt).contiguous()
+                tag = f"{dtype_name(xa.dtype)} {mode} {dtype_name(dt)}"
+                errs[tag] = float((got.double() - want.double()).abs().max().item())
+                check(torch.equal(got, want), f"int8 act form {tuple(x.shape)} x {tuple(wq.shape)} s{stride} p{pad} "
+                                              f"{tag}: kernel != plain {errs}")
+    return errs
+
+
+def time_act(torch, q8, recs, x, am, wq, wsc, bias, stride, pad, errs, path, card):
+    """One timed act-form record (bf16 activations, the dynamic absmax): the
+    kernel (graph replay, events) beside the paths' pair, ``int8_quantize``
+    then the codes-in conv in one graph; its plain version (events); its bound
+    (the bf16 activation read once); ``torch._int_mm`` on the codes for a GEMM
+    (the product alone, for scale) and cuDNN's bf16 conv for a 3x3."""
+    xs, (cout, k, _, cin) = tuple(x.shape), wq.shape
+    B, H, W, _ = xs
+    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    M, K = B * ho * wo, k * k * cin
+    run = lambda: q8.int8_conv2d_act(x, am, wq, wsc, bias, stride, pad, torch.bfloat16)
+
+    def pair():
+        codes, s = q8.quantize(x, am)
+        return q8.int8_conv2d(codes, wq, wsc, s, bias, stride, pad, torch.bfloat16)
+
+    ms, ev_ms = graph_ms(torch, run, iters=10), cuda_ms(torch, run, iters=10)
+    pair_ms = graph_ms(torch, pair, iters=10)
+    plain_ms = cuda_ms(torch, lambda: q8.int8_conv2d_act_plain(x, am, wq, wsc, bias, stride, pad, torch.bfloat16),
+                       iters=1, warmup=1)
+    b_ms, b_by, _ = bound(2 * x.numel() + wq.numel() + 2 * M * cout + 8 * cout, 2.0 * M * cout * K, INT8_OPS_PER_S)
+    codes_rec = recs["int8_conv_nhwc"][-1]  # time_conv's record of the same shape, just made
+    pl = q8.int8_conv_plan(B, H, W, cin, cout, k, stride, pad,
+                           torch.cuda.get_device_properties(x.device).multi_processor_count, 2)
+    plan = {"n_tile": pl.n_width, "rows": pl.rows, "mw": pl.mw, "splits": pl.splits, "swap": pl.swap,
+            "units": pl.units, "blocks": pl.blocks, "stages": pl.stages}
+    # no one PyTorch call quantizes and convolves: library_ms null, _int_mm (the int32 product of the codes
+    # alone) and cuDNN's bf16 conv for scale
+    rec = {"shape": [list(xs), list(wq.shape), stride, pad, "bfloat16"], "path": path, "ms": ms, "events_ms": ev_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "on_path": False,
+           "int_mm_ms": codes_rec["library_ms"], "cudnn_bf16_ms": codes_rec["cudnn_bf16_ms"], "pair_ms": pair_ms,
+           "pair_over_act": pair_ms / ms,
+           "max_abs_err": max(errs.values()), "max_abs_err_by_case": errs, "tops": 2.0 * M * cout * K / ms / 1e9,
+           "plan": plan}
+    recs["int8_conv_act"].append(rec)
+    print(f"int8-kernels: int8_conv_act {path} x {xs} bf16 w {tuple(wq.shape)} s{stride} p{pad}: ms={ms:.4f} (graph) "
+          f"events_ms={ev_ms:.4f} the paths' pair (int8_quantize + int8_conv_nhwc) {pair_ms:.4f} ms = "
+          f"{pair_ms / ms:.3f}x plain_ms={plain_ms:.3f} bound_ms={b_ms:.4f} ({b_by}) _int_mm_ms={rec['int_mm_ms']} "
+          f"cudnn_bf16_ms={rec['cudnn_bf16_ms']} plan {plan} on {card}")
 
 
 def int8_ptxas_report() -> None:
@@ -3767,8 +3902,9 @@ def int8_ptxas_report() -> None:
 
 def int8_replays(torch, q8, gen, dev) -> None:
     """Two CUDA-graph replays bit-equal to each other and to the plain
-    version: SD's 8^2 conv, whose plan splits K (its arrival counters reset
-    themselves, its partials are overwritten), and absmax at the dynamic
+    version: SD's 8^2 conv, codes in and the act form, whose plans split K
+    (its arrival counters reset themselves, its partials are overwritten),
+    and absmax at the dynamic
     server's largest input (one launch, its counter reset by its last
     block)."""
     (xs, ws, stride, pad) = ((2, 8, 8, 1280), (1280, 3, 3, 1280), 1, 1)
@@ -3779,10 +3915,18 @@ def int8_replays(torch, q8, gen, dev) -> None:
     wsc = torch.rand((ws[0],), generator=gen, device=dev) * 1e-3 + 1e-4
     s, bias = torch.full((), 0.02, device=dev), torch.randn((ws[0],), generator=gen, device=dev)
     x = torch.randn((65536, 128), generator=gen, device=dev).to(torch.bfloat16)
+    xa = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+    am = torch.full((), 1.5, device=dev)
+    plan_a = q8.int8_conv_plan(*xs, ws[0], ws[1], stride, pad, torch.cuda.get_device_properties(dev).multi_processor_count,
+                               2)
+    check(plan_a.splits > 1, f"int8 replays: the SD 8^2 act form's plan does not split K: {plan_a}")
     for what, run, want in (
             (f"int8_conv_nhwc {xs} x {ws} ({plan.splits} K slices)",
              lambda: q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16),
              q8.int8_conv2d_plain(xq, wq, wsc, s, bias, stride, pad, torch.bfloat16)),
+            (f"int8_conv_act {xs} bf16 x {ws} ({plan_a.splits} K slices)",
+             lambda: q8.int8_conv2d_act(xa, am, wq, wsc, bias, stride, pad, torch.bfloat16),
+             q8.int8_conv2d_act_plain(xa, am, wq, wsc, bias, stride, pad, torch.bfloat16)),
             ("absmax (65536, 128) bf16", lambda: q8.absmax(x), q8.absmax_plain(x))):
         run()
         graph = torch.cuda.CUDAGraph()
@@ -3943,11 +4087,16 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
               torch.tensor([999, 700, 300, 20], dtype=torch.int32, device=dev))
         with torch.no_grad():
             eps_q, eps_b = px.net(*xs).float(), fp(*xs).float()
+            with act_form_layers(q8):
+                eps_act = px.net(*xs).float()
+        check(torch.equal(eps_q, eps_act), "the static int8 forward: the act form != the two-launch form")
+        print(f"int8-forward: static int8 eps (B=4, the artifact's net and calibration) through the act form "
+              f"bit-equal to the path's two-launch form (int8_quantize + int8_conv_nhwc)")
         rel = ((eps_q - eps_b).norm() / eps_b.norm()).item()
         print(f"int8-forward: static int8 eps vs the bf16 forward, B=4 at t = 999, 700, 300, 20: "
               f"||delta|| / ||bf16|| {rel:.4e} on {card}")
         check(bool(torch.isfinite(eps_q).all().item()) and rel < 0.5, f"int8 eps {rel}")
-        del px, fp, a, b, e, eps_q, eps_b
+        del px, fp, a, b, e, eps_q, eps_b, eps_act
         torch.cuda.empty_cache()
 
         lone = out / "no_sidecar.torchprog"
@@ -5173,9 +5322,12 @@ def main() -> int:
         phase_build(builds, ("int8_conv",))
         q8_records = phase_int8_kernels(torch, q8, int8_path_shapes(torch, q8, args.seed, dev), args.seed, dev, card)
         q8_by_shape = phase_int8(torch, q8, gn, rc, attn, mlp, args.seed, dev, card, art, inv_times)
-        for name in Q8_KERNELS:  # each launched on the main path
+        for name in Q8_KERNELS:  # the two-launch form and absmax launched on the main path, the act form never
             n = sum(v for (k, _), v in q8_by_shape.items() if k == name)
-            check(n > 0, f"{name}: no launch on the int8 paths")
+            if name in Q8_OFF_PATH:
+                check(n == 0, f"{name}: {n} launches on the int8 paths (it is slower than the pair there)")
+            else:
+                check(n > 0, f"{name}: no launch on the int8 paths")
 
         dp_launches = phase_dp(torch, args.seed, dev, card)
 
@@ -5212,6 +5364,12 @@ def main() -> int:
         if name in Q8_KERNELS:  # one record per phase 22a shape, launches by shape on the phase 22b-22c paths
             for rec in q8_records[name]:
                 xs = rec["shape"]
+                if name == "int8_conv_act":  # timed in bf16; the launches of both activation kinds at the shape
+                    key = (tuple(xs[0]), tuple(xs[1]), xs[2], xs[3])
+                    by_dtype = {dt: q8_by_shape.get((name, key + (dt,)), 0) for dt in ("bfloat16", "float32")}
+                    kernels.append({**head, "launches": sum(by_dtype.values()), "launches_by_dtype": by_dtype, **rec,
+                                    "phase": 22})
+                    continue
                 key = (tuple(xs[0]), tuple(xs[1]), xs[2], xs[3]) if name == "int8_conv_nhwc" else tuple(xs)
                 kernels.append({**head, "launches": q8_by_shape.get((name, key), 0), **rec, "phase": 22})
             continue

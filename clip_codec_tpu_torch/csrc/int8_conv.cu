@@ -1,6 +1,6 @@
 // int8 serving convolutions for Hopper (sm_90a): an implicit-GEMM int8
-// convolution on the tensor cores and the two passes that make its activation
-// codes.
+// convolution on the tensor cores, its form that quantizes its own
+// activations, and the two passes that make activation codes apart.
 //
 //   int8_conv_nhwc: y[b, ho, wo, o] = epilogue(sum_{r, c, i} xq[b, ho*s-p+r, wo*s-p+c, i] * wq[o, r, c, i])
 //       xq (B, H, W, Cin) int8 NHWC, wq (Cout, kh, kw, Cin) int8 (K-contiguous),
@@ -9,15 +9,20 @@
 //       or fp32 (or, for checks, the raw int32 accumulator). kh = kw in {1, 3},
 //       stride in {1, 2}, symmetric zero padding; a Linear is the 1x1 case over
 //       (M, 1, 1, K) rows.
-//   int8_quantize: xq = clamp(rint(x / s), -127, 127), s = max(absmax, 1e-12) / 127,
-//       x bf16 or fp32; also writes s for the conv to read.
+//   int8_conv_act_nhwc: the same conv of xq = clamp(rint(x / s), -127, 127),
+//       s = max(absmax, 1e-12) / 127, from x (B, H, W, Cin) bf16 or fp32 and
+//       the 0-d fp32 absmax: the codes are made in shared memory, in the
+//       operand tile wgmma reads, and never reach device memory.
+//   int8_quantize: xq = clamp(rint(x / s), -127, 127), s as above, x bf16 or
+//       fp32; also writes s for the conv to read.
 //   absmax: max |x| over a whole tensor into one fp32 device scalar.
 //
 // Counterparts of XLA programs, not of Pallas kernels: clip_codec_tpu/ops/int8.py's
 // dynamic_int8_conv / static_int8_conv (:51, :80), Int8Conv (:108) and
 // Int8Dense (:164) run lax.conv_general_dilated / dot_general on int8
-// operands with preferred_element_type=int32, which XLA lowers itself.
-// PyTorch has no int8 convolution on CUDA, so the port needs its own.
+// operands with preferred_element_type=int32, which XLA lowers itself, and
+// the quantize before it (:68, :96, :200) as one expression of the same
+// program. PyTorch has no int8 convolution on CUDA, so the port needs its own.
 //
 // What bounds it on an H100 (1,979 dense int8 TOP/s, 3.35 TB/s):
 //   * the pixel U-Net's 3x3 convs at B = 16: the tensor cores (0.156 ms at
@@ -86,10 +91,43 @@
 // What holds it now: the epilogue of a unit does not overlap its products
 // (the consumers run both), and at the GEMMs' 3-10 K steps it is the larger
 // part of a unit.
-// absmax is one launch: each block writes its max to the caller's scratch,
-// and the last block (an arrival counter it resets itself) takes the max of
-// those and writes the result, so no memset precedes it and a graph replay
-// repeats it.
+//
+// The act form (int8_conv_act_nhwc) folds the quantize pass into the conv
+// (no round trip of the codes through device memory, and at SD's small
+// shapes no launch of ~4 us against a bound under 1 us). Only where the
+// activation operand comes from changes:
+//   * TMA loads the tap's window as the same 4-D box, of bf16 or fp32: a
+//     128-byte swizzled box is 64 or 32 channels, so a 128-channel K step is
+//     2 or 4 boxes side by side in the stage. Padding, the ragged edge and
+//     the stride-2 traversal stay TMA's; zero codes to 0, the plain padding;
+//   * the consumers convert: each warpgroup turns its own 64 MW rows of the
+//     staged window into the int8 K-major tile in place (over the first
+//     box), in the same 128-byte swizzle (16-byte chunk c of row r at
+//     c ^ (r % 8), 1024-byte-aligned tiles) that the descriptors read; a
+//     row's threads are one warp's, so a __syncwarp orders their reads
+//     before their writes (a thread that owns a whole row needs none: its
+//     writes land on chunks it has read). In the swapped form the
+//     activations are the B tile both warpgroups read, so all consumers
+//     convert it. Then fence.proxy.async (the generic writes before the
+//     async proxy's wgmma reads) and a named barrier. A step converts while
+//     the previous step's products run on the tensor cores;
+//   * the codes are bit-for-bit quantize_kernel's: s is act_scale(absmax),
+//     and each code comes from an estimate of x / s within 3.1e-5 of the
+//     correctly rounded quotient, clamped and rounded by two fmas
+//     (fast_code_bits: no division, no conversion-unit instruction), wherever
+//     the estimate lies 1e-4 or more from a half; a chunk with a value
+//     nearer a half takes code()'s __fdiv_rn for all of its values. The
+//     epilogue reads the same s;
+//   * a stage holds the staged window and the weights: at MW = 2 and bf16,
+//     256 x 256 bytes beside BN x 128, so the ring is shorter (2-3 stages);
+//     fp32 windows run MW = 1 tiles only. The plan (int8_conv_plan with the
+//     activation's element size) knows this and prices the conversion;
+//   * dynamic quantization needs absmax as a launch before it (a global max
+//     precedes the first code); split-K slices convert their own steps.
+// What holds it: a 3x3 converts, and reads from L2, each input value once a
+// tap, nine times, a window twice the codes' width, so it is slower than
+// int8_quantize + int8_conv_nhwc at every shape of the int8 paths, which
+// therefore keep that pair (PERF.md).
 
 #include <atomic>
 
@@ -111,18 +149,30 @@ constexpr int CONSUMERS = 2 * WARPGROUP;
 constexpr int SPLIT_TILE_INTS = 256 * 128;         // a split slice's scratch: 128 MW x BN int32 at most
 
 enum OutKind { kOutBf16 = 0, kOutF32 = 1, kOutI32 = 2 };
+// The activation operand: int8 codes (int8_conv_nhwc), or bf16 / fp32 values
+// the kernel quantizes (int8_conv_act_nhwc). The value is its element size.
+enum ActKind { kActS8 = 1, kActBf16 = 2, kActF32 = 4 };
 
-template <int MW, int BN, bool SWAP>
+// A stage: the activations' window, NB = ACT boxes of X_ROWS rows x 128
+// bytes (the codes, after conversion, in the first), and W_ROWS rows of
+// weights; the weights first when swapped, as wgmma's A. Every region is a
+// multiple of 1024 bytes, so every tile stays swizzle-aligned.
+template <int MW, int BN, bool SWAP, int ACT>
 struct Cfg {
-  static constexpr int A_ROWS = 128 * MW;          // wgmma's M side: 64 MW rows a consumer warpgroup
-  static constexpr int A_BYTES = A_ROWS * KSTEP, B_BYTES = BN * KSTEP;
-  static constexpr int STAGE = A_BYTES + B_BYTES;  // a multiple of 1024: every tile stays swizzle-aligned
+  static constexpr int NB = ACT;
+  static constexpr int X_ROWS = SWAP ? BN : 128 * MW;  // pixels a tile (wgmma's M side unswapped: 64 MW a warpgroup)
+  static constexpr int W_ROWS = SWAP ? 128 : BN;
+  static constexpr int X_BOX = X_ROWS * KSTEP, W_BYTES = W_ROWS * KSTEP;
+  static constexpr int X_OFF = SWAP ? W_BYTES : 0, W_OFF = SWAP ? 0 : NB * X_BOX;
+  static constexpr int A_OFF = SWAP ? W_OFF : X_OFF, B_OFF = SWAP ? X_OFF : W_OFF;  // wgmma's operands
+  static constexpr int STAGE = NB * X_BOX + W_BYTES;
   static constexpr int FIT = (SMEM_LIMIT - SMEM_FIXED) / STAGE;
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr int SMEM = SMEM_FIXED + STAGES * STAGE;
-  static_assert(STAGE % 1024 == 0 && STAGES >= 2 && SMEM <= SMEM_LIMIT, "int8 conv shared memory");
+  static_assert(X_BOX % 1024 == 0 && W_BYTES % 1024 == 0 && STAGES >= 2 && SMEM <= SMEM_LIMIT,
+                "int8 conv shared memory");
   static_assert(MW * BN / 2 <= 128, "accumulators a thread");
-  static_assert(A_ROWS * BN <= SPLIT_TILE_INTS, "a split slice's partial fits its scratch slot");
+  static_assert(128 * MW * BN <= SPLIT_TILE_INTS, "a split slice's partial fits its scratch slot");
 };
 
 struct Params {
@@ -352,13 +402,151 @@ __device__ __forceinline__ void store_swapped(const Params& p, const Unit& u, co
   }
 }
 
-template <int MW, int BN, bool SWAP>
+// ------------------------------------------------------------------ the codes
+
+__device__ __forceinline__ float act_scale(const float* absmax) {
+  return __fdiv_rn(fmaxf(*absmax, 1e-12f), 127.0f);
+}
+
+__device__ __forceinline__ int8_t code(float x, float s) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f));
+}
+
+// code(x, s), fast: x / s is taken as T = 254 v - 127 with v = sat(x c +
+// 1/2) (one fma.sat, which also clamps T to [-127, 127] and sends NaN to
+// -127 as code() does), c = 1 / (254 s) rounded twice; then one fma rounds
+// 1.5 * 2^23 + T to an integer, ties to even as rintf, whose low byte is the
+// code, and another gives T less that integer. |T - RN(x / s)| is under
+// 3.1e-5 (c's error, 1.2e-7 of |x / s| <= 127; v's rounding, 254 * 2^-25;
+// the quotient's own rounding, 2^-24 of it), so where |T - code| <= 0.4999
+// the code is code()'s; otherwise (and for every value where 254 s
+// overflows) `near` is set and the caller takes code(). Returns the bits
+// whose low byte is the code. Per value: 4 FP32-pipe instructions and one
+// compare, no conversion-unit instruction (rintf and float-to-int
+// conversions issue at a quarter of the rate).
+__device__ __forceinline__ uint32_t fast_code_bits(float x, float c, bool& near) {
+  float v;
+  asm("fma.rn.sat.f32 %0, %1, %2, 0f3F000000;" : "=f"(v) : "f"(x), "f"(c));
+  const float m = __fmaf_rn(v, 254.0f, 12582785.0f);                 // 1.5 * 2^23 - 127 + 254 v
+  const float d = __fmaf_rn(v, 254.0f, -__fsub_rn(m, 12582785.0f));  // T - code
+  near |= fabsf(d) > 0.4999f;
+  return __float_as_uint(m);
+}
+
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// The codes of one 16-byte chunk of the staged window, 8 bf16 or 4 fp32
+// values, packed little-endian into 2 words or 1 at `out`; from the raw
+// chunk again, through code(), if any value lies near a half (rare: one
+// branch a chunk).
+template <int ACT>
+__device__ __forceinline__ void chunk_codes(uint4 u, float s, float c, bool exact, uint32_t* out) {
+  constexpr int N = ACT == kActBf16 ? 8 : 4;
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  auto value = [&](int e) {
+    return ACT == kActBf16 ? __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16)
+                           : __uint_as_float(w[e]);
+  };
+  uint32_t b[N];
+  bool near = exact;
+#pragma unroll
+  for (int e = 0; e < N; ++e) b[e] = fast_code_bits(value(e), c, near);
+  if (near) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) b[e] = static_cast<uint32_t>(static_cast<int>(code(value(e), s)));
+  }
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) out[q] = pack4(b[4 * q], b[4 * q + 1], b[4 * q + 2], b[4 * q + 3]);
+}
+
+// The 16 codes of item (row r, 16-byte chunk j) of a staged window `xs`
+// (NB = ACT 128-byte-swizzled boxes of x_box bytes): channels 16 j.. of
+// the row, logical chunks 2 (j % 4).. of box j / 4 (bf16) or 4 (j % 2)..
+// of box j / 2 (fp32), each at its chunk XOR (r % 8).
+template <int ACT>
+__device__ __forceinline__ uint4 item_codes(const unsigned char* xs, int x_box, int r, int j, float s, float c,
+                                            bool exact) {
+  constexpr int CH = ACT == kActBf16 ? 2 : 4;  // source chunks an item
+  const unsigned char* row = xs + (ACT == kActBf16 ? j >> 2 : j >> 1) * x_box + r * KSTEP;
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int ch = (ACT == kActBf16 ? 2 * (j & 3) : 4 * (j & 1)) + i;
+    chunk_codes<ACT>(*reinterpret_cast<const uint4*>(row + ((ch ^ (r & 7)) << 4)), s, c, exact, out + i * (4 / CH));
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// Rows [r0, r0 + R) of a staged window (X_ROWS rows a box) to the int8
+// codes' K-major tile in place, over the first box, by NT threads (t): TPR
+// threads a row, all in one warp (lane -> row lane % (32 / TPR), items j =
+// sub, sub + TPR, ..), so a quarter warp reads 8 consecutive rows' same
+// chunk. A row's item j writes chunk j of box 0, which holds the sources of
+// items <= j / 2 only: one thread a row in order, or several after a
+// __syncwarp.
+// Then the async-proxy fence and barrier `bar` of the NT threads, after
+// which wgmma may read the tile.
+template <int ACT, int R, int X_ROWS, int NT>
+__device__ __forceinline__ void convert_rows(unsigned char* xs, int r0, int t, float s, float c, bool exact, int bar) {
+  constexpr int TPR = NT / R >= 8 ? 8 : NT / R, RPW = 32 / TPR, IPT = 8 / TPR;
+  static_assert(NT % R == 0 && R >= RPW, "whole warps of whole rows, one pass");
+  const int lane = t & 31, rp = (t >> 5) * RPW + lane % RPW, sub = lane / RPW;
+  const int r = r0 + rp;
+  unsigned char* dst = xs + r * KSTEP;
+  if (rp < R) {
+    if (TPR == 1) {
+#pragma unroll 1
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint4*>(dst + ((j ^ (r & 7)) << 4)) = item_codes<ACT>(xs, X_ROWS * KSTEP, r, j, s, c, exact);
+    } else {
+      uint4 q[IPT];
+#pragma unroll
+      for (int m = 0; m < IPT; ++m)
+        q[m] = item_codes<ACT>(xs, X_ROWS * KSTEP, r, sub + TPR * m, s, c, exact);
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < IPT; ++m) *reinterpret_cast<uint4*>(dst + (((sub + TPR * m) ^ (r & 7)) << 4)) = q[m];
+    }
+  }
+  fence_proxy_async();
+  bar_sync(bar, NT);
+}
+
+// A unit's epilogue, unswapped: its columns' w_scale * s and bias into
+// shared memory (parity ui & 1: every consumer passed a barrier since the
+// unit before last read it), then each m64 block's rows to y.
+template <int MW, int BN>
+__device__ __forceinline__ void store_tile(const Params& p, const CUtensorMap* ty, const Unit& u,
+                                           int (&acc)[MW][BN / 2], float* scales, int ui, float col_w, float col_b,
+                                           float s, int ctid, int wg, int wi, unsigned char* stg, int lane, int& buf) {
+  float* sc = scales + (ui & 1) * 512;
+  if (ctid < BN) {
+    sc[ctid] = __fmul_rn(col_w, s);
+    sc[256 + ctid] = col_b;
+  }
+  bar_sync(1, CONSUMERS);
+#pragma unroll
+  for (int i = 0; i < MW; ++i) {
+    const int rbase = (wg * MW + i) * 64 + 16 * wi;
+    switch (p.out_kind * 2 + (p.bias != nullptr)) {
+      case 0: store_rows<BN, kOutBf16, false>(p, ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
+      case 1: store_rows<BN, kOutBf16, true>(p, ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
+      case 2: store_rows<BN, kOutF32, false>(p, ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
+      case 3: store_rows<BN, kOutF32, true>(p, ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
+      default: store_rows<BN, kOutI32, false>(p, ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf);
+    }
+  }
+}
+
+template <int MW, int BN, bool SWAP, int ACT>
 __global__ void __launch_bounds__(THREADS, 1)
 int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                  const __grid_constant__ CUtensorMap ty, const Params p) {
-  using C = Cfg<MW, BN, SWAP>;
+  using C = Cfg<MW, BN, SWAP, ACT>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = align1024(smem_raw);                            // [STAGES][A tile, B tile]
+  unsigned char* ring = align1024(smem_raw);                            // [STAGES][Cfg's stage]
   unsigned char* stage_out = ring + C::STAGES * C::STAGE;               // [8 warps][STAGE_WARP]
   uint64_t* full = reinterpret_cast<uint64_t*>(stage_out + 8 * STAGE_WARP);
   uint64_t* empty = full + MAX_STAGES;
@@ -366,7 +554,10 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   float* scales = reinterpret_cast<float*>(last_flag + 4);              // [2 units][w_scale * s, bias][256]
   Unit* decoded = reinterpret_cast<Unit*>(scales + 2 * 512);              // [UNIT_SLOTS]
 
-  const int my_units = (int)blockIdx.x < p.units ? (p.units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  // This block's units; computed in each role after setmaxnreg (ptxas spilled it across the boundary).
+  auto units_of_block = [&]() {
+    return (int)blockIdx.x < p.units ? (p.units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  };
   const int wg = threadIdx.x / WARPGROUP, warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -383,6 +574,7 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     reg_dealloc<40>();
     if (warp_id == 8 && lane == 0) {
       int it = 0;
+      const int my_units = units_of_block();
       for (int ui = 0; ui < my_units; ++ui) {
         const Unit u = unit_of(p, blockIdx.x + ui * gridDim.x);
         for (int ks = u.k0; ks < u.k1; ++ks, ++it) {
@@ -394,9 +586,11 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
           mbar_expect_tx(&full[s], C::STAGE);
           const int tap = ks / p.chunks, c0 = (ks - tap * p.chunks) * KSTEP, dy = tap / p.KW, dx = tap - dy * p.KW;
           unsigned char* st = ring + s * C::STAGE;
-          tma_load_4d(st + (SWAP ? C::A_BYTES : 0), &tx, &full[s], c0, u.w0 * p.stride - p.pad + dx,
-                      u.h0 * p.stride - p.pad + dy, u.b0);
-          tma_load_3d(st + (SWAP ? 0 : C::A_BYTES), &tw, &full[s], c0, tap, u.n0);
+#pragma unroll
+          for (int b = 0; b < C::NB; ++b)  // the window's 128 channels as NB boxes of 128 bytes
+            tma_load_4d(st + C::X_OFF + b * C::X_BOX, &tx, &full[s], c0 + b * (KSTEP / C::NB),
+                        u.w0 * p.stride - p.pad + dx, u.h0 * p.stride - p.pad + dy, u.b0);
+          tma_load_3d(st + C::W_OFF, &tw, &full[s], c0, tap, u.n0);
         }
       }
     }
@@ -407,7 +601,10 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   reg_alloc<232>();
   const int wi = warp_id % 4, ctid = threadIdx.x;
   unsigned char* stg = stage_out + warp_id * STAGE_WARP;
-  const float s = p.out_kind == kOutI32 ? 0.f : __ldg(p.s);
+  // The act form reads absmax and makes s as quantize_kernel does.
+  const float s = ACT != kActS8 ? act_scale(p.s) : p.out_kind == kOutI32 ? 0.f : __ldg(p.s);
+  const float c254 = ACT != kActS8 ? __frcp_rn(__fmul_rn(254.0f, s)) : 0.f;  // fast_code_bits' c
+  const bool exact = !(c254 > 0.f);  // 254 s overflowed (absmax > 1.3e36): every value through code()
   auto release = [&](int st) {  // this warp is done reading stage st
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);
@@ -419,6 +616,7 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0;
 
   int it = 0, buf = 0;
+  const int my_units = units_of_block();
   for (int ui = 0; ui < my_units; ++ui) {
     mbar_wait(&full[it % C::STAGES], (it / C::STAGES) & 1);
     const Unit u = decoded[ui % UNIT_SLOTS];
@@ -428,14 +626,21 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     for (int k = 0; k < nk; ++k, ++it) {
       const int st = it % C::STAGES;
       if (k > 0) mbar_wait(&full[st], (it / C::STAGES) & 1);
-      const unsigned char* tile = ring + st * C::STAGE;
+      unsigned char* tile = ring + st * C::STAGE;
+      if (ACT != kActS8) {  // the window to codes, while the previous step's products run
+        if (SWAP)
+          convert_rows<ACT, BN, C::X_ROWS, CONSUMERS>(tile + C::X_OFF, 0, ctid, s, c254, exact, 1);
+        else
+          convert_rows<ACT, 64 * MW, C::X_ROWS, WARPGROUP>(tile + C::X_OFF, wg * 64 * MW, ctid % WARPGROUP, s, c254,
+                                                           exact, 2 + wg);
+      }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEP / 32; ++kk) {  // k32 steps: 32 bytes of each 128-byte row
-        const uint64_t db = desc_sw128(tile + C::A_BYTES + 32 * kk, 16, 1024);
+        const uint64_t db = desc_sw128(tile + C::B_OFF + 32 * kk, 16, 1024);
 #pragma unroll
         for (int i = 0; i < MW; ++i)
-          WgmmaS8<BN>::ss(acc[i], desc_sw128(tile + (wg * MW + i) * 64 * KSTEP + 32 * kk, 16, 1024), db,
+          WgmmaS8<BN>::ss(acc[i], desc_sw128(tile + C::A_OFF + (wg * MW + i) * 64 * KSTEP + 32 * kk, 16, 1024), db,
                           k > 0 || kk > 0);
       }
       wgmma_commit();
@@ -499,25 +704,7 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
         default: store_swapped<BN, kOutI32, false>(p, u, acc[0], u.n0 + 64 * wg + 16 * wi, stg, lane, s);
       }
     } else {
-      // Every consumer passed a barrier since the unit before last read this
-      // parity's scales (below, or the split arrival's), so it may be rewritten.
-      float* sc = scales + (ui & 1) * 512;
-      if (ctid < BN) {
-        sc[ctid] = __fmul_rn(col_w, s);
-        sc[256 + ctid] = col_b;
-      }
-      bar_sync(1, CONSUMERS);
-#pragma unroll
-      for (int i = 0; i < MW; ++i) {
-        const int rbase = (wg * MW + i) * 64 + 16 * wi;
-        switch (p.out_kind * 2 + (p.bias != nullptr)) {
-          case 0: store_rows<BN, kOutBf16, false>(p, &ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
-          case 1: store_rows<BN, kOutBf16, true>(p, &ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
-          case 2: store_rows<BN, kOutF32, false>(p, &ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
-          case 3: store_rows<BN, kOutF32, true>(p, &ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf); break;
-          default: store_rows<BN, kOutI32, false>(p, &ty, u, acc[i], rbase, stg, sc, sc + 256, lane, buf);
-        }
-      }
+      store_tile<MW, BN>(p, &ty, u, acc, scales, ui, col_w, col_b, s, ctid, wg, wi, stg, lane, buf);
     }
   }
   if (lane == 0) bulk_wait<0>();  // this warp's stores have left shared memory
@@ -527,14 +714,6 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
 
 constexpr int kEwThreads = 256;
 constexpr int kAbsmaxUnroll = 4;
-
-__device__ __forceinline__ float act_scale(const float* absmax) {
-  return __fdiv_rn(fmaxf(*absmax, 1e-12f), 127.0f);
-}
-
-__device__ __forceinline__ int8_t code(float x, float s) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f));
-}
 
 // 8 elements a thread at a time: n % 8 == 0, x 16-byte aligned for bf16 (32 for fp32).
 __device__ __forceinline__ void load8(const void* x, bool bf16, long long i, float (&v)[8]) {
@@ -634,12 +813,12 @@ int ew_blocks(long long n8) {
   return static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
 }
 
-template <int MW, int BN, bool SWAP>
+template <int MW, int BN, bool SWAP, int ACT>
 int launch_conv(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& ty, const Params& p, int stages,
                 int blocks, cudaStream_t stream) {
-  using C = Cfg<MW, BN, SWAP>;
+  using C = Cfg<MW, BN, SWAP, ACT>;
   if (stages != C::STAGES) return static_cast<int>(cudaErrorInvalidValue);
-  const auto fn = int8_conv_kernel<MW, BN, SWAP>;
+  const auto fn = int8_conv_kernel<MW, BN, SWAP, ACT>;
   // The shared-memory attribute is set once a device (bit d of `set_on`):
   // the SD path launches thousands of convs a request.
   static std::atomic<unsigned long long> set_on{0};
@@ -664,27 +843,50 @@ int log2i(int v) {
   return l;
 }
 
-}  // namespace
+// The plan's tile (mw, bn, swap) for activations of kind ACT: the forms this
+// file holds (fp32 windows: MW = 1 only, a 256-row one leaves no second stage).
+template <int ACT>
+int launch_tile(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& ty, const Params& p, int mw, int bn,
+                int swap, int stages, int blocks, cudaStream_t stream) {
+  const int inval = static_cast<int>(cudaErrorInvalidValue);
+  if (swap) {
+    if (mw != 1) return inval;
+    switch (bn) {
+      case 8: return launch_conv<1, 8, true, ACT>(tx, tw, ty, p, stages, blocks, stream);
+      case 16: return launch_conv<1, 16, true, ACT>(tx, tw, ty, p, stages, blocks, stream);
+      case 32: return launch_conv<1, 32, true, ACT>(tx, tw, ty, p, stages, blocks, stream);
+      case 64: return launch_conv<1, 64, true, ACT>(tx, tw, ty, p, stages, blocks, stream);
+      default: return inval;
+    }
+  }
+  switch (mw * 1000 + bn) {
+    case 1064: return launch_conv<1, 64, false, ACT>(tx, tw, ty, p, stages, blocks, stream);
+    case 1128: return launch_conv<1, 128, false, ACT>(tx, tw, ty, p, stages, blocks, stream);
+    case 1256: return launch_conv<1, 256, false, ACT>(tx, tw, ty, p, stages, blocks, stream);
+    default: break;
+  }
+  if constexpr (ACT == kActF32) {
+    return inval;
+  } else {
+    switch (mw * 1000 + bn) {
+      case 2064: return launch_conv<2, 64, false, ACT>(tx, tw, ty, p, stages, blocks, stream);
+      case 2128: return launch_conv<2, 128, false, ACT>(tx, tw, ty, p, stages, blocks, stream);
+      default: return inval;
+    }
+  }
+}
 
-// y = int8 conv of xq (B, H, W, Cin) with wq (Cout, KH, KW, Cin); out_kind 0 bf16,
-// 1 fp32, 2 the raw int32 accumulator (w_scale, s and bias unread). Device
-// pointers, xq and wq 16-byte aligned; Cin % 32 == 0, Cout % 8 == 0,
-// KH == KW in {1, 3}, stride in {1, 2}, pad in {0, 1}. The plan (ops/int8.py's
-// int8_conv_plan): (mw, bn) the tile, `splits` K slices a tile, `swap` the
-// operands, `gemm` the (M, 1, 1) view (1x1, stride 1, pad 0 only), (tb, th,
-// tw) a tile's pixels, `blocks` persistent blocks, `stages` the ring (must be
-// this build's), `sms` the card's SM count. `ws`, of `ws_bytes`: the scratch,
-// 2 sms x SPLIT_TILE_INTS int32 partials then sms counters (zero, and left
-// zero), needed when splits > 1, which takes fewer tiles than sms and at most
-// 2 sms units; a launch it could not hold is refused. Launches on `stream`;
-// returns 0, a CUDA error or one of sm90.cuh's tensor-map codes.
-extern "C" int int8_conv_nhwc(const void* xq, const void* wq, const void* w_scale, const void* s, const void* bias,
-                              void* y, void* ws, long long ws_bytes, int B, int H, int W, int Cin, int Cout, int KH,
-                              int KW, int stride, int pad, int out_kind, int mw, int bn, int splits, int swap, int gemm,
-                              int tb, int th, int tw, int blocks, int stages, int sms, void* stream_) {
+// Both entry points: `act` the activation kind (kActS8: x holds the codes
+// and `scale` s; otherwise x holds bf16 or fp32 values and `scale` their
+// absmax).
+int conv_entry(int act, const void* x, const void* wq, const void* w_scale, const void* scale,
+               const void* bias, void* y, void* ws, long long ws_bytes, int B, int H, int W, int Cin, int Cout,
+               int KH, int KW, int stride, int pad, int out_kind, int mw, int bn, int splits, int swap, int gemm,
+               int tb, int th, int tw, int blocks, int stages, int sms, void* stream_) {
   const int inval = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 32 || Cout % 8 || KH != KW ||
-      (KH != 1 && KH != 3) || (stride != 1 && stride != 2) || pad < 0 || pad > 1 || out_kind < 0 || out_kind > 2)
+      (KH != 1 && KH != 3) || (stride != 1 && stride != 2) || pad < 0 || pad > 1 || out_kind < 0 || out_kind > 2 ||
+      (act != kActS8 && act != kActBf16 && act != kActF32))
     return inval;
   const int Ho = (H + 2 * pad - KH) / stride + 1, Wo = (W + 2 * pad - KW) / stride + 1;
   if (Ho <= 0 || Wo <= 0) return inval;
@@ -697,7 +899,7 @@ extern "C" int int8_conv_nhwc(const void* xq, const void* wq, const void* w_scal
     return inval;
   Params p;
   p.w_scale = static_cast<const float*>(w_scale);
-  p.s = static_cast<const float*>(s);
+  p.s = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
   p.y = y;
   p.ws = static_cast<int*>(ws);
@@ -719,16 +921,20 @@ extern "C" int int8_conv_nhwc(const void* xq, const void* wq, const void* w_scal
 
   // The activations: (Cin, W, H, B) with the tile's box at the tap's corner
   // and traversal stride `stride` along W and H; a GEMM's rows as (Cin, 1, 1, M).
+  // A box is 128 bytes of channels (128 codes, 64 bf16, 32 fp32).
+  const int esz = act;
   CUtensorMap tx, twm;
   const cuuint64_t xdims[4] = {(cuuint64_t)Cin, gemm ? 1u : (cuuint64_t)W, gemm ? 1u : (cuuint64_t)H,
                                gemm ? (cuuint64_t)M : (cuuint64_t)B};
-  const cuuint64_t xstrides[3] = {(cuuint64_t)Cin, gemm ? (cuuint64_t)Cin : (cuuint64_t)W * Cin,
-                                  gemm ? (cuuint64_t)Cin : (cuuint64_t)H * W * Cin};
-  const cuuint32_t xbox[4] = {KSTEP, (cuuint32_t)(tw * stride), (cuuint32_t)(th * stride), (cuuint32_t)tb};
+  const cuuint64_t row = (cuuint64_t)Cin * esz;
+  const cuuint64_t xstrides[3] = {row, gemm ? row : (cuuint64_t)W * row, gemm ? row : (cuuint64_t)H * W * row};
+  const cuuint32_t xbox[4] = {(cuuint32_t)(KSTEP / esz), (cuuint32_t)(tw * stride), (cuuint32_t)(th * stride),
+                              (cuuint32_t)tb};
   const cuuint32_t xelem[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
-  if (int e = tmap_tiled(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, 4, xdims, xstrides, xbox, xelem,
-                         CU_TENSOR_MAP_SWIZZLE_128B))
-    return e;
+  const CUtensorMapDataType xtype = act == kActS8     ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : act == kActBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (int e = tmap_tiled(&tx, xtype, x, 4, xdims, xstrides, xbox, xelem, CU_TENSOR_MAP_SWIZZLE_128B)) return e;
   // The weights: (Cin, taps, Cout), a box of one tap's 128 channels of 128 (swap) or bn output channels.
   const cuuint64_t wdims[3] = {(cuuint64_t)Cin, (cuuint64_t)(KH * KW), (cuuint64_t)Cout};
   const cuuint64_t wstrides[2] = {(cuuint64_t)Cin, (cuuint64_t)KH * KW * Cin};
@@ -739,35 +945,58 @@ extern "C" int int8_conv_nhwc(const void* xq, const void* wq, const void* w_scal
     return e;
   // The output: (Cout, M) pixels, stored 8 pixels x 128 bytes at a time.
   CUtensorMap ty;
-  const int esz = out_kind == kOutBf16 ? 2 : 4;
+  const int ysz = out_kind == kOutBf16 ? 2 : 4;
   const CUtensorMapDataType ytype = out_kind == kOutBf16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                     : out_kind == kOutF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                                           : CU_TENSOR_MAP_DATA_TYPE_INT32;
   const cuuint64_t ydims[2] = {(cuuint64_t)Cout, (cuuint64_t)M};
-  const cuuint64_t ystrides[1] = {(cuuint64_t)Cout * esz};
-  const cuuint32_t ybox[2] = {(cuuint32_t)(128 / esz), 8};
+  const cuuint64_t ystrides[1] = {(cuuint64_t)Cout * ysz};
+  const cuuint32_t ybox[2] = {(cuuint32_t)(128 / ysz), 8};
   const cuuint32_t yelem[2] = {1, 1};
   if (int e = tmap_tiled(&ty, ytype, y, 2, ydims, ystrides, ybox, yelem, CU_TENSOR_MAP_SWIZZLE_128B)) return e;
 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (swap) {
-    if (mw != 1) return inval;
-    switch (bn) {
-      case 8: return launch_conv<1, 8, true>(tx, twm, ty, p, stages, blocks, stream);
-      case 16: return launch_conv<1, 16, true>(tx, twm, ty, p, stages, blocks, stream);
-      case 32: return launch_conv<1, 32, true>(tx, twm, ty, p, stages, blocks, stream);
-      case 64: return launch_conv<1, 64, true>(tx, twm, ty, p, stages, blocks, stream);
-      default: return inval;
-    }
+  switch (act) {
+    case kActS8: return launch_tile<kActS8>(tx, twm, ty, p, mw, bn, swap, stages, blocks, stream);
+    case kActBf16: return launch_tile<kActBf16>(tx, twm, ty, p, mw, bn, swap, stages, blocks, stream);
+    default: return launch_tile<kActF32>(tx, twm, ty, p, mw, bn, swap, stages, blocks, stream);
   }
-  switch (mw * 1000 + bn) {
-    case 1064: return launch_conv<1, 64, false>(tx, twm, ty, p, stages, blocks, stream);
-    case 1128: return launch_conv<1, 128, false>(tx, twm, ty, p, stages, blocks, stream);
-    case 1256: return launch_conv<1, 256, false>(tx, twm, ty, p, stages, blocks, stream);
-    case 2064: return launch_conv<2, 64, false>(tx, twm, ty, p, stages, blocks, stream);
-    case 2128: return launch_conv<2, 128, false>(tx, twm, ty, p, stages, blocks, stream);
-    default: return inval;
-  }
+}
+
+}  // namespace
+
+// y = int8 conv of xq (B, H, W, Cin) with wq (Cout, KH, KW, Cin); out_kind 0 bf16,
+// 1 fp32, 2 the raw int32 accumulator (w_scale, s and bias unread). Device
+// pointers, xq and wq 16-byte aligned; Cin % 32 == 0, Cout % 8 == 0,
+// KH == KW in {1, 3}, stride in {1, 2}, pad in {0, 1}. The plan (ops/int8.py's
+// int8_conv_plan): (mw, bn) the tile, `splits` K slices a tile, `swap` the
+// operands, `gemm` the (M, 1, 1) view (1x1, stride 1, pad 0 only), (tb, th,
+// tw) a tile's pixels, `blocks` persistent blocks, `stages` the ring (must be
+// this build's), `sms` the card's SM count. `ws`, of `ws_bytes`: the scratch,
+// 2 sms x SPLIT_TILE_INTS int32 partials then sms counters (zero, and left
+// zero), needed when splits > 1, which takes fewer tiles than sms and at most
+// 2 sms units; a launch it could not hold is refused. Launches on `stream`;
+// returns 0, a CUDA error or one of sm90.cuh's tensor-map codes.
+extern "C" int int8_conv_nhwc(const void* xq, const void* wq, const void* w_scale, const void* s, const void* bias,
+                              void* y, void* ws, long long ws_bytes, int B, int H, int W, int Cin, int Cout, int KH,
+                              int KW, int stride, int pad, int out_kind, int mw, int bn, int splits, int swap, int gemm,
+                              int tb, int th, int tw, int blocks, int stages, int sms, void* stream_) {
+  return conv_entry(kActS8, xq, wq, w_scale, s, bias, y, ws, ws_bytes, B, H, W, Cin, Cout, KH, KW, stride, pad,
+                    out_kind, mw, bn, splits, swap, gemm, tb, th, tw, blocks, stages, sms, stream_);
+}
+
+// int8_conv_nhwc of the codes of x (B, H, W, Cin), bf16 (act_bytes 2) or fp32
+// (4), 16-byte aligned, made in shared memory against the 0-d fp32 `absmax`
+// (s = max(absmax, 1e-12) / 127, as int8_quantize); the plan is the one for
+// this activation kind (its `stages`; fp32 takes mw = 1 only).
+extern "C" int int8_conv_act_nhwc(const void* x, int act_bytes, const void* wq, const void* w_scale,
+                                  const void* absmax, const void* bias, void* y, void* ws, long long ws_bytes, int B,
+                                  int H, int W, int Cin, int Cout, int KH, int KW, int stride, int pad, int out_kind,
+                                  int mw, int bn, int splits, int swap, int gemm, int tb, int th, int tw, int blocks,
+                                  int stages, int sms, void* stream_) {
+  if (act_bytes != kActBf16 && act_bytes != kActF32) return static_cast<int>(cudaErrorInvalidValue);
+  return conv_entry(act_bytes, x, wq, w_scale, absmax, bias, y, ws, ws_bytes, B, H, W, Cin, Cout, KH, KW,
+                    stride, pad, out_kind, mw, bn, splits, swap, gemm, tb, th, tw, blocks, stages, sms, stream_);
 }
 
 // xq (n) int8 = clamp(rint(x / s), -127, 127) and s_out = s, with

@@ -3,7 +3,12 @@ port of ``clip_codec_tpu/io/native.py``.
 
 The library is host C++ over the system's ``libzstd.so.1``, built with the
 system C++ compiler at first use into ``build/native/`` (``ops/_build.py``
-``build_host``) and loaded once per process. It needs neither the
+``build_host``) and loaded once per process, with ``RTLD_DEEPBIND``: its
+``ZSTD_*`` calls go to the ``libzstd.so.1`` it links even where a library
+loaded earlier with ``RTLD_GLOBAL`` exports zstd symbols of another version
+(TensorFlow's, which ``torch.utils.tensorboard`` imports where TensorFlow is
+installed), so its frames do not depend on what the process imported
+before it. It needs neither the
 ``zstandard`` binding nor ``zstd.h``, so it frames real ``.clp`` records on
 a machine that has only the shared library.
 
@@ -22,11 +27,13 @@ version).
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
 LIBZSTD = "-l:libzstd.so.1"
+LOAD_MODE = ctypes.RTLD_LOCAL | getattr(os, "RTLD_DEEPBIND", 0)  # the library's own libzstd first
 LEVEL = 22
 # ZSTD_getFrameContentSize's two sentinels.
 CONTENTSIZE_UNKNOWN = (1 << 64) - 1
@@ -77,7 +84,7 @@ class NativeCodec:
 
         path = _build.build_host("store_codec", (LIBZSTD,))
         try:
-            return cls(ctypes.CDLL(str(path)))
+            return cls(ctypes.CDLL(str(path), mode=LOAD_MODE))
         except OSError as e:
             raise RuntimeError(f"loading {path} failed: {e}") from e
 

@@ -13,14 +13,22 @@ An inference-only, opt-in mode for the U-Nets' big products:
 * the product accumulates int32; the epilogue is ``float(acc) * (w_scale *
   s)``, then ``+ bias``, then the cast to the model's dtype.
 
-On a CUDA tensor the three steps are hand-written kernels
-(``csrc/int8_conv.cu``): ``absmax``, ``int8_quantize`` and the implicit-GEMM
-``int8_conv_nhwc``, which also runs every ``Linear`` as a 1x1 conv over
-``(M, 1, 1, K)`` rows. They raise on what they do not take (Cin % 32 != 0,
-Cout % 8 != 0, other kernel sizes, strides or paddings); nothing falls back.
+On a CUDA tensor the steps are hand-written kernels (``csrc/int8_conv.cu``).
+A layer (:func:`conv`, :func:`linear`) runs ``absmax`` (dynamic mode only),
+``int8_quantize`` (:func:`quantize`) and the implicit-GEMM
+``int8_conv_nhwc`` (:func:`int8_conv2d`, :func:`int8_linear`). The act
+form ``int8_conv_act_nhwc`` (:func:`int8_conv2d_act`,
+:func:`int8_linear_act`) does the quantize and the conv in one launch: it
+reads the bf16 or fp32 activation itself and makes the codes in shared
+memory, so they never reach device memory. It is checked and timed, but it
+is slower than the pair at every shape of the int8 paths (PERF.md), so no
+model path calls it. Every ``Linear`` is a 1x1 conv over ``(M, 1, 1, K)``
+rows. The kernels raise on what they do not take (Cin % 32 != 0, Cout % 8
+!= 0, other kernel sizes, strides or paddings); nothing falls back.
 The conv's tiles, K splits and operand swap come from
-:func:`int8_conv_plan`, a pure function the CPU tests check and the
-launch passes to the kernel as it is. Split-K tiles and ``absmax`` sum
+:func:`int8_conv_plan` (given the activations' element size), a pure
+function the CPU tests check and the launch passes to the kernel as it
+is. Split-K tiles and ``absmax`` sum
 across blocks through a scratch buffer whose arrival counters every launch
 leaves zero (:func:`_workspace`): one for each device and stream, as the
 launches that share it must be ordered.
@@ -144,11 +152,14 @@ def int8_conv2d_plain(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
 #
 # csrc/int8_conv.cu's constants, mirrored: a block is two consumer
 # warpgroups, each 64 MW rows of wgmma's M side; a ring stage carries 128
-# bytes of K (one 128-byte swizzled row) of 128 MW A rows and BN B rows.
+# bytes of K (one 128-byte swizzled row) of the tile's activation rows, as
+# ``act`` boxes (the activations' element size: 1 for codes, 2 bf16, 4
+# fp32), beside its weight rows.
 
 KSTEP = 128
 TILES = ((1, 64), (1, 128), (1, 256), (2, 64), (2, 128))  # (MW, BN): 128 MW output rows x BN channels
 SWAP_BN = (8, 16, 32, 64)  # M <= 64: the weights are the 128-row side, the M rows wgmma's N
+ACTS = (1, 2, 4)  # the activation operand's element size: int8 codes, bf16, fp32
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 SMEM_FIXED = 1024 + 8 * 2048 + 2 * 8 * 8 + 16 + 4096 + 16 * 32  # alignment, staging, barriers, flag, scales, units
 MAX_STAGES = 8
@@ -157,10 +168,12 @@ SPLIT_TILE_INTS = 256 * 128  # a split slice's scratch: 128 MW x BN <= 32768 int
 # an epilogue of each tile, a split tile's arrival, and the last slice's read
 # of the others' partials (a KB); a swapped tile is priced as a (1, 64) one.
 # Fitted by least squares to CUDA-graph times of every plan at the int8
-# paths' shapes.
+# paths' shapes. CONVERT_US: the act form's conversion of 128 activation
+# rows a K step, by element size, fitted in the same way.
 STEP_US = {(1, 64): 0.28, (1, 128): 0.36, (1, 256): 0.54, (2, 64): 0.42, (2, 128): 0.58}
 EPILOGUE_US = {(1, 64): 1.5, (1, 128): 2.3, (1, 256): 5.8, (2, 64): 3.4, (2, 128): 4.0}
 SPLIT_US, SLICE_US_PER_KB = 2.4, 0.011
+CONVERT_US = {1: 0.0, 2: 1.40, 4: 1.86}
 
 
 class Int8ConvPlan(NamedTuple):
@@ -172,7 +185,8 @@ class Int8ConvPlan(NamedTuple):
     tap's 128 input channels. ``swap``: the weights are wgmma's 128-row A
     side and the pixels its N = ``bn`` side. A unit is one of ``splits``
     slices of a tile's K steps; ``blocks`` persistent blocks walk the
-    ``units`` with a ring of ``stages``."""
+    ``units`` with a ring of ``stages``. ``act``: the activations' element
+    size (1: int8 codes; 2, 4: bf16, fp32 values the kernel quantizes)."""
     mw: int
     bn: int
     splits: int
@@ -186,6 +200,7 @@ class Int8ConvPlan(NamedTuple):
     units: int
     blocks: int
     stages: int
+    act: int = 1
 
     @property
     def rows(self) -> int:
@@ -211,14 +226,22 @@ class Int8ConvPlan(NamedTuple):
         return tile, corner, tile // self.m_tiles * self.n_width, steps
 
 
-def ring_stages(mw: int, bn: int) -> int:
+def stage_bytes(mw: int, bn: int, swap: bool = False, act: int = 1) -> int:
+    """A ring stage: ``act`` boxes of the tile's activation rows (128 MW, or
+    BN swapped) and its weight rows (BN, or 128 swapped), 128 bytes each."""
+    x_rows, w_rows = (bn, 128) if swap else (128 * mw, bn)
+    return (act * x_rows + w_rows) * KSTEP
+
+
+def ring_stages(mw: int, bn: int, swap: bool = False, act: int = 1) -> int:
     """Stages of the ring that fit beside the fixed shared memory."""
-    return min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // ((128 * mw + bn) * KSTEP))
+    return min(MAX_STAGES, (SMEM_LIMIT - SMEM_FIXED) // stage_bytes(mw, bn, swap, act))
 
 
-def smem_bytes(mw: int, bn: int) -> int:
+def smem_bytes(mw: int, bn: int, swap: bool = False, act: int = 1) -> int:
     """The kernel's dynamic shared memory at (MW, BN)."""
-    return SMEM_FIXED + ring_stages(mw, bn) * (128 * mw + bn) * KSTEP
+    return SMEM_FIXED + ring_stages(mw, bn, swap, act) * stage_bytes(mw, bn, swap, act)
+
 
 
 def _pow2(n: int) -> int:
@@ -237,13 +260,18 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def int8_conv_plans(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int, padding: int,
-                    sms: int) -> List[Tuple[float, Int8ConvPlan]]:
-    """Every plan ``int8_conv_nhwc`` can run for a ``k`` x ``k`` conv of
-    ``(B, H, W, cin)`` codes to ``cout`` channels on a card of ``sms`` SMs,
-    with its modelled microseconds: waves of units times a unit's K steps,
-    epilogue and split costs. M = B Ho Wo <= 64 swaps the operands; K is
-    split (int32 partials summed exactly, in any order) only where the output
-    tiles cannot fill the card, into at most 2 sms units."""
+                    sms: int, act: int = 1) -> List[Tuple[float, Int8ConvPlan]]:
+    """Every plan ``int8_conv_nhwc`` (``act`` 1) or ``int8_conv_act_nhwc``
+    (``act`` 2 or 4: bf16 or fp32 activations) can run for a ``k`` x ``k``
+    conv of ``(B, H, W, cin)`` activations to ``cout`` channels on a card of
+    ``sms`` SMs, with its modelled microseconds: waves of units times a
+    unit's K steps (and their conversion), epilogue and split costs. M = B
+    Ho Wo <= 64 swaps the operands; K is split (int32 partials summed
+    exactly, in any order) only where the output tiles cannot fill the
+    card, into at most 2 sms units; a tile whose ring would not hold two
+    stages is left out."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS} (the activations' element size), got {act}")
     ho, wo = (H + 2 * padding - k) // stride + 1, (W + 2 * padding - k) // stride + 1
     M = B * ho * wo
     gemm = k == 1 and stride == 1 and padding == 0
@@ -253,32 +281,36 @@ def int8_conv_plans(B: int, H: int, W: int, cin: int, cout: int, k: int, stride:
     shapes = [(1, next(b for b in SWAP_BN if b >= M))] if swap else list(TILES)
     plans = []
     for mw, bn in shapes:
+        stages = ring_stages(mw, bn, swap, act)
+        if stages < 2:
+            continue
         rows, width = (bn, 128) if swap else (128 * mw, bn)
         tb, th, tw = _tile(view, rows)
         m_tiles = _cdiv(view[0], tb) * _cdiv(view[1], th) * _cdiv(view[2], tw)
         n_tiles = _cdiv(cout, width)
         tiles = m_tiles * n_tiles
         priced = (1, 64) if swap else (mw, bn)
+        step = STEP_US[priced] + CONVERT_US[act] * rows / 128
         slice_kb = 128 * mw * bn * 4 / 1024
         for splits in range(1, min(k_steps, 64) + 1):
             if splits > 1 and (tiles >= sms or tiles * splits > 2 * sms):
                 break
             units = tiles * splits
             split = SPLIT_US + (splits - 1) * slice_kb * SLICE_US_PER_KB if splits > 1 else 0.0
-            cost = _cdiv(units, sms) * (_cdiv(k_steps, splits) * STEP_US[priced] + EPILOGUE_US[priced] + split)
+            cost = _cdiv(units, sms) * (_cdiv(k_steps, splits) * step + EPILOGUE_US[priced] + split)
             plans.append((cost, Int8ConvPlan(mw, bn, splits, swap, gemm, view, (tb, th, tw), m_tiles, n_tiles,
-                                             k_steps, units, min(units, sms), ring_stages(mw, bn))))
+                                             k_steps, units, min(units, sms), stages, act)))
     return plans
 
 
 @functools.lru_cache(maxsize=None)
 def int8_conv_plan(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int, padding: int,
-                   sms: int) -> Int8ConvPlan:
-    """The plan ``int8_conv_nhwc`` runs: of ``int8_conv_plans``, the least
+                   sms: int, act: int = 1) -> Int8ConvPlan:
+    """The plan the kernel runs: of ``int8_conv_plans``, the least
     modelled time; on a tie the fewer splits, then the larger tile. Cached:
     the launch asks at every call, an eager SD request makes thousands,
     and listing the plans takes longer than the launch itself."""
-    return min(int8_conv_plans(B, H, W, cin, cout, k, stride, padding, sms),
+    return min(int8_conv_plans(B, H, W, cin, cout, k, stride, padding, sms, act),
                key=lambda cp: (round(cp[0], 6), cp[1].splits, -cp[1].mw, -cp[1].bn))[1]
 
 
@@ -334,6 +366,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.int8_conv_nhwc.argtypes = [P] * 7 + [L] + [I] * 21 + [P]
         lib.int8_conv_nhwc.restype = I
+        lib.int8_conv_act_nhwc.argtypes = [P, I] + [P] * 6 + [L] + [I] * 21 + [P]
+        lib.int8_conv_act_nhwc.restype = I
         lib.int8_quantize.argtypes = [P, I, L, P, P, P, P]
         lib.int8_quantize.restype = I
         lib.absmax.argtypes = [P, I, L, P, P, L, I, P]
@@ -423,16 +457,19 @@ def quantize_act(x: torch.Tensor, absmax: Optional[torch.Tensor] = None) -> Tupl
     return quantize(x, _absmax(x) if absmax is None else absmax)
 
 
-def _launch_conv(xq, wq, w_scale, s, bias, stride: int, padding: int, out_dtype) -> torch.Tensor:
-    """The kernel's launch, with ``int8_conv_plan``'s plan."""
-    if xq.device.type != "cuda":
-        raise ValueError(f"int8_conv2d needs a CUDA or CPU tensor, got {xq.device}")
-    if xq.dim() != 4 or wq.dim() != 4:
-        raise ValueError(f"xq must be (B, H, W, Cin) and wq (Cout, kh, kw, Cin), got {tuple(xq.shape)} and "
+def _conv(x, act: int, wq, w_scale, scale, bias, stride: int, padding: int, out_dtype) -> torch.Tensor:
+    """Either entry's checks and launch, with ``int8_conv_plan``'s plan:
+    ``act`` 1 for codes ``x`` and the scale ``scale``, 2 or 4 for bf16 or
+    fp32 ``x`` and its absmax."""
+    what = "int8_conv_nhwc" if act == 1 else "int8_conv_act_nhwc"
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA or CPU tensor, got {x.device}")
+    if x.dim() != 4 or wq.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, Cin) and wq (Cout, kh, kw, Cin), got {tuple(x.shape)} and "
                          f"{tuple(wq.shape)}")
-    B, H, W, cin = xq.shape
+    B, H, W, cin = x.shape
     cout, kh, kw, _ = wq.shape
-    dev = xq.device
+    dev = x.device
     if cin % 32 or cout % 8:
         raise ValueError(f"the int8 conv kernel takes Cin % 32 == 0 and Cout % 8 == 0, got {cin} -> {cout}")
     if kh != kw or kh not in (1, 3) or stride not in (1, 2) or padding not in (0, 1):
@@ -440,10 +477,10 @@ def _launch_conv(xq, wq, w_scale, s, bias, stride: int, padding: int, out_dtype)
                          f"stride {stride}, padding {padding}")
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"out_dtype must be bf16, fp32 or int32, got {out_dtype}")
-    _check("xq", xq, (torch.int8,), dev, align=16)
+    _check("x" if act > 1 else "xq", x, (torch.int8,) if act == 1 else (torch.bfloat16, torch.float32), dev, align=16)
     _check("wq", wq, (torch.int8,), dev, (cout, kh, kw, cin), align=16)
     _check("w_scale", w_scale, (torch.float32,), dev, (cout,))
-    _check("s", s.reshape(()), (torch.float32,), dev)
+    _check("s" if act == 1 else "absmax", scale.reshape(()), (torch.float32,), dev)
     if bias is not None:
         _check("bias", bias, (torch.float32,), dev, (cout,))
     ho, wo = (H + 2 * padding - kh) // stride + 1, (W + 2 * padding - kw) // stride + 1
@@ -452,16 +489,33 @@ def _launch_conv(xq, wq, w_scale, s, bias, stride: int, padding: int, out_dtype)
     y = torch.empty((B, ho, wo, cout), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         sms, stream = _sms(dev), _stream(dev)
-        pl = int8_conv_plan(B, H, W, cin, cout, kh, stride, padding, sms)
+        pl = int8_conv_plan(B, H, W, cin, cout, kh, stride, padding, sms, act)
         ws = _workspace(dev, stream)
-        rc = _kernel_lib().int8_conv_nhwc(
-            xq.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), s.data_ptr(), None if bias is None else bias.data_ptr(),
-            y.data_ptr(), ws.data_ptr(), 4 * ws.numel(), B, H, W, cin, cout, kh, kw, stride, padding,
-            _OUT_KIND[out_dtype], pl.mw, pl.bn, pl.splits, int(pl.swap), int(pl.gemm), *pl.tile, pl.blocks, pl.stages,
-            sms, stream)
+        tail = (y.data_ptr(), ws.data_ptr(), 4 * ws.numel(), B, H, W, cin, cout, kh, kw, stride, padding,
+                _OUT_KIND[out_dtype], pl.mw, pl.bn, pl.splits, int(pl.swap), int(pl.gemm), *pl.tile, pl.blocks,
+                pl.stages, sms, stream)
+        bias_ptr = None if bias is None else bias.data_ptr()
+        lib = _kernel_lib()
+        if act == 1:
+            rc = lib.int8_conv_nhwc(x.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), scale.data_ptr(), bias_ptr, *tail)
+        else:
+            rc = lib.int8_conv_act_nhwc(x.data_ptr(), act, wq.data_ptr(), w_scale.data_ptr(), scale.data_ptr(),
+                                        bias_ptr, *tail)
     if rc != 0:
-        raise _launch_error("int8_conv_nhwc kernel", rc)
+        raise _launch_error(f"{what} kernel", rc)
     return y
+
+
+def _launch_conv(xq, wq, w_scale, s, bias, stride: int, padding: int, out_dtype) -> torch.Tensor:
+    """The codes' kernel's launch, with ``int8_conv_plan``'s plan."""
+    return _conv(xq, 1, wq, w_scale, s, bias, stride, padding, out_dtype)
+
+
+def _launch_conv_act(x, absmax, wq, w_scale, bias, stride: int, padding: int, out_dtype) -> torch.Tensor:
+    """The act form's launch: x bf16 or fp32, with the plan for its kind."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_conv_act_nhwc takes bf16 or fp32 activations, got {x.dtype}")
+    return _conv(x, x.element_size(), wq, w_scale, absmax, bias, stride, padding, out_dtype)
 
 
 def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, s: torch.Tensor,
@@ -486,10 +540,49 @@ def int8_linear(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, s: to
     return y.reshape(*lead, wq.shape[0])
 
 
+def int8_conv2d_act_plain(x: torch.Tensor, absmax: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None, stride: int = 1, padding: int = 1,
+                          out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The act form's function in torch: ``quantize_plain`` then
+    ``int8_conv2d_plain``."""
+    xq, s = quantize_plain(x, absmax)
+    return int8_conv2d_plain(xq, wq, w_scale, s, bias, stride, padding, out_dtype)
+
+
+def int8_conv2d_act(x: torch.Tensor, absmax: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, stride: int = 1, padding: int = 1,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The int8 conv of NHWC ``x`` (bf16 or fp32) quantized against the 0-d
+    fp32 ``absmax`` (``s = max(absmax, 1e-12) / 127``), with ``wq`` (Cout,
+    kh, kw, Cin) and JAX's epilogue, NHWC ``out_dtype`` out: on a card one
+    launch of ``int8_conv_act_nhwc``, which makes the codes in shared memory
+    (bit for bit ``quantize``'s), on the CPU ``int8_conv2d_act_plain``."""
+    if x.device.type == "cpu":
+        return int8_conv2d_act_plain(x, absmax, wq, w_scale, bias, stride, padding, out_dtype)
+    y = _launch_conv_act(x, absmax, wq, w_scale, bias, stride, padding, out_dtype)
+    _count(int8_conv2d_act)
+    return y
+
+
+def int8_linear_act(x: torch.Tensor, absmax: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``quantize(x) (..., K) @ wq (N, 1, 1, K)^T`` with the epilogue, (...,
+    N) out: ``int8_conv2d_act``'s 1x1 case over ``(M, 1, 1, K)`` rows (its
+    launches count there; ``int8_linear_act.launches`` counts those that
+    came through here)."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = int8_conv2d_act(x.reshape(-1, 1, 1, k), absmax, wq, w_scale, bias, 1, 0, out_dtype)
+    if x.device.type != "cpu":
+        _count(int8_linear_act)
+    return y.reshape(*lead, wq.shape[0])
+
+
 _absmax = absmax
 absmax.launches = 0
 quantize.launches = 0
 int8_conv2d.launches = 0
+int8_conv2d_act.launches = 0
+int8_linear_act.launches = 0
 
 
 # ------------------------------------------------------------ the layers

@@ -3,13 +3,18 @@
     python -m clip_codec_tpu_torch.probes.int8_times [--seed 0] [--sd_profile | --eager]
     PYTHONPATH=<another checkout> python <path of this file> --eager
 
-Times, in bf16 out, with random codes from ``--seed``:
+Times, in bf16 out, with random activations from ``--seed``:
 
-1. ``ops.int8.int8_conv2d`` (``int8_conv_nhwc`` on the card) at the pixel
-   artifact's seven 3x3 convs at B = 16 and SD-1.5's timed shapes at 64x64
-   latents with CFG (``CONVS``: chip_smoke.py's phase 22a timed set), beside
-   ``torch._int_mm`` on the same int32 product where the conv is a GEMM
-   (for scale: the port never calls it);
+1. at the pixel artifact's seven 3x3 convs at B = 16 and SD-1.5's timed
+   shapes at 64x64 latents with CFG (``CONVS``: chip_smoke.py's phase 22a
+   timed set), three forms of the same int8 layer: ``ops.int8.int8_conv2d``
+   alone (``int8_conv_nhwc``, codes in), the pair the model paths run
+   (``int8_quantize`` then ``int8_conv_nhwc``, one graph) and the act form
+   (``int8_conv2d_act``: one ``int8_conv_act_nhwc`` launch that quantizes
+   in shared memory; bf16 activations, and fp32), with
+   the act form's bound (the bf16 activations read once) and the pair over
+   the act form; ``torch._int_mm`` on the same int32 product where the conv
+   is a GEMM (for scale: the port never calls it);
 2. ``ops.int8.absmax`` at the dynamic server's four conv inputs (B = 1),
    beside ``torch.linalg.vector_norm(x, inf)``.
 
@@ -24,7 +29,8 @@ With ``--sd_profile`` it then profiles SD-1.5's UNet (random weights from
 forward in bf16 and one in static int8 (scales from ``calibrate_int8`` at
 t = 950, 500, 50), under ``torch.profiler``: the device ms a forward (the
 summed kernel durations of 3 forwards over 3) by kind of kernel, so the
-int8 forward's time, and its gap to bf16, can be read by kind.
+int8 forward's time, and its gap to bf16, can be read by kind (the act
+form apart from the codes-in conv).
 
 With ``--eager`` it times, instead, what the host adds where every kernel
 is launched from Python (the CLIs and ``serve --int8`` without an
@@ -46,6 +52,7 @@ one card in one call. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 from typing import Optional, Sequence
@@ -74,40 +81,68 @@ CONVS = [((16, 256, 256, 128), (128, 3, 3, 128), 1, 1), ((16, 256, 256, 128), (1
 ABSMAX = [(65536, 128), (16384, 128), (4096, 256), (1024, 512)]
 
 
-def conv_bound_ms(xs, ws, stride: int, pad: int) -> float:
+def conv_bound_ms(xs, ws, stride: int, pad: int, act: int = 1) -> float:
+    """The least time of the conv: the activations (``act`` bytes a value:
+    1 for codes, 2 for the bf16 the act form reads) and weights read once,
+    bf16 y, w_scale and bias written or read once, or the products."""
     B, H, W, cin = xs
     cout, k, _, _ = ws
     m = B * ((H + 2 * pad - k) // stride + 1) * ((W + 2 * pad - k) // stride + 1)
-    nbytes = B * H * W * cin + cout * k * k * cin + 2 * m * cout + 8 * cout
+    nbytes = act * B * H * W * cin + cout * k * k * cin + 2 * m * cout + 8 * cout
     return max(nbytes / HBM_BYTES_PER_S, 2.0 * m * cout * k * k * cin / INT8_OPS_PER_S) * 1e3
 
 
+def _plan_text(plan) -> str:
+    return (f"mw={plan.mw} bn={plan.bn} splits={plan.splits} swap={plan.swap} tile={plan.tile} units={plan.units} "
+            f"stages={plan.stages}")
+
+
 def time_int8(dev: torch.device, seed: int = 0) -> None:
+    """Each conv of ``CONVS`` three ways: the codes' conv alone, the
+    paths' pair (``int8_quantize`` then the codes' conv, one graph) and
+    the act form on the same bf16 activations (and on fp32 ones), static
+    absmax; then absmax."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for xs, ws, stride, pad in CONVS:
         cout, k, _, cin = ws
-        xq = torch.randint(-127, 128, xs, generator=gen, device=dev, dtype=torch.int8)
+        x = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+        x32 = torch.randn(xs, generator=gen, device=dev)
+        am = q8.absmax(x)
+        xq, s = q8.quantize(x, am)
         wq = torch.randint(-127, 128, ws, generator=gen, device=dev, dtype=torch.int8)
         wsc = torch.rand((cout,), generator=gen, device=dev) * 1e-3 + 1e-4
-        s, bias = torch.full((), 0.02, device=dev), torch.randn((cout,), generator=gen, device=dev)
+        bias = torch.randn((cout,), generator=gen, device=dev)
         B, H, W, _ = xs
         m = B * ((H + 2 * pad - k) // stride + 1) * ((W + 2 * pad - k) // stride + 1)
         ops = 2.0 * m * cout * k * k * cin
         tag = f"x {xs} w {ws} s{stride}"
         t = time_call(f"int8_conv {tag}", lambda: q8.int8_conv2d(xq, wq, wsc, s, bias, stride, pad), ops, dev)
+
+        def pair_call():
+            codes, scale = q8.quantize(x, am)
+            return q8.int8_conv2d(codes, wq, wsc, scale, bias, stride, pad)
+
+        pair = time_call(f"quantize + int8_conv {tag}", pair_call, ops, dev)
+        act = time_call(f"int8_conv_act bf16 {tag}", lambda: q8.int8_conv2d_act(x, am, wq, wsc, bias, stride, pad),
+                        ops, dev)
+        act32 = time_call(f"int8_conv_act fp32 {tag}",
+                          lambda: q8.int8_conv2d_act(x32, am, wq, wsc, bias, stride, pad), ops, dev)
         lib = None
         if k == 1 and m > 16:
             a2, b2 = xq.reshape(m, cin), wq.reshape(cout, cin).t()
             lib = time_call(f"_int_mm {tag}", lambda: torch._int_mm(a2, b2), ops, dev)["graph_ms"]
+        b, b2 = conv_bound_ms(xs, ws, stride, pad), conv_bound_ms(xs, ws, stride, pad, 2)
         plan = q8.int8_conv_plan(B, H, W, cin, cout, k, stride, pad, sms)
-        b = conv_bound_ms(xs, ws, stride, pad)
-        pl = (f"mw={plan.mw} bn={plan.bn} splits={plan.splits} swap={plan.swap} tile={plan.tile} "
-              f"units={plan.units} stages={plan.stages}")
+        plan2 = q8.int8_conv_plan(B, H, W, cin, cout, k, stride, pad, sms, 2)
         print(f"[int8-times] conv {tag}: {t['graph_ms']:.4f} ms (events {t['events_ms']:.4f}), bound {b:.4f} ms, "
               f"{100 * b / t['graph_ms']:.1f}% of bound, {ops / t['graph_ms'] / 1e9:.1f} TOP/s; _int_mm {lib}; "
-              f"plan {pl}", flush=True)
-        del xq, wq
+              f"plan {_plan_text(plan)}", flush=True)
+        print(f"[int8-times] pair vs act {tag}: quantize + conv {pair['graph_ms']:.4f} ms; act bf16 "
+              f"{act['graph_ms']:.4f} ms (events {act['events_ms']:.4f}), bound {b2:.4f} ms (bf16 read once), "
+              f"{100 * b2 / act['graph_ms']:.1f}% of bound, {pair['graph_ms'] / act['graph_ms']:.3f}x the pair; "
+              f"act fp32 {act32['graph_ms']:.4f} ms; plan bf16 {_plan_text(plan2)}", flush=True)
+        del x, x32, xq, wq
     for shape in ABSMAX:
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         t = time_call(f"absmax {shape}", lambda: q8.absmax(x), 0.0, dev)
@@ -118,7 +153,13 @@ def time_int8(dev: torch.device, seed: int = 0) -> None:
 
 
 def kind_of(name: str) -> str:
+    """A profiled kernel's kind; the conv's act form (its last template
+    argument, the activations' element size, 2 or 4) apart from its codes-in
+    form (1)."""
     low = name.lower()
+    m = re.search(r"int8_conv_kernel(?:<[^>]*?(\d)\s*>|ili\d+eli\d+elb\d+eli(\d)e)", low)  # demangled, mangled
+    if m:
+        return "int8_conv_act" if (m.group(1) or m.group(2)) in ("2", "4") else "int8_conv_nhwc"
     return next((kind for kind, keys in KINDS if any(k in low for k in keys)), "other")
 
 

@@ -16,8 +16,9 @@ logits their values are ~0.02, so the elementwise atol alone would let a
 dropped key tile pass), the P2 row sum within 2e-2 relative; a guided
 inversion step's latent gradient within 2e-2 (relative norm) of the plain
 path's; PSNR and SSIM within 1e-5 of the CPU's and LPIPS within 1e-4
-relative; the int8 conv, quantize and absmax bit-equal to their plain
-versions, and across CUDA-graph replays. This file imports no jax, so it
+relative; the int8 conv (codes in, and its act form that quantizes in
+shared memory), quantize and absmax bit-equal to their plain versions, and
+across CUDA-graph replays. This file imports no jax, so it
 runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -1421,6 +1422,67 @@ def test_int8_kernels_refuse_a_scratch_too_small(rng, cuda):
     rc = lib.absmax(x.data_ptr(), 1, x.numel(), out.data_ptr(), small.data_ptr(), 32, sms, stream)
     assert rc != 0
     torch.cuda.synchronize()
+
+
+def _act_input(rng, xs, dtype, dev):
+    """Activations whose absmax is 127/64 (s = 1/64 exactly) and a quarter
+    of whose values are exact halves (k + 1/2) / 64: ties, which go to the
+    even code, where x * (1 / s) lands exactly on the half."""
+    x = np.clip(rng.standard_normal(xs) * 0.5, -1.9, 1.9).astype(np.float32)
+    ties = (rng.integers(-127, 127, xs) + 0.5) / 64
+    x = np.where(rng.random(xs) < 0.25, ties, x).astype(np.float32)
+    x.reshape(-1)[7] = 127 / 64
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", list(INT8_CASES))
+def test_int8_conv_act_bit_equal_to_plain(rng, cuda, case, act):
+    """The act form (codes made in shared memory) at every plan form, bf16
+    and fp32 activations: dynamic (ties included), and static at half the
+    absmax (codes saturate), bit for bit ``quantize_plain`` then
+    ``int8_conv2d_plain``: the int32 accumulator, fp32 and bf16 outputs."""
+    xs, ws, stride, pad = INT8_CASES[case]
+    x = _act_input(rng, xs, act, cuda)
+    _, wq, wsc, _, bias = _int8_args(rng, xs, ws, cuda)
+    n0 = q8.int8_conv2d_act.launches
+    am = q8.absmax(x)
+    assert am.item() == 127 / 64
+    for mode, a in (("dynamic", am), ("static half", am * 0.5)):
+        acc = q8.int8_conv2d_act_plain(x, a, wq, wsc, bias, stride, pad, torch.int32)
+        s = q8.act_scale_plain(a)
+        for dt in (torch.int32, torch.float32, torch.bfloat16):
+            got = q8.int8_conv2d_act(x, a, wq, wsc, bias, stride, pad, dt)
+            want = q8._epilogue(acc, wsc, s, bias, dt).contiguous()
+            torch.cuda.synchronize()
+            assert got.dtype == dt and torch.equal(got, want), (case, mode, dt)
+    assert q8.int8_conv2d_act.launches == n0 + 6
+
+
+def test_int8_conv_act_split_graph_replays_and_linear(rng, cuda):
+    """The act form at SD's split 8^2 level: two graph replays bit-equal to
+    each other and to the plain version; and the Linear over (2, 77, 768)."""
+    xs, ws, stride, pad = INT8_CASES["sd 8^2 split"]
+    x = _act_input(rng, xs, torch.bfloat16, cuda)
+    _, wq, wsc, _, bias = _int8_args(rng, xs, ws, cuda)
+    am = torch.tensor(1.5, device=cuda)
+    run = lambda: q8.int8_conv2d_act(x, am, wq, wsc, bias, stride, pad, torch.bfloat16)
+    run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, out) and torch.equal(out, q8.int8_conv2d_act_plain(x, am, wq, wsc, bias, stride, pad))
+    xl = _act_input(rng, (2, 77, 768), torch.float32, cuda)
+    _, wl, wsl, _, bl = _int8_args(rng, (154, 1, 1, 768), (320, 1, 1, 768), cuda)
+    n0 = q8.int8_linear_act.launches
+    got = q8.int8_linear_act(xl, am, wl, wsl, bl, torch.float32)
+    want = q8.int8_conv2d_act_plain(xl.reshape(154, 1, 1, 768), am, wl, wsl, bl, 1, 0, torch.float32)
+    assert got.shape == (2, 77, 320) and torch.equal(got.reshape(want.shape), want)
+    assert q8.int8_linear_act.launches == n0 + 1
 
 
 # ---------------------------------------------- the modules with no TPU kernel of their own

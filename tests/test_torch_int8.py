@@ -7,6 +7,10 @@ converted parameters through both packages:
 
 * weight codes and scales, and activation codes (exact ties included),
   bit-equal to JAX's;
+* the act form (the conv that quantizes its own activations: one launch on
+  the card) bit-equal to the two-step plain form and within one ulp of
+  JAX's layers, bf16 and fp32 inputs, dynamic and static; the model paths
+  run the two-launch form, bit-equal to the act form;
 * single layers (3x3 stride 1 and 2, 1x1, and the Linear) against
   ``dynamic_int8_conv``, ``static_int8_conv`` and ``Int8Dense``, fp32,
   within one ulp of max|y|;
@@ -183,6 +187,112 @@ def test_int8_linear_matches_int8_dense(rng, mode):
         layer.__dict__["_x_absmax"] = torch.tensor(2.0)
     got = q8.linear(layer, torch.from_numpy(x), torch.float32)
     assert got.shape == (2, 5, 24) and _max_ulp(got, want, torch.float32) <= 1.0
+
+
+# (x shape, kernel size or None for Int8Dense, stride, padding): the act form's plan forms
+ACT_CASES = {
+    "3x3 s1 bf16 dynamic": ((2, 9, 10, 32), 3, 1, 1, "bf16", "dynamic"),
+    "3x3 s1 fp32 static half": ((2, 9, 10, 32), 3, 1, 1, "fp32", "static"),
+    "3x3 s2 bf16 static half": ((2, 9, 10, 32), 3, 2, 1, "bf16", "static"),
+    "3x3 s2 fp32 dynamic": ((2, 9, 10, 32), 3, 2, 1, "fp32", "dynamic"),
+    "1x1 gemm fp32 dynamic": ((2, 9, 10, 64), 1, 1, 0, "fp32", "dynamic"),
+    "1x1 gemm bf16 static half": ((2, 9, 10, 64), 1, 1, 0, "bf16", "static"),
+    "swapped M=30 3x3 bf16 dynamic": ((1, 5, 6, 32), 3, 1, 1, "bf16", "dynamic"),
+    "dense M=16 fp32 static half": ((2, 8, 48), None, 1, 0, "fp32", "static"),
+    "dense M=16 bf16 dynamic": ((2, 8, 48), None, 1, 0, "bf16", "dynamic"),
+}
+
+
+@pytest.mark.parametrize("case", list(ACT_CASES))
+def test_int8_conv_act_equals_the_two_step_form_and_jax(rng, case):
+    """``int8_conv2d_act`` / ``int8_linear_act`` (on the card one launch that
+    quantizes in shared memory) against ``quantize_plain`` then
+    ``int8_conv2d_plain`` bit for bit, and against JAX's
+    ``dynamic_int8_conv`` / ``static_int8_conv`` / ``Int8Dense`` on the same
+    numpy inputs within one ulp of max|y| (fp32 out). Static runs at half
+    the dynamic absmax, so codes saturate."""
+    xs, k, stride, pad, dt, mode = ACT_CASES[case]
+    jd, td = DTYPES[dt]
+    x = np.asarray(jnp.asarray(rng.standard_normal(xs).astype(np.float32), jd).astype(jnp.float32))
+    cin, cout = xs[-1], 24
+    absmax = np.float32(np.abs(x).max() * 0.5)
+    xt = torch.from_numpy(x).to(td)
+    am = q8.absmax(xt) if mode == "dynamic" else torch.tensor(absmax)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    if k is None:  # a Linear over the last axis: Int8Dense
+        mod = ji.Int8Dense(cout)  # fp32 out; the input is bf16 where dt is
+        kernel = (rng.standard_normal((cin, cout)) * 0.1).astype(np.float32)
+        variables = {"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(b)}}
+        if mode == "static":
+            variables["quant"] = {"x_absmax": jnp.float32(absmax)}
+        want = np.asarray(mod.apply(variables, jnp.asarray(x, jd)).astype(jnp.float32))
+        wq, ws = q8.quantize_weight(torch.from_numpy(kernel).T.contiguous())
+        got = q8.int8_linear_act(xt, am, wq, ws, torch.from_numpy(b), torch.float32)
+        xq, s = q8.quantize_plain(xt.reshape(-1, 1, 1, cin), am)
+        two = q8.int8_conv2d_plain(xq, wq, ws, s, torch.from_numpy(b), 1, 0, torch.float32).reshape(got.shape)
+    else:
+        w = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+        args = (jnp.asarray(x, jd), jnp.asarray(w), jnp.asarray(b))
+        pads = ((pad, pad), (pad, pad))
+        want = (ji.dynamic_int8_conv(*args, (stride, stride), pads) if mode == "dynamic"
+                else ji.static_int8_conv(*args, jnp.asarray(absmax), (stride, stride), pads))
+        wq, ws = q8.quantize_weight(torch.from_numpy(w).permute(3, 2, 0, 1).contiguous())
+        got = q8.int8_conv2d_act(xt, am, wq, ws, torch.from_numpy(b), stride, pad, torch.float32)
+        xq, s = q8.quantize_plain(xt, am)
+        two = q8.int8_conv2d_plain(xq, wq, ws, s, torch.from_numpy(b), stride, pad, torch.float32)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, two)
+    assert _max_ulp(got, want, torch.float32) <= 1.0
+    acc = q8.int8_conv2d_act(xt.reshape(-1, 1, 1, cin) if k is None else xt, am, wq, ws, None,
+                             1 if k is None else stride, 0 if k is None else pad, torch.int32)
+    assert acc.dtype == torch.int32 and bool((acc.abs() <= 127 * 127 * wq[0].numel()).all())
+
+
+def test_model_paths_run_the_pair_and_equal_the_act_form(pixel, sd, monkeypatch):
+    """The pixel and SD U-Nets' int8 forwards, dynamic and static, run the
+    two-launch form (``quantize`` then ``int8_conv2d``, once a layer) and
+    never the act form, which is slower on the card at every path shape; the
+    same forwards with ``conv`` and ``linear`` through the act form are bit
+    for bit the same."""
+    real = {name: getattr(q8, name) for name in ("quantize", "int8_conv2d", "int8_conv2d_act", "conv", "linear")}
+    calls = []
+
+    def counted(name):
+        return lambda *a, **kw: calls.append(name) or real[name](*a, **kw)
+
+    def act_conv(layer, x, dtype, stride=1, padding=1):
+        wq, ws = q8.layer_weight(layer)
+        am = layer.__dict__.get("_x_absmax")
+        return real["int8_conv2d_act"](x, q8.absmax(x) if am is None else am, wq, ws, q8._bias(layer), stride,
+                                       padding, dtype)
+
+    def act_linear(layer, x, dtype):
+        wq, ws = q8.layer_weight(layer)
+        am = layer.__dict__.get("_x_absmax")
+        return q8.int8_linear_act(x, q8.absmax(x) if am is None else am, wq, ws, q8._bias(layer), dtype)
+
+    for name in ("quantize", "int8_conv2d", "int8_conv2d_act"):
+        monkeypatch.setattr(q8, name, counted(name))
+    net = _pixel_port(pixel, torch.float32, int8=True)
+    unet = tsd.SDUNet(tsd.SDUNetConfig(**UCFG), dtype=torch.bfloat16, int8=True)
+    unet.load_state_dict(sd["sd"][0], strict=True)
+    runs = [(net, [torch.from_numpy(a) for a in pixel["inputs"]],
+             unet_quant_from_jax(pixel["jquant"], CFG["ch_mult"])),
+            (unet.eval(), [torch.from_numpy(a) for a in sd["inputs"]], sd_unet_quant_from_jax(sd["jquant"]))]
+    with torch.no_grad():
+        for model, args, quant in runs:
+            for q in (None, quant):
+                q8.load_quant(model, q)
+                calls.clear()
+                out = model(*args)
+                layers = len(q8.int8_layer_names(model))
+                assert calls.count("quantize") == calls.count("int8_conv2d") == layers == len(calls) // 2
+                monkeypatch.setattr(q8, "conv", act_conv)
+                monkeypatch.setattr(q8, "linear", act_linear)
+                act = model(*args)
+                monkeypatch.setattr(q8, "conv", real["conv"])
+                monkeypatch.setattr(q8, "linear", real["linear"])
+                assert bool(torch.isfinite(out.float()).all()) and torch.equal(out, act)
 
 
 # ------------------------------------------------------------------ teacher-forced U-Nets

@@ -7,7 +7,8 @@ B = 1, SD-1.5's timed shapes at 64x64 latents with CFG, the adapter's
 8-token and CLIP's 77-token context projections), on a card of 132 SMs and
 on one of 8, every output tile is walked once, every K step of a tile once,
 the ring fits the block's shared memory, and the operands swap exactly where
-M <= 64. At small shapes, the plan's K slices of the plain version's
+M <= 64; the act form's plans (bf16 and fp32 activations, whose windows make
+the stages larger) too. At small shapes, the plan's K slices of the plain version's
 arithmetic, summed in int64, give its int32 accumulator bit for bit.
 """
 
@@ -33,16 +34,49 @@ CONTEXT = [((rows, 1, 1, 768), (cout, 1, 1, 768), 1, 0) for rows in (16, 154) fo
 SHAPES = PIXEL16 + PIXEL1 + SD_TIMED + CONTEXT
 
 
-def _plan(xs, ws, stride, pad, sms):
+def _plan(xs, ws, stride, pad, sms, act=1):
     B, H, W, cin = xs
     cout, k, _, _ = ws
-    return q8.int8_conv_plan(B, H, W, cin, cout, k, stride, pad, sms)
+    return q8.int8_conv_plan(B, H, W, cin, cout, k, stride, pad, sms, act)
 
 
 @pytest.mark.parametrize("sms", [132, 8])
 @pytest.mark.parametrize("xs,ws,stride,pad", SHAPES, ids=[f"{a}-{b}-s{c}" for a, b, c, _ in SHAPES])
 def test_plan_covers_every_tile_and_k_step_once(xs, ws, stride, pad, sms):
     pl = _plan(xs, ws, stride, pad, sms)
+    _check_covers(pl, xs, ws, stride, pad, sms)
+    # the ring fits the block, as the kernel's Cfg computes it
+    assert pl.stages == q8.ring_stages(pl.mw, pl.bn) >= 2
+    assert q8.smem_bytes(pl.mw, pl.bn) <= q8.SMEM_LIMIT
+    assert (pl.mw == 1 and pl.bn in q8.SWAP_BN) if pl.swap else (pl.mw, pl.bn) in q8.TILES
+    assert pl.mw * pl.bn // 2 <= 128  # accumulators a thread
+
+
+@pytest.mark.parametrize("act", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("xs,ws,stride,pad", SHAPES, ids=[f"{a}-{b}-s{c}" for a, b, c, _ in SHAPES])
+def test_act_plan_fits_and_covers_every_tile_and_k_step_once(xs, ws, stride, pad, act):
+    """Every plan of the act form (bf16 or fp32 activations quantized in
+    shared memory), the chosen one among them: a stage holds ``act``
+    128-byte boxes of the window beside the weights, so the ring is shorter;
+    it still keeps two stages or more, fits the block, and walks every
+    output tile and K step once. fp32 windows run 128-row tiles only (a
+    256-row one leaves no second stage)."""
+    plans = [p for _, p in q8.int8_conv_plans(*xs, ws[0], ws[1], stride, pad, 132, act)]
+    assert _plan(xs, ws, stride, pad, 132, act) in plans
+    for pl in plans:
+        assert pl.act == act
+        _check_covers(pl, xs, ws, stride, pad, 132)
+        assert (pl.mw == 1 and pl.bn in q8.SWAP_BN) if pl.swap else (pl.mw, pl.bn) in q8.TILES
+        assert act == 2 or pl.mw == 1
+        x_rows, w_rows = (pl.bn, 128) if pl.swap else (128 * pl.mw, pl.bn)
+        assert q8.stage_bytes(pl.mw, pl.bn, pl.swap, act) == (act * x_rows + w_rows) * q8.KSTEP
+        assert pl.stages == q8.ring_stages(pl.mw, pl.bn, pl.swap, act) >= 2
+        assert q8.smem_bytes(pl.mw, pl.bn, pl.swap, act) <= q8.SMEM_LIMIT
+
+
+def _check_covers(pl, xs, ws, stride, pad, sms):
+    """Every output tile once, each with every K step once, in the plan's
+    view of the output; the tile's shape within TMA's box limits."""
     B, H, W, cin = xs
     cout, k, _, _ = ws
     ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
@@ -67,11 +101,6 @@ def test_plan_covers_every_tile_and_k_step_once(xs, ws, stride, pad, sms):
     assert sorted({n for _, n in where.values()}) == list(range(0, cout, pl.n_width))
     assert len(where) == len(set(where.values())) == pl.m_tiles * pl.n_tiles == len(grid) * -(-cout // pl.n_width)
     assert all(sorted(ks) == list(range(pl.k_steps)) for ks in steps.values())
-    # the ring fits the block, as the kernel's Cfg computes it
-    assert pl.stages == q8.ring_stages(pl.mw, pl.bn) >= 2
-    assert q8.smem_bytes(pl.mw, pl.bn) <= q8.SMEM_LIMIT
-    assert (pl.mw == 1 and pl.bn in q8.SWAP_BN) if pl.swap else (pl.mw, pl.bn) in q8.TILES
-    assert pl.mw * pl.bn // 2 <= 128  # accumulators a thread
 
 
 def test_plan_splits_the_small_sd_levels_and_not_the_pixel_path():

@@ -8,6 +8,7 @@ self-check probe does here: ``matches_zstandard`` must then agree with the
 JAX engine's ``_self_check``). Across engines the decoded codes are equal."""
 
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -85,6 +86,38 @@ def test_self_check_agrees_with_jax(nc, monkeypatch):
     q = _codes(3, n=2)
     assert bitstream.compress_frame(q[0].tobytes()) == nc.compress_frame(q[0].tobytes())
     np.testing.assert_array_equal(bitstream.decompress_frame(nc.compress_frame(q[1].tobytes())), q[1])
+
+
+FAKE_ZSTD = """
+#include <stddef.h>
+unsigned ZSTD_versionNumber(void) { return 99999; }
+size_t ZSTD_compress(void* d, size_t dc, const void* s, size_t n, int level) { return (size_t)-1; }
+"""
+
+
+def test_frames_use_the_linked_libzstd_whatever_was_loaded_before(nc, tmp_path):
+    """A library loaded earlier with RTLD_GLOBAL that exports other zstd
+    symbols (as TensorFlow's does, zstd 1.5.7, once ``torch.utils.tensorboard``
+    has imported it) does not change which libzstd the codec calls: in a
+    fresh process that loads such a stand-in first, the codec reports the
+    version it reports here and frames as it frames here."""
+    import subprocess
+    import sys
+
+    src = tmp_path / "fake_zstd.c"
+    src.write_text(FAKE_ZSTD)
+    fake = tmp_path / "libfake_zstd.so"
+    subprocess.run(["cc", "-shared", "-fPIC", "-o", str(fake), str(src)], check=True)
+    probe = _codes(6, n=1)[0].tobytes()
+    script = (
+        "import ctypes, sys\n"
+        f"ctypes.CDLL({str(fake)!r}, mode=ctypes.RTLD_GLOBAL)\n"
+        "from clip_codec_tpu_torch.io import native\n"
+        "c = native.codec()\n"
+        f"print(c.zstd_version, c.compress_frame({probe!r}).hex())\n")
+    out = subprocess.run([sys.executable, "-c", script], check=True, capture_output=True, text=True,
+                         cwd=str(Path(__file__).resolve().parents[1])).stdout.split()
+    assert out == [nc.zstd_version, nc.compress_frame(probe).hex()]
 
 
 def test_batch_decodes_frames_of_either_engine(nc, monkeypatch):
