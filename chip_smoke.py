@@ -208,8 +208,11 @@ lets XLA fuse the u8 -> f32 convert into the dot of ``_u8_search_jit``,
    1e-5 of the plain version, the copies of one row bit-identical; ms by
    CUDA-graph replay and events, plain ms, ``torch.matmul`` (or the fp32
    IVF's einsum) of the fp32 dequantized matrix for scale, and the bound
-   (codes and inv read once, scores written once, over 3.35 TB/s; 2 Q N D
-   over 67 TFLOP/s fp32). 19b: ``U8FlatIPIndex`` against ``FlatIPIndex``
+   (codes and inv read once, scores written once, over 3.35 TB/s, or the
+   kernel's products, three bf16 parts of the query, 3 x 2 Q N D over 989
+   TFLOP/s; beside it an fp32 scan's 2 Q N D over 67 TFLOP/s), and how each
+   probe's pairs fall on the lists and the kernel's blocks
+   (``index_times.probe_skew``). 19b: ``U8FlatIPIndex`` against ``FlatIPIndex``
    over the dequantized, renormalized matrix at N = 1M, k = 10, Q = 1 and
    64: sorted scores within 1e-5, ids equal wherever neighbouring scores
    differ by more than 1e-5 (near-tie places counted), one kernel launch a
@@ -481,8 +484,9 @@ shapes with phase 26's CLI steps' launches, ``"phase": 26``); K2 and K3 once mor
 phase 25's launches (25b's two decompresses and 25d's DDPM runs,
 ``"phase": 25``, beside the first path shape's timed numbers); ``bound_ms``: the
 largest of the bytes each kernel must move over 3.35 TB/s, its flops over
-989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak, or 67 TFLOP/s,
-its fp32 rate outside the tensor cores, for K1 and the u8 kernels, and,
+989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak (for the u8
+kernels their three-part bf16 products, 3 x 2 flops a query x code byte),
+or 67 TFLOP/s, its fp32 rate outside the tensor cores, for K1, and,
 for the attention kernels, its exponentials over the exp unit's 16 per
 clock per SM (or a polynomial exp2's instructions over the FMA pipe's 128
 lanes per clock per SM) at the card's SM count and maximum SM clock, at
@@ -500,6 +504,7 @@ import collections
 import contextlib
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -2619,15 +2624,24 @@ def _same_hits(tag, got, ref, k, tol=RET_NEAR):
 
 def _u8_bound(Q, N, D):
     """The u8 score's least time: codes and inv read once, scores written
-    once (qs, qz beside them); 2 Q N D fp32 operations."""
-    return bound(N * D + 4 * N + 4 * Q * N + 4 * Q * (D + 1), 2.0 * Q * N * D, FP32_FLOPS_PER_S)
+    once (qs, qz beside them) over HBM, or the kernel's products, three bf16
+    parts of the query (3 x 2 Q N D operations) over the tensor cores."""
+    return bound(N * D + 4 * N + 4 * Q * N + 4 * Q * (D + 1), 3 * 2.0 * Q * N * D)
 
 
 def _probe_bound(lists_used, cap, Q, nprobe, D):
     """The probe's least time: each probed list (codes and list_inv) read
-    once however many queries probe it, the probe ids, the scores written."""
+    once however many queries probe it, the probe ids, the scores written;
+    or its three-part bf16 products over the tensor cores."""
     nbytes = lists_used * cap * (D + 4) + 4 * Q * nprobe * (1 + cap) + 4 * Q * (D + 1)
-    return bound(nbytes, 2.0 * Q * nprobe * cap * D, FP32_FLOPS_PER_S)
+    return bound(nbytes, 3 * 2.0 * Q * nprobe * cap * D)
+
+
+def _fp32_fma_ms(shape):
+    """An fp32 scan's operations bound, beside the kernel's: one fp32
+    product a query x code byte (2 x the shape's product operations) over
+    67 TFLOP/s outside the tensor cores."""
+    return 2.0 * math.prod(shape) / FP32_FLOPS_PER_S * 1e3
 
 
 def phase_retrieval(torch, seed, dev, card):
@@ -2710,7 +2724,8 @@ def phase_retrieval(torch, seed, dev, card):
         print(f"kernel-check: {name} {tuple(shape)} max_abs_err={err:.3e} {n_copies} scores of copies of one row "
               f"bit-identical={ties} "
               f"ms={rec['ms']:.4f} (graph) events_ms={rec['events_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"fp32 matmul_ms={rec['matmul_ms']:.4f} bound_ms={b[0]:.4f} ({b[2]})")
+              f"fp32 matmul_ms={rec['matmul_ms']:.4f} bound_ms={b[0]:.4f} ({b[2]}; the fp32-FMA bound "
+              f"{_fp32_fma_ms(shape):.4f})")
         check(err <= RET_NEAR, f"{name} {shape}: {err:.3e} from plain (limit {RET_NEAR})")
         check(ties, f"{name} {shape}: duplicated rows score differently")
         records[name].append(rec)
@@ -2764,6 +2779,9 @@ def phase_retrieval(torch, seed, dev, card):
                    lambda: u8.u8_ip_probe_plain(*args),
                    _probe_bound(int(torch.unique(probe).numel()), iu8.lists.shape[1], nq, nprobe, it.D),
                    scale_call, ties_of)
+            skew = it.probe_skew(probe, iu8.nlist, iu8.lists.shape[1], torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+            print(f"retrieval-probe-skew: Q={nq} nprobe={nprobe}: {skew}")
     del lists32
 
     # 19b-19d, the path: every launch counted by shape

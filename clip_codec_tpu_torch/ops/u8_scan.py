@@ -11,17 +11,25 @@ all fp32 but the codes. With ``qs = q * scale``, ``qz = q . zero`` and
 renormalized row (``fold_query``), with the matrix left in uint8.
 
 On a CUDA tensor both launch the hand-written Hopper kernel in
-``csrc/u8_ip_scan.cu`` or raise; it reads each code byte from device memory
-once and sums a row in one fixed order wherever the row lies, so identical
-rows score bit-identically. The JAX package has no Pallas kernel here: XLA
-fuses the u8 -> f32 convert into the dot of ``_u8_search_jit``
-(``clip_codec_tpu/index/search.py:97``) and ``_ivf_u8_search``
-(``clip_codec_tpu/index/ivf.py:117``); ``codes.float() @ qs.T`` in PyTorch
-would write and read an (N, D) fp32 copy each search instead. On a CPU
-tensor they run the plain versions, ``torch.matmul`` over row chunks of at
-most ``CHUNK_ROWS`` rows, so no more than a chunk is ever held in fp32. Each
-wrapper counts its launches in ``.launches`` (calls recorded into a CUDA
-graph launch nothing and are not counted).
+``csrc/u8_ip_scan.cu`` or raise. It runs the products on the tensor cores
+(wgmma, bf16 in, fp32 accumulate) and still exactly: a code byte is exact in
+bf16, and the kernel splits each fp32 query value into three bf16 parts
+whose sum is the value, so every product is exact. Only the sums round:
+each 64-byte chunk's products from zero in the tensor cores, then the chunk
+partials in fp32 rounded to nearest, which errs less against float64 than
+the plain version's fp32 product. A row's sum runs in one order wherever the
+row lies and whatever Q is, so identical rows score bit-identically. Each
+code byte leaves device memory once a search (once a probed list in the
+probe, whose pairs the kernel groups by list itself with no host sync); a
+search is bytes-bound up to Q ~ 50. Any D. The JAX package has no Pallas
+kernel here: XLA fuses the u8 -> f32 convert into the dot of
+``_u8_search_jit`` (``clip_codec_tpu/index/search.py:97``) and
+``_ivf_u8_search`` (``clip_codec_tpu/index/ivf.py:117``); ``codes.float() @
+qs.T`` in PyTorch would write and read an (N, D) fp32 copy each search
+instead. On a CPU tensor they run the plain versions, ``torch.matmul`` over
+row chunks of at most ``CHUNK_ROWS`` rows, so no more than a chunk is ever
+held in fp32. Each wrapper counts its launches in ``.launches`` (calls
+recorded into a CUDA graph launch nothing and are not counted).
 """
 
 from __future__ import annotations
@@ -31,7 +39,6 @@ import ctypes
 from typing import Iterator, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .attention import _count, _launch_error
 
@@ -68,10 +75,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.u8_ip_scores.restype = I
         lib.u8_ip_probe.argtypes = [P] * 6 + [I] * 5 + [P]
         lib.u8_ip_probe.restype = I
-        lib.u8_ip_max_dim.argtypes = []
-        lib.u8_ip_max_dim.restype = I
-        lib.u8_ip_qs_stride.argtypes = [I]
-        lib.u8_ip_qs_stride.restype = I
         lib._typed = True
     return lib
 
@@ -87,14 +90,6 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device, align: int = 4) -> 
         raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
 
 
-def _padded_qs(lib, qs: torch.Tensor, D: int) -> torch.Tensor:
-    """qs with the zero columns the kernel reads past D, 16-byte aligned."""
-    if D > lib.u8_ip_max_dim():
-        raise ValueError(f"the kernel takes D <= {lib.u8_ip_max_dim()}, got {D}")
-    qp = F.pad(qs, (0, lib.u8_ip_qs_stride(D) - D)).contiguous()
-    return qp.clone() if qp.data_ptr() % 16 else qp
-
-
 def _launch_scores(codes, qs, qz, inv) -> torch.Tensor:
     if codes.device.type != "cuda":
         raise ValueError(f"u8_ip_scores needs a CUDA or CPU tensor, got {codes.device}")
@@ -107,11 +102,10 @@ def _launch_scores(codes, qs, qz, inv) -> torch.Tensor:
     _check("qz", qz, (Q,), torch.float32, dev)
     _check("inv", inv, (N,), torch.float32, dev)
     lib = _kernel_lib()
-    qp = _padded_qs(lib, qs, D)
     out = torch.empty((Q, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.u8_ip_scores(codes.data_ptr(), qp.data_ptr(), qz.data_ptr(), inv.data_ptr(), out.data_ptr(),
+        rc = lib.u8_ip_scores(codes.data_ptr(), qs.data_ptr(), qz.data_ptr(), inv.data_ptr(), out.data_ptr(),
                               N, D, Q, stream)
     if rc != 0:
         raise _launch_error("u8_ip_scores kernel", rc)
@@ -132,11 +126,10 @@ def _launch_probe(lists, list_inv, probe, qs, qz) -> torch.Tensor:
     _check("qs", qs, (Q, D), torch.float32, dev)
     _check("qz", qz, (Q,), torch.float32, dev)
     lib = _kernel_lib()
-    qp = _padded_qs(lib, qs, D)
     out = torch.empty((Q, nprobe, cap), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.u8_ip_probe(lists.data_ptr(), list_inv.data_ptr(), probe.data_ptr(), qp.data_ptr(), qz.data_ptr(),
+        rc = lib.u8_ip_probe(lists.data_ptr(), list_inv.data_ptr(), probe.data_ptr(), qs.data_ptr(), qz.data_ptr(),
                              out.data_ptr(), nlist, cap, D, Q, nprobe, stream)
     if rc != 0:
         raise _launch_error("u8_ip_probe kernel", rc)

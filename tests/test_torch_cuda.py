@@ -1137,8 +1137,8 @@ def _u8_inputs(rng, n, d, nq, dev):
 
 @pytest.mark.parametrize("n,d,nq", [(1000, 16, 1), (3000, 100, 3), (5000, 512, 64), (777, 512, 9), (300, 768, 2)])
 def test_u8_ip_scores_matches_plain(rng, cuda, n, d, nq):
-    """Both kernel forms (Q < 8 and Q >= 8), any D, ragged last tiles:
-    within 1e-5 of the plain version (fp32 FMA, another summation order)."""
+    """Product widths 16 and 64, any D, ragged last tiles: within 1e-5 of
+    the plain version (exact products, fp32 sums in another order)."""
     from clip_codec_tpu_torch.ops import u8_scan
 
     args = _u8_inputs(rng, n, d, nq, cuda)
@@ -1192,6 +1192,164 @@ def test_u8_duplicated_rows_score_bit_identically(rng, cuda):
     x = codes[7].float() / 255
     _, ids = idx.search(x / x.norm(), 10)
     assert ids[0].tolist() == sorted(set([7] + rows.tolist()))[:10]
+
+
+U8_QS = (1, 7, 8, 63, 64, 65, 200)  # widths 8 and 64 (16, 32 in the probes' groups), > 64, 128- to 512-row tiles
+U8_DS = (16, 50, 100, 512, 768, 2048)  # TMA, or not (50 and 100; 50 bytewise); past 1792
+
+
+@pytest.mark.parametrize("d", U8_DS)
+@pytest.mark.parametrize("nq", U8_QS)
+def test_u8_ip_scores_matches_plain_at_every_width(rng, cuda, nq, d):
+    """Every product width and query grouping, D with and without TMA, a
+    ragged last 512-row tile: within 1e-5 of the plain version."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    args = _u8_inputs(rng, 1037, d, nq, cuda)
+    got = u8_scan.u8_ip_scores(*args)
+    want = u8_scan.u8_ip_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (nq, 1037)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("d", [512, 2048])
+def test_u8_scores_err_against_float64_no_more_than_plain(rng, cuda, d):
+    """The products are exact and each 64-byte chunk's sum starts from zero
+    before the chunks are added in fp32 rounded to nearest: against a
+    float64 reference the kernel errs no more than the plain version's
+    cuBLAS fp32 product."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    codes, qs, qz, inv = _u8_inputs(rng, 4096, d, 64, cuda)
+    got = u8_scan.u8_ip_scores(codes, qs, qz, inv)
+    plain = u8_scan.u8_ip_scores_plain(codes, qs, qz, inv)
+    ref = (qs.double() @ codes.double().T + qz.double()[:, None]) * inv.double()[None, :]
+    assert (got.double() - ref).abs().max().item() <= (plain.double() - ref).abs().max().item()
+
+
+def _probe_case(rng, nq, d, nlist, cap, nprobe, dev):
+    """Lists, their inverse norms and a probe in which every query probes list
+    0, lists nlist - 2 and nlist - 1 are probed by none, and query 0's row
+    names one list twice."""
+    lists, qs, qz, inv = _u8_inputs(rng, nlist * cap, d, nq, dev)
+    probe = rng.integers(1, nlist - 2, (nq, nprobe)).astype(np.int32)
+    probe[:, 0] = 0
+    probe[0, nprobe - 1] = probe[0, 1]
+    return lists.view(nlist, cap, d), inv.view(nlist, cap), torch.from_numpy(probe).to(dev), qs, qz
+
+
+@pytest.mark.parametrize("d", U8_DS)
+@pytest.mark.parametrize("nq", U8_QS)
+def test_u8_ip_probe_matches_plain_at_every_width(rng, cuda, nq, d):
+    """The probe against its plain version within 1e-5 (a list every query
+    probes, lists none probes, a list named twice in one row, a cap of two
+    512-row tiles at D = 512), and each query's scores bit-equal to
+    u8_ip_scores over the same rows."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    cap = 700 if d == 512 else 300
+    lists, inv, probe, qs, qz = _probe_case(rng, nq, d, 9, cap, 3, cuda)
+    got = u8_scan.u8_ip_probe(lists, inv, probe, qs, qz)
+    want = u8_scan.u8_ip_probe_plain(lists, inv, probe, qs, qz)
+    torch.cuda.synchronize()
+    assert got.shape == (nq, 3, cap)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got[0, 1], got[0, 2])
+    for q in (0, nq - 1):
+        sel = probe[q].long()
+        flat = u8_scan.u8_ip_scores(lists[sel].reshape(-1, d).contiguous(), qs[q:q + 1].contiguous(),
+                                    qz[q:q + 1].contiguous(), inv[sel].reshape(-1).contiguous())
+        assert torch.equal(got[q].reshape(1, -1), flat)
+
+
+@pytest.mark.parametrize("nq,nprobe", [(101, 400), (4, 8)])
+def test_u8_ip_probe_over_many_lists(rng, cuda, nq, nprobe):
+    """40,000 lists of 16 rows. Probed 40,400 times, the items are the lists'
+    tiles: each block owns about 300, past the 256 it buckets at a time (a
+    second window, counted again) and past the 4096 lists whose bucket a
+    shared-memory table holds. Probed 32 times (at most 128), the items are
+    the probed pairs' tiles. Against plain within 1e-5."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    lists, inv, probe, qs, qz = _probe_case(rng, nq, 16, 40_000, 16, nprobe, cuda)
+    probe.copy_(torch.from_numpy(rng.integers(0, 40_000, (nq, nprobe)).astype(np.int32)))
+    got = u8_scan.u8_ip_probe(lists, inv, probe, qs, qz)
+    want = u8_scan.u8_ip_probe_plain(lists, inv, probe, qs, qz)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_u8_ip_probe_one_query_naming_a_list_many_times(rng, cuda):
+    """Q = 2 (256-row tiles) with every one of 80 slots naming list 3: groups
+    of 64 and 32 columns (and 16 for the other query's lists) over a cap of
+    700 rows, against plain within 1e-5, every slot's scores equal."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    lists, inv, probe, qs, qz = _probe_case(rng, 2, 512, 9, 700, 80, cuda)
+    probe[0] = 3
+    got = u8_scan.u8_ip_probe(lists, inv, probe, qs, qz)
+    want = u8_scan.u8_ip_probe_plain(lists, inv, probe, qs, qz)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got[0], got[0, :1].expand_as(got[0]))
+
+
+@pytest.mark.parametrize("nlist,lists", [(5, (0, 0)), (200, (0, 132))])
+def test_u8_ip_probe_lists_with_more_pairs_than_the_buckets_hold(rng, cuda, nlist, lists):
+    """Every slot of 1700 queries names list 0 (3400 pairs, past the 2048 a
+    block buckets at once: ordered passes of 256 pairs), or one slot names
+    list 0 and the other list 132 (on a 132-SM card one block holds both:
+    two batches of buckets): against plain within 1e-5."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    lists_, inv, probe, qs, qz = _probe_case(rng, 1700, 64, nlist, 64, 2, cuda)
+    probe[:, 0], probe[:, 1] = lists
+    got = u8_scan.u8_ip_probe(lists_, inv, probe, qs, qz)
+    want = u8_scan.u8_ip_probe_plain(lists_, inv, probe, qs, qz)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_u8_query_scores_do_not_depend_on_the_batch(rng, cuda):
+    """A query's scores are bit-equal alone (product width 16), in a batch of
+    20 (32) and of 200 (64, four groups): one arithmetic at every Q."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    codes, qs, qz, inv = _u8_inputs(rng, 3000, 512, 200, cuda)
+    every = u8_scan.u8_ip_scores(codes, qs, qz, inv)
+    some = u8_scan.u8_ip_scores(codes, qs[:20].contiguous(), qz[:20].contiguous(), inv)
+    assert torch.equal(some, every[:20])
+    for q in (0, 19, 130, 199):
+        alone = u8_scan.u8_ip_scores(codes, qs[q:q + 1].contiguous(), qz[q:q + 1].contiguous(), inv)
+        assert torch.equal(alone, every[q:q + 1])
+
+
+def test_u8_graph_replays_are_bit_equal(rng, cuda):
+    """Both entry points captured in one CUDA graph: two replays bit-equal to
+    each other and to eager calls (the probe's grouping needs no host sync)."""
+    from clip_codec_tpu_torch.ops import u8_scan
+
+    codes, qs, qz, inv = _u8_inputs(rng, 5000, 512, 64, cuda)
+    lists, linv, probe, pqs, pqz = _probe_case(rng, 64, 512, 12, 370, 8, cuda)
+    calls = (lambda: u8_scan.u8_ip_scores(codes, qs, qz, inv),
+             lambda: u8_scan.u8_ip_probe(lists, linv, probe, pqs, pqz))
+    eager = [f() for f in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in calls:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [f() for f in calls]
+    graph.replay()
+    first = [o.clone() for o in outs]
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, e in zip(first, outs, eager):
+        assert torch.equal(a, b) and torch.equal(a, e)
 
 
 def test_ivf_builds_are_bit_equal_on_the_card(rng, cuda):
