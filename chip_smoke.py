@@ -317,19 +317,29 @@ self-attention, never K2 or K6):
    its bound (int8 operations over 1,979 TOP/s, or bytes: the act form's
    read of bf16 activations), ``torch._int_mm``
    for the GEMMs, ``torch.linalg.vector_norm(x, inf)`` for absmax, and
-   cuDNN's bf16 conv for scale. 22b: ``cli.export_decoder --int8`` from
+   cuDNN's bf16 conv for scale; K1's codes-out form
+   (``group_norm_silu_int8``) at the four pixel GroupNorm shapes at B = 16,
+   bf16 and fp32, at the output's absmax, half of it and a power-of-two s: codes and scale
+   bit-equal to K1 then ``int8_quantize``, the scale bit-equal and the codes
+   within one of its plain version (whose SiLU is exact), two graph replays
+   bit-equal, timed in bf16 beside that pair and K1 alone with its bytes
+   bound, and both again at the power-of-two s. 22b: ``cli.export_decoder --int8`` from
    phase 4's checkpoint at its defaults with ``--output uint8`` (the
    artifact and ``<artifact>.quant.pt``); its replay (exactly 31 x 50 int8
-   convs and quantize passes, 28 x 50 K1, 50 K3, no absmax, act form, K2 or
-   K6) bit-equal across a seed and to its own eager int8 sampler from the
-   same x_T; one static-int8 forward's eps bit-equal to the act form's and
+   convs, 28 x 50 ``group_norm_silu_int8`` and 3 x 50 quantize passes, no
+   K1, 50 K3, no absmax, act form, K2 or K6) bit-equal across a seed, to
+   its own eager int8 sampler from the same x_T and to the replay of the
+   path before the codes-out form (K1, then ``int8_quantize``: a
+   decompressor captured under that dispatch, the two timed in turns); one
+   static-int8 forward's eps bit-equal to the act form's (every layer) and
    against the bf16 forward's; a start-up
    without the sidecar stops with JAX's message naming it; then ``serve``
    behind the artifact answers 64 /decompress from 32 clients (img/s,
    p50/p95 beside phase 20c's bf16 artifact), launches exact. 22c:
    ``cli.reconstruct_diffusion --int8`` beside the bf16 CLI (calibration:
-   3 fp passes, 28 K1 and one K3 each); ``serve --int8`` with no artifact,
-   one /decompress (dynamic: 31 absmax a forward too);
+   3 fp passes, 28 K1 and one K3 each; then the static forwards of 22b);
+   ``serve --int8`` with no artifact, one /decompress (dynamic: 28 K1, 31
+   quantize passes and 31 absmax a forward);
    ``cli.reconstruct_sd_diffusion --int8 --inv_weight 0`` (6 fp calibration
    passes, then ddim-30: every int8 layer of the UNet once a forward, 10
    K4, no K6) and the SD int8 artifact from ``cli.export_decoder --sd
@@ -470,7 +480,8 @@ u8_ip_probe: one record per timed shape with its launches in phase 19b-19d
 (0 at the check-only D = 100 shape); the int8 kernels one record per
 timed phase 22a shape with its launches by shape over 22b's HTTP run and
 22c (``"phase": 22``; the act form's by both activation kinds: 0, as no
-path runs it); K4, the K5 pair and K6 once more with
+path runs it; K1's codes-out form one record per pixel GroupNorm shape at
+B = 16, ``library_ms`` null, the pair it replaces beside it); K4, the K5 pair and K6 once more with
 phase 21's launches (21b's CLI training plus 21c's CLI request, ``"phase":
 21``, beside the timed record's numbers: K4's and K6's first shape, K5's
 (1, 4096, 512)); K1, K2, K3, K4, the K5 pair, K6 and ``u8_ip_scores`` once more
@@ -554,6 +565,10 @@ KERNELS = {  # name -> (library, TPU kernel it replaces)
     "int8_quantize": ("int8_conv", "clip_codec_tpu/ops/int8.py:68, clip_codec_tpu/ops/int8.py:96, "
                                    "clip_codec_tpu/ops/int8.py:200"),
     "absmax": ("int8_conv", "clip_codec_tpu/ops/int8.py:67, clip_codec_tpu/ops/int8.py:198"),
+    # K1's codes-out form: K1, and the static codes of the conv after it (an XLA expression in JAX)
+    "group_norm_silu_int8": ("groupnorm_silu", "clip_codec_tpu/ops/pallas_groupnorm.py:53, "
+                                               "clip_codec_tpu/ops/pallas_groupnorm.py:69, "
+                                               "clip_codec_tpu/ops/int8.py:96"),
 }
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12  # H100 SXM: HBM3 rate, dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -3591,10 +3606,12 @@ def phase_dino_inversion(torch, attn, mlp, seed, dev, card, weights, store, fina
 # ------------------------------------------------------------ int8 serving (phase 22)
 
 
-Q8_KERNELS = ("int8_conv_act", "int8_conv_nhwc", "int8_quantize", "absmax")
+Q8_KERNELS = ("int8_conv_act", "int8_conv_nhwc", "int8_quantize", "absmax", "group_norm_silu_int8")
 Q8_OFF_PATH = ("int8_conv_act",)  # checked and timed in 22a; no model path launches it
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 PX_INT8_LAYERS = 31  # 28 ResBlock convs + 3 downsample convs
+# K1's codes-out form at the pixel artifact's four GroupNorm shapes (B = 16, 8 groups): (H, W, C)
+GN_INT8_SHAPES = GN_SHAPES
 CLIP_TEXT_TOKENS = 77  # to_k/to_v also checked on a CLIP text context
 # 22a times these and checks every other shape only: the pixel artifact's seven conv shapes at B = 16, and of SD-1.5
 # (64x64 latents, CFG batched) each level's ResBlock 3x3 conv, to_q, the GEGLU projection, the MLP's
@@ -3610,6 +3627,7 @@ def q8_launches(q8, gn, rc, attn, mlp) -> dict:
     return {"int8_conv_act": q8.int8_conv2d_act.launches, "int8_conv_nhwc": q8.int8_conv2d.launches,
             "int8_quantize": q8.quantize.launches,
             "absmax": q8.absmax.launches, "group_norm_silu": gn.group_norm_silu.launches,
+            "group_norm_silu_int8": gn.group_norm_silu_int8.launches,
             "affine_silu_conv3x3": rc.affine_silu_conv3x3.launches, "affine_conv3x3": rc.affine_conv3x3.launches,
             "flash_attention": attn.flash_attention_fwd.launches, "mlp_up": mlp.mlp_up.launches,
             "mlp_down": mlp.mlp_down.launches}
@@ -3617,18 +3635,20 @@ def q8_launches(q8, gn, rc, attn, mlp) -> dict:
 
 def reset_q8_launches(q8, gn, rc, attn, mlp) -> None:
     for wrapper in (q8.int8_conv2d_act, q8.int8_linear_act, q8.int8_conv2d, q8.quantize, q8.absmax,
-                    gn.group_norm_silu):
+                    gn.group_norm_silu, gn.group_norm_silu_int8):
         wrapper.launches = 0
     reset_launches(rc)
     reset_sd_launches(attn, mlp)
 
 
-def q8_forward(layers: int, dynamic: bool = False, k1: int = 0, k3: int = 0, k4: int = 0) -> dict:
-    """The launches of one int8 forward: a quantize and a conv per int8 layer
-    (and an absmax when dynamic), K1 and K3 in the pixel U-Net, K4 in the SD
-    UNet's self-attention, never the act form, K2 or K6."""
-    return {"int8_conv_act": 0, "int8_conv_nhwc": layers, "int8_quantize": layers,
-            "absmax": layers if dynamic else 0,
+def q8_forward(layers: int, dynamic: bool = False, k1: int = 0, k3: int = 0, k4: int = 0,
+               codes_out: int = 0) -> dict:
+    """The launches of one int8 forward: a conv per int8 layer on codes from
+    a quantize pass (and an absmax when dynamic) or, for ``codes_out`` of
+    them, from K1's codes-out form; K1 and K3 in the pixel U-Net, K4 in the
+    SD UNet's self-attention, never the act form, K2 or K6."""
+    return {"int8_conv_act": 0, "int8_conv_nhwc": layers, "int8_quantize": layers - codes_out,
+            "absmax": layers if dynamic else 0, "group_norm_silu_int8": codes_out,
             "group_norm_silu": k1, "affine_silu_conv3x3": 0, "affine_conv3x3": k3, "flash_attention": k4,
             "mlp_up": 0, "mlp_down": 0}
 
@@ -3643,14 +3663,15 @@ def combined(*terms) -> dict:
 
 
 @contextlib.contextmanager
-def q8_tally(torch, q8):
+def q8_tally(torch, q8, gn):
     """The int8 kernels' launches by shape: the conv by (xq shape, wq shape,
     stride, padding), the act form by (x shape, wq shape, stride, padding,
-    x's dtype), quantize and absmax by x's shape. Eager launches land in
-    ["eager"], calls a CUDA-graph capture records in ["captured"]
-    (``fold_captured`` multiplies them by the replays)."""
+    x's dtype), quantize and absmax by x's shape as (rows, channels), K1's
+    codes-out form by x's shape. Eager launches land in ["eager"], calls a
+    CUDA-graph capture records in ["captured"] (``fold_captured`` multiplies
+    them by the replays)."""
     tally = {"eager": collections.Counter(), "captured": collections.Counter()}
-    saved = q8._launch_conv, q8._launch_quantize, q8._launch_absmax, q8._launch_conv_act
+    saved = q8._launch_conv, q8._launch_quantize, q8._launch_absmax, q8._launch_conv_act, gn._launch_int8
 
     def counted(fn, key):
         def run(*a):
@@ -3664,10 +3685,11 @@ def q8_tally(torch, q8):
     q8._launch_absmax = counted(saved[2], lambda x: ("absmax", rows(x.shape)))
     q8._launch_conv_act = counted(saved[3], lambda x, am, wq, *rest: (
         "int8_conv_act", (tuple(x.shape), tuple(wq.shape), rest[2], rest[3], dtype_name(x.dtype))))
+    gn._launch_int8 = counted(saved[4], lambda x, *rest: ("group_norm_silu_int8", tuple(x.shape)))
     try:
         yield tally
     finally:
-        q8._launch_conv, q8._launch_quantize, q8._launch_absmax, q8._launch_conv_act = saved
+        q8._launch_conv, q8._launch_quantize, q8._launch_absmax, q8._launch_conv_act, gn._launch_int8 = saved
 
 
 def dtype_name(dtype) -> str:
@@ -3681,10 +3703,24 @@ def layer_absmax(q8, layer, x):
 
 
 @contextlib.contextmanager
+def two_step_codes(q8):
+    """The ResBlocks' static int8 convs as before K1's codes-out form: K1's
+    output, then ``int8_quantize`` (``ops.int8.static_absmax`` answering
+    None: the dispatch the pixel ResBlocks take while calibrating)."""
+    saved = q8.static_absmax
+    q8.static_absmax = lambda layer: None
+    try:
+        yield
+    finally:
+        q8.static_absmax = saved
+
+
+@contextlib.contextmanager
 def act_form_layers(q8):
-    """``ops.int8.conv`` and ``linear`` through the act form (absmax when
-    dynamic, then one ``int8_conv_act_nhwc`` launch a layer), for a forward
-    to be held against the paths' two-launch form bit for bit."""
+    """Every int8 layer through ``ops.int8.conv`` and ``linear`` (the static
+    ResBlocks too: ``two_step_codes``), and those through the act form
+    (absmax when dynamic, then one ``int8_conv_act_nhwc`` launch a layer),
+    for a forward to be held against the paths' forms bit for bit."""
     real_conv, real_linear = q8.conv, q8.linear
 
     def conv(layer, x, dtype, stride=1, padding=1):
@@ -3699,7 +3735,8 @@ def act_form_layers(q8):
 
     q8.conv, q8.linear = conv, linear
     try:
-        yield
+        with two_step_codes(q8):
+            yield
     finally:
         q8.conv, q8.linear = real_conv, real_linear
 
@@ -3719,7 +3756,7 @@ def fold_captured(tally, replays: int) -> None:
     tally["captured"].clear()
 
 
-def int8_path_shapes(torch, q8, seed, dev):
+def int8_path_shapes(torch, q8, gn, seed, dev):
     """22a's shapes: every int8 conv call of one full-width forward of each
     path (the pixel U-Net at B = 16, the artifact's batch, and at B = 1, the
     dynamic server's; SD-1.5 at 64x64 latents, CFG batched, with the
@@ -3744,7 +3781,7 @@ def int8_path_shapes(torch, q8, seed, dev):
                               torch.randn((2, 8, 768), generator=gen, device=dev))))
     with torch.no_grad():
         for model, path, args in runs:
-            with q8_tally(torch, q8) as tally:
+            with q8_tally(torch, q8, gn) as tally:
                 out = model(*args)
             for (name, key), _ in tally["eager"].items():
                 check(name != "int8_conv_act", f"{path}: an act-form launch on the path")
@@ -3838,6 +3875,118 @@ def phase_int8_kernels(torch, q8, shapes, seed, dev, card):
     int8_replays(torch, q8, gen, dev)
     torch.cuda.empty_cache()
     return recs
+
+
+GN_INT8_ABSMAX = {"calibrated": "max|y|", "clamped": "half of max|y|",
+                  "pow2": "127 * 2^k <= max|y| (s = 2^k: exact ties)"}
+
+
+def gn_int8_absmax(torch, y, kind: str):
+    """The absmax of a ``GN_INT8_ABSMAX`` kind for K1's output ``y``."""
+    am = y.float().abs().amax()
+    if kind == "clamped":
+        return am * 0.5
+    if kind == "pow2":
+        return 127.0 * torch.exp2(torch.floor(torch.log2(am / 127.0)))
+    return am
+
+
+def phase_gn_int8(torch, gn, q8, seed, dev, card):
+    """22a, K1's codes-out form (``group_norm_silu_int8``) at the pixel
+    artifact's four GroupNorm shapes (B = 16, 8 groups), bf16 and fp32, at
+    the output's absmax, at half of it (codes clamped) and at the largest
+    127 * 2^k under it (s a power of two: many exact ties): one launch, the
+    codes and the scale bit-equal to the two-launch form it replaces (K1,
+    then ``int8_quantize``) and to ``quantize_plain`` of K1's output; against
+    its plain version (K1's plain version, whose SiLU is exact where the
+    kernel's is approximate, then ``quantize_plain``) the scale bit-equal and
+    the codes within one, the share that differs printed. Two CUDA-graph
+    replays bit-equal to the eager call. In bf16 each shape timed (graph
+    replay, and events) beside the pair in one graph and K1 alone, its plain
+    version (events) and its bound (x read once, the codes written once),
+    and again with the pair at the power-of-two s. Returns its records."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 73)
+    G, recs, worst, worst_pair = GN_GROUPS, [], 0.0, 0
+    for H, W, C in GN_INT8_SHAPES:
+        shape = (WIDE_BATCH, H, W, C)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, scale, bias = _gn_inputs(torch, gen, shape, dev, dtype)
+            sb = (scale, bias)
+            with torch.no_grad():
+                y = gn.group_norm_silu(x, sb, G)
+                for kind in GN_INT8_ABSMAX:
+                    am = gn_int8_absmax(torch, y, kind)
+                    half = kind == "clamped"
+                    n0 = gn.group_norm_silu_int8.launches, gn.group_norm_silu.launches
+                    xq, s = gn.group_norm_silu_int8(x, sb, G, am)
+                    torch.cuda.synchronize()
+                    tag = f"group_norm_silu_int8 {shape} G={G} {dtype_name(dtype)} absmax {GN_INT8_ABSMAX[kind]}"
+                    check((gn.group_norm_silu_int8.launches, gn.group_norm_silu.launches) == (n0[0] + 1, n0[1]),
+                          f"{tag}: not one launch of its own")
+                    pair_q, pair_s = q8.quantize(y, am)
+                    worst_pair = max(worst_pair, int((xq.int() - pair_q.int()).abs().max()))
+                    check(torch.equal(xq, pair_q) and torch.equal(s, pair_s),
+                          f"{tag}: != K1 then int8_quantize ({int((xq != pair_q).sum())} codes differ)")
+                    check(torch.equal(xq, q8.quantize_plain(y, am)[0]), f"{tag}: != quantize_plain of K1's y")
+                    plain, plain_s = gn.group_norm_silu_int8_plain(x, sb, G, am)
+                    d = (xq.int() - plain.int()).abs()
+                    err, share = d.max().item(), d.count_nonzero().item() / d.numel()
+                    check(torch.equal(s, plain_s) and err <= 1, f"{tag}: vs its plain version: scale "
+                          f"{s.item()} / {plain_s.item()}, codes off by up to {err}")
+                    clamped = int((xq.abs() == 127).sum())
+                    check(clamped > 0 or not half, f"{tag}: no code clamped at half the absmax")
+                    worst = max(worst, float(err))
+                    print(f"kernel-check: {tag}: codes and scale bit-equal to K1 + int8_quantize and to "
+                          f"quantize_plain(K1's y); vs its plain version the scale bit-equal, codes within {err} "
+                          f"(a share {share:.3e} differs: K1's SiLU is approximate), {clamped} codes at +-127")
+                    del xq, s, pair_q, pair_s, plain, plain_s, d
+                if dtype != torch.bfloat16:
+                    continue
+                am = y.float().abs().amax()
+                call = lambda: gn.group_norm_silu_int8(x, sb, G, am)
+                want = call()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(side), torch.cuda.graph(graph):
+                    got = call()
+                torch.cuda.current_stream().wait_stream(side)
+                for _ in range(2):
+                    got[0].zero_()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"group_norm_silu_int8 {shape}: a CUDA graph replay differs from the eager call")
+                del graph, got, want
+                pair = lambda: q8.quantize(gn.group_norm_silu(x, sb, G), am)
+                k1 = lambda: gn.group_norm_silu(x, sb, G)
+                ms, ev_ms = graph_ms(torch, call), cuda_ms(torch, call)
+                pair_ms, k1_ms = graph_ms(torch, pair), graph_ms(torch, k1)
+                am2 = gn_int8_absmax(torch, y, "pow2")  # s a power of two: the same work, many exact ties
+                ms2 = graph_ms(torch, lambda: gn.group_norm_silu_int8(x, sb, G, am2))
+                pair_ms2 = graph_ms(torch, lambda: q8.quantize(gn.group_norm_silu(x, sb, G), am2))
+                plain_ms = cuda_ms(torch, lambda: gn.group_norm_silu_int8_plain(x, sb, G, am), iters=3, warmup=1)
+            n = x.numel()
+            # x read once, the codes written once; K1's 11 operations an element and 5 more for the code
+            b_ms, b_by, b_unit = bound(3 * n, 16 * n, FP32_FLOPS_PER_S)
+            pl = gn.plan(*shape, G, x.element_size())
+            print(f"kernel-time: group_norm_silu_int8 {shape} bf16: ms={ms:.4f} (graph) events_ms={ev_ms:.4f}; "
+                  f"the pair it replaces (K1 + int8_quantize, one graph) {pair_ms:.4f} ms = {pair_ms / ms:.3f}x; "
+                  f"K1 alone {k1_ms:.4f} ms; at a power-of-two s {ms2:.4f} ms, the pair {pair_ms2:.4f} ms; "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_unit}) "
+                  f"pct_of_bound={100 * b_ms / ms:.1f} TBps={3 * n / ms / 1e9:.3f}; two graph replays bit-equal; "
+                  f"rounds={pl.rounds} ring={pl.ring} grid={pl.grid} on {card}")
+            recs.append({"shape": list(shape), "ms": ms, "events_ms": ev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bound_unit": b_unit, "library_ms": None,
+                         "library": "none; the two-launch form it replaces (K1 + int8_quantize) for scale",
+                         "pair_ms": pair_ms, "k1_ms": k1_ms, "pair_over_kernel": pair_ms / ms,
+                         "pow2_ms": ms2, "pow2_pair_ms": pair_ms2})
+            del x, y
+    for rec in recs:
+        rec["max_abs_err"] = worst  # in codes, against the plain version; the scale bit-equal
+        rec["max_abs_err_vs_pair"] = worst_pair  # in codes, against K1 + int8_quantize
+    torch.cuda.empty_cache()
+    return {"group_norm_silu_int8": recs}
 
 
 def check_act_form(torch, q8, x, x32, wq, wsc, bias, stride, pad) -> dict:
@@ -4032,7 +4181,7 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
     frames = [Path(r["bitstream"]).read_bytes() for r in manifest]
     with torch.device("meta"):
         sd_layers = len(q8.int8_layer_names(SDUNet(SD15_UNET)))
-    px_fwd = q8_forward(PX_INT8_LAYERS, k1=GN_PER_FORWARD, k3=1)
+    px_fwd = q8_forward(PX_INT8_LAYERS, k3=1, codes_out=GN_PER_FORWARD)  # static: K1 writes 28 layers' codes
     sd_fwd = q8_forward(sd_layers, k4=SD_FLASH_PER_FORWARD)
     times = art["times"]
     launches_by_shape = collections.Counter()
@@ -4055,7 +4204,7 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
         thread.join()
 
     with mock.patch.dict(os.environ, env), raw_frames(frame_engine("int8")), \
-            q8_tally(torch, q8) as tally:
+            q8_tally(torch, q8, gn) as tally:
         # 22b: export at the CLI's defaults (256px, DDIM-50, batch 16), uint8 output
         art_path = out / "decoder_int8.torchprog"
         t0 = time.perf_counter()
@@ -4096,6 +4245,26 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
               f"max |delta| {d.max().item()} levels; a call {ms:.3f} ms device (phase 20's bf16 artifact "
               f"{times['px_ms']:.3f} ms), eager {eager_s:.3f} s wall, batch {WIDE_BATCH} on {card}")
         check(torch.equal(a, e), "the int8 replay is not bit-equal to its eager int8 sampler")
+        # the path before K1's codes-out form (K1, then int8_quantize, for every ResBlock conv) in a
+        # decompressor of its own, captured under that dispatch; the two replays timed in turns
+        px_parent = deploy.load_decompressor(art_path)
+        reset_q8_launches(q8, gn, rc, attn, mlp)
+        with two_step_codes(q8):
+            p_img = px_parent(params, z, seed=seed, quant=quant)
+        torch.cuda.synchronize()
+        check(counts()["group_norm_silu_int8"] == 0 and counts()["group_norm_silu"] == 2 * GN_PER_FORWARD * STEPS,
+              f"the two-step decompressor's eager run and first replay: {counts()}")
+        check(torch.equal(a, p_img), "the int8 replay's images are not bit-equal to the two-step path's "
+              f"(K1, then int8_quantize): max |delta| {(a.int() - p_img.int()).abs().max().item()} levels")
+        new_ms, old_ms = [], []
+        for turn in ("old", "new", "new", "old"):
+            run = px_parent if turn == "old" else px
+            (old_ms if turn == "old" else new_ms).append(
+                cuda_ms(torch, lambda: run(params, z, seed=seed, quant=quant), iters=1, warmup=0))
+        print(f"int8-replay: uint8 bit-equal to the two-step path's (K1, then int8_quantize); a call's device ms, in "
+              f"turns: K1's codes-out form {[round(t, 3) for t in new_ms]}, the two-step path "
+              f"{[round(t, 3) for t in old_ms]} (batch {WIDE_BATCH}, DDIM-{STEPS}) on {card}")
+        del px_parent, p_img
         fp = CLIPCondUNet(z_dim=512, base=PX_BASE, ch_mult=PX_CH_MULT, time_dim=256, dtype=torch.bfloat16,
                           int8=False)
         fp.load_state_dict(params, strict=True)
@@ -4107,9 +4276,10 @@ def phase_int8(torch, q8, gn, rc, attn, mlp, seed, dev, card, art, inv_times):
             eps_q, eps_b = px.net(*xs).float(), fp(*xs).float()
             with act_form_layers(q8):
                 eps_act = px.net(*xs).float()
-        check(torch.equal(eps_q, eps_act), "the static int8 forward: the act form != the two-launch form")
+        check(torch.equal(eps_q, eps_act), "the static int8 forward: the act form != the path's forms")
         print(f"int8-forward: static int8 eps (B=4, the artifact's net and calibration) through the act form "
-              f"bit-equal to the path's two-launch form (int8_quantize + int8_conv_nhwc)")
+              f"(all {PX_INT8_LAYERS} layers) bit-equal to the path's (group_norm_silu_int8 + int8_conv_nhwc "
+              f"for the {GN_PER_FORWARD} ResBlock convs, int8_quantize + int8_conv_nhwc for the downsamples)")
         rel = ((eps_q - eps_b).norm() / eps_b.norm()).item()
         print(f"int8-forward: static int8 eps vs the bf16 forward, B=4 at t = 999, 700, 300, 20: "
               f"||delta|| / ||bf16|| {rel:.4e} on {card}")
@@ -5338,14 +5508,20 @@ def main() -> int:
                                         inv_times)
 
         phase_build(builds, ("int8_conv",))
-        q8_records = phase_int8_kernels(torch, q8, int8_path_shapes(torch, q8, args.seed, dev), args.seed, dev, card)
+        q8_records = phase_int8_kernels(torch, q8, int8_path_shapes(torch, q8, gn, args.seed, dev), args.seed, dev,
+                                        card)
+        q8_records.update(phase_gn_int8(torch, gn, q8, args.seed, dev, card))
         q8_by_shape = phase_int8(torch, q8, gn, rc, attn, mlp, args.seed, dev, card, art, inv_times)
-        for name in Q8_KERNELS:  # the two-launch form and absmax launched on the main path, the act form never
+        for name in Q8_KERNELS:  # the codes' kernels and absmax launched on the main path, the act form never
             n = sum(v for (k, _), v in q8_by_shape.items() if k == name)
             if name in Q8_OFF_PATH:
                 check(n == 0, f"{name}: {n} launches on the int8 paths (it is slower than the pair there)")
             else:
                 check(n > 0, f"{name}: no launch on the int8 paths")
+        for rec in q8_records["group_norm_silu_int8"]:
+            shape = tuple(rec["shape"])
+            check(q8_by_shape[("group_norm_silu_int8", shape)] > 0, f"group_norm_silu_int8 {list(shape)}: no launch "
+                  f"on the int8 artifact's path")
 
         dp_launches = phase_dp(torch, args.seed, dev, card)
 

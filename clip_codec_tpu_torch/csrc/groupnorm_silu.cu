@@ -93,12 +93,44 @@
 // spatial U-Net's shapes the extra passes cost what the cross-rank sums
 // between them need.
 //
-// Development build: -DGN_TRACE stamps %globaltimer at each round's phases
+// The codes-out form (groupnorm_silu_int8): the same launch, for the pixel
+// U-Net's static int8 path, where K1's output is only ever read by the int8
+// conv after it. Each normalised value is rounded as the one launch stores it
+// (to bf16 for bf16 x), then turned into its int8 code against the layer's
+// calibrated absmax (int8_codes.cuh: s = max(absmax, 1e-12) / 127, read on
+// the device, so the launch is captured and replayed like K1's; the code by
+// exact_code_bits, as int8_quantize codes: RN(y / s) from 1 / s and two fma,
+// with no division and no near-half fallback, so every scale costs the same,
+// also a power of two, where many quotients are exact halves), and the codes are stored in place
+// of y, with s. So the codes are bit for bit K1 followed by
+// int8_quantize, from one read of x and one write of 1 byte an element: the
+// pair's 2 + 2 + 2 + 1 bytes an element of traffic become 2 + 1 (bf16).
+//   * A chunk's codes are built in its own ring buffer, each over values its
+//     own threads have read, so no barrier of the block is needed. The
+//     compute threads form units (a warp where C / 8 divides 32; the C / 8
+//     threads of a row where 32 divides C / 8; else all 256); unit u takes
+//     the chunk's rows [u R, u R + R), 4 k rows a step (k = its threads /
+//     (C / 8), so each thread codes 4 rows a step), and writes row j's codes to bytes [j C, j C + C) of its own
+//     rows, which hold the values of row j / 2 (j / 4 in fp32), read at or
+//     before row j: the unit's threads meet (__syncwarp, or a named barrier)
+//     between each step's reads and its writes. The producer's bulk stores
+//     then take each unit's first len * C bytes (up to 8 stores a chunk at
+//     the pixel shapes). Slabs read from device memory write their codes
+//     there directly.
+//   * The slab cut, plan, ring and rounds are the one launch's for x's
+//     dtype: the statistics, and so the codes, are bit-equal to K1's on any
+//     SM count. C % 16 == 0 (16-byte bulk copies of the codes; the int8 conv
+//     needs C % 32 == 0 anyway).
+// Bound: memory, x read once and the codes written once (3 bytes an element
+// in bf16, 5 in fp32).
+//
+// Development builds: -DGN_TRACE stamps %globaltimer at each round's phases
 // (probes/gn_trace.py).
 //
 // The C function returns cudaGetLastError() after the launch (0 = launched),
 // or cudaErrorInvalidValue for arguments the kernel does not take.
 
+#include "int8_codes.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -112,6 +144,8 @@ constexpr int MAX_CHUNKS = 4;               // chunks a slab
 constexpr int SCRATCH = 2 * MAX_C;          // floats: the lanes' sums, or partial segments
 constexpr int MAX_RING = 8;
 constexpr int BAR_COMPUTE = 1;              // named barrier of the compute threads
+constexpr int STEP_ROWS = 4;                // the codes-out form: rows a thread codes between its unit's meetings
+constexpr int BAR_UNIT = 2;                 // the codes-out form: named barriers 2.. of its multi-warp units
 constexpr float NEG_LOG2E = -1.4426950408889634f;
 
 // Division by a launch constant d >= 1 of 0 <= a < 2^31 as a multiply-high
@@ -141,7 +175,9 @@ struct Params {
   const void* x;
   const float* scale;
   const float* bias;
-  void* y;
+  void* y;           // y, or the codes (codes-out form)
+  const float* absmax;  // the codes-out form: the 0-d calibrated absmax, and where s goes
+  float* s_out;
   float* part;       // (B, S, 2, G) slab partials
   unsigned* bar;     // grid barrier: two arrival counts, sense
   int B, HW, C, G;
@@ -152,6 +188,7 @@ struct Params {
   int group_vecs;    // C / G / 8 where a power of 2 up to 32, else 0
   int grid, lanes;   // blocks; rows a chunk's threads take at once (COMPUTE / (C / 8))
   int slots;         // slabs a block holds a round: (ring - 1) / chunks
+  int unit_threads, units, unit_rows;  // the codes-out form's units: threads, units, rows of a chunk each
   int seg_len, segs; // the partials' sums: slabs a segment, segments a column
   // by S, grid, ring, chunk_rows, C / 8, C / G, 2 G, segs * 2 G, G
   FastDiv S_, grid_, ring_, chunk_, nvec_, cg_, cols_, per_, G_;
@@ -258,11 +295,12 @@ __device__ __forceinline__ int slab_rows(const Params& p, int gid) {
   return min(p.slab_rows, p.HW - p.S_.mod(gid) * p.slab_rows);
 }
 __device__ __forceinline__ int slab_chunks(const Params& p, int rows) { return p.chunk_.div(rows + p.chunk_rows - 1); }
-// Byte offset of slab gid's first row in x and y.
-__device__ __forceinline__ size_t slab_offset(const Params& p, int gid) {
+// Slab gid's first row (of B * HW), and its byte offset in x.
+__device__ __forceinline__ size_t slab_row(const Params& p, int gid) {
   const int b = p.S_.div(gid);
-  return ((size_t)b * p.HW + (size_t)(gid - b * p.S) * p.slab_rows) * p.row_bytes;
+  return (size_t)b * p.HW + (size_t)(gid - b * p.S) * p.slab_rows;
 }
+__device__ __forceinline__ size_t slab_offset(const Params& p, int gid) { return slab_row(p, gid) * p.row_bytes; }
 
 // The block's resident chunks in order over all rounds: (round, slot, chunk).
 struct Cursor {
@@ -278,8 +316,9 @@ __device__ __forceinline__ void advance(Cursor& c, const Params& p, int cta) {
   }
 }
 
-// Producer: lane 0 of the last warp issues every bulk copy, one a chunk.
-template <typename T>
+// Producer: lane 0 of the last warp issues every bulk copy, one a chunk (the
+// codes-out form stores one a unit of the chunk).
+template <typename T, bool CODES>
 __device__ void produce(const Params& p, unsigned char* bufs, uint64_t* full, uint64_t* ready) {
   const int cta = blockIdx.x;
   const unsigned char* x = static_cast<const unsigned char*>(p.x);
@@ -287,25 +326,31 @@ __device__ void produce(const Params& p, unsigned char* bufs, uint64_t* full, ui
   Cursor ld{0, -1, 0}, st{0, -1, 0};
   advance(ld, p, cta);
   advance(st, p, cta);
-  // the chunk under a cursor: its byte offset in x and y, and its bytes
-  auto chunk = [&](const Cursor& c, size_t& off) {
+  // the chunk under a cursor: its first row (of B * HW) and its rows
+  auto chunk = [&](const Cursor& c, size_t& row) {
     const int gid = round_first(p, c.r) + cta + c.s * p.grid;
-    off = slab_offset(p, gid) + (size_t)c.c * p.chunk_rows * p.row_bytes;
-    return min(p.chunk_rows, slab_rows(p, gid) - c.c * p.chunk_rows) * p.row_bytes;
+    row = slab_row(p, gid) + (size_t)c.c * p.chunk_rows;
+    return min(p.chunk_rows, slab_rows(p, gid) - c.c * p.chunk_rows);
   };
   auto load = [&](int b) {
-    size_t off;
-    const int bytes = chunk(ld, off);
+    size_t row;
+    const int bytes = chunk(ld, row) * p.row_bytes;
     sm90::mbar_expect_tx(&full[b], bytes);
-    sm90::bulk_load(bufs + (size_t)b * p.buf_bytes, x + off, bytes, &full[b]);
+    sm90::bulk_load(bufs + (size_t)b * p.buf_bytes, x + row * p.row_bytes, bytes, &full[b]);
     advance(ld, p, cta);
   };
   for (int b = 0; b < p.ring && ld.r < p.rounds; ++b) load(b);
   for (int b = 0, phase = 0; st.r < p.rounds;) {
-    size_t off;
-    const int bytes = chunk(st, off);
+    size_t row;
+    const int rows = chunk(st, row);
+    unsigned char* buf = bufs + (size_t)b * p.buf_bytes;
     mbar_wait(&ready[b], phase);
-    sm90::bulk_store(y + off, bufs + (size_t)b * p.buf_bytes, bytes);
+    if (CODES) {  // each unit's codes, at the head of its rows
+      for (int u = 0, r0 = 0; u < p.units && r0 < rows; ++u, r0 += p.unit_rows)
+        sm90::bulk_store(y + (row + r0) * p.C, buf + (size_t)r0 * p.row_bytes, min(p.unit_rows, rows - r0) * p.C);
+    } else {
+      sm90::bulk_store(y + row * p.row_bytes, buf, rows * p.row_bytes);
+    }
     sm90::bulk_commit();
     sm90::bulk_wait_read<0>();
     if (ld.r < p.rounds) load(b);
@@ -505,6 +550,16 @@ __device__ void sample_stats(const Params& p, int first, int m, int ns, float* s
 // a resident slab). The exp unit takes 2^u and, for even channels, the
 // reciprocal; odd channels take it on the FMA pipe, so that the exp unit,
 // which two ops an element would make the limit, shares the work.
+__device__ __forceinline__ void silu8(float f[VEC], const float a[VEC], const float b[VEC], const float a2[VEC],
+                                      const float b2[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float t = fmaf(f[j], a[j], b[j]);
+    const float d = 1.f + sm90::ex2(fmaf(f[j], a2[j], b2[j]));
+    f[j] = t * (j & 1 ? rcp_newton(fminf(d, 0x1p126f)) : rcp_approx(d));
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void normalise(const Params& p, const T* src, T* dst, int rows, const float a[VEC],
                                           const float b[VEC], const float a2[VEC], const float b2[VEC]) {
@@ -516,13 +571,83 @@ __device__ __forceinline__ void normalise(const Params& p, const T* src, T* dst,
   for (int r = lane; r < rows; r += lanes) {
     float f[VEC];
     load8(src + (size_t)r * C, f);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float t = fmaf(f[j], a[j], b[j]);
-      const float d = 1.f + sm90::ex2(fmaf(f[j], a2[j], b2[j]));
-      f[j] = t * (j & 1 ? rcp_newton(fminf(d, 0x1p126f)) : rcp_approx(d));
-    }
+    silu8(f, a, b, a2, b2);
     store8(dst + (size_t)r * C, f);
+  }
+}
+
+// The int8 codes of 8 normalised values, packed little-endian: each value
+// rounded as the one launch stores it (bf16 for bf16 x), then coded as
+// int8_quantize codes it (int8_codes.cuh).
+template <typename T>
+__device__ __forceinline__ uint2 codes8(float f[VEC], const int8_codes::Scale& q) {
+  if (sizeof(T) == 2) {  // as store8 rounds: two values a conversion
+#pragma unroll
+    for (int j = 0; j < VEC; j += 2) {
+      const float2 h = __bfloat1622float2(__floats2bfloat162_rn(f[j], f[j + 1]));
+      f[j] = h.x;
+      f[j + 1] = h.y;
+    }
+  }
+  return int8_codes::codes8(f, q);
+}
+
+// The codes of a resident chunk of `rows` rows, in its own buffer: unit u's
+// rows [u R, u R + len) get their codes at the head of their own bytes (row
+// j of the unit at [j C, j C + C) from its first row), over values of rows
+// <= j that its threads have read; the unit's threads meet between each
+// step's reads and its writes.
+template <typename T>
+__device__ __forceinline__ void codes_chunk(const Params& p, unsigned char* buf, int rows, const float a[VEC],
+                                            const float b[VEC], const float a2[VEC], const float b2[VEC],
+                                            const int8_codes::Scale& q) {
+  const int ut = p.unit_threads, u = threadIdx.x / ut, w = threadIdx.x - u * ut;
+  if (u >= p.units) return;  // whole warps left over from the units
+  const int lane = p.nvec_.div(w), v = w - lane * p.nvec_.d, k = ut / p.nvec_.d, C = p.C;
+  const int first = u * p.unit_rows, len = max(0, min(p.unit_rows, rows - first));
+  unsigned char* head = buf + (size_t)first * p.row_bytes;
+  const T* src = reinterpret_cast<const T*>(head) + v * VEC;
+  for (int j0 = 0; j0 < len; j0 += STEP_ROWS * k) {
+    uint2 c[STEP_ROWS];
+#pragma unroll
+    for (int i = 0; i < STEP_ROWS; ++i) {
+      const int j = j0 + i * k + lane;
+      if (lane < k && j < len) {
+        float f[VEC];
+        load8(src + (size_t)j * C, f);
+        silu8(f, a, b, a2, b2);
+        c[i] = codes8<T>(f, q);
+      }
+    }
+    if (ut == 32)
+      __syncwarp();
+    else if (ut == COMPUTE)
+      sm90::bar_sync(BAR_COMPUTE, COMPUTE);
+    else
+      sm90::bar_sync(BAR_UNIT + u, ut);
+#pragma unroll
+    for (int i = 0; i < STEP_ROWS; ++i) {
+      const int j = j0 + i * k + lane;
+      if (lane < k && j < len) *reinterpret_cast<uint2*>(head + (size_t)j * C + v * VEC) = c[i];
+    }
+  }
+}
+
+// The codes of `rows` rows read from device memory, to device memory.
+template <typename T>
+__device__ __forceinline__ void codes_rows(const Params& p, const T* src, unsigned char* dst, int rows,
+                                           const float a[VEC], const float b[VEC], const float a2[VEC],
+                                           const float b2[VEC], const int8_codes::Scale& q) {
+  const int C = p.C, lanes = p.lanes, lane = p.nvec_.div(threadIdx.x), v = threadIdx.x - lane * p.nvec_.d;
+  if (lane >= lanes) return;
+  src += v * VEC;
+  dst += v * VEC;
+#pragma unroll 4
+  for (int r = lane; r < rows; r += lanes) {
+    float f[VEC];
+    load8(src + (size_t)r * C, f);
+    silu8(f, a, b, a2, b2);
+    *reinterpret_cast<uint2*>(dst + (size_t)r * C) = codes8<T>(f, q);
   }
 }
 
@@ -555,7 +680,7 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& sense, int k)
   sm90::bar_sync(BAR_COMPUTE, COMPUTE);
 }
 
-template <typename T>
+template <typename T, bool CODES>
 __device__ void compute(const Params& p, unsigned char* bufs, uint64_t* full, uint64_t* ready, float* scratch,
                         float* table) {
   const int cta = blockIdx.x, grid = p.grid, tid = threadIdx.x, C = p.C, G = p.G;
@@ -564,6 +689,11 @@ __device__ void compute(const Params& p, unsigned char* bufs, uint64_t* full, ui
   T* y = static_cast<T*>(p.y);
   unsigned sense = 0;
   if (tid == 0) asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(sense) : "l"(p.bar + 2) : "memory");
+  int8_codes::Scale q{};
+  if (CODES) {
+    q = int8_codes::scale_of(int8_codes::act_scale(p.absmax));
+    if (cta == 0 && tid == 0) *p.s_out = q.s;
+  }
 
   // slab s of a round (first slab `first`, res of its slabs resident, its
   // first chunk the block's kc-th resident chunk): its partials, summed
@@ -620,17 +750,24 @@ __device__ void compute(const Params& p, unsigned char* bufs, uint64_t* full, ui
       if (s < res) {
         for (int c = 0; c * p.chunk_rows < rows; ++c, ++kc) {
           const int slot = p.ring_.mod(kc);
-          T* buf = reinterpret_cast<T*>(bufs + (size_t)slot * p.buf_bytes);
-          normalise<T>(p, buf, buf, min(p.chunk_rows, rows - c * p.chunk_rows), a, b, a2, b2);
+          unsigned char* buf = bufs + (size_t)slot * p.buf_bytes;
+          const int n = min(p.chunk_rows, rows - c * p.chunk_rows);
+          if (CODES)
+            codes_chunk<T>(p, buf, n, a, b, a2, b2, q);
+          else
+            normalise<T>(p, reinterpret_cast<const T*>(buf), reinterpret_cast<T*>(buf), n, a, b, a2, b2);
           sm90::fence_proxy_async();  // this thread's writes, before the producer's bulk store reads them
           __syncwarp();
           if (tid % 32 == 0) sm90::mbar_arrive(&ready[slot]);  // one arrival a warp
         }
         if (s == 0) TRACE(r, 6);
       } else {
-        const size_t off = slab_offset(p, gid);
-        normalise<T>(p, reinterpret_cast<const T*>(reinterpret_cast<const unsigned char*>(x) + off),
-                     reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(y) + off), rows, a, b, a2, b2);
+        const T* src = reinterpret_cast<const T*>(reinterpret_cast<const unsigned char*>(x) + slab_offset(p, gid));
+        unsigned char* dst = reinterpret_cast<unsigned char*>(y) + slab_row(p, gid) * (CODES ? p.C : p.row_bytes);
+        if (CODES)
+          codes_rows<T>(p, src, dst, rows, a, b, a2, b2, q);
+        else
+          normalise<T>(p, src, reinterpret_cast<T*>(dst), rows, a, b, a2, b2);
       }
     }
     k = kc;
@@ -649,7 +786,7 @@ inline size_t smem_bytes(int ring, int chunks, int buf_bytes, int G) {
   return (size_t)ring * buf_bytes + SCRATCH * 4 + table_bytes((ring - 1) / chunks, G) + 2 * ring * 8;
 }
 
-template <typename T>
+template <typename T, bool CODES>
 __global__ void __launch_bounds__(THREADS, 1) gn_silu_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* bufs = smem;
@@ -666,10 +803,10 @@ __global__ void __launch_bounds__(THREADS, 1) gn_silu_kernel(const Params p) {
   }
   __syncthreads();
   if (threadIdx.x >= COMPUTE) {
-    if (threadIdx.x == COMPUTE) produce<T>(p, bufs, full, ready);
+    if (threadIdx.x == COMPUTE) produce<T, CODES>(p, bufs, full, ready);
     return;
   }
-  compute<T>(p, bufs, full, ready, scratch, table);
+  compute<T, CODES>(p, bufs, full, ready, scratch, table);
 }
 
 // A call's rounds, grid and ring on `sms` SMs (0: every SM of the device),
@@ -711,12 +848,13 @@ int make_plan(int B, int HW, int C, int G, int chunk_rows, int chunks, int elt, 
   return 0;
 }
 
-template <typename T>
+template <typename T, bool CODES>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
   int occ = 0;
-  cudaError_t e = cudaFuncSetAttribute(gn_silu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e =
+      cudaFuncSetAttribute(gn_silu_kernel<T, CODES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gn_silu_kernel<T>, THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gn_silu_kernel<T, CODES>, THREADS, smem);
   if (e != cudaSuccess) return (int)e;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
@@ -729,7 +867,7 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, gn_silu_kernel<T>, p);
+  e = cudaLaunchKernelEx(&cfg, gn_silu_kernel<T, CODES>, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -813,6 +951,59 @@ int split_params(Params& p, int B, int HW, int C, int G, int chunk_rows, int chu
   return 0;
 }
 
+// The one launch's Params and shared memory for a call (make_plan's plan):
+// x of `elt` bytes an element.
+int one_launch_params(Params& p, size_t& smem, const void* x, const float* scale, const float* bias, void* y,
+                      float* part, unsigned* bar, int B, int HW, int C, int G, int chunk_rows, int chunks, int sms,
+                      float eps, int elt) {
+  Plan pl;
+  const int rc = make_plan(B, HW, C, G, chunk_rows, chunks, elt, sms, pl);
+  if (rc != 0) return rc;
+  const int slab = chunks * chunk_rows, S = (HW + slab - 1) / slab;
+  p = Params{};
+  p.x = x;
+  p.scale = scale;
+  p.bias = bias;
+  p.y = y;
+  p.part = part;
+  p.bar = bar;
+  p.B = B;
+  p.HW = HW;
+  p.C = C;
+  p.G = G;
+  p.chunk_rows = chunk_rows;
+  p.chunks = chunks;
+  p.slab_rows = slab;
+  p.S = S;
+  p.per_round = pl.per_round;
+  p.rounds = pl.rounds;
+  p.ring = pl.ring;
+  p.row_bytes = C * elt;
+  p.buf_bytes = (int)align_up((size_t)chunk_rows * C * elt, 128);
+  const int m = C / G % VEC ? 0 : C / G / VEC;
+  p.group_vecs = m > 0 && m <= 32 && (m & (m - 1)) == 0 ? m : 0;
+  p.grid = pl.grid;
+  p.lanes = COMPUTE / (C / VEC);
+  p.slots = (pl.ring - 1) / chunks;
+  // the partials' segments: 8 slabs, doubled until a sample's fit the scratch
+  p.seg_len = 8;
+  while ((S + p.seg_len - 1) / p.seg_len * 2 * G > SCRATCH) p.seg_len *= 2;
+  p.segs = (S + p.seg_len - 1) / p.seg_len;
+  p.S_ = fast_div(S);
+  p.grid_ = fast_div(pl.grid);
+  p.ring_ = fast_div(pl.ring);
+  p.chunk_ = fast_div(chunk_rows);
+  p.nvec_ = fast_div(C / VEC);
+  p.cg_ = fast_div(C / G);
+  p.cols_ = fast_div(2 * G);
+  p.per_ = fast_div(p.segs * 2 * G);
+  p.G_ = fast_div(G);
+  p.n = (float)HW * (float)(C / G);
+  p.eps = eps;
+  smem = pl.smem;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -883,52 +1074,35 @@ int groupnorm_silu_plan(int B, int HW, int C, int G, int chunk_rows, int chunks,
 int groupnorm_silu(const void* x, const float* scale, const float* bias, void* y, float* part, unsigned* bar, int B,
                    int HW, int C, int G, int chunk_rows, int chunks, int sms, float eps, int is_bf16,
                    cudaStream_t stream) {
-  const int elt = is_bf16 ? 2 : 4;
-  Plan pl;
-  const int rc = make_plan(B, HW, C, G, chunk_rows, chunks, elt, sms, pl);
-  if (rc != 0) return rc;
-  const int slab = chunks * chunk_rows, S = (HW + slab - 1) / slab;
   Params p;
-  p.x = x;
-  p.scale = scale;
-  p.bias = bias;
-  p.y = y;
-  p.part = part;
-  p.bar = bar;
-  p.B = B;
-  p.HW = HW;
-  p.C = C;
-  p.G = G;
-  p.chunk_rows = chunk_rows;
-  p.chunks = chunks;
-  p.slab_rows = slab;
-  p.S = S;
-  p.per_round = pl.per_round;
-  p.rounds = pl.rounds;
-  p.ring = pl.ring;
-  p.row_bytes = C * elt;
-  p.buf_bytes = (int)align_up((size_t)chunk_rows * C * elt, 128);
-  const int m = C / G % VEC ? 0 : C / G / VEC;
-  p.group_vecs = m > 0 && m <= 32 && (m & (m - 1)) == 0 ? m : 0;
-  p.grid = pl.grid;
-  p.lanes = COMPUTE / (C / VEC);
-  p.slots = (pl.ring - 1) / chunks;
-  // the partials' segments: 8 slabs, doubled until a sample's fit the scratch
-  p.seg_len = 8;
-  while ((S + p.seg_len - 1) / p.seg_len * 2 * G > SCRATCH) p.seg_len *= 2;
-  p.segs = (S + p.seg_len - 1) / p.seg_len;
-  p.S_ = fast_div(S);
-  p.grid_ = fast_div(pl.grid);
-  p.ring_ = fast_div(pl.ring);
-  p.chunk_ = fast_div(chunk_rows);
-  p.nvec_ = fast_div(C / VEC);
-  p.cg_ = fast_div(C / G);
-  p.cols_ = fast_div(2 * G);
-  p.per_ = fast_div(p.segs * 2 * G);
-  p.G_ = fast_div(G);
-  p.n = (float)HW * (float)(C / G);
-  p.eps = eps;
-  return is_bf16 ? launch<__nv_bfloat16>(p, pl.smem, stream) : launch<float>(p, pl.smem, stream);
+  size_t smem;
+  const int rc = one_launch_params(p, smem, x, scale, bias, y, part, bar, B, HW, C, G, chunk_rows, chunks, sms, eps,
+                                   is_bf16 ? 2 : 4);
+  if (rc != 0) return rc;
+  return is_bf16 ? launch<__nv_bfloat16, false>(p, smem, stream) : launch<float, false>(p, smem, stream);
+}
+
+// The codes-out form: as groupnorm_silu, but xq (B, HW, C) int8 gets the
+// codes of y against the 0-d fp32 *absmax, clamp(rint(y / s), -127, 127)
+// with s = max(*absmax, 1e-12) / 127, y rounded to x's dtype first; *s_out
+// = s. C % 16 == 0.
+int groupnorm_silu_int8(const void* x, const float* scale, const float* bias, const float* absmax, void* xq,
+                        float* s_out, float* part, unsigned* bar, int B, int HW, int C, int G, int chunk_rows,
+                        int chunks, int sms, float eps, int is_bf16, cudaStream_t stream) {
+  if (C % 16 || absmax == nullptr || s_out == nullptr) return (int)cudaErrorInvalidValue;
+  Params p;
+  size_t smem;
+  const int rc = one_launch_params(p, smem, x, scale, bias, xq, part, bar, B, HW, C, G, chunk_rows, chunks, sms, eps,
+                                   is_bf16 ? 2 : 4);
+  if (rc != 0) return rc;
+  // units: a warp (C / 8 divides 32), a row's threads (32 divides C / 8), or every compute thread
+  const int nvec = C / VEC;
+  p.unit_threads = 32 % nvec == 0 ? 32 : nvec % 32 == 0 ? nvec : COMPUTE;
+  p.units = COMPUTE / p.unit_threads;
+  p.unit_rows = (chunk_rows + p.units - 1) / p.units;
+  p.absmax = absmax;
+  p.s_out = s_out;
+  return is_bf16 ? launch<__nv_bfloat16, true>(p, smem, stream) : launch<float, true>(p, smem, stream);
 }
 
 #ifdef GN_TRACE

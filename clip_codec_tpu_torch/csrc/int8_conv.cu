@@ -112,12 +112,9 @@
 //     async proxy's wgmma reads) and a named barrier. A step converts while
 //     the previous step's products run on the tensor cores;
 //   * the codes are bit-for-bit quantize_kernel's: s is act_scale(absmax),
-//     and each code comes from an estimate of x / s within 3.1e-5 of the
-//     correctly rounded quotient, clamped and rounded by two fmas
-//     (fast_code_bits: no division, no conversion-unit instruction), wherever
-//     the estimate lies 1e-4 or more from a half; a chunk with a value
-//     nearer a half takes code()'s __fdiv_rn for all of its values. The
-//     epilogue reads the same s;
+//     and each code is int8_codes.cuh's exact_code_bits, RN(x / s) by two
+//     fma from 1 / s (no division, no conversion-unit instruction, no
+//     branch on the data). The epilogue reads the same s;
 //   * a stage holds the staged window and the weights: at MW = 2 and bf16,
 //     256 x 256 bytes beside BN x 128, so the ring is shorter (2-3 stages);
 //     fp32 windows run MW = 1 tiles only. The plan (int8_conv_plan with the
@@ -131,11 +128,13 @@
 
 #include <atomic>
 
+#include "int8_codes.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
+using namespace int8_codes;
 
 constexpr int KSTEP = 128;                         // K bytes a ring stage: one 128-byte swizzled row an operand row
 constexpr int SMEM_LIMIT = 232448;
@@ -404,61 +403,27 @@ __device__ __forceinline__ void store_swapped(const Params& p, const Unit& u, co
 
 // ------------------------------------------------------------------ the codes
 
-__device__ __forceinline__ float act_scale(const float* absmax) {
-  return __fdiv_rn(fmaxf(*absmax, 1e-12f), 127.0f);
-}
-
-__device__ __forceinline__ int8_t code(float x, float s) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f));
-}
-
-// code(x, s), fast: x / s is taken as T = 254 v - 127 with v = sat(x c +
-// 1/2) (one fma.sat, which also clamps T to [-127, 127] and sends NaN to
-// -127 as code() does), c = 1 / (254 s) rounded twice; then one fma rounds
-// 1.5 * 2^23 + T to an integer, ties to even as rintf, whose low byte is the
-// code, and another gives T less that integer. |T - RN(x / s)| is under
-// 3.1e-5 (c's error, 1.2e-7 of |x / s| <= 127; v's rounding, 254 * 2^-25;
-// the quotient's own rounding, 2^-24 of it), so where |T - code| <= 0.4999
-// the code is code()'s; otherwise (and for every value where 254 s
-// overflows) `near` is set and the caller takes code(). Returns the bits
-// whose low byte is the code. Per value: 4 FP32-pipe instructions and one
-// compare, no conversion-unit instruction (rintf and float-to-int
-// conversions issue at a quarter of the rate).
-__device__ __forceinline__ uint32_t fast_code_bits(float x, float c, bool& near) {
-  float v;
-  asm("fma.rn.sat.f32 %0, %1, %2, 0f3F000000;" : "=f"(v) : "f"(x), "f"(c));
-  const float m = __fmaf_rn(v, 254.0f, 12582785.0f);                 // 1.5 * 2^23 - 127 + 254 v
-  const float d = __fmaf_rn(v, 254.0f, -__fsub_rn(m, 12582785.0f));  // T - code
-  near |= fabsf(d) > 0.4999f;
-  return __float_as_uint(m);
-}
-
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
-}
-
 // The codes of one 16-byte chunk of the staged window, 8 bf16 or 4 fp32
-// values, packed little-endian into 2 words or 1 at `out`; from the raw
-// chunk again, through code(), if any value lies near a half (rare: one
-// branch a chunk).
+// values, packed little-endian into 2 words or 1 at `out`.
 template <int ACT>
-__device__ __forceinline__ void chunk_codes(uint4 u, float s, float c, bool exact, uint32_t* out) {
-  constexpr int N = ACT == kActBf16 ? 8 : 4;
+__device__ __forceinline__ void chunk_codes(uint4 u, const Scale& q, uint32_t* out) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  auto value = [&](int e) {
-    return ACT == kActBf16 ? __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16)
-                           : __uint_as_float(w[e]);
-  };
-  uint32_t b[N];
-  bool near = exact;
+  if (ACT == kActBf16) {
+    float v[8];
 #pragma unroll
-  for (int e = 0; e < N; ++e) b[e] = fast_code_bits(value(e), c, near);
-  if (near) {
+    for (int e = 0; e < 8; ++e) v[e] = __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
+    const uint2 c = codes8(v, q);
+    out[0] = c.x;
+    out[1] = c.y;
+  } else if (q.ok) {
+    uint32_t b[4];
 #pragma unroll
-    for (int e = 0; e < N; ++e) b[e] = static_cast<uint32_t>(static_cast<int>(code(value(e), s)));
+    for (int e = 0; e < 4; ++e) b[e] = exact_code_bits(__uint_as_float(w[e]), q.s, q.r, q.lim);
+    out[0] = pack4(b[0], b[1], b[2], b[3]);
+  } else {
+    out[0] = divided_codes8(make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]), __uint_as_float(w[2]),
+                                        __uint_as_float(w[3])), make_float4(0.f, 0.f, 0.f, 0.f), q.s).x;
   }
-#pragma unroll
-  for (int q = 0; q < N / 4; ++q) out[q] = pack4(b[4 * q], b[4 * q + 1], b[4 * q + 2], b[4 * q + 3]);
 }
 
 // The 16 codes of item (row r, 16-byte chunk j) of a staged window `xs`
@@ -466,15 +431,14 @@ __device__ __forceinline__ void chunk_codes(uint4 u, float s, float c, bool exac
 // the row, logical chunks 2 (j % 4).. of box j / 4 (bf16) or 4 (j % 2)..
 // of box j / 2 (fp32), each at its chunk XOR (r % 8).
 template <int ACT>
-__device__ __forceinline__ uint4 item_codes(const unsigned char* xs, int x_box, int r, int j, float s, float c,
-                                            bool exact) {
+__device__ __forceinline__ uint4 item_codes(const unsigned char* xs, int x_box, int r, int j, const Scale& q) {
   constexpr int CH = ACT == kActBf16 ? 2 : 4;  // source chunks an item
   const unsigned char* row = xs + (ACT == kActBf16 ? j >> 2 : j >> 1) * x_box + r * KSTEP;
   uint32_t out[4];
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
     const int ch = (ACT == kActBf16 ? 2 * (j & 3) : 4 * (j & 1)) + i;
-    chunk_codes<ACT>(*reinterpret_cast<const uint4*>(row + ((ch ^ (r & 7)) << 4)), s, c, exact, out + i * (4 / CH));
+    chunk_codes<ACT>(*reinterpret_cast<const uint4*>(row + ((ch ^ (r & 7)) << 4)), q, out + i * (4 / CH));
   }
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
@@ -489,7 +453,7 @@ __device__ __forceinline__ uint4 item_codes(const unsigned char* xs, int x_box, 
 // Then the async-proxy fence and barrier `bar` of the NT threads, after
 // which wgmma may read the tile.
 template <int ACT, int R, int X_ROWS, int NT>
-__device__ __forceinline__ void convert_rows(unsigned char* xs, int r0, int t, float s, float c, bool exact, int bar) {
+__device__ __forceinline__ void convert_rows(unsigned char* xs, int r0, int t, const Scale& q, int bar) {
   constexpr int TPR = NT / R >= 8 ? 8 : NT / R, RPW = 32 / TPR, IPT = 8 / TPR;
   static_assert(NT % R == 0 && R >= RPW, "whole warps of whole rows, one pass");
   const int lane = t & 31, rp = (t >> 5) * RPW + lane % RPW, sub = lane / RPW;
@@ -499,15 +463,15 @@ __device__ __forceinline__ void convert_rows(unsigned char* xs, int r0, int t, f
     if (TPR == 1) {
 #pragma unroll 1
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint4*>(dst + ((j ^ (r & 7)) << 4)) = item_codes<ACT>(xs, X_ROWS * KSTEP, r, j, s, c, exact);
+        *reinterpret_cast<uint4*>(dst + ((j ^ (r & 7)) << 4)) = item_codes<ACT>(xs, X_ROWS * KSTEP, r, j, q);
     } else {
-      uint4 q[IPT];
+      uint4 c[IPT];
 #pragma unroll
       for (int m = 0; m < IPT; ++m)
-        q[m] = item_codes<ACT>(xs, X_ROWS * KSTEP, r, sub + TPR * m, s, c, exact);
+        c[m] = item_codes<ACT>(xs, X_ROWS * KSTEP, r, sub + TPR * m, q);
       __syncwarp();
 #pragma unroll
-      for (int m = 0; m < IPT; ++m) *reinterpret_cast<uint4*>(dst + (((sub + TPR * m) ^ (r & 7)) << 4)) = q[m];
+      for (int m = 0; m < IPT; ++m) *reinterpret_cast<uint4*>(dst + (((sub + TPR * m) ^ (r & 7)) << 4)) = c[m];
     }
   }
   fence_proxy_async();
@@ -603,8 +567,7 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
   unsigned char* stg = stage_out + warp_id * STAGE_WARP;
   // The act form reads absmax and makes s as quantize_kernel does.
   const float s = ACT != kActS8 ? act_scale(p.s) : p.out_kind == kOutI32 ? 0.f : __ldg(p.s);
-  const float c254 = ACT != kActS8 ? __frcp_rn(__fmul_rn(254.0f, s)) : 0.f;  // fast_code_bits' c
-  const bool exact = !(c254 > 0.f);  // 254 s overflowed (absmax > 1.3e36): every value through code()
+  const Scale q = scale_of(s);
   auto release = [&](int st) {  // this warp is done reading stage st
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);
@@ -629,10 +592,9 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
       unsigned char* tile = ring + st * C::STAGE;
       if (ACT != kActS8) {  // the window to codes, while the previous step's products run
         if (SWAP)
-          convert_rows<ACT, BN, C::X_ROWS, CONSUMERS>(tile + C::X_OFF, 0, ctid, s, c254, exact, 1);
+          convert_rows<ACT, BN, C::X_ROWS, CONSUMERS>(tile + C::X_OFF, 0, ctid, q, 1);
         else
-          convert_rows<ACT, 64 * MW, C::X_ROWS, WARPGROUP>(tile + C::X_OFF, wg * 64 * MW, ctid % WARPGROUP, s, c254,
-                                                           exact, 2 + wg);
+          convert_rows<ACT, 64 * MW, C::X_ROWS, WARPGROUP>(tile + C::X_OFF, wg * 64 * MW, ctid % WARPGROUP, q, 2 + wg);
       }
       wgmma_fence();
 #pragma unroll
@@ -735,19 +697,13 @@ __device__ __forceinline__ void load8(const void* x, bool bf16, long long i, flo
 
 __global__ void __launch_bounds__(kEwThreads) quantize_kernel(const void* x, bool bf16, long long n8,
                                                               const float* absmax, int8_t* xq, float* s_out) {
-  const float s = act_scale(absmax);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
+  const Scale q = scale_of(act_scale(absmax));
+  if (blockIdx.x == 0 && threadIdx.x == 0) *s_out = q.s;
   for (long long k = blockIdx.x * static_cast<long long>(kEwThreads) + threadIdx.x; k < n8;
        k += static_cast<long long>(gridDim.x) * kEwThreads) {
     float v[8];
     load8(x, bf16, k * 8, v);
-    uint32_t w0 = 0, w1 = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      w0 |= static_cast<uint32_t>(static_cast<uint8_t>(code(v[e], s))) << (8 * e);
-      w1 |= static_cast<uint32_t>(static_cast<uint8_t>(code(v[4 + e], s))) << (8 * e);
-    }
-    reinterpret_cast<uint2*>(xq)[k] = make_uint2(w0, w1);
+    reinterpret_cast<uint2*>(xq)[k] = codes8(v, q);
   }
 }
 

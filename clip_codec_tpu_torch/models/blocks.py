@@ -19,6 +19,9 @@ The ResBlock has the JAX block's two forms on the same parameters:
   as ``F.conv2d``; differentiable in every parameter.
 * int8 (serving, ``ops/int8.py``): the direct form with both convs through
   the int8 conv kernel, as the JAX block takes its direct path in int8 mode.
+  With a calibrated conv (static int8, no mesh) its GroupNorm+SiLU writes
+  the conv's int8 codes itself (``ops.groupnorm.group_norm_silu_int8``);
+  calibrating or dynamic, the conv quantizes K1's output.
 * direct with a ``mesh`` (sampling and training with the image height split
   over the mesh's ``model`` axis): the same body on this rank's rows, each
   GroupNorm+SiLU as K1's split form with the ranks' moments merged over
@@ -161,12 +164,24 @@ class ResBlock(nn.Module):
         """The JAX block's direct form (``blocks.py`` ``ResBlock.__call__``),
         its convs in int8 with ``int8``; with ``mesh``, on this rank's rows
         of an image whose height is split over the mesh's model axis."""
-        conv = (lambda c, y: q8.conv(c, y, dtype, padding=1)) if int8 else (lambda c, y: conv3x3(c, y, dtype, mesh))
         x = x.to(dtype).contiguous()
-        y = conv(self.conv1, group_norm_silu(x, self.norm1, mesh))
+        y = _norm_conv(self.norm1, self.conv1, x, dtype, int8, mesh)
         fs, fb = self.film.coeffs(h, dtype)
         y = y * (1.0 + fs[:, None, None, :]) + fb[:, None, None, :]
-        return x + conv(self.conv2, group_norm_silu(y, self.norm2, mesh))
+        return x + _norm_conv(self.norm2, self.conv2, y, dtype, int8, mesh)
+
+
+def _norm_conv(norm: nn.GroupNorm, conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, int8: bool,
+               mesh) -> torch.Tensor:
+    """``conv(silu(norm(x)))``, the 3x3 conv in int8 with ``int8``. Static
+    int8 without a mesh: K1 writes the conv's int8 codes (one launch, no
+    quantize pass)."""
+    am = q8.static_absmax(conv) if int8 and mesh is None else None
+    if am is not None:
+        xq, s = gn.group_norm_silu_int8(x, (norm.weight, norm.bias), norm.num_groups, am)
+        return q8.conv_codes(conv, xq, s, dtype)
+    y = group_norm_silu(x, norm, mesh)
+    return q8.conv(conv, y, dtype, padding=1) if int8 else conv3x3(conv, y, dtype, mesh)
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -23,8 +23,11 @@ Two forms on the same parameters, JAX's ``fused_pallas`` and ``remat``:
 * ``int8=True`` (serving, ``ops/int8.py``; ``None`` reads the process
   default at forward time): direct ResBlocks with both convs in int8 (K1
   around the int8 conv kernel), the three stride-2 downsample convs in int8,
-  and the head as in the fused form (one K3 call): 31 int8 convs, 28 K1 and
-  one K3 per forward at ch_mult=(1,2,2). The state dict does not change.
+  and the head as in the fused form (one K3 call): 31 int8 convs and one K3
+  per forward at ch_mult=(1,2,2); in dynamic mode (or calibrating) 28 K1
+  and 31 quantize passes, with calibrated scales 28 K1 launches of its
+  codes-out form (``group_norm_silu_int8``) and 3 quantize passes, those of
+  the downsample convs. The state dict does not change.
 
 * ``forward(x_t, z, t, mesh)`` (sampling and training with the image
   height split over ``mesh``'s ``model`` axis,

@@ -28,6 +28,17 @@ an ulp or two. ``group_norm_silu.launches`` counts K1's launches (a call
 recorded into a CUDA graph is tallied as ``ops/attention.py``'s ``_count``
 says: the int8 serving artifacts replay K1).
 
+``group_norm_silu_int8(x, (scale, bias), groups, absmax, eps)`` -> ``(xq,
+s)`` is K1 for the pixel U-Net's static int8 path, where its output only
+feeds an int8 conv: the int8 codes of ``group_norm_silu``'s result against
+the layer's calibrated 0-d fp32 ``absmax`` (``ops.int8.quantize``'s codes
+and scale), written by K1 itself in place of y (the kernel's codes-out
+entry, ``groupnorm_silu_int8``: one launch, 1 byte an element out, no
+bf16 round trip), counted on ``group_norm_silu_int8.launches``; on a CPU
+tensor ``group_norm_silu`` then ``quantize_plain``, the CPU path's two
+steps. Its plain version ``group_norm_silu_int8_plain`` is K1's plain
+version then ``quantize_plain``. Serving only: no gradient.
+
 The split form, for a caller that combines the statistics of several
 tensors between the two halves (the U-Net whose height is split over the
 ranks of a mesh's model axis merges its moments over them,
@@ -73,6 +84,7 @@ import torch
 import torch.nn.functional as F
 
 from .attention import _count
+from .int8 import quantize_plain
 
 GN_EPS = 1e-5
 _LIB = "groupnorm_silu"
@@ -167,6 +179,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.groupnorm_silu_stats.restype = I
         lib.groupnorm_silu_apply.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float] * 2 + [I, P]
         lib.groupnorm_silu_apply.restype = I
+        lib.groupnorm_silu_int8.argtypes = [P] * 8 + [I] * 7 + [ctypes.c_float, I, P]
+        lib.groupnorm_silu_int8.restype = I
         lib._typed = True
     return lib
 
@@ -321,6 +335,59 @@ def group_norm_silu(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tenso
 
 
 group_norm_silu.launches = 0
+
+
+def group_norm_silu_int8_plain(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tensor], groups: int,
+                               absmax: torch.Tensor, eps: float = GN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The codes-out kernel's function in torch: K1's plain version (y in
+    x's dtype), then ``quantize_plain`` of y against ``absmax``."""
+    scale, bias = scale_bias
+    y = group_norm_silu_norm_plain(x, group_norm_silu_stats_plain(x, groups), scale, bias, groups, eps)
+    return quantize_plain(y, absmax)
+
+
+def _launch_int8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, absmax: torch.Tensor,
+                 eps: float, sms: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K1's codes-out entry on checked arguments, on ``sms``
+    SMs (0: all); returns the codes and the 0-d scale."""
+    B, H, W, C = x.shape
+    dev = x.device
+    rows, chunks = slab_cut(H * W, C, x.element_size())
+    part = torch.empty((B, -(-H * W // (rows * chunks)), 2, groups), dtype=torch.float32, device=dev)
+    xq = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    s = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernel_lib().groupnorm_silu_int8(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), absmax.data_ptr(), xq.data_ptr(), s.data_ptr(),
+            part.data_ptr(), _barrier(dev).data_ptr(), B, H * W, C, groups, rows, chunks, sms, eps,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"groupnorm_silu_int8 kernel launch failed: CUDA error {rc}")
+    return xq, s
+
+
+def group_norm_silu_int8(x: torch.Tensor, scale_bias: Tuple[torch.Tensor, torch.Tensor], groups: int,
+                         absmax: torch.Tensor, eps: float = GN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(xq, s)``: the int8 codes (x's shape) of ``group_norm_silu(x)``
+    against the 0-d fp32 ``absmax`` and their 0-d scale, as
+    ``ops.int8.quantize`` makes them. On a CUDA tensor one launch of K1's
+    codes-out entry (or raise; C % 16 == 0), on a CPU tensor
+    ``group_norm_silu``'s CPU path then ``quantize_plain``. No gradient."""
+    if x.device.type == "cpu":
+        return quantize_plain(group_norm_silu(x, scale_bias, groups, eps), absmax)
+    scale, bias = scale_bias
+    _check_args(x, scale, bias, groups)
+    if x.shape[3] % 16:
+        raise ValueError(f"the codes-out kernel needs C % 16 == 0, got C={x.shape[3]}")
+    if absmax.device != x.device or absmax.dtype != torch.float32 or absmax.numel() != 1:
+        raise ValueError(f"absmax must be one torch.float32 value on {x.device}, got {absmax.dtype} "
+                         f"{tuple(absmax.shape)} on {absmax.device}")
+    out = _launch_int8(x, scale, bias, groups, absmax, eps)
+    _count(group_norm_silu_int8)
+    return out
+
+
+group_norm_silu_int8.launches = 0
 
 
 def _split_cut(x: torch.Tensor) -> Tuple[int, int, int]:

@@ -630,6 +630,22 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, stride: int = 1,
     return int8_conv2d(xq, wq, ws, s, _bias(layer), stride, padding, dtype)
 
 
+def static_absmax(layer: nn.Module) -> Optional[torch.Tensor]:
+    """The layer's calibrated absmax where its codes can be made before it
+    runs (by their producer, ``ops.groupnorm.group_norm_silu_int8``): None
+    while calibrating (``conv`` must see the activation) or in dynamic mode
+    (a per-tensor max needs the whole activation before its first code)."""
+    return None if _CALIB is not None else layer.__dict__.get("_x_absmax")
+
+
+def conv_codes(layer: nn.Conv2d, xq: torch.Tensor, s: torch.Tensor, dtype: torch.dtype, stride: int = 1,
+               padding: int = 1) -> torch.Tensor:
+    """``layer(x)`` in int8 from codes made elsewhere: ``xq``, ``s`` the
+    static codes of x against the layer's ``static_absmax``."""
+    wq, ws = layer_weight(layer)
+    return int8_conv2d(xq, wq, ws, s, _bias(layer), stride, padding, dtype)
+
+
 def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` over the last axis in int8 (JAX's ``Int8Dense``, or an
     ``Int8Conv`` 1x1): ``layer`` is an ``nn.Linear`` or a 1x1 ``nn.Conv2d``.

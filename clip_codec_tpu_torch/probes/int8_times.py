@@ -1,7 +1,7 @@
 """Device time of the int8 serving kernels at their timed shapes, beside their bounds and the library.
 
-    python -m clip_codec_tpu_torch.probes.int8_times [--seed 0] [--sd_profile | --eager]
-    PYTHONPATH=<another checkout> python <path of this file> --eager
+    python -m clip_codec_tpu_torch.probes.int8_times [--seed 0] [--sd_profile | --eager | --quantize]
+    PYTHONPATH=<another checkout> python <path of this file> --eager   (or --quantize)
 
 Times, in bf16 out, with random activations from ``--seed``:
 
@@ -31,6 +31,12 @@ t = 950, 500, 50), under ``torch.profiler``: the device ms a forward (the
 summed kernel durations of 3 forwards over 3) by kind of kernel, so the
 int8 forward's time, and its gap to bf16, can be read by kind (the act
 form apart from the codes-in conv).
+
+With ``--quantize`` it times, instead, ``int8_quantize`` alone at the
+paths' shapes (``QUANTIZE``), bf16, at the activations' absmax and at a
+power-of-two scale, each checked bit-equal to ``quantize_plain``; it calls
+only functions the int8 port has had since it began, so it compares two
+checkouts as ``--eager`` does.
 
 With ``--eager`` it times, instead, what the host adds where every kernel
 is launched from Python (the CLIs and ``serve --int8`` without an
@@ -79,6 +85,10 @@ CONVS = [((16, 256, 256, 128), (128, 3, 3, 128), 1, 1), ((16, 256, 256, 128), (1
          ((8192, 1, 1, 320), (320, 1, 1, 320), 1, 0), ((8192, 1, 1, 320), (2560, 1, 1, 320), 1, 0),
          ((8192, 1, 1, 1280), (320, 1, 1, 1280), 1, 0), ((16, 1, 1, 768), (320, 1, 1, 768), 1, 0)]
 ABSMAX = [(65536, 128), (16384, 128), (4096, 256), (1024, 512)]
+# int8_quantize's (rows, channels) on the int8 paths, as chip_smoke.py's phase 22a times them: the pixel
+# artifact's conv inputs at B = 16, then SD-1.5's at one request's batch
+QUANTIZE = [(1048576, 128), (262144, 128), (65536, 256), (16384, 512),
+            (8192, 320), (16, 768), (8192, 1280), (2048, 640), (512, 1280), (128, 1280)]
 
 
 def conv_bound_ms(xs, ws, stride: int, pad: int, act: int = 1) -> float:
@@ -150,6 +160,26 @@ def time_int8(dev: torch.device, seed: int = 0) -> None:
         b = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
         print(f"[int8-times] absmax {shape} bf16: {t['graph_ms']:.4f} ms (events {t['events_ms']:.4f}), bound "
               f"{b:.4f} ms (bytes); vector_norm {lib['graph_ms']:.4f} ms", flush=True)
+
+
+def quantize_times(dev: torch.device, seed: int = 0) -> None:
+    """``int8_quantize`` alone at each shape of ``QUANTIZE``, bf16, at two
+    absmax: the activations' own, and the largest 127 * 2^k under it (s a
+    power of two, where many x / s are exact halves): codes and scale
+    checked against ``quantize_plain``, then timed beside the bytes bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for shape in QUANTIZE:
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        am = x.float().abs().amax()
+        for kind, a in (("max|x|", am), ("pow2", 127.0 * torch.exp2(torch.floor(torch.log2(am / 127.0))))):
+            got, want = q8.quantize(x, a), q8.quantize_plain(x, a)
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            t = time_call(f"int8_quantize {shape} {kind}", lambda: q8.quantize(x, a), 0.0, dev)
+            b = 3 * x.numel() / HBM_BYTES_PER_S * 1e3
+            print(f"[int8-times] quantize {shape} bf16 absmax {kind}: {t['graph_ms']:.4f} ms (events "
+                  f"{t['events_ms']:.4f}), bound {b:.4f} ms (bytes), "
+                  f"{'bit-equal to quantize_plain' if same else 'DIFFERS from quantize_plain'}", flush=True)
+        del x
 
 
 def kind_of(name: str) -> str:
@@ -294,6 +324,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--sd_profile", action="store_true", help="also profile SD's UNet forward, bf16 and int8")
     p.add_argument("--eager", action="store_true",
                    help="instead, time kernels and forwards launched from Python against their graph replays")
+    p.add_argument("--quantize", action="store_true",
+                   help="instead, time int8_quantize alone at the paths' shapes, at a calibrated and a power-of-two s")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         p.error("no CUDA device available: the kernels run only on a card")
@@ -303,6 +335,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"-- device: {smi.stdout.strip()}; kernels from {q8.__file__} --", flush=True)
     if args.eager:
         eager_times(dev, args.seed, smi.stdout.strip())
+        return 0
+    if args.quantize:
+        quantize_times(dev, args.seed)
         return 0
     time_int8(dev, args.seed)
     if args.sd_profile:

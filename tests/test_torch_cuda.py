@@ -18,7 +18,9 @@ inversion step's latent gradient within 2e-2 (relative norm) of the plain
 path's; PSNR and SSIM within 1e-5 of the CPU's and LPIPS within 1e-4
 relative; the int8 conv (codes in, and its act form that quantizes in
 shared memory), quantize and absmax bit-equal to their plain versions, and
-across CUDA-graph replays. This file imports no jax, so it
+across CUDA-graph replays; K1's codes-out form bit-equal to K1 then
+``int8_quantize`` (its plain version, whose SiLU is exact where the
+kernel's is approximate, within one code). This file imports no jax, so it
 runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -1594,6 +1596,28 @@ def _act_input(rng, xs, dtype, dev):
 
 
 @pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_int8_quantize_bit_equal_to_plain(rng, cuda, act):
+    """``int8_quantize``'s codes and scale bit for bit ``quantize_plain``'s:
+    at the absmax (s = 1/64, a quarter of the values exact ties, which go to
+    the even code), at half of it (codes saturate), at a power-of-two s from
+    the absmax of other data, at a zero absmax (the 1e-12 floor), and at
+    absmax where the fma form does not hold (inf, FLT_MAX: every value
+    through the IEEE divide)."""
+    x = _act_input(rng, (4, 33, 17, 96), act, cuda)
+    y = torch.from_numpy(rng.standard_normal((4, 33, 17, 96)).astype(np.float32)).to(cuda, act)
+    am = q8.absmax(x)
+    pow2 = 127.0 * torch.exp2(torch.floor(torch.log2(y.float().abs().amax() / 127.0)))
+    n0 = q8.quantize.launches
+    for what, v, a in (("ties", x, am), ("half", x, am * 0.5), ("pow2", y, pow2), ("zero", x, am * 0.0),
+                       ("inf", x, am * float("inf")), ("max", x, torch.tensor(torch.finfo(torch.float32).max,
+                                                                                device=cuda))):
+        got, want = q8.quantize(v, a), q8.quantize_plain(v, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), what
+    assert q8.quantize.launches == n0 + 6
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("case", list(INT8_CASES))
 def test_int8_conv_act_bit_equal_to_plain(rng, cuda, case, act):
     """The act form (codes made in shared memory) at every plan form, bf16
@@ -1641,6 +1665,153 @@ def test_int8_conv_act_split_graph_replays_and_linear(rng, cuda):
     want = q8.int8_conv2d_act_plain(xl.reshape(154, 1, 1, 768), am, wl, wsl, bl, 1, 0, torch.float32)
     assert got.shape == (2, 77, 320) and torch.equal(got.reshape(want.shape), want)
     assert q8.int8_linear_act.launches == n0 + 1
+
+
+# ---------------------------------- K1's codes-out form (ops/groupnorm.py group_norm_silu_int8)
+
+GN_INT8_CASES = {  # (B, H, W, C, G), dtype
+    "2x32^2x128-bf16": ((2, 32, 32, 128, 8), torch.bfloat16),
+    "2x32^2x128-fp32": ((2, 32, 32, 128, 8), torch.float32),
+    "3x37x29x64-bf16": ((3, 37, 29, 64, 8), torch.bfloat16),
+    "2x16^2x512-fp32": ((2, 16, 16, 512, 8), torch.float32),
+    "1x512^2x128-bf16": ((1, 512, 512, 128, 8), torch.bfloat16),  # a sample larger than a round
+    # the units that code a chunk: a warp above, all 256 compute threads (C / 8 = 12), three warps (C / 8 = 96)
+    "2x9x11x96-bf16": ((2, 9, 11, 96, 8), torch.bfloat16),
+    "2x8x8x768-fp32": ((2, 8, 8, 768, 8), torch.float32),
+}
+
+
+def _gn_int8_pair(x, scale, bias, G, am):
+    """The two-launch form the codes-out form replaces: K1, then int8_quantize."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    return q8.quantize(gn.group_norm_silu(x, (scale, bias), G), am)
+
+
+def gn_int8_absmax(y, kind):
+    """The absmax a codes-out check runs at: the output's (``calibrated``),
+    half of it (``clamped``: codes at +-127), or the largest 127 * 2^k not
+    above it (``pow2``: s = 2^k, where many y / s are exact halves, ties that
+    the codes must round to even as ``int8_quantize`` does)."""
+    am = y.float().abs().amax()
+    if kind == "clamped":
+        return am * 0.5
+    if kind == "pow2":
+        return 127.0 * torch.exp2(torch.floor(torch.log2(am / 127.0)))
+    return am
+
+
+@pytest.mark.parametrize("kind", ["calibrated", "clamped", "pow2"])
+@pytest.mark.parametrize("case", list(GN_INT8_CASES))
+def test_group_norm_silu_int8_equals_k1_then_quantize(rng, cuda, case, kind):
+    """One launch, the codes and the scale bit for bit K1's output quantized
+    by ``int8_quantize`` (at the output's absmax, at half of it: codes
+    clamped, and at a power-of-two scale: exact ties); against the plain
+    version (K1's plain version, whose SiLU is exact where the kernel's is
+    approximate, then ``quantize_plain``) the scale bit-equal and the codes
+    within one."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    (B, H, W, C, G), dtype = GN_INT8_CASES[case]
+    x, scale, bias = _gn_args(rng, B, H, W, C, dtype, cuda)
+    y = gn.group_norm_silu(x, (scale, bias), G)
+    am = gn_int8_absmax(y, kind)
+    half = kind == "clamped"
+    n0 = (gn.group_norm_silu_int8.launches, gn.group_norm_silu.launches)
+    xq, s = gn.group_norm_silu_int8(x, (scale, bias), G, am)
+    torch.cuda.synchronize()
+    assert (gn.group_norm_silu_int8.launches - n0[0], gn.group_norm_silu.launches - n0[1]) == (1, 0)
+    assert xq.dtype == torch.int8 and xq.shape == x.shape and s.shape == ()
+    want, want_s = _gn_int8_pair(x, scale, bias, G, am)
+    assert torch.equal(s, want_s) and torch.equal(xq, want)
+    assert torch.equal(xq, q8.quantize_plain(y, am)[0])
+    plain, plain_s = gn.group_norm_silu_int8_plain(x, (scale, bias), G, am)
+    assert torch.equal(s, plain_s) and int((xq.int() - plain.int()).abs().max()) <= 1
+    assert not half or int((xq.abs() == 127).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["2x32^2x128-bf16", "3x37x29x64-bf16", "1x512^2x128-bf16", "2x9x11x96-bf16"])
+def test_group_norm_silu_int8_graph_replays_and_sm_counts(rng, cuda, case):
+    """Two replays of the captured launch bit-equal to the eager call (the
+    grid barrier resets itself; a new absmax copied into the captured one
+    rescales the replay), and on 114 or 7 SMs (other rounds; on 7 most slabs
+    read from device memory) the codes bit-equal to the whole card's."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    (B, H, W, C, G), dtype = GN_INT8_CASES[case]
+    x, scale, bias = _gn_args(rng, B, H, W, C, dtype, cuda)
+    am = torch.tensor(3.0, device=cuda)
+    want, want_s = gn.group_norm_silu_int8(x, (scale, bias), G, am)
+    for sms in (114, 7):
+        xq, s = gn._launch_int8(x, scale, bias, G, am, gn.GN_EPS, sms)
+        assert torch.equal(xq, want) and torch.equal(s, want_s), sms
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        xq, s = gn.group_norm_silu_int8(x, (scale, bias), G, am)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        xq.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(xq, want) and torch.equal(s, want_s)
+    am.fill_(1.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    again, again_s = _gn_int8_pair(x, scale, bias, G, am)
+    assert torch.equal(xq, again) and torch.equal(s, again_s) and not torch.equal(xq, want)
+
+
+def test_group_norm_silu_int8_rejects_what_the_kernel_does_not_take(rng, cuda):
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    x, scale, bias = _gn_args(rng, 2, 8, 8, 24, torch.bfloat16, cuda)
+    am = torch.tensor(2.0, device=cuda)
+    n0 = gn.group_norm_silu_int8.launches
+    with pytest.raises(ValueError, match="C % 16 == 0"):
+        gn.group_norm_silu_int8(x, (scale, bias), 8, am)
+    x, scale, bias = _gn_args(rng, 2, 8, 8, 32, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="absmax must be one torch.float32 value"):
+        gn.group_norm_silu_int8(x, (scale, bias), 8, am.cpu())
+    with pytest.raises(ValueError, match="absmax must be one torch.float32 value"):
+        gn.group_norm_silu_int8(x, (scale, bias), 8, am.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
+        gn.group_norm_silu_int8(x.half(), (scale, bias), 8, am)
+    assert gn.group_norm_silu_int8.launches == n0
+
+
+def test_static_int8_unet_takes_the_codes_out_form(rng, cuda):
+    """A narrow pixel U-Net in static int8 on the card: every ResBlock conv's
+    codes from ``group_norm_silu_int8`` (no K1, a quantize pass only for the
+    stride-2 convs), eps bit-equal to the two-launch form's (K1, then
+    ``int8_quantize``); dynamic int8 keeps K1 and a quantize pass a layer."""
+    from clip_codec_tpu_torch.ops import groupnorm as gn
+
+    net = init_params(CLIPCondUNet(z_dim=8, base=32, ch_mult=(1, 2), time_dim=32, dtype=torch.bfloat16, int8=True),
+                      torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)).to(cuda)
+    z = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32)).to(cuda)
+    t = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+    layers = len(q8.int8_layer_names(net))
+    with torch.no_grad():
+        quant = q8.calibrate_unet(net, size=32, z_dim=8, timesteps=50, batch=2)
+        counters = (gn.group_norm_silu_int8, gn.group_norm_silu, q8.quantize, q8.int8_conv2d)
+        for q, want in ((quant, (20, 0, layers - 20, layers)), (None, (0, 20, layers, layers))):
+            q8.load_quant(net, q)
+            n0 = [c.launches for c in counters]
+            out = net(x, z, t)
+            torch.cuda.synchronize()
+            assert tuple(c.launches - n for c, n in zip(counters, n0)) == want
+        q8.load_quant(net, quant)
+        static = net(x, z, t)
+        saved = q8.static_absmax
+        q8.static_absmax = lambda layer: None
+        try:
+            two = net(x, z, t)
+        finally:
+            q8.static_absmax = saved
+    assert bool(torch.isfinite(static.float()).all()) and torch.equal(static, two)
 
 
 # ---------------------------------------------- the modules with no TPU kernel of their own

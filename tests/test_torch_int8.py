@@ -48,7 +48,9 @@ from clip_codec_tpu.models import CLIPCondUNet as JaxUNet
 from clip_codec_tpu.models import sd as jsd
 from clip_codec_tpu.weights.convert_sd import convert_sd_adapter, convert_sd_unet, convert_sd_vae
 from clip_codec_tpu_torch.models import CLIPCondUNet, init_params
+from clip_codec_tpu_torch.models.blocks import ResBlock
 from clip_codec_tpu_torch.models import sd as tsd
+from clip_codec_tpu_torch.ops import groupnorm as gn
 from clip_codec_tpu_torch.ops import int8 as q8
 from clip_codec_tpu_torch.weights.from_jax import sd_unet_quant_from_jax, unet_quant_from_jax, unet_state_dict_from_jax
 from tests.test_torch_deploy import jax_unet_params
@@ -249,12 +251,14 @@ def test_int8_conv_act_equals_the_two_step_form_and_jax(rng, case):
 
 
 def test_model_paths_run_the_pair_and_equal_the_act_form(pixel, sd, monkeypatch):
-    """The pixel and SD U-Nets' int8 forwards, dynamic and static, run the
-    two-launch form (``quantize`` then ``int8_conv2d``, once a layer) and
-    never the act form, which is slower on the card at every path shape; the
-    same forwards with ``conv`` and ``linear`` through the act form are bit
-    for bit the same."""
-    real = {name: getattr(q8, name) for name in ("quantize", "int8_conv2d", "int8_conv2d_act", "conv", "linear")}
+    """The pixel and SD U-Nets' int8 forwards, dynamic and static, run
+    ``int8_conv2d`` once a layer on codes from ``quantize`` or, for the
+    pixel ResBlocks' convs in static mode, from ``group_norm_silu_int8``
+    (K1's codes-out form), and never the act form, which is slower on the
+    card at every path shape; the same forwards with every layer's ``conv``
+    and ``linear`` through the act form are bit for bit the same."""
+    real = {name: getattr(q8, name) for name in ("quantize", "int8_conv2d", "int8_conv2d_act")}
+    real_gn = gn.group_norm_silu_int8
     calls = []
 
     def counted(name):
@@ -273,6 +277,8 @@ def test_model_paths_run_the_pair_and_equal_the_act_form(pixel, sd, monkeypatch)
 
     for name in ("quantize", "int8_conv2d", "int8_conv2d_act"):
         monkeypatch.setattr(q8, name, counted(name))
+    monkeypatch.setattr(gn, "group_norm_silu_int8",
+                        lambda *a, **kw: calls.append("group_norm_silu_int8") or real_gn(*a, **kw))
     net = _pixel_port(pixel, torch.float32, int8=True)
     unet = tsd.SDUNet(tsd.SDUNetConfig(**UCFG), dtype=torch.bfloat16, int8=True)
     unet.load_state_dict(sd["sd"][0], strict=True)
@@ -286,12 +292,16 @@ def test_model_paths_run_the_pair_and_equal_the_act_form(pixel, sd, monkeypatch)
                 calls.clear()
                 out = model(*args)
                 layers = len(q8.int8_layer_names(model))
-                assert calls.count("quantize") == calls.count("int8_conv2d") == layers == len(calls) // 2
-                monkeypatch.setattr(q8, "conv", act_conv)
-                monkeypatch.setattr(q8, "linear", act_linear)
-                act = model(*args)
-                monkeypatch.setattr(q8, "conv", real["conv"])
-                monkeypatch.setattr(q8, "linear", real["linear"])
+                resblock_convs = 2 * sum(isinstance(m, ResBlock) for m in model.modules())
+                assert (resblock_convs > 0) == (model is net)
+                fused = 0 if q is None else resblock_convs
+                assert calls.count("int8_conv2d") == layers and calls.count("group_norm_silu_int8") == fused
+                assert calls.count("quantize") == layers - fused and len(calls) == 2 * layers
+                with monkeypatch.context() as m:
+                    m.setattr(q8, "conv", act_conv)
+                    m.setattr(q8, "linear", act_linear)
+                    m.setattr(q8, "static_absmax", lambda layer: None)  # every layer through conv/linear
+                    act = model(*args)
                 assert bool(torch.isfinite(out.float()).all()) and torch.equal(out, act)
 
 
@@ -349,6 +359,10 @@ class _Forced:
         self.names = {id(m): n for n, m in model.named_modules()}
         self.jcalls, self.dtype = jcalls, dtype
         self.glue, self.out_ulps = [], []
+        # Every layer through ``conv``/``linear``, whose input JAX's is: the
+        # static pixel ResBlocks' codes-out form (K1 writing the codes) is
+        # bit-equal to that two-step form (tests/test_torch_gn_int8.py).
+        monkeypatch.setattr(q8, "static_absmax", lambda layer: None)
         monkeypatch.setattr(q8, "conv", self.wrap(q8.conv))
         monkeypatch.setattr(q8, "linear", self.wrap(q8.linear))
 

@@ -159,7 +159,7 @@ def test_plan_k_slices_sum_to_the_plain_accumulator(rng, case, xs, ws, stride, p
     assert torch.equal(total, acc.long())
 
 
-@pytest.mark.parametrize("argv", [[], ["--sd_profile"], ["--eager"]])
+@pytest.mark.parametrize("argv", [[], ["--sd_profile"], ["--eager"], ["--quantize"]])
 def test_int8_times_takes_the_path_shapes_and_needs_a_card(monkeypatch, argv):
     """``probes/int8_times.py`` times phase 22a's timed convs (the shapes
     above), and with ``--eager`` some of them and the forwards from Python;

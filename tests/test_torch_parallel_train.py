@@ -15,7 +15,9 @@ within 1e-5 relative and updated parameters within 1e-4 of JAX's
 parameters bit-equal. Then ``cli.train --data_parallel`` and
 ``cli.train_sd --data_parallel`` leave checkpoints within 1e-4 of the
 one-rank CLIs', and a global batch that does not divide refuses with JAX's
-message.
+message. ``cli.train --spatial_shard`` without a launcher's environment
+stops naming torchrun (the spatial trainer's own checks:
+tests/test_torch_spatial_train.py).
 """
 
 import json
@@ -40,6 +42,7 @@ from clip_codec_tpu_torch.train import sd_diffusion_train as strain
 from clip_codec_tpu_torch.train.optim import make_optimizer
 from clip_codec_tpu_torch.weights.from_jax import (sd_adapter_state_dict_from_jax, sd_unet_state_dict_from_jax,
                                                    sd_vae_state_dict_from_jax, unet_state_dict_from_jax)
+from tests.test_torch_unet import flax_like_unet_params
 from tests.torch_dp_worker import run_ranks, store_images
 
 torch.set_num_threads(1)
@@ -80,8 +83,7 @@ def run(tmp_path_factory):
     res = {"work": work}
 
     # the pixel trainer: JAX's steps with optax.adamw
-    jparams = JaxUNet(**CFG, fused_pallas=False).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)), jnp.zeros((1, 8)), jnp.zeros((1,), jnp.int32))["params"]
+    jparams = flax_like_unet_params(CFG)
     torch.save(unet_state_dict_from_jax(jparams, CFG["ch_mult"]), work / "unet16.pt")
     x0 = rng.uniform(-1, 1, (B, 16, 16, 3)).astype(np.float32)
     z = rng.standard_normal((B, 8)).astype(np.float32)
@@ -233,3 +235,11 @@ def test_cli_data_parallel_checkpoints_match_one_rank(run, cli, name):
     assert "epoch 2/2" in logs[0] and "epoch" not in logs[1] and "Final checkpoint" not in logs[1]
     for o in run["outs"]:
         assert o["cli_errors"] == ["ValueError: batch_size=3 not divisible by data axis 2"]
+
+
+def test_cli_without_a_launcher_stops_naming_torchrun(tmp_path):
+    from clip_codec_tpu_torch.cli import train as train_cli
+    from tests.test_torch_spatial_train import TRAIN_ARGV
+
+    with pytest.raises(SystemExit, match="--spatial_shard 2 needs the launcher's environment .* torchrun"):
+        train_cli.main(["--store_dir", str(tmp_path)] + TRAIN_ARGV + ["--spatial_shard", "2"])

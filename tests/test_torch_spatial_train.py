@@ -25,8 +25,7 @@ bound tests/test_torch_parallel_train.py holds the data-parallel CLI to, at
 base 16 as there (AdamW's first steps move a parameter by about lr x
 g / (|g| + eps), so a gradient at rounding-noise size, as GroupNorm makes
 some at base 8, or near eps moves by up to lr wherever the order of a sum
-flips its sign: 2.2e-5 at base 16, 3e-4 at base 8); without the launcher's
-environment the flag stops, naming torchrun; ``train_diffusion``'s refusals
+flips its sign: 2.2e-5 at base 16, 3e-4 at base 8); ``train_diffusion``'s refusals
 with JAX's text; K1's split form under autograd (fp64, two ranks) within 1e-6
 of autograd of the unsharded plain GroupNorm+SiLU.
 """
@@ -174,11 +173,6 @@ def test_cli_spatial_shard_matches_the_unsharded_cli(run, world):
         assert err <= 1e-4, (k, err)
     assert "Final checkpoint" in run["outs"][world][0]["log"]
     assert all("Final checkpoint" not in o["log"] for o in run["outs"][world][1:])  # rank 0 alone prints
-
-
-def test_cli_without_a_launcher_stops_naming_torchrun(tmp_path):
-    with pytest.raises(SystemExit, match="--spatial_shard 2 needs the launcher's environment .* torchrun"):
-        train_cli.main(["--store_dir", str(tmp_path)] + TRAIN_ARGV + ["--spatial_shard", "2"])
 
 
 class _NoUNet:
